@@ -1,0 +1,115 @@
+"""Static-shape batching (a copy of ``captionkit.data.pipeline``).
+
+Host-side NumPy. ``Batch`` arrays have the same shapes for a given config;
+pad id is 0; true lengths ride along as int32 arrays; the final ragged
+batch of a split is padded up to ``batch_size`` with repeated rows and a
+validity mask.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Iterator, Sequence
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+
+
+@dataclass
+class Batch:
+    """One device batch. All arrays NumPy, static-shaped.
+
+    features:      [B, R, F] float32
+    existing:      [B, L_in] int32     existing caption ids
+    existing_len:  [B] int32
+    target:        [B, L_out] int32    gold caption ids (training only)
+    target_len:    [B] int32
+    valid:         [B] bool            False for padding rows in final batch
+    image_id:      [B] int32
+    """
+
+    features: np.ndarray
+    existing: np.ndarray
+    existing_len: np.ndarray
+    target: Optional[np.ndarray]
+    target_len: Optional[np.ndarray]
+    valid: np.ndarray
+    image_id: np.ndarray
+
+    @property
+    def size(self) -> int:
+        return int(self.existing.shape[0])
+
+
+def pad_to(ids: Sequence[int], length: int, pad: int = 0) -> np.ndarray:
+    arr = np.full((length,), pad, dtype=np.int32)
+    n = min(len(ids), length)
+    arr[:n] = np.asarray(ids[:n], dtype=np.int32)
+    return arr
+
+
+def encode_captions(
+    token_seqs: Sequence[Sequence[str]],
+    vocab,
+    max_len: int,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Encode tokenized captions into [N, max_len] ids + [N] lengths."""
+    n = len(token_seqs)
+    ids = np.zeros((n, max_len), dtype=np.int32)
+    lens = np.zeros((n,), dtype=np.int32)
+    for k, toks in enumerate(token_seqs):
+        row, length = vocab.encode(toks, max_len)
+        ids[k] = np.asarray(row, dtype=np.int32)
+        lens[k] = length
+    return ids, lens
+
+
+def make_batches(
+    *,
+    features,  # [N, R, F] array, callable(indices)->rows, or None
+    existing: np.ndarray,
+    existing_len: np.ndarray,
+    target: Optional[np.ndarray] = None,
+    target_len: Optional[np.ndarray] = None,
+    image_id: Optional[np.ndarray] = None,
+    batch_size: int,
+    shuffle: bool = False,
+    seed: int = 0,
+    drop_remainder: bool = False,
+    feat_shape: tuple[int, int] = (36, 2048),
+) -> Iterator[Batch]:
+    """Yield fixed-shape Batches over a split. The last partial batch is
+    padded (rows repeated from index 0) with valid=False."""
+    n = existing.shape[0]
+    order = np.arange(n)
+    if shuffle:
+        rng = np.random.default_rng(seed)
+        rng.shuffle(order)
+    if image_id is None:
+        image_id = np.arange(n, dtype=np.int32)
+
+    for lo in range(0, n, batch_size):
+        idx = order[lo: lo + batch_size]
+        b = idx.shape[0]
+        if b < batch_size:
+            if drop_remainder:
+                return
+            fill = np.zeros((batch_size - b,), dtype=idx.dtype)
+            idx = np.concatenate([idx, fill])
+        valid = np.zeros((batch_size,), dtype=bool)
+        valid[:b] = True
+        if callable(features):
+            feats = np.asarray(features(idx), dtype=np.float32)
+        elif features is not None:
+            feats = features[idx].astype(np.float32, copy=False)
+        else:
+            feats = np.zeros((batch_size, *feat_shape), dtype=np.float32)
+        yield Batch(
+            features=feats,
+            existing=existing[idx],
+            existing_len=existing_len[idx],
+            target=None if target is None else target[idx],
+            target_len=None if target_len is None else target_len[idx],
+            valid=valid,
+            image_id=image_id[idx].astype(np.int32, copy=False),
+        )

@@ -1,0 +1,189 @@
+"""Batched static-shape beam search (``captionkit.decode.beam``,
+``impl="register"``).
+
+* All B images x K beams step together as one flattened [B*K] batch, rows
+  b*K .. b*K+K-1 per image; the per-step reorder is one row gather of each
+  state field with the parents picked by the top-K.
+* With the fused head (``ModelDef.step_topk``) the candidates are each
+  row's top-K logits minus its log-sum-exp: every global winner is in its
+  own row's top-K, so the K*K candidates give the exact top-K of K*V.
+* Finished beams are frozen: their only continuation is <pad> at log-prob
+  0, so they keep competing with their final score.
+* A per-image register holds the top-K hypotheses ever finished (rank
+  score, sequence, length), merged the step they finish; the result is
+  that register, or the live beams where nothing finished.
+* The loop is a Python loop; it stops after ``max_len`` steps or once
+  every beam of every image is finished (one device-to-host read of the
+  done flags per step).
+
+Every place where the reference calls ``lax.top_k`` calls
+``topk_lowest_index``: equal scores (NEG_INF plateaus of finished beams,
+equal register entries) resolve to the lowest index as they do there.
+The reference's ``impl="backptr"`` history layout is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import torch
+
+from captionkit_torch.models.base import ModelDef
+from captionkit_torch.nn.masking import NEG_INF
+from captionkit_torch.nn.topk import topk_lowest_index
+
+
+class BeamResult(NamedTuple):
+    tokens: torch.Tensor  # [B, L] best hypothesis per image (pad-filled)
+    scores: torch.Tensor  # [B] its (length-normalized) log-prob score
+    lengths: torch.Tensor  # [B] emitted length (incl. <end> if produced)
+    # The n-best list: the top-K finished hypotheses for an image where any
+    # finished (NEG_INF/pad-filled when fewer than K), else its live beams
+    # at exit; score-descending. Row 0 equals (tokens, scores, lengths).
+    all_tokens: torch.Tensor  # [B, K, L]
+    all_scores: torch.Tensor  # [B, K]
+    all_lengths: torch.Tensor  # [B, K]
+
+
+def _gather_bk(x: torch.Tensor, parent: torch.Tensor) -> torch.Tensor:
+    """[B, K, ...] -> the rows of each image's parent slots."""
+    index = parent.reshape(*parent.shape, *([1] * (x.dim() - 2)))
+    return torch.take_along_dim(x, index, dim=1)
+
+
+def _reorder_rows(state: Any, rows: torch.Tensor) -> Any:
+    """Gather rows [B*K] of every tensor field of a state dataclass."""
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).index_select(0, rows)
+        for f in dataclasses.fields(state)})
+
+
+def beam_search(
+    model: ModelDef,
+    params: Any,
+    ctx: Any,
+    *,
+    beam_size: int,
+    start_id: int,
+    end_id: int,
+    pad_id: int = 0,
+    max_len: int = 22,
+    length_penalty: float = 0.0,
+    impl: str = "register",
+) -> BeamResult:
+    """Beam search over a whole batch; ``ctx`` tensors are [B, ...].
+
+    length_penalty alpha: rank score = logprob_sum / length**alpha (0 ranks
+    by the raw sum)."""
+    if impl == "backptr":
+        raise NotImplementedError(
+            "beam_search impl='backptr' is not ported yet; use 'register'")
+    if impl != "register":
+        raise ValueError(f"beam_search impl must be 'register' or "
+                         f"'backptr', got {impl!r}")
+    if model.beam_expand is None:
+        raise ValueError(f"model {model.name!r} has no beam_expand")
+    K = beam_size
+    ctx_k = model.beam_expand(ctx, K)
+    if model.prepare_topk is not None and model.step_topk is not None:
+        ctx_k = model.prepare_topk(params, ctx_k, K)  # once per batch
+    model_state = model.init_state(params, ctx_k)  # fields [B*K, ...]
+    BK = dataclasses.astuple(model_state)[0].shape[0]
+    B = BK // K
+    dev = dataclasses.astuple(model_state)[0].device
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def rank(scores, lengths):
+        if length_penalty > 0.0:
+            return scores / lengths.float().clamp(min=1.0) ** length_penalty
+        return scores
+
+    slot0 = torch.arange(K, device=dev)[None, None, :] == 0
+
+    def select_candidates(state, tok, scores, done):
+        """One model step + top-K over the K*K (fused head) or K*V
+        candidates: (state, top_scores [B, K], parent [B, K], new_tok)."""
+        done3 = done[:, :, None]
+        if model.step_topk is not None:
+            new_state, vals, idx, lse = model.step_topk(
+                params, ctx_k, state, tok, K)
+            logp = (vals - lse[:, None]).reshape(B, K, K)
+            cand_logp = torch.where(
+                done3, torch.where(slot0, 0.0, NEG_INF), logp)
+            cand_tok = torch.where(done3, pad_id, idx.reshape(B, K, K))
+            width = K
+        else:
+            new_state, logits = model.step(params, ctx_k, state, tok)
+            V = logits.shape[-1]
+            logp = torch.log_softmax(logits.float(), dim=-1).reshape(B, K, V)
+            pad_row = torch.full((V,), NEG_INF, **f32)
+            pad_row[pad_id] = 0.0
+            cand_logp = torch.where(done3, pad_row, logp)
+            cand_tok = None
+            width = V
+        total = scores[:, :, None] + cand_logp  # [B, K, width]
+        top_scores, flat = topk_lowest_index(total.reshape(B, K * width), K)
+        parent = flat // width
+        if cand_tok is None:
+            new_tok = (flat % width).to(torch.int32)
+        else:
+            new_tok = torch.take_along_dim(
+                cand_tok.reshape(B, K * K), flat, dim=1).to(torch.int32)
+        return new_state, top_scores, parent, new_tok
+
+    seq = torch.full((B, K, max_len), pad_id, **i32)
+    scores = torch.full((B, K), NEG_INF, **f32)
+    scores[:, 0] = 0.0  # one live start hypothesis per image
+    done = torch.zeros((B, K), dtype=torch.bool, device=dev)
+    lengths = torch.zeros((B, K), **i32)
+    tok = torch.full((B * K,), start_id, **i32)
+    fin_scores = torch.full((B, K), NEG_INF, **f32)
+    fin_seq = torch.full((B, K, max_len), pad_id, **i32)
+    fin_len = torch.zeros((B, K), **i32)
+    row_base = torch.arange(B, device=dev)[:, None] * K
+
+    t = 0
+    while t < max_len and not bool(done.all()):
+        new_state, top_scores, parent, new_tok = select_candidates(
+            model_state, tok, scores, done)
+        seq = _gather_bk(seq, parent)
+        seq[:, :, t] = new_tok
+        was_done = _gather_bk(done, parent)
+        lengths = _gather_bk(lengths, parent) + (~was_done).to(torch.int32)
+        done = was_done | (new_tok == end_id)
+        model_state = _reorder_rows(new_state,
+                                    (row_base + parent).reshape(B * K))
+        # Register the hypotheses that finished this step; the running
+        # register comes first, so equal scores keep the earlier entry.
+        newly = done & ~was_done
+        cand_rank = torch.where(newly, rank(top_scores, lengths), NEG_INF)
+        fin_scores, sel = topk_lowest_index(
+            torch.cat([fin_scores, cand_rank], dim=1), K)
+        fin_seq = torch.take_along_dim(
+            torch.cat([fin_seq, seq], dim=1), sel[:, :, None], dim=1)
+        fin_len = torch.take_along_dim(
+            torch.cat([fin_len, lengths], dim=1), sel, dim=1)
+        scores = top_scores
+        tok = new_tok.reshape(B * K)
+        t += 1
+
+    # Images with a finished hypothesis answer from the register; the rest
+    # from their live beams.
+    any_fin = fin_scores[:, 0] > NEG_INF / 2
+    live_rank = torch.where(any_fin[:, None], NEG_INF, rank(scores, lengths))
+    all_scores, sel = topk_lowest_index(
+        torch.cat([fin_scores, live_rank], dim=1), K)
+    all_tokens = torch.take_along_dim(
+        torch.cat([fin_seq, seq], dim=1), sel[:, :, None], dim=1)
+    all_lengths = torch.take_along_dim(
+        torch.cat([fin_len, lengths], dim=1), sel, dim=1)
+    return BeamResult(
+        tokens=all_tokens[:, 0, :],
+        scores=all_scores[:, 0],
+        lengths=all_lengths[:, 0],
+        all_tokens=all_tokens,
+        all_scores=all_scores,
+        all_lengths=all_lengths,
+    )
