@@ -5,13 +5,20 @@
         --batch 512 --ladder 1,8 --flush-ms 20
     python -m captionkit_torch.cli serve --config editnet_beam5 \\
         --wordmap WORDMAP.json --params params.npz --batch 512
+    python -m captionkit_torch.cli serve --config dcnet_beam5 --synthetic \\
+        --set model.cell_impl=pallas
 
-``--params`` takes the flat ``.npz`` that either package's
-``save_params_npz`` writes; without it the weights are random from
-``--seed``. ``--device`` defaults to ``cuda`` and raises when there is no
-card; ``--device cpu`` runs the plain versions of the kernels on the CPU.
-The reference's other subcommands, ``--stacked`` and checkpoint ensembles
-are not yet ported.
+Both beam configs serve: ``editnet_beam5`` and ``dcnet_beam5`` (DCNet's
+textual encoder reads the caption only; requests still carry features,
+which it ignores, as in the reference). ``--set model.cell_impl=pallas``
+runs the fused decode-cell kernels (``kernels/megastep.py``) in place of
+the plain cells. ``--params`` takes the flat ``.npz`` that either
+package's ``save_params_npz`` writes, for the config's arch; without it
+the weights are random from ``--seed``. ``--device`` defaults to ``cuda``
+and raises when there is no card; ``--device cpu`` runs the plain versions
+of the kernels on the CPU. The reference's other subcommands (greedy
+decoding among them), ``--stacked``, checkpoint ensembles and
+``cell_impl="wholestep"`` are not yet ported.
 """
 
 from __future__ import annotations
@@ -111,7 +118,8 @@ def cmd_serve(args) -> int:
         if "," in args.params.strip(","):
             raise SystemExit("serve: checkpoint ensembles are not yet "
                              "ported; pass one --params file")
-        params = load_params_npz(args.params.strip(","), device)
+        params = load_params_npz(args.params.strip(","), device,
+                                 arch=cfg.model.arch)
     else:
         params = model.init(args.seed, device)
     ladder = [int(s) for s in args.ladder.split(",")] if args.ladder else ()

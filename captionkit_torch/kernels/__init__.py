@@ -11,6 +11,12 @@ from captionkit_torch.kernels.head import (  # noqa: F401
     prepad_head,
     reference_head_topk,
 )
+from captionkit_torch.kernels.megastep import (  # noqa: F401
+    att_cell,
+    dcnet_cell,
+    dcnet_score,
+    lang_cell,
+)
 
 #: every kernel wrapper of the port, for resetting and reading the counts
-WRAPPERS = (fused_head_topk,)
+WRAPPERS = (fused_head_topk, att_cell, lang_cell, dcnet_score, dcnet_cell)

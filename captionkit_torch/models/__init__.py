@@ -1,4 +1,4 @@
-"""Models: the shared step protocol and EditNet."""
+"""Models: the shared step protocol, EditNet and DCNet."""
 
 from captionkit_torch.models.base import HeadInfo, ModelDef  # noqa: F401
 from captionkit_torch.models.registry import get_model  # noqa: F401

@@ -16,8 +16,11 @@ the reference rounds them. The step's products run on operands rounded to
 the compute dtype with float32 results (``nn.cells.mm``); the packed,
 rounded weights are built once per parameter object (``_packed``).
 
-Only the ``cell_impl="xla"`` step is ported (plain PyTorch cells); the
-vocab head of beam search is the CUDA kernel of ``kernels/head.py``.
+``cell_impl="xla"`` steps through plain PyTorch cells. ``cell_impl=
+"pallas"`` (soft SCMA) has ``prepare_topk`` build the fused-cell pack and
+``_step_hidden`` run ``kernels/megastep.py::fused_step_hidden``; hard SCMA
+keeps the plain cells, as in the reference. The vocab head of beam search
+is the CUDA kernel of ``kernels/head.py``.
 """
 
 from __future__ import annotations
@@ -33,6 +36,11 @@ from captionkit_torch.kernels.head import (
     fused_head_topk,
     prepad_head,
     reference_head_topk,
+)
+from captionkit_torch.kernels.megastep import (
+    CellPack,
+    fused_step_hidden,
+    prepare_cell_pack,
 )
 from captionkit_torch.models.base import HeadInfo, ModelDef
 from captionkit_torch.nn.attention import (
@@ -82,6 +90,8 @@ class EditNetContext:
     mask: torch.Tensor  # [B, T] bool
     head_w: Optional[torch.Tensor] = None  # [H, Vp] compute dtype
     head_b: Optional[torch.Tensor] = None  # [Vp] fp32, padding -1e30
+    # Fused decode-cell pack, built by prepare_topk for cell_impl="pallas".
+    cell_pack: Optional[CellPack] = None
 
     def replace(self, **kw) -> "EditNetContext":
         return dataclasses.replace(self, **kw)
@@ -211,9 +221,15 @@ def _step_hidden(params: EditNetParams, cfg: ModelConfig,
                  ctx: EditNetContext, state: EditNetState,
                  token: torch.Tensor) -> tuple[EditNetState, torch.Tensor]:
     """One decode step up to the vocab head: (state, h_lang)."""
+    emb = params.embedding[token]  # [B, E]
+    if ctx.cell_pack is not None:
+        h_att, c_att, h_lang, c_lang = fused_step_hidden(
+            ctx.cell_pack, state.h_att, state.c_att, state.h_lang,
+            state.c_lang, emb)
+        return EditNetState(h_att=h_att, c_att=c_att, h_lang=h_lang,
+                            c_lang=c_lang), h_lang
     dt = _cdt(cfg)
     pk = _packed(params, cfg)
-    emb = params.embedding[token]  # [B, E]
     # 1. Attention LSTM over the step-varying inputs plus the hoisted
     # v_mean term.
     x_var = torch.cat([emb, state.h_lang, state.h_att], dim=-1)
@@ -266,7 +282,10 @@ def step(params: EditNetParams, cfg: ModelConfig, ctx: EditNetContext,
 
 def prepare_topk(params: EditNetParams, cfg: ModelConfig,
                  ctx: EditNetContext, k: int) -> EditNetContext:
-    """Pad and convert the head once per decode batch (``prepad_head``)."""
+    """Once per decode batch: the fused-cell pack when ``cell_impl ==
+    "pallas"`` and SCMA is soft, and the padded head (``prepad_head``)."""
+    if cfg.cell_impl == "pallas" and cfg.scma_select == "soft":
+        ctx = ctx.replace(cell_pack=prepare_cell_pack(params, cfg, ctx))
     if cfg.head_impl == "xla":
         return ctx
     w_p, b_p = prepad_head(params.fc_w, params.fc_b,
@@ -297,17 +316,22 @@ def _head_topk(params: EditNetParams, cfg: ModelConfig,
                            k=k)
 
 
-def make_model(cfg: ModelConfig) -> ModelDef:
-    if cfg.cell_impl != "xla":
+def check_ported_options(cfg: ModelConfig) -> None:
+    """Raise on the kernel options the port does not have yet."""
+    if cfg.cell_impl == "wholestep":
         raise NotImplementedError(
-            f"cell_impl={cfg.cell_impl!r} (fused cell kernels) is not "
-            "ported yet; use cell_impl='xla'")
+            "cell_impl='wholestep' (the fused lang cell + head kernel) is "
+            "not ported yet; use 'pallas' or 'xla'")
     if cfg.head_quant != "none":
         raise NotImplementedError(
             f"head_quant={cfg.head_quant!r} is not ported yet")
     if cfg.head_extract != "mask":
         raise NotImplementedError(
             f"head_extract={cfg.head_extract!r} is not ported yet")
+
+
+def make_model(cfg: ModelConfig) -> ModelDef:
+    check_ported_options(cfg)
     return ModelDef(
         name="editnet",
         init=lambda seed, device="cpu": init(seed, cfg, device),

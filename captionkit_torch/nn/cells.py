@@ -59,6 +59,19 @@ def mm(a: torch.Tensor, b: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     return a.float() @ b.float()
 
 
+def bmm(a: torch.Tensor, b: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """``einsum("bij,bjk->bik", a.astype(dt), b.astype(dt),
+    preferred_element_type=f32)``: ``mm`` for a [B, I, J] and b [B, J, K].
+    On a card, ``torch.bmm(..., out_dtype=torch.float32)`` on the bf16
+    operands; on the CPU the float32 product of the rounded operands."""
+    if dt == torch.float32:
+        return a.float() @ b.float()
+    a, b = a.to(dt), b.to(dt)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
 def lstm_gates(z: torch.Tensor, c: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """LSTM update from fp32 pre-activations z [B, 4H] (i|f|g|o)."""

@@ -37,20 +37,31 @@ def _flat_jax(params) -> dict:
 
 
 def test_jax_npz_round_trip_is_exact(tmp_path):
-    model = jax_get_model(JaxModelConfig(arch="editnet", **SMALL))
+    for arch in ("editnet", "dcnet"):
+        _round_trip(tmp_path / arch, arch)
+
+
+def _round_trip(tmp_path, arch):
+    tmp_path.mkdir()
+    model = jax_get_model(JaxModelConfig(arch=arch, **SMALL))
     jp = model.init(jax.random.PRNGKey(3))
     jax_save_npz(jp, str(tmp_path / "jax.npz"))
 
     tp = bridge.load_params_npz(str(tmp_path / "jax.npz"), "cpu")
     ref = _flat_jax(jp)
-    got = bridge.editnet_params_to_numpy(tp)
-    assert sorted(got) == sorted(ref) == sorted(bridge.EDITNET_NAMES)
+    got = bridge.params_to_numpy(tp)
+    names = bridge.EDITNET_NAMES if arch == "editnet" else bridge.DCNET_NAMES
+    assert sorted(got) == sorted(ref) == sorted(names)
     for name in ref:
         np.testing.assert_array_equal(got[name], ref[name], err_msg=name)
     # Layouts the port's modules rely on: [in, out], gates i|f|g|o, the
-    # att-LSTM input rows packed [E | F | H].
+    # att-LSTM input rows packed [E | F | H], DCNet's decoder rows [E | H].
     E, F, H = SMALL["emb_dim"], SMALL["feat_dim"], SMALL["hidden_dim"]
-    assert tuple(tp.att_lstm.wx.shape) == (E + F + H, 4 * H)
+    if arch == "editnet":
+        assert tuple(tp.att_lstm.wx.shape) == (E + F + H, 4 * H)
+    else:
+        assert tuple(tp.decoder.wx.shape) == (E + H, 4 * H)
+        assert tuple(tp.init_h_w.shape) == (H, H)
     assert tuple(tp.fc_w.shape) == (H, SMALL["vocab_size"])
 
     # Back: the port's writer gives a file the JAX loader takes.
@@ -73,6 +84,8 @@ def test_port_imports_no_jax_and_nothing_of_captionkit():
             captionkit_torch.__path__, prefix="captionkit_torch."))
     assert "captionkit_torch.serve" in modules
     assert "captionkit_torch.kernels.head" in modules
+    assert "captionkit_torch.kernels.megastep" in modules
+    assert "captionkit_torch.models.dcnet" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

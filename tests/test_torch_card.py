@@ -1,11 +1,13 @@
 """Tests of ``captionkit_torch`` that need a CUDA card: the CUDA head
-kernel against its plain version, and a small beam decode through the
-kernel against the same decode on the CPU. They skip where there is no
-card. This file imports no JAX, so on a machine with a card and without
-JAX it runs on its own:
+kernel and the fused decode-cell kernels against their plain versions, and
+small beam decodes through the kernels against the same decodes on the
+CPU. They skip where there is no card. This file imports no JAX, so on a
+machine with a card and without JAX it runs on its own:
 
     python -m pytest --noconftest -q tests/test_torch_card.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ import torch
 from captionkit_torch.config import CaptionKitConfig
 from captionkit_torch.decode import make_decode_fn
 from captionkit_torch.kernels import head as thead
+from captionkit_torch.kernels import megastep
 from captionkit_torch.models import get_model
 
 
@@ -100,5 +103,146 @@ def test_small_beam_decode_on_card_matches_cpu(card):
         out[dev] = fn(params, feats, ex, ln).cpu()
         launched = thead.fused_head_topk.launches - before
         assert launched == (10 if dev == "cuda" else 0)
+    rows = (out["cpu"] == out["cuda"]).all(dim=1).float().mean()
+    assert float(rows) >= 0.9
+
+
+# -- fused decode cells (kernels/megastep.py) --------------------------------
+
+SMALL_CELLS = {"model.vocab_size": 300, "model.emb_dim": 40,
+               "model.hidden_dim": 48, "model.att_dim": 24,
+               "model.feat_dim": 72, "model.num_regions": 6}
+PAPER_CELLS = {}  # the config's defaults are the paper's widths
+
+
+def _ulp_bf16(x):
+    """One bf16 ulp of |x| (x = m 2^e, m in [0.5, 1): ulp = 2^(e-8))."""
+    _, e = torch.frexp(x.abs().float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def _weights_close(a, b):
+    """Attention weights within one bf16 ulp of the larger value: the
+    kernel and the plain version sum the same fp32 terms in other
+    orders, so a weight may round to the neighbouring bf16 value."""
+    a, b = a.float(), b.float()
+    bar = _ulp_bf16(torch.maximum(a.abs(), b.abs()))
+    assert bool(((a - b).abs() <= bar).all()), float((a - b).abs().max())
+
+
+def _cell_setup(arch, over, card, B, K=5, seed=0):
+    """(pack, random fp32 state and embeddings) on the card, from an
+    encoded batch of B images with K beams each."""
+    cfg = CaptionKitConfig().override({**over, "model.arch": arch,
+                                       "model.cell_impl": "pallas"})
+    model = get_model(cfg.model)
+    mc = cfg.model
+    params = model.init(seed, card)
+    rng = np.random.default_rng(seed)
+    feats = torch.from_numpy(rng.standard_normal(
+        (B, mc.num_regions, mc.feat_dim)).astype(np.float32)).to(card)
+    ex = torch.from_numpy(rng.integers(4, mc.vocab_size, (B, 22))).to(card)
+    ln = torch.from_numpy(rng.integers(1, 23, (B,))).to(card)
+    ctx = model.beam_expand(model.encode(params, feats, ex, ln), K)
+    ctx = model.prepare_topk(params, ctx, K)
+    g = torch.Generator().manual_seed(seed + 1)
+    N = B * K
+    Hp = ctx.cell_pack.w_h.shape[0] if arch == "dcnet" else \
+        ctx.cell_pack.w_ha.shape[0]
+    Ep = ctx.cell_pack.w_emb.shape[0]
+    st = [(torch.randn((N, Hp), generator=g) * 0.5).to(card)
+          for _ in range(4)]
+    emb = (torch.randn((N, Ep), generator=g) * 0.1).to(card)
+    return mc, ctx.cell_pack, st, emb
+
+
+@pytest.mark.parametrize("over,B", [(SMALL_CELLS, 7), (PAPER_CELLS, 512)])
+def test_editnet_cell_kernels_match_plain(card, over, B):
+    mc, pack, (h_att, c_att, h_lang, c_lang), emb = _cell_setup(
+        "editnet", over, card, B)
+    before = (megastep.att_cell.launches, megastep.lang_cell.launches)
+    got = megastep.att_cell(pack, emb, h_att, c_att, h_lang)
+    want = megastep.reference_att_cell(pack, emb, h_att, c_att, h_lang)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, atol=1e-3, rtol=0)
+    for g, w in zip(got[2:], want[2:]):
+        assert g.dtype == torch.bfloat16
+        _weights_close(g, w)
+    vhat = megastep._grouped(want[2], pack.features)
+    c_star = megastep._grouped(want[3], pack.enc_cs)
+    got = megastep.lang_cell(pack, vhat, want[0], h_lang, c_lang, c_star)
+    want = megastep.reference_lang_cell(pack, vhat, want[0], h_lang, c_lang,
+                                        c_star)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-3, rtol=0)
+    assert (megastep.att_cell.launches, megastep.lang_cell.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("over,B", [(SMALL_CELLS, 7), (PAPER_CELLS, 512)])
+def test_dcnet_cell_kernels_match_plain(card, over, B):
+    _, pack, (h, c, _, _), emb = _cell_setup("dcnet", over, card, B)
+    got = megastep.dcnet_score(pack, h)
+    want = megastep.reference_dcnet_score(pack, h)
+    torch.cuda.synchronize()
+    _weights_close(got, want)
+    ctx = megastep._grouped(want, pack.enc_hs)
+    got = megastep.dcnet_cell(pack, emb, ctx, h, c)
+    want = megastep.reference_dcnet_cell(pack, emb, ctx, h, c)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-3, rtol=0)
+
+
+def test_cell_wrappers_reject_what_they_do_not_take(card):
+    mc, pack, (h_att, c_att, h_lang, c_lang), emb = _cell_setup(
+        "editnet", SMALL_CELLS, card, 3)
+    with pytest.raises(TypeError):  # bf16 state, not fp32
+        megastep.att_cell(pack, emb, h_att.bfloat16(), c_att, h_lang)
+    with pytest.raises(ValueError):  # not contiguous
+        megastep.att_cell(pack, emb, h_att.t().contiguous().t(), c_att,
+                          h_lang)
+    with pytest.raises(ValueError):  # rows not a multiple of the images
+        megastep.att_cell(pack, emb[:-1], h_att[:-1], c_att[:-1],
+                          h_lang[:-1])
+    with pytest.raises(ValueError):  # unpadded hidden width
+        megastep.lang_cell(pack, torch.zeros_like(emb), h_att[:, :8],
+                           h_lang, c_lang, c_att)
+    _, dpack, (h, c, _, _), demb = _cell_setup("dcnet", SMALL_CELLS, card, 3)
+    with pytest.raises(TypeError):  # fp32 pack weights, not bf16
+        megastep.dcnet_score(dataclasses.replace(
+            dpack, att_wq=dpack.att_wq.float()), h)
+    with pytest.raises(ValueError):  # not contiguous
+        megastep.dcnet_cell(dpack, demb, h.t().contiguous().t(), h, c)
+
+
+@pytest.mark.parametrize("arch", ["editnet", "dcnet"])
+def test_small_pallas_cells_decode_on_card_matches_cpu(card, arch):
+    """A small bf16 model decoded with cell_impl="pallas": the fused
+    kernels on the card, their plain versions on the CPU; the same
+    captions for nearly every image."""
+    cfg = CaptionKitConfig().override({
+        **SMALL_CELLS, "model.arch": arch, "model.cell_impl": "pallas",
+        "decode.beam_size": 5, "decode.max_decode_len": 10})
+    model = get_model(cfg.model)
+    rng = np.random.default_rng(0)
+    B = 16
+    feats = torch.from_numpy(
+        rng.standard_normal((B, 6, 72)).astype(np.float32))
+    ex = torch.from_numpy(rng.integers(4, 300, (B, 8)))
+    ln = torch.from_numpy(rng.integers(2, 9, (B,)))
+    wrappers = ((megastep.att_cell, megastep.lang_cell) if arch == "editnet"
+                else (megastep.dcnet_score, megastep.dcnet_cell))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = model.init(0, dev)
+        fn = make_decode_fn(model, cfg.decode, start_id=2, end_id=-1,
+                            device=dev)
+        before = [w.launches for w in wrappers]
+        out[dev] = fn(params, feats, ex, ln).cpu()
+        launched = [w.launches - b for w, b in zip(wrappers, before)]
+        assert launched == [10 if dev == "cuda" else 0] * 2
     rows = (out["cpu"] == out["cuda"]).all(dim=1).float().mean()
     assert float(rows) >= 0.9

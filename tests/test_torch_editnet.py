@@ -135,9 +135,10 @@ def test_plain_head_config_matches_fused_head_on_cpu():
 
 
 def test_unported_options_raise():
-    for kw in ({"cell_impl": "pallas"}, {"cell_impl": "wholestep"},
-               {"head_quant": "int8"}, {"head_extract": "thresh"}):
+    for kw in ({"cell_impl": "wholestep"}, {"head_quant": "int8"},
+               {"head_extract": "thresh"}):
         with pytest.raises(NotImplementedError):
             get_model(dataclasses.replace(ModelConfig(), **kw))
-    with pytest.raises(NotImplementedError, match="dcnet"):
-        get_model(ModelConfig(arch="dcnet"))
+    # The fused cells and DCNet build.
+    assert get_model(ModelConfig(cell_impl="pallas")).name == "editnet"
+    assert get_model(ModelConfig(arch="dcnet")).name == "dcnet"
