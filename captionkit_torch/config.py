@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import warnings
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -40,7 +41,13 @@ class ModelConfig:
     # top-k + logsumexp (the name is the JAX package's).
     head_impl: str = "pallas"
     cell_impl: str = "xla"
+    # "int8": the beam decode's head runs on per-column int8 weights and
+    # per-row int8 activations (kernels/head.py::fused_head_topk_int8). An
+    # explicit serving trade, never the default: quantization may flip
+    # near-tie beam choices. Greedy/teacher-forced logits stay float.
     head_quant: str = "none"
+    # The head kernels' per-tile top-k extraction, "mask" or "thresh"
+    # (read-only thresholds); the results are identical.
     head_extract: str = "mask"
 
     def __post_init__(self) -> None:
@@ -58,6 +65,14 @@ class ModelConfig:
                 raise ValueError(
                     f"ModelConfig.{name} must be one of {allowed}, "
                     f"got {value!r}")
+        if self.head_quant == "int8" and self.arch == "dcnet":
+            warnings.warn(
+                "head_quant='int8' with arch='dcnet': the int8 head is an "
+                "EditNet serving trade; DCNet's step is short, so the "
+                "per-batch quantization and the in-kernel row quantization "
+                "weigh more against the head's saving. Measure it on your "
+                "card (PERF.md) before serving DCNet with it.",
+                stacklevel=2)
 
     @property
     def pad_id(self) -> int:
@@ -119,7 +134,9 @@ class DecodeConfig:
     top_k: int = 0
     top_p: float = 1.0
     seed: int = 0
-    # Host->device dtype of the region features ("int8" is not ported yet).
+    # Host->device dtype of the region features: "float32", "bfloat16", or
+    # "int8" (per-region quantization on the host, dequantized on the
+    # device; data/featquant.py).
     feed_dtype: str = "float32"
     beam_impl: str = "register"
 

@@ -3,8 +3,10 @@
 // ids and the log-sum-exp, without writing the [N, V] logits to device
 // memory.
 //
-// Replaces the TPU kernel captionkit/ops/head.py::fused_head_topk
-// (extract="mask": _make_head_kernel + _lse_topk_update).
+// Replaces the TPU kernels of captionkit/ops/head.py:
+//   ck_head_topk, extract = 0  -> fused_head_topk, extract="mask"
+//   ck_head_topk, extract = 1  -> fused_head_topk, extract="thresh"
+//   ck_head_sweep              -> _sweep_head_topk (CAPTIONKIT_HEAD_SWEEP)
 //
 // Inputs:  h [N, H] bf16, W [H, V] bf16 (row-major, V a multiple of 8),
 //          b [V] fp32 (padded vocab columns carry -1e30).
@@ -19,18 +21,25 @@
 //     forms one 64 x 128 fp32 logits tile in shared memory with bf16
 //     tensor-core MMA (nvcuda::wmma, fp32 accumulation), adds the bias,
 //     and for each row writes the tile's max m, its sum s = sum exp(x - m)
-//     and its own top-k (value, vocab id) to scratch.
+//     and its own top-k (value, vocab id) to scratch, by either extraction
+//     of head_common.cuh (a template parameter: the logits tile is the same
+//     code, so the two give bit-identical results).
 //   pass 2 (head_merge_kernel), one warp per row: lse = M + log sum_j s_j
 //     exp(m_j - M) over the tiles, and the top-k of the tiles' candidates.
 //
-// Ties: every comparison orders by (value descending, vocab id ascending),
-// so the result is lax.top_k's whatever order the tiles finish in.
+// The sweep (head_sweep_kernel) is the TPU grid's in-order carry done
+// inside one block: a block owns 32 rows and walks every vocab tile in
+// order, carrying an online (m, s) and a running top-k per row in shared
+// memory; one launch, no partials in device memory. The row tile is 32:
+// at N = 2560 that gives 80 blocks for 132 SMs. Every block streams all of
+// W (from L2), so 16-row tiles would fill the card but double that
+// traffic, and 64-row tiles (the pass-1 tile) would leave 92 SMs idle.
 //
 // Bound at the paper shape (N = 2560 = 512 images x 5 beams, H = 1024,
 // V = 9490): 2 N H V = 49.8 GFLOP, 50 us at the H100's 989 TFLOP/s dense
 // bf16; the bytes read (W 19.4 MB + h 5.2 MB) take 7 us at 3.35 TB/s. The
-// kernel is bound by operations. This first version is plain: one stage of
-// shared memory, no cp.async or TMA pipeline, wmma rather than wgmma.
+// kernels are bound by operations. This first version is plain: one stage
+// of shared memory, no cp.async or TMA pipeline, wmma rather than wgmma.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,129 +49,44 @@
 #include <cmath>
 #include <cstdint>
 
+#include "head_common.cuh"
+
 using namespace nvcuda;
 
 namespace {
 
-constexpr int BM = 64;         // rows per block
-constexpr int BN = 128;        // vocab columns per block: the vocab tile
+constexpr int BM = 64;         // rows per pass-1 block
+constexpr int BM_SWEEP = 32;   // rows per sweep block
 constexpr int BK = 32;         // depth of one shared-memory stage
-constexpr int THREADS = 256;   // 8 warps: 2 (rows) x 4 (columns) of 32 x 32
-constexpr int KMAX = 8;        // largest k
 constexpr int LDA = BK + 8;    // shared-memory strides, in elements; the
 constexpr int LDB = BN + 8;    // padding keeps wmma pointers 32-byte
 constexpr int LDC = BN + 4;    // aligned and spreads the banks
-constexpr int ROWS_PER_WARP = BM / (THREADS / 32);
 
-__device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
-  return av > bv || (av == bv && ai < bi);
-}
-
-// Insert (v, i) into a list kept sorted by better(); the worst falls off.
-// Static indices only, so the list stays in registers.
-__device__ __forceinline__ void insert(float (&lv)[KMAX], int (&li)[KMAX],
-                                       float v, int i) {
-#pragma unroll
-  for (int q = 0; q < KMAX; ++q) {
-    if (better(v, i, lv[q], li[q])) {
-      const float tv = lv[q];
-      const int ti = li[q];
-      lv[q] = v;
-      li[q] = i;
-      v = tv;
-      i = ti;
-    }
-  }
-}
-
-__device__ __forceinline__ void clear(float (&lv)[KMAX], int (&li)[KMAX]) {
-#pragma unroll
-  for (int q = 0; q < KMAX; ++q) {
-    lv[q] = -INFINITY;
-    li[q] = INT_MAX;
-  }
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// k rounds over the warp: each lane offers the head of its sorted list,
-// the best offer wins, and its owner pops it. Lane 0 writes the winners.
-// The union of the lanes' lists holds the warp's top-k, so this is exact.
-__device__ __forceinline__ void warp_pop_topk(float (&lv)[KMAX],
-                                              int (&li)[KMAX], int k,
-                                              float* out_v, int* out_i,
-                                              int lane) {
-  for (int r = 0; r < k; ++r) {
-    float v = lv[0];
-    int i = li[0];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-      if (better(ov, oi, v, i)) {
-        v = ov;
-        i = oi;
-      }
-    }
-    if (lv[0] == v && li[0] == i) {
-#pragma unroll
-      for (int q = 0; q < KMAX - 1; ++q) {
-        lv[q] = lv[q + 1];
-        li[q] = li[q + 1];
-      }
-      lv[KMAX - 1] = -INFINITY;
-      li[KMAX - 1] = INT_MAX;
-    }
-    if (lane == 0) {
-      out_v[r] = v;
-      out_i[r] = i;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-head_tile_kernel(const __nv_bfloat16* __restrict__ h,
-                 const __nv_bfloat16* __restrict__ w,
-                 const float* __restrict__ bias,
-                 float* __restrict__ part_m, float* __restrict__ part_s,
-                 float* __restrict__ part_v, int* __restrict__ part_i,
-                 int N, int H, int V, int k) {
-  __shared__ __align__(128) __nv_bfloat16 As[BM * LDA];
-  __shared__ __align__(128) __nv_bfloat16 Bs[BK * LDB];
-  __shared__ __align__(128) float Cs[BM * LDC];
-
+// One [BM_, 128] fp32 tile of h @ W (no bias) into Cs, for rows
+// [row0, row0 + BM_) and vocab columns [col0, col0 + 128). 8 warps in a
+// 2 (rows) x 4 (columns) grid, each BM_/2 x 32. Ends with the block
+// synchronised and Cs complete.
+template <int BM_>
+__device__ __forceinline__ void bf16_logits_tile(
+    const __nv_bfloat16* __restrict__ h, const __nv_bfloat16* __restrict__ w,
+    int row0, int col0, int N, int H, int V, __nv_bfloat16* As,
+    __nv_bfloat16* Bs, float* Cs) {
+  constexpr int WFR = BM_ / 32;  // 16-row fragments per warp
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int tile = blockIdx.x;
-  const int n_tiles = gridDim.x;
-  const int col0 = tile * BN;
-  const int row0 = blockIdx.y * BM;
-  const int wr = warp >> 2;  // warp's 32-row band
+  const int wr = warp >> 2;  // warp's band of BM_/2 rows
   const int wc = warp & 3;   // warp's 32-column band
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[WFR][2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < WFR; ++i)
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
   for (int k0 = 0; k0 < H; k0 += BK) {
-    {  // h tile: 64 rows x 4 vectors of 8 bf16, one per thread
-      const int r = tid >> 2;
-      const int c = (tid & 3) * 8;
+    for (int v = tid; v < BM_ * (BK / 8); v += THREADS) {  // h tile
+      const int r = v / (BK / 8);
+      const int c = (v % (BK / 8)) * 8;
       const int gr = row0 + r;
       const int gk = k0 + c;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -184,17 +108,18 @@ head_tile_kernel(const __nv_bfloat16* __restrict__ h,
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a[2];
+                     wmma::row_major> a[WFR];
       wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
                      wmma::row_major> b[2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wr * 32 + i * 16) * LDA + kk, LDA);
+      for (int i = 0; i < WFR; ++i)
+        wmma::load_matrix_sync(
+            a[i], As + (wr * WFR * 16 + i * 16) * LDA + kk, LDA);
 #pragma unroll
       for (int j = 0; j < 2; ++j)
         wmma::load_matrix_sync(b[j], Bs + kk * LDB + wc * 32 + j * 16, LDB);
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < WFR; ++i)
 #pragma unroll
         for (int j = 0; j < 2; ++j)
           wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
@@ -202,83 +127,157 @@ head_tile_kernel(const __nv_bfloat16* __restrict__ h,
     __syncthreads();
   }
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < WFR; ++i)
 #pragma unroll
     for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wr * 32 + i * 16) * LDC + wc * 32 + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
+      wmma::store_matrix_sync(
+          Cs + (wr * WFR * 16 + i * 16) * LDC + wc * 32 + j * 16, acc[i][j],
+          LDC, wmma::mem_row_major);
   __syncthreads();
+}
 
-  // Epilogue: each warp reduces ROWS_PER_WARP rows of the tile.
-  for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-    const int r = warp * ROWS_PER_WARP + rr;
-    const int gr = row0 + r;
-    if (gr >= N) break;  // the same for the whole warp
-    float x[BN / 32];
-    int xi[BN / 32];
-    float m = -INFINITY;
+// Row r of the tile in Cs plus the bias, as one warp holds it: lane l has
+// columns col0 + l + 32 q; columns past V get (-inf, INT_MAX).
+__device__ __forceinline__ void load_row(const float* Cs, int r,
+                                         const float* __restrict__ bias,
+                                         int col0, int V, int lane,
+                                         float (&x)[COLS_PER_LANE],
+                                         int (&xi)[COLS_PER_LANE]) {
 #pragma unroll
-    for (int q = 0; q < BN / 32; ++q) {
-      const int gc = col0 + lane + 32 * q;
-      if (gc < V) {
-        x[q] = Cs[r * LDC + lane + 32 * q] + bias[gc];
-        xi[q] = gc;
-      } else {
-        x[q] = -INFINITY;
-        xi[q] = INT_MAX;
-      }
-      m = fmaxf(m, x[q]);
-    }
-    m = warp_max(m);
-    float s = 0.0f;
-#pragma unroll
-    for (int q = 0; q < BN / 32; ++q)
-      if (xi[q] != INT_MAX) s += expf(x[q] - m);
-    s = warp_sum(s);
-
-    float lv[KMAX];
-    int li[KMAX];
-    clear(lv, li);
-#pragma unroll
-    for (int q = 0; q < BN / 32; ++q) insert(lv, li, x[q], xi[q]);
-    const size_t slot = (size_t)gr * n_tiles + tile;
-    warp_pop_topk(lv, li, k, part_v + slot * k, part_i + slot * k, lane);
-    if (lane == 0) {
-      part_m[slot] = m;
-      part_s[slot] = s;
+  for (int q = 0; q < COLS_PER_LANE; ++q) {
+    const int gc = col0 + lane + 32 * q;
+    if (gc < V) {
+      x[q] = Cs[r * LDC + lane + 32 * q] + bias[gc];
+      xi[q] = gc;
+    } else {
+      x[q] = -INFINITY;
+      xi[q] = INT_MAX;
     }
   }
 }
 
+template <int EXTRACT>
 __global__ void __launch_bounds__(THREADS)
-head_merge_kernel(const float* __restrict__ part_m,
-                  const float* __restrict__ part_s,
-                  const float* __restrict__ part_v,
-                  const int* __restrict__ part_i, float* __restrict__ vals,
-                  int* __restrict__ idx, float* __restrict__ lse, int N,
-                  int n_tiles, int k) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
-  if (row >= N) return;  // the same for the whole warp
-  const float* pm = part_m + (size_t)row * n_tiles;
-  const float* ps = part_s + (size_t)row * n_tiles;
-  float M = -INFINITY;
-  for (int j = lane; j < n_tiles; j += 32) M = fmaxf(M, pm[j]);
-  M = warp_max(M);
-  float S = 0.0f;
-  for (int j = lane; j < n_tiles; j += 32) S += ps[j] * expf(pm[j] - M);
-  S = warp_sum(S);
+head_tile_kernel(const __nv_bfloat16* __restrict__ h,
+                 const __nv_bfloat16* __restrict__ w,
+                 const float* __restrict__ bias,
+                 float* __restrict__ part_m, float* __restrict__ part_s,
+                 float* __restrict__ part_v, int* __restrict__ part_i,
+                 int N, int H, int V, int k) {
+  __shared__ __align__(128) __nv_bfloat16 As[BM * LDA];
+  __shared__ __align__(128) __nv_bfloat16 Bs[BK * LDB];
+  __shared__ __align__(128) float Cs[BM * LDC];
 
-  float lv[KMAX];
-  int li[KMAX];
-  clear(lv, li);
-  const int n_cand = n_tiles * k;
-  const float* pv = part_v + (size_t)row * n_cand;
-  const int* pi = part_i + (size_t)row * n_cand;
-  for (int c = lane; c < n_cand; c += 32) insert(lv, li, pv[c], pi[c]);
-  warp_pop_topk(lv, li, k, vals + (size_t)row * k, idx + (size_t)row * k,
-                lane);
-  if (lane == 0) lse[row] = M + logf(S);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tile = blockIdx.x;
+  const int n_tiles = gridDim.x;
+  const int col0 = tile * BN;
+  const int row0 = blockIdx.y * BM;
+  bf16_logits_tile<BM>(h, w, row0, col0, N, H, V, As, Bs, Cs);
+
+  // Epilogue: each warp reduces BM / 8 rows of the tile.
+  constexpr int rows_per_warp = BM / (THREADS / 32);
+  for (int rr = 0; rr < rows_per_warp; ++rr) {
+    const int r = warp * rows_per_warp + rr;
+    const int gr = row0 + r;
+    if (gr >= N) break;  // the same for the whole warp
+    float x[COLS_PER_LANE];
+    int xi[COLS_PER_LANE];
+    load_row(Cs, r, bias, col0, V, lane, x, xi);
+    emit_tile_row<EXTRACT>(x, xi, k, (size_t)gr * n_tiles + tile, part_m,
+                           part_s, part_v, part_i, lane);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+head_sweep_kernel(const __nv_bfloat16* __restrict__ h,
+                  const __nv_bfloat16* __restrict__ w,
+                  const float* __restrict__ bias, float* __restrict__ vals,
+                  int* __restrict__ idx, float* __restrict__ lse, int N,
+                  int H, int V, int k) {
+  __shared__ __align__(128) __nv_bfloat16 As[BM_SWEEP * LDA];
+  __shared__ __align__(128) __nv_bfloat16 Bs[BK * LDB];
+  __shared__ __align__(128) float Cs[BM_SWEEP * LDC];
+  __shared__ float run_v[BM_SWEEP][KMAX];  // running top-k per row
+  __shared__ int run_i[BM_SWEEP][KMAX];
+  __shared__ float run_m[BM_SWEEP];  // running max and exp-sum per row
+  __shared__ float run_s[BM_SWEEP];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row0 = blockIdx.x * BM_SWEEP;
+  constexpr int rows_per_warp = BM_SWEEP / (THREADS / 32);
+  for (int rr = 0; rr < rows_per_warp; ++rr) {
+    const int r = warp * rows_per_warp + rr;
+    if (lane < KMAX) {
+      run_v[r][lane] = -INFINITY;
+      run_i[r][lane] = INT_MAX;
+    }
+    if (lane == 0) {
+      run_m[r] = -INFINITY;
+      run_s[r] = 0.0f;
+    }
+  }
+  // (bf16_logits_tile synchronises the block before the first epilogue.)
+
+  const int n_tiles = (V + BN - 1) / BN;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int col0 = tile * BN;
+    bf16_logits_tile<BM_SWEEP>(h, w, row0, col0, N, H, V, As, Bs, Cs);
+    for (int rr = 0; rr < rows_per_warp; ++rr) {
+      const int r = warp * rows_per_warp + rr;
+      if (row0 + r >= N) break;  // the same for the whole warp
+      float x[COLS_PER_LANE];
+      int xi[COLS_PER_LANE];
+      load_row(Cs, r, bias, col0, V, lane, x, xi);
+      float tm = -INFINITY;
+#pragma unroll
+      for (int q = 0; q < COLS_PER_LANE; ++q) tm = fmaxf(tm, x[q]);
+      tm = warp_max(tm);
+      const float m_old = run_m[r];
+      const float m_new = fmaxf(m_old, tm);
+      float s = 0.0f;
+#pragma unroll
+      for (int q = 0; q < COLS_PER_LANE; ++q)
+        if (xi[q] != INT_MAX) s += expf(x[q] - m_new);
+      s = warp_sum(s);
+      const float s_new = run_s[r] * expf(m_old - m_new) + s;
+      // The running top-k joins the lanes' lists (lane q < k takes entry
+      // q), so the warp's pop merges it with the tile's candidates.
+      float lv[KMAX];
+      int li[KMAX];
+      clear(lv, li);
+#pragma unroll
+      for (int q = 0; q < COLS_PER_LANE; ++q) insert(lv, li, x[q], xi[q]);
+      if (lane < k) insert(lv, li, run_v[r][lane], run_i[r][lane]);
+      __syncwarp();
+      warp_pop_topk(lv, li, k, run_v[r], run_i[r], lane);
+      if (lane == 0) {
+        run_m[r] = m_new;
+        run_s[r] = s_new;
+      }
+      __syncwarp();
+    }
+    // The next tile's products overwrite As, Bs and Cs only after the
+    // block's first barrier inside bf16_logits_tile, which every warp
+    // reaches after its epilogue.
+  }
+  for (int rr = 0; rr < rows_per_warp; ++rr) {
+    const int r = warp * rows_per_warp + rr;
+    const int gr = row0 + r;
+    if (gr >= N) break;
+    if (lane < k) {
+      vals[(size_t)gr * k + lane] = run_v[r][lane];
+      idx[(size_t)gr * k + lane] = run_i[r][lane];
+    }
+    if (lane == 0) lse[gr] = run_m[r] + logf(run_s[r]);
+  }
+}
+
+bool bad_shape(int N, int H, int V, int k) {
+  return N < 1 || H < 1 || V < 1 || k < 1 || k > KMAX || k > V || H % 8 ||
+         V % 8;
 }
 
 }  // namespace
@@ -287,33 +286,53 @@ extern "C" {
 
 // Scratch (allocated by the caller): part_m, part_s [N * n_tiles] fp32,
 // part_v [N * n_tiles * k] fp32, part_i [N * n_tiles * k] int32, with
-// n_tiles = ceil(V / 128). Launches both passes on `stream` and returns
-// the CUDA error code of the launches (0 = success).
+// n_tiles = ceil(V / 128). extract: 0 = mask, 1 = thresh. Launches both
+// passes on `stream` and returns the CUDA error code of the launches
+// (0 = success).
 int ck_head_topk(const void* h, const void* w, const void* b, void* vals,
                  void* idx, void* lse, void* part_m, void* part_s,
                  void* part_v, void* part_i, int N, int H, int V, int k,
-                 int device, void* stream) {
-  if (N < 1 || H < 1 || V < 1 || k < 1 || k > KMAX || k > V || H % 8 ||
-      V % 8)
+                 int extract, int device, void* stream) {
+  if (bad_shape(N, H, V, k) || (extract != kMask && extract != kThresh))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (V + BN - 1) / BN;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  head_tile_kernel<<<dim3(n_tiles, (N + BM - 1) / BM), THREADS, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(h),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(b),
-      static_cast<float*>(part_m), static_cast<float*>(part_s),
-      static_cast<float*>(part_v), static_cast<int*>(part_i), N, H, V, k);
+  const dim3 grid(n_tiles, (N + BM - 1) / BM);
+  const auto* hp = static_cast<const __nv_bfloat16*>(h);
+  const auto* wp = static_cast<const __nv_bfloat16*>(w);
+  const auto* bp = static_cast<const float*>(b);
+  auto* pm = static_cast<float*>(part_m);
+  auto* ps = static_cast<float*>(part_s);
+  auto* pv = static_cast<float*>(part_v);
+  auto* pi = static_cast<int*>(part_i);
+  if (extract == kThresh)
+    head_tile_kernel<kThresh><<<grid, THREADS, 0, s>>>(hp, wp, bp, pm, ps,
+                                                       pv, pi, N, H, V, k);
+  else
+    head_tile_kernel<kMask><<<grid, THREADS, 0, s>>>(hp, wp, bp, pm, ps, pv,
+                                                     pi, N, H, V, k);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int rows_per_block = THREADS / 32;
-  head_merge_kernel<<<(N + rows_per_block - 1) / rows_per_block, THREADS, 0,
-                      s>>>(
-      static_cast<const float*>(part_m), static_cast<const float*>(part_s),
-      static_cast<const float*>(part_v), static_cast<const int*>(part_i),
+  return (int)launch_merge(pm, ps, pv, pi, static_cast<float*>(vals),
+                           static_cast<int*>(idx), static_cast<float*>(lse),
+                           N, n_tiles, k, s);
+}
+
+// The single-sweep head: one launch, no scratch.
+int ck_head_sweep(const void* h, const void* w, const void* b, void* vals,
+                  void* idx, void* lse, int N, int H, int V, int k,
+                  int device, void* stream) {
+  if (bad_shape(N, H, V, k)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  head_sweep_kernel<<<(N + BM_SWEEP - 1) / BM_SWEEP, THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(h),
+      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(b),
       static_cast<float*>(vals), static_cast<int*>(idx),
-      static_cast<float*>(lse), N, n_tiles, k);
+      static_cast<float*>(lse), N, H, V, k);
   return (int)cudaGetLastError();
 }
 

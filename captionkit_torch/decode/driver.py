@@ -19,6 +19,8 @@ import torch
 
 from captionkit_torch.config import DecodeConfig
 from captionkit_torch.data.featquant import (
+    dequantize_for_feed,
+    feed_to_device,
     feed_torch_dtype,
     quantize_for_feed,
 )
@@ -39,7 +41,10 @@ def make_decode_fn(
 ):
     """(params, features, existing, existing_len, batch_idx) -> tokens
     [B, L] int32 on ``device``. The inputs may sit on the host; they are
-    moved to ``device`` here."""
+    moved to ``device`` here. ``features`` is staged as
+    ``quantize_for_feed`` stages it for ``decode_cfg.feed_dtype``: with
+    "int8", the (q, scale) pair, dequantized on the device before
+    ``encode``."""
     if decode_cfg.method in ("greedy", "sample"):
         raise NotImplementedError(
             f"decode method {decode_cfg.method!r} is not yet ported; "
@@ -56,7 +61,9 @@ def make_decode_fn(
     @torch.inference_mode()
     def fn(params, features, existing, existing_len, batch_idx=0):
         del batch_idx  # the seed offset of sampling, which is not ported
-        ctx = model.encode(params, features.to(dev), existing.to(dev),
+        features = dequantize_for_feed(feed_to_device(features, dev),
+                                       decode_cfg.feed_dtype)
+        ctx = model.encode(params, features, existing.to(dev),
                            existing_len.to(dev))
         return beam_search(
             model, params, ctx,

@@ -8,8 +8,13 @@ its launches in a plain integer attribute (``<wrapper>.launches``).
 
 from captionkit_torch.kernels.head import (  # noqa: F401
     fused_head_topk,
+    fused_head_topk_int8,
+    fused_head_topk_thresh,
+    head_sweep_topk,
     prepad_head,
+    quantize_head,
     reference_head_topk,
+    reference_head_topk_int8,
 )
 from captionkit_torch.kernels.megastep import (  # noqa: F401
     att_cell,
@@ -19,4 +24,6 @@ from captionkit_torch.kernels.megastep import (  # noqa: F401
 )
 
 #: every kernel wrapper of the port, for resetting and reading the counts
-WRAPPERS = (fused_head_topk, att_cell, lang_cell, dcnet_score, dcnet_cell)
+WRAPPERS = (fused_head_topk, fused_head_topk_thresh, head_sweep_topk,
+            fused_head_topk_int8, att_cell, lang_cell, dcnet_score,
+            dcnet_cell)

@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled at first use by ``nvcc`` into a shared
 library with a plain C interface, ``build/captionkit_torch/lib<name>-<hash>.so``
 under the repository root, and loaded with ``ctypes``. The hash covers the
-sources and the flags, so an edited source is rebuilt. Sources build in
-parallel, one ``nvcc`` each. Nothing is prebuilt: a fresh checkout builds
-in seconds because no source includes PyTorch's headers.
+sources (headers included) and the flags, so an edited source is rebuilt.
+Sources build in parallel, one ``nvcc`` each. Nothing is prebuilt: a fresh
+checkout builds in seconds because no source includes PyTorch's headers.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "captionkit_torch"
-SOURCES = ("head_topk", "megastep")
+SOURCES = ("head_topk", "head_int8", "megastep")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -13,7 +13,8 @@ float32 product as in the reference. ``cell_impl="pallas"`` (textual
 config) has ``prepare_topk`` build the fused-cell pack and
 ``_step_hidden`` run ``kernels/megastep.py::dcnet_fused_step_hidden``;
 the visual config keeps the plain cells, as in the reference. The vocab
-head of beam search is EditNet's (``editnet._head_topk``).
+head of beam search, its per-batch preparation and its int8 variant are
+EditNet's (``editnet.prepare_head``, ``editnet._head_topk``).
 
 Not ported yet: ``forward_seq`` and training dropout (training), and
 ``step_attn`` (introspection).
@@ -28,7 +29,7 @@ from typing import Optional
 import torch
 
 from captionkit_torch.config import ModelConfig
-from captionkit_torch.kernels.head import prepad_head
+from captionkit_torch.device import resolve_device
 from captionkit_torch.kernels.megastep import (
     DCNetCellPack,
     dcnet_fused_step_hidden,
@@ -39,6 +40,7 @@ from captionkit_torch.models.editnet import (
     _cdt,
     _head_topk,
     check_ported_options,
+    prepare_head,
 )
 from captionkit_torch.nn.attention import (
     AdditiveAttentionParams,
@@ -77,8 +79,9 @@ class DCNetContext:
     c0: torch.Tensor  # [B, H]  beam_expand)
     features: Optional[torch.Tensor] = None  # [B, R, F] visual only
     vis_keys: Optional[torch.Tensor] = None  # [B, R, A]
-    head_w: Optional[torch.Tensor] = None  # [H, Vp] compute dtype
+    head_w: Optional[torch.Tensor] = None  # [H, Vp] compute dtype or int8
     head_b: Optional[torch.Tensor] = None  # [Vp] fp32, padding -1e30
+    head_scale: Optional[torch.Tensor] = None  # [Vp] fp32, int8 head only
     # Fused decode-cell pack, built by prepare_topk for cell_impl="pallas".
     cell_pack: Optional[DCNetCellPack] = None
 
@@ -93,10 +96,13 @@ class DCNetState:
 
 
 def init(seed: int, cfg: ModelConfig,
-         device: "str | torch.device" = "cpu") -> DCNetParams:
-    """Random parameters from ``seed``, with the reference's distributions
-    (uniform, torch-style scales; zero attention, gate, init and head
-    biases). The numbers are not JAX's: load a checkpoint for parity."""
+         device: "str | torch.device" = "cuda") -> DCNetParams:
+    """Random parameters from ``seed`` on ``device`` (the card unless the
+    caller names the CPU; raises without CUDA), with the reference's
+    distributions (uniform, torch-style scales; zero attention, gate, init
+    and head biases). The numbers are not JAX's: load a checkpoint for
+    parity."""
+    device = resolve_device(device)
     E, H, A, V, F = (cfg.emb_dim, cfg.hidden_dim, cfg.att_dim,
                      cfg.vocab_size, cfg.feat_dim)
     g = torch.Generator().manual_seed(seed)
@@ -238,15 +244,12 @@ def step(params: DCNetParams, cfg: ModelConfig, ctx: DCNetContext,
 def prepare_topk(params: DCNetParams, cfg: ModelConfig, ctx: DCNetContext,
                  k: int) -> DCNetContext:
     """Once per decode batch: the fused-cell pack when ``cell_impl ==
-    "pallas"`` and the config is textual, and the padded head."""
+    "pallas"`` and the config is textual, and the head (quantized under
+    ``head_quant="int8"``, else padded)."""
     if cfg.cell_impl == "pallas" and not cfg.dcnet_use_visual:
         ctx = ctx.replace(
             cell_pack=prepare_dcnet_cell_pack(params, cfg, ctx))
-    if cfg.head_impl == "xla":
-        return ctx
-    w_p, b_p = prepad_head(params.fc_w, params.fc_b,
-                           compute_dtype=_cdt(cfg))
-    return ctx.replace(head_w=w_p, head_b=b_p)
+    return prepare_head(params, cfg, ctx)
 
 
 def step_topk(params: DCNetParams, cfg: ModelConfig, ctx: DCNetContext,
@@ -262,7 +265,7 @@ def make_model(cfg: ModelConfig) -> ModelDef:
     check_ported_options(cfg)
     return ModelDef(
         name="dcnet",
-        init=lambda seed, device="cpu": init(seed, cfg, device),
+        init=lambda seed, device="cuda": init(seed, cfg, device),
         encode=lambda params, features, existing, existing_len: encode(
             params, cfg, features, existing, existing_len),
         init_state=init_state,

@@ -20,7 +20,9 @@ rounded weights are built once per parameter object (``_packed``).
 "pallas"`` (soft SCMA) has ``prepare_topk`` build the fused-cell pack and
 ``_step_hidden`` run ``kernels/megastep.py::fused_step_hidden``; hard SCMA
 keeps the plain cells, as in the reference. The vocab head of beam search
-is the CUDA kernel of ``kernels/head.py``.
+is a CUDA kernel of ``kernels/head.py``: the float head with either
+extraction (``head_extract``), or, with ``head_quant="int8"``, the int8
+head over the fp32 hidden state and the head quantized once per batch.
 """
 
 from __future__ import annotations
@@ -32,10 +34,14 @@ from typing import Optional
 import torch
 
 from captionkit_torch.config import ModelConfig
+from captionkit_torch.device import resolve_device
 from captionkit_torch.kernels.head import (
     fused_head_topk,
+    fused_head_topk_int8,
     prepad_head,
+    quantize_head,
     reference_head_topk,
+    reference_head_topk_int8,
 )
 from captionkit_torch.kernels.megastep import (
     CellPack,
@@ -88,8 +94,9 @@ class EditNetContext:
     enc_cs: torch.Tensor  # [B, T, H] SCMA copy pool
     scma_keys: torch.Tensor  # [B, T, A]
     mask: torch.Tensor  # [B, T] bool
-    head_w: Optional[torch.Tensor] = None  # [H, Vp] compute dtype
+    head_w: Optional[torch.Tensor] = None  # [H, Vp] compute dtype or int8
     head_b: Optional[torch.Tensor] = None  # [Vp] fp32, padding -1e30
+    head_scale: Optional[torch.Tensor] = None  # [Vp] fp32, int8 head only
     # Fused decode-cell pack, built by prepare_topk for cell_impl="pallas".
     cell_pack: Optional[CellPack] = None
 
@@ -111,10 +118,12 @@ def _cdt(cfg: ModelConfig) -> torch.dtype:
 
 
 def init(seed: int, cfg: ModelConfig,
-         device: "str | torch.device" = "cpu") -> EditNetParams:
-    """Random parameters from ``seed``, with the reference's distributions
-    (uniform, torch-style scales; zero attention and gate biases). The
-    numbers are not JAX's: load a checkpoint for parity."""
+         device: "str | torch.device" = "cuda") -> EditNetParams:
+    """Random parameters from ``seed`` on ``device`` (the card unless the
+    caller names the CPU; raises without CUDA), with the reference's
+    distributions (uniform, torch-style scales; zero attention and gate
+    biases). The numbers are not JAX's: load a checkpoint for parity."""
+    device = resolve_device(device)
     E, H, A, V, F = (cfg.emb_dim, cfg.hidden_dim, cfg.att_dim,
                      cfg.vocab_size, cfg.feat_dim)
     g = torch.Generator().manual_seed(seed)
@@ -283,9 +292,19 @@ def step(params: EditNetParams, cfg: ModelConfig, ctx: EditNetContext,
 def prepare_topk(params: EditNetParams, cfg: ModelConfig,
                  ctx: EditNetContext, k: int) -> EditNetContext:
     """Once per decode batch: the fused-cell pack when ``cell_impl ==
-    "pallas"`` and SCMA is soft, and the padded head (``prepad_head``)."""
+    "pallas"`` and SCMA is soft, and the head: quantized
+    (``quantize_head``) under ``head_quant="int8"``, else padded
+    (``prepad_head``) for the kernel."""
     if cfg.cell_impl == "pallas" and cfg.scma_select == "soft":
         ctx = ctx.replace(cell_pack=prepare_cell_pack(params, cfg, ctx))
+    return prepare_head(params, cfg, ctx)
+
+
+def prepare_head(params, cfg: ModelConfig, ctx):
+    """The per-batch head of ``prepare_topk``, shared with DCNet."""
+    if cfg.head_quant == "int8":
+        w_q, scale, b_p = quantize_head(params.fc_w, params.fc_b)
+        return ctx.replace(head_w=w_q, head_b=b_p, head_scale=scale)
     if cfg.head_impl == "xla":
         return ctx
     w_p, b_p = prepad_head(params.fc_w, params.fc_b,
@@ -304,16 +323,29 @@ def step_topk(params: EditNetParams, cfg: ModelConfig, ctx: EditNetContext,
 
 def _head_topk(params: EditNetParams, cfg: ModelConfig,
                ctx: EditNetContext, out: torch.Tensor, k: int):
-    """The fused kernel (``head_impl="pallas"``, the default) or the plain
-    full-logits head (``"xla"``)."""
+    """The vocab-head top-k: under ``head_quant="int8"`` the int8 kernel
+    (or, with ``head_impl="xla"``, its plain version) over the fp32 hidden
+    state; else the float kernel (``head_impl="pallas"``, the default, with
+    ``head_extract``) or the plain full-logits head (``"xla"``)."""
     dt = _cdt(cfg)
+    if cfg.head_quant == "int8":
+        if ctx.head_scale is None:  # no prepare_topk: quantize here
+            w_q, scale, b_p = quantize_head(params.fc_w, params.fc_b)
+        else:
+            w_q, scale, b_p = ctx.head_w, ctx.head_scale, ctx.head_b
+        # The int8 head quantizes the fp32 rows itself: no bf16 cast.
+        h = out.float().contiguous()
+        if cfg.head_impl == "xla":
+            return reference_head_topk_int8(h, w_q, scale, b_p, k)
+        return fused_head_topk_int8(h, w_q, scale, b_p, k=k,
+                                    extract=cfg.head_extract)
     if cfg.head_impl == "xla":
         return reference_head_topk(out.to(dt), params.fc_w.to(dt),
                                    params.fc_b, k)
     if ctx.head_w is None:
         raise ValueError("step_topk needs the head from prepare_topk")
     return fused_head_topk(out.to(dt).contiguous(), ctx.head_w, ctx.head_b,
-                           k=k)
+                           k=k, extract=cfg.head_extract)
 
 
 def check_ported_options(cfg: ModelConfig) -> None:
@@ -322,19 +354,13 @@ def check_ported_options(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             "cell_impl='wholestep' (the fused lang cell + head kernel) is "
             "not ported yet; use 'pallas' or 'xla'")
-    if cfg.head_quant != "none":
-        raise NotImplementedError(
-            f"head_quant={cfg.head_quant!r} is not ported yet")
-    if cfg.head_extract != "mask":
-        raise NotImplementedError(
-            f"head_extract={cfg.head_extract!r} is not ported yet")
 
 
 def make_model(cfg: ModelConfig) -> ModelDef:
     check_ported_options(cfg)
     return ModelDef(
         name="editnet",
-        init=lambda seed, device="cpu": init(seed, cfg, device),
+        init=lambda seed, device="cuda": init(seed, cfg, device),
         encode=lambda params, features, existing, existing_len: encode(
             params, cfg, features, existing, existing_len),
         init_state=init_state,

@@ -44,8 +44,10 @@ class CaptionServer:
                  *, ladder: Sequence[int] = (), decode_fn=None,
                  device: "str | torch.device" = "cuda"):
         """``decode_fn`` replaces the default beam decode with any
-        (params, feats [b, R, F], ids [b, T], lens [b], step) -> tokens
-        callable of the same contract."""
+        (params, feats, ids [b, T], lens [b], step) -> tokens callable of
+        the same contract; feats [b, R, F] arrive staged for
+        ``decode.feed_dtype`` (``quantize_for_feed``: the (q, scale) pair
+        for "int8")."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.vocab = vocab
@@ -77,9 +79,10 @@ class CaptionServer:
     def submit_batch(self, feats: np.ndarray, captions: Sequence[str]
                      ) -> tuple[Any, int]:
         """Tokenize and launch a batch without waiting for its tokens.
-        feats [b, R, F], b <= self.batch; the tail pads by repeating the
-        last row up to the smallest rung that fits. Returns a handle for
-        ``collect``."""
+        feats [b, R, F] fp32, b <= self.batch; the tail pads by repeating
+        the last row up to the smallest rung that fits, then the batch is
+        staged for ``decode.feed_dtype`` (quantized per region for
+        "int8"). Returns a handle for ``collect``."""
         b = len(captions)
         target = self._rung(b)
         pad = target - b

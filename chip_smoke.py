@@ -12,6 +12,12 @@ prints no result line:
               card: paper shape (N = 512 images x 5 beams, H = 1024,
               V = 9490) in bf16, and exact-tie patterns across the kernel's
               128-wide vocab tiles; kernel, plain and library times.
+   head_variants — the rest of the head family at paper shape and on the
+              tie patterns: the thresh extraction bit-equal to the mask
+              kernel, the single sweep within the head's bar (ties exact),
+              the int8 head's values and ids bit-equal to its plain
+              version (lse within 2e-4); planted faults must fail every
+              bar; kernel, plain, library and bound times.
 4. serve    — the main path: EditNet at paper width (editnet_beam5,
               random weights from seed 0 through the .npz bridge) behind
               ``CaptionServer(batch=512)``, answering JSON-lines requests
@@ -35,6 +41,15 @@ prints no result line:
               seed 0 through the DCNet .npz bridge) behind
               CaptionServer(batch=512), a forced-full decode (median of
               3, beside cell_impl="xla") and the same steps check.
+9. int8     — editnet_beam5 with model.head_quant=int8 and
+              decode.feed_dtype=int8 behind CaptionServer(batch=512); a
+              forced-full decode (median of 3) beside the default float
+              path, token agreement, the int8 head against its plain
+              version on the decode's own states (22 steps), the H2D
+              copy's device time beside the fp32 feed's; decodes with
+              head_extract=thresh (tokens identical to mask, float and
+              int8 heads) and with the single sweep (steps check); and
+              dcnet_beam5 served once with the int8 head.
 
 Then a {"kernels": [...]} line, the nvidia-smi line, and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -60,9 +75,14 @@ SMOKE_DIR = ROOT / "build" / "captionkit_torch" / "smoke"
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
+PEAK_INT8_OPS = 1979e12
 
 N_IMAGES, BEAM, MAX_LEN = 512, 5, 22
 HEAD_ATOL = 1e-3  # fp32 sums of 1024 bf16 products in another order
+# The int8 head against its plain version: values and ids bit-equal (the
+# same arithmetic, exact int8 sums); the log-sum-exp sums the same terms
+# in another order (the reference's bar, tests/test_head_quant.py).
+INT8_LSE_ATOL = 2e-4
 # Cell kernels against their plain versions: h and c are fp32 sums of up
 # to 5120 bf16 products in another order, behind one bf16 rounding of an
 # operand (v_hat, part) that may fall the other way.
@@ -167,6 +187,31 @@ def head_agreement(got, want) -> dict:
     return out
 
 
+def int8_agreement(got, want) -> dict:
+    """The int8 head's bar: values and ids bit-equal, lse within
+    INT8_LSE_ATOL and finite (the keys of ``head_agreement``)."""
+    import torch
+
+    (v1, i1, l1), (v2, i2, l2) = got, want
+    out = {"idx_agreement": float((i1 == i2).float().mean()),
+           "vals_max_abs_err": float((v1 - v2).abs().max()),
+           "lse_max_abs_err": float((l1 - l2).abs().max())}
+    out["ok"] = (bool(torch.equal(i1, i2) and torch.equal(v1, v2))
+                 and out["lse_max_abs_err"] <= INT8_LSE_ATOL
+                 and bool(torch.isfinite(l1).all()))
+    return out
+
+
+def bit_agreement(got, want) -> dict:
+    """The thresh extraction's bar against the mask kernel: all three
+    outputs bit-equal."""
+    import torch
+
+    out = int8_agreement(got, want)
+    out["ok"] = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    return out
+
+
 def planted_faults(head):
     """(name, faulted copy of ``head``) for faults that a head with a
     wrong log-sum-exp or a wrong per-row rank would show; the bar of
@@ -267,6 +312,174 @@ def phase_head():
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "kernel_tflops": flops / (kernel_ms * 1e-3) / 1e12,
     }
+    emit(result)
+    return result
+
+
+def _int8_inputs(N, H, V, seed):
+    """fp32 h on the card (the decode feeds the int8 head fp32 states) and
+    the head quantized by ``quantize_head``."""
+    import torch
+
+    from captionkit_torch.kernels.head import quantize_head
+
+    g = torch.Generator().manual_seed(seed)
+    h = torch.randn((N, H), generator=g).cuda()
+    w = (torch.randn((H, V), generator=g) * 0.03).cuda()
+    b = (torch.randn((V,), generator=g) * 0.01).cuda()
+    return (h, *quantize_head(w, b))
+
+
+def _int8_tie_patterns():
+    """(name, h fp32, w_q, w_scale, b, k): the reference's int8 tie test
+    (every column identical, tests/test_head_quant.py) and the float tie
+    patterns quantized (h = eye, so row i quantizes to 127 e_i)."""
+    import numpy as np
+    import torch
+
+    from captionkit_torch.kernels.head import quantize_head
+
+    rng = np.random.default_rng(1)
+    col = rng.standard_normal((16, 1)).astype(np.float32)
+    cases = [("identical_columns",
+              torch.from_numpy(rng.standard_normal((8, 16))
+                               .astype(np.float32)).cuda(),
+              torch.from_numpy(np.repeat(col, 130, axis=1)).cuda(),
+              torch.zeros((130,), device="cuda"), 3)]
+    for name, h, w, b, k in _tie_patterns():
+        cases.append((name, h.float(), w.float(), b, k))
+    return [(name, h, *quantize_head(w, b), k) for name, h, w, b, k in cases]
+
+
+def _head_bound(N, H, V, k, *, int8: bool) -> dict:
+    """Least time of the head at the function's own vocab V: 2 N H V
+    products (bf16 or int8 peak) against h, W, scales, bias read once and
+    the outputs written once."""
+    ops = 2.0 * N * H * V
+    if int8:
+        n_bytes = N * H * 4 + H * V + 2 * V * 4 + N * k * 8 + N * 4
+        t_ops = ops / PEAK_INT8_OPS
+    else:
+        n_bytes = N * H * 2 + H * V * 2 + V * 4 + N * k * 8 + N * 4
+        t_ops = ops / PEAK_BF16_FLOPS
+    t_bytes = n_bytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def phase_head_variants():
+    """Rows 2, 3 and 4 of the kernel table against their plain versions at
+    paper shape and on the tie patterns: the thresh extraction bit-equal to
+    the mask kernel, the sweep within the head bar (ties exact), the int8
+    head's values and ids bit-equal to its plain version (lse within
+    INT8_LSE_ATOL). Each planted fault must fail each bar."""
+    import torch
+
+    from captionkit_torch.kernels import head as thead
+
+    N, H, V, k = N_IMAGES * BEAM, 1024, 9490, BEAM
+    h, w, b = _head_inputs(N, H, V, seed=7)
+    h8, w_q, scale, b8 = _int8_inputs(N, H, V, seed=7)
+    mask = thead.fused_head_topk(h, w, b, k=k)
+    plain = thead.reference_head_topk(h, w, b, k)
+    plain8 = thead.reference_head_topk_int8(h8, w_q, scale, b8, k)
+    torch.cuda.synchronize()
+    results = {}
+
+    def hold(name, got, want, agree):
+        res = agree(got, want)
+        check(res["ok"], f"{name} at paper shape: {res}")
+        caught = {f: not agree(bad, want)["ok"]
+                  for f, bad in planted_faults(got)}
+        for f, ok in caught.items():
+            check(ok, f"{name}: planted fault {f} passes the bar")
+        results[name] = {**res, "bar": agree.__name__,
+                         "planted_faults_caught": caught, "ties": {}}
+
+    hold("fused_head_topk_thresh",
+         thead.fused_head_topk_thresh(h, w, b, k=k), mask, bit_agreement)
+    hold("head_sweep_topk", thead.head_sweep_topk(h, w, b, k=k), plain,
+         head_agreement)
+    int8 = {e: thead.fused_head_topk_int8(h8, w_q, scale, b8, k=k,
+                                          extract=e)
+            for e in ("mask", "thresh")}
+    hold("fused_head_topk_int8", int8["mask"], plain8, int8_agreement)
+    check(bit_agreement(int8["thresh"], int8["mask"])["ok"],
+          "int8 head: thresh extraction differs from mask")
+
+    for name, th, tw, tb, tk in _tie_patterns():
+        mask_t = thead.fused_head_topk(th, tw, tb, k=tk)
+        plain_t = thead.reference_head_topk(th, tw, tb, tk)
+        for kname, got in (
+                ("fused_head_topk_thresh",
+                 thead.fused_head_topk_thresh(th, tw, tb, k=tk)),
+                ("head_sweep_topk", thead.head_sweep_topk(th, tw, tb, k=tk))):
+            exact = bool(torch.equal(got[0], plain_t[0])
+                         and torch.equal(got[1], plain_t[1]))
+            lse_err = float((got[2] - plain_t[2]).abs().max())
+            if kname == "fused_head_topk_thresh":
+                exact = exact and bit_agreement(got, mask_t)["ok"]
+            results[kname]["ties"][name] = {"exact": exact,
+                                            "lse_err": lse_err}
+            check(exact and lse_err <= 1e-5,
+                  f"{kname} tie pattern {name}: {got[1].tolist()} vs "
+                  f"{plain_t[1].tolist()}, lse err {lse_err}")
+    for name, th, tq, ts, tb, tk in _int8_tie_patterns():
+        want = thead.reference_head_topk_int8(th, tq, ts, tb, tk)
+        for e in ("mask", "thresh"):
+            got = thead.fused_head_topk_int8(th, tq, ts, tb, k=tk, extract=e)
+            res = int8_agreement(got, want)
+            results["fused_head_topk_int8"]["ties"][f"{name}/{e}"] = {
+                "exact": res["ok"], "lse_err": res["lse_max_abs_err"]}
+            check(res["ok"], f"int8 tie pattern {name} ({e}): "
+                             f"{got[1].tolist()} vs {want[1].tolist()}")
+
+    def library():
+        logits = torch.matmul(h, w).float() + b
+        vals, idx = torch.topk(logits, k, dim=1)
+        return vals, idx, torch.logsumexp(logits, dim=1)
+
+    def library8():
+        h_q, s_h = thead.quantize_rows(h8)
+        acc = torch._int_mm(h_q, w_q)
+        logits = acc.float() * (s_h * scale[None, :]) + b8
+        vals, idx = torch.topk(logits, k, dim=1)
+        return vals, idx, torch.logsumexp(logits, dim=1)
+
+    try:
+        library8()
+        library8_ms, library8_error = time_ms(library8), None
+    except RuntimeError as e:  # a torch without the int8 product
+        library8_ms, library8_error = None, str(e)[:200]
+    library_ms = time_ms(library)
+    plain_ms = time_ms(lambda: thead.reference_head_topk(h, w, b, k))
+    timings = {
+        "fused_head_topk_thresh": (
+            lambda: thead.fused_head_topk_thresh(h, w, b, k=k), plain_ms,
+            library_ms, False),
+        "head_sweep_topk": (
+            lambda: thead.head_sweep_topk(h, w, b, k=k), plain_ms,
+            library_ms, False),
+        "fused_head_topk_int8": (
+            lambda: thead.fused_head_topk_int8(h8, w_q, scale, b8, k=k),
+            time_ms(lambda: thead.reference_head_topk_int8(
+                h8, w_q, scale, b8, k)), library8_ms, True),
+    }
+    for name, (run, p_ms, l_ms, is_int8) in timings.items():
+        ms = time_ms(run)
+        results[name].update(
+            ms=ms, plain_ms=p_ms, library_ms=l_ms,
+            **_head_bound(N, H, V, k, int8=is_int8),
+            cuda_launches_per_call=_cuda_kernels(run, ("head_",)),
+            achieved_tops=2.0 * N * H * V / (ms * 1e-3) / 1e12)
+    results["fused_head_topk_int8"]["library_error"] = library8_error
+    results["fused_head_topk_int8"]["thresh_ms"] = time_ms(
+        lambda: thead.fused_head_topk_int8(h8, w_q, scale, b8, k=k,
+                                           extract="thresh"))
+    result = {"phase": "head_variants", "ok": True, "shape": [N, H, V],
+              "k": k, "kernels": results,
+              "mask_kernel_ms": time_ms(
+                  lambda: thead.fused_head_topk(h, w, b, k=k))}
     emit(result)
     return result
 
@@ -416,7 +629,7 @@ def phase_decode(cfg, model, params, vocab, wrappers, card):
     # from that step on; a wrong head agrees on almost nothing.
     check(token_agree >= 0.5,
           f"tokens agree with the plain head on {token_agree} < 0.5")
-    steps = _check_steps(model, params, batch, kw)
+    steps = _check_steps(model, params, [t.cuda() for t in batch], kw)
     profile = _profile(lambda: decode(params, *batch).cpu())
     # The profiler slows the host; set the device time against the
     # unprofiled median wall of one batch too.
@@ -434,21 +647,39 @@ def phase_decode(cfg, model, params, vocab, wrappers, card):
     return result
 
 
-def _check_steps(model, params, batch, kw) -> dict:
-    """The head kernel against the plain head on the states the decode
+def _float_plain_head(params, ctx_k, state):
+    import torch
+
+    from captionkit_torch.kernels.head import reference_head_topk
+
+    return reference_head_topk(state.h_lang.to(torch.bfloat16),
+                               params.fc_w.to(torch.bfloat16), params.fc_b,
+                               BEAM)
+
+
+def _int8_plain_head(params, ctx_k, state):
+    from captionkit_torch.kernels.head import reference_head_topk_int8
+
+    return reference_head_topk_int8(state.h_lang, ctx_k.head_w,
+                                    ctx_k.head_scale, ctx_k.head_b, BEAM)
+
+
+def _check_steps(model, params, inputs, kw, plain=_float_plain_head,
+                 agree=head_agreement) -> dict:
+    """The head kernel against its plain version on the states the decode
     visits: the batch's K hypotheses per image (``all_tokens`` of one
     kernel decode) are fed back step by step, and at each of the 22 steps
     the kernel's (vals, idx, lse) from ``step_topk`` are held against
-    ``reference_head_topk`` on the same hidden state, within the bar of
-    ``head_agreement``. Planted faults (a shifted lse on a few rows,
-    ranks 0 and 1 exchanged) must fail that bar, which shows it would
-    catch them. Launches made here are not counted as the main path's."""
+    ``plain`` on the same hidden state, within the bar of ``agree``.
+    ``inputs`` are the encoder's (features, existing, existing_len) on the
+    card. Planted faults (a shifted lse on a few rows, ranks 0 and 1
+    exchanged) must fail that bar, which shows it would catch them.
+    Launches made here are not counted as the main path's."""
     import torch
 
     from captionkit_torch.decode.beam import beam_search
-    from captionkit_torch.kernels.head import reference_head_topk
 
-    feats, existing, existing_len = (t.cuda() for t in batch)
+    feats, existing, existing_len = inputs
     worst = {"idx_agreement": 1.0, "vals_max_abs_err": 0.0,
              "lse_max_abs_err": 0.0}
     faults_caught = {}
@@ -463,25 +694,23 @@ def _check_steps(model, params, batch, kw) -> dict:
         state = model.init_state(params, ctx_k)
         tok = torch.full((N_IMAGES * BEAM,), kw["start_id"],
                          dtype=torch.int32, device="cuda")
-        w = params.fc_w.to(torch.bfloat16)
         for t in range(MAX_LEN):
             state, *got = model.step_topk(params, ctx_k, state, tok, BEAM)
-            want = reference_head_topk(state.h_lang.to(torch.bfloat16), w,
-                                       params.fc_b, BEAM)
-            agree = head_agreement(got, want)
-            check(agree["ok"], f"step {t}: kernel vs plain head on the "
-                               f"decode's state: {agree}")
+            want = plain(params, ctx_k, state)
+            res = agree(got, want)
+            check(res["ok"], f"step {t}: kernel vs plain head on the "
+                             f"decode's state: {res}")
             worst["idx_agreement"] = min(worst["idx_agreement"],
-                                         agree["idx_agreement"])
+                                         res["idx_agreement"])
             for key in ("vals_max_abs_err", "lse_max_abs_err"):
-                worst[key] = max(worst[key], agree[key])
+                worst[key] = max(worst[key], res[key])
             if t == 0:
                 for name, bad in planted_faults(got):
-                    faults_caught[name] = not head_agreement(bad, want)["ok"]
+                    faults_caught[name] = not agree(bad, want)["ok"]
             tok = hyps[:, t].contiguous()
     for name, caught in faults_caught.items():
         check(caught, f"planted fault {name} passes the head bar")
-    return {"steps": MAX_LEN, "atol": HEAD_ATOL, **worst,
+    return {"steps": MAX_LEN, "bar": agree.__name__, **worst,
             "planted_faults_caught": faults_caught}
 
 
@@ -557,9 +786,10 @@ def _swap_if(w, hp):
     return torch.cat([f, i, g, o], dim=-1).contiguous()
 
 
-def _cuda_kernels(fn) -> int:
-    """The CUDA kernels of csrc/megastep.cu that one call of ``fn``
-    launches, counted by torch.profiler."""
+def _cuda_kernels(fn, keys=("gemm_kernel", "scores_kernel")) -> int:
+    """The CUDA kernels whose names hold one of ``keys`` (by default those
+    of csrc/megastep.cu) that one call of ``fn`` launches, counted by
+    torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -570,7 +800,7 @@ def _cuda_kernels(fn) -> int:
         torch.cuda.synchronize()
     return sum(ev.count for ev in prof.key_averages()
                if ev.device_type == DeviceType.CUDA
-               and ("gemm_kernel" in ev.key or "scores_kernel" in ev.key))
+               and any(key in ev.key for key in keys))
 
 
 def _cell_bound(name, N, B, E, H, A, F, R, T) -> dict:
@@ -793,14 +1023,14 @@ def _check_cell_steps(mod, mc, params, ctx_k, hyps, fields, start_id):
             "planted_faults_caught": caught}
 
 
-def _timed_decodes(decodes, batch, params_of, runs=3) -> dict:
-    """captions/s of each named decode, ``runs`` times in turns (a, b,
-    a, b, ...) in one call; median, runs and spread."""
+def _timed_decodes(decodes, batch_of, params, runs=3) -> dict:
+    """captions/s of each named decode on its batch, ``runs`` times in
+    turns (a, b, a, b, ...) in one call; median, runs and spread."""
     out = {name: [] for name in decodes}
     for _ in range(runs):
         for name, fn in decodes.items():
             t0 = time.perf_counter()
-            fn(params_of[name], *batch).cpu()
+            fn(params, *batch_of[name]).cpu()
             out[name].append(N_IMAGES / (time.perf_counter() - t0))
     return {name: {"captions_per_s": statistics.median(r), "runs": r,
                    "spread_pct": 100.0 * (max(r) - min(r))
@@ -841,8 +1071,8 @@ def _decode_pair(cfg, model, params, vocab, wrappers, path_names):
           f"tokens {tuple(tokens.shape)}")
     check(bool(((tokens >= 0) & (tokens < cfg.model.vocab_size)).all()),
           "token ids out of range")
-    timed = _timed_decodes({"pallas": decode, "xla": plain_decode}, batch,
-                           {"pallas": params, "xla": params})
+    timed = _timed_decodes({"pallas": decode, "xla": plain_decode},
+                           {"pallas": batch, "xla": batch}, params)
     plain = plain_decode(params, *batch).cpu()
     token_agree = float((tokens == plain).float().mean())
     # Both sum the same bf16 products in other orders, so a near-tie may
@@ -914,6 +1144,147 @@ def phase_dcnet(setup, wrappers, card):
     return result, serve
 
 
+def _reset(wrappers) -> None:
+    for w in wrappers:
+        w.launches = 0
+
+
+def phase_int8(ed, dc, wrappers, card):
+    """The int8 serving path: editnet_beam5 with model.head_quant=int8
+    and decode.feed_dtype=int8, served, decoded (beside the float default
+    path in turns), its head checked step by step and profiled; then the
+    thresh extraction and the sweep on the decode, and dcnet_beam5 served
+    with the int8 head."""
+    import torch
+
+    from captionkit_torch.data.featquant import (
+        dequantize_for_feed,
+        feed_to_device,
+        quantize_for_feed,
+    )
+    from captionkit_torch.decode import make_decode_fn
+    from captionkit_torch.kernels import head as thead
+    from captionkit_torch.models import get_model
+
+    cfg, model, params, vocab = ed
+    int8 = {"model.head_quant": "int8", "decode.feed_dtype": "int8"}
+    cfg8 = cfg.override(int8)
+    model8 = get_model(cfg8.model)
+    serve = phase_serve(cfg8, model8, params, vocab, wrappers,
+                        ("fused_head_topk_int8",), phase="int8_serve")
+
+    feats, existing, existing_len = _batch(cfg.model)
+    t0 = time.perf_counter()
+    staged = quantize_for_feed(feats.numpy(), "int8")
+    host_quantize_ms = 1e3 * (time.perf_counter() - t0)
+    batch8 = (staged, existing, existing_len)
+    batchf = (feats, existing, existing_len)
+    kw = dict(start_id=vocab.start, end_id=-1, pad_id=vocab.pad,
+              device="cuda")
+    dec8 = make_decode_fn(model8, cfg8.decode, **kw)
+    decf = make_decode_fn(model, cfg.decode, **kw)
+    decf(params, *batchf).cpu()  # warm-up
+    dec8(params, *batch8).cpu()
+    _reset(wrappers)
+    tokens8 = dec8(params, *batch8).cpu()
+    per_batch = {w.__name__: w.launches for w in wrappers}
+    check(per_batch["fused_head_topk_int8"] == MAX_LEN,
+          f"{per_batch} int8 head launches for one batch, expected "
+          f"{MAX_LEN}")
+    check(per_batch["fused_head_topk"] == 0, "the int8 decode launched the "
+                                             "float head")
+    check(tuple(tokens8.shape) == (N_IMAGES, MAX_LEN)
+          and bool(((tokens8 >= 0) & (tokens8 < cfg.model.vocab_size)).all()),
+          "int8 tokens of the wrong shape or out of range")
+    timed = _timed_decodes({"int8": dec8, "float": decf},
+                           {"int8": batch8, "float": batchf}, params)
+    tokensf = decf(params, *batchf).cpu()
+    agree = float((tokens8 == tokensf).float().mean())
+    inputs8 = (dequantize_for_feed(feed_to_device(staged, "cuda"), "int8"),
+               existing.cuda(), existing_len.cuda())
+    steps8 = _check_steps(model8, params, inputs8, kw,
+                          plain=_int8_plain_head, agree=int8_agreement)
+    prof8 = _profile(lambda: dec8(params, *batch8).cpu())
+    proff = _profile(lambda: decf(params, *batchf).cpu())
+    for prof, name in ((prof8, "int8"), (proff, "float")):
+        prof["busy_share_of_timed_wall"] = prof["device_ms"] / (
+            1e3 * N_IMAGES / timed[name]["captions_per_s"])
+    # The feed's host->device copy alone (pageable memory, as the decode
+    # function makes it), timed with CUDA events: torch.profiler records
+    # the copy only in the first profile taken in a process.
+    h2d_ms = {name: time_ms(lambda: feed_to_device(feed, "cuda"), iters=5,
+                            warm=1)
+              for name, feed in (("int8", staged), ("fp32", feats))}
+
+    # head_extract="thresh": the same tokens as "mask", int8 and float.
+    thresh = {}
+    for name, c, dec_mask, toks, batch in (
+            ("int8", cfg8, dec8, tokens8, batch8),
+            ("float", cfg, decf, tokensf, batchf)):
+        ct = c.override({"model.head_extract": "thresh"})
+        dec_t = make_decode_fn(get_model(ct.model), ct.decode, **kw)
+        dec_t(params, *batch).cpu()  # warm-up
+        _reset(wrappers)
+        toks_t = dec_t(params, *batch).cpu()
+        thresh[name] = {"launches": {w.__name__: w.launches
+                                     for w in wrappers},
+                        "tokens_identical": bool(torch.equal(toks_t, toks))}
+        check(thresh[name]["tokens_identical"],
+              f"{name} head: thresh tokens differ from mask tokens")
+    check(thresh["float"]["launches"]["fused_head_topk_thresh"] == MAX_LEN,
+          f"float thresh decode: {thresh['float']['launches']}")
+    check(thresh["int8"]["launches"]["fused_head_topk_int8"] == MAX_LEN,
+          f"int8 thresh decode: {thresh['int8']['launches']}")
+
+    # The single sweep (CAPTIONKIT_HEAD_SWEEP, read at import: set here on
+    # the module for one decode and its steps check).
+    thead.SWEEP = True
+    try:
+        decf(params, *batchf).cpu()  # warm-up
+        _reset(wrappers)
+        toks_sw = decf(params, *batchf).cpu()
+        sweep_launches = {w.__name__: w.launches for w in wrappers}
+        check(sweep_launches["head_sweep_topk"] == MAX_LEN
+              and sweep_launches["fused_head_topk"] == 0,
+              f"sweep decode: {sweep_launches}")
+        sweep_steps = _check_steps(model, params,
+                                   [t.cuda() for t in batchf], kw)
+    finally:
+        thead.SWEEP = False
+    sweep_agree = float((toks_sw == tokensf).float().mean())
+    check(sweep_agree >= 0.5, f"sweep tokens agree with the tiled head's "
+                              f"on {sweep_agree} < 0.5")
+
+    dcfg, _, dparams, dvocab = dc
+    dcfg8 = dcfg.override(int8)
+    dserve = phase_serve(dcfg8, get_model(dcfg8.model), dparams, dvocab,
+                         wrappers, ("fused_head_topk_int8", "dcnet_score",
+                                    "dcnet_cell"), phase="dcnet_int8_serve")
+    result = {
+        "phase": "int8", "ok": True, "card": card, "config": cfg8.name,
+        "sets": int8, "batch": N_IMAGES, "beam": BEAM, "steps": MAX_LEN,
+        "launches_per_batch": per_batch,
+        "captions_per_s": timed["int8"]["captions_per_s"],
+        "runs": timed["int8"]["runs"],
+        "spread_pct": timed["int8"]["spread_pct"],
+        "float_head_fp32_feed": timed["float"],
+        "token_agreement_with_float": agree,
+        "row_agreement_with_float": float(
+            (tokens8 == tokensf).all(dim=1).float().mean()),
+        "host_quantize_ms": host_quantize_ms,
+        "feed_mbytes": {"int8": (staged[0].numel() + 4 * staged[1].numel())
+                        / 1e6, "fp32": 4 * feats.numel() / 1e6},
+        "h2d_ms": h2d_ms,
+        "steps_check": steps8, "profile": prof8, "float_profile": proff,
+        "thresh": thresh,
+        "sweep": {"launches": sweep_launches, "steps_check": sweep_steps,
+                  "token_agreement_with_tiled": sweep_agree},
+        "dcnet_serve_launches": dserve["launches"],
+    }
+    emit(result)
+    return result, serve
+
+
 def main() -> int:
     if not (ROOT / "captionkit_torch" / "csrc").is_dir():
         print("chip_smoke.py: no captionkit_torch package beside it",
@@ -928,6 +1299,8 @@ def main() -> int:
         phase_build()
         phase = "head"
         head = phase_head()
+        phase = "head_variants"
+        variants = phase_head_variants()
         phase = "setup"
         from captionkit_torch.kernels import WRAPPERS
 
@@ -949,6 +1322,8 @@ def main() -> int:
                                    vocab, WRAPPERS, card)
         phase = "dcnet"
         dcn, dserve = phase_dcnet(dc, WRAPPERS, card)
+        phase = "int8"
+        int8, iserve = phase_int8(ed, dc, WRAPPERS, card)
     except Exception as e:  # every failed phase ends the run non-zero
         traceback.print_exc()
         emit({"phase": phase, "ok": False,
@@ -1002,6 +1377,49 @@ def main() -> int:
             "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"],
             "library_ms": None,
+        })
+    # The rest of the head family: thresh from the float thresh decode,
+    # the sweep from the sweep decode, int8 from the int8 server.
+    family = {
+        "fused_head_topk_thresh": (
+            "captionkit/ops/head.py:490",
+            int8["thresh"]["float"]["launches"]["fused_head_topk_thresh"],
+            int8["thresh"]["float"]["launches"]["fused_head_topk_thresh"],
+            0.0),
+        "head_sweep_topk": (
+            "captionkit/ops/head.py:385",
+            int8["sweep"]["launches"]["head_sweep_topk"],
+            int8["sweep"]["launches"]["head_sweep_topk"],
+            max(int8["sweep"]["steps_check"]["vals_max_abs_err"],
+                int8["sweep"]["steps_check"]["lse_max_abs_err"])),
+        "fused_head_topk_int8": (
+            "captionkit/ops/head.py:597",
+            iserve["launches"]["fused_head_topk_int8"],
+            int8["launches_per_batch"]["fused_head_topk_int8"],
+            max(int8["steps_check"]["vals_max_abs_err"],
+                int8["steps_check"]["lse_max_abs_err"])),
+    }
+    for name, (replaces_at, launches, per_batch_n, steps_err) in \
+            family.items():
+        res = variants["kernels"][name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": ("captionkit_torch/csrc/head_int8.cu"
+                       if name.endswith("int8")
+                       else "captionkit_torch/csrc/head_topk.cu"),
+            "replaces": replaces_at,
+            "launches": launches,
+            "launches_per_batch": per_batch_n,
+            "cuda_launches_per_call": res["cuda_launches_per_call"],
+            "check": "ok",
+            "max_abs_err": max(res["vals_max_abs_err"],
+                               res["lse_max_abs_err"], steps_err),
+            "ms": res["ms"],
+            "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"],
+            "library_ms": res["library_ms"],
         })
     emit({"kernels": kernels})
     print(info["nvidia_smi"], flush=True)

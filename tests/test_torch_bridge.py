@@ -86,6 +86,7 @@ def test_port_imports_no_jax_and_nothing_of_captionkit():
     assert "captionkit_torch.kernels.head" in modules
     assert "captionkit_torch.kernels.megastep" in modules
     assert "captionkit_torch.models.dcnet" in modules
+    assert "captionkit_torch.data.featquant" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

@@ -276,7 +276,13 @@ def test_cli_serve_dcnet_random_weights(monkeypatch, capsys):
 
 
 def test_unported_dcnet_options_raise():
-    for kw in ({"cell_impl": "wholestep"}, {"head_quant": "int8"},
-               {"head_extract": "thresh"}):
-        with pytest.raises(NotImplementedError):
-            get_model(dataclasses.replace(ModelConfig(arch="dcnet"), **kw))
+    with pytest.raises(NotImplementedError):
+        get_model(dataclasses.replace(ModelConfig(arch="dcnet"),
+                                      cell_impl="wholestep"))
+    # The int8 head (with its DCNet warning) and thresh extraction build.
+    with pytest.warns(UserWarning, match="head_quant='int8' with "
+                                         "arch='dcnet'"):
+        cfg = ModelConfig(arch="dcnet", head_quant="int8")
+    assert get_model(cfg).name == "dcnet"
+    assert get_model(ModelConfig(arch="dcnet",
+                                 head_extract="thresh")).name == "dcnet"

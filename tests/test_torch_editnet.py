@@ -135,10 +135,26 @@ def test_plain_head_config_matches_fused_head_on_cpu():
 
 
 def test_unported_options_raise():
-    for kw in ({"cell_impl": "wholestep"}, {"head_quant": "int8"},
+    with pytest.raises(NotImplementedError):
+        get_model(dataclasses.replace(ModelConfig(), cell_impl="wholestep"))
+    # The fused cells, the int8 head, the thresh extraction and DCNet build.
+    for kw in ({"cell_impl": "pallas"}, {"head_quant": "int8"},
                {"head_extract": "thresh"}):
-        with pytest.raises(NotImplementedError):
-            get_model(dataclasses.replace(ModelConfig(), **kw))
-    # The fused cells and DCNet build.
-    assert get_model(ModelConfig(cell_impl="pallas")).name == "editnet"
+        assert get_model(ModelConfig(**kw)).name == "editnet"
     assert get_model(ModelConfig(arch="dcnet")).name == "dcnet"
+
+
+@pytest.mark.parametrize("arch", ["editnet", "dcnet"])
+def test_init_defaults_to_the_card(arch):
+    """``ModelDef.init(seed)`` builds the weights on the card and raises
+    where there is none; the CPU is used only when the caller names it."""
+    model = get_model(dataclasses.replace(ModelConfig(arch=arch), **SMALL))
+    if torch.cuda.is_available():
+        assert model.init(0).fc_w.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            model.init(0)
+    params = model.init(0, "cpu")
+    assert params.fc_w.device.type == "cpu"
+    assert tuple(params.fc_w.shape) == (SMALL["hidden_dim"],
+                                        SMALL["vocab_size"])

@@ -1,12 +1,19 @@
 """The port's vocab head (``captionkit_torch.kernels.head``) against
-``captionkit.ops.head`` on the CPU (the CUDA kernel against its plain
-version on a card is in test_torch_card.py).
+``captionkit.ops.head`` on the CPU (the CUDA kernels against their plain
+versions on a card are in test_torch_card.py): both extractions
+(``extract="mask"``, ``"thresh"``) and the single sweep
+(``CAPTIONKIT_HEAD_SWEEP``). The int8 head is in test_torch_head_int8.py.
 
-On the CPU ``fused_head_topk`` takes its plain version; the JAX side runs
-the Pallas kernel in interpret mode, as its own tests do. Indices must be
+On the CPU every wrapper takes its plain version; the JAX side runs the
+Pallas kernel in interpret mode, as its own tests do. Indices must be
 equal; values and log-sum-exp within atol 1e-5 (fp32 sums of the same
 products in different orders). The tie patterns are exact in every dtype.
 """
+
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -78,14 +85,70 @@ def _adversarial():
     return np.eye(N, dtype=np.float32), pat, np.zeros((V,), np.float32)
 
 
-def test_adversarial_duplicates():
+@pytest.mark.parametrize("extract", ["mask", "thresh"])
+def test_adversarial_duplicates(extract):
     h, w, b = _adversarial()
     (jh, jw, jb), (th, tw, tb) = _both(h, w, b)
-    got = thead.fused_head_topk(th, tw, tb, k=5)
+    before = (thead.fused_head_topk.launches,
+              thead.fused_head_topk_thresh.launches)
+    got = thead.fused_head_topk(th, tw, tb, k=5, extract=extract)
+    assert (thead.fused_head_topk.launches,
+            thead.fused_head_topk_thresh.launches) == before  # CPU
     _assert_same(jhead.fused_head_topk(jh, jw, jb, k=5, interpret=True,
-                                       tiles=(8, 128)), got, atol=1e-6)
+                                       tiles=(8, 128), extract=extract),
+                 got, atol=1e-6)
     assert got[1][0].tolist() == [7, 130, 300, 12, 260]
     assert got[1][4].tolist()[:3] == [10, 200, 210]
+    thresh = thead.fused_head_topk_thresh(th, tw, tb, k=5)
+    assert all(torch.equal(a, r) for a, r in zip(thresh, got))
+
+
+@pytest.mark.parametrize("N,H,V,k", [(16, 32, 300, 5), (40, 48, 1000, 3)])
+def test_sweep_matches_pallas_interpret(N, H, V, k):
+    """``head_sweep_topk`` against the reference's ``_sweep_head_topk``."""
+    rng = np.random.default_rng(N * V)
+    h = rng.standard_normal((N, H)).astype(np.float32)
+    w = rng.standard_normal((H, V)).astype(np.float32)
+    b = rng.standard_normal((V,)).astype(np.float32)
+    (jh, jw, jb), (th, tw, tb) = _both(h, w, b)
+    before = thead.head_sweep_topk.launches
+    got = thead.head_sweep_topk(th, tw, tb, k=k)
+    assert thead.head_sweep_topk.launches == before  # CPU: no kernel
+    _assert_same(jhead._sweep_head_topk(jh, jw, jb, k=k,
+                                        compute_dtype=jnp.float32,
+                                        interpret=True), got)
+
+
+def test_sweep_flag_routes_the_head(monkeypatch):
+    """With SWEEP set, ``fused_head_topk`` runs the sweep whatever the
+    extraction; the flag is read from CAPTIONKIT_HEAD_SWEEP at import."""
+    h, w, b = _adversarial()
+    th, tw, tb = (torch.from_numpy(x) for x in (h, w, b))
+    called = []
+
+    def sweep(*a, **kw):
+        called.append(kw["k"])
+        return thead.reference_head_topk(*a, kw["k"])
+
+    monkeypatch.setattr(thead, "head_sweep_topk", sweep)
+    monkeypatch.setattr(thead, "SWEEP", True)
+    thead.fused_head_topk(th, tw, tb, k=5, extract="thresh")
+    thead.fused_head_topk(th, tw, tb, k=3)
+    assert called == [5, 3]
+    code = ("import captionkit_torch.kernels.head as h; "
+            "print(h.SWEEP)")
+    env = dict(os.environ, CAPTIONKIT_HEAD_SWEEP="1")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         cwd=Path(__file__).resolve().parent.parent,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip() == "True", out.stderr[-2000:]
+
+
+def test_unknown_extract_raises():
+    h, w, b = _adversarial()
+    th, tw, tb = (torch.from_numpy(x) for x in (h, w, b))
+    with pytest.raises(ValueError, match="extract"):
+        thead.fused_head_topk(th, tw, tb, k=5, extract="sort")
 
 
 def test_prepad_head_pads_with_head_constant():

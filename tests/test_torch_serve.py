@@ -229,10 +229,14 @@ def test_unported_decode_options_raise(both):
         dc = tcfg.override({"decode.method": method}).decode
         with pytest.raises(NotImplementedError, match="not yet ported"):
             make_decode_fn(tm, dc, start_id=2, end_id=3, device="cpu")
+    dc = tcfg.override({"decode.beam_size": 1}).decode
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        make_decode_fn(tm, dc, start_id=2, end_id=3, device="cpu")
+    # The int8 feed is ported: decode_split stages it and answers.
     dc = tcfg.override({"decode.feed_dtype": "int8"}).decode
-    with pytest.raises(NotImplementedError, match="int8"):
-        decode_split(tm, tp, _source(SyntheticCaptionSource).eval_view(), dc,
-                     device="cpu")
+    hyps, _ = decode_split(tm, tp, _source(SyntheticCaptionSource)
+                           .eval_view(), dc, device="cpu")
+    assert sorted(hyps) == [0, 1]
 
 
 def test_bf16_feed_same_captions_as_jax(both):
