@@ -10,22 +10,28 @@
     python -m captionkit_torch.cli serve --config editnet_beam5 --synthetic \\
         --set model.head_quant=int8 --set decode.feed_dtype=int8 \\
         [--set model.head_extract=thresh]
+    python -m captionkit_torch.cli serve --config editnet_greedy --synthetic
+    python -m captionkit_torch.cli serve --config editnet_beam5 --synthetic \\
+        --set model.cell_impl=wholestep
 
-Both beam configs serve: ``editnet_beam5`` and ``dcnet_beam5`` (DCNet's
-textual encoder reads the caption only; requests still carry features,
-which it ignores, as in the reference). ``--set model.cell_impl=pallas``
-runs the fused decode-cell kernels (``kernels/megastep.py``) in place of
-the plain cells. ``--set model.head_quant=int8`` runs the int8 vocab-head
-kernel, ``--set decode.feed_dtype=int8`` ships the features to the card
-quantized per region (dequantized there), and ``--set
-model.head_extract=thresh`` picks the heads' read-only top-k extraction
-(the same captions). ``--params`` takes the flat ``.npz`` that either
-package's ``save_params_npz`` writes, for the config's arch; without it
-the weights are random from ``--seed``. ``--device`` defaults to ``cuda``
-and raises when there is no card; ``--device cpu`` runs the plain versions
-of the kernels on the CPU. The reference's other subcommands (greedy
-decoding among them), ``--stacked``, checkpoint ensembles and
-``cell_impl="wholestep"`` are not yet ported.
+Every named decode config serves: the beam configs ``editnet_beam5`` and
+``dcnet_beam5`` and the greedy ones ``editnet_greedy`` and
+``dcnet_greedy`` (``--set decode.method=sample`` samples; DCNet's textual
+encoder reads the caption only; requests still carry features, which it
+ignores, as in the reference). ``--set model.cell_impl=pallas`` runs the
+fused decode-cell kernels (``kernels/megastep.py``) in place of the plain
+cells, ``--set model.cell_impl=wholestep`` (EditNet beam, float head) the
+whole-step kernel (``kernels/wholestep.py``). ``--set
+model.head_quant=int8`` runs the int8 vocab-head kernel, ``--set
+decode.feed_dtype=int8`` ships the features to the card quantized per
+region (dequantized there), and ``--set model.head_extract=thresh`` picks
+the heads' read-only top-k extraction (the same captions). ``--params``
+takes the flat ``.npz`` that either package's ``save_params_npz`` writes,
+for the config's arch; without it the weights are random from ``--seed``.
+``--device`` defaults to ``cuda`` and raises when there is no card;
+``--device cpu`` runs the plain versions of the kernels on the CPU. The
+reference's other subcommands, ``--stacked`` and checkpoint ensembles are
+not yet ported.
 """
 
 from __future__ import annotations

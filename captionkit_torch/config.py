@@ -4,8 +4,7 @@ Field names, defaults and the ``NAMED_CONFIGS`` table are the same as in
 ``captionkit.utils.config`` so that one named config means one model on
 both sides. The knobs that select TPU kernels (``head_impl``,
 ``cell_impl``, ``head_quant``, ``head_extract``) are kept with their
-values; the port accepts the ones it has ported and raises on the rest
-at the point of use.
+values and select the port's hand-written counterparts.
 """
 
 from __future__ import annotations

@@ -1,0 +1,363 @@
+// Shared pieces of the decode-cell kernels (megastep.cu, lstm.cu,
+// attention.cu, wholestep.cu): the split-operand GEMM tile with its gated
+// (LSTM, Copy-LSTM) and plain epilogues.
+//
+// gemm_tile<G, EPI, NT>: one block accumulates a 64-row tile against G
+// column groups of 32 with bf16 tensor-core MMA (nvcuda::wmma, fp32
+// accumulation), 2 (rows) x G (column groups) warps of a block of NT >= 64 G
+// threads; the other warps help load and run the epilogue. The operands
+// are successive K ranges of one accumulation, so a split operand ([x | h |
+// c*], [v_hat | h_att | h_lang | c*]) never exists concatenated in device
+// memory. fp32 operands are rounded to bf16 as they are loaded, as the
+// reference rounds them before its products.
+//
+// In the gated epilogues a block owns hidden columns [j, j+32) and its
+// column groups are the i, f, g, o (and copy-gate r) tiles of those
+// columns, read straight from gate-major [K, 4H] weights; the LSTM update
+// runs on the tile in shared memory and the gate pre-activations are never
+// written out. EPI_NONE leaves the fp32 tile in shared memory for the
+// caller's own epilogue (the whole-step kernel's vocab head).
+//
+// Everything lives in namespace `cell`, so a source can include this and
+// head_common.cuh side by side.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+#include <cmath>
+#include <cstdint>
+
+namespace {
+namespace cell {
+
+using namespace nvcuda;
+
+constexpr int BM = 64;       // rows per tile
+constexpr int BN = 32;       // columns per group (one gate tile)
+constexpr int BK = 32;       // depth of one shared-memory stage
+constexpr int LDA = BK + 8;  // shared-memory strides, in elements
+constexpr int MAX_OPS = 4;
+
+enum Epilogue : int {
+  EPI_LSTM = 0,       // 4 gate groups; h, c = LSTM(z + zadd + bias, c_prev)
+  EPI_COPY_LSTM = 1,  // 5 gate groups (i f g o r); the Copy-LSTM update
+  EPI_GATE_MUL = 2,   // out bf16 = sigmoid(z + bias) * x
+  EPI_STORE = 3,      // out fp32 = z
+  EPI_NONE = 4,       // the fp32 tile stays in shared memory
+};
+
+struct Operand {
+  const void* a;  // [N, k] row-major, fp32 (a_f32) or bf16
+  int a_f32;
+  int k;  // a multiple of BK
+  // Gated epilogues: [k, 4 cols] gate-major (i|f|g|o), or null when this
+  // operand does not feed those gates. Plain epilogues: [k, cols].
+  const __nv_bfloat16* w_gates;
+  const __nv_bfloat16* w_copy;  // EPI_COPY_LSTM: [k, cols], or null
+};
+
+struct GemmArgs {
+  Operand op[MAX_OPS];
+  int n_ops;
+  int N;
+  int cols;            // hidden width H (gated) or output width (plain)
+  const float* zadd;   // EPI_LSTM: [N, 4 cols] added to z, or null
+  const float* bias;   // [4 cols] (gated) or [cols] (EPI_GATE_MUL), or null
+  const float* bias_r;      // EPI_COPY_LSTM: [cols]
+  const float* c_prev;      // gated: [N, cols]
+  const float* c_star;      // EPI_COPY_LSTM: [N, cols]
+  const float* x;           // EPI_GATE_MUL: [N, cols]
+  int x_round;              // EPI_GATE_MUL: round x to bf16 first
+  float* h_out;             // gated: [N, cols]
+  float* c_out;             // gated: [N, cols]
+  __nv_bfloat16* h_bf16;    // gated: h rounded to bf16 [N, cols], or null
+  void* out;                // EPI_GATE_MUL bf16 / EPI_STORE fp32 [N, cols]
+};
+
+__device__ __forceinline__ float sigmoidf(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ unsigned pack2(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&p);
+}
+
+// Eight fp32 values rounded to bf16, as one 16-byte vector.
+__device__ __forceinline__ uint4 round8(const float* src) {
+  const float4 lo = *reinterpret_cast<const float4*>(src);
+  const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+  return make_uint4(pack2(lo.x, lo.y), pack2(lo.z, lo.w), pack2(hi.x, hi.y),
+                    pack2(hi.z, hi.w));
+}
+
+// The fp32 result tile's row stride (elements) and the shared memory a
+// tile of G column groups needs: the operand tiles and, after the
+// products, the fp32 result tile share one buffer.
+template <int G>
+__host__ __device__ constexpr int tile_ldc() {
+  return G * BN + 4;
+}
+
+template <int G>
+__host__ __device__ constexpr int tile_smem() {
+  return (BM * LDA + BK * (G * BN + 8)) * 2 > BM * tile_ldc<G>() * 4
+             ? (BM * LDA + BK * (G * BN + 8)) * 2
+             : BM * tile_ldc<G>() * 4;
+}
+
+// One tile: rows [row0, row0 + 64), column block nb (hidden columns
+// [32 nb, 32 nb + 32) of every gate group when gated, else output columns
+// [32 G nb, 32 G (nb + 1))). Every thread of the block calls it; it ends
+// with the block synchronised after the fp32 tile is in shared memory (and,
+// unless EPI_NONE, after the epilogue's writes were issued). The caller
+// synchronises before the next tile reuses `smem`.
+template <int G, int EPI, int NT>
+__device__ __forceinline__ void gemm_tile(const GemmArgs& args, int nb,
+                                          int row0, unsigned char* smem) {
+  constexpr int TN = G * BN;  // tile columns
+  constexpr int LDB = TN + 8;
+  constexpr int LDC = tile_ldc<G>();
+  constexpr bool GATED = (EPI == EPI_LSTM || EPI == EPI_COPY_LSTM);
+  static_assert(NT >= 64 * G, "a tile needs 2 x G warps");
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Bs = As + BM * LDA;
+  float* Cs = reinterpret_cast<float*>(smem);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const bool mma_warp = warp < 2 * G;
+  const int wr = warp / G;  // warp's 32-row band
+  const int wc = warp % G;  // warp's 32-column group
+  const int N = args.N;
+  const int cols = args.cols;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+  for (int s = 0; s < args.n_ops; ++s) {
+    const Operand op = args.op[s];
+    // A gated operand may feed only some gate groups (c* feeds only r).
+    const bool active =
+        mma_warp &&
+        (!GATED || (wc < 4 ? op.w_gates != nullptr : op.w_copy != nullptr));
+    for (int k0 = 0; k0 < op.k; k0 += BK) {
+      for (int v = tid; v < BM * BK / 8; v += NT) {  // A tile
+        const int r = v / (BK / 8);
+        const int c = (v % (BK / 8)) * 8;
+        const int gr = row0 + r;
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if (gr < N) {
+          const size_t off = (size_t)gr * op.k + k0 + c;
+          val = op.a_f32
+                    ? round8(static_cast<const float*>(op.a) + off)
+                    : *reinterpret_cast<const uint4*>(
+                          static_cast<const __nv_bfloat16*>(op.a) + off);
+        }
+        *reinterpret_cast<uint4*>(As + r * LDA + c) = val;
+      }
+      for (int v = tid; v < BK * TN / 8; v += NT) {  // weight tile
+        const int r = v / (TN / 8);
+        const int t = (v % (TN / 8)) * 8;
+        const size_t krow = (size_t)(k0 + r);
+        const __nv_bfloat16* src = nullptr;
+        if (GATED) {
+          const int g = t / BN;
+          const int col = nb * BN + t % BN;
+          if (g < 4) {
+            if (op.w_gates) src = op.w_gates + krow * 4 * cols + g * cols + col;
+          } else if (op.w_copy) {
+            src = op.w_copy + krow * cols + col;
+          }
+        } else {
+          src = op.w_gates + krow * cols + nb * TN + t;
+        }
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if (src) val = *reinterpret_cast<const uint4*>(src);
+        *reinterpret_cast<uint4*>(Bs + r * LDB + t) = val;
+      }
+      __syncthreads();
+      if (active) {
+#pragma unroll
+        for (int kk = 0; kk < BK; kk += 16) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                         wmma::row_major> a[2];
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                         wmma::row_major> b[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            wmma::load_matrix_sync(a[i], As + (wr * 32 + i * 16) * LDA + kk,
+                                   LDA);
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            wmma::load_matrix_sync(b[j], Bs + kk * LDB + wc * 32 + j * 16,
+                                   LDB);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+        }
+      }
+      __syncthreads();
+    }
+  }
+  if (mma_warp) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::store_matrix_sync(
+            Cs + (wr * 32 + i * 16) * LDC + wc * 32 + j * 16, acc[i][j], LDC,
+            wmma::mem_row_major);
+  }
+  __syncthreads();
+
+  if (GATED) {
+    for (int e = tid; e < BM * BN; e += NT) {
+      const int r = e / BN;
+      const int c = e % BN;
+      const int gr = row0 + r;
+      if (gr >= N) continue;
+      const int j = nb * BN + c;
+      const float* cr = Cs + r * LDC;
+      float zi = cr[c], zf = cr[BN + c], zg = cr[2 * BN + c],
+            zo = cr[3 * BN + c];
+      if (args.zadd) {
+        const float* za = args.zadd + (size_t)gr * 4 * cols;
+        zi += za[j];
+        zf += za[cols + j];
+        zg += za[2 * cols + j];
+        zo += za[3 * cols + j];
+      }
+      if (args.bias) {
+        zi += args.bias[j];
+        zf += args.bias[cols + j];
+        zg += args.bias[2 * cols + j];
+        zo += args.bias[3 * cols + j];
+      }
+      const size_t idx = (size_t)gr * cols + j;
+      float c_new = sigmoidf(zf) * args.c_prev[idx] + sigmoidf(zi) * tanhf(zg);
+      if (EPI == EPI_COPY_LSTM) {
+        const float rg = sigmoidf(cr[4 * BN + c] + args.bias_r[j]);
+        c_new = rg * args.c_star[idx] + (1.0f - rg) * c_new;
+      }
+      const float h_new = sigmoidf(zo) * tanhf(c_new);
+      args.h_out[idx] = h_new;
+      args.c_out[idx] = c_new;
+      if (args.h_bf16) args.h_bf16[idx] = __float2bfloat16_rn(h_new);
+    }
+  } else if (EPI != EPI_NONE) {
+    for (int e = tid; e < BM * TN; e += NT) {
+      const int r = e / TN;
+      const int c = e % TN;
+      const int gr = row0 + r;
+      if (gr >= N) continue;
+      const int col = nb * TN + c;
+      const size_t idx = (size_t)gr * cols + col;
+      const float z = Cs[r * LDC + c];
+      if (EPI == EPI_GATE_MUL) {
+        float x = args.x[idx];
+        if (args.x_round) x = __bfloat162float(__float2bfloat16_rn(x));
+        static_cast<__nv_bfloat16*>(args.out)[idx] =
+            __float2bfloat16_rn(sigmoidf(z + args.bias[col]) * x);
+      } else {
+        static_cast<float*>(args.out)[idx] = z;
+      }
+    }
+  }
+}
+
+// One tile per block: grid = (column blocks, 64-row blocks). The gated
+// epilogues leave the register count to the compiler (64 for the
+// Copy-LSTM, ~100 for the LSTM). The plain ones ask for four resident
+// blocks per SM, which holds them to 64 registers; left alone the
+// compiler gives them 100 and they run slower (PERF.md). Naming a
+// minimum of one block for the gated ones is not the same as naming none:
+// it moves the Copy-LSTM to 86 registers, also slower.
+template <int G, int EPI>
+__global__ void __launch_bounds__(64 * G)
+    gemm_kernel(const __grid_constant__ GemmArgs args) {
+  __shared__ __align__(128) unsigned char smem[tile_smem<G>()];
+  gemm_tile<G, EPI, 64 * G>(args, blockIdx.x, blockIdx.y * BM, smem);
+}
+
+template <int G, int EPI>
+__global__ void __launch_bounds__(64 * G, 4)
+    gemm_kernel_plain(const __grid_constant__ GemmArgs args) {
+  __shared__ __align__(128) unsigned char smem[tile_smem<G>()];
+  gemm_tile<G, EPI, 64 * G>(args, blockIdx.x, blockIdx.y * BM, smem);
+}
+
+// Column blocks of a GEMM: gated widths are multiples of BN, plain output
+// widths of G BN.
+template <int G, int EPI>
+__host__ __device__ constexpr int column_width() {
+  return (EPI == EPI_LSTM || EPI == EPI_COPY_LSTM) ? BN : G * BN;
+}
+
+// Shape checks of a GEMM's arguments; cudaSuccess when it can run.
+template <int G, int EPI>
+cudaError_t check_gemm(const GemmArgs& a) {
+  for (int i = 0; i < a.n_ops; ++i)
+    if (a.op[i].k < BK || a.op[i].k % BK) return cudaErrorInvalidValue;
+  const int width = column_width<G, EPI>();
+  if (a.N < 1 || a.cols < width || a.cols % width)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+template <int G, int EPI>
+cudaError_t launch_gemm(const GemmArgs& a, cudaStream_t s) {
+  const cudaError_t err = check_gemm<G, EPI>(a);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.cols / column_width<G, EPI>(), (a.N + BM - 1) / BM);
+  if constexpr (EPI == EPI_LSTM || EPI == EPI_COPY_LSTM)
+    gemm_kernel<G, EPI><<<grid, 64 * G, 0, s>>>(a);
+  else
+    gemm_kernel_plain<G, EPI><<<grid, 64 * G, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+inline Operand operand(const void* a, int a_f32, int k, const void* w_gates,
+                       const void* w_copy = nullptr) {
+  Operand o;
+  o.a = a;
+  o.a_f32 = a_f32;
+  o.k = k;
+  o.w_gates = static_cast<const __nv_bfloat16*>(w_gates);
+  o.w_copy = static_cast<const __nv_bfloat16*>(w_copy);
+  return o;
+}
+
+inline GemmArgs gemm_args(int N, int cols) {
+  GemmArgs g = {};
+  g.N = N;
+  g.cols = cols;
+  return g;
+}
+
+inline const float* f32(const void* p) { return static_cast<const float*>(p); }
+
+}  // namespace cell
+}  // namespace

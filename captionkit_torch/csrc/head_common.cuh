@@ -1,7 +1,7 @@
-// Shared pieces of the vocab-head kernels (head_topk.cu, head_int8.cu):
-// the (value descending, vocab id ascending) order, the per-row top-k of a
-// 128-column logits tile in its two extractions, and pass 2, the merge of
-// the tiles' partial results.
+// Shared pieces of the vocab-head kernels (head_topk.cu, head_int8.cu,
+// wholestep.cu): the (value descending, vocab id ascending) order, the
+// per-row top-k of a 128-column logits tile in its two extractions, and
+// pass 2, the merge of the tiles' partial results.
 //
 // Replaces the extraction and merge of the TPU kernels in
 // captionkit/ops/head.py (_lse_topk_update: extract="mask" and "thresh").
@@ -152,6 +152,26 @@ __device__ __forceinline__ void warp_thresh_topk(
   }
 }
 
+// Row r of an fp32 logits tile in shared memory (row stride ldc) plus the
+// bias, as one warp holds it: lane l has columns col0 + l + 32 q; columns
+// past V get (-inf, INT_MAX).
+__device__ __forceinline__ void load_row(const float* Cs, int ldc, int r,
+                                         const float* bias, int col0, int V,
+                                         int lane, float (&x)[COLS_PER_LANE],
+                                         int (&xi)[COLS_PER_LANE]) {
+#pragma unroll
+  for (int q = 0; q < COLS_PER_LANE; ++q) {
+    const int gc = col0 + lane + 32 * q;
+    if (gc < V) {
+      x[q] = Cs[r * ldc + lane + 32 * q] + bias[gc];
+      xi[q] = gc;
+    } else {
+      x[q] = -INFINITY;
+      xi[q] = INT_MAX;
+    }
+  }
+}
+
 // One row of one tile, held by one warp (lane l has columns l + 32 q;
 // xi = INT_MAX past the vocab): its max m, its sum s = sum exp(x - m) and
 // its top-k, written to the partials of slot (row, tile).
@@ -186,18 +206,17 @@ __device__ __forceinline__ void emit_tile_row(
   }
 }
 
-// Pass 2, one warp per row: lse = M + log sum_j s_j exp(m_j - M) over the
-// tiles, and the top-k of the tiles' candidates.
-__global__ void __launch_bounds__(THREADS)
-head_merge_kernel(const float* __restrict__ part_m,
-                  const float* __restrict__ part_s,
-                  const float* __restrict__ part_v,
-                  const int* __restrict__ part_i, float* __restrict__ vals,
-                  int* __restrict__ idx, float* __restrict__ lse, int N,
-                  int n_tiles, int k) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
-  if (row >= N) return;  // the same for the whole warp
+// Row `row` of pass 2, held by one warp: lse = M + log sum_j s_j exp(m_j -
+// M) over the tiles, and the top-k of the tiles' candidates. (No
+// __restrict__ here: the whole-step kernel merges partials it wrote itself
+// earlier in the same launch, which must not be read through the
+// read-only cache.)
+__device__ __forceinline__ void merge_row(const float* part_m,
+                                          const float* part_s,
+                                          const float* part_v,
+                                          const int* part_i, float* vals,
+                                          int* idx, float* lse, int row,
+                                          int n_tiles, int k, int lane) {
   const float* pm = part_m + (size_t)row * n_tiles;
   const float* ps = part_s + (size_t)row * n_tiles;
   float M = -INFINITY;
@@ -217,6 +236,21 @@ head_merge_kernel(const float* __restrict__ part_m,
   warp_pop_topk(lv, li, k, vals + (size_t)row * k, idx + (size_t)row * k,
                 lane);
   if (lane == 0) lse[row] = M + logf(S);
+}
+
+// Pass 2, one warp per row.
+__global__ void __launch_bounds__(THREADS)
+head_merge_kernel(const float* __restrict__ part_m,
+                  const float* __restrict__ part_s,
+                  const float* __restrict__ part_v,
+                  const int* __restrict__ part_i, float* __restrict__ vals,
+                  int* __restrict__ idx, float* __restrict__ lse, int N,
+                  int n_tiles, int k) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
+  if (row >= N) return;  // the same for the whole warp
+  merge_row(part_m, part_s, part_v, part_i, vals, idx, lse, row, n_tiles, k,
+            lane);
 }
 
 cudaError_t launch_merge(const float* part_m, const float* part_s,

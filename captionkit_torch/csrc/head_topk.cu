@@ -136,26 +136,6 @@ __device__ __forceinline__ void bf16_logits_tile(
   __syncthreads();
 }
 
-// Row r of the tile in Cs plus the bias, as one warp holds it: lane l has
-// columns col0 + l + 32 q; columns past V get (-inf, INT_MAX).
-__device__ __forceinline__ void load_row(const float* Cs, int r,
-                                         const float* __restrict__ bias,
-                                         int col0, int V, int lane,
-                                         float (&x)[COLS_PER_LANE],
-                                         int (&xi)[COLS_PER_LANE]) {
-#pragma unroll
-  for (int q = 0; q < COLS_PER_LANE; ++q) {
-    const int gc = col0 + lane + 32 * q;
-    if (gc < V) {
-      x[q] = Cs[r * LDC + lane + 32 * q] + bias[gc];
-      xi[q] = gc;
-    } else {
-      x[q] = -INFINITY;
-      xi[q] = INT_MAX;
-    }
-  }
-}
-
 template <int EXTRACT>
 __global__ void __launch_bounds__(THREADS)
 head_tile_kernel(const __nv_bfloat16* __restrict__ h,
@@ -184,7 +164,7 @@ head_tile_kernel(const __nv_bfloat16* __restrict__ h,
     if (gr >= N) break;  // the same for the whole warp
     float x[COLS_PER_LANE];
     int xi[COLS_PER_LANE];
-    load_row(Cs, r, bias, col0, V, lane, x, xi);
+    load_row(Cs, LDC, r, bias, col0, V, lane, x, xi);
     emit_tile_row<EXTRACT>(x, xi, k, (size_t)gr * n_tiles + tile, part_m,
                            part_s, part_v, part_i, lane);
   }
@@ -230,7 +210,7 @@ head_sweep_kernel(const __nv_bfloat16* __restrict__ h,
       if (row0 + r >= N) break;  // the same for the whole warp
       float x[COLS_PER_LANE];
       int xi[COLS_PER_LANE];
-      load_row(Cs, r, bias, col0, V, lane, x, xi);
+      load_row(Cs, LDC, r, bias, col0, V, lane, x, xi);
       float tm = -INFINITY;
 #pragma unroll
       for (int q = 0; q < COLS_PER_LANE; ++q) tm = fmaxf(tm, x[q]);

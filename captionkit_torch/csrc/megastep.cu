@@ -22,7 +22,9 @@
 // Hopper the blocks run in parallel and one cannot hold [rows, 4H] fp32,
 // so each C entry point below is two or three launches on one stream:
 //
-//   gemm_kernel<G, EPI>, grid = (column blocks, 64-row blocks): a block
+//   gemm_kernel<G, EPI> and gemm_kernel_plain<G, EPI> (cell_common.cuh,
+//     shared with lstm.cu, attention.cu and wholestep.cu), grid = (column
+//     blocks, 64-row blocks): a block
 //     accumulates a 64-row tile against G column groups of 32 with bf16
 //     tensor-core MMA (nvcuda::wmma, fp32 accumulation). The split operands
 //     of a cell ([emb | h_lang | h_att], [v_hat | h_att | h_lang | c*],
@@ -54,249 +56,21 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cmath>
 #include <cstdint>
 
-using namespace nvcuda;
+#include "cell_common.cuh"
 
 namespace {
 
-constexpr int BM = 64;       // rows per block
-constexpr int BN = 32;       // columns per group (one gate tile)
-constexpr int BK = 32;       // depth of one shared-memory stage
-constexpr int LDA = BK + 8;  // shared-memory strides, in elements
-constexpr int MAX_OPS = 4;
+using namespace cell;
+
 constexpr float NEG_INF = -1e9f;  // captionkit nn/masking.py
 
 constexpr int SC_THREADS = 256;  // scores_kernel: 8 warps
 constexpr int SC_MAXV = 32;      // A <= 32 * 32 = 1024
 constexpr int SMEM_LIMIT = 48 * 1024;
-
-enum Epilogue : int {
-  EPI_LSTM = 0,       // 4 gate groups; h, c = LSTM(z + zadd + bias, c_prev)
-  EPI_COPY_LSTM = 1,  // 5 gate groups (i f g o r); the Copy-LSTM update
-  EPI_GATE_MUL = 2,   // out bf16 = sigmoid(z + bias) * x
-  EPI_STORE = 3,      // out fp32 = z
-};
-
-struct Operand {
-  const void* a;  // [N, k] row-major, fp32 (a_f32) or bf16
-  int a_f32;
-  int k;  // a multiple of BK
-  // Gated epilogues: [k, 4 cols] gate-major (i|f|g|o), or null when this
-  // operand does not feed those gates. Plain epilogues: [k, cols].
-  const __nv_bfloat16* w_gates;
-  const __nv_bfloat16* w_copy;  // EPI_COPY_LSTM: [k, cols], or null
-};
-
-struct GemmArgs {
-  Operand op[MAX_OPS];
-  int n_ops;
-  int N;
-  int cols;            // hidden width H (gated) or output width (plain)
-  const float* zadd;   // EPI_LSTM: [N, 4 cols] added to z, or null
-  const float* bias;   // [4 cols] (gated) or [cols] (EPI_GATE_MUL), or null
-  const float* bias_r;      // EPI_COPY_LSTM: [cols]
-  const float* c_prev;      // gated: [N, cols]
-  const float* c_star;      // EPI_COPY_LSTM: [N, cols]
-  const float* x;           // EPI_GATE_MUL: [N, cols]
-  int x_round;              // EPI_GATE_MUL: round x to bf16 first
-  float* h_out;             // gated: [N, cols]
-  float* c_out;             // gated: [N, cols]
-  void* out;                // EPI_GATE_MUL bf16 / EPI_STORE fp32 [N, cols]
-};
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ unsigned pack2(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&p);
-}
-
-// Eight fp32 values rounded to bf16, as one 16-byte vector.
-__device__ __forceinline__ uint4 round8(const float* src) {
-  const float4 lo = *reinterpret_cast<const float4*>(src);
-  const float4 hi = *reinterpret_cast<const float4*>(src + 4);
-  return make_uint4(pack2(lo.x, lo.y), pack2(lo.z, lo.w), pack2(hi.x, hi.y),
-                    pack2(hi.z, hi.w));
-}
-
-template <int G, int EPI>
-__global__ void __launch_bounds__(64 * G) gemm_kernel(const GemmArgs args) {
-  constexpr int THREADS = 64 * G;  // 2 (rows) x G (column groups) warps
-  constexpr int TN = G * BN;       // tile columns
-  constexpr int LDB = TN + 8;
-  constexpr int LDC = TN + 4;
-  constexpr bool GATED = (EPI == EPI_LSTM || EPI == EPI_COPY_LSTM);
-  constexpr int SMEM_AB = (BM * LDA + BK * LDB) * 2;
-  constexpr int SMEM_C = BM * LDC * 4;
-  constexpr int SMEM = SMEM_AB > SMEM_C ? SMEM_AB : SMEM_C;
-  // The operand tiles and, after the products, the fp32 result tile share
-  // one buffer.
-  __shared__ __align__(128) unsigned char smem[SMEM];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + BM * LDA;
-  float* Cs = reinterpret_cast<float*>(smem);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wr = warp / G;  // warp's 32-row band
-  const int wc = warp % G;  // warp's 32-column group
-  const int nb = blockIdx.x;
-  const int row0 = blockIdx.y * BM;
-  const int N = args.N;
-  const int cols = args.cols;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int s = 0; s < args.n_ops; ++s) {
-    const Operand op = args.op[s];
-    // A gated operand may feed only some gate groups (c* feeds only r).
-    const bool active =
-        !GATED || (wc < 4 ? op.w_gates != nullptr : op.w_copy != nullptr);
-    for (int k0 = 0; k0 < op.k; k0 += BK) {
-      for (int v = tid; v < BM * BK / 8; v += THREADS) {  // A tile
-        const int r = v / (BK / 8);
-        const int c = (v % (BK / 8)) * 8;
-        const int gr = row0 + r;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (gr < N) {
-          const size_t off = (size_t)gr * op.k + k0 + c;
-          val = op.a_f32
-                    ? round8(static_cast<const float*>(op.a) + off)
-                    : *reinterpret_cast<const uint4*>(
-                          static_cast<const __nv_bfloat16*>(op.a) + off);
-        }
-        *reinterpret_cast<uint4*>(As + r * LDA + c) = val;
-      }
-      for (int v = tid; v < BK * TN / 8; v += THREADS) {  // weight tile
-        const int r = v / (TN / 8);
-        const int t = (v % (TN / 8)) * 8;
-        const size_t krow = (size_t)(k0 + r);
-        const __nv_bfloat16* src = nullptr;
-        if (GATED) {
-          const int g = t / BN;
-          const int col = nb * BN + t % BN;
-          if (g < 4) {
-            if (op.w_gates) src = op.w_gates + krow * 4 * cols + g * cols + col;
-          } else if (op.w_copy) {
-            src = op.w_copy + krow * cols + col;
-          }
-        } else {
-          src = op.w_gates + krow * cols + nb * TN + t;
-        }
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (src) val = *reinterpret_cast<const uint4*>(src);
-        *reinterpret_cast<uint4*>(Bs + r * LDB + t) = val;
-      }
-      __syncthreads();
-      if (active) {
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> a[2];
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> b[2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            wmma::load_matrix_sync(a[i], As + (wr * 32 + i * 16) * LDA + kk,
-                                   LDA);
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::load_matrix_sync(b[j], Bs + kk * LDB + wc * 32 + j * 16,
-                                   LDB);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-              wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wr * 32 + i * 16) * LDC + wc * 32 + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-
-  if (GATED) {
-    for (int e = tid; e < BM * BN; e += THREADS) {
-      const int r = e / BN;
-      const int c = e % BN;
-      const int gr = row0 + r;
-      if (gr >= N) continue;
-      const int j = nb * BN + c;
-      const float* cr = Cs + r * LDC;
-      float zi = cr[c], zf = cr[BN + c], zg = cr[2 * BN + c],
-            zo = cr[3 * BN + c];
-      if (args.zadd) {
-        const float* za = args.zadd + (size_t)gr * 4 * cols;
-        zi += za[j];
-        zf += za[cols + j];
-        zg += za[2 * cols + j];
-        zo += za[3 * cols + j];
-      }
-      if (args.bias) {
-        zi += args.bias[j];
-        zf += args.bias[cols + j];
-        zg += args.bias[2 * cols + j];
-        zo += args.bias[3 * cols + j];
-      }
-      const size_t idx = (size_t)gr * cols + j;
-      float c_new = sigmoidf(zf) * args.c_prev[idx] + sigmoidf(zi) * tanhf(zg);
-      if (EPI == EPI_COPY_LSTM) {
-        const float rg = sigmoidf(cr[4 * BN + c] + args.bias_r[j]);
-        c_new = rg * args.c_star[idx] + (1.0f - rg) * c_new;
-      }
-      args.h_out[idx] = sigmoidf(zo) * tanhf(c_new);
-      args.c_out[idx] = c_new;
-    }
-  } else {
-    for (int e = tid; e < BM * TN; e += THREADS) {
-      const int r = e / TN;
-      const int c = e % TN;
-      const int gr = row0 + r;
-      if (gr >= N) continue;
-      const int col = nb * TN + c;
-      const size_t idx = (size_t)gr * cols + col;
-      const float z = Cs[r * LDC + c];
-      if (EPI == EPI_GATE_MUL) {
-        float x = args.x[idx];
-        if (args.x_round) x = __bfloat162float(__float2bfloat16_rn(x));
-        static_cast<__nv_bfloat16*>(args.out)[idx] =
-            __float2bfloat16_rn(sigmoidf(z + args.bias[col]) * x);
-      } else {
-        static_cast<float*>(args.out)[idx] = z;
-      }
-    }
-  }
-}
 
 struct ScoreHead {
   const float* q;  // row n's query at q + n * ldq, [A] fp32
@@ -384,19 +158,6 @@ scores_kernel(const ScoreArgs args) {
   }
 }
 
-template <int G, int EPI>
-cudaError_t launch_gemm(const GemmArgs& a, cudaStream_t s) {
-  for (int i = 0; i < a.n_ops; ++i)
-    if (a.op[i].k < BK || a.op[i].k % BK) return cudaErrorInvalidValue;
-  constexpr bool GATED = (EPI == EPI_LSTM || EPI == EPI_COPY_LSTM);
-  const int width = GATED ? BN : G * BN;
-  if (a.N < 1 || a.cols < width || a.cols % width)
-    return cudaErrorInvalidValue;
-  const dim3 grid(a.cols / width, (a.N + BM - 1) / BM);
-  gemm_kernel<G, EPI><<<grid, 64 * G, 0, s>>>(a);
-  return cudaGetLastError();
-}
-
 cudaError_t launch_scores(const ScoreArgs& a, int B, int n_heads,
                           cudaStream_t s) {
   int max_p = a.head[0].P;
@@ -409,26 +170,6 @@ cudaError_t launch_scores(const ScoreArgs& a, int B, int n_heads,
   scores_kernel<<<dim3(B, n_heads), SC_THREADS, smem, s>>>(a);
   return cudaGetLastError();
 }
-
-Operand operand(const void* a, int a_f32, int k, const void* w_gates,
-                const void* w_copy = nullptr) {
-  Operand o;
-  o.a = a;
-  o.a_f32 = a_f32;
-  o.k = k;
-  o.w_gates = static_cast<const __nv_bfloat16*>(w_gates);
-  o.w_copy = static_cast<const __nv_bfloat16*>(w_copy);
-  return o;
-}
-
-GemmArgs gemm_args(int N, int cols) {
-  GemmArgs g = {};
-  g.N = N;
-  g.cols = cols;
-  return g;
-}
-
-const float* f32(const void* p) { return static_cast<const float*>(p); }
 
 }  // namespace
 

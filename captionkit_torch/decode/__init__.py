@@ -1,7 +1,13 @@
-"""Decoding: batched beam search and the split-decode driver."""
+"""Decoding: batched beam search, greedy and sampling rollouts, and the
+split-decode driver."""
 
 from captionkit_torch.decode.beam import BeamResult, beam_search  # noqa: F401
 from captionkit_torch.decode.driver import (  # noqa: F401
     decode_split,
     make_decode_fn,
+)
+from captionkit_torch.decode.greedy import (  # noqa: F401
+    Rollout,
+    greedy_decode,
+    sample_decode,
 )

@@ -4,7 +4,9 @@
 batch_idx) -> tokens [B, L] function; ``decode_split`` streams a dataset
 split through it batch by batch, dispatching batch k+1 before it reads
 batch k's tokens back, and drops the padding rows of the last batch on
-the host. Only beam search is ported; greedy and sampling raise.
+the host. The method is the reference's choice: beam search when
+``method="beam"`` and ``beam_size > 1``, sampling for ``"sample"``, else
+greedy.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from captionkit_torch.data.featquant import (
 )
 from captionkit_torch.data.sources import CaptionDataset
 from captionkit_torch.decode.beam import beam_search
+from captionkit_torch.decode.greedy import greedy_decode, sample_decode
 from captionkit_torch.device import resolve_device
 from captionkit_torch.models.base import ModelDef
 
@@ -44,37 +47,47 @@ def make_decode_fn(
     moved to ``device`` here. ``features`` is staged as
     ``quantize_for_feed`` stages it for ``decode_cfg.feed_dtype``: with
     "int8", the (q, scale) pair, dequantized on the device before
-    ``encode``."""
-    if decode_cfg.method in ("greedy", "sample"):
-        raise NotImplementedError(
-            f"decode method {decode_cfg.method!r} is not yet ported; "
-            "use method='beam'")
-    if decode_cfg.method != "beam":
+    ``encode``. Sampling seeds its generator from ``decode_cfg.seed`` and
+    ``batch_idx`` (``sample_seed``)."""
+    if decode_cfg.method not in ("greedy", "beam", "sample"):
         raise ValueError(f"unknown decode method {decode_cfg.method!r}")
-    if decode_cfg.beam_size < 2:
-        raise NotImplementedError(
-            "beam_size 1 decodes greedily in the reference; greedy is not "
-            "yet ported")
     feed_torch_dtype(decode_cfg.feed_dtype)
     dev = resolve_device(device)
+    ids = dict(start_id=start_id, end_id=end_id, pad_id=pad_id,
+               max_len=decode_cfg.max_decode_len)
 
     @torch.inference_mode()
     def fn(params, features, existing, existing_len, batch_idx=0):
-        del batch_idx  # the seed offset of sampling, which is not ported
         features = dequantize_for_feed(feed_to_device(features, dev),
                                        decode_cfg.feed_dtype)
         ctx = model.encode(params, features, existing.to(dev),
                            existing_len.to(dev))
-        return beam_search(
-            model, params, ctx,
-            beam_size=decode_cfg.beam_size,
-            start_id=start_id, end_id=end_id, pad_id=pad_id,
-            max_len=decode_cfg.max_decode_len,
-            length_penalty=decode_cfg.length_penalty,
-            impl=decode_cfg.beam_impl,
-        ).tokens
+        if decode_cfg.method == "beam" and decode_cfg.beam_size > 1:
+            return beam_search(
+                model, params, ctx,
+                beam_size=decode_cfg.beam_size,
+                length_penalty=decode_cfg.length_penalty,
+                impl=decode_cfg.beam_impl, **ids,
+            ).tokens
+        if decode_cfg.method == "sample":
+            gen = torch.Generator(device=dev).manual_seed(
+                sample_seed(decode_cfg.seed, batch_idx))
+            return sample_decode(
+                model, params, ctx, gen,
+                temperature=decode_cfg.temperature, top_k=decode_cfg.top_k,
+                top_p=decode_cfg.top_p, **ids).tokens
+        return greedy_decode(model, params, ctx, **ids).tokens
 
     return fn
+
+
+def sample_seed(seed: int, batch_idx: int) -> int:
+    """The generator seed of batch ``batch_idx`` of a sampling decode: the
+    reference folds the batch index into its key; here both numbers feed
+    one ``numpy.random.SeedSequence``, so batches draw independent
+    streams."""
+    return int(np.random.SeedSequence([int(seed), int(batch_idx)])
+               .generate_state(1, np.uint64)[0])
 
 
 def decode_split(

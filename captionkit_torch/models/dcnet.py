@@ -9,10 +9,12 @@ features joins the decoder input.
 
 ``encode`` runs the encoder once and projects the keys; the decoder's
 initial state is a bare Linear of the encoder's last state (no tanh), a
-float32 product as in the reference. ``cell_impl="pallas"`` (textual
-config) has ``prepare_topk`` build the fused-cell pack and
-``_step_hidden`` run ``kernels/megastep.py::dcnet_fused_step_hidden``;
-the visual config keeps the plain cells, as in the reference. The vocab
+float32 product as in the reference. The plain step asks ``nn.dispatch``
+for its decoder LSTM and its attention at the reference's call sites.
+``cell_impl="pallas"`` (textual config) has ``prepare_topk`` build the
+fused-cell pack and ``_step_hidden`` run ``kernels/megastep.py::
+dcnet_fused_step_hidden``; the visual config and ``cell_impl=
+"wholestep"`` keep the plain cells, as in the reference. The vocab
 head of beam search, its per-batch preparation and its int8 variant are
 EditNet's (``editnet.prepare_head``, ``editnet._head_topk``).
 
@@ -36,18 +38,13 @@ from captionkit_torch.kernels.megastep import (
     prepare_dcnet_cell_pack,
 )
 from captionkit_torch.models.base import HeadInfo, ModelDef
-from captionkit_torch.models.editnet import (
-    _cdt,
-    _head_topk,
-    check_ported_options,
-    prepare_head,
-)
+from captionkit_torch.models.editnet import _cdt, _head_topk, prepare_head
 from captionkit_torch.nn.attention import (
     AdditiveAttentionParams,
-    additive_attention,
     project_keys,
 )
-from captionkit_torch.nn.cells import LSTMParams, lstm_encode, lstm_gates, mm
+from captionkit_torch.nn.cells import LSTMParams, lstm_encode, mm
+from captionkit_torch.nn.dispatch import get_attention_fn, get_lstm_cell_fn
 from captionkit_torch.nn.masking import length_mask
 
 
@@ -197,19 +194,20 @@ def beam_expand(ctx: DCNetContext, k: int) -> DCNetContext:
 
 
 def _recurrent_contexts(params: DCNetParams, cfg: ModelConfig,
-                        ctx: DCNetContext,
-                        h: torch.Tensor) -> list[torch.Tensor]:
+                        ctx: DCNetContext, h: torch.Tensor,
+                        use_pallas: bool = False) -> list[torch.Tensor]:
     """The state-dependent decoder inputs: the gated text context, and the
     visual context when the visual head is on."""
     dt = _cdt(cfg)
     pk = _packed(params, cfg)
-    att_ctx, _ = additive_attention(
+    attention = get_attention_fn(use_pallas)
+    att_ctx, _ = attention(
         params.attention, ctx.att_keys, ctx.enc_hs, h, ctx.mask,
         compute_dtype=dt, w_q=pk["att_wq"])
     gate = torch.sigmoid(mm(h, pk["gate_w"], dt) + params.gate_b)
     parts = [gate * att_ctx]
     if ctx.features is not None and params.vis_attention is not None:
-        vis_ctx, _ = additive_attention(
+        vis_ctx, _ = attention(
             params.vis_attention, ctx.vis_keys, ctx.features, h, None,
             compute_dtype=dt, w_q=pk["vis_wq"])
         parts.append(vis_ctx)
@@ -217,26 +215,32 @@ def _recurrent_contexts(params: DCNetParams, cfg: ModelConfig,
 
 
 def _step_hidden(params: DCNetParams, cfg: ModelConfig, ctx: DCNetContext,
-                 state: DCNetState,
-                 token: torch.Tensor) -> tuple[DCNetState, torch.Tensor]:
-    """One decode step up to the vocab head: (state, h)."""
+                 state: DCNetState, token: torch.Tensor,
+                 use_pallas: bool = False
+                 ) -> tuple[DCNetState, torch.Tensor]:
+    """One decode step up to the vocab head: (state, h). ``use_pallas`` is
+    handed to ``nn.dispatch`` at the plain step's cell call sites."""
     emb = params.embedding[token]  # [B, E]
     if ctx.cell_pack is not None:
         h, c = dcnet_fused_step_hidden(ctx.cell_pack, state.h, state.c, emb)
         return DCNetState(h=h, c=c), h
-    dt = _cdt(cfg)
-    x = torch.cat([emb] + _recurrent_contexts(params, cfg, ctx, state.h)
-                  + [state.h], dim=-1)
-    z = mm(x, _packed(params, cfg)["dec_w"], dt) + params.decoder.b
-    h, c = lstm_gates(z, state.c)
+    lstm_cell = get_lstm_cell_fn(use_pallas)
+    x = torch.cat([emb] + _recurrent_contexts(params, cfg, ctx, state.h,
+                                              use_pallas), dim=-1)
+    h, c = lstm_cell(params.decoder, x, state.h, state.c,
+                     compute_dtype=_cdt(cfg),
+                     packed=_packed(params, cfg)["dec_w"])
     return DCNetState(h=h, c=c), h
 
 
 def step(params: DCNetParams, cfg: ModelConfig, ctx: DCNetContext,
-         state: DCNetState, token: torch.Tensor
+         state: DCNetState, token: torch.Tensor, use_pallas: bool = False
          ) -> tuple[DCNetState, torch.Tensor]:
-    """One decode step with the full logits [B, V] fp32."""
-    new_state, out = _step_hidden(params, cfg, ctx, state, token)
+    """One decode step with the full logits [B, V] fp32 (greedy and
+    sampling decode). ``use_pallas=True`` takes the cell kernels at the
+    dispatch call sites."""
+    new_state, out = _step_hidden(params, cfg, ctx, state, token,
+                                  use_pallas)
     logits = mm(out, _packed(params, cfg)["fc_w"], _cdt(cfg)) + params.fc_b
     return new_state, logits
 
@@ -244,8 +248,9 @@ def step(params: DCNetParams, cfg: ModelConfig, ctx: DCNetContext,
 def prepare_topk(params: DCNetParams, cfg: ModelConfig, ctx: DCNetContext,
                  k: int) -> DCNetContext:
     """Once per decode batch: the fused-cell pack when ``cell_impl ==
-    "pallas"`` and the config is textual, and the head (quantized under
-    ``head_quant="int8"``, else padded)."""
+    "pallas"`` and the config is textual (``"wholestep"`` builds none and
+    runs the plain cells, as the reference does), and the head (quantized
+    under ``head_quant="int8"``, else padded)."""
     if cfg.cell_impl == "pallas" and not cfg.dcnet_use_visual:
         ctx = ctx.replace(
             cell_pack=prepare_dcnet_cell_pack(params, cfg, ctx))
@@ -262,7 +267,6 @@ def step_topk(params: DCNetParams, cfg: ModelConfig, ctx: DCNetContext,
 
 
 def make_model(cfg: ModelConfig) -> ModelDef:
-    check_ported_options(cfg)
     return ModelDef(
         name="dcnet",
         init=lambda seed, device="cuda": init(seed, cfg, device),

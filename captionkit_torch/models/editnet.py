@@ -16,13 +16,20 @@ the reference rounds them. The step's products run on operands rounded to
 the compute dtype with float32 results (``nn.cells.mm``); the packed,
 rounded weights are built once per parameter object (``_packed``).
 
-``cell_impl="xla"`` steps through plain PyTorch cells. ``cell_impl=
+``cell_impl="xla"`` steps through plain PyTorch cells, which the step
+asks ``nn.dispatch`` for at the reference's call sites (the Copy-LSTM and
+the visual and SCMA attention; ``use_pallas=True`` there gives the cell
+kernels of ``kernels/lstm.py`` and ``kernels/attention.py``). ``cell_impl=
 "pallas"`` (soft SCMA) has ``prepare_topk`` build the fused-cell pack and
 ``_step_hidden`` run ``kernels/megastep.py::fused_step_hidden``; hard SCMA
-keeps the plain cells, as in the reference. The vocab head of beam search
-is a CUDA kernel of ``kernels/head.py``: the float head with either
-extraction (``head_extract``), or, with ``head_quant="int8"``, the int8
-head over the fp32 hidden state and the head quantized once per batch.
+keeps the plain cells, as in the reference. ``cell_impl="wholestep"``
+builds the same pack and, with the float head, has ``step_topk`` run
+``kernels/wholestep.py::fused_step_topk`` (the lang cell and the head in
+one kernel); with the int8 or plain head it runs the ``pallas`` cells. The
+vocab head of beam search is a CUDA kernel of ``kernels/head.py``: the
+float head with either extraction (``head_extract``), or, with
+``head_quant="int8"``, the int8 head over the fp32 hidden state and the
+head quantized once per batch.
 """
 
 from __future__ import annotations
@@ -48,21 +55,24 @@ from captionkit_torch.kernels.megastep import (
     fused_step_hidden,
     prepare_cell_pack,
 )
+from captionkit_torch.kernels.wholestep import fused_step_topk
 from captionkit_torch.models.base import HeadInfo, ModelDef
 from captionkit_torch.nn.attention import (
     AdditiveAttentionParams,
-    additive_attention,
     project_keys,
     scma_select,
 )
 from captionkit_torch.nn.cells import (
     CopyLSTMParams,
     LSTMParams,
-    copy_lstm_cell,
     lstm_encode,
     lstm_gates,
     mm,
     pack_copy_lstm,
+)
+from captionkit_torch.nn.dispatch import (
+    get_attention_fn,
+    get_copy_lstm_cell_fn,
 )
 from captionkit_torch.nn.masking import length_mask
 
@@ -97,7 +107,8 @@ class EditNetContext:
     head_w: Optional[torch.Tensor] = None  # [H, Vp] compute dtype or int8
     head_b: Optional[torch.Tensor] = None  # [Vp] fp32, padding -1e30
     head_scale: Optional[torch.Tensor] = None  # [Vp] fp32, int8 head only
-    # Fused decode-cell pack, built by prepare_topk for cell_impl="pallas".
+    # Fused decode-cell pack, built by prepare_topk for cell_impl="pallas"
+    # and "wholestep".
     cell_pack: Optional[CellPack] = None
 
     def replace(self, **kw) -> "EditNetContext":
@@ -228,8 +239,11 @@ def beam_expand(ctx: EditNetContext, k: int) -> EditNetContext:
 
 def _step_hidden(params: EditNetParams, cfg: ModelConfig,
                  ctx: EditNetContext, state: EditNetState,
-                 token: torch.Tensor) -> tuple[EditNetState, torch.Tensor]:
-    """One decode step up to the vocab head: (state, h_lang)."""
+                 token: torch.Tensor, use_pallas: bool = False
+                 ) -> tuple[EditNetState, torch.Tensor]:
+    """One decode step up to the vocab head: (state, h_lang).
+    ``use_pallas`` is handed to ``nn.dispatch`` at the plain step's cell
+    call sites."""
     emb = params.embedding[token]  # [B, E]
     if ctx.cell_pack is not None:
         h_att, c_att, h_lang, c_lang = fused_step_hidden(
@@ -247,19 +261,22 @@ def _step_hidden(params: EditNetParams, cfg: ModelConfig,
     if z.shape[0] != zv.shape[0]:  # grouped ctx without beam_expand
         zv = zv.repeat_interleave(z.shape[0] // zv.shape[0], dim=0)
     h_att, c_att = lstm_gates(z + zv + params.att_lstm.b, state.c_att)
-    return _finish_step(params, cfg, ctx, state, h_att, c_att)
+    return _finish_step(params, cfg, ctx, state, h_att, c_att, use_pallas)
 
 
 def _finish_step(params: EditNetParams, cfg: ModelConfig,
                  ctx: EditNetContext, state: EditNetState,
-                 h_att: torch.Tensor, c_att: torch.Tensor
+                 h_att: torch.Tensor, c_att: torch.Tensor,
+                 use_pallas: bool = False
                  ) -> tuple[EditNetState, torch.Tensor]:
     """Visual attention, SCMA and the Copy-LSTM, given the att-LSTM
     state."""
     dt = _cdt(cfg)
     pk = _packed(params, cfg)
+    copy_lstm_cell = get_copy_lstm_cell_fn(use_pallas)
+    attention = get_attention_fn(use_pallas)
     # 2. Visual attention over the regions (all valid: no mask).
-    v_hat, _ = additive_attention(
+    v_hat, _ = attention(
         params.vis_attention, ctx.vis_keys, ctx.features, h_att, None,
         compute_dtype=dt, w_q=pk["vis_wq"])
     v_hat = v_hat.to(dt)
@@ -268,7 +285,8 @@ def _finish_step(params: EditNetParams, cfg: ModelConfig,
     # 3. SCMA: select a memory cell state from the caption encoder.
     c_star, _ = scma_select(
         params.scma, ctx.scma_keys, ctx.enc_cs, h_att, ctx.mask,
-        mode=cfg.scma_select, compute_dtype=dt, w_q=pk["scma_wq"])
+        mode=cfg.scma_select, compute_dtype=dt, w_q=pk["scma_wq"],
+        attention_fn=attention)
     # 4. Copy-LSTM language model.
     x_lang = torch.cat([v_hat.float(), h_att], dim=-1)
     h_lang, c_lang = copy_lstm_cell(
@@ -280,10 +298,13 @@ def _finish_step(params: EditNetParams, cfg: ModelConfig,
 
 
 def step(params: EditNetParams, cfg: ModelConfig, ctx: EditNetContext,
-         state: EditNetState, token: torch.Tensor
+         state: EditNetState, token: torch.Tensor, use_pallas: bool = False
          ) -> tuple[EditNetState, torch.Tensor]:
-    """One decode step with the full logits [B, V] fp32."""
-    new_state, out = _step_hidden(params, cfg, ctx, state, token)
+    """One decode step with the full logits [B, V] fp32 (greedy and
+    sampling decode). ``use_pallas=True`` takes the cell kernels at the
+    dispatch call sites."""
+    new_state, out = _step_hidden(params, cfg, ctx, state, token,
+                                  use_pallas)
     dt = _cdt(cfg)
     logits = mm(out, _packed(params, cfg)["fc_w"], dt) + params.fc_b
     return new_state, logits
@@ -291,11 +312,12 @@ def step(params: EditNetParams, cfg: ModelConfig, ctx: EditNetContext,
 
 def prepare_topk(params: EditNetParams, cfg: ModelConfig,
                  ctx: EditNetContext, k: int) -> EditNetContext:
-    """Once per decode batch: the fused-cell pack when ``cell_impl ==
-    "pallas"`` and SCMA is soft, and the head: quantized
+    """Once per decode batch: the fused-cell pack when ``cell_impl`` is
+    "pallas" or "wholestep" and SCMA is soft, and the head: quantized
     (``quantize_head``) under ``head_quant="int8"``, else padded
     (``prepad_head``) for the kernel."""
-    if cfg.cell_impl == "pallas" and cfg.scma_select == "soft":
+    if cfg.cell_impl in ("pallas", "wholestep") and \
+            cfg.scma_select == "soft":
         ctx = ctx.replace(cell_pack=prepare_cell_pack(params, cfg, ctx))
     return prepare_head(params, cfg, ctx)
 
@@ -315,7 +337,19 @@ def prepare_head(params, cfg: ModelConfig, ctx):
 def step_topk(params: EditNetParams, cfg: ModelConfig, ctx: EditNetContext,
               state: EditNetState, token: torch.Tensor, k: int):
     """Decode step with the fused head: (state, top-k logits, their vocab
-    ids, log-sum-exp), without the [B, V] logits."""
+    ids, log-sum-exp), without the [B, V] logits. ``cell_impl=
+    "wholestep"`` with a prepared pack and the float kernel head runs the
+    whole-step kernel (its extraction is always "mask", as the
+    reference's); everything else runs the cells, then ``_head_topk``."""
+    if (cfg.cell_impl == "wholestep" and ctx.cell_pack is not None
+            and cfg.head_impl == "pallas" and cfg.head_quant == "none"):
+        # prepare_topk built the pack and, for this head, the padded head.
+        h_att, c_att, h_lang, c_lang, vals, idx, lse = fused_step_topk(
+            ctx.cell_pack, state.h_att, state.c_att, state.h_lang,
+            state.c_lang, params.embedding[token], ctx.head_w, ctx.head_b,
+            k=k)
+        return (EditNetState(h_att=h_att, c_att=c_att, h_lang=h_lang,
+                             c_lang=c_lang), vals, idx, lse)
     new_state, out = _step_hidden(params, cfg, ctx, state, token)
     vals, idx, lse = _head_topk(params, cfg, ctx, out, k)
     return new_state, vals, idx, lse
@@ -348,16 +382,7 @@ def _head_topk(params: EditNetParams, cfg: ModelConfig,
                            k=k, extract=cfg.head_extract)
 
 
-def check_ported_options(cfg: ModelConfig) -> None:
-    """Raise on the kernel options the port does not have yet."""
-    if cfg.cell_impl == "wholestep":
-        raise NotImplementedError(
-            "cell_impl='wholestep' (the fused lang cell + head kernel) is "
-            "not ported yet; use 'pallas' or 'xla'")
-
-
 def make_model(cfg: ModelConfig) -> ModelDef:
-    check_ported_options(cfg)
     return ModelDef(
         name="editnet",
         init=lambda seed, device="cuda": init(seed, cfg, device),

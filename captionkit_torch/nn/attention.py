@@ -14,8 +14,8 @@ and values stay per image and are not repeated.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Callable, Optional
 
 import torch
 
@@ -29,6 +29,9 @@ class AdditiveAttentionParams:
     w_q: torch.Tensor  # [q_dim, A] query projection
     v: torch.Tensor  # [A] score vector
     b: torch.Tensor  # [A] bias inside tanh
+    # The fused attention kernel's padded weights per compute dtype
+    # (``kernels/attention.py``); clear after changing the weights in place.
+    cache: dict = field(default_factory=dict, repr=False, compare=False)
 
 
 def project_keys(params: AdditiveAttentionParams, enc: torch.Tensor, *,
@@ -79,10 +82,13 @@ def scma_select(
     mode: str = "soft",
     compute_dtype: torch.dtype = torch.float32,
     w_q: Optional[torch.Tensor] = None,
+    attention_fn: Optional[Callable] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Selective Copy Memory Attention. Returns (c_star [B*G, H] fp32,
-    weights [B*G, T])."""
-    ctx_soft, weights = additive_attention(
+    weights [B*G, T]). ``attention_fn`` replaces ``additive_attention``
+    (``nn.dispatch.get_attention_fn``)."""
+    attn = attention_fn or additive_attention
+    ctx_soft, weights = attn(
         params, keys, memories, query, mask, compute_dtype=compute_dtype,
         w_q=w_q)
     if mode == "soft":

@@ -14,7 +14,7 @@ stays float32.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
@@ -25,6 +25,9 @@ class LSTMParams:
     wx: torch.Tensor  # [in_dim, 4H] input kernel (gates i|f|g|o)
     wh: torch.Tensor  # [H, 4H] recurrent kernel
     b: torch.Tensor  # [4H]
+    # The fused cell kernel's padded weights per compute dtype
+    # (``kernels/lstm.py``); clear after changing the weights in place.
+    cache: dict = field(default_factory=dict, repr=False, compare=False)
 
 
 @dataclass
@@ -34,6 +37,7 @@ class CopyLSTMParams:
     wrh: torch.Tensor  # [H, H] copy-gate recurrent kernel
     wrc: torch.Tensor  # [H, H] copy-gate memory (c*) kernel
     br: torch.Tensor  # [H]
+    cache: dict = field(default_factory=dict, repr=False, compare=False)
 
 
 def matmul_route(device: "str | torch.device") -> str:
@@ -81,12 +85,21 @@ def lstm_gates(z: torch.Tensor, c: torch.Tensor
     return h_new, c_new
 
 
+def pack_lstm(params: LSTMParams, dt: torch.dtype) -> torch.Tensor:
+    """The LSTM's packed kernel, [x|h] -> 4H, in the compute dtype. Decode
+    loops build it once."""
+    return torch.cat([params.wx, params.wh], dim=0).to(dt)
+
+
 def lstm_cell(params: LSTMParams, x, h, c, *,
-              compute_dtype: torch.dtype = torch.float32):
-    """One LSTM step over the packed [x|h] contraction. Returns (h', c')."""
+              compute_dtype: torch.dtype = torch.float32,
+              packed: Optional[torch.Tensor] = None):
+    """One LSTM step over the packed [x|h] contraction. ``packed`` takes
+    the kernel from ``pack_lstm`` instead of packing it here. Returns
+    (h', c')."""
     dt = compute_dtype
     xh = torch.cat([x.to(dt), h.to(dt)], dim=-1)
-    w = torch.cat([params.wx, params.wh], dim=0)
+    w = packed if packed is not None else pack_lstm(params, dt)
     return lstm_gates(mm(xh, w, dt) + params.b, c)
 
 

@@ -43,7 +43,8 @@ class CaptionServer:
     def __init__(self, cfg: CaptionKitConfig, params: Any, model, vocab,
                  *, ladder: Sequence[int] = (), decode_fn=None,
                  device: "str | torch.device" = "cuda"):
-        """``decode_fn`` replaces the default beam decode with any
+        """``decode_fn`` replaces the default decode (``make_decode_fn``:
+        beam, greedy or sampling, as ``cfg.decode`` says) with any
         (params, feats, ids [b, T], lens [b], step) -> tokens callable of
         the same contract; feats [b, R, F] arrive staged for
         ``decode.feed_dtype`` (``quantize_for_feed``: the (q, scale) pair

@@ -50,8 +50,31 @@ prints no result line:
               head_extract=thresh (tokens identical to mask, float and
               int8 heads) and with the single sweep (steps check); and
               dcnet_beam5 served once with the int8 head.
+10. cell_kernels — the dispatch kernels of nn.dispatch (use_pallas=True):
+              fused_lstm_cell, fused_copy_lstm_cell and
+              fused_additive_attention against their plain versions at the
+              greedy step's shapes (512 rows, paper width: DCNet's LSTM,
+              EditNet's Copy-LSTM, visual attention and SCMA, DCNet's text
+              attention), at examples/bench_cell_kernels.py's shapes (2560
+              rows) and on unaligned shapes, with planted faults; kernel,
+              plain, bound and (LSTM: torch.lstm_cell) library times.
+11. greedy  — editnet_greedy and dcnet_greedy at paper width behind
+              CaptionServer(batch=512); a forced-full 22-step greedy decode
+              (median of 3) beside the same decode with the dispatch sites
+              taking the kernels, launches per batch; each dispatch kernel
+              against its plain version on the plain decode's own inputs
+              at every step.
+12. wholestep — editnet_beam5 with cell_impl="wholestep" behind
+              CaptionServer(batch=512); fused_lang_head_topk against its
+              plain version at paper shape (N = 2560) with planted faults
+              and exact ties; a forced-full decode (median of 3) beside the
+              pallas decode in turns, 22 launches a batch each of att_cell
+              and fused_lang_head_topk and none of lang_cell and
+              fused_head_topk; the steps check; a profile.
 
-Then a {"kernels": [...]} line, the nvidia-smi line, and, last,
+Then a {"kernels": [...]} line listing all 12 wrappers (each with its
+launches on its path, check, ms, plain ms, bound ms, CUDA launches per
+call), the nvidia-smi line, and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Kernels are built into build/captionkit_torch/ under the checkout; the
 scratch files of the run go to build/captionkit_torch/smoke/.
@@ -311,6 +334,8 @@ def phase_head():
         "bound_us": 1e3 * bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "kernel_tflops": flops / (kernel_ms * 1e-3) / 1e12,
+        "cuda_launches_per_call": _cuda_kernels(
+            lambda: fused_head_topk(h, w, b, k=k), ("head_",)),
     }
     emit(result)
     return result
@@ -786,21 +811,25 @@ def _swap_if(w, hp):
     return torch.cat([f, i, g, o], dim=-1).contiguous()
 
 
-def _cuda_kernels(fn, keys=("gemm_kernel", "scores_kernel")) -> int:
+def _cuda_kernels(fn, keys=("gemm_kernel", "scores_kernel"),
+                  calls: int = 10) -> int:
     """The CUDA kernels whose names hold one of ``keys`` (by default those
     of csrc/megastep.cu) that one call of ``fn`` launches, counted by
-    torch.profiler."""
+    torch.profiler over ``calls`` calls after a warm-up and rounded: a
+    profile of a single call on that machine can miss a kernel record."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-    return sum(ev.count for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA
-               and any(key in ev.key for key in keys))
+    return round(sum(ev.count for ev in prof.key_averages()
+                     if ev.device_type == DeviceType.CUDA
+                     and any(key in ev.key for key in keys)) / calls)
 
 
 def _cell_bound(name, N, B, E, H, A, F, R, T) -> dict:
@@ -1038,11 +1067,12 @@ def _timed_decodes(decodes, batch_of, params, runs=3) -> dict:
             for name, r in out.items()}
 
 
-def _decode_pair(cfg, model, params, vocab, wrappers, path_names):
+def _decode_pair(cfg, model, params, vocab, wrappers, path_names,
+                 other="xla"):
     """The forced-full decode of the timed batch with the model as given
-    (cell_impl="pallas") and with cell_impl="xla": launches per batch of
+    (its cell_impl) and with cell_impl=``other``: launches per batch of
     each wrapper on the path (22 each), captions/s of both in turns,
-    token agreement, and the pallas decode's hypotheses."""
+    token agreement, and the given model's hypotheses."""
     import dataclasses
 
     import torch
@@ -1055,7 +1085,7 @@ def _decode_pair(cfg, model, params, vocab, wrappers, path_names):
     kw = dict(start_id=vocab.start, end_id=-1, pad_id=vocab.pad,
               device="cuda")
     decode = make_decode_fn(model, cfg.decode, **kw)
-    plain_model = get_model(dataclasses.replace(cfg.model, cell_impl="xla"))
+    plain_model = get_model(dataclasses.replace(cfg.model, cell_impl=other))
     plain_decode = make_decode_fn(plain_model, cfg.decode, **kw)
     plain_decode(params, *batch).cpu()  # warm-up
     decode(params, *batch).cpu()
@@ -1071,14 +1101,15 @@ def _decode_pair(cfg, model, params, vocab, wrappers, path_names):
           f"tokens {tuple(tokens.shape)}")
     check(bool(((tokens >= 0) & (tokens < cfg.model.vocab_size)).all()),
           "token ids out of range")
-    timed = _timed_decodes({"pallas": decode, "xla": plain_decode},
-                           {"pallas": batch, "xla": batch}, params)
+    impl = cfg.model.cell_impl
+    timed = _timed_decodes({impl: decode, other: plain_decode},
+                           {impl: batch, other: batch}, params)
     plain = plain_decode(params, *batch).cpu()
     token_agree = float((tokens == plain).float().mean())
     # Both sum the same bf16 products in other orders, so a near-tie may
     # flip and change an image's caption from that step on.
     check(token_agree >= 0.5,
-          f"tokens agree with the plain cells on {token_agree} < 0.5")
+          f"tokens agree with cell_impl={other} on {token_agree} < 0.5")
     with torch.inference_mode():
         feats, existing, existing_len = (t.cuda() for t in batch)
         ctx = model.encode(params, feats, existing, existing_len)
@@ -1090,10 +1121,10 @@ def _decode_pair(cfg, model, params, vocab, wrappers, path_names):
     check(ctx_k.cell_pack is not None, "prepare_topk built no cell pack")
     hyps = res.all_tokens.reshape(N_IMAGES * BEAM, MAX_LEN)
     out = {"launches_per_batch": launches,
-           "captions_per_s": timed["pallas"]["captions_per_s"],
-           "runs": timed["pallas"]["runs"],
-           "spread_pct": timed["pallas"]["spread_pct"],
-           "xla_cells": timed["xla"],
+           "captions_per_s": timed[impl]["captions_per_s"],
+           "runs": timed[impl]["runs"],
+           "spread_pct": timed[impl]["spread_pct"],
+           f"{other}_cells": timed[other],
            "token_agreement": token_agree,
            "row_agreement": float((tokens == plain).all(dim=1).float()
                                   .mean())}
@@ -1285,6 +1316,649 @@ def phase_int8(ed, dc, wrappers, card):
     return result, serve
 
 
+# --------------------------------------------------------------------------
+# The cell kernels of nn.dispatch (kernels/lstm.py, kernels/attention.py)
+# --------------------------------------------------------------------------
+
+DISPATCH = ("fused_lstm_cell", "fused_copy_lstm_cell",
+            "fused_additive_attention")
+
+
+def _ops_bound(mm, ew, n_bytes) -> dict:
+    """The least time of a call: bf16 products on the tensor cores and fp32
+    arithmetic on the CUDA cores (separate units, so the longer of the
+    two) against the bytes read and written once."""
+    t_ops = max(mm / PEAK_BF16_FLOPS, ew / PEAK_FP32_FLOPS)
+    t_bytes = n_bytes / PEAK_BYTES
+    return {"bf16_gflop": mm / 1e9, "fp32_gflop": ew / 1e9,
+            "mbytes": n_bytes / 1e6, "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _lstm_bound(N, D, H, copy) -> dict:
+    """2 N (D + H) 4H bf16 products (and 2 N (D + 2H) H for the copy
+    gate); x, h, c (and c*) read in fp32, the weights in bf16 and the
+    biases in fp32 once, h' and c' written in fp32."""
+    mm = 2 * N * (D + H) * 4 * H
+    n_bytes = 4 * N * (D + 2 * H) + 2 * (D + H) * 4 * H + 16 * H + 8 * N * H
+    if copy:
+        mm += 2 * N * (D + 2 * H) * H
+        n_bytes += 4 * N * H + 2 * (D + 2 * H) * H + 4 * H
+    return _ops_bound(mm, 0, n_bytes)
+
+
+def _attention_bound(B, P, A, V, Q, n_valid) -> dict:
+    """The query product 2 B Q A in bf16; per valid (row, position) 3 A
+    fp32 operations for the score and 2 V for the context (``n_valid``
+    sums the rows' valid positions: the masked ones need no key, value
+    or arithmetic); q (fp32), Wq (bf16), b, v read once, the valid keys
+    and values in bf16, ctx and w written in fp32."""
+    mm = 2 * B * Q * A
+    ew = n_valid * (3 * A + 2 * V)
+    n_bytes = (4 * B * Q + 2 * Q * A + 8 * A + 2 * n_valid * (A + V) + 4 * B
+               + 4 * B * V + 4 * B * P)
+    return _ops_bound(mm, ew, n_bytes)
+
+
+def _wholestep_bound(N, H, F, V, k) -> dict:
+    """The lang cell's products (visual gate 2 N H F, base gates 2 N
+    (F + 2H) 4H, copy gate 2 N (F + 3H) H) and the head's 2 N H V in bf16;
+    v_hat_raw, h_att, c*, h_lang, c_lang read in fp32, the weights in
+    bf16 and the biases in fp32 once, h', c', the top-k and lse written."""
+    mm = (2 * N * H * F + 2 * N * (F + 2 * H) * 4 * H
+          + 2 * N * (F + 3 * H) * H + 2 * N * H * V)
+    n_bytes = (4 * N * F + 16 * N * H + 2 * H * F + 2 * (F + 2 * H) * 4 * H
+               + 2 * (F + 3 * H) * H + 4 * (F + 5 * H) + 2 * H * V + 4 * V
+               + 8 * N * H + 8 * N * k + 4 * N)
+    return _ops_bound(mm, 0, n_bytes)
+
+
+def attention_agreement(got, want) -> dict:
+    """(ctx, w) of the attention kernel against its plain version: ctx
+    within CELL_ATOL and finite, every weight within one bf16 ulp of its
+    magnitude or 1e-4, whichever is larger (fp32 softmaxes of the same
+    scores summed in other orders)."""
+    import torch
+
+    (c1, w1), (c2, w2) = got, want
+    d = (w1 - w2).abs()
+    bar = torch.maximum(_bf16_ulp(torch.maximum(w1.abs(), w2.abs())),
+                        torch.full_like(d, 1e-4))
+    out = {"ctx_max_abs_err": float((c1 - c2).abs().max()),
+           "w_max_abs_err": float(d.max()),
+           "w_max_err_over_bar": float((d / bar).max())}
+    out["max_abs_err"] = max(out["ctx_max_abs_err"], out["w_max_abs_err"])
+    out["ok"] = (out["ctx_max_abs_err"] <= CELL_ATOL
+                 and out["w_max_err_over_bar"] <= 1.0
+                 and bool(torch.isfinite(c1).all()))
+    return out
+
+
+def state_agreement(got, want) -> dict:
+    return cell_agreement(got, want, ("state", "state"))
+
+
+def _hold(name, run, plain, agree, faults=()):
+    """One kernel case: the kernel against its plain version within the
+    bar of ``agree``; each planted fault (name, run) must fail it."""
+    import torch
+
+    got = run()
+    want = plain()
+    torch.cuda.synchronize()
+    res = agree(got, want)
+    check(res["ok"], f"{name}: kernel vs plain: {res}")
+    caught = {}
+    for fault, bad in faults:
+        caught[fault] = not agree(bad(), want)["ok"]
+        check(caught[fault], f"{name}: planted fault {fault} passes the bar")
+    return {**res, "planted_faults_caught": caught}
+
+
+def phase_cell_kernels(ed, dc) -> dict:
+    """B5 and B6 against their plain versions on the card: at the greedy
+    step's shapes (512 rows, paper width, the timed batch's encoded
+    context and the models' weights), at examples/bench_cell_kernels.py's
+    shapes (2560 rows; LSTM input E+F+H = 4096, Copy-LSTM input F+H =
+    3072; R = 36, F = 2048, A = 512) and on unaligned shapes, with planted
+    faults; kernel, plain, library and bound times at the greedy
+    shapes."""
+    import torch
+
+    from captionkit_torch.kernels import attention as ka
+    from captionkit_torch.kernels import lstm as kl
+    from captionkit_torch.models import dcnet as dmod
+    from captionkit_torch.models import editnet as emod
+    from captionkit_torch.nn.attention import AdditiveAttentionParams
+    from captionkit_torch.nn.cells import CopyLSTMParams, LSTMParams
+
+    cfg, model, params, _ = ed
+    dcfg, dmodel, dparams, _ = dc
+    mc = cfg.model
+    E, H, A, F = mc.emb_dim, mc.hidden_dim, mc.att_dim, mc.feat_dim
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(12)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).cuda()
+
+    with torch.inference_mode():
+        batch = [t.cuda() for t in _batch(mc)]
+        ctx = model.encode(params, *batch)
+        dctx = dmodel.encode(dparams, *batch)
+    pk, dpk = emod._packed(params, mc), dmod._packed(dparams, dcfg.model)
+    N = N_IMAGES
+    kw = {"compute_dtype": bf}
+    out = {"lstm": {}, "copy_lstm": {}, "attention": {}}
+
+    # B5 at the greedy step: DCNet's decoder LSTM (D = E + H) and
+    # EditNet's Copy-LSTM (D = F + H), fp32 inputs as the models give them.
+    dec = dparams.decoder
+    x, h, c = randn(N, E + H), randn(N, H, scale=0.5), randn(N, H)
+    lstm_args = (dec, x, h, c)
+    dec_w = dpk["dec_w"]
+    out["lstm"]["greedy"] = _hold(
+        "fused_lstm_cell greedy",
+        lambda: kl.fused_lstm_cell(*lstm_args, packed=dec_w, **kw),
+        lambda: kl.reference_lstm_cell(*lstm_args, packed=dec_w, **kw),
+        state_agreement,
+        [("i_f_gates_exchanged", lambda: kl.fused_lstm_cell(
+            *lstm_args, packed=_swap_if(dec_w, H), **kw))])
+    lang = params.lang_lstm
+    xl, cs = randn(N, F + H), randn(N, H)
+    copy_args = (lang, xl, h, c, cs)
+    w_base, w_r = pk["lang"]
+    no_copy = torch.cat([w_r[:-H], torch.zeros_like(w_r[-H:])])
+    out["copy_lstm"]["greedy"] = _hold(
+        "fused_copy_lstm_cell greedy",
+        lambda: kl.fused_copy_lstm_cell(*copy_args, packed=pk["lang"], **kw),
+        lambda: kl.reference_copy_lstm_cell(*copy_args, packed=pk["lang"],
+                                            **kw),
+        state_agreement,
+        [("i_f_gates_exchanged", lambda: kl.fused_copy_lstm_cell(
+            *copy_args, packed=(_swap_if(w_base, H), w_r), **kw)),
+         ("copy_gate_c_star_rows_dropped", lambda: kl.fused_copy_lstm_cell(
+             *copy_args, packed=(w_base, no_copy), **kw))])
+
+    # B6 at the greedy step: EditNet's visual attention and SCMA, DCNet's
+    # text attention, one query row per image.
+    q = randn(N, H, scale=0.5)
+    att_cases = {
+        "visual": (params.vis_attention, ctx.vis_keys, ctx.features, None,
+                   pk["vis_wq"]),
+        "scma": (params.scma, ctx.scma_keys, ctx.enc_cs, ctx.mask,
+                 pk["scma_wq"]),
+        "dcnet_text": (dparams.attention, dctx.att_keys, dctx.enc_hs,
+                       dctx.mask, dpk["att_wq"]),
+    }
+    check(bool((~ctx.mask).any()), "the batch masks no caption position")
+    for name, (ap, keys, values, mask, wq) in att_cases.items():
+        args = (ap, keys, values, q, mask)
+        faults = [("values_of_next_row", lambda: ka.fused_additive_attention(
+            ap, keys, torch.roll(values, 1, 0), q, mask, w_q=wq, **kw))]
+        if mask is not None:
+            faults.append(("mask_dropped", lambda: ka.fused_additive_attention(
+                ap, keys, values, q, None, w_q=wq, **kw)))
+        out["attention"][name] = _hold(
+            f"fused_additive_attention {name}",
+            lambda: ka.fused_additive_attention(*args, w_q=wq, **kw),
+            lambda: ka.reference_additive_attention(*args, w_q=wq, **kw),
+            attention_agreement, faults)
+
+    # examples/bench_cell_kernels.py's shapes: 2560 rows.
+    M = N * BEAM
+    bench_lstm = LSTMParams(wx=randn(E + F + H, 4 * H, scale=H ** -0.5),
+                            wh=randn(H, 4 * H, scale=H ** -0.5),
+                            b=randn(4 * H, scale=H ** -0.5))
+    xb, hb, cb, csb = (randn(M, E + F + H), randn(M, H, scale=0.5),
+                       randn(M, H), randn(M, H))
+    out["lstm"]["bench"] = _hold(
+        "fused_lstm_cell bench",
+        lambda: kl.fused_lstm_cell(bench_lstm, xb, hb, cb, **kw),
+        lambda: kl.reference_lstm_cell(bench_lstm, xb, hb, cb, **kw),
+        state_agreement)
+    xlb = randn(M, F + H)
+    out["copy_lstm"]["bench"] = _hold(
+        "fused_copy_lstm_cell bench",
+        lambda: kl.fused_copy_lstm_cell(lang, xlb, hb, cb, csb, **kw),
+        lambda: kl.reference_copy_lstm_cell(lang, xlb, hb, cb, csb, **kw),
+        state_agreement)
+    vis_b = (params.vis_attention, ctx.vis_keys.repeat(BEAM, 1, 1),
+             ctx.features.repeat(BEAM, 1, 1), randn(M, H, scale=0.5), None)
+    out["attention"]["bench"] = _hold(
+        "fused_additive_attention bench",
+        lambda: ka.fused_additive_attention(*vis_b, **kw),
+        lambda: ka.reference_additive_attention(*vis_b, **kw),
+        attention_agreement)
+
+    # Unaligned shapes (the reference's 5 x 48 x 72, and SCMA's class).
+    def u(*shape):
+        return randn(*shape, scale=0.2)
+
+    small = LSTMParams(wx=u(48, 4 * 72), wh=u(72, 4 * 72), b=u(4 * 72))
+    small_copy = CopyLSTMParams(base=small, wrx=u(48, 72), wrh=u(72, 72),
+                                wrc=u(72, 72), br=u(72))
+    xs, hs, cs_, css = randn(5, 48), randn(5, 72), randn(5, 72), \
+        randn(5, 72)
+    out["lstm"]["unaligned"] = _hold(
+        "fused_lstm_cell unaligned",
+        lambda: kl.fused_lstm_cell(small, xs, hs, cs_, **kw),
+        lambda: kl.reference_lstm_cell(small, xs, hs, cs_, **kw),
+        state_agreement)
+    out["copy_lstm"]["unaligned"] = _hold(
+        "fused_copy_lstm_cell unaligned",
+        lambda: kl.fused_copy_lstm_cell(small_copy, xs, hs, cs_, css, **kw),
+        lambda: kl.reference_copy_lstm_cell(small_copy, xs, hs, cs_, css,
+                                            **kw),
+        state_agreement)
+    ap_s = AdditiveAttentionParams(w_enc=u(96, 64), w_q=u(96, 64), v=u(64),
+                                   b=u(64))
+    lengths = torch.tensor([22, 1, 7, 13, 22, 4], device="cuda")
+    mask_s = torch.arange(22, device="cuda")[None, :] < lengths[:, None]
+    att_s = (ap_s, randn(6, 22, 64).to(bf), randn(6, 22, 96).to(bf),
+             randn(6, 96), mask_s)
+    out["attention"]["unaligned"] = _hold(
+        "fused_additive_attention unaligned",
+        lambda: ka.fused_additive_attention(*att_s, **kw),
+        lambda: ka.reference_additive_attention(*att_s, **kw),
+        attention_agreement)
+
+    # Times at the greedy step's shapes.
+    w_ih = dec_w[:E + H].t().contiguous()
+    w_hh = dec_w[E + H:].t().contiguous()
+    b_ih = dec.b.to(bf)
+    b_hh = torch.zeros_like(b_ih)
+    xbf, hbf, cbf = x.to(bf), h.to(bf), c.to(bf)
+
+    def library_lstm():  # one PyTorch call, the same bf16 operands
+        return torch.lstm_cell(xbf, (hbf, cbf), w_ih, w_hh, b_ih, b_hh)
+
+    timings = {
+        "fused_lstm_cell": (
+            lambda: kl.fused_lstm_cell(*lstm_args, packed=dec_w, **kw),
+            lambda: kl.reference_lstm_cell(*lstm_args, packed=dec_w, **kw),
+            library_lstm, _lstm_bound(N, E + H, H, False),
+            ("gemm_kernel",)),
+        "fused_copy_lstm_cell": (
+            lambda: kl.fused_copy_lstm_cell(*copy_args, packed=pk["lang"],
+                                            **kw),
+            lambda: kl.reference_copy_lstm_cell(*copy_args,
+                                                packed=pk["lang"], **kw),
+            None, _lstm_bound(N, F + H, H, True), ("gemm_kernel",)),
+    }
+    for name, (ap, keys, values, mask, wq) in att_cases.items():
+        n_valid = int(mask.sum()) if mask is not None else \
+            N * keys.shape[1]
+        timings[f"fused_additive_attention/{name}"] = (
+            lambda ap=ap, keys=keys, values=values, mask=mask, wq=wq:
+            ka.fused_additive_attention(ap, keys, values, q, mask, w_q=wq,
+                                        **kw),
+            lambda ap=ap, keys=keys, values=values, mask=mask, wq=wq:
+            ka.reference_additive_attention(ap, keys, values, q, mask,
+                                            w_q=wq, **kw),
+            None,
+            _attention_bound(N, keys.shape[1], A, values.shape[2], H,
+                             n_valid),
+            ("gemm_kernel", "attention_kernel"))
+    times = {}
+    for name, (run, plain, library, bound, keys) in timings.items():
+        ms = time_ms(run, iters=10)
+        times[name] = {
+            "ms": ms, "plain_ms": time_ms(plain, iters=5),
+            "library_ms": time_ms(library, iters=10) if library else None,
+            **bound, "cuda_launches_per_call": _cuda_kernels(run, keys)}
+    result = {"phase": "cell_kernels", "ok": True, "rows": N,
+              "atol_state": CELL_ATOL,
+              "weights_bar": "max(1 bf16 ulp, 1e-4)",
+              "checks": out, "times": times,
+              "library": "torch.lstm_cell on the same bf16 operands"}
+    emit(result)
+    return result
+
+
+def _check_dispatch_steps(mod, run, kernels) -> dict:
+    """On a plain greedy decode (``run``), each dispatch call site of
+    ``mod`` named in ``kernels`` ({getter: (kernel, plain version,
+    agree)}) records its inputs as the decode hands them over; the kernel
+    and its plain version run on exactly those inputs, within the bar of
+    ``agree``, at every step. The decode itself stays plain; the gap of
+    each kernel to the model's plain cell is reported beside. Launches
+    made here are not counted as the main path's."""
+    import torch
+
+    worst, calls, gap = {}, {}, {}
+    originals = {getter: getattr(mod, getter) for getter in kernels}
+
+    def spy(getter):
+        kernel, reference, agree = kernels[getter]
+
+        def get(use_pallas=False):
+            plain_fn = originals[getter](use_pallas)
+
+            def fn(*a, **k):
+                out = plain_fn(*a, **k)
+                got = kernel(*a, **k)
+                res = agree(got, reference(*a, **k))
+                check(res["ok"], f"{getter} call {calls.get(getter, 0)}: "
+                                 f"kernel vs plain on the decode's inputs: "
+                                 f"{res}")
+                calls[getter] = calls.get(getter, 0) + 1
+                worst[getter] = max(worst.get(getter, 0.0),
+                                    res["max_abs_err"])
+                gap[getter] = max(gap.get(getter, 0.0), max(
+                    float((x - y).abs().max()) for x, y in zip(got, out)))
+                return out
+            return fn
+        return get
+
+    for getter in kernels:
+        setattr(mod, getter, spy(getter))
+    try:
+        with torch.inference_mode():
+            run()
+    finally:
+        for getter, fn in originals.items():
+            setattr(mod, getter, fn)
+    return {"calls": calls, "max_abs_err": worst,
+            "max_abs_gap_to_plain_cell": gap}
+
+
+def phase_greedy(ed, dc, wrappers, card) -> dict:
+    """editnet_greedy and dcnet_greedy at paper width (random weights
+    from seed 0 through the .npz bridge): served behind
+    CaptionServer(batch=512); a forced-full 22-step greedy decode of the
+    timed batch (end id -1), plain cells, beside the same decode with the
+    models' dispatch sites taking the cell kernels (``use_pallas=True``),
+    captions/s (median of 3, in turns) and launches per batch; then, on
+    the plain decode's own per-step inputs, each dispatch kernel against
+    its plain version."""
+    import dataclasses
+
+    from captionkit_torch.config import get_named_config
+    from captionkit_torch.decode import make_decode_fn
+    from captionkit_torch.kernels import attention as ka
+    from captionkit_torch.kernels import lstm as kl
+    from captionkit_torch.models import dcnet as dmod
+    from captionkit_torch.models import editnet as emod
+    from captionkit_torch.models import get_model
+
+    result = {"phase": "greedy", "ok": True, "card": card, "batch": N_IMAGES,
+              "steps": MAX_LEN}
+    attention = (ka.fused_additive_attention,
+                 ka.reference_additive_attention, attention_agreement)
+    for name, setup, mod, path in (
+            ("editnet_greedy", ed, emod,
+             {"get_copy_lstm_cell_fn": (kl.fused_copy_lstm_cell,
+                                        kl.reference_copy_lstm_cell,
+                                        state_agreement),
+              "get_attention_fn": attention}),
+            ("dcnet_greedy", dc, dmod,
+             {"get_lstm_cell_fn": (kl.fused_lstm_cell,
+                                   kl.reference_lstm_cell, state_agreement),
+              "get_attention_fn": attention})):
+        _, _, params, vocab = setup
+        cfg = get_named_config(name).override(
+            {"decode.batch_size": N_IMAGES})
+        model = get_model(cfg.model)
+        serve = phase_serve(cfg, model, params, vocab, wrappers, (),
+                            phase=f"{name}_serve")
+        kw = dict(start_id=vocab.start, end_id=-1, pad_id=vocab.pad,
+                  device="cuda")
+        batch = _batch(cfg.model)
+        plain = make_decode_fn(model, cfg.decode, **kw)
+        mc = cfg.model
+        kernel_model = dataclasses.replace(
+            model, step=lambda p, c, s, t, mod=mod, mc=mc: mod.step(
+                p, mc, c, s, t, use_pallas=True))
+        dispatch = make_decode_fn(kernel_model, cfg.decode, **kw)
+        plain(params, *batch).cpu()  # warm-up
+        dispatch(params, *batch).cpu()
+        _reset(wrappers)
+        tokens = plain(params, *batch).cpu()
+        plain_launches = {w.__name__: w.launches for w in wrappers}
+        check(not any(plain_launches.values()),
+              f"{name}: the plain greedy decode launched {plain_launches}")
+        check(tuple(tokens.shape) == (N_IMAGES, MAX_LEN)
+              and bool(((tokens >= 0) & (tokens < mc.vocab_size)).all()),
+              f"{name}: tokens of the wrong shape or out of range")
+        _reset(wrappers)
+        tokens_k = dispatch(params, *batch).cpu()
+        per_batch = {w.__name__: w.launches for w in wrappers}
+        want = ({"fused_copy_lstm_cell": MAX_LEN,
+                 "fused_additive_attention": 2 * MAX_LEN}
+                if mod is emod else
+                {"fused_lstm_cell": MAX_LEN,
+                 "fused_additive_attention": MAX_LEN})
+        for kname in DISPATCH:
+            check(per_batch[kname] == want.get(kname, 0),
+                  f"{name}: {per_batch[kname]} {kname} launches a batch, "
+                  f"expected {want.get(kname, 0)}")
+        timed = _timed_decodes({"plain": plain, "dispatch": dispatch},
+                               {"plain": batch, "dispatch": batch}, params)
+        agree = float((tokens == tokens_k).float().mean())
+        # The fused attention's weights enter the context unrounded, the
+        # plain attention's rounded to bf16, so near-ties may flip.
+        check(agree >= 0.5, f"{name}: dispatch tokens agree with the plain "
+                            f"decode on {agree} < 0.5")
+        greedy_plain = make_decode_fn(model, cfg.decode, **kw)
+        steps = _check_dispatch_steps(
+            mod, lambda: greedy_plain(params, *batch).cpu(), path)
+        n_sites = {"get_copy_lstm_cell_fn": MAX_LEN,
+                   "get_lstm_cell_fn": MAX_LEN,
+                   "get_attention_fn": MAX_LEN * (2 if mod is emod else 1)}
+        for getter, n in steps["calls"].items():
+            check(n == n_sites[getter],
+                  f"{name}: {getter} checked {n} times, expected "
+                  f"{n_sites[getter]}")
+        profile = _profile(lambda: plain(params, *batch).cpu())
+        profile["busy_share_of_timed_wall"] = profile["device_ms"] / (
+            1e3 * N_IMAGES / timed["plain"]["captions_per_s"])
+        profile_k = _profile(lambda: dispatch(params, *batch).cpu())
+        result[name] = {
+            "serve_launches": serve["launches"],
+            "captions_per_s": timed["plain"]["captions_per_s"],
+            "runs": timed["plain"]["runs"],
+            "spread_pct": timed["plain"]["spread_pct"],
+            "dispatch_kernels": timed["dispatch"],
+            "launches_per_batch": per_batch,
+            "token_agreement_dispatch_vs_plain": agree,
+            "steps_check": steps, "profile": profile,
+            "dispatch_profile": profile_k}
+        _reset(wrappers)
+    emit(result)
+    return result
+
+
+# --------------------------------------------------------------------------
+# The whole-step kernel (kernels/wholestep.py)
+# --------------------------------------------------------------------------
+
+
+def wholestep_agreement(got, want) -> dict:
+    """(h', c', vals, idx, lse): h' and c' within CELL_ATOL, the head's
+    outputs within the head's bar (``head_agreement``)."""
+    out = {f"head_{k}": v for k, v in head_agreement(got[2:], want[2:])
+           .items()}
+    state = state_agreement(got[:2], want[:2])
+    out.update(state_max_abs_err=state["max_abs_err"],
+               max_abs_err=max(state["max_abs_err"],
+                               out["head_vals_max_abs_err"],
+                               out["head_lse_max_abs_err"]),
+               ok=state["ok"] and out["head_ok"])
+    return out
+
+
+def _check_wholestep_steps(model, mc, params, ctx_k, hyps, start_id) -> dict:
+    """The whole step (``step_topk`` with cell_impl="wholestep") against
+    the plain step on the states the decode visits: the batch's K
+    hypotheses fed back for 22 steps; each state field within STEP_ATOL of
+    the plain step's, and the head's outputs against the plain head on the
+    whole step's own h_lang within the head's bar. Planted faults (a
+    shifted lse, ranks 0 and 1 exchanged, c_lang of every 97th row + 2
+    STEP_ATOL) must fail. Launches made here are not counted."""
+    import torch
+
+    from captionkit_torch.models import editnet
+
+    plain_ctx = ctx_k.replace(cell_pack=None)
+    state = editnet.init_state(params, ctx_k)
+    tok = torch.full((hyps.shape[0],), start_id, dtype=torch.int32,
+                     device="cuda")
+    fields = ("h_att", "c_att", "h_lang", "c_lang")
+    worst = {f: 0.0 for f in fields}
+    worst.update(idx_agreement=1.0, vals_max_abs_err=0.0,
+                 lse_max_abs_err=0.0)
+    caught = {}
+    with torch.inference_mode():
+        for t in range(MAX_LEN):
+            ws, *got = model.step_topk(params, ctx_k, state, tok, BEAM)
+            plain, _ = editnet._step_hidden(params, mc, plain_ctx, state, tok)
+            err = {f: float((getattr(ws, f) - getattr(plain, f)).abs().max())
+                   for f in fields}
+            check(max(err.values()) <= STEP_ATOL,
+                  f"step {t}: whole step vs plain step {err}")
+            want = _float_plain_head(params, ctx_k, ws)
+            res = head_agreement(got, want)
+            check(res["ok"], f"step {t}: whole-step head vs plain head {res}")
+            for f in fields:
+                worst[f] = max(worst[f], err[f])
+            worst["idx_agreement"] = min(worst["idx_agreement"],
+                                         res["idx_agreement"])
+            for key in ("vals_max_abs_err", "lse_max_abs_err"):
+                worst[key] = max(worst[key], res[key])
+            if t == 0:
+                for name, bad in planted_faults(got):
+                    caught[name] = not head_agreement(bad, want)["ok"]
+                shifted = ws.c_lang.clone()
+                shifted[::97] += 2 * STEP_ATOL
+                caught["c_shift"] = float(
+                    (shifted - plain.c_lang).abs().max()) > STEP_ATOL
+            state = ws
+            tok = hyps[:, t].contiguous()
+    for name, ok in caught.items():
+        check(ok, f"planted fault {name} passes the whole-step steps bar")
+    return {"steps": MAX_LEN, "atol_state": STEP_ATOL, **worst,
+            "planted_faults_caught": caught}
+
+
+def phase_wholestep(ed, wrappers, card) -> dict:
+    """editnet_beam5 with cell_impl="wholestep": served behind
+    CaptionServer(batch=512); the kernel against its plain version at
+    paper shape (N = 2560) with planted faults and exact ties; a
+    forced-full decode (median of 3) beside the ``pallas`` decode in turns;
+    22 launches a batch each of att_cell and fused_lang_head_topk, none of
+    lang_cell and fused_head_topk; the steps check; the token agreement
+    with the pallas decode; and a profile."""
+    import dataclasses
+
+    import torch
+
+    from captionkit_torch.kernels import head as thead
+    from captionkit_torch.kernels import megastep as ms
+    from captionkit_torch.kernels import wholestep as ws
+    from captionkit_torch.models import get_model
+
+    cfg, _, params, vocab = ed
+    cfg_w = cfg.override({"model.cell_impl": "wholestep"})
+    mc = cfg_w.model
+    model = get_model(mc)
+    serve = phase_serve(cfg_w, model, params, vocab, wrappers,
+                        ("att_cell", "fused_lang_head_topk"),
+                        phase="wholestep_serve")
+    check(serve["launches"]["lang_cell"] == 0
+          and serve["launches"]["fused_head_topk"] == 0,
+          f"the whole-step server ran the two-program path: "
+          f"{serve['launches']}")
+
+    with torch.inference_mode():
+        ctx_k = _encoded(model, params, mc)
+    pack, head_w, head_b = ctx_k.cell_pack, ctx_k.head_w, ctx_k.head_b
+    N, H = N_IMAGES * BEAM, mc.hidden_dim
+    g = torch.Generator().manual_seed(11)
+    h_att, c_att, h_lang, c_lang = (
+        (torch.randn((N, H), generator=g) * 0.5).cuda() for _ in range(4))
+    emb = (torch.randn((N, mc.emb_dim), generator=g) * 0.1).cuda()
+    with torch.inference_mode():
+        h2, _, vhat_raw, c_star = ms.att_phase(pack, h_att, c_att, h_lang,
+                                               emb)
+    args = (pack, vhat_raw, h2, c_star, h_lang, c_lang, head_w, head_b)
+    swapped = dataclasses.replace(
+        pack, lang_w=_swap_if(pack.lang_w, pack.hp),
+        lang_b=_swap_if(pack.lang_b, pack.hp))
+
+    def kernel():
+        return ws.fused_lang_head_topk(*args, k=BEAM)
+
+    def plain():
+        return ws.reference_lang_head_topk(*args, k=BEAM)
+
+    got = kernel()
+    faults = [(f, lambda bad=bad: (*got[:2], *bad))
+              for f, bad in planted_faults(got[2:])]
+    faults.append(("i_f_gates_exchanged", lambda: ws.fused_lang_head_topk(
+        swapped, *args[1:], k=BEAM)))
+    held = _hold("fused_lang_head_topk", kernel, plain,
+                   wholestep_agreement, faults)
+
+    # Exact ties: a head whose second half repeats its first half gives
+    # every logit twice; the kernel must rank each pair lowest id first.
+    half = head_w.shape[1] // 2 // thead.TILE_V * thead.TILE_V
+    tie_w = torch.cat([head_w[:, :half], head_w[:, :half]], 1).contiguous()
+    tie_b = torch.cat([head_b[:half], head_b[:half]]).contiguous()
+    tie = ws.fused_lang_head_topk(*args[:6], tie_w, tie_b, k=4)
+    tie_ref = ws.reference_lang_head_topk(*args[:6], tie_w, tie_b, k=4)
+    pairs = bool(torch.equal(tie[3][:, 1], tie[3][:, 0] + half)
+                 and torch.equal(tie[3][:, 3], tie[3][:, 2] + half)
+                 and torch.equal(tie[2][:, 0], tie[2][:, 1]))
+    tie_agree = float((tie[3] == tie_ref[3]).float().mean())
+    check(pairs and tie_agree >= 0.999,
+          f"whole-step ties: pairs in id order {pairs}, agreement "
+          f"{tie_agree}")
+
+    hl_p, cl_p, head_w_p = ws._padded(pack, h_lang, c_lang, head_w)
+
+    def two_programs():  # the pallas path's lang cell, then its head
+        hl, _ = ms.lang_cell(pack, vhat_raw, h2, hl_p, cl_p, c_star)
+        return thead.fused_head_topk(hl.to(torch.bfloat16), head_w_p,
+                                     head_b, k=BEAM)
+
+    bound = _wholestep_bound(N, H, mc.feat_dim, mc.vocab_size, BEAM)
+    ms_call = time_ms(kernel, iters=10)
+    timing = {"ms": ms_call, "plain_ms": time_ms(plain, iters=5),
+              "library_ms": None,
+              "two_programs_ms": time_ms(two_programs, iters=10), **bound,
+              "cuda_launches_per_call": _cuda_kernels(
+                  kernel, ("gemm_kernel", "lang_head_kernel")),
+              "two_programs_cuda_launches": _cuda_kernels(
+                  two_programs, ("gemm_kernel", "head_")),
+              "achieved_tflops": bound["bf16_gflop"] / ms_call,
+              "launch": ws.launch_info(0)}
+    check(timing["cuda_launches_per_call"] <= 3,
+          f"the whole step takes {timing['cuda_launches_per_call']} "
+          "CUDA launches a call, more than 3")
+
+    out, decode, batch, ctx_d, hyps = _decode_pair(
+        cfg_w, model, params, vocab, wrappers,
+        ("att_cell", "fused_lang_head_topk"), other="pallas")
+    per_batch = out["launches_per_batch"]
+    check(per_batch["lang_cell"] == 0 and per_batch["fused_head_topk"] == 0,
+          f"the whole-step decode ran the two-program path: {per_batch}")
+    steps = _check_wholestep_steps(model, mc, params, ctx_d, hyps,
+                                   vocab.start)
+    profile = _profile(lambda: decode(params, *batch).cpu())
+    profile["busy_share_of_timed_wall"] = \
+        profile["device_ms"] / (1e3 * N_IMAGES / out["captions_per_s"])
+    result = {"phase": "wholestep", "ok": True, "card": card,
+              "config": cfg.name, "cell_impl": "wholestep",
+              "batch": N_IMAGES, "beam": BEAM, "steps": MAX_LEN,
+              "serve_launches": serve["launches"], "kernel": {
+                  **held, **timing, "ties": {"pairs_in_id_order": pairs,
+                                               "idx_agreement": tie_agree}},
+              **out, "steps_check": steps, "profile": profile}
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not (ROOT / "captionkit_torch" / "csrc").is_dir():
         print("chip_smoke.py: no captionkit_torch package beside it",
@@ -1324,6 +1998,12 @@ def main() -> int:
         dcn, dserve = phase_dcnet(dc, WRAPPERS, card)
         phase = "int8"
         int8, iserve = phase_int8(ed, dc, WRAPPERS, card)
+        phase = "cell_kernels"
+        cellk = phase_cell_kernels(ed, dc)
+        phase = "greedy"
+        greedy = phase_greedy(ed, dc, WRAPPERS, card)
+        phase = "wholestep"
+        whole = phase_wholestep(ed, WRAPPERS, card)
     except Exception as e:  # every failed phase ends the run non-zero
         traceback.print_exc()
         emit({"phase": phase, "ok": False,
@@ -1336,6 +2016,7 @@ def main() -> int:
         "replaces": "captionkit/ops/head.py:490",
         "launches": serve["launches"]["fused_head_topk"],
         "launches_per_batch": decode["head_launches"],
+        "cuda_launches_per_call": head["cuda_launches_per_call"],
         "check": "ok",
         "max_abs_err": max(head["vals_max_abs_err"],
                            head["lse_max_abs_err"],
@@ -1415,6 +2096,71 @@ def main() -> int:
             "check": "ok",
             "max_abs_err": max(res["vals_max_abs_err"],
                                res["lse_max_abs_err"], steps_err),
+            "ms": res["ms"],
+            "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"],
+            "library_ms": res["library_ms"],
+        })
+    # The dispatch kernels' main-path launches: the greedy decodes whose
+    # dispatch sites take them (EditNet: the Copy-LSTM and two attentions
+    # a step; DCNet: the LSTM and the text attention); their ms, plain and
+    # bound at the greedy step's shapes (attention: EditNet's visual).
+    ged, gdc = (greedy[n]["launches_per_batch"]
+                for n in ("editnet_greedy", "dcnet_greedy"))
+    times = cellk["times"]
+    checks = cellk["checks"]
+    new = {
+        "fused_lstm_cell": (
+            "captionkit_torch/csrc/lstm.cu", "captionkit/ops/lstm.py:153",
+            gdc["fused_lstm_cell"], times["fused_lstm_cell"],
+            max(max(c["max_abs_err"] for c in checks["lstm"].values()),
+                greedy["dcnet_greedy"]["steps_check"]["max_abs_err"]
+                ["get_lstm_cell_fn"])),
+        "fused_copy_lstm_cell": (
+            "captionkit_torch/csrc/lstm.cu", "captionkit/ops/lstm.py:153",
+            ged["fused_copy_lstm_cell"], times["fused_copy_lstm_cell"],
+            max(max(c["max_abs_err"] for c in checks["copy_lstm"].values()),
+                greedy["editnet_greedy"]["steps_check"]["max_abs_err"]
+                ["get_copy_lstm_cell_fn"])),
+        "fused_additive_attention": (
+            "captionkit_torch/csrc/attention.cu",
+            "captionkit/ops/attention.py:125",
+            ged["fused_additive_attention"]
+            + gdc["fused_additive_attention"],
+            times["fused_additive_attention/visual"],
+            max(max(c["max_abs_err"] for c in checks["attention"].values()),
+                *(greedy[n]["steps_check"]["max_abs_err"]
+                  ["get_attention_fn"] for n in ("editnet_greedy",
+                                                 "dcnet_greedy")))),
+        "fused_lang_head_topk": (
+            "captionkit_torch/csrc/wholestep.cu",
+            "captionkit/ops/wholestep.py:184",
+            whole["serve_launches"]["fused_lang_head_topk"],
+            whole["kernel"],
+            max(whole["kernel"]["max_abs_err"],
+                whole["steps_check"]["vals_max_abs_err"],
+                whole["steps_check"]["lse_max_abs_err"])),
+    }
+    per_batch = {"fused_lstm_cell": gdc["fused_lstm_cell"],
+                 "fused_copy_lstm_cell": ged["fused_copy_lstm_cell"],
+                 "fused_additive_attention":
+                     ged["fused_additive_attention"]
+                     + gdc["fused_additive_attention"],
+                 "fused_lang_head_topk":
+                     whole["launches_per_batch"]["fused_lang_head_topk"]}
+    for name, (source, replaces_at, launches, res, err) in new.items():
+        check(launches > 0, f"kernel {name} was not launched on its path")
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces_at,
+            "launches": launches,
+            "launches_per_batch": per_batch[name],
+            "cuda_launches_per_call": res["cuda_launches_per_call"],
+            "check": "ok",
+            "max_abs_err": err,
             "ms": res["ms"],
             "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"],

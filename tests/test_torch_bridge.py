@@ -87,6 +87,9 @@ def test_port_imports_no_jax_and_nothing_of_captionkit():
     assert "captionkit_torch.kernels.megastep" in modules
     assert "captionkit_torch.models.dcnet" in modules
     assert "captionkit_torch.data.featquant" in modules
+    for name in ("kernels.lstm", "kernels.attention", "kernels.wholestep",
+                 "nn.dispatch", "decode.greedy"):
+        assert f"captionkit_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

@@ -441,3 +441,282 @@ def test_small_pallas_cells_decode_on_card_matches_cpu(card, arch):
         assert launched == [10 if dev == "cuda" else 0] * 2
     rows = (out["cpu"] == out["cuda"]).all(dim=1).float().mean()
     assert float(rows) >= 0.9
+
+
+# -- cell kernels of nn.dispatch (kernels/lstm.py, kernels/attention.py) -----
+
+from captionkit_torch.kernels import attention as tattn  # noqa: E402
+from captionkit_torch.kernels import lstm as tlstm  # noqa: E402
+from captionkit_torch.kernels import wholestep as twhole  # noqa: E402
+from captionkit_torch.nn.attention import AdditiveAttentionParams  # noqa: E402
+from captionkit_torch.nn.cells import (  # noqa: E402
+    CopyLSTMParams,
+    LSTMParams,
+)
+
+# (rows, input width D, hidden H): the reference's shape classes
+# (tests/test_ops_pallas.py) and the greedy step's (DCNet D = E + H,
+# EditNet's Copy-LSTM D = F + H) at 512 rows.
+CELL_SHAPES = [(8, 128, 128), (5, 48, 72), (130, 256, 128),
+               (64, 3072, 1024), (512, 2048, 1024), (512, 3072, 1024)]
+
+
+def _u(g, shape, scale, dev):
+    return ((torch.rand(shape, generator=g) * 2 - 1) * scale).to(dev)
+
+
+def _lstm_case(dev, N, D, H, copy, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    s = H ** -0.5
+    base = LSTMParams(wx=_u(g, (D, 4 * H), s, dev),
+                      wh=_u(g, (H, 4 * H), s, dev), b=_u(g, (4 * H,), s, dev))
+    params = CopyLSTMParams(base=base, wrx=_u(g, (D, H), s, dev),
+                            wrh=_u(g, (H, H), s, dev),
+                            wrc=_u(g, (H, H), s, dev),
+                            br=_u(g, (H,), s, dev)) if copy else base
+    x, h, c, cs = (torch.randn(shape, generator=g).to(dev)
+                   for shape in ((N, D), (N, H), (N, H), (N, H)))
+    return params, x, h, c, cs
+
+
+def _cell_plain(params, x, h, c, cs, copy):
+    """The kernel's plain version on the same padded pack."""
+    if copy:
+        return tlstm.reference_copy_lstm_cell(params, x, h, c, cs,
+                                              compute_dtype=torch.bfloat16)
+    return tlstm.reference_lstm_cell(params, x, h, c,
+                                     compute_dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("copy", [False, True])
+@pytest.mark.parametrize("N,D,H", CELL_SHAPES)
+def test_lstm_kernels_match_plain(card, N, D, H, copy):
+    """B5 against its plain version: h and c within 1e-3 (fp32 sums of up
+    to 5120 bf16 products in another order); one launch a call."""
+    params, x, h, c, cs = _lstm_case(card, N, D, H, copy)
+    wrapper = tlstm.fused_copy_lstm_cell if copy else tlstm.fused_lstm_cell
+    args = (params, x, h, c) + ((cs,) if copy else ())
+    before = wrapper.launches
+    got = wrapper(*args, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = _cell_plain(params, x, h, c, cs, copy)
+    for g_, w_ in zip(got, want):
+        assert tuple(g_.shape) == (N, H)
+        torch.testing.assert_close(g_, w_, atol=1e-3, rtol=0)
+
+
+def test_lstm_kernel_planted_faults_fail(card):
+    """The bar catches a pack with its i and f gates exchanged, and a
+    Copy-LSTM whose c* rows of the copy gate are dropped."""
+    params, x, h, c, cs = _lstm_case(card, 64, 256, 128, copy=True)
+    want = _cell_plain(params, x, h, c, cs, True)
+    pack = tlstm.copy_lstm_cell_pack(params, torch.bfloat16)
+    H = 128
+    w4 = pack.w.reshape(pack.w.shape[0], 4, H)
+    swapped = dataclasses.replace(
+        pack, w=w4[:, [1, 0, 2, 3]].reshape(pack.w.shape).contiguous())
+    no_copy = dataclasses.replace(pack, wr=torch.cat(
+        [pack.wr[:-H], torch.zeros_like(pack.wr[-H:])]))
+    for bad in (swapped, no_copy):
+        params.cache[("kernel_pack", torch.bfloat16)] = bad
+        got = tlstm.fused_copy_lstm_cell(params, x, h, c, cs,
+                                         compute_dtype=torch.bfloat16)
+        err = max(float((g_ - w_).abs().max()) for g_, w_ in zip(got, want))
+        assert err > 1e-3
+    params.cache.clear()
+
+
+def _attention_case(dev, B, N, A, V, Q, seed=4, masked=True):
+    g = torch.Generator().manual_seed(seed)
+    params = AdditiveAttentionParams(
+        w_enc=_u(g, (V, A), V ** -0.5, dev), w_q=_u(g, (Q, A), Q ** -0.5, dev),
+        v=_u(g, (A,), A ** -0.5, dev), b=_u(g, (A,), 0.1, dev))
+    values = torch.randn((B, N, V), generator=g).to(dev, torch.bfloat16)
+    keys = (torch.randn((B, N, A), generator=g) * 0.5).to(dev,
+                                                          torch.bfloat16)
+    query = torch.randn((B, Q), generator=g).to(dev)
+    mask = None
+    if masked:
+        lengths = torch.randint(1, N + 1, (B,), generator=g).to(dev)
+        mask = torch.arange(N, device=dev)[None, :] < lengths[:, None]
+    return params, keys, values, query, mask
+
+
+def _weights_bar(got, want):
+    """w within one bf16 ulp of the weight's magnitude or 1e-4."""
+    bar = torch.maximum(_ulp_bf16(torch.maximum(got.abs(), want.abs())),
+                        torch.full_like(got, 1e-4))
+    return bool(((got - want).abs() <= bar).all())
+
+
+@pytest.mark.parametrize("B,N,A,V,Q,masked", [
+    (8, 36, 512, 2048, 1024, True),    # visual attention shape class
+    (6, 22, 64, 96, 96, True),         # SCMA shape class (unaligned)
+    (4, 10, 8, 32, 16, False),         # no mask
+    (512, 36, 512, 2048, 1024, False),  # EditNet's greedy visual attention
+    (512, 22, 512, 1024, 1024, True),  # its SCMA / DCNet's text attention
+])
+def test_attention_kernel_matches_plain(card, B, N, A, V, Q, masked):
+    params, keys, values, query, mask = _attention_case(card, B, N, A, V, Q,
+                                                        masked=masked)
+    before = tattn.fused_additive_attention.launches
+    ctx, w = tattn.fused_additive_attention(
+        params, keys, values, query, mask, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert tattn.fused_additive_attention.launches == before + 1
+    ctx_r, w_r = tattn.reference_additive_attention(
+        params, keys, values, query, mask, compute_dtype=torch.bfloat16)
+    assert w.dtype == torch.float32 and tuple(ctx.shape) == (B, V)
+    assert _weights_bar(w, w_r), float((w - w_r).abs().max())
+    torch.testing.assert_close(ctx, ctx_r, atol=1e-3, rtol=0)
+    if masked:  # a masked position weighs exactly 0
+        assert bool((w[~mask] == 0).all())
+
+
+def test_attention_kernel_planted_fault_fails(card):
+    """Dropping the mask moves the weights past the bar."""
+    params, keys, values, query, mask = _attention_case(card, 6, 22, 64, 96,
+                                                        96)
+    assert bool((~mask).any())
+    _, w_r = tattn.reference_additive_attention(
+        params, keys, values, query, mask, compute_dtype=torch.bfloat16)
+    _, w = tattn.fused_additive_attention(params, keys, values, query, None,
+                                          compute_dtype=torch.bfloat16)
+    assert not _weights_bar(w, w_r)
+
+
+def test_cell_kernels_reject_what_they_do_not_take(card):
+    params, x, h, c, _ = _lstm_case(card, 8, 128, 128, copy=False)
+    with pytest.raises(TypeError):  # the kernels compute in bf16 only
+        tlstm.fused_lstm_cell(params, x, h, c, compute_dtype=torch.float32)
+    aparams, keys, values, query, mask = _attention_case(card, 4, 10, 8, 32,
+                                                         16)
+    with pytest.raises(ValueError):  # no grouped beam layout
+        tattn.fused_additive_attention(
+            aparams, keys, values, query.repeat_interleave(2, 0), mask,
+            compute_dtype=torch.bfloat16)
+    with pytest.raises(TypeError):  # fp32 keys
+        tattn.fused_additive_attention(
+            aparams, keys.float(), values, query, mask,
+            compute_dtype=torch.bfloat16)
+
+
+# -- the whole-step kernel (kernels/wholestep.py) ----------------------------
+
+
+@pytest.mark.parametrize("over,B,k", [(SMALL_CELLS, 7, 5), (SMALL_CELLS, 3, 1),
+                                      (PAPER_CELLS, 512, 5)])
+def test_wholestep_kernel_matches_plain(card, over, B, k):
+    """B9 against its plain version (lang cell, then the head of h_lang'
+    in bf16): h and c within 1e-3, vals and lse within 1e-3, idx agreement
+    >= 0.999; one launch a call."""
+    mc, pack, (h_att, c_att, h_lang, c_lang), emb = _cell_setup(
+        "editnet", over, card, B)
+    from captionkit_torch.kernels.head import prepad_head
+
+    g = torch.Generator().manual_seed(3)
+    H, V = mc.hidden_dim, mc.vocab_size
+    w, b = prepad_head((torch.randn((H, V), generator=g) * H ** -0.5).to(card),
+                       (torch.randn((V,), generator=g) * 0.1).to(card),
+                       compute_dtype=torch.bfloat16)
+    h2, c2, vhat_raw, c_star = megastep.att_phase(pack, h_att[:, :H],
+                                                  c_att[:, :H], h_lang[:, :H],
+                                                  emb[:, :mc.emb_dim])
+    args = (pack, vhat_raw, h2, c_star, h_lang[:, :H].contiguous(),
+            c_lang[:, :H].contiguous(), w, b)
+    before = twhole.fused_lang_head_topk.launches
+    got = twhole.fused_lang_head_topk(*args, k=k)
+    torch.cuda.synchronize()
+    assert twhole.fused_lang_head_topk.launches == before + 1
+    want = twhole.reference_lang_head_topk(*args, k=k)
+    for g_, w_ in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g_, w_, atol=1e-3, rtol=0)
+    assert float((got[3] == want[3]).float().mean()) >= 0.999
+    torch.testing.assert_close(got[2], want[2], atol=1e-3, rtol=0)
+    torch.testing.assert_close(got[4], want[4], atol=1e-3, rtol=0)
+
+
+def test_wholestep_decode_launch_counts(card):
+    """A small bf16 EditNet beam decode with cell_impl="wholestep": per
+    step one att_cell and one whole-step launch, no lang_cell and no
+    separate head; the same captions as the CPU for nearly every image."""
+    cfg = CaptionKitConfig().override({
+        **SMALL_CELLS, "model.cell_impl": "wholestep",
+        "decode.beam_size": 5, "decode.max_decode_len": 10})
+    model = get_model(cfg.model)
+    rng = np.random.default_rng(0)
+    B = 16
+    feats = torch.from_numpy(
+        rng.standard_normal((B, 6, 72)).astype(np.float32))
+    ex = torch.from_numpy(rng.integers(4, 300, (B, 8)))
+    ln = torch.from_numpy(rng.integers(2, 9, (B,)))
+    wrappers = (megastep.att_cell, megastep.lang_cell,
+                twhole.fused_lang_head_topk, thead.fused_head_topk)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = model.init(0, dev)
+        fn = make_decode_fn(model, cfg.decode, start_id=2, end_id=-1,
+                            device=dev)
+        before = [w.launches for w in wrappers]
+        out[dev] = fn(params, feats, ex, ln).cpu()
+        launched = [w.launches - b for w, b in zip(wrappers, before)]
+        assert launched == ([10, 0, 10, 0] if dev == "cuda" else [0] * 4)
+    rows = (out["cpu"] == out["cuda"]).all(dim=1).float().mean()
+    assert float(rows) >= 0.9
+
+
+@pytest.mark.parametrize("arch", ["editnet", "dcnet"])
+def test_small_greedy_decode_on_card_matches_cpu(card, arch):
+    """A small bf16 greedy decode on the card and on the CPU: the same
+    captions for nearly every image (a near-tie in an argmax may flip)."""
+    cfg = CaptionKitConfig().override({
+        **SMALL_CELLS, "model.arch": arch, "decode.method": "greedy",
+        "decode.beam_size": 1, "decode.max_decode_len": 10})
+    model = get_model(cfg.model)
+    rng = np.random.default_rng(0)
+    B = 16
+    feats = torch.from_numpy(
+        rng.standard_normal((B, 6, 72)).astype(np.float32))
+    ex = torch.from_numpy(rng.integers(4, 300, (B, 8)))
+    ln = torch.from_numpy(rng.integers(2, 9, (B,)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = model.init(0, dev)
+        fn = make_decode_fn(model, cfg.decode, start_id=2, end_id=-1,
+                            device=dev)
+        out[dev] = fn(params, feats, ex, ln).cpu()
+    rows = (out["cpu"] == out["cuda"]).all(dim=1).float().mean()
+    assert float(rows) >= 0.9
+
+
+@pytest.mark.parametrize("config,sets", [
+    ("editnet_greedy", []), ("dcnet_greedy", []),
+    ("editnet_beam5", ["--set", "model.cell_impl=wholestep"])])
+def test_cli_serves_on_card(card, config, sets, tmp_path, monkeypatch,
+                            capsys):
+    """``python -m captionkit_torch.cli serve --config <config> --synthetic
+    --batch 512`` at paper width on the card answers every request."""
+    import io
+    import json
+    import sys
+
+    from captionkit_torch import cli
+
+    rng = np.random.default_rng(0)
+    lines = []
+    for i in range(3):
+        path = tmp_path / f"f{i}.npy"
+        np.save(path, rng.standard_normal((36, 2048)).astype(np.float32))
+        lines.append(json.dumps({"id": i, "caption": "a dog on a bench",
+                                 "features": str(path)}))
+    monkeypatch.setattr(sys, "stdin", io.StringIO("\n".join(lines) + "\n"))
+    before = twhole.fused_lang_head_topk.launches
+    assert cli.main(["serve", "--config", config, "--synthetic", "--batch",
+                     "512", *sets]) == 0
+    out = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert out[0]["ready"] is True and out[0]["batch"] == 512
+    assert [r["id"] for r in out[1:]] == [0, 1, 2]
+    assert all(isinstance(r["caption"], str) for r in out[1:])
+    launched = twhole.fused_lang_head_topk.launches - before
+    assert (launched > 0) == (config == "editnet_beam5")

@@ -276,9 +276,30 @@ def test_cli_serve_dcnet_random_weights(monkeypatch, capsys):
 
 
 def test_unported_dcnet_options_raise():
-    with pytest.raises(NotImplementedError):
-        get_model(dataclasses.replace(ModelConfig(arch="dcnet"),
-                                      cell_impl="wholestep"))
+    """DCNet with ``cell_impl="wholestep"`` builds and, as in the
+    reference, keeps the plain cells: ``prepare_topk`` builds no cell pack
+    and its step equals the plain model's. ``impl="backptr"`` beam search
+    still raises."""
+    from captionkit_torch.decode.beam import beam_search
+
+    jm, jp, tm, tp = _models()
+    ws = get_model(ModelConfig(**dict(SMALL, arch="dcnet",
+                                      compute_dtype="float32",
+                                      cell_impl="wholestep")))
+    feats, ex, ln = _inputs()
+    _, ctx = _encode(jm, jp, tm, tp, feats, ex, ln)
+    ctx_k = ws.prepare_topk(tp, ws.beam_expand(ctx, 2), 2)
+    assert ctx_k.cell_pack is None
+    state = ws.init_state(tp, ctx_k)
+    tok = torch.arange(6)
+    got = ws.step_topk(tp, ctx_k, state, tok, 2)
+    want = tm.step_topk(tp, tm.prepare_topk(tp, tm.beam_expand(ctx, 2), 2),
+                        state, tok, 2)
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+    with pytest.raises(NotImplementedError, match="backptr"):
+        beam_search(ws, tp, ctx, beam_size=2, start_id=2, end_id=3,
+                    impl="backptr")
     # The int8 head (with its DCNet warning) and thresh extraction build.
     with pytest.warns(UserWarning, match="head_quant='int8' with "
                                          "arch='dcnet'"):

@@ -135,8 +135,28 @@ def test_plain_head_config_matches_fused_head_on_cpu():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        get_model(dataclasses.replace(ModelConfig(), cell_impl="wholestep"))
+    """``cell_impl="wholestep"`` is ported: it builds, ``prepare_topk``
+    gives it the fused-cell pack, and its ``step_topk`` answers on the
+    CPU. The beam search's ``impl="backptr"`` history layout still
+    raises."""
+    from captionkit_torch.decode.beam import beam_search
+
+    _, _, tm, tp = _models("float32")
+    ws = get_model(ModelConfig(arch="editnet", compute_dtype="float32",
+                               cell_impl="wholestep", **SMALL))
+    assert ws.name == "editnet"
+    feats, ex, ln = _inputs()
+    ctx = ws.encode(tp, torch.from_numpy(feats), torch.from_numpy(ex).long(),
+                    torch.from_numpy(ln).long())
+    ctx_k = ws.prepare_topk(tp, ws.beam_expand(ctx, 2), 2)
+    assert ctx_k.cell_pack is not None and ctx_k.head_w is not None
+    _, vals, idx, lse = ws.step_topk(tp, ctx_k, ws.init_state(tp, ctx_k),
+                                     torch.arange(6), 2)
+    assert tuple(idx.shape) == (6, 2) and bool(torch.isfinite(lse).all())
+    assert int(idx.max()) < SMALL["vocab_size"]
+    with pytest.raises(NotImplementedError, match="backptr"):
+        beam_search(tm, tp, ctx, beam_size=2, start_id=2, end_id=3,
+                    impl="backptr")
     # The fused cells, the int8 head, the thresh extraction and DCNet build.
     for kw in ({"cell_impl": "pallas"}, {"head_quant": "int8"},
                {"head_extract": "thresh"}):

@@ -252,9 +252,17 @@ def test_beam_decode_pallas_cells_identical_to_jax(arch, K):
 
 
 def test_wholestep_still_raises():
+    """``cell_impl="wholestep"`` builds for both archs: EditNet's
+    ``prepare_topk`` gives it the fused-cell pack (the whole-step kernel's
+    first half is ``att_phase``), DCNet's none (plain cells, as in the
+    reference)."""
     for arch in ("editnet", "dcnet"):
-        with pytest.raises(NotImplementedError, match="wholestep"):
-            get_model(ModelConfig(arch=arch, cell_impl="wholestep"))
+        _, _, _, _, tp, tctx = _setup(arch, "float32", k=3)
+        model = get_model(ModelConfig(**dict(CFG, arch=arch,
+                                             compute_dtype="float32",
+                                             cell_impl="wholestep")))
+        ctx_k = model.prepare_topk(tp, tctx, 3)
+        assert (ctx_k.cell_pack is not None) == (arch == "editnet")
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():

@@ -224,14 +224,30 @@ def test_entry_points_default_to_the_card(both):
 
 
 def test_unported_decode_options_raise(both):
+    """Greedy, sampling and ``beam_size`` 1 (which decodes greedily, as in
+    the reference) decode; an unknown method and the ``backptr`` beam
+    layout raise; the int8 feed is staged and answers."""
     _, (tcfg, tm, tp), _ = both
-    for method in ("greedy", "sample"):
-        dc = tcfg.override({"decode.method": method}).decode
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            make_decode_fn(tm, dc, start_id=2, end_id=3, device="cpu")
-    dc = tcfg.override({"decode.beam_size": 1}).decode
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_decode_fn(tm, dc, start_id=2, end_id=3, device="cpu")
+    ex = torch.from_numpy(np.random.default_rng(1).integers(4, 15, (2, 6)))
+    ln = torch.tensor([6, 3])
+    feats = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 4, 12)).astype(np.float32))
+    toks = {}
+    for name, over in (("greedy", {"decode.method": "greedy"}),
+                       ("sample", {"decode.method": "sample"}),
+                       ("beam1", {"decode.beam_size": 1})):
+        dc = tcfg.override(over).decode
+        toks[name] = make_decode_fn(tm, dc, start_id=2, end_id=3,
+                                    device="cpu")(tp, feats, ex, ln)
+        assert tuple(toks[name].shape) == (2, 8)
+    assert torch.equal(toks["greedy"], toks["beam1"])
+    with pytest.raises(ValueError, match="unknown decode method"):
+        make_decode_fn(tm, tcfg.override({"decode.method": "topk"}).decode,
+                       start_id=2, end_id=3, device="cpu")
+    dc = tcfg.override({"decode.beam_impl": "backptr"}).decode
+    with pytest.raises(NotImplementedError, match="backptr"):
+        make_decode_fn(tm, dc, start_id=2, end_id=3, device="cpu")(
+            tp, feats, ex, ln)
     # The int8 feed is ported: decode_split stages it and answers.
     dc = tcfg.override({"decode.feed_dtype": "int8"}).decode
     hyps, _ = decode_split(tm, tp, _source(SyntheticCaptionSource)
