@@ -6,7 +6,7 @@
 // Replaces the TPU kernels of captionkit/ops/head.py:
 //   ck_head_topk, extract = 0  -> fused_head_topk, extract="mask"
 //   ck_head_topk, extract = 1  -> fused_head_topk, extract="thresh"
-//   ck_head_sweep              -> _sweep_head_topk (CAPTIONKIT_HEAD_SWEEP)
+// (_sweep_head_topk, the single sweep, is head_sweep.cu.)
 //
 // Inputs:  h [N, H] bf16, W [H, V] bf16 (row-major, V a multiple of 8),
 //          b [V] fp32 (padded vocab columns carry -1e30).
@@ -26,14 +26,6 @@
 //     code, so the two give bit-identical results).
 //   pass 2 (head_merge_kernel), one warp per row: lse = M + log sum_j s_j
 //     exp(m_j - M) over the tiles, and the top-k of the tiles' candidates.
-//
-// The sweep (head_sweep_kernel) is the TPU grid's in-order carry done
-// inside one block: a block owns 32 rows and walks every vocab tile in
-// order, carrying an online (m, s) and a running top-k per row in shared
-// memory; one launch, no partials in device memory. The row tile is 32:
-// at N = 2560 that gives 80 blocks for 132 SMs. Every block streams all of
-// W (from L2), so 16-row tiles would fill the card but double that
-// traffic, and 64-row tiles (the pass-1 tile) would leave 92 SMs idle.
 //
 // Bound at the paper shape (N = 2560 = 512 images x 5 beams, H = 1024,
 // V = 9490): 2 N H V = 49.8 GFLOP, 50 us at the H100's 989 TFLOP/s dense
@@ -56,7 +48,6 @@ using namespace nvcuda;
 namespace {
 
 constexpr int BM = 64;         // rows per pass-1 block
-constexpr int BM_SWEEP = 32;   // rows per sweep block
 constexpr int BK = 32;         // depth of one shared-memory stage
 constexpr int LDA = BK + 8;    // shared-memory strides, in elements; the
 constexpr int LDB = BN + 8;    // padding keeps wmma pointers 32-byte
@@ -170,91 +161,6 @@ head_tile_kernel(const __nv_bfloat16* __restrict__ h,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-head_sweep_kernel(const __nv_bfloat16* __restrict__ h,
-                  const __nv_bfloat16* __restrict__ w,
-                  const float* __restrict__ bias, float* __restrict__ vals,
-                  int* __restrict__ idx, float* __restrict__ lse, int N,
-                  int H, int V, int k) {
-  __shared__ __align__(128) __nv_bfloat16 As[BM_SWEEP * LDA];
-  __shared__ __align__(128) __nv_bfloat16 Bs[BK * LDB];
-  __shared__ __align__(128) float Cs[BM_SWEEP * LDC];
-  __shared__ float run_v[BM_SWEEP][KMAX];  // running top-k per row
-  __shared__ int run_i[BM_SWEEP][KMAX];
-  __shared__ float run_m[BM_SWEEP];  // running max and exp-sum per row
-  __shared__ float run_s[BM_SWEEP];
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row0 = blockIdx.x * BM_SWEEP;
-  constexpr int rows_per_warp = BM_SWEEP / (THREADS / 32);
-  for (int rr = 0; rr < rows_per_warp; ++rr) {
-    const int r = warp * rows_per_warp + rr;
-    if (lane < KMAX) {
-      run_v[r][lane] = -INFINITY;
-      run_i[r][lane] = INT_MAX;
-    }
-    if (lane == 0) {
-      run_m[r] = -INFINITY;
-      run_s[r] = 0.0f;
-    }
-  }
-  // (bf16_logits_tile synchronises the block before the first epilogue.)
-
-  const int n_tiles = (V + BN - 1) / BN;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int col0 = tile * BN;
-    bf16_logits_tile<BM_SWEEP>(h, w, row0, col0, N, H, V, As, Bs, Cs);
-    for (int rr = 0; rr < rows_per_warp; ++rr) {
-      const int r = warp * rows_per_warp + rr;
-      if (row0 + r >= N) break;  // the same for the whole warp
-      float x[COLS_PER_LANE];
-      int xi[COLS_PER_LANE];
-      load_row(Cs, LDC, r, bias, col0, V, lane, x, xi);
-      float tm = -INFINITY;
-#pragma unroll
-      for (int q = 0; q < COLS_PER_LANE; ++q) tm = fmaxf(tm, x[q]);
-      tm = warp_max(tm);
-      const float m_old = run_m[r];
-      const float m_new = fmaxf(m_old, tm);
-      float s = 0.0f;
-#pragma unroll
-      for (int q = 0; q < COLS_PER_LANE; ++q)
-        if (xi[q] != INT_MAX) s += expf(x[q] - m_new);
-      s = warp_sum(s);
-      const float s_new = run_s[r] * expf(m_old - m_new) + s;
-      // The running top-k joins the lanes' lists (lane q < k takes entry
-      // q), so the warp's pop merges it with the tile's candidates.
-      float lv[KMAX];
-      int li[KMAX];
-      clear(lv, li);
-#pragma unroll
-      for (int q = 0; q < COLS_PER_LANE; ++q) insert(lv, li, x[q], xi[q]);
-      if (lane < k) insert(lv, li, run_v[r][lane], run_i[r][lane]);
-      __syncwarp();
-      warp_pop_topk(lv, li, k, run_v[r], run_i[r], lane);
-      if (lane == 0) {
-        run_m[r] = m_new;
-        run_s[r] = s_new;
-      }
-      __syncwarp();
-    }
-    // The next tile's products overwrite As, Bs and Cs only after the
-    // block's first barrier inside bf16_logits_tile, which every warp
-    // reaches after its epilogue.
-  }
-  for (int rr = 0; rr < rows_per_warp; ++rr) {
-    const int r = warp * rows_per_warp + rr;
-    const int gr = row0 + r;
-    if (gr >= N) break;
-    if (lane < k) {
-      vals[(size_t)gr * k + lane] = run_v[r][lane];
-      idx[(size_t)gr * k + lane] = run_i[r][lane];
-    }
-    if (lane == 0) lse[gr] = run_m[r] + logf(run_s[r]);
-  }
-}
-
 bool bad_shape(int N, int H, int V, int k) {
   return N < 1 || H < 1 || V < 1 || k < 1 || k > KMAX || k > V || H % 8 ||
          V % 8;
@@ -298,22 +204,6 @@ int ck_head_topk(const void* h, const void* w, const void* b, void* vals,
   return (int)launch_merge(pm, ps, pv, pi, static_cast<float*>(vals),
                            static_cast<int*>(idx), static_cast<float*>(lse),
                            N, n_tiles, k, s);
-}
-
-// The single-sweep head: one launch, no scratch.
-int ck_head_sweep(const void* h, const void* w, const void* b, void* vals,
-                  void* idx, void* lse, int N, int H, int V, int k,
-                  int device, void* stream) {
-  if (bad_shape(N, H, V, k)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  head_sweep_kernel<<<(N + BM_SWEEP - 1) / BM_SWEEP, THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(h),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(b),
-      static_cast<float*>(vals), static_cast<int*>(idx),
-      static_cast<float*>(lse), N, H, V, k);
-  return (int)cudaGetLastError();
 }
 
 const char* ck_error_string(int code) {

@@ -20,8 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "captionkit_torch"
-SOURCES = ("head_topk", "head_int8", "megastep", "lstm", "attention",
-           "wholestep")
+SOURCES = ("head_topk", "head_sweep", "head_int8", "megastep", "lstm",
+           "attention", "wholestep")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

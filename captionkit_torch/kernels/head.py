@@ -1,6 +1,6 @@
 """Fused vocab head: matmul + log-sum-exp + per-row top-k
-(``captionkit.ops.head``; the kernels are ``csrc/head_topk.cu`` and
-``csrc/head_int8.cu``).
+(``captionkit.ops.head``; the kernels are ``csrc/head_topk.cu``,
+``csrc/head_sweep.cu`` and ``csrc/head_int8.cu``).
 
 Every head returns (vals [N, k] fp32 raw logits, descending, equal values
 lowest index first; idx [N, k] int32; lse [N] fp32). On a CUDA tensor a
@@ -44,6 +44,12 @@ _EXTRACT_CODE = {"mask": 0, "thresh": 1}
 #: ``CAPTIONKIT_HEAD_SWEEP``, read once at import: when set,
 #: ``fused_head_topk`` runs the single-sweep kernel.
 SWEEP = bool(os.environ.get("CAPTIONKIT_HEAD_SWEEP", ""))
+# The sweep (csrc/head_sweep.cu, which rejects other values): 64 rows a
+# CTA, h resident (H <= 1024), the vocab split over the CTAs of a cluster,
+# at most 4 of them.
+SWEEP_ROWS = 64
+SWEEP_MAX_H = 1024
+SWEEP_MAX_SHARES = 4
 
 
 def _round_up(x: int, m: int) -> int:
@@ -165,9 +171,13 @@ def _library(name: str) -> ctypes.CDLL:
     if name == "head_topk":
         lib.ck_head_topk.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
         lib.ck_head_topk.restype = i32
-        lib.ck_head_sweep.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
-        lib.ck_head_sweep.restype = i32
         _bind_common(lib, "ck_head_tile_width", "ck_head_kmax")
+    elif name == "head_sweep":
+        lib.ck_head_sweep.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+        lib.ck_head_sweep.restype = i32
+        _bind_common(lib, "ck_head_sweep_tile_width", "ck_head_sweep_kmax")
+        lib.ck_head_sweep_max_clusters.argtypes = [i32, i32]
+        lib.ck_head_sweep_max_clusters.restype = i32
     else:
         lib.ck_head_topk_int8.argtypes = [ptr] * 11 + [i32] * 6 + [ptr]
         lib.ck_head_topk_int8.restype = i32
@@ -279,23 +289,73 @@ def fused_head_topk_thresh(h: torch.Tensor, w: torch.Tensor,
     return _launch_tiled(h, w, b, k, "thresh", fused_head_topk_thresh)
 
 
+def sweep_plan(N: int, V: int, clusters) -> tuple[int, int]:
+    """The sweep's launch plan: (shares, tiles per share). Each block of
+    ``SWEEP_ROWS`` rows is one cluster of ``shares`` CTAs; CTA c sweeps
+    vocab tiles [c P, (c + 1) P) of ``TILE_V`` columns (the last share may
+    be short or empty). ``clusters[s]`` is how many clusters of s CTAs the
+    card holds at once (``sweep_clusters``); the plan takes the shares, at
+    most ``SWEEP_MAX_SHARES`` and the number of tiles, that minimise waves
+    x tiles per share, the fewer waves on a tie."""
+    row_blocks = -(-N // SWEEP_ROWS)
+    n_tiles = -(-V // TILE_V)
+    best = None
+    for shares in range(1, min(SWEEP_MAX_SHARES, n_tiles) + 1):
+        if clusters[shares] < 1:
+            continue
+        per = -(-n_tiles // shares)
+        waves = -(-row_blocks // clusters[shares])
+        key = (waves * per, waves)
+        if best is None or key < best[0]:
+            best = (key, shares, per)
+    if best is None:
+        raise RuntimeError("the card holds no cluster of the sweep kernel")
+    return best[1], best[2]
+
+
+_clusters: dict[int, tuple[int, ...]] = {}
+
+
+def sweep_clusters(device: torch.device) -> tuple[int, ...]:
+    """How many clusters of s CTAs (index s = 1 .. SWEEP_MAX_SHARES) of the
+    sweep kernel the card holds at once, from the occupancy API; once per
+    device."""
+    dev = device.index or 0
+    table = _clusters.get(dev)
+    if table is None:
+        lib = _library("head_sweep")
+        counts = [lib.ck_head_sweep_max_clusters(s, dev)
+                  for s in range(1, SWEEP_MAX_SHARES + 1)]
+        for s, n in enumerate(counts, 1):
+            if n < 0:
+                _raise_on(lib, -n, f"head_sweep cluster query ({s} CTAs)")
+        table = _clusters[dev] = (0, *counts)
+    return table
+
+
 def head_sweep_topk(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                     k: int):
     """The single-sweep head (the reference's ``_sweep_head_topk``): one
-    launch, each block walking the whole vocab for its rows. CUDA: counted
-    in ``head_sweep_topk.launches``; CPU: ``reference_head_topk``."""
+    launch, no partials in device memory; a cluster of CTAs sweeps the
+    vocab for each block of 64 rows (``sweep_plan``) and merges on chip.
+    h [N, H] with H <= 1024. CUDA: counted in ``head_sweep_topk.launches``;
+    CPU: ``reference_head_topk``."""
     if h.device.type == "cpu":
         return reference_head_topk(h, w, b, k)
     _check_cuda_inputs(h, w, b, k, h_dtype=torch.bfloat16,
                        w_dtype=torch.bfloat16, h_mult=8, v_mult=8)
-    lib = _library("head_topk")
     N, H = h.shape
+    if H > SWEEP_MAX_H:
+        raise ValueError(f"the sweep keeps h resident: H must be at most "
+                         f"{SWEEP_MAX_H}, got {H}")
+    lib = _library("head_sweep")
     V = w.shape[1]
     dev = h.device
+    shares, _ = sweep_plan(N, V, sweep_clusters(dev))
     vals, idx, lse, *_ = _outputs(N, k, dev)
     err = lib.ck_head_sweep(
         h.data_ptr(), w.data_ptr(), b.data_ptr(), vals.data_ptr(),
-        idx.data_ptr(), lse.data_ptr(), N, H, V, k, dev.index or 0,
+        idx.data_ptr(), lse.data_ptr(), N, H, V, k, shares, dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "head_sweep")
     head_sweep_topk.launches += 1

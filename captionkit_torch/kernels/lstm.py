@@ -50,7 +50,7 @@ from captionkit_torch.nn.cells import (
     mm,
 )
 
-TILE = 32  # csrc/lstm.cu pads D and H to this (cell_common.cuh BK = BN)
+TILE = 32  # csrc/lstm.cu pads D and H to this (its hidden-column tile)
 
 
 @dataclass

@@ -14,7 +14,10 @@ prints no result line:
               128-wide vocab tiles; kernel, plain and library times.
    head_variants — the rest of the head family at paper shape and on the
               tie patterns: the thresh extraction bit-equal to the mask
-              kernel, the single sweep within the head's bar (ties exact),
+              kernel, the single sweep within the head's bar (ties exact,
+              also on both sides of every cluster share boundary; a merge
+              that breaks ties to the higher index and a share left out of
+              the merge must fail),
               the int8 head's values and ids bit-equal to its plain
               version (lse within 2e-4); planted faults must fail every
               bar; kernel, plain, library and bound times.
@@ -48,16 +51,19 @@ prints no result line:
               version on the decode's own states (22 steps), the H2D
               copy's device time beside the fp32 feed's; decodes with
               head_extract=thresh (tokens identical to mask, float and
-              int8 heads) and with the single sweep (steps check); and
-              dcnet_beam5 served once with the int8 head.
+              int8 heads) and with the single sweep (steps check; its
+              captions/s beside the tiled head's, in turns, median of 3);
+              and dcnet_beam5 served once with the int8 head.
 10. cell_kernels — the dispatch kernels of nn.dispatch (use_pallas=True):
               fused_lstm_cell, fused_copy_lstm_cell and
               fused_additive_attention against their plain versions at the
               greedy step's shapes (512 rows, paper width: DCNet's LSTM,
               EditNet's Copy-LSTM, visual attention and SCMA, DCNet's text
               attention), at examples/bench_cell_kernels.py's shapes (2560
-              rows) and on unaligned shapes, with planted faults; kernel,
-              plain, bound and (LSTM: torch.lstm_cell) library times.
+              rows) and on unaligned shapes, with planted faults (among
+              them the gates of two hidden columns crossed); kernel, plain,
+              bound and (LSTM: torch.lstm_cell) library times, and device
+              times from the profiler beside them.
 11. greedy  — editnet_greedy and dcnet_greedy at paper width behind
               CaptionServer(batch=512); a forced-full 22-step greedy decode
               (median of 3) beside the same decode with the dispatch sites
@@ -376,6 +382,73 @@ def _int8_tie_patterns():
     return [(name, h, *quantize_head(w, b), k) for name, h, w, b, k in cases]
 
 
+def _sweep_tie_patterns():
+    """(name, h, w, b, k) with exact ties on both sides of every boundary
+    between the sweep's cluster shares, as ``sweep_plan`` splits the vocab
+    on this card: h is one-hot (row i selects pattern row i mod 16), so
+    logits row i is pattern row i mod 16, every value exact in bf16. 16
+    rows (one row block: 4 shares) and the paper's 2560 (3 shares), V =
+    9600, k = 1, 5, 8."""
+    import numpy as np
+    import torch
+
+    from captionkit_torch.kernels import head as thead
+    from captionkit_torch.kernels.head import TILE_V
+
+    clusters = thead.sweep_clusters(torch.device("cuda"))
+    V, P = 9600, 16
+    cases = []
+    for N in (16, N_IMAGES * BEAM):
+        shares, per = thead.sweep_plan(N, V, clusters)
+        cuts = [c * per * TILE_V for c in range(1, shares)
+                if c * per * TILE_V < V]
+        check(len(cuts) >= 1, f"sweep plan {shares, per} has no boundary")
+        rng = np.random.default_rng(N)
+        pat = rng.integers(-2, 2, (P, V)).astype(np.float32)
+        pat[0] = 1.0  # the whole row ties
+        for cut in cuts:
+            pat[1, [cut - 1, cut]] = 5.0  # the best pair straddles a cut
+            pat[2, [cut - 2, cut + 1]] = 6.0
+            pat[3, [cut - 1, cut, 0, V - 1]] = 3.0  # and the row's ends
+            pat[5, cut - 4:cut + 4] = 4.0  # a run across the cut
+        for c in range(shares):  # an equal best in every share
+            pat[4, min(c * per * TILE_V + 5, V - 1)] = 7.0
+        h = np.zeros((N, P), np.float32)
+        h[np.arange(N), np.arange(N) % P] = 1.0
+        for k in (1, 5, 8):
+            cases.append((f"{shares}_shares_{N}_rows_k{k}",
+                          torch.from_numpy(h).to("cuda", torch.bfloat16),
+                          torch.from_numpy(pat).to("cuda", torch.bfloat16),
+                          torch.zeros((V,), device="cuda"), k))
+    return cases
+
+
+def _sweep_faults(h, w, b, k):
+    """(name, run) of planted faults of the sweep's merge, each through the
+    kernel itself: a merge that breaks ties to the higher index (the kernel
+    on the vocab reversed, ids mapped back) and a cluster share left out
+    (its columns' bias at HEAD_PAD, so they never rank and add nothing)."""
+    import torch
+
+    from captionkit_torch.kernels import head as thead
+
+    V = w.shape[1]
+    _, per = thead.sweep_plan(h.shape[0], V, thead.sweep_clusters(h.device))
+
+    def higher_index_first():
+        v, i, l = thead.head_sweep_topk(h, w.flip(1).contiguous(),
+                                        b.flip(0).contiguous(), k=k)
+        return v, (V - 1 - i).to(torch.int32), l
+
+    def share_left_out():
+        dropped = b.clone()
+        dropped[per * thead.TILE_V:2 * per * thead.TILE_V] = thead.HEAD_PAD
+        return thead.head_sweep_topk(h, w, dropped, k=k)
+
+    return [("ties_to_higher_index", higher_index_first),
+            ("share_left_out", share_left_out)]
+
+
 def _head_bound(N, H, V, k, *, int8: bool) -> dict:
     """Least time of the head at the function's own vocab V: 2 N H V
     products (bf16 or int8 peak) against h, W, scales, bias read once and
@@ -449,6 +522,38 @@ def phase_head_variants():
             check(exact and lse_err <= 1e-5,
                   f"{kname} tie pattern {name}: {got[1].tolist()} vs "
                   f"{plain_t[1].tolist()}, lse err {lse_err}")
+    # The sweep: ties on both sides of every cluster share boundary, exact;
+    # its merge faults must fail the exact bar there.
+    sweep = results["head_sweep_topk"]
+    sweep["share_ties"] = {}
+    caught = {"ties_to_higher_index": False, "share_left_out": False}
+    for name, th, tw, tb, tk in _sweep_tie_patterns():
+        want = thead.reference_head_topk(th, tw, tb, tk)
+        got = thead.head_sweep_topk(th, tw, tb, k=tk)
+        exact = bool(torch.equal(got[0], want[0])
+                     and torch.equal(got[1], want[1]))
+        lse_err = float((got[2] - want[2]).abs().max())
+        sweep["share_ties"][name] = {"exact": exact, "lse_err": lse_err}
+        check(exact and lse_err <= 1e-5,
+              f"sweep share-boundary ties {name}: {got[1][:6].tolist()} vs "
+              f"{want[1][:6].tolist()}, lse err {lse_err}")
+        for fault, bad in _sweep_faults(th, tw, tb, tk):
+            v, i, _ = bad()
+            if not (torch.equal(v, want[0]) and torch.equal(i, want[1])):
+                caught[fault] = True
+    # At paper shape the random logits hold no ties, so only the share left
+    # out can show there.
+    for fault, bad in _sweep_faults(h, w, b, k):
+        if fault == "share_left_out":
+            caught[f"{fault}_paper_shape"] = not head_agreement(
+                bad(), plain)["ok"]
+    for fault, ok in caught.items():
+        check(ok, f"head_sweep_topk: planted fault {fault} passes the bar")
+    sweep["planted_faults_caught"].update(caught)
+    # The launch plan: clusters of s CTAs the card holds (index s), and the
+    # shares and tiles per share it gives the paper shape.
+    sweep["clusters"] = list(thead.sweep_clusters(h.device))
+    sweep["plan"] = list(thead.sweep_plan(N, w.shape[1], sweep["clusters"]))
     for name, th, tq, ts, tb, tk in _int8_tie_patterns():
         want = thead.reference_head_topk_int8(th, tq, ts, tb, tk)
         for e in ("mask", "thresh"):
@@ -490,13 +595,17 @@ def phase_head_variants():
             time_ms(lambda: thead.reference_head_topk_int8(
                 h8, w_q, scale, b8, k)), library8_ms, True),
     }
+    library_device_ms = _device_ms(library)
     for name, (run, p_ms, l_ms, is_int8) in timings.items():
         ms = time_ms(run)
+        bound = _head_bound(N, H, V, k, int8=is_int8)
         results[name].update(
-            ms=ms, plain_ms=p_ms, library_ms=l_ms,
-            **_head_bound(N, H, V, k, int8=is_int8),
+            ms=ms, plain_ms=p_ms, library_ms=l_ms, **bound,
+            bound_share=bound["bound_ms"] / ms,
+            device_ms=_device_ms(run, ("head_",)),
             cuda_launches_per_call=_cuda_kernels(run, ("head_",)),
             achieved_tops=2.0 * N * H * V / (ms * 1e-3) / 1e12)
+    results["head_sweep_topk"]["library_device_ms"] = library_device_ms
     results["fused_head_topk_int8"]["library_error"] = library8_error
     results["fused_head_topk_int8"]["thresh_ms"] = time_ms(
         lambda: thead.fused_head_topk_int8(h8, w_q, scale, b8, k=k,
@@ -811,12 +920,12 @@ def _swap_if(w, hp):
     return torch.cat([f, i, g, o], dim=-1).contiguous()
 
 
-def _cuda_kernels(fn, keys=("gemm_kernel", "scores_kernel"),
-                  calls: int = 10) -> int:
-    """The CUDA kernels whose names hold one of ``keys`` (by default those
-    of csrc/megastep.cu) that one call of ``fn`` launches, counted by
-    torch.profiler over ``calls`` calls after a warm-up and rounded: a
-    profile of a single call on that machine can miss a kernel record."""
+def _profile_calls(fn, keys, calls: int = 10) -> tuple[float, float]:
+    """(CUDA launches, device ms) of one call of ``fn``: the CUDA kernels
+    whose names hold one of ``keys`` (all when None), counted and their
+    durations summed by torch.profiler over ``calls`` calls after a
+    warm-up, divided by ``calls`` (a profile of a single call on that
+    machine can miss a kernel record)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -827,9 +936,35 @@ def _cuda_kernels(fn, keys=("gemm_kernel", "scores_kernel"),
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return round(sum(ev.count for ev in prof.key_averages()
-                     if ev.device_type == DeviceType.CUDA
-                     and any(key in ev.key for key in keys)) / calls)
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA
+              and (keys is None or any(key in ev.key for key in keys))]
+    return (sum(ev.count for ev in events) / calls,
+            sum(ev.device_time_total for ev in events) / calls / 1e3)
+
+
+def _cuda_kernels(fn, keys=("gemm_kernel", "scores_kernel")) -> int:
+    """The CUDA kernels whose names hold one of ``keys`` (by default those
+    of csrc/megastep.cu) that one call of ``fn`` launches."""
+    return round(_profile_calls(fn, keys)[0])
+
+
+def _device_ms(fn, keys=None) -> float:
+    """Device time of one call of ``fn``: the summed durations of its CUDA
+    kernels (those whose names hold one of ``keys``; all when None). Unlike
+    ``time_ms`` it leaves out the gaps while the host prepares a launch."""
+    return _profile_calls(fn, keys)[1]
+
+
+def _cross_columns(w, hp):
+    """A gate-major [..., 4Hp] tensor whose i-gate columns of hidden
+    columns 2m and 2m + 1 are exchanged: an LSTM epilogue that reads the
+    gates of two hidden columns crossed."""
+    w = w.clone()
+    i = w[..., :hp]
+    w[..., :hp] = i.reshape(*i.shape[:-1], hp // 2, 2).flip(-1).reshape(
+        i.shape)
+    return w.contiguous()
 
 
 def _cell_bound(name, N, B, E, H, A, F, R, T) -> dict:
@@ -1286,6 +1421,17 @@ def phase_int8(ed, dc, wrappers, card):
     check(sweep_agree >= 0.5, f"sweep tokens agree with the tiled head's "
                               f"on {sweep_agree} < 0.5")
 
+    def dec_sweep(*args):
+        thead.SWEEP = True
+        try:
+            return decf(*args)
+        finally:
+            thead.SWEEP = False
+
+    # The sweep decode beside the tiled-head decode, in turns.
+    sweep_timed = _timed_decodes({"sweep": dec_sweep, "tiled": decf},
+                                 {"sweep": batchf, "tiled": batchf}, params)
+
     dcfg, _, dparams, dvocab = dc
     dcfg8 = dcfg.override(int8)
     dserve = phase_serve(dcfg8, get_model(dcfg8.model), dparams, dvocab,
@@ -1309,7 +1455,8 @@ def phase_int8(ed, dc, wrappers, card):
         "steps_check": steps8, "profile": prof8, "float_profile": proff,
         "thresh": thresh,
         "sweep": {"launches": sweep_launches, "steps_check": sweep_steps,
-                  "token_agreement_with_tiled": sweep_agree},
+                  "token_agreement_with_tiled": sweep_agree,
+                  "timed_in_turns": sweep_timed},
         "dcnet_serve_launches": dserve["launches"],
     }
     emit(result)
@@ -1463,7 +1610,9 @@ def phase_cell_kernels(ed, dc) -> dict:
         lambda: kl.reference_lstm_cell(*lstm_args, packed=dec_w, **kw),
         state_agreement,
         [("i_f_gates_exchanged", lambda: kl.fused_lstm_cell(
-            *lstm_args, packed=_swap_if(dec_w, H), **kw))])
+            *lstm_args, packed=_swap_if(dec_w, H), **kw)),
+         ("gates_of_two_columns_crossed", lambda: kl.fused_lstm_cell(
+             *lstm_args, packed=_cross_columns(dec_w, H), **kw))])
     lang = params.lang_lstm
     xl, cs = randn(N, F + H), randn(N, H)
     copy_args = (lang, xl, h, c, cs)
@@ -1478,7 +1627,9 @@ def phase_cell_kernels(ed, dc) -> dict:
         [("i_f_gates_exchanged", lambda: kl.fused_copy_lstm_cell(
             *copy_args, packed=(_swap_if(w_base, H), w_r), **kw)),
          ("copy_gate_c_star_rows_dropped", lambda: kl.fused_copy_lstm_cell(
-             *copy_args, packed=(w_base, no_copy), **kw))])
+             *copy_args, packed=(w_base, no_copy), **kw)),
+         ("gates_of_two_columns_crossed", lambda: kl.fused_copy_lstm_cell(
+             *copy_args, packed=(_cross_columns(w_base, H), w_r), **kw))])
 
     # B6 at the greedy step: EditNet's visual attention and SCMA, DCNet's
     # text attention, one query row per image.
@@ -1578,13 +1729,13 @@ def phase_cell_kernels(ed, dc) -> dict:
             lambda: kl.fused_lstm_cell(*lstm_args, packed=dec_w, **kw),
             lambda: kl.reference_lstm_cell(*lstm_args, packed=dec_w, **kw),
             library_lstm, _lstm_bound(N, E + H, H, False),
-            ("gemm_kernel",)),
+            ("lstm_cell_kernel",)),
         "fused_copy_lstm_cell": (
             lambda: kl.fused_copy_lstm_cell(*copy_args, packed=pk["lang"],
                                             **kw),
             lambda: kl.reference_copy_lstm_cell(*copy_args,
                                                 packed=pk["lang"], **kw),
-            None, _lstm_bound(N, F + H, H, True), ("gemm_kernel",)),
+            None, _lstm_bound(N, F + H, H, True), ("lstm_cell_kernel",)),
     }
     for name, (ap, keys, values, mask, wq) in att_cases.items():
         n_valid = int(mask.sum()) if mask is not None else \
@@ -1606,7 +1757,10 @@ def phase_cell_kernels(ed, dc) -> dict:
         times[name] = {
             "ms": ms, "plain_ms": time_ms(plain, iters=5),
             "library_ms": time_ms(library, iters=10) if library else None,
-            **bound, "cuda_launches_per_call": _cuda_kernels(run, keys)}
+            **bound, "bound_share": bound["bound_ms"] / ms,
+            "device_ms": _device_ms(run, keys),
+            "library_device_ms": _device_ms(library) if library else None,
+            "cuda_launches_per_call": _cuda_kernels(run, keys)}
     result = {"phase": "cell_kernels", "ok": True, "rows": N,
               "atol_state": CELL_ATOL,
               "weights_bar": "max(1 bf16 ulp, 1e-4)",
@@ -2086,9 +2240,11 @@ def main() -> int:
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": ("captionkit_torch/csrc/head_int8.cu"
-                       if name.endswith("int8")
-                       else "captionkit_torch/csrc/head_topk.cu"),
+            "source": {"fused_head_topk_int8":
+                       "captionkit_torch/csrc/head_int8.cu",
+                       "head_sweep_topk":
+                       "captionkit_torch/csrc/head_sweep.cu"}.get(
+                           name, "captionkit_torch/csrc/head_topk.cu"),
             "replaces": replaces_at,
             "launches": launches,
             "launches_per_batch": per_batch_n,

@@ -1,0 +1,109 @@
+#!/usr/bin/env python3
+"""Compare two checkouts of the PyTorch port on one card, in turns.
+
+    python3 examples/torch_chip_turns.py PARENT_DIR [CHANGE_DIR] --out DIR
+
+Runs ``python3 chip_smoke.py`` in PARENT_DIR and CHANGE_DIR (default: this
+checkout) in the order parent, change, change, parent, each as its own
+process, and writes each run's output to DIR/<label>_<n>.log. Then prints
+one JSON object: for every kernel of the runs' ``kernels`` lines its ms per
+run, for every measured field of the redesigned kernels' rows (the
+``cell_kernels`` times, the ``head_variants`` kernels) their values per
+run, and every captions/s figure of the decode phases per run, each with
+the change's mean over the parent's. Fails if any run fails. Imports
+nothing of JAX; needs the card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+FIELDS = ("ms", "device_ms", "library_ms", "library_device_ms", "plain_ms",
+          "bound_ms", "bound_share", "cuda_launches_per_call")
+
+
+def run(checkout: Path, log: Path) -> list[dict]:
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=checkout,
+                          capture_output=True, text=True, timeout=1500)
+    log.write_text(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    if proc.returncode != 0:
+        raise SystemExit(f"chip_smoke.py in {checkout} exited "
+                         f"{proc.returncode}; see {log}")
+    lines = []
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            lines.append(json.loads(line))
+    return lines
+
+
+def captions(obj, path=()):
+    """Every captions/s figure in a phase line, by its key path."""
+    if isinstance(obj, dict):
+        for key, value in obj.items():
+            if key == "captions_per_s" and isinstance(value, (int, float)):
+                yield "/".join(path), value
+            else:
+                yield from captions(value, path + (key,))
+
+
+def summary(lines: list[dict]) -> dict:
+    out = {}
+    for line in lines:
+        if "kernels" in line and isinstance(line["kernels"], list):
+            for k in line["kernels"]:
+                out[f"kernel/{k['name']}/ms"] = k["ms"]
+        phase = line.get("phase")
+        if phase == "cell_kernels":
+            for name, t in line["times"].items():
+                for f in FIELDS:
+                    if t.get(f) is not None:
+                        out[f"cell_kernels/{name}/{f}"] = t[f]
+        if phase == "head_variants":
+            for name, t in line["kernels"].items():
+                for f in FIELDS:
+                    if t.get(f) is not None:
+                        out[f"head_variants/{name}/{f}"] = t[f]
+        if phase is not None:
+            for path, value in captions(line):
+                out[f"{phase}/{path}/captions_per_s"] = value
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("parent", type=Path)
+    ap.add_argument("change", type=Path, nargs="?", default=ROOT)
+    ap.add_argument("--out", type=Path, required=True)
+    args = ap.parse_args()
+    args.out.mkdir(parents=True, exist_ok=True)
+    order = [("parent", args.parent), ("change", args.change),
+             ("change", args.change), ("parent", args.parent)]
+    runs = {"parent": [], "change": []}
+    smi = None
+    for n, (label, checkout) in enumerate(order, 1):
+        lines = run(checkout.resolve(), args.out / f"{label}_{n}.log")
+        runs[label].append(summary(lines))
+        smi = smi or next((ln.get("nvidia_smi") for ln in lines
+                           if ln.get("phase") == "device"), None)
+    keys = sorted(set(runs["change"][0]) | set(runs["parent"][0]))
+    table = {}
+    for key in keys:
+        p = [r[key] for r in runs["parent"] if key in r]
+        c = [r[key] for r in runs["change"] if key in r]
+        row = {"parent": p, "change": c}
+        if p and c and statistics.mean(p):
+            row["change_over_parent"] = statistics.mean(c) / statistics.mean(p)
+        table[key] = row
+    print(json.dumps({"card": smi, "order": [o[0] for o in order],
+                      "metrics": table}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

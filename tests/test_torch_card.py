@@ -167,6 +167,66 @@ def test_sweep_kernel_matches_plain(card, V, k):
         torch.testing.assert_close(l1, l2, atol=1e-5, rtol=0)
 
 
+def _share_tie_case(card, N, V=9600, P=16):
+    """h one-hot (row i selects pattern row i mod P) and integer patterns
+    with ties on both sides of every boundary between the sweep's cluster
+    shares on this card (``sweep_plan``): logits row i is pattern row
+    i mod P, exact in bf16."""
+    shares, per = thead.sweep_plan(N, V, thead.sweep_clusters(card))
+    cuts = [c * per * thead.TILE_V for c in range(1, shares)]
+    rng = np.random.default_rng(N)
+    pat = rng.integers(-2, 2, (P, V)).astype(np.float32)
+    pat[0] = 1.0
+    for cut in cuts:
+        pat[1, [cut - 1, cut]] = 5.0
+        pat[2, [cut - 2, cut + 1]] = 6.0
+        pat[3, [cut - 1, cut, 0, V - 1]] = 3.0
+        pat[5, cut - 4:cut + 4] = 4.0
+    for c in range(shares):
+        pat[4, min(c * per * thead.TILE_V + 5, V - 1)] = 7.0
+    h = np.zeros((N, P), np.float32)
+    h[np.arange(N), np.arange(N) % P] = 1.0
+    return (torch.from_numpy(h).to(card, torch.bfloat16),
+            torch.from_numpy(pat).to(card, torch.bfloat16),
+            torch.zeros((V,), device=card)), shares
+
+
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("N", [1, 33, 2561])
+def test_sweep_kernel_ragged_rows_and_share_ties(card, N, k):
+    """The sweep at row counts that leave a partial 64-row block: exact on
+    ties across every cluster share boundary, and within the head bar at
+    paper width (H = 1024, V = 9490) against the plain head."""
+    (h, w, b), shares = _share_tie_case(card, N)
+    assert shares >= 2
+    v1, i1, l1 = thead.head_sweep_topk(h, w, b, k=k)
+    v2, i2, l2 = thead.reference_head_topk(h, w, b, k)
+    assert torch.equal(i1, i2) and torch.equal(v1, v2)
+    torch.testing.assert_close(l1, l2, atol=1e-5, rtol=0)
+
+    g = torch.Generator().manual_seed(N)
+    h = torch.randn((N, 1024), generator=g).to(card, torch.bfloat16)
+    w, b = thead.prepad_head(
+        (torch.randn((1024, 9490), generator=g) * 0.03).to(card),
+        (torch.randn((9490,), generator=g) * 0.01).to(card),
+        compute_dtype=torch.bfloat16)
+    v1, i1, l1 = thead.head_sweep_topk(h, w, b, k=k)
+    v2, i2, l2 = thead.reference_head_topk(h, w, b, k)
+    assert float((i1 == i2).float().mean()) >= 0.999
+    torch.testing.assert_close(v1, v2, atol=1e-3, rtol=0)
+    torch.testing.assert_close(l1, l2, atol=1e-3, rtol=0)
+
+
+def test_sweep_kernel_rejects_a_wide_h(card):
+    """The sweep keeps h resident: H above 1024 raises, nothing runs."""
+    h = torch.zeros((4, 1032), device=card, dtype=torch.bfloat16)
+    w = torch.zeros((1032, 128), device=card, dtype=torch.bfloat16)
+    before = thead.head_sweep_topk.launches
+    with pytest.raises(ValueError, match="1024"):
+        thead.head_sweep_topk(h, w, torch.zeros((128,), device=card), k=5)
+    assert thead.head_sweep_topk.launches == before
+
+
 @pytest.mark.parametrize("extract", ["mask", "thresh"])
 def test_int8_kernel_bit_equal_to_plain_at_paper_shape(card, extract):
     """The int8 head's values and ids equal its plain version's bit for
@@ -455,10 +515,15 @@ from captionkit_torch.nn.cells import (  # noqa: E402
 )
 
 # (rows, input width D, hidden H): the reference's shape classes
-# (tests/test_ops_pallas.py) and the greedy step's (DCNet D = E + H,
-# EditNet's Copy-LSTM D = F + H) at 512 rows.
+# (tests/test_ops_pallas.py), the greedy step's (DCNet D = E + H,
+# EditNet's Copy-LSTM D = F + H) at 512 rows, and ragged ones: row counts
+# one past the kernel's 64-row warpgroup and 128-row CTA tiles, D = 48 and
+# 2080 (operands of 2 and 65 stages of 32: the kernel's two register
+# buffers end unpaired), H = 72 and 96 (3 column blocks, an odd count).
 CELL_SHAPES = [(8, 128, 128), (5, 48, 72), (130, 256, 128),
-               (64, 3072, 1024), (512, 2048, 1024), (512, 3072, 1024)]
+               (64, 3072, 1024), (512, 2048, 1024), (512, 3072, 1024),
+               (1, 48, 64), (65, 2080, 96), (129, 48, 1024),
+               (513, 2080, 1024)]
 
 
 def _u(g, shape, scale, dev):
@@ -507,8 +572,9 @@ def test_lstm_kernels_match_plain(card, N, D, H, copy):
 
 
 def test_lstm_kernel_planted_faults_fail(card):
-    """The bar catches a pack with its i and f gates exchanged, and a
-    Copy-LSTM whose c* rows of the copy gate are dropped."""
+    """The bar catches a pack with its i and f gates exchanged, a
+    Copy-LSTM whose c* rows of the copy gate are dropped, and the gates of
+    two hidden columns crossed."""
     params, x, h, c, cs = _lstm_case(card, 64, 256, 128, copy=True)
     want = _cell_plain(params, x, h, c, cs, True)
     pack = tlstm.copy_lstm_cell_pack(params, torch.bfloat16)
@@ -518,7 +584,12 @@ def test_lstm_kernel_planted_faults_fail(card):
         pack, w=w4[:, [1, 0, 2, 3]].reshape(pack.w.shape).contiguous())
     no_copy = dataclasses.replace(pack, wr=torch.cat(
         [pack.wr[:-H], torch.zeros_like(pack.wr[-H:])]))
-    for bad in (swapped, no_copy):
+    # The i gates of hidden columns 2m and 2m + 1 exchanged: an epilogue
+    # that reads the gates of two columns crossed.
+    crossed = dataclasses.replace(pack, w=torch.cat(
+        [pack.w[:, :H].reshape(-1, H // 2, 2).flip(-1).reshape(-1, H),
+         pack.w[:, H:]], dim=1).contiguous())
+    for bad in (swapped, no_copy, crossed):
         params.cache[("kernel_pack", torch.bfloat16)] = bad
         got = tlstm.fused_copy_lstm_cell(params, x, h, c, cs,
                                          compute_dtype=torch.bfloat16)

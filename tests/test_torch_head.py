@@ -177,3 +177,97 @@ def test_prepad_head_pads_with_head_constant():
     assert torch.equal(a[1], r[1])
     torch.testing.assert_close(a[0], r[0], atol=1e-6, rtol=0)
     torch.testing.assert_close(a[2], r[2], atol=1e-5, rtol=0)
+
+
+# Clusters of s CTAs (index s) a card might hold at once: every SM's worth
+# (132 SMs, in GPCs of 16 or 18), and one with room for fewer of 3 and 4.
+CLUSTERS = {"even": (0, 132, 66, 42, 32), "tight": (0, 132, 66, 36, 30)}
+
+
+@pytest.mark.parametrize("card", list(CLUSTERS))
+@pytest.mark.parametrize("N,V", [(1, 9600), (33, 384), (2560, 9600),
+                                 (2561, 9600), (130, 200), (64, 8),
+                                 (20000, 9600)])
+def test_sweep_plan(N, V, card):
+    """The sweep's launch plan: at most 4 shares and never more than the
+    vocab tiles; the shares together cover every tile; no other share
+    count runs fewer waves x tiles per share on the card."""
+    clusters = CLUSTERS[card]
+    shares, per = thead.sweep_plan(N, V, clusters)
+    tiles = -(-V // thead.TILE_V)
+    blocks = -(-N // thead.SWEEP_ROWS)
+    assert 1 <= shares <= min(thead.SWEEP_MAX_SHARES, tiles)
+    assert per == -(-tiles // shares) and shares * per >= tiles
+
+    def cost(s):
+        return -(-blocks // clusters[s]) * -(-tiles // s)
+
+    assert all(cost(shares) <= cost(s)
+               for s in range(1, min(thead.SWEEP_MAX_SHARES, tiles) + 1))
+    if (N, V, card) == (2560, 9600, "even"):  # 40 clusters of 3 in a wave
+        assert (shares, per) == (3, 25)
+
+
+def _share_merge(logits, k, shares, per):
+    """The sweep kernel's arithmetic in torch: each cluster share's (max,
+    exp-sum, top-k) over its vocab tiles, then the on-chip merge: lse = M +
+    log sum_j s_j exp(m_j - M) and the top-k of the shares' candidates by
+    (value descending, id ascending)."""
+    from captionkit_torch.nn.topk import topk_lowest_index
+
+    V = logits.shape[1]
+    ms, ss, cand_v, cand_i = [], [], [], []
+    for c in range(shares):
+        lo, hi = c * per * thead.TILE_V, min(V, (c + 1) * per * thead.TILE_V)
+        if lo >= hi:
+            continue
+        part = logits[:, lo:hi]
+        m = part.max(dim=1).values
+        ms.append(m)
+        ss.append(torch.exp(part - m[:, None]).sum(dim=1))
+        v, i = topk_lowest_index(part, min(k, hi - lo))
+        cand_v.append(v)
+        cand_i.append(i + lo)
+    M = torch.stack(ms, dim=1).max(dim=1).values
+    S = sum(s * torch.exp(m - M) for m, s in zip(ms, ss))
+    cv, ci = torch.cat(cand_v, dim=1), torch.cat(cand_i, dim=1)
+    ci, by_id = torch.sort(ci, dim=1, stable=True)
+    cv = torch.gather(cv, 1, by_id)
+    cv, by_val = torch.sort(cv, dim=1, descending=True, stable=True)
+    ci = torch.gather(ci, 1, by_val)
+    return cv[:, :k], ci[:, :k].to(torch.int32), M + torch.log(S)
+
+
+@pytest.mark.parametrize("N,V,card,k", [(16, 2560, "even", 5),
+                                        (16, 2560, "even", 1),
+                                        (2560, 2560, "tight", 8)])
+def test_sweep_share_merge_matches_pallas_interpret(N, V, card, k):
+    """The sweep's split of the vocab over cluster shares (``sweep_plan``)
+    and its on-chip merge give the reference's ``_sweep_head_topk``
+    (interpret mode), with exact ties on both sides of every share
+    boundary."""
+    shares, per = thead.sweep_plan(N, V, CLUSTERS[card])
+    assert shares >= 2
+    cuts = [c * per * thead.TILE_V for c in range(1, shares)]
+    rng = np.random.default_rng(N + k)
+    P = 16
+    pat = rng.integers(-2, 2, (P, V)).astype(np.float32)
+    pat[0] = 1.0
+    for cut in cuts:
+        pat[1, [cut - 1, cut]] = 5.0
+        pat[2, [cut - 2, cut + 1]] = 6.0
+        pat[3, [cut - 1, cut, 0, V - 1]] = 3.0
+        pat[5, cut - 4:cut + 4] = 4.0
+    for c in range(shares):
+        pat[4, min(c * per * thead.TILE_V + 5, V - 1)] = 7.0
+    h = np.zeros((N, P), np.float32)
+    h[np.arange(N), np.arange(N) % P] = 1.0
+    b = np.zeros((V,), np.float32)
+    (jh, jw, jb), (th, tw, tb) = _both(h, pat, b)
+    got = _share_merge(th @ tw + tb, k, shares, per)
+    _assert_same(jhead._sweep_head_topk(jh, jw, jb, k=k,
+                                        compute_dtype=jnp.float32,
+                                        interpret=True), got)
+    # Equal values rank by id whatever share holds them.
+    assert int(got[1][1, 0]) == cuts[0] - 1
+    assert int(got[1][4, 0]) == 5
