@@ -26,6 +26,10 @@
 // (75.5 MB) for 2 x 512 x 36 x 2048 = 75 MFLOP of context product: bytes,
 // 0.023 ms at 3.35 TB/s. The SCMA attention (22 positions x 1024) and
 // DCNet's text attention are smaller and bound the same way.
+//
+// fp32 (compute_dtype="float32"): the query product runs as
+// cell_common.cuh's fp32 tile (fp32 FMA, not TF32) and the keys and values
+// are read as fp32; the rest is the same code.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,8 +49,8 @@ struct AttArgs {
   const float* qa;              // [B, A] fp32 (the query product)
   const float* b;               // [A]
   const float* v;               // [A]
-  const __nv_bfloat16* keys;    // [B, P, A]
-  const __nv_bfloat16* values;  // [B, P, V]
+  const void* keys;             // [B, P, A] in T
+  const void* values;           // [B, P, V] in T
   const int* nvalid;            // [B] valid prefix length per row
   float* ctx;                   // [B, V]
   float* w;                     // [B, P]
@@ -55,6 +59,22 @@ struct AttArgs {
   int V;  // a multiple of 8
 };
 
+// Eight consecutive elements of T as fp32.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) x[j] = __bfloat162float(v[j]);
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+  x[0] = lo.x, x[1] = lo.y, x[2] = lo.z, x[3] = lo.w;
+  x[4] = hi.x, x[5] = hi.y, x[6] = hi.z, x[7] = hi.w;
+}
+
+template <typename T>
 __global__ void __launch_bounds__(AT_THREADS)
     attention_kernel(const __grid_constant__ AttArgs a) {
   extern __shared__ float sm[];
@@ -81,15 +101,14 @@ __global__ void __launch_bounds__(AT_THREADS)
       if (lane == 0) ss[p] = NEG_INF;
       continue;
     }
-    const __nv_bfloat16* kr = a.keys + ((size_t)row * P + p) * A;
+    const T* kr = static_cast<const T*>(a.keys) + ((size_t)row * P + p) * A;
     float acc = 0.0f;
     for (int a0 = lane * 8; a0 < A; a0 += 32 * 8) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(kr + a0);
-      const __nv_bfloat16* kv = reinterpret_cast<const __nv_bfloat16*>(&raw);
+      float kv[8];
+      load8(kr + a0, kv);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        acc += tanhf(__bfloat162float(kv[j]) + qs[a0 + j] + bs[a0 + j]) *
-               vs[a0 + j];
+        acc += tanhf(kv[j] + qs[a0 + j] + bs[a0 + j]) * vs[a0 + j];
     }
     acc = warp_sum(acc);
     if (lane == 0) ss[p] = acc;
@@ -111,18 +130,17 @@ __global__ void __launch_bounds__(AT_THREADS)
   }
   __syncthreads();
 
-  const __nv_bfloat16* vr = a.values + (size_t)row * P * V;
+  const T* vr = static_cast<const T*>(a.values) + (size_t)row * P * V;
   for (int c0 = tid * 8; c0 < V; c0 += AT_THREADS * 8) {
     float acc[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
     for (int p = 0; p < P; ++p) {
       const float w = ss[p];
-      const uint4 raw =
-          *reinterpret_cast<const uint4*>(vr + (size_t)p * V + c0);
-      const __nv_bfloat16* val = reinterpret_cast<const __nv_bfloat16*>(&raw);
+      float val[8];
+      load8(vr + (size_t)p * V + c0, val);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] += w * __bfloat162float(val[j]);
+      for (int j = 0; j < 8; ++j) acc[j] += w * val[j];
     }
     float* out = a.ctx + (size_t)row * V + c0;
     *reinterpret_cast<float4*>(out) =
@@ -136,15 +154,17 @@ __global__ void __launch_bounds__(AT_THREADS)
 
 extern "C" {
 
-// q [B, Qp] (fp32 if q_f32 else bf16); bf16 wq [Qp, Ap]; fp32 b, v [Ap];
-// bf16 keys [B, P, Ap], values [B, P, V]; int32 nvalid [B]. Outputs ctx
-// [B, V] fp32, w [B, P] fp32. Scratch: qa [B, Ap] fp32. Qp a multiple of
-// 32, Ap of 128, V of 8. Two launches.
+// q [B, Qp] (fp32 if q_f32 else bf16); wq [Qp, Ap]; fp32 b, v [Ap]; keys
+// [B, P, Ap], values [B, P, V]; int32 nvalid [B]. wq, keys and values are
+// bf16, or fp32 when f32 (then q is fp32 too). Outputs ctx [B, V] fp32, w
+// [B, P] fp32. Scratch: qa [B, Ap] fp32. Qp a multiple of 32, Ap of 128, V
+// of 8. Two launches.
 int ck_additive_attention(const void* q, const void* wq, const void* b,
                           const void* v, const void* keys, const void* values,
                           const void* nvalid, void* ctx, void* w, void* qa,
                           int B, int Qp, int Ap, int P, int V, int q_f32,
-                          int device, void* stream) {
+                          int f32, int device, void* stream) {
+  if (f32 && !q_f32) return (int)cudaErrorInvalidValue;
   if (B < 1 || P < 1 || V < 8 || V % 8) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (3 * (size_t)Ap + P);
   if (smem > AT_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
@@ -156,22 +176,25 @@ int ck_additive_attention(const void* q, const void* wq, const void* b,
   gq.op[0] = operand(q, q_f32, Qp, wq);
   gq.n_ops = 1;
   gq.out = qa;
-  err = launch_gemm<4, EPI_STORE>(gq, s);
+  err = launch_gemm<4, EPI_STORE>(gq, f32, s);
   if (err != cudaSuccess) return (int)err;
 
   AttArgs a;
   a.qa = static_cast<const float*>(qa);
-  a.b = f32(b);
-  a.v = f32(v);
-  a.keys = static_cast<const __nv_bfloat16*>(keys);
-  a.values = static_cast<const __nv_bfloat16*>(values);
+  a.b = cell::f32(b);
+  a.v = cell::f32(v);
+  a.keys = keys;
+  a.values = values;
   a.nvalid = static_cast<const int*>(nvalid);
   a.ctx = static_cast<float*>(ctx);
   a.w = static_cast<float*>(w);
   a.P = P;
   a.A = Ap;
   a.V = V;
-  attention_kernel<<<B, AT_THREADS, smem, s>>>(a);
+  if (f32)
+    attention_kernel<float><<<B, AT_THREADS, smem, s>>>(a);
+  else
+    attention_kernel<__nv_bfloat16><<<B, AT_THREADS, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 

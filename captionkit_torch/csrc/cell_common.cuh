@@ -15,8 +15,14 @@
 // column groups are the i, f, g, o (and copy-gate r) tiles of those
 // columns, read straight from gate-major [K, 4H] weights; the LSTM update
 // runs on the tile in shared memory and the gate pre-activations are never
-// written out. EPI_NONE leaves the fp32 tile in shared memory for the
-// caller's own epilogue (the whole-step kernel's vocab head).
+// written out.
+//
+// fp32 (compute_dtype="float32"): every tile and epilogue takes an element
+// type T. T = float stages fp32 operands and fp32 weights through shared
+// memory and multiplies them with fp32 FMA on the CUDA cores (not TF32),
+// each of the tile's first 64 G threads register-blocked over 8 rows x 4
+// columns; the fp32 result tile lands in the same shared-memory place and
+// the same epilogues run on it (EPI_GATE_MUL then writes fp32).
 //
 // Everything lives in namespace `cell`, so a source can include this and
 // head_common.cuh side by side.
@@ -29,6 +35,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 namespace cell {
@@ -40,23 +47,24 @@ constexpr int BN = 32;       // columns per group (one gate tile)
 constexpr int BK = 32;       // depth of one shared-memory stage
 constexpr int LDA = BK + 8;  // shared-memory strides, in elements
 constexpr int MAX_OPS = 4;
+constexpr int BKF = 16;       // fp32: depth of one shared-memory stage
+constexpr int LDAF = BM + 4;  // fp32: the k-major activation stage's stride
 
 enum Epilogue : int {
   EPI_LSTM = 0,       // 4 gate groups; h, c = LSTM(z + zadd + bias, c_prev)
   EPI_COPY_LSTM = 1,  // 5 gate groups (i f g o r); the Copy-LSTM update
   EPI_GATE_MUL = 2,   // out bf16 = sigmoid(z + bias) * x
   EPI_STORE = 3,      // out fp32 = z
-  EPI_NONE = 4,       // the fp32 tile stays in shared memory
 };
 
 struct Operand {
-  const void* a;  // [N, k] row-major, fp32 (a_f32) or bf16
+  const void* a;  // [N, k] row-major, fp32 (a_f32) or bf16; fp32 when T is
   int a_f32;
   int k;  // a multiple of BK
   // Gated epilogues: [k, 4 cols] gate-major (i|f|g|o), or null when this
-  // operand does not feed those gates. Plain epilogues: [k, cols].
-  const __nv_bfloat16* w_gates;
-  const __nv_bfloat16* w_copy;  // EPI_COPY_LSTM: [k, cols], or null
+  // operand does not feed those gates. Plain epilogues: [k, cols]. In T.
+  const void* w_gates;
+  const void* w_copy;  // EPI_COPY_LSTM: [k, cols], or null
 };
 
 struct GemmArgs {
@@ -74,7 +82,7 @@ struct GemmArgs {
   float* h_out;             // gated: [N, cols]
   float* c_out;             // gated: [N, cols]
   __nv_bfloat16* h_bf16;    // gated: h rounded to bf16 [N, cols], or null
-  void* out;                // EPI_GATE_MUL bf16 / EPI_STORE fp32 [N, cols]
+  void* out;                // EPI_GATE_MUL T / EPI_STORE fp32 [N, cols]
 };
 
 __device__ __forceinline__ float sigmoidf(float x) {
@@ -116,26 +124,131 @@ __host__ __device__ constexpr int tile_ldc() {
   return G * BN + 4;
 }
 
-template <int G>
+template <int G, typename T = __nv_bfloat16>
 __host__ __device__ constexpr int tile_smem() {
-  return (BM * LDA + BK * (G * BN + 8)) * 2 > BM * tile_ldc<G>() * 4
-             ? (BM * LDA + BK * (G * BN + 8)) * 2
-             : BM * tile_ldc<G>() * 4;
+  return std::is_same<T, float>::value
+             ? ((BKF * LDAF + BKF * (G * BN + 4)) * 4 > BM * tile_ldc<G>() * 4
+                    ? (BKF * LDAF + BKF * (G * BN + 4)) * 4
+                    : BM * tile_ldc<G>() * 4)
+             : ((BM * LDA + BK * (G * BN + 8)) * 2 > BM * tile_ldc<G>() * 4
+                    ? (BM * LDA + BK * (G * BN + 8)) * 2
+                    : BM * tile_ldc<G>() * 4);
+}
+
+// The fp32 products of one tile into Cs (T = float): for every operand,
+// K in stages of BKF; activations k-major [BKF][LDAF], weights [BKF][TN +
+// 4]. Thread t < 64 G owns columns 4 (t % 8G) + {0..3} of rows 8 (t / 8G)
+// + {0..7}; an operand that feeds none of its columns' group is skipped, as
+// the wmma warps skip it. Ends with the block synchronised and the fp32
+// tile in Cs.
+template <int G, bool GATED, int NT>
+__device__ __forceinline__ void f32_products(const GemmArgs& args, int nb,
+                                             int row0, unsigned char* smem) {
+  constexpr int TN = G * BN;
+  constexpr int LDB = TN + 4;
+  constexpr int LDC = tile_ldc<G>();
+  float* As = reinterpret_cast<float*>(smem);
+  float* Bs = As + BKF * LDAF;
+  float* Cs = reinterpret_cast<float*>(smem);
+  const int tid = threadIdx.x;
+  const bool mma_thread = tid < 64 * G;
+  const int tc = tid % (8 * G);
+  const int tr = tid / (8 * G);
+  const int grp = (4 * tc) / BN;  // the thread's column group
+  const int N = args.N;
+  const int cols = args.cols;
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  for (int s = 0; s < args.n_ops; ++s) {
+    const Operand op = args.op[s];
+    const float* a = static_cast<const float*>(op.a);
+    const float* wg = static_cast<const float*>(op.w_gates);
+    const float* wc = static_cast<const float*>(op.w_copy);
+    const bool active =
+        mma_thread && (!GATED || (grp < 4 ? wg != nullptr : wc != nullptr));
+    for (int k0 = 0; k0 < op.k; k0 += BKF) {
+      for (int v = tid; v < BM * BKF / 4; v += NT) {  // activations
+        const int r = v / (BKF / 4);
+        const int c = (v % (BKF / 4)) * 4;
+        const int gr = row0 + r;
+        float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (gr < N)
+          x = *reinterpret_cast<const float4*>(a + (size_t)gr * op.k + k0 +
+                                               c);
+        As[(c + 0) * LDAF + r] = x.x;
+        As[(c + 1) * LDAF + r] = x.y;
+        As[(c + 2) * LDAF + r] = x.z;
+        As[(c + 3) * LDAF + r] = x.w;
+      }
+      for (int v = tid; v < BKF * TN / 4; v += NT) {  // weights
+        const int r = v / (TN / 4);
+        const int t = (v % (TN / 4)) * 4;
+        const size_t krow = (size_t)(k0 + r);
+        const float* src = nullptr;
+        if (GATED) {
+          const int g = t / BN;
+          const int col = nb * BN + t % BN;
+          if (g < 4) {
+            if (wg) src = wg + krow * 4 * cols + g * cols + col;
+          } else if (wc) {
+            src = wc + krow * cols + col;
+          }
+        } else {
+          src = wg + krow * cols + nb * TN + t;
+        }
+        float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (src) x = *reinterpret_cast<const float4*>(src);
+        *reinterpret_cast<float4*>(Bs + r * LDB + t) = x;
+      }
+      __syncthreads();
+      if (active) {
+#pragma unroll
+        for (int kk = 0; kk < BKF; ++kk) {
+          const float4 b =
+              *reinterpret_cast<const float4*>(Bs + kk * LDB + 4 * tc);
+          const float4 a0 =
+              *reinterpret_cast<const float4*>(As + kk * LDAF + 8 * tr);
+          const float4 a1 =
+              *reinterpret_cast<const float4*>(As + kk * LDAF + 8 * tr + 4);
+          const float av[8] = {a0.x, a0.y, a0.z, a0.w,
+                               a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            acc[i][0] = fmaf(av[i], b.x, acc[i][0]);
+            acc[i][1] = fmaf(av[i], b.y, acc[i][1]);
+            acc[i][2] = fmaf(av[i], b.z, acc[i][2]);
+            acc[i][3] = fmaf(av[i], b.w, acc[i][3]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  if (mma_thread) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<float4*>(Cs + (8 * tr + i) * LDC + 4 * tc) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+  __syncthreads();
 }
 
 // One tile: rows [row0, row0 + 64), column block nb (hidden columns
 // [32 nb, 32 nb + 32) of every gate group when gated, else output columns
 // [32 G nb, 32 G (nb + 1))). Every thread of the block calls it; it ends
-// with the block synchronised after the fp32 tile is in shared memory (and,
-// unless EPI_NONE, after the epilogue's writes were issued). The caller
-// synchronises before the next tile reuses `smem`.
-template <int G, int EPI, int NT>
+// with the epilogue's writes issued.
+template <int G, int EPI, int NT, typename T = __nv_bfloat16>
 __device__ __forceinline__ void gemm_tile(const GemmArgs& args, int nb,
                                           int row0, unsigned char* smem) {
   constexpr int TN = G * BN;  // tile columns
   constexpr int LDB = TN + 8;
   constexpr int LDC = tile_ldc<G>();
   constexpr bool GATED = (EPI == EPI_LSTM || EPI == EPI_COPY_LSTM);
+  constexpr bool F32 = std::is_same<T, float>::value;
   static_assert(NT >= 64 * G, "a tile needs 2 x G warps");
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Bs = As + BM * LDA;
@@ -149,6 +262,9 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& args, int nb,
   const int N = args.N;
   const int cols = args.cols;
 
+  if constexpr (F32) {
+    f32_products<G, GATED, NT>(args, nb, row0, smem);
+  } else {
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -157,10 +273,12 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& args, int nb,
 
   for (int s = 0; s < args.n_ops; ++s) {
     const Operand op = args.op[s];
+    const auto* w_gates = static_cast<const __nv_bfloat16*>(op.w_gates);
+    const auto* w_copy = static_cast<const __nv_bfloat16*>(op.w_copy);
     // A gated operand may feed only some gate groups (c* feeds only r).
     const bool active =
         mma_warp &&
-        (!GATED || (wc < 4 ? op.w_gates != nullptr : op.w_copy != nullptr));
+        (!GATED || (wc < 4 ? w_gates != nullptr : w_copy != nullptr));
     for (int k0 = 0; k0 < op.k; k0 += BK) {
       for (int v = tid; v < BM * BK / 8; v += NT) {  // A tile
         const int r = v / (BK / 8);
@@ -185,12 +303,12 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& args, int nb,
           const int g = t / BN;
           const int col = nb * BN + t % BN;
           if (g < 4) {
-            if (op.w_gates) src = op.w_gates + krow * 4 * cols + g * cols + col;
-          } else if (op.w_copy) {
-            src = op.w_copy + krow * cols + col;
+            if (w_gates) src = w_gates + krow * 4 * cols + g * cols + col;
+          } else if (w_copy) {
+            src = w_copy + krow * cols + col;
           }
         } else {
-          src = op.w_gates + krow * cols + nb * TN + t;
+          src = w_gates + krow * cols + nb * TN + t;
         }
         uint4 val = make_uint4(0u, 0u, 0u, 0u);
         if (src) val = *reinterpret_cast<const uint4*>(src);
@@ -232,6 +350,7 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& args, int nb,
             wmma::mem_row_major);
   }
   __syncthreads();
+  }
 
   if (GATED) {
     for (int e = tid; e < BM * BN; e += NT) {
@@ -267,7 +386,7 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& args, int nb,
       args.c_out[idx] = c_new;
       if (args.h_bf16) args.h_bf16[idx] = __float2bfloat16_rn(h_new);
     }
-  } else if (EPI != EPI_NONE) {
+  } else {
     for (int e = tid; e < BM * TN; e += NT) {
       const int r = e / TN;
       const int c = e % TN;
@@ -279,8 +398,11 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& args, int nb,
       if (EPI == EPI_GATE_MUL) {
         float x = args.x[idx];
         if (args.x_round) x = __bfloat162float(__float2bfloat16_rn(x));
-        static_cast<__nv_bfloat16*>(args.out)[idx] =
-            __float2bfloat16_rn(sigmoidf(z + args.bias[col]) * x);
+        if constexpr (F32)
+          static_cast<float*>(args.out)[idx] = sigmoidf(z + args.bias[col]) * x;
+        else
+          static_cast<__nv_bfloat16*>(args.out)[idx] =
+              __float2bfloat16_rn(sigmoidf(z + args.bias[col]) * x);
       } else {
         static_cast<float*>(args.out)[idx] = z;
       }
@@ -295,18 +417,18 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& args, int nb,
 // compiler gives them 100 and they run slower (PERF.md). Naming a
 // minimum of one block for the gated ones is not the same as naming none:
 // it moves the Copy-LSTM to 86 registers, also slower.
-template <int G, int EPI>
+template <int G, int EPI, typename T = __nv_bfloat16>
 __global__ void __launch_bounds__(64 * G)
     gemm_kernel(const __grid_constant__ GemmArgs args) {
-  __shared__ __align__(128) unsigned char smem[tile_smem<G>()];
-  gemm_tile<G, EPI, 64 * G>(args, blockIdx.x, blockIdx.y * BM, smem);
+  __shared__ __align__(128) unsigned char smem[tile_smem<G, T>()];
+  gemm_tile<G, EPI, 64 * G, T>(args, blockIdx.x, blockIdx.y * BM, smem);
 }
 
-template <int G, int EPI>
+template <int G, int EPI, typename T = __nv_bfloat16>
 __global__ void __launch_bounds__(64 * G, 4)
     gemm_kernel_plain(const __grid_constant__ GemmArgs args) {
-  __shared__ __align__(128) unsigned char smem[tile_smem<G>()];
-  gemm_tile<G, EPI, 64 * G>(args, blockIdx.x, blockIdx.y * BM, smem);
+  __shared__ __align__(128) unsigned char smem[tile_smem<G, T>()];
+  gemm_tile<G, EPI, 64 * G, T>(args, blockIdx.x, blockIdx.y * BM, smem);
 }
 
 // Column blocks of a GEMM: gated widths are multiples of BN, plain output
@@ -327,16 +449,23 @@ cudaError_t check_gemm(const GemmArgs& a) {
   return cudaSuccess;
 }
 
-template <int G, int EPI>
+template <int G, int EPI, typename T = __nv_bfloat16>
 cudaError_t launch_gemm(const GemmArgs& a, cudaStream_t s) {
   const cudaError_t err = check_gemm<G, EPI>(a);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.cols / column_width<G, EPI>(), (a.N + BM - 1) / BM);
   if constexpr (EPI == EPI_LSTM || EPI == EPI_COPY_LSTM)
-    gemm_kernel<G, EPI><<<grid, 64 * G, 0, s>>>(a);
+    gemm_kernel<G, EPI, T><<<grid, 64 * G, 0, s>>>(a);
   else
-    gemm_kernel_plain<G, EPI><<<grid, 64 * G, 0, s>>>(a);
+    gemm_kernel_plain<G, EPI, T><<<grid, 64 * G, 0, s>>>(a);
   return cudaGetLastError();
+}
+
+// The bf16 or the fp32 instance, as `f32` says.
+template <int G, int EPI>
+cudaError_t launch_gemm(const GemmArgs& a, int f32, cudaStream_t s) {
+  return f32 ? launch_gemm<G, EPI, float>(a, s)
+             : launch_gemm<G, EPI, __nv_bfloat16>(a, s);
 }
 
 inline Operand operand(const void* a, int a_f32, int k, const void* w_gates,
@@ -345,8 +474,8 @@ inline Operand operand(const void* a, int a_f32, int k, const void* w_gates,
   o.a = a;
   o.a_f32 = a_f32;
   o.k = k;
-  o.w_gates = static_cast<const __nv_bfloat16*>(w_gates);
-  o.w_copy = static_cast<const __nv_bfloat16*>(w_copy);
+  o.w_gates = w_gates;
+  o.w_copy = w_copy;
   return o;
 }
 

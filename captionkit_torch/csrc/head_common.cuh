@@ -1,13 +1,22 @@
 // Shared pieces of the vocab-head kernels (head_topk.cu, head_int8.cu,
-// wholestep.cu): the (value descending, vocab id ascending) order, the
-// per-row top-k of a 128-column logits tile in its two extractions, and
-// pass 2, the merge of the tiles' partial results.
+// head_sweep.cu, wholestep.cu): the (value descending, vocab id ascending)
+// order, the per-row top-k of a 128-column logits tile in its two
+// extractions, pass 2 (the merge of the tiles' partial results), and the
+// fp32 route: an fp32 logits tile on the CUDA cores and the one-pass fp32
+// sweep.
 //
 // Replaces the extraction and merge of the TPU kernels in
 // captionkit/ops/head.py (_lse_topk_update: extract="mask" and "thresh").
 //
 // Every comparison orders by (value descending, vocab id ascending), so
 // ties resolve as lax.top_k's whatever order the tiles finish in.
+//
+// Any k up to KMAX_LIMIT: the candidate lists are template parameters of
+// their length (the k = 8 instance is the one every kernel had before),
+// and the host picks the smallest instance that holds k (kmax_for). A
+// tile row's own list needs no more than a lane's COLS_PER_LANE columns,
+// whatever k; it keeps the 8 entries it always had (a shorter list moved
+// the mask kernel from 80 to 99 registers, PERF.md).
 
 #pragma once
 
@@ -19,9 +28,15 @@
 namespace {
 
 constexpr int BN = 128;       // vocab columns per tile
-constexpr int KMAX = 8;       // largest k
+constexpr int KMAX_LIMIT = 64;  // largest k of any instance
 constexpr int THREADS = 256;  // 8 warps
 constexpr int COLS_PER_LANE = BN / 32;
+constexpr int TILE_LIST = 8;  // a lane's list in a tile row (>= COLS_PER_LANE)
+
+// The smallest candidate-list instance that holds k (8, 16, 32 or 64).
+__host__ __device__ constexpr int kmax_for(int k) {
+  return k <= 8 ? 8 : k <= 16 ? 16 : k <= 32 ? 32 : 64;
+}
 
 enum Extract { kMask = 0, kThresh = 1 };
 
@@ -30,11 +45,12 @@ __device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
 }
 
 // Insert (v, i) into a list kept sorted by better(); the worst falls off.
-// Static indices only, so the list stays in registers.
-__device__ __forceinline__ void insert(float (&lv)[KMAX], int (&li)[KMAX],
-                                       float v, int i) {
+// Static indices only, so a short list stays in registers.
+template <int L>
+__device__ __forceinline__ void insert(float (&lv)[L], int (&li)[L], float v,
+                                       int i) {
 #pragma unroll
-  for (int q = 0; q < KMAX; ++q) {
+  for (int q = 0; q < L; ++q) {
     if (better(v, i, lv[q], li[q])) {
       const float tv = lv[q];
       const int ti = li[q];
@@ -46,9 +62,10 @@ __device__ __forceinline__ void insert(float (&lv)[KMAX], int (&li)[KMAX],
   }
 }
 
-__device__ __forceinline__ void clear(float (&lv)[KMAX], int (&li)[KMAX]) {
+template <int L>
+__device__ __forceinline__ void clear(float (&lv)[L], int (&li)[L]) {
 #pragma unroll
-  for (int q = 0; q < KMAX; ++q) {
+  for (int q = 0; q < L; ++q) {
     lv[q] = -INFINITY;
     li[q] = INT_MAX;
   }
@@ -78,10 +95,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 // k rounds over the warp: each lane offers the head of its sorted list,
 // the best offer wins, and its owner pops it. Lane 0 writes the winners.
 // The union of the lanes' lists holds the warp's top-k, so this is exact.
-__device__ __forceinline__ void warp_pop_topk(float (&lv)[KMAX],
-                                              int (&li)[KMAX], int k,
-                                              float* out_v, int* out_i,
-                                              int lane) {
+template <int L>
+__device__ __forceinline__ void warp_pop_topk(float (&lv)[L], int (&li)[L],
+                                              int k, float* out_v,
+                                              int* out_i, int lane) {
   for (int r = 0; r < k; ++r) {
     float v = lv[0];
     int i = li[0];
@@ -96,12 +113,12 @@ __device__ __forceinline__ void warp_pop_topk(float (&lv)[KMAX],
     }
     if (lv[0] == v && li[0] == i) {
 #pragma unroll
-      for (int q = 0; q < KMAX - 1; ++q) {
+      for (int q = 0; q < L - 1; ++q) {
         lv[q] = lv[q + 1];
         li[q] = li[q + 1];
       }
-      lv[KMAX - 1] = -INFINITY;
-      li[KMAX - 1] = INT_MAX;
+      lv[L - 1] = -INFINITY;
+      li[L - 1] = INT_MAX;
     }
     if (lane == 0) {
       out_v[r] = v;
@@ -193,8 +210,8 @@ __device__ __forceinline__ void emit_tile_row(
     warp_thresh_topk(x, xi, m, k, part_v + slot * k, part_i + slot * k,
                      lane);
   } else {
-    float lv[KMAX];
-    int li[KMAX];
+    float lv[TILE_LIST];
+    int li[TILE_LIST];
     clear(lv, li);
 #pragma unroll
     for (int q = 0; q < COLS_PER_LANE; ++q) insert(lv, li, x[q], xi[q]);
@@ -210,7 +227,9 @@ __device__ __forceinline__ void emit_tile_row(
 // M) over the tiles, and the top-k of the tiles' candidates. (No
 // __restrict__ here: the whole-step kernel merges partials it wrote itself
 // earlier in the same launch, which must not be read through the
-// read-only cache.)
+// read-only cache.) A lane keeps a KMAX-long list: all of the row's top-k
+// may come from its candidates.
+template <int KMAX>
 __device__ __forceinline__ void merge_row(const float* part_m,
                                           const float* part_s,
                                           const float* part_v,
@@ -239,6 +258,7 @@ __device__ __forceinline__ void merge_row(const float* part_m,
 }
 
 // Pass 2, one warp per row.
+template <int KMAX>
 __global__ void __launch_bounds__(THREADS)
 head_merge_kernel(const float* __restrict__ part_m,
                   const float* __restrict__ part_s,
@@ -249,19 +269,249 @@ head_merge_kernel(const float* __restrict__ part_m,
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
   if (row >= N) return;  // the same for the whole warp
-  merge_row(part_m, part_s, part_v, part_i, vals, idx, lse, row, n_tiles, k,
-            lane);
+  merge_row<KMAX>(part_m, part_s, part_v, part_i, vals, idx, lse, row,
+                  n_tiles, k, lane);
 }
 
+template <int KMAX>
+cudaError_t launch_merge_k(const float* part_m, const float* part_s,
+                           const float* part_v, const int* part_i,
+                           float* vals, int* idx, float* lse, int N,
+                           int n_tiles, int k, cudaStream_t s) {
+  const int rows_per_block = THREADS / 32;
+  head_merge_kernel<KMAX><<<(N + rows_per_block - 1) / rows_per_block,
+                            THREADS, 0, s>>>(part_m, part_s, part_v, part_i,
+                                             vals, idx, lse, N, n_tiles, k);
+  return cudaGetLastError();
+}
+
+// Pass 2 at the instance kmax_for(k).
 cudaError_t launch_merge(const float* part_m, const float* part_s,
                          const float* part_v, const int* part_i, float* vals,
                          int* idx, float* lse, int N, int n_tiles, int k,
                          cudaStream_t s) {
-  const int rows_per_block = THREADS / 32;
-  head_merge_kernel<<<(N + rows_per_block - 1) / rows_per_block, THREADS, 0,
-                      s>>>(part_m, part_s, part_v, part_i, vals, idx, lse, N,
-                           n_tiles, k);
+  switch (kmax_for(k)) {
+    case 8:
+      return launch_merge_k<8>(part_m, part_s, part_v, part_i, vals, idx,
+                               lse, N, n_tiles, k, s);
+    case 16:
+      return launch_merge_k<16>(part_m, part_s, part_v, part_i, vals, idx,
+                                lse, N, n_tiles, k, s);
+    case 32:
+      return launch_merge_k<32>(part_m, part_s, part_v, part_i, vals, idx,
+                                lse, N, n_tiles, k, s);
+    default:
+      return launch_merge_k<64>(part_m, part_s, part_v, part_i, vals, idx,
+                                lse, N, n_tiles, k, s);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The fp32 route (compute_dtype="float32"): fp32 products on the CUDA cores
+// (no tensor cores: TF32 would keep 10 mantissa bits).
+// ---------------------------------------------------------------------------
+
+constexpr int F32_BK = 16;  // depth of one fp32 shared-memory stage
+
+// Shared memory of f32_logits_tile for BM_ rows: h stage [F32_BK][BM_ + 4]
+// (k-major), W stage [F32_BK][BN + 4].
+template <int BM_>
+__host__ __device__ constexpr int f32_tile_floats() {
+  return F32_BK * (BM_ + 4) + F32_BK * (BN + 4);
+}
+
+// One [BM_, 128] fp32 tile of h @ W (no bias) into Cs (row stride ldc),
+// rows [row0, row0 + BM_), vocab columns [col0, col0 + 128): fp32 h [N, H]
+// and W [H, V] (H and V multiples of 4), plain FMA. Thread t of the
+// block's THREADS owns columns 4 (t % 32) + {0..3} of rows (t / 32) BM_/8
+// + {0..BM_/8 - 1}; a warp reads one h row broadcast and 128 consecutive W
+// columns. Ends with the block synchronised and Cs complete; Cs may not
+// alias `stage`.
+template <int BM_>
+__device__ __forceinline__ void f32_logits_tile(
+    const float* __restrict__ h, const float* __restrict__ w, int row0,
+    int col0, int N, int H, int V, float* stage, float* Cs, int ldc) {
+  constexpr int RPT = BM_ / 8;  // rows a thread
+  constexpr int LDA = BM_ + 4;
+  constexpr int LDB = BN + 4;
+  float* As = stage;                 // [F32_BK][LDA]
+  float* Bs = stage + F32_BK * LDA;  // [F32_BK][LDB]
+  const int tid = threadIdx.x;
+  const int tc = tid % 32;
+  const int tr = tid / 32;
+  float acc[RPT][4];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  for (int k0 = 0; k0 < H; k0 += F32_BK) {
+    for (int v = tid; v < BM_ * (F32_BK / 4); v += THREADS) {  // h, k-major
+      const int r = v / (F32_BK / 4);
+      const int c = (v % (F32_BK / 4)) * 4;
+      const int gr = row0 + r;
+      const int gk = k0 + c;
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (gr < N && gk < H)
+        x = *reinterpret_cast<const float4*>(h + (size_t)gr * H + gk);
+      As[(c + 0) * LDA + r] = x.x;
+      As[(c + 1) * LDA + r] = x.y;
+      As[(c + 2) * LDA + r] = x.z;
+      As[(c + 3) * LDA + r] = x.w;
+    }
+    for (int v = tid; v < F32_BK * (BN / 4); v += THREADS) {  // W
+      const int r = v / (BN / 4);
+      const int c = (v % (BN / 4)) * 4;
+      const int gk = k0 + r;
+      const int gc = col0 + c;
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (gk < H && gc < V)
+        x = *reinterpret_cast<const float4*>(w + (size_t)gk * V + gc);
+      *reinterpret_cast<float4*>(Bs + r * LDB + c) = x;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < F32_BK; ++kk) {
+      const float4 b = *reinterpret_cast<const float4*>(Bs + kk * LDB + 4 * tc);
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const float a = As[kk * LDA + tr * RPT + i];
+        acc[i][0] = fmaf(a, b.x, acc[i][0]);
+        acc[i][1] = fmaf(a, b.y, acc[i][1]);
+        acc[i][2] = fmaf(a, b.z, acc[i][2]);
+        acc[i][3] = fmaf(a, b.w, acc[i][3]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+    *reinterpret_cast<float4*>(Cs + (tr * RPT + i) * ldc + 4 * tc) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  __syncthreads();
+}
+
+// The one-pass fp32 sweep (the sm90 sweep's and the whole-step kernel's
+// fp32 route): a block of SWEEP_F32_ROWS rows walks every vocab tile in
+// order, as the TPU grid does, carrying per row an online (m, s) and a
+// running top-k in shared memory; no partial results reach device memory.
+// Per tile, one warp a row merges the tile's columns with the running
+// list: a lane holds its COLS_PER_LANE columns and running entries lane +
+// 32 j, all in one sorted list, and k rounds of warp_pop_topk write the
+// new running list.
+constexpr int SWEEP_F32_ROWS = 32;
+
+template <int KMAX>
+__global__ void __launch_bounds__(THREADS)
+head_sweep_f32_kernel(const float* __restrict__ h,
+                      const float* __restrict__ w,
+                      const float* __restrict__ bias,
+                      float* __restrict__ vals, int* __restrict__ idx,
+                      float* __restrict__ lse, int N, int H, int V, int k) {
+  constexpr int R = SWEEP_F32_ROWS;
+  constexpr int LDC = BN + 4;
+  constexpr int RUN = (KMAX + 31) / 32;  // running entries a lane
+  constexpr int L = COLS_PER_LANE + RUN;
+  __shared__ __align__(16) float stage[f32_tile_floats<R>()];
+  __shared__ __align__(16) float Cs[R * LDC];
+  __shared__ float run_m[R], run_s[R];
+  __shared__ float run_v[R][KMAX];
+  __shared__ int run_i[R][KMAX];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row0 = blockIdx.x * R;
+  constexpr int RPW = R / (THREADS / 32);  // rows a warp
+  for (int e = threadIdx.x; e < R * KMAX; e += THREADS) {
+    run_v[e / KMAX][e % KMAX] = -INFINITY;
+    run_i[e / KMAX][e % KMAX] = INT_MAX;
+  }
+  for (int r = threadIdx.x; r < R; r += THREADS) {
+    run_m[r] = -INFINITY;
+    run_s[r] = 0.0f;
+  }
+  const int n_tiles = (V + BN - 1) / BN;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int col0 = t * BN;
+    f32_logits_tile<R>(h, w, row0, col0, N, H, V, stage, Cs, LDC);
+    for (int rr = 0; rr < RPW; ++rr) {
+      const int r = warp * RPW + rr;
+      if (row0 + r >= N) break;  // the same for the whole warp
+      float x[COLS_PER_LANE];
+      int xi[COLS_PER_LANE];
+      load_row(Cs, LDC, r, bias, col0, V, lane, x, xi);
+      float tm = -INFINITY;
+#pragma unroll
+      for (int q = 0; q < COLS_PER_LANE; ++q) tm = fmaxf(tm, x[q]);
+      tm = warp_max(tm);
+      const float m_old = run_m[r];
+      const float m_new = fmaxf(m_old, tm);
+      float s = 0.0f;
+#pragma unroll
+      for (int q = 0; q < COLS_PER_LANE; ++q)
+        if (xi[q] != INT_MAX) s += expf(x[q] - m_new);
+      s = warp_sum(s);
+      float lv[L];
+      int li[L];
+      clear(lv, li);
+#pragma unroll
+      for (int q = 0; q < COLS_PER_LANE; ++q) insert(lv, li, x[q], xi[q]);
+#pragma unroll
+      for (int j = 0; j < RUN; ++j) {
+        const int e = lane + 32 * j;
+        if (e < k) insert(lv, li, run_v[r][e], run_i[r][e]);
+      }
+      __syncwarp();  // every lane has read the running list
+      warp_pop_topk(lv, li, k, run_v[r], run_i[r], lane);
+      if (lane == 0) {
+        run_s[r] = (m_old == -INFINITY ? 0.0f : run_s[r] * expf(m_old - m_new))
+                   + s;
+        run_m[r] = m_new;
+      }
+      __syncwarp();
+    }
+    // The next tile's products overwrite neither Cs nor the running
+    // state before f32_logits_tile's first barrier.
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < R * k; e += THREADS) {
+    const int r = e / k;
+    const int gr = row0 + r;
+    if (gr < N) {
+      vals[(size_t)gr * k + e % k] = run_v[r][e % k];
+      idx[(size_t)gr * k + e % k] = run_i[r][e % k];
+    }
+  }
+  for (int r = threadIdx.x; r < R; r += THREADS)
+    if (row0 + r < N) lse[row0 + r] = run_m[r] + logf(run_s[r]);
+}
+
+template <int KMAX>
+cudaError_t launch_sweep_f32_k(const float* h, const float* w,
+                               const float* b, float* vals, int* idx,
+                               float* lse, int N, int H, int V, int k,
+                               cudaStream_t s) {
+  head_sweep_f32_kernel<KMAX><<<(N + SWEEP_F32_ROWS - 1) / SWEEP_F32_ROWS,
+                                THREADS, 0, s>>>(h, w, b, vals, idx, lse, N,
+                                                 H, V, k);
   return cudaGetLastError();
+}
+
+// The fp32 sweep at the instance kmax_for(k): h [N, H], W [H, V] fp32 (H
+// and V multiples of 4), b [V]. One launch.
+cudaError_t launch_sweep_f32(const float* h, const float* w, const float* b,
+                             float* vals, int* idx, float* lse, int N, int H,
+                             int V, int k, cudaStream_t s) {
+  switch (kmax_for(k)) {
+    case 8:
+      return launch_sweep_f32_k<8>(h, w, b, vals, idx, lse, N, H, V, k, s);
+    case 16:
+      return launch_sweep_f32_k<16>(h, w, b, vals, idx, lse, N, H, V, k, s);
+    case 32:
+      return launch_sweep_f32_k<32>(h, w, b, vals, idx, lse, N, H, V, k, s);
+    default:
+      return launch_sweep_f32_k<64>(h, w, b, vals, idx, lse, N, H, V, k, s);
+  }
 }
 
 }  // namespace

@@ -6,9 +6,10 @@
 // (_make_head_kernel_int8 + _quantize_rows + _lse_topk_update), with both
 // extractions ("mask", "thresh").
 //
-// Inputs:  h [N, H] fp32 (H a multiple of 4), w_q [H, V] int8 (row-major,
-//          V a multiple of 16), w_scale [V] fp32, b [V] fp32 (padded vocab
-//          columns: weight 0, scale 1, bias -1e30; quantize_head).
+// Inputs:  h [N, H] fp32 (H a multiple of 4, any size), w_q [H, V] int8
+//          (row-major, V a multiple of 16), w_scale [V] fp32, b [V] fp32
+//          (padded vocab columns: weight 0, scale 1, bias -1e30;
+//          quantize_head).
 // Outputs: vals [N, k] fp32, idx [N, k] int32, lse [N] fp32.
 //
 // Design. Pass 1, grid = vocab tiles x row tiles: a block owns 64 rows and
@@ -17,9 +18,13 @@
 // division, rounding half to even, no clip: the reference's
 // _quantize_rows). Every vocab-tile block recomputes its rows'
 // quantization; the result is the same each time, so the logits do not
-// depend on the tile. The block then multiplies the int8 rows by streamed
-// w_q tiles with s8 tensor-core MMA (nvcuda::wmma m16n16k16, int32
-// accumulation, exact), and dequantizes in the epilogue as
+// depend on the tile. The row scales come from a first pass over all of
+// H; the quantized rows then stream through shared memory in K chunks of
+// at most KCHUNK columns (64 x KCHUNK bytes), so any H fits: the int32
+// sums carry across chunks in the accumulators, exact either way. The
+// block then multiplies the int8 rows by streamed w_q tiles with s8
+// tensor-core MMA (nvcuda::wmma m16n16k16, int32 accumulation, exact), and
+// dequantizes in the epilogue as
 // acc * (s_h * s_w) + b, each operation rounded on its own (__fmul_rn,
 // __fadd_rn: no contraction into an FMA), which is the plain version's
 // arithmetic, so the logits are bit-identical to it. The extraction and
@@ -58,13 +63,15 @@ constexpr int B_STRIDE = BK * KB + 32;  // bytes per 16-column w_q block;
                                         // the pad spreads the banks and
                                         // keeps 32-byte alignment
 constexpr int ROWS_PER_WARP = BM / (THREADS / 32);
+constexpr int KCHUNK = 2048;  // quantized columns held at once (a multiple
+                              // of BK): 128 KB of rows
 
 __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
 }
 
-// Shared memory of a block for depth Kp (H rounded up to BK): the rows (or,
-// after the products, the int32 tile), a w_q stage, the row scales.
+// Shared memory of a block for a chunk of Kc quantized columns: the rows
+// (or, after the products, the int32 tile), a w_q stage, the row scales.
 __host__ __device__ constexpr int a_bytes(int Kp) {
   return round_up(Kp * BM > BM * LDC * 4 ? Kp * BM : BM * LDC * 4, 128);
 }
@@ -72,7 +79,34 @@ __host__ __device__ constexpr int smem_bytes(int Kp) {
   return a_bytes(Kp) + (BN / KB) * B_STRIDE + BM * 4;
 }
 
-template <int EXTRACT>
+// Columns [c0, c0 + Kc) of one row quantized into a chunk of the rows'
+// shared memory ([Kc/16][BM][16]), q = rint(h / s) (IEEE division, half to
+// even, no clip), four columns a lane at a time in one 32-bit store;
+// columns past H (and rows past N: live = false) are zeros.
+__device__ __forceinline__ void quantize_row(const float* hrow, bool live,
+                                             int H, int c0, int Kc, float s,
+                                             int r, int lane,
+                                             signed char* As) {
+  for (int c = lane * 4; c < Kc; c += 128) {
+    uint32_t packed = 0u;
+    if (live && c0 + c < H) {
+      const float4 x = *reinterpret_cast<const float4*>(hrow + c0 + c);
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = __float2int_rn(rintf(__fdiv_rn(xs[e], s)));
+        packed |= (uint32_t)(q & 0xff) << (8 * e);
+      }
+    }
+    *reinterpret_cast<uint32_t*>(As + (c / KB) * (BM * KB) + r * KB +
+                                 (c % KB)) = packed;
+  }
+}
+
+// CHUNKED: the rows take more than one chunk (Kp > KCHUNK). The one-chunk
+// instance quantizes before its accumulators exist, as the kernel always
+// has (79 registers; quantizing with them live took 94).
+template <int EXTRACT, bool CHUNKED>
 __global__ void __launch_bounds__(THREADS)
 head_int8_tile_kernel(const float* __restrict__ h,
                       const int8_t* __restrict__ wq,
@@ -80,11 +114,11 @@ head_int8_tile_kernel(const float* __restrict__ h,
                       const float* __restrict__ bias,
                       float* __restrict__ part_m, float* __restrict__ part_s,
                       float* __restrict__ part_v, int* __restrict__ part_i,
-                      int N, int H, int V, int Kp, int k) {
+                      int N, int H, int V, int Kp, int Kc, int k) {
   extern __shared__ __align__(128) unsigned char smem[];
-  signed char* As = reinterpret_cast<signed char*>(smem);  // [Kp/16][BM][16]
+  signed char* As = reinterpret_cast<signed char*>(smem);  // [Kc/16][BM][16]
   int* Cs = reinterpret_cast<int*>(smem);                   // [BM][LDC]
-  signed char* Bs = reinterpret_cast<signed char*>(smem + a_bytes(Kp));
+  signed char* Bs = reinterpret_cast<signed char*>(smem + a_bytes(Kc));
   float* s_rows = reinterpret_cast<float*>(Bs + (BN / KB) * B_STRIDE);
 
   const int tid = threadIdx.x;
@@ -95,9 +129,10 @@ head_int8_tile_kernel(const float* __restrict__ h,
   const int col0 = tile * BN;
   const int row0 = blockIdx.y * BM;
 
-  // 1. Row quantization, one warp a row: amax, then q = rint(h / s_h),
-  // four columns a lane at a time, packed into one 32-bit store. Rows past
-  // N and columns past H are zeros.
+  // 1. Row scales, one warp a row: amax over all of H, s_h = amax / 127;
+  // one chunk: the rows quantized right away, q = rint(h / s_h), four
+  // columns a lane at a time, packed into one 32-bit store. Rows past N
+  // and columns past H are zeros.
   for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
     const int r = warp * ROWS_PER_WARP + rr;
     const int gr = row0 + r;
@@ -112,24 +147,12 @@ head_int8_tile_kernel(const float* __restrict__ h,
     amax = warp_max(amax);
     const float s = __fdiv_rn(fmaxf(amax, 1e-8f), 127.0f);
     if (lane == 0) s_rows[r] = s;
-    for (int c = lane * 4; c < Kp; c += 128) {
-      uint32_t packed = 0u;
-      if (gr < N && c < H) {
-        const float4 x = *reinterpret_cast<const float4*>(hrow + c);
-        const float xs[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int q = __float2int_rn(rintf(__fdiv_rn(xs[e], s)));
-          packed |= (uint32_t)(q & 0xff) << (8 * e);
-        }
-      }
-      *reinterpret_cast<uint32_t*>(As + (c / KB) * (BM * KB) + r * KB +
-                                   (c % KB)) = packed;
-    }
+    if (!CHUNKED) quantize_row(hrow, gr < N, H, 0, Kc, s, r, lane, As);
   }
   __syncthreads();
 
-  // 2. The products: 8 warps in a 2 (rows) x 4 (columns) grid of 32 x 32.
+  // 2. The products, chunk by chunk: 8 warps in a 2 (rows) x 4 (columns)
+  // grid of 32 x 32.
   const int wr = warp >> 2;
   const int wc = warp & 3;
   wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[2][2];
@@ -138,40 +161,55 @@ head_int8_tile_kernel(const float* __restrict__ h,
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
 
-  for (int k0 = 0; k0 < Kp; k0 += BK) {
-    for (int v = tid; v < BK * (BN / KB); v += THREADS) {  // w_q stage
-      const int r = v / (BN / KB);
-      const int cb = v % (BN / KB);
-      const int gk = k0 + r;
-      const int gc = col0 + cb * KB;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (gk < H && gc < V)
-        val = *reinterpret_cast<const uint4*>(wq + (size_t)gk * V + gc);
-      *reinterpret_cast<uint4*>(Bs + cb * B_STRIDE + r * KB) = val;
+  for (int c0 = 0; c0 < Kp; c0 += Kc) {
+    if (CHUNKED) {
+      // Columns [c0, c0 + Kc) of each row (the previous chunk's products
+      // ended with a barrier).
+      for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
+        const int r = warp * ROWS_PER_WARP + rr;
+        const int gr = row0 + r;
+        quantize_row(h + (size_t)gr * H, gr < N, H, c0, Kc, s_rows[r], r,
+                     lane, As);
+      }
+      __syncthreads();
     }
-    __syncthreads();
+
+    for (int k0 = c0; k0 < c0 + Kc && k0 < Kp; k0 += BK) {
+      for (int v = tid; v < BK * (BN / KB); v += THREADS) {  // w_q stage
+        const int r = v / (BN / KB);
+        const int cb = v % (BN / KB);
+        const int gk = k0 + r;
+        const int gc = col0 + cb * KB;
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if (gk < H && gc < V)
+          val = *reinterpret_cast<const uint4*>(wq + (size_t)gk * V + gc);
+        *reinterpret_cast<uint4*>(Bs + cb * B_STRIDE + r * KB) = val;
+      }
+      __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
-                     wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                     wmma::row_major> b[2];
+      for (int kk = 0; kk < BK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
+                       wmma::row_major> a[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
+                       wmma::row_major> b[2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(
-            a[i], As + ((k0 + kk) / KB) * (BM * KB) + (wr * 32 + i * 16) * KB,
-            KB);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + (wc * 2 + j) * B_STRIDE + kk * KB,
-                               KB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
+        for (int i = 0; i < 2; ++i)
+          wmma::load_matrix_sync(a[i],
+                                 As + ((k0 - c0 + kk) / KB) * (BM * KB) +
+                                     (wr * 32 + i * 16) * KB,
+                                 KB);
 #pragma unroll
         for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+          wmma::load_matrix_sync(b[j], Bs + (wc * 2 + j) * B_STRIDE + kk * KB,
+                                 KB);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
   // The rows are no longer read: the int32 tile takes their space.
 #pragma unroll
@@ -208,6 +246,20 @@ head_int8_tile_kernel(const float* __restrict__ h,
   }
 }
 
+template <int EXTRACT, bool CHUNKED>
+cudaError_t launch_tiles(dim3 grid, int smem, cudaStream_t s, const float* hp,
+                         const int8_t* wp, const float* sp, const float* bp,
+                         float* pm, float* ps, float* pv, int* pi, int N,
+                         int H, int V, int Kp, int Kc, int k) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      head_int8_tile_kernel<EXTRACT, CHUNKED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  head_int8_tile_kernel<EXTRACT, CHUNKED><<<grid, THREADS, smem, s>>>(
+      hp, wp, sp, bp, pm, ps, pv, pi, N, H, V, Kp, Kc, k);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -221,13 +273,14 @@ int ck_head_topk_int8(const void* h, const void* w_q, const void* w_scale,
                       void* part_m, void* part_s, void* part_v, void* part_i,
                       int N, int H, int V, int k, int extract, int device,
                       void* stream) {
-  if (N < 1 || H < 1 || V < 1 || k < 1 || k > KMAX || k > V || H % 4 ||
-      V % KB || (extract != kMask && extract != kThresh))
+  if (N < 1 || H < 1 || V < 1 || k < 1 || k > KMAX_LIMIT || k > V ||
+      H % 4 || V % KB || (extract != kMask && extract != kThresh))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int Kp = round_up(H, BK);
-  const int smem = smem_bytes(Kp);
+  const int Kc = Kp < KCHUNK ? Kp : KCHUNK;
+  const int smem = smem_bytes(Kc);
   int smem_max = 0;
   err = cudaDeviceGetAttribute(&smem_max,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin,
@@ -245,21 +298,22 @@ int ck_head_topk_int8(const void* h, const void* w_q, const void* w_scale,
   auto* ps = static_cast<float*>(part_s);
   auto* pv = static_cast<float*>(part_v);
   auto* pi = static_cast<int*>(part_i);
-  if (extract == kThresh) {
-    err = cudaFuncSetAttribute(head_int8_tile_kernel<kThresh>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    head_int8_tile_kernel<kThresh><<<grid, THREADS, smem, s>>>(
-        hp, wp, sp, bp, pm, ps, pv, pi, N, H, V, Kp, k);
-  } else {
-    err = cudaFuncSetAttribute(head_int8_tile_kernel<kMask>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    head_int8_tile_kernel<kMask><<<grid, THREADS, smem, s>>>(
-        hp, wp, sp, bp, pm, ps, pv, pi, N, H, V, Kp, k);
-  }
+  const bool chunked = Kp > Kc;
+  if (extract == kThresh)
+    err = chunked ? launch_tiles<kThresh, true>(grid, smem, s, hp, wp, sp, bp,
+                                                pm, ps, pv, pi, N, H, V, Kp,
+                                                Kc, k)
+                  : launch_tiles<kThresh, false>(grid, smem, s, hp, wp, sp,
+                                                 bp, pm, ps, pv, pi, N, H, V,
+                                                 Kp, Kc, k);
+  else
+    err = chunked ? launch_tiles<kMask, true>(grid, smem, s, hp, wp, sp, bp,
+                                              pm, ps, pv, pi, N, H, V, Kp, Kc,
+                                              k)
+                  : launch_tiles<kMask, false>(grid, smem, s, hp, wp, sp, bp,
+                                               pm, ps, pv, pi, N, H, V, Kp,
+                                               Kc, k);
+  if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_merge(pm, ps, pv, pi, static_cast<float*>(vals),
@@ -273,6 +327,6 @@ const char* ck_error_string(int code) {
 
 int ck_head_int8_tile_width() { return BN; }
 
-int ck_head_int8_kmax() { return KMAX; }
+int ck_head_int8_kmax() { return KMAX_LIMIT; }
 
 }  // extern "C"

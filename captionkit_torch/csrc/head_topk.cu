@@ -8,8 +8,9 @@
 //   ck_head_topk, extract = 1  -> fused_head_topk, extract="thresh"
 // (_sweep_head_topk, the single sweep, is head_sweep.cu.)
 //
-// Inputs:  h [N, H] bf16, W [H, V] bf16 (row-major, V a multiple of 8),
-//          b [V] fp32 (padded vocab columns carry -1e30).
+// Inputs:  h [N, H], W [H, V] (row-major, V a multiple of 8), both bf16
+//          or both fp32 (compute_dtype="float32"), b [V] fp32 (padded
+//          vocab columns carry -1e30); any k up to KMAX_LIMIT.
 // Outputs: vals [N, k] fp32, idx [N, k] int32, lse [N] fp32.
 //
 // Design. On the TPU the grid runs in order on one core, so the kernel
@@ -32,6 +33,10 @@
 // bf16; the bytes read (W 19.4 MB + h 5.2 MB) take 7 us at 3.35 TB/s. The
 // kernels are bound by operations. This first version is plain: one stage
 // of shared memory, no cp.async or TMA pipeline, wmma rather than wgmma.
+//
+// fp32 (compute_dtype="float32"): the same two passes with the logits tile
+// of head_common.cuh's f32_logits_tile, fp32 FMA on the CUDA cores (not
+// TF32); bound by the 67 TFLOP/s of fp32 outside the tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,6 +45,7 @@
 #include <climits>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "head_common.cuh"
 
@@ -127,16 +133,13 @@ __device__ __forceinline__ void bf16_logits_tile(
   __syncthreads();
 }
 
-template <int EXTRACT>
+template <typename T, int EXTRACT>
 __global__ void __launch_bounds__(THREADS)
-head_tile_kernel(const __nv_bfloat16* __restrict__ h,
-                 const __nv_bfloat16* __restrict__ w,
+head_tile_kernel(const T* __restrict__ h, const T* __restrict__ w,
                  const float* __restrict__ bias,
                  float* __restrict__ part_m, float* __restrict__ part_s,
                  float* __restrict__ part_v, int* __restrict__ part_i,
                  int N, int H, int V, int k) {
-  __shared__ __align__(128) __nv_bfloat16 As[BM * LDA];
-  __shared__ __align__(128) __nv_bfloat16 Bs[BK * LDB];
   __shared__ __align__(128) float Cs[BM * LDC];
 
   const int warp = threadIdx.x >> 5;
@@ -145,7 +148,14 @@ head_tile_kernel(const __nv_bfloat16* __restrict__ h,
   const int n_tiles = gridDim.x;
   const int col0 = tile * BN;
   const int row0 = blockIdx.y * BM;
-  bf16_logits_tile<BM>(h, w, row0, col0, N, H, V, As, Bs, Cs);
+  if constexpr (std::is_same<T, float>::value) {
+    __shared__ __align__(16) float stage[f32_tile_floats<BM>()];
+    f32_logits_tile<BM>(h, w, row0, col0, N, H, V, stage, Cs, LDC);
+  } else {
+    __shared__ __align__(128) __nv_bfloat16 As[BM * LDA];
+    __shared__ __align__(128) __nv_bfloat16 Bs[BK * LDB];
+    bf16_logits_tile<BM>(h, w, row0, col0, N, H, V, As, Bs, Cs);
+  }
 
   // Epilogue: each warp reduces BM / 8 rows of the tile.
   constexpr int rows_per_warp = BM / (THREADS / 32);
@@ -162,8 +172,24 @@ head_tile_kernel(const __nv_bfloat16* __restrict__ h,
 }
 
 bool bad_shape(int N, int H, int V, int k) {
-  return N < 1 || H < 1 || V < 1 || k < 1 || k > KMAX || k > V || H % 8 ||
-         V % 8;
+  return N < 1 || H < 1 || V < 1 || k < 1 || k > KMAX_LIMIT || k > V ||
+         H % 8 || V % 8;
+}
+
+template <typename T>
+cudaError_t launch_tiles(const void* h, const void* w, const float* b,
+                         float* pm, float* ps, float* pv, int* pi, int N,
+                         int H, int V, int k, int extract, cudaStream_t s) {
+  const dim3 grid((V + BN - 1) / BN, (N + BM - 1) / BM);
+  const auto* hp = static_cast<const T*>(h);
+  const auto* wp = static_cast<const T*>(w);
+  if (extract == kThresh)
+    head_tile_kernel<T, kThresh><<<grid, THREADS, 0, s>>>(hp, wp, b, pm, ps,
+                                                          pv, pi, N, H, V, k);
+  else
+    head_tile_kernel<T, kMask><<<grid, THREADS, 0, s>>>(hp, wp, b, pm, ps,
+                                                        pv, pi, N, H, V, k);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -172,34 +198,28 @@ extern "C" {
 
 // Scratch (allocated by the caller): part_m, part_s [N * n_tiles] fp32,
 // part_v [N * n_tiles * k] fp32, part_i [N * n_tiles * k] int32, with
-// n_tiles = ceil(V / 128). extract: 0 = mask, 1 = thresh. Launches both
-// passes on `stream` and returns the CUDA error code of the launches
-// (0 = success).
+// n_tiles = ceil(V / 128). extract: 0 = mask, 1 = thresh; f32: h and W
+// are fp32 (else bf16). Launches both passes on `stream` and returns the
+// CUDA error code of the launches (0 = success).
 int ck_head_topk(const void* h, const void* w, const void* b, void* vals,
                  void* idx, void* lse, void* part_m, void* part_s,
                  void* part_v, void* part_i, int N, int H, int V, int k,
-                 int extract, int device, void* stream) {
+                 int extract, int f32, int device, void* stream) {
   if (bad_shape(N, H, V, k) || (extract != kMask && extract != kThresh))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (V + BN - 1) / BN;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n_tiles, (N + BM - 1) / BM);
-  const auto* hp = static_cast<const __nv_bfloat16*>(h);
-  const auto* wp = static_cast<const __nv_bfloat16*>(w);
   const auto* bp = static_cast<const float*>(b);
   auto* pm = static_cast<float*>(part_m);
   auto* ps = static_cast<float*>(part_s);
   auto* pv = static_cast<float*>(part_v);
   auto* pi = static_cast<int*>(part_i);
-  if (extract == kThresh)
-    head_tile_kernel<kThresh><<<grid, THREADS, 0, s>>>(hp, wp, bp, pm, ps,
-                                                       pv, pi, N, H, V, k);
-  else
-    head_tile_kernel<kMask><<<grid, THREADS, 0, s>>>(hp, wp, bp, pm, ps, pv,
-                                                     pi, N, H, V, k);
-  err = cudaGetLastError();
+  err = f32 ? launch_tiles<float>(h, w, bp, pm, ps, pv, pi, N, H, V, k,
+                                  extract, s)
+            : launch_tiles<__nv_bfloat16>(h, w, bp, pm, ps, pv, pi, N, H, V,
+                                          k, extract, s);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_merge(pm, ps, pv, pi, static_cast<float*>(vals),
                            static_cast<int*>(idx), static_cast<float*>(lse),
@@ -212,6 +232,6 @@ const char* ck_error_string(int code) {
 
 int ck_head_tile_width() { return BN; }
 
-int ck_head_kmax() { return KMAX; }
+int ck_head_kmax() { return KMAX_LIMIT; }
 
 }  // extern "C"

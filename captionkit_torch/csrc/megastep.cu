@@ -50,9 +50,31 @@
 // What bounds them on the H100 (paper shape, N = 512 images x 5 beams):
 // the cell GEMMs are bound by operations (2 N K 4H with K = 3072 for the
 // att-LSTM: 64 GFLOP, 65 us at 989 TFLOP/s) and the score kernels by bytes
-// (the per-image keys). This first version is plain: wmma rather than
-// wgmma, one shared-memory stage, no cp.async or TMA pipeline, and every
-// 64-row block streams its weight columns from L2.
+// (the per-image keys). att_cell and the DCNet kernels are still the first
+// plain version: wmma rather than wgmma, one shared-memory stage, no
+// cp.async or TMA pipeline, and every 64-row block streams its weight
+// columns from L2.
+//
+// ck_lang_cell (bf16) runs on sm90_cell.cuh, the TMA-ring / register-A
+// wgmma GEMM shared with lstm.cu and wholestep.cu. Its two launches:
+//   1. the visual gate, v_hat = sigmoid(h_att Wg + bg) * round_bf16(
+//      vhat_raw) -> bf16 [N, Fp]: 128 x 128 tiles, 2 N H F = 10.7 GFLOP;
+//   2. the Copy-LSTM over [v_hat | h_att | h_lang | c*], all bf16 (the
+//      gate launch's idle threads write bf16 copies of the three fp32
+//      ones, 15.7 MB): 128 rows x 32 hidden columns a CTA (the i,
+//      f, g, o boxes plus r), K = F + 2H = 4096 for the base gates and F +
+//      3H = 5120 for r (c* feeds only r), 112.7 GFLOP, the update in
+//      registers.
+// At N = 2560 that is 20 x 32 = 640 CTAs (4.8 waves on 132 SMs). What
+// bounds it is not the products (0.125 ms at 989 TFLOP/s) but the L2 -> SM
+// traffic: each 128-row block reads the 44.1 MB of Copy-LSTM weights'
+// columns once (20 x 44.1 = 0.88 GB), each 32-column block its rows'
+// activations (10 KB of bf16 a row: 32 x 26 MB = 0.84 GB; read in fp32,
+// h_att, h_lang and c* would make it 14 KB a row, 1.15 GB).
+//
+// fp32 (compute_dtype="float32"): every entry point runs cell_common.cuh's
+// fp32 tile (fp32 FMA on the CUDA cores, not TF32) with the same
+// epilogues, and scores_kernel reads fp32 keys and writes fp32 weights.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,6 +83,7 @@
 #include <cstdint>
 
 #include "cell_common.cuh"
+#include "sm90_cell.cuh"
 
 namespace {
 
@@ -77,11 +100,11 @@ struct ScoreHead {
   int ldq;
   const float* b;                 // [A] bias inside tanh
   const float* v;                 // [A] score vector
-  const __nv_bfloat16* keys;      // [B, P, A]
+  const void* keys;               // [B, P, A] in T
   const float* mask;              // [B, P] (> 0 = attendable), or null:
                                   // every position valid
   int P;
-  __nv_bfloat16* out;             // [N, P] softmax weights
+  void* out;                      // [N, P] softmax weights in T
 };
 
 struct ScoreArgs {
@@ -90,6 +113,16 @@ struct ScoreArgs {
   int A;
 };
 
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ void store_t(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void store_t(float* p, float x) { *p = x; }
+
+template <typename T>
 __global__ void __launch_bounds__(SC_THREADS)
 scores_kernel(const ScoreArgs args) {
   extern __shared__ float sm[];
@@ -123,11 +156,11 @@ scores_kernel(const ScoreArgs args) {
         for (int r = 0; r < K; ++r) ss[r * P + p] = NEG_INF;
       continue;
     }
-    const __nv_bfloat16* kr = hd.keys + ((size_t)img * P + p) * A;
+    const T* kr = static_cast<const T*>(hd.keys) + ((size_t)img * P + p) * A;
     float key[SC_MAXV];
 #pragma unroll
     for (int i = 0; i < SC_MAXV; ++i)
-      if (i < nv) key[i] = __bfloat162float(kr[lane + 32 * i]);
+      if (i < nv) key[i] = to_f32(kr[lane + 32 * i]);
     for (int r = 0; r < K; ++r) {
       const float* qr = qs + r * A;
       float acc = 0.0f;
@@ -152,13 +185,12 @@ scores_kernel(const ScoreArgs args) {
     float sum = 0.0f;
     for (int p = lane; p < P; p += 32) sum += expf(s[p] - m);
     sum = warp_sum(sum);
-    __nv_bfloat16* o = hd.out + (size_t)(img * K + r) * P;
-    for (int p = lane; p < P; p += 32)
-      o[p] = __float2bfloat16_rn(expf(s[p] - m) / sum);
+    T* o = static_cast<T*>(hd.out) + (size_t)(img * K + r) * P;
+    for (int p = lane; p < P; p += 32) store_t(o + p, expf(s[p] - m) / sum);
   }
 }
 
-cudaError_t launch_scores(const ScoreArgs& a, int B, int n_heads,
+cudaError_t launch_scores(const ScoreArgs& a, int B, int n_heads, int f32,
                           cudaStream_t s) {
   int max_p = a.head[0].P;
   if (n_heads > 1 && a.head[1].P > max_p) max_p = a.head[1].P;
@@ -167,8 +199,61 @@ cudaError_t launch_scores(const ScoreArgs& a, int B, int n_heads,
   const size_t smem = sizeof(float) * ((size_t)a.K * a.A + 2 * a.A +
                                        (size_t)a.K * max_p);
   if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
-  scores_kernel<<<dim3(B, n_heads), SC_THREADS, smem, s>>>(a);
+  if (f32)
+    scores_kernel<float><<<dim3(B, n_heads), SC_THREADS, smem, s>>>(a);
+  else
+    scores_kernel<__nv_bfloat16><<<dim3(B, n_heads), SC_THREADS, smem, s>>>(a);
   return cudaGetLastError();
+}
+
+// ck_lang_cell's bf16 launches on sm90_cell.cuh: the visual gate (one
+// fp32 operand, h_att; its idle threads write act16), then the Copy-LSTM
+// over [v_hat | h_att | h_lang | c*] in bf16, c* feeding only r.
+cudaError_t lang_cell_sm90(const void* vhat_raw, const void* h_att,
+                           const void* h_lang, const void* c_lang,
+                           const void* c_star, const void* gate_w,
+                           const void* gate_b, const void* lang_wv,
+                           const void* lang_wha, const void* lang_wh,
+                           const void* lang_b, const void* wr_v,
+                           const void* wr_ha, const void* wr_hl,
+                           const void* wr_c, const void* br, void* h_out,
+                           void* c_out, void* vhat, void* act16, int N,
+                           int Hp, int Fp, cudaStream_t s) {
+  using namespace sm90cell;
+  if (N < 1 || Hp < 128 || Hp % 128 || Fp < 128 || Fp % 128)
+    return cudaErrorInvalidValue;
+  // act16: bf16 copies of h_att, h_lang and c*, [3, N, Hp], written by the
+  // gate launch's idle threads (the same rounding the Copy-LSTM would do
+  // in registers) so the Copy-LSTM reads bf16 activations only.
+  auto* ha16 = static_cast<__nv_bfloat16*>(act16);
+  auto* hl16 = ha16 + static_cast<size_t>(N) * Hp;
+  auto* cs16 = hl16 + static_cast<size_t>(N) * Hp;
+  CellArgs gv = plain_args(N, Fp);
+  CK_TRY(set_operand(gv, 0, h_att, 1, Hp, gate_w, Fp, nullptr));
+  gv.bias = f32(gate_b);
+  gv.x = f32(vhat_raw);
+  gv.out = vhat;
+  gv.cvt_src[0] = f32(h_att);
+  gv.cvt_src[1] = f32(h_lang);
+  gv.cvt_src[2] = f32(c_star);
+  gv.cvt_dst[0] = ha16;
+  gv.cvt_dst[1] = hl16;
+  gv.cvt_dst[2] = cs16;
+  gv.cvt_n = static_cast<long long>(N) * Hp;
+  CK_TRY((launch_cell<kGateMul, 1, 1u, 1u, 0u>(gv, Fp / 128, s)));
+
+  CellArgs g = gated_args(N, Hp);
+  CK_TRY(set_operand(g, 0, vhat, 0, Fp, lang_wv, 4 * Hp, wr_v));
+  CK_TRY(set_operand(g, 1, ha16, 0, Hp, lang_wha, 4 * Hp, wr_ha));
+  CK_TRY(set_operand(g, 2, hl16, 0, Hp, lang_wh, 4 * Hp, wr_hl));
+  CK_TRY(set_operand(g, 3, cs16, 0, Hp, nullptr, 0, wr_c));
+  g.bias = f32(lang_b);
+  g.bias_r = f32(br);
+  g.c_prev = f32(c_lang);
+  g.c_star = f32(c_star);
+  g.h_out = static_cast<float*>(h_out);
+  g.c_out = static_cast<float*>(c_out);
+  return launch_cell<kCopyLstm, 4, 0u, 0b0111u, 0b1111u>(g, Hp / TILE, s);
 }
 
 }  // namespace
@@ -177,11 +262,12 @@ extern "C" {
 
 // EditNet, first half of the step (att_phase's kernel). fp32 inputs: emb
 // [N, Ep], h_att, c_att, h_lang [N, Hp], zvb [N, 4Hp] (the hoisted v_mean
-// product plus the bias, gate-major); bf16 weights: w_emb [Ep, 4Hp], w_hl,
-// w_ha [Hp, 4Hp], wq [Hp, 2Ap] (visual | SCMA query products); fp32 vis_b,
-// vis_v, scma_b, scma_v [Ap]; bf16 keys vis_keys [B, R, Ap], scma_keys
-// [B, T, Ap]; fp32 mask [B, T]. Outputs: h_out, c_out [N, Hp] fp32, alpha
-// [N, R] and beta [N, T] bf16. Scratch: q [N, 2Ap] fp32.
+// product plus the bias, gate-major); weights w_emb [Ep, 4Hp], w_hl, w_ha
+// [Hp, 4Hp], wq [Hp, 2Ap] (visual | SCMA query products); fp32 vis_b,
+// vis_v, scma_b, scma_v [Ap]; keys vis_keys [B, R, Ap], scma_keys [B, T,
+// Ap]; fp32 mask [B, T]. Outputs: h_out, c_out [N, Hp] fp32, alpha [N, R]
+// and beta [N, T]. Scratch: q [N, 2Ap] fp32. Weights, keys, alpha and
+// beta are bf16, or fp32 when f32.
 int ck_att_cell(const void* emb, const void* h_att, const void* c_att,
                 const void* h_lang, const void* zvb, const void* w_emb,
                 const void* w_hl, const void* w_ha, const void* wq,
@@ -189,7 +275,7 @@ int ck_att_cell(const void* emb, const void* h_att, const void* c_att,
                 const void* scma_v, const void* vis_keys,
                 const void* scma_keys, const void* mask, void* h_out,
                 void* c_out, void* alpha, void* beta, void* q, int N, int B,
-                int Ep, int Hp, int Ap, int R, int T, int device,
+                int Ep, int Hp, int Ap, int R, int T, int f32, int device,
                 void* stream) {
   if (B < 1 || N % B || R < 1 || T < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -201,83 +287,88 @@ int ck_att_cell(const void* emb, const void* h_att, const void* c_att,
   g.op[1] = operand(h_lang, 1, Hp, w_hl);
   g.op[2] = operand(h_att, 1, Hp, w_ha);
   g.n_ops = 3;
-  g.zadd = f32(zvb);
-  g.c_prev = f32(c_att);
+  g.zadd = cell::f32(zvb);
+  g.c_prev = cell::f32(c_att);
   g.h_out = static_cast<float*>(h_out);
   g.c_out = static_cast<float*>(c_out);
-  err = launch_gemm<4, EPI_LSTM>(g, s);
+  err = launch_gemm<4, EPI_LSTM>(g, f32, s);
   if (err != cudaSuccess) return (int)err;
 
   GemmArgs gq = gemm_args(N, 2 * Ap);
   gq.op[0] = operand(h_out, 1, Hp, wq);
   gq.n_ops = 1;
   gq.out = q;
-  err = launch_gemm<4, EPI_STORE>(gq, s);
+  err = launch_gemm<4, EPI_STORE>(gq, f32, s);
   if (err != cudaSuccess) return (int)err;
 
   ScoreArgs sc = {};
   sc.K = N / B;
   sc.A = Ap;
   const float* qf = static_cast<const float*>(q);
-  sc.head[0] = {qf, 2 * Ap, f32(vis_b), f32(vis_v),
-                static_cast<const __nv_bfloat16*>(vis_keys), nullptr, R,
-                static_cast<__nv_bfloat16*>(alpha)};
-  sc.head[1] = {qf + Ap, 2 * Ap, f32(scma_b), f32(scma_v),
-                static_cast<const __nv_bfloat16*>(scma_keys), f32(mask), T,
-                static_cast<__nv_bfloat16*>(beta)};
-  return (int)launch_scores(sc, B, 2, s);
+  sc.head[0] = {qf, 2 * Ap, cell::f32(vis_b), cell::f32(vis_v), vis_keys,
+                nullptr, R, alpha};
+  sc.head[1] = {qf + Ap, 2 * Ap, cell::f32(scma_b), cell::f32(scma_v),
+                scma_keys, cell::f32(mask), T, beta};
+  return (int)launch_scores(sc, B, 2, f32, s);
 }
 
 // EditNet, second half (the lang kernel). fp32 inputs: vhat_raw [N, Fp]
 // (the alpha-weighted features, rounded to bf16 here as the reference
-// rounds them), h_att, h_lang, c_lang, c_star [N, Hp]; bf16 weights:
-// gate_w [Hp, Fp], lang_wv [Fp, 4Hp], lang_wha, lang_wh [Hp, 4Hp], wr_v
-// [Fp, Hp], wr_ha, wr_hl, wr_c [Hp, Hp]; fp32 gate_b [Fp], lang_b [4Hp],
-// br [Hp]. Outputs: h_out, c_out [N, Hp] fp32. Scratch: vhat [N, Fp] bf16.
+// rounds them), h_att, h_lang, c_lang, c_star [N, Hp]; weights gate_w [Hp,
+// Fp], lang_wv [Fp, 4Hp], lang_wha, lang_wh [Hp, 4Hp], wr_v [Fp, Hp],
+// wr_ha, wr_hl, wr_c [Hp, Hp]; fp32 gate_b [Fp], lang_b [4Hp], br [Hp].
+// Outputs: h_out, c_out [N, Hp] fp32. Scratch: vhat [N, Fp] and (bf16
+// only) act16 [3, N, Hp] bf16. Weights and vhat are bf16 (sm90_cell.cuh,
+// Hp and Fp multiples of 128), or fp32 when f32 (cell_common.cuh's fp32
+// tile; nothing rounded; act16 unused).
 int ck_lang_cell(const void* vhat_raw, const void* h_att, const void* h_lang,
                  const void* c_lang, const void* c_star, const void* gate_w,
                  const void* gate_b, const void* lang_wv,
                  const void* lang_wha, const void* lang_wh,
                  const void* lang_b, const void* wr_v, const void* wr_ha,
                  const void* wr_hl, const void* wr_c, const void* br,
-                 void* h_out, void* c_out, void* vhat, int N, int Hp, int Fp,
-                 int device, void* stream) {
+                 void* h_out, void* c_out, void* vhat, void* act16, int N,
+                 int Hp, int Fp, int f32, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!f32)
+    return (int)lang_cell_sm90(vhat_raw, h_att, h_lang, c_lang, c_star,
+                               gate_w, gate_b, lang_wv, lang_wha, lang_wh,
+                               lang_b, wr_v, wr_ha, wr_hl, wr_c, br, h_out,
+                               c_out, vhat, act16, N, Hp, Fp, s);
 
   GemmArgs gv = gemm_args(N, Fp);
   gv.op[0] = operand(h_att, 1, Hp, gate_w);
   gv.n_ops = 1;
-  gv.bias = f32(gate_b);
-  gv.x = f32(vhat_raw);
-  gv.x_round = 1;
+  gv.bias = cell::f32(gate_b);
+  gv.x = cell::f32(vhat_raw);
   gv.out = vhat;
-  err = launch_gemm<4, EPI_GATE_MUL>(gv, s);
+  err = launch_gemm<4, EPI_GATE_MUL, float>(gv, s);
   if (err != cudaSuccess) return (int)err;
 
   GemmArgs g = gemm_args(N, Hp);
-  g.op[0] = operand(vhat, 0, Fp, lang_wv, wr_v);
+  g.op[0] = operand(vhat, 1, Fp, lang_wv, wr_v);
   g.op[1] = operand(h_att, 1, Hp, lang_wha, wr_ha);
   g.op[2] = operand(h_lang, 1, Hp, lang_wh, wr_hl);
   g.op[3] = operand(c_star, 1, Hp, nullptr, wr_c);
   g.n_ops = 4;
-  g.bias = f32(lang_b);
-  g.bias_r = f32(br);
-  g.c_prev = f32(c_lang);
-  g.c_star = f32(c_star);
+  g.bias = cell::f32(lang_b);
+  g.bias_r = cell::f32(br);
+  g.c_prev = cell::f32(c_lang);
+  g.c_star = cell::f32(c_star);
   g.h_out = static_cast<float*>(h_out);
   g.c_out = static_cast<float*>(c_out);
-  return (int)launch_gemm<5, EPI_COPY_LSTM>(g, s);
+  return (int)launch_gemm<5, EPI_COPY_LSTM, float>(g, s);
 }
 
-// DCNet score kernel. fp32 h [N, Hp]; bf16 att_wq [Hp, Ap]; fp32 att_b,
-// att_v [Ap]; bf16 keys [B, T, Ap]; fp32 mask [B, T]. Output: omega [N, T]
-// bf16. Scratch: q [N, Ap] fp32.
+// DCNet score kernel. fp32 h [N, Hp]; att_wq [Hp, Ap]; fp32 att_b, att_v
+// [Ap]; keys [B, T, Ap]; fp32 mask [B, T]. Output: omega [N, T]. Scratch:
+// q [N, Ap] fp32. att_wq, keys and omega are bf16, or fp32 when f32.
 int ck_dcnet_score(const void* h, const void* att_wq, const void* att_b,
                    const void* att_v, const void* keys, const void* mask,
                    void* omega, void* q, int N, int B, int Hp, int Ap, int T,
-                   int device, void* stream) {
+                   int f32, int device, void* stream) {
   if (B < 1 || N % B || T < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -287,27 +378,26 @@ int ck_dcnet_score(const void* h, const void* att_wq, const void* att_b,
   gq.op[0] = operand(h, 1, Hp, att_wq);
   gq.n_ops = 1;
   gq.out = q;
-  err = launch_gemm<4, EPI_STORE>(gq, s);
+  err = launch_gemm<4, EPI_STORE>(gq, f32, s);
   if (err != cudaSuccess) return (int)err;
 
   ScoreArgs sc = {};
   sc.K = N / B;
   sc.A = Ap;
-  sc.head[0] = {static_cast<const float*>(q), Ap, f32(att_b), f32(att_v),
-                static_cast<const __nv_bfloat16*>(keys), f32(mask), T,
-                static_cast<__nv_bfloat16*>(omega)};
-  return (int)launch_scores(sc, B, 1, s);
+  sc.head[0] = {static_cast<const float*>(q), Ap, cell::f32(att_b),
+                cell::f32(att_v), keys, cell::f32(mask), T, omega};
+  return (int)launch_scores(sc, B, 1, f32, s);
 }
 
 // DCNet LSTM kernel. fp32 emb [N, Ep], ctx (the omega-weighted encoder
-// states), h, c [N, Hp]; bf16 gate_w [Hp, Hp], w_emb [Ep, 4Hp], w_part,
-// w_h [Hp, 4Hp]; fp32 gate_b [Hp], b [4Hp]. Outputs: h_out, c_out [N, Hp]
-// fp32. Scratch: part [N, Hp] bf16.
+// states), h, c [N, Hp]; gate_w [Hp, Hp], w_emb [Ep, 4Hp], w_part, w_h [Hp,
+// 4Hp]; fp32 gate_b [Hp], b [4Hp]. Outputs: h_out, c_out [N, Hp] fp32.
+// Scratch: part [N, Hp]. Weights and part are bf16, or fp32 when f32.
 int ck_dcnet_cell(const void* emb, const void* ctx, const void* h,
                   const void* c, const void* gate_w, const void* gate_b,
                   const void* w_emb, const void* w_part, const void* w_h,
                   const void* b, void* h_out, void* c_out, void* part, int N,
-                  int Ep, int Hp, int device, void* stream) {
+                  int Ep, int Hp, int f32, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -315,22 +405,22 @@ int ck_dcnet_cell(const void* emb, const void* ctx, const void* h,
   GemmArgs gp = gemm_args(N, Hp);
   gp.op[0] = operand(h, 1, Hp, gate_w);
   gp.n_ops = 1;
-  gp.bias = f32(gate_b);
-  gp.x = f32(ctx);
+  gp.bias = cell::f32(gate_b);
+  gp.x = cell::f32(ctx);
   gp.out = part;
-  err = launch_gemm<4, EPI_GATE_MUL>(gp, s);
+  err = launch_gemm<4, EPI_GATE_MUL>(gp, f32, s);
   if (err != cudaSuccess) return (int)err;
 
   GemmArgs g = gemm_args(N, Hp);
   g.op[0] = operand(emb, 1, Ep, w_emb);
-  g.op[1] = operand(part, 0, Hp, w_part);
+  g.op[1] = operand(part, f32, Hp, w_part);
   g.op[2] = operand(h, 1, Hp, w_h);
   g.n_ops = 3;
-  g.bias = f32(b);
-  g.c_prev = f32(c);
+  g.bias = cell::f32(b);
+  g.c_prev = cell::f32(c);
   g.h_out = static_cast<float*>(h_out);
   g.c_out = static_cast<float*>(c_out);
-  return (int)launch_gemm<4, EPI_LSTM>(g, s);
+  return (int)launch_gemm<4, EPI_LSTM>(g, f32, s);
 }
 
 const char* ck_megastep_error_string(int code) {

@@ -1,6 +1,6 @@
 // Whole-step kernel: EditNet's lang cell (visual context gate, Copy-LSTM
-// base gates, copy gate, c*/c_gen blend) and the vocab head's logits tiles
-// with their per-tile log-sum-exp and top-k, in one launch.
+// base gates, copy gate, c*/c_gen blend) and the vocab head's log-sum-exp
+// and top-k, in one launch.
 //
 // Replaces the TPU kernel of captionkit/ops/wholestep.py
 // (fused_lang_head_topk, reached by fused_step_topk under
@@ -10,40 +10,51 @@
 //
 // Numerics: the cell is ck_lang_cell's (megastep.cu), the head is
 // ck_head_topk's with extract="mask" (head_topk.cu): bf16 operands, fp32
-// sums, the same 64 x 128 logits tile and the same extraction and merge
-// (head_common.cuh), ties to the lowest vocab id.
-//
-// Design. On the TPU the grid (row block, vocab tile) runs in order, so the
-// cell body runs at vocab tile 0 and parks h_lang in VMEM for the row
-// block's later tiles. On Hopper the blocks run in parallel and in no
-// order, and one block cannot hold a row block's 4H gate columns, so:
-//
-//   launch 1, cell_common.cuh's plain GEMM (EPI_GATE_MUL): the visual
-//     gate, v_hat = sigmoid(h_att Wg + bg) * round_bf16(vhat_raw) in bf16;
-//   launch 2, lang_head_kernel, a cooperative persistent kernel (every
-//     block resident; grid = blocks per SM x SMs from the occupancy API;
-//     the tile loops stride over the grid):
-//       phase 1: the Copy-LSTM tiles (64 rows x 32 hidden columns x the
-//         i f g o r gate groups over [v_hat | h_att | h_lang | c*]); the
-//         epilogue writes h', c' in fp32 and h' rounded to bf16;
-//       grid.sync();
-//       phase 2: the head tiles (64 rows x 128 vocab columns, h'_bf16 W +
-//         b), each row's tile max, exp-sum and top-k to scratch;
-//       grid.sync();
-//       phase 3: the merge, one warp per row: lse and the top-k.
-//
-// h'_bf16 (5.2 MB at N = 2560, H = 1024) is handed from phase 1 to phase 2
-// inside the launch through device memory, where it stays in the 50 MB L2;
-// no second launch reads it. Keeping it on chip (clusters sharing it
-// through distributed shared memory) is a later design.
+// sums, gate math in fp32, ties to the lowest vocab id (the merge is
+// head_common.cuh's).
 //
 // What bounds it on the H100 at N = 2560, H = 1024, F = 2048, V = 9490:
 // 2 N H F + 2 N (F + 2H) 4H + 2 N (F + 3H) H = 123.5 GFLOP for the cell and
 // 2 N H V = 49.8 GFLOP for the head, 173.3 GFLOP of bf16 products: 0.175 ms
-// at 989 TFLOP/s, against ~96 MB of inputs and outputs (0.029 ms):
-// operations. This first version is plain: wmma, one shared-memory stage.
+// at 989 TFLOP/s, against ~152 MB of inputs and outputs (0.045 ms):
+// operations. What keeps a tile from the tensor-core rate is L2 -> SM
+// traffic and one 64-row wgmma chain a warpgroup (sm90_cell.cuh).
+//
+// Design. On the TPU the grid (row block, vocab tile) runs in order, so the
+// cell body runs at vocab tile 0 and parks h_lang in VMEM for the row
+// block's later tiles. On Hopper the blocks run in parallel and in no
+// order, so this is one persistent cooperative launch (one 384-thread CTA
+// an SM, 214 KB of shared memory: sm90_cell.cuh's ring) whose phases are
+// separated by grid syncs; every phase runs sm90_cell.cuh's producer
+// (TMA ring) and consumers (register-A wgmma, epilogue in registers), the
+// ring's counters carried from tile to tile and from phase 0 to phase 1:
+//   phase 0: the visual gate tiles (128 rows x 128 columns of Fp),
+//     v_hat = sigmoid(h_att Wg + bg) * round_bf16(vhat_raw) -> bf16, while
+//     the producer warpgroup's idle threads write bf16 copies of h_att,
+//     h_lang and c* (megastep.cu's lang cell does the same);
+//   phase 1: the Copy-LSTM tiles (128 rows x 32 hidden columns: i f g o and
+//     r over [v_hat | h_att | h_lang | c*], all bf16); h', c' in fp32 and
+//     h' rounded to bf16 (5.2 MB at N = 2560, which stays in the 50 MB
+//     L2);
+//   phase 2: the head tiles (64 rows x 128 vocab columns of h'_bf16 W + b)
+//     in a ping-pong, as head_sweep.cu's: the two consumer warpgroups take
+//     the CTA's tiles in turns on a ring of their own (one warpgroup frees
+//     a stage), an mbarrier pair orders their main loops, so one
+//     warpgroup's epilogue runs under the other's products; the epilogue
+//     writes each row's tile max, exp-sum and top-k (k rounds of a quad
+//     arg-max over the row's four threads, from registers) to partials;
+//   phase 3: the merge, one warp a row (head_common.cuh's merge_row).
+// Between phases the writers' generic stores are fenced for the next
+// phase's TMA reads (fence.proxy.async) before the grid sync. Thread-block
+// clusters were not used: the per-tile partials need no distributed shared
+// memory, and a cooperative launch with a cluster dimension was not tried.
+//
+// fp32 (compute_dtype="float32"): ck_lang_head_topk_f32, three launches:
+// cell_common.cuh's fp32 gate and Copy-LSTM tiles (fp32 FMA, not TF32),
+// then head_common.cuh's one-pass fp32 sweep over h'.
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -52,27 +63,23 @@
 
 #include "cell_common.cuh"
 #include "head_common.cuh"
+#include "sm90_cell.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int WS_THREADS = 320;  // the Copy-LSTM tile's 2 x 5 warps
-// Resident blocks per SM asked of the compiler: 64 registers a thread, so
-// three blocks share an SM and hide more latency than two of 96 registers
-// (the compiler's own choice); PERF.md has both times.
-constexpr int WS_MIN_BLOCKS = 3;
-constexpr int WS_WARPS = WS_THREADS / 32;
-constexpr int HEAD_G = BN / cell::BN;  // a 128-wide vocab tile: 4 groups
-static_assert(HEAD_G * cell::BN == BN, "vocab tile = 4 column groups");
-static_assert(WS_THREADS >= 64 * 5, "the Copy-LSTM tile needs 10 warps");
-constexpr int WS_SMEM = cell::tile_smem<5>() > cell::tile_smem<HEAD_G>()
-                            ? cell::tile_smem<5>()
-                            : cell::tile_smem<HEAD_G>();
+namespace sc = sm90cell;
+
+constexpr int HEAD_ROWS = 64;  // a phase-2 tile: one warpgroup's rows
+// The ring's barriers (phases 0 and 1), the head ring's (full, empty: one
+// consuming warpgroup), and the head's order pair.
+constexpr int WS_SMEM = sc::SMEM + (2 * sc::STAGES + 2) * 8;
 
 struct WholeArgs {
-  cell::GemmArgs lang;  // the Copy-LSTM update (EPI_COPY_LSTM, h_bf16 set)
-  cell::GemmArgs head;  // h_bf16 [N, Hp] x W [Hp, V] (EPI_NONE), cols = V
+  sc::CellArgs gate;  // phase 0: plain, one fp32 operand (h_att), out vhat
+  sc::CellArgs lang;  // phase 1: gated Copy-LSTM, h_bf16 set
+  sc::CellArgs head;  // phase 2: plain, one bf16 operand (h_bf16), cols V
   const float* head_b;  // [V], padded columns -1e30
   float* part_m;        // [N * n_tiles]
   float* part_s;        // [N * n_tiles]
@@ -84,59 +91,242 @@ struct WholeArgs {
   int k;
 };
 
-__global__ void __launch_bounds__(WS_THREADS, WS_MIN_BLOCKS)
-    lang_head_kernel(const __grid_constant__ WholeArgs a) {
-  __shared__ __align__(128) unsigned char smem[WS_SMEM];
-  const cg::grid_group grid = cg::this_grid();
-  const int N = a.lang.N;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row_blocks = (N + cell::BM - 1) / cell::BM;
+// The operand signatures of the three phases (sm90_cell.cuh's masks:
+// fp32 operands, operands feeding the base boxes, operands feeding r).
+constexpr uint32_t GATE_F32 = 1u, GATE_W = 1u, GATE_R = 0u;
+constexpr uint32_t LANG_F32 = 0u, LANG_W = 0b0111u, LANG_R = 0b1111u;
+constexpr uint32_t HEAD_F32 = 0u, HEAD_W = 1u, HEAD_R = 0u;
 
-  // Phase 1: the Copy-LSTM tiles.
-  const int cell_cols = a.lang.cols / cell::BN;
+// Generic-proxy global writes made visible to later TMA (async-proxy)
+// reads.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
+// A head tile's epilogue for one thread: rows gr0 and gr0 + 8, columns
+// col0 + 8 j + 2 q + e (acc[4 j + 2 hr + e]). Per row: the tile max m, s =
+// sum exp(x - m) and the top-k (value desc, id asc) to slot gr * n_vt + vt
+// of the partials, each by a reduction over the row's quad (lanes 4 r ..
+// 4 r + 3). Rows past N take part in the shuffles and write nothing.
+__device__ __forceinline__ void epi_head(const WholeArgs& a, float (&acc)[64],
+                                         int gr0, int q, int vt, int n_vt) {
+  const int col0 = vt * BN;
+  const int N = a.head.N;
+  const int k = a.k;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float2 b =
+        *reinterpret_cast<const float2*>(a.head_b + col0 + 8 * j + 2 * q);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      acc[4 * j + 2 * hr] += b.x;
+      acc[4 * j + 2 * hr + 1] += b.y;
+    }
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int gr = gr0 + 8 * hr;
+    const bool live = gr < N;
+    const size_t slot = static_cast<size_t>(gr) * n_vt + vt;
+    float m = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      m = fmaxf(m, fmaxf(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]));
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    float s = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      s += expf(acc[4 * j + 2 * hr] - m) + expf(acc[4 * j + 2 * hr + 1] - m);
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (live && q == 0) {
+      a.part_m[slot] = m;
+      a.part_s[slot] = s;
+    }
+    // Round r takes the best entry after the last one taken, (lv, li), in
+    // (value desc, id asc) order.
+    float lv = INFINITY;
+    int li = -1;
+    for (int r = 0; r < k; ++r) {
+      float bv = -INFINITY;
+      int bi = INT_MAX;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float v = acc[4 * j + 2 * hr + e];
+          const int i = col0 + 8 * j + 2 * q + e;
+          if ((v < lv || (v == lv && i > li)) && better(v, i, bv, bi)) {
+            bv = v;
+            bi = i;
+          }
+        }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+        if (better(ov, oi, bv, bi)) {
+          bv = ov;
+          bi = oi;
+        }
+      }
+      if (live && q == 0) {
+        a.part_v[slot * k + r] = bv;
+        a.part_i[slot * k + r] = bi;
+      }
+      lv = bv;
+      li = bi;
+    }
+  }
+}
+
+// KMAX: the merge's candidate-list instance (kmax_for(k)); a template
+// parameter, so the k <= 8 instance carries none of the longer lists'
+// registers.
+template <int KMAX>
+__global__ void __launch_bounds__(sc::THREADS, 1)
+    lang_head_kernel(const __grid_constant__ WholeArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = sc::aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + sc::STAGES * sc::STAGE);
+  uint64_t* empty = full + sc::STAGES;
+  uint64_t* head_full = empty + sc::STAGES;
+  uint64_t* head_empty = head_full + sc::STAGES;
+  uint64_t* order = head_empty + sc::STAGES;  // order[c]: warpgroup c may
+                                              // start a head tile
+  const cg::grid_group grid = cg::this_grid();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  const int q = lane % 4;
+  const int row = wg * 64 + (warp % 4) * 16 + lane / 4;
+  const bool producer = threadIdx.x == 256;
+  const bool consumer = wg < 2;
+  const int N = a.lang.N;
+  const int row_blocks = (N + sc::BM - 1) / sc::BM;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < sc::STAGES; ++s) {
+      sm90::mbar_init(&head_full[s], 1);
+      sm90::mbar_init(&head_empty[s], 4);  // the consuming warpgroup's warps
+    }
+    sm90::mbar_init(&order[0], 4);
+    sm90::mbar_init(&order[1], 4);
+    sc::init_ring(full, empty);
+  }
+  __syncthreads();
+
+  int it = 0;  // the producer's stages filled, over every phase
+  sc::Ring ring{smem, full, empty, 0, -1, lane};
+  float acc[64];
+  float accr[16];
+
+  // Phase 0: the visual gate; the producer warpgroup's idle threads write
+  // this CTA's share of the bf16 activations meanwhile.
+  if (wg == 2 && !producer)
+    sc::convert_share(a.gate, blockIdx.x, gridDim.x, threadIdx.x - 257,
+                      sc::THREADS - 257);
+  const int gate_cols = a.gate.cols / 128;
+  const int n_gate = gate_cols * row_blocks;
+  for (int t = blockIdx.x; t < n_gate; t += gridDim.x) {
+    const int nb = t % gate_cols, row0 = (t / gate_cols) * sc::BM;
+    if (producer)
+      sc::produce_tile<1, GATE_F32, GATE_W, GATE_R>(a.gate, smem, full, empty,
+                                                    it, row0, nb);
+    if (consumer) {
+      sc::consume_tile<1, GATE_F32, GATE_W, GATE_R>(a.gate, ring, row, q, acc,
+                                                    accr);
+      sc::epi_gate_mul(a.gate, acc, row0 + row, q, nb);
+    }
+  }
+  fence_proxy_async_global();
+  grid.sync();  // v_hat and the bf16 activations complete
+  fence_proxy_async_global();
+
+  // Phase 1: the Copy-LSTM.
+  const int cell_cols = a.lang.cols / sc::TILE;
   const int n_cell = cell_cols * row_blocks;
   for (int t = blockIdx.x; t < n_cell; t += gridDim.x) {
-    cell::gemm_tile<5, cell::EPI_COPY_LSTM, WS_THREADS>(
-        a.lang, t % cell_cols, (t / cell_cols) * cell::BM, smem);
-    __syncthreads();  // the next tile reuses smem
-  }
-  grid.sync();  // h'_bf16 complete and visible to every block
-
-  // Phase 2: the head tiles; consecutive blocks take consecutive vocab
-  // tiles of one row block, so its h' rows are read from L2.
-  const int n_vt = a.head.cols / BN;
-  const int n_head = n_vt * row_blocks;
-  const float* Cs = reinterpret_cast<const float*>(smem);
-  for (int t = blockIdx.x; t < n_head; t += gridDim.x) {
-    const int tile = t % n_vt;
-    const int row0 = (t / n_vt) * cell::BM;
-    cell::gemm_tile<HEAD_G, cell::EPI_NONE, WS_THREADS>(a.head, tile, row0,
-                                                         smem);
-    for (int r = warp; r < cell::BM; r += WS_WARPS) {
-      const int gr = row0 + r;
-      if (gr >= N) break;  // the same for the whole warp
-      float x[COLS_PER_LANE];
-      int xi[COLS_PER_LANE];
-      load_row(Cs, cell::tile_ldc<HEAD_G>(), r, a.head_b, tile * BN,
-               a.head.cols, lane, x, xi);
-      emit_tile_row<kMask>(x, xi, a.k, (size_t)gr * n_vt + tile, a.part_m,
-                           a.part_s, a.part_v, a.part_i, lane);
+    const int nb = t % cell_cols, row0 = (t / cell_cols) * sc::BM;
+    if (producer)
+      sc::produce_tile<4, LANG_F32, LANG_W, LANG_R>(a.lang, smem, full, empty,
+                                                    it, row0, nb);
+    if (consumer) {
+      sc::consume_tile<4, LANG_F32, LANG_W, LANG_R>(a.lang, ring, row, q, acc,
+                                                    accr);
+      sc::epi_gated<true>(a.lang, acc, accr, row0 + row, q, nb);
     }
-    __syncthreads();  // the next tile reuses smem
+  }
+  fence_proxy_async_global();
+  grid.sync();  // h', c' and h'_bf16 complete
+  fence_proxy_async_global();
+
+  // Phase 2: the head tiles; consecutive CTAs take consecutive vocab tiles
+  // of one 64-row block, so its h' rows are read from L2 together. The
+  // CTA's i-th tile belongs to warpgroup i % 2, whose stages are i * steps
+  // .. of the head ring.
+  const int n_vt = a.head.cols / BN;
+  const int n_head = n_vt * ((N + HEAD_ROWS - 1) / HEAD_ROWS);
+  if (producer) {
+    int hit = 0;
+    for (int t = blockIdx.x; t < n_head; t += gridDim.x)
+      sc::produce_tile<1, HEAD_F32, HEAD_W, HEAD_R>(
+          a.head, smem, head_full, head_empty, hit, (t / n_vt) * HEAD_ROWS,
+          t % n_vt);
+  }
+  if (consumer) {
+    const int hrow = (warp % 4) * 16 + lane / 4;  // rows hrow, hrow + 8
+    sc::Ring head_ring{smem, head_full, head_empty, 0, -1, lane};
+    int i = 0, n = 0;  // the CTA's tiles so far; this warpgroup's
+    for (int t = blockIdx.x; t < n_head; t += gridDim.x, ++i) {
+      if ((i & 1) != wg) continue;
+      // Wait for the other warpgroup to have issued its previous tile.
+      if (i > 0) sm90::mbar_wait(&order[wg], (wg == 0 ? n - 1 : n) & 1);
+      head_ring.it = i * a.head.steps[0];
+      sc::consume_tile<1, HEAD_F32, HEAD_W, HEAD_R>(a.head, head_ring, hrow,
+                                                    q, acc, accr);
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&order[1 - wg]);
+      epi_head(a, acc, (t / n_vt) * HEAD_ROWS + hrow, q, t % n_vt, n_vt);
+      ++n;
+    }
   }
   grid.sync();  // every tile's partials complete
 
-  // Phase 3: the merge, one warp per row.
-  for (int row = blockIdx.x * WS_WARPS + warp; row < N;
-       row += gridDim.x * WS_WARPS)
-    merge_row(a.part_m, a.part_s, a.part_v, a.part_i, a.vals, a.idx, a.lse,
-              row, n_vt, a.k, lane);
+  // Phase 3: the merge, one warp a row.
+  const int warps = sc::THREADS / 32;
+  for (int r = blockIdx.x * warps + warp; r < N; r += gridDim.x * warps)
+    merge_row<KMAX>(a.part_m, a.part_s, a.part_v, a.part_i, a.vals, a.idx,
+                    a.lse, r, n_vt, a.k, lane);
 }
 
-// Resident blocks of lang_head_kernel on `device` (blocks per SM x SMs),
-// or an error when a cooperative launch cannot place even one per SM.
-cudaError_t resident_blocks(int device, int* blocks) {
+template <int KMAX>
+void* kernel_of() {
+  return reinterpret_cast<void*>(lang_head_kernel<KMAX>);
+}
+
+// The instance for k (kmax_for(k)).
+void* kernel_for(int k) {
+  switch (kmax_for(k)) {
+    case 8:
+      return kernel_of<8>();
+    case 16:
+      return kernel_of<16>();
+    case 32:
+      return kernel_of<32>();
+    default:
+      return kernel_of<64>();
+  }
+}
+
+// Resident CTAs of an instance of lang_head_kernel on `device` (CTAs per
+// SM x SMs), or an error when a cooperative launch cannot place even one
+// per SM. Sets the kernel's shared-memory size first.
+cudaError_t resident_blocks(const void* kernel, int device, int* blocks) {
   int coop = 0, sms = 0, per_sm = 0;
   cudaError_t err =
       cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
@@ -144,12 +334,21 @@ cudaError_t resident_blocks(int device, int* blocks) {
   if (!coop) return cudaErrorNotSupported;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             WS_SMEM);
+  if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, lang_head_kernel, WS_THREADS, 0);
+      &per_sm, kernel, sc::THREADS, WS_SMEM);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   *blocks = per_sm * sms;
   return cudaSuccess;
+}
+
+bool bad_shape(int N, int Hp, int Fp, int V, int k) {
+  return N < 1 || Hp < 128 || Hp % 128 || Fp < 128 || Fp % 128 || V < BN ||
+         V % BN || k < 1 || k > KMAX_LIMIT || k > V;
 }
 
 }  // namespace
@@ -160,11 +359,11 @@ extern "C" {
 // h_att, h_lang, c_lang, c_star [N, Hp]; bf16 gate_w [Hp, Fp], lang_wv
 // [Fp, 4Hp], lang_wha, lang_wh [Hp, 4Hp], wr_v [Fp, Hp], wr_ha, wr_hl, wr_c
 // [Hp, Hp]; fp32 gate_b [Fp], lang_b [4Hp], br [Hp]) and the head's (bf16
-// head_w [Hp, V], fp32 head_b [V], V a multiple of 128, 1 <= k <= 8).
+// head_w [Hp, V], fp32 head_b [V], V a multiple of 128, 1 <= k <= 64).
 // Outputs: h_out, c_out [N, Hp] fp32, vals [N, k] fp32, idx [N, k] int32,
 // lse [N] fp32. Scratch: vhat [N, Fp] bf16, h_bf16 [N, Hp] bf16, part_m,
 // part_s [N * V / 128] fp32, part_v [N * V / 128 * k] fp32, part_i [same]
-// int32. Two launches; the second is cooperative.
+// int32, act16 [3, N, Hp] bf16. One cooperative launch.
 int ck_lang_head_topk(const void* vhat_raw, const void* h_att,
                       const void* h_lang, const void* c_lang,
                       const void* c_star, const void* gate_w,
@@ -175,32 +374,53 @@ int ck_lang_head_topk(const void* vhat_raw, const void* h_att,
                       const void* head_w, const void* head_b, void* h_out,
                       void* c_out, void* vals, void* idx, void* lse,
                       void* vhat, void* h_bf16, void* part_m, void* part_s,
-                      void* part_v, void* part_i, int N, int Hp, int Fp,
-                      int V, int k, int device, void* stream) {
-  using namespace cell;
-  if (k < 1 || k > KMAX || k > V) return (int)cudaErrorInvalidValue;
+                      void* part_v, void* part_i, void* act16, int N, int Hp,
+                      int Fp, int V, int k, int device, void* stream) {
+  if (bad_shape(N, Hp, Fp, V, k)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
 
+  auto* ha16 = static_cast<__nv_bfloat16*>(act16);
+  auto* hl16 = ha16 + static_cast<size_t>(N) * Hp;
+  auto* cs16 = hl16 + static_cast<size_t>(N) * Hp;
   WholeArgs a = {};
-  a.lang = gemm_args(N, Hp);
-  a.lang.op[0] = operand(vhat, 0, Fp, lang_wv, wr_v);
-  a.lang.op[1] = operand(h_att, 1, Hp, lang_wha, wr_ha);
-  a.lang.op[2] = operand(h_lang, 1, Hp, lang_wh, wr_hl);
-  a.lang.op[3] = operand(c_star, 1, Hp, nullptr, wr_c);
-  a.lang.n_ops = 4;
-  a.lang.bias = f32(lang_b);
-  a.lang.bias_r = f32(br);
-  a.lang.c_prev = f32(c_lang);
-  a.lang.c_star = f32(c_star);
+  a.gate = sc::plain_args(N, Fp);
+  err = sc::set_operand(a.gate, 0, h_att, 1, Hp, gate_w, Fp, nullptr);
+  a.gate.bias = f(gate_b);
+  a.gate.x = f(vhat_raw);
+  a.gate.out = vhat;
+  a.gate.cvt_src[0] = f(h_att);
+  a.gate.cvt_src[1] = f(h_lang);
+  a.gate.cvt_src[2] = f(c_star);
+  a.gate.cvt_dst[0] = ha16;
+  a.gate.cvt_dst[1] = hl16;
+  a.gate.cvt_dst[2] = cs16;
+  a.gate.cvt_n = static_cast<long long>(N) * Hp;
+
+  a.lang = sc::gated_args(N, Hp);
+  if (err == cudaSuccess)
+    err = sc::set_operand(a.lang, 0, vhat, 0, Fp, lang_wv, 4 * Hp, wr_v);
+  if (err == cudaSuccess)
+    err = sc::set_operand(a.lang, 1, ha16, 0, Hp, lang_wha, 4 * Hp, wr_ha);
+  if (err == cudaSuccess)
+    err = sc::set_operand(a.lang, 2, hl16, 0, Hp, lang_wh, 4 * Hp, wr_hl);
+  if (err == cudaSuccess)
+    err = sc::set_operand(a.lang, 3, cs16, 0, Hp, nullptr, 0, wr_c);
+  a.lang.bias = f(lang_b);
+  a.lang.bias_r = f(br);
+  a.lang.c_prev = f(c_lang);
+  a.lang.c_star = f(c_star);
   a.lang.h_out = static_cast<float*>(h_out);
   a.lang.c_out = static_cast<float*>(c_out);
   a.lang.h_bf16 = static_cast<__nv_bfloat16*>(h_bf16);
-  a.head = gemm_args(N, V);
-  a.head.op[0] = operand(h_bf16, 0, Hp, head_w);
-  a.head.n_ops = 1;
-  a.head_b = f32(head_b);
+
+  a.head = sc::plain_args(N, V, HEAD_ROWS);
+  if (err == cudaSuccess)
+    err = sc::set_operand(a.head, 0, h_bf16, 0, Hp, head_w, V, nullptr);
+  if (err != cudaSuccess) return (int)err;
+  a.head_b = f(head_b);
   a.part_m = static_cast<float*>(part_m);
   a.part_s = static_cast<float*>(part_s);
   a.part_v = static_cast<float*>(part_v);
@@ -209,52 +429,97 @@ int ck_lang_head_topk(const void* vhat_raw, const void* h_att,
   a.idx = static_cast<int*>(idx);
   a.lse = static_cast<float*>(lse);
   a.k = k;
-  err = check_gemm<5, EPI_COPY_LSTM>(a.lang);
-  if (err == cudaSuccess) err = check_gemm<HEAD_G, EPI_NONE>(a.head);
+
+  // The grid of each instance on each device is queried at its first
+  // launch there (the occupancy query costs host time every call).
+  const void* kernel = kernel_for(k);
+  static int grids[4][16] = {};
+  const int inst = k <= 8 ? 0 : k <= 16 ? 1 : k <= 32 ? 2 : 3;
+  int uncached = 0;
+  int& blocks = device < 16 ? grids[inst][device] : uncached;
+  if (blocks == 0) {
+    err = resident_blocks(kernel, device, &blocks);
+    if (err != cudaSuccess) {
+      blocks = 0;
+      return (int)err;
+    }
+  }
+  void* params[] = {&a};
+  return (int)cudaLaunchCooperativeKernel(kernel, dim3(blocks),
+                                          dim3(sc::THREADS), params, WS_SMEM,
+                                          s);
+}
+
+// compute_dtype="float32": the same operands, weights and outputs all fp32
+// (scratch vhat [N, Fp] fp32; no h_bf16, no partials). Three launches:
+// cell_common.cuh's fp32 visual gate and Copy-LSTM, then the one-pass fp32
+// sweep of the head over h'.
+int ck_lang_head_topk_f32(const void* vhat_raw, const void* h_att,
+                          const void* h_lang, const void* c_lang,
+                          const void* c_star, const void* gate_w,
+                          const void* gate_b, const void* lang_wv,
+                          const void* lang_wha, const void* lang_wh,
+                          const void* lang_b, const void* wr_v,
+                          const void* wr_ha, const void* wr_hl,
+                          const void* wr_c, const void* br,
+                          const void* head_w, const void* head_b, void* h_out,
+                          void* c_out, void* vals, void* idx, void* lse,
+                          void* vhat, int N, int Hp, int Fp, int V, int k,
+                          int device, void* stream) {
+  using namespace cell;
+  if (bad_shape(N, Hp, Fp, V, k)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  int blocks = 0;
-  err = resident_blocks(device, &blocks);
-  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
 
   GemmArgs gv = gemm_args(N, Fp);
   gv.op[0] = operand(h_att, 1, Hp, gate_w);
   gv.n_ops = 1;
   gv.bias = f32(gate_b);
   gv.x = f32(vhat_raw);
-  gv.x_round = 1;
   gv.out = vhat;
-  err = launch_gemm<4, EPI_GATE_MUL>(gv, s);
+  err = launch_gemm<4, EPI_GATE_MUL, float>(gv, s);
   if (err != cudaSuccess) return (int)err;
 
-  void* params[] = {&a};
-  return (int)cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(lang_head_kernel), dim3(blocks),
-      dim3(WS_THREADS), params, 0, s);
+  GemmArgs g = gemm_args(N, Hp);
+  g.op[0] = operand(vhat, 1, Fp, lang_wv, wr_v);
+  g.op[1] = operand(h_att, 1, Hp, lang_wha, wr_ha);
+  g.op[2] = operand(h_lang, 1, Hp, lang_wh, wr_hl);
+  g.op[3] = operand(c_star, 1, Hp, nullptr, wr_c);
+  g.n_ops = 4;
+  g.bias = f32(lang_b);
+  g.bias_r = f32(br);
+  g.c_prev = f32(c_lang);
+  g.c_star = f32(c_star);
+  g.h_out = static_cast<float*>(h_out);
+  g.c_out = static_cast<float*>(c_out);
+  err = launch_gemm<5, EPI_COPY_LSTM, float>(g, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_sweep_f32(
+      static_cast<const float*>(h_out), static_cast<const float*>(head_w),
+      f32(head_b), static_cast<float*>(vals), static_cast<int*>(idx),
+      static_cast<float*>(lse), N, Hp, V, k, s);
 }
 
-// The cooperative grid on `device` (blocks per SM x SMs), or minus the
-// CUDA error code.
+// The cooperative grid on `device` (CTAs per SM x SMs) of the k <= 8
+// instance, or minus the CUDA error code.
 int ck_wholestep_grid(int device) {
   int blocks = 0;
-  const cudaError_t err = resident_blocks(device, &blocks);
+  const cudaError_t err = resident_blocks(kernel_for(8), device, &blocks);
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
-// lang_head_kernel's registers per thread and static shared memory, as the
-// runtime reports them.
+// The k <= 8 instance's registers per thread, and its dynamic shared
+// memory.
 int ck_wholestep_regs() {
   cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, lang_head_kernel) != cudaSuccess)
-    return -1;
+  if (cudaFuncGetAttributes(&attr, kernel_for(8)) != cudaSuccess) return -1;
   return attr.numRegs;
 }
 
-int ck_wholestep_smem() {
-  cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, lang_head_kernel) != cudaSuccess)
-    return -1;
-  return (int)attr.sharedSizeBytes;
-}
+int ck_wholestep_smem() { return WS_SMEM; }
+
+int ck_wholestep_threads() { return sc::THREADS; }
 
 const char* ck_wholestep_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

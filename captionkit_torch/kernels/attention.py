@@ -15,9 +15,11 @@ is reduced to a valid-prefix count per row, as the TPU kernel reduces it
 
 On a CUDA tensor the wrapper launches the kernel (the query product, then
 scores, softmax and context in one kernel; counted in
-``fused_additive_attention.launches``) or raises: it takes bf16 keys, one
-query row per key row (no grouped beam layout, as the TPU kernel), and
-``compute_dtype=bfloat16``. On a CPU tensor it runs
+``fused_additive_attention.launches``) or raises: it takes keys in the
+compute dtype (bf16, or fp32 under ``compute_dtype=float32``, whose
+instance multiplies in fp32 on the CUDA cores, not TF32) and one query row
+per key row (no grouped beam layout, as the TPU kernel). On a CPU tensor it
+runs
 ``reference_additive_attention``, the same arithmetic in PyTorch.
 """
 
@@ -98,7 +100,7 @@ def _library() -> ctypes.CDLL:
 
         lib = build.load("attention")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ck_additive_attention.argtypes = [p] * 10 + [i] * 7 + [p]
+        lib.ck_additive_attention.argtypes = [p] * 10 + [i] * 8 + [p]
         lib.ck_additive_attention.restype = i
         lib.ck_attention_width.argtypes = []
         lib.ck_attention_width.restype = i
@@ -143,11 +145,12 @@ def fused_additive_attention(
             w_q=w_q)
     dt, dev = compute_dtype, query.device
     bf, f32 = torch.bfloat16, torch.float32
-    if dt != bf:
-        raise TypeError("the CUDA attention kernel computes in bfloat16; "
-                        f"got compute_dtype={dt}")
-    if keys.dtype != bf:
-        raise TypeError(f"keys must be bfloat16 on the card, got {keys.dtype}")
+    if dt not in (bf, f32):
+        raise TypeError("the CUDA attention kernel computes in bfloat16 or "
+                        f"float32; got compute_dtype={dt}")
+    if keys.dtype != dt:
+        raise TypeError(f"keys must be {dt} (the compute dtype) on the card, "
+                        f"got {keys.dtype}")
     B, N, A = keys.shape
     Vd = values.shape[-1]
     Q = query.shape[1]
@@ -160,13 +163,13 @@ def fused_additive_attention(
     Vp = _round_up(Vd, V_VEC)
     if query.dtype not in (f32, bf):
         raise TypeError(f"the query must be fp32 or bf16, got {query.dtype}")
-    q = _pad_to(query, 1, Qp).contiguous()
+    q = _pad_to(query.float() if dt == f32 else query, 1, Qp).contiguous()
     keys_k = _pad_to(keys, 2, Ap).contiguous()
-    values_k = _pad_to(values.to(bf), 2, Vp).contiguous()
+    values_k = _pad_to(values.to(dt), 2, Vp).contiguous()
     nvalid = valid_counts(mask, B, N, dev)
-    _check(dev, q=(q, q.dtype, (B, Qp)), wq=(wq, bf, (Qp, Ap)),
+    _check(dev, q=(q, q.dtype, (B, Qp)), wq=(wq, dt, (Qp, Ap)),
            b=(b, f32, (Ap,)), v=(v, f32, (Ap,)),
-           keys=(keys_k, bf, (B, N, Ap)), values=(values_k, bf, (B, N, Vp)),
+           keys=(keys_k, dt, (B, N, Ap)), values=(values_k, dt, (B, N, Vp)),
            nvalid=(nvalid, torch.int32, (B,)))
     lib = _library()
     ctx = torch.empty((B, Vp), dtype=f32, device=dev)
@@ -175,7 +178,8 @@ def fused_additive_attention(
     err = lib.ck_additive_attention(
         *(t.data_ptr() for t in (q, wq, b, v, keys_k, values_k, nvalid, ctx,
                                  w, qa)),
-        B, Qp, Ap, N, Vp, int(q.dtype == f32), dev.index or 0, _stream(dev))
+        B, Qp, Ap, N, Vp, int(q.dtype == f32), int(dt == f32),
+        dev.index or 0, _stream(dev))
     if err:
         raise RuntimeError(
             "ck_additive_attention launch failed: "

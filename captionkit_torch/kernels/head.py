@@ -8,17 +8,25 @@ wrapper launches its hand-written kernel, which never writes the [N, V]
 logits to device memory, or raises. On a CPU tensor it computes the same
 function with its plain version, which forms the full logits.
 
-- ``fused_head_topk(h, w, b, k=k, extract=...)``: logits = h @ w + b, bf16
-  operands. ``extract="mask"`` and ``"thresh"`` are the reference's two
-  in-kernel extractions (the second launches ``fused_head_topk_thresh``);
-  their results are identical. With ``CAPTIONKIT_HEAD_SWEEP`` set (read
-  once, at import, as the reference reads it) it runs ``head_sweep_topk``,
-  the single-sweep kernel, and ignores ``extract``.
+- ``fused_head_topk(h, w, b, k=k, extract=...)``: logits = h @ w + b, h
+  and w both bf16 or both fp32 (``compute_dtype="float32"``: fp32 products
+  on the CUDA cores, not TF32). ``extract="mask"`` and ``"thresh"`` are the
+  reference's two in-kernel extractions (the second launches
+  ``fused_head_topk_thresh``); their results are identical. With
+  ``CAPTIONKIT_HEAD_SWEEP`` set (read once, at import, as the reference
+  reads it) it runs ``head_sweep_topk``, the single-sweep kernel, and
+  ignores ``extract``.
 - ``fused_head_topk_int8(h, w_q, w_scale, b, k=k, extract=...)``: the
   int8 head of ``head_quant="int8"``: logits = (q8(h) @ w_q) * (s_h * s_w)
   + b, with fp32 h quantized per row inside the kernel and w_q from
   ``quantize_head``. Bit-identical to ``reference_head_topk_int8``'s
   values and ids.
+
+Every kernel takes any k up to ``KMAX`` (64): its candidate lists are
+template instances of 8, 16, 32 and 64 entries and the smallest that holds
+k runs; above ``KMAX`` a CUDA call raises. Any H: the sweep keeps h
+resident up to ``SWEEP_RESIDENT_H`` and streams it beside W above; the
+int8 head streams its quantized rows in K chunks.
 
 ``prepad_head`` and ``quantize_head`` prepare the head once per decode
 batch: the vocab axis padded to a multiple of the kernels' 128-column
@@ -37,7 +45,7 @@ from captionkit_torch.nn.topk import topk_lowest_index
 
 HEAD_PAD = -1e30  # head padding; not the attention mask's NEG_INF
 TILE_V = 128  # the kernels' vocab tile (BN in csrc/head_common.cuh)
-KMAX = 8  # the kernels' largest k
+KMAX = 64  # the kernels' largest k (KMAX_LIMIT in csrc/head_common.cuh)
 EXTRACTS = ("mask", "thresh")
 _EXTRACT_CODE = {"mask": 0, "thresh": 1}
 
@@ -45,11 +53,21 @@ _EXTRACT_CODE = {"mask": 0, "thresh": 1}
 #: ``fused_head_topk`` runs the single-sweep kernel.
 SWEEP = bool(os.environ.get("CAPTIONKIT_HEAD_SWEEP", ""))
 # The sweep (csrc/head_sweep.cu, which rejects other values): 64 rows a
-# CTA, h resident (H <= 1024), the vocab split over the CTAs of a cluster,
-# at most 4 of them.
+# CTA, h resident up to H = 1024 and streamed with W above, the vocab split
+# over the CTAs of a cluster, at most 4 of them.
 SWEEP_ROWS = 64
-SWEEP_MAX_H = 1024
+SWEEP_RESIDENT_H = 1024
 SWEEP_MAX_SHARES = 4
+
+
+def kmax_for(k: int) -> int:
+    """The candidate-list instance a kernel runs for k: the smallest of 8,
+    16, 32 and 64 that holds it (``kmax_for`` in csrc/head_common.cuh).
+    Raises above ``KMAX``, the largest instance."""
+    if not 1 <= k <= KMAX:
+        raise ValueError(f"k must be in [1, {KMAX}] (the head kernels' "
+                         f"largest candidate list), got {k}")
+    return next(m for m in (8, 16, 32, 64) if k <= m)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -112,8 +130,9 @@ def quantized_head_logits(h: torch.Tensor, w_q: torch.Tensor,
                           b: torch.Tensor) -> torch.Tensor:
     """The dequantized logits acc * (s_h * s_w) + b, acc = q8(h) @ w_q. The
     int8 products are summed in float64, which holds them exactly (|acc| <=
-    H * 127^2 < 2^24 for H <= 1024, integers far below 2^53), so acc is
-    the exact int32 sum on every device and in every order."""
+    H * 127^2, integers far below 2^53), so acc is the exact int32 sum on
+    every device and in every order, rounded once to fp32 as the kernel
+    converts its int32 sum."""
     h_q, s_h = quantize_rows(h)
     acc = (h_q.double() @ w_q.double()).float()
     return acc * (s_h * w_scale[None, :]) + b
@@ -169,15 +188,22 @@ def _library(name: str) -> ctypes.CDLL:
     lib = build.load(name)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if name == "head_topk":
-        lib.ck_head_topk.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+        lib.ck_head_topk.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
         lib.ck_head_topk.restype = i32
         _bind_common(lib, "ck_head_tile_width", "ck_head_kmax")
     elif name == "head_sweep":
         lib.ck_head_sweep.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
         lib.ck_head_sweep.restype = i32
+        lib.ck_head_sweep_f32.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        lib.ck_head_sweep_f32.restype = i32
         _bind_common(lib, "ck_head_sweep_tile_width", "ck_head_sweep_kmax")
-        lib.ck_head_sweep_max_clusters.argtypes = [i32, i32]
+        lib.ck_head_sweep_max_clusters.argtypes = [i32, i32, i32]
         lib.ck_head_sweep_max_clusters.restype = i32
+        lib.ck_head_sweep_resident_h.argtypes = []
+        lib.ck_head_sweep_resident_h.restype = i32
+        if lib.ck_head_sweep_resident_h() != SWEEP_RESIDENT_H:
+            raise RuntimeError("csrc/head_sweep.cu and kernels/head.py "
+                               "disagree on the resident h width")
     else:
         lib.ck_head_topk_int8.argtypes = [ptr] * 11 + [i32] * 6 + [ptr]
         lib.ck_head_topk_int8.restype = i32
@@ -189,7 +215,7 @@ def _library(name: str) -> ctypes.CDLL:
 def _check_cuda_inputs(h, w, b, k, *, h_dtype, w_dtype, h_mult, v_mult,
                        scale=None):
     """Raise on what the kernel does not take: devices, dtypes, shapes,
-    contiguity, alignment."""
+    k, contiguity, alignment."""
     tensors = [("h", h), ("w", w), ("b", b)] + (
         [("w_scale", scale)] if scale is not None else [])
     if not (h.is_cuda and all(t.device == h.device for _, t in tensors)):
@@ -217,8 +243,9 @@ def _check_cuda_inputs(h, w, b, k, *, h_dtype, w_dtype, h_mult, v_mult,
             f"need N >= 1, H a multiple of {h_mult} and V a multiple of "
             f"{v_mult} (pad with prepad_head / quantize_head); got N={N}, "
             f"H={H}, V={V}")
-    if not (1 <= k <= min(KMAX, V)):
-        raise ValueError(f"k must be in [1, {min(KMAX, V)}], got {k}")
+    kmax_for(k)
+    if k > V:
+        raise ValueError(f"k must be at most V = {V}, got {k}")
     for name, t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -243,9 +270,16 @@ def _raise_on(lib, err: int, what: str) -> None:
                            f"{lib.ck_error_string(err).decode()} ({err})")
 
 
+def _float_dtype(h: torch.Tensor) -> torch.dtype:
+    """The float heads' compute dtype, from h: bf16, or fp32 for
+    ``compute_dtype="float32"`` (w must match)."""
+    return torch.float32 if h.dtype == torch.float32 else torch.bfloat16
+
+
 def _launch_tiled(h, w, b, k, extract, wrapper):
-    _check_cuda_inputs(h, w, b, k, h_dtype=torch.bfloat16,
-                       w_dtype=torch.bfloat16, h_mult=8, v_mult=8)
+    dt = _float_dtype(h)
+    _check_cuda_inputs(h, w, b, k, h_dtype=dt, w_dtype=dt, h_mult=8,
+                       v_mult=8)
     lib = _library("head_topk")
     N, H = h.shape
     V = w.shape[1]
@@ -255,7 +289,8 @@ def _launch_tiled(h, w, b, k, extract, wrapper):
         h.data_ptr(), w.data_ptr(), b.data_ptr(), vals.data_ptr(),
         idx.data_ptr(), lse.data_ptr(), pm.data_ptr(), ps.data_ptr(),
         pv.data_ptr(), pi.data_ptr(), N, H, V, k, _EXTRACT_CODE[extract],
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        int(dt == torch.float32), dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "head_topk")
     wrapper.launches += 1
     return vals, idx, lse
@@ -266,8 +301,8 @@ def fused_head_topk(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     """(vals [N, k] fp32, idx [N, k] int32, lse [N] fp32) of h @ w + b.
     CUDA tensors: the kernel (``extract="mask"`` counted in
     ``fused_head_topk.launches``; ``"thresh"`` runs
-    ``fused_head_topk_thresh``; with SWEEP set, ``head_sweep_topk``);
-    CPU tensors: ``reference_head_topk``."""
+    ``fused_head_topk_thresh``; with SWEEP set, ``head_sweep_topk``); h
+    and w bf16, or both fp32; CPU tensors: ``reference_head_topk``."""
     _check_extract(extract)
     if SWEEP:
         return head_sweep_topk(h, w, b, k=k)
@@ -313,50 +348,59 @@ def sweep_plan(N: int, V: int, clusters) -> tuple[int, int]:
     return best[1], best[2]
 
 
-_clusters: dict[int, tuple[int, ...]] = {}
+_clusters: dict[tuple[int, bool], tuple[int, ...]] = {}
 
 
-def sweep_clusters(device: torch.device) -> tuple[int, ...]:
+def sweep_clusters(device: torch.device, wide: bool = False
+                   ) -> tuple[int, ...]:
     """How many clusters of s CTAs (index s = 1 .. SWEEP_MAX_SHARES) of the
-    sweep kernel the card holds at once, from the occupancy API; once per
-    device."""
-    dev = device.index or 0
-    table = _clusters.get(dev)
+    sweep kernel the card holds at once, from the occupancy API, for h
+    resident or (``wide``, H > SWEEP_RESIDENT_H) streamed; once per device
+    and layout."""
+    key = (device.index or 0, wide)
+    table = _clusters.get(key)
     if table is None:
         lib = _library("head_sweep")
-        counts = [lib.ck_head_sweep_max_clusters(s, dev)
+        counts = [lib.ck_head_sweep_max_clusters(s, int(wide), key[0])
                   for s in range(1, SWEEP_MAX_SHARES + 1)]
         for s, n in enumerate(counts, 1):
             if n < 0:
                 _raise_on(lib, -n, f"head_sweep cluster query ({s} CTAs)")
-        table = _clusters[dev] = (0, *counts)
+        table = _clusters[key] = (0, *counts)
     return table
 
 
 def head_sweep_topk(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                     k: int):
     """The single-sweep head (the reference's ``_sweep_head_topk``): one
-    launch, no partials in device memory; a cluster of CTAs sweeps the
-    vocab for each block of 64 rows (``sweep_plan``) and merges on chip.
-    h [N, H] with H <= 1024. CUDA: counted in ``head_sweep_topk.launches``;
-    CPU: ``reference_head_topk``."""
+    launch, no partials in device memory. bf16: a cluster of CTAs sweeps
+    the vocab for each block of 64 rows (``sweep_plan``) and merges on
+    chip; h stays resident up to H = 1024 and streams beside W above. fp32
+    (``compute_dtype="float32"``): the one-pass fp32 sweep. CUDA: counted
+    in ``head_sweep_topk.launches``; CPU: ``reference_head_topk``."""
     if h.device.type == "cpu":
         return reference_head_topk(h, w, b, k)
-    _check_cuda_inputs(h, w, b, k, h_dtype=torch.bfloat16,
-                       w_dtype=torch.bfloat16, h_mult=8, v_mult=8)
+    dt = _float_dtype(h)
+    _check_cuda_inputs(h, w, b, k, h_dtype=dt, w_dtype=dt, h_mult=8,
+                       v_mult=8)
     N, H = h.shape
-    if H > SWEEP_MAX_H:
-        raise ValueError(f"the sweep keeps h resident: H must be at most "
-                         f"{SWEEP_MAX_H}, got {H}")
     lib = _library("head_sweep")
     V = w.shape[1]
     dev = h.device
-    shares, _ = sweep_plan(N, V, sweep_clusters(dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
     vals, idx, lse, *_ = _outputs(N, k, dev)
-    err = lib.ck_head_sweep(
-        h.data_ptr(), w.data_ptr(), b.data_ptr(), vals.data_ptr(),
-        idx.data_ptr(), lse.data_ptr(), N, H, V, k, shares, dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream)
+    if dt == torch.float32:
+        err = lib.ck_head_sweep_f32(
+            h.data_ptr(), w.data_ptr(), b.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), lse.data_ptr(), N, H, V, k, dev.index or 0,
+            stream)
+    else:
+        shares, _ = sweep_plan(
+            N, V, sweep_clusters(dev, H > SWEEP_RESIDENT_H))
+        err = lib.ck_head_sweep(
+            h.data_ptr(), w.data_ptr(), b.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), lse.data_ptr(), N, H, V, k, shares,
+            dev.index or 0, stream)
     _raise_on(lib, err, "head_sweep")
     head_sweep_topk.launches += 1
     return vals, idx, lse
@@ -366,9 +410,10 @@ def fused_head_topk_int8(h: torch.Tensor, w_q: torch.Tensor,
                          w_scale: torch.Tensor, b: torch.Tensor, *, k: int,
                          extract: str = "mask"):
     """(vals, idx, lse) of the int8 head over fp32 h [N, H] and
-    ``quantize_head``'s (w_q [H, Vp] int8, w_scale [Vp], b [Vp]). CUDA: the
-    kernel, either extraction (counted in ``fused_head_topk_int8
-    .launches``); CPU: ``reference_head_topk_int8``."""
+    ``quantize_head``'s (w_q [H, Vp] int8, w_scale [Vp], b [Vp]), any H
+    (the quantized rows stream in K chunks). CUDA: the kernel, either
+    extraction (counted in ``fused_head_topk_int8.launches``); CPU:
+    ``reference_head_topk_int8``."""
     _check_extract(extract)
     if h.device.type == "cpu":
         return reference_head_topk_int8(h, w_q, w_scale, b, k)

@@ -8,8 +8,10 @@ packed=None)`` are drop-ins for ``nn.cells.lstm_cell`` and
 ``nn.cells.copy_lstm_cell``: the same arguments (``packed`` is the plain
 cells' precomputed weight, ``pack_lstm`` / ``pack_copy_lstm``), the same
 (h', c') in fp32. On a CUDA tensor a wrapper launches its kernel (one
-launch, counted in ``<wrapper>.launches``) or raises; the kernels compute
-in bf16 only, so ``compute_dtype=float32`` raises there. On a CPU tensor it
+launch, counted in ``<wrapper>.launches``) or raises: ``compute_dtype=
+bfloat16`` runs the sm90 kernel (``csrc/sm90_cell.cuh``), ``float32`` its
+fp32 instance (``csrc/cell_common.cuh``'s fp32 tile: fp32 products on the
+CUDA cores, not TF32). On a CPU tensor it
 runs its plain version, ``reference_lstm_cell`` /
 ``reference_copy_lstm_cell``, which repeats the kernel's arithmetic on the
 same padded operands: products of operands rounded to the compute dtype
@@ -191,7 +193,10 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ck_lstm_cell.argtypes = [p] * 8 + [i] * 6 + [p]
         lib.ck_copy_lstm_cell.argtypes = [p] * 13 + [i] * 6 + [p]
-        for name in ("ck_lstm_cell", "ck_copy_lstm_cell", "ck_lstm_tile"):
+        lib.ck_lstm_cell_f32.argtypes = [p] * 8 + [i] * 4 + [p]
+        lib.ck_copy_lstm_cell_f32.argtypes = [p] * 13 + [i] * 4 + [p]
+        for name in ("ck_lstm_cell", "ck_copy_lstm_cell", "ck_lstm_cell_f32",
+                     "ck_copy_lstm_cell_f32", "ck_lstm_tile"):
             getattr(lib, name).restype = i
         lib.ck_lstm_tile.argtypes = []
         lib.ck_lstm_error_string.argtypes = [i]
@@ -212,12 +217,16 @@ def _run(fn_name: str, args) -> None:
                            f"({err})")
 
 
-def _operand(t: torch.Tensor, width: int) -> tuple[torch.Tensor, int]:
+def _operand(t: torch.Tensor, width: int, dt: torch.dtype
+             ) -> tuple[torch.Tensor, int]:
     """A product operand as the kernel reads it (fp32 or bf16, padded to
-    ``width`` columns, contiguous) and its fp32 flag."""
+    ``width`` columns, contiguous; fp32 under an fp32 compute dtype, which
+    holds bf16 exactly) and its fp32 flag."""
     if t.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the cell kernels take fp32 or bf16 inputs, got "
                         f"{t.dtype}")
+    if dt == torch.float32:
+        t = t.float()
     t = _pad_to(t, 1, width).contiguous()
     return t, int(t.dtype == torch.float32)
 
@@ -226,10 +235,13 @@ def _state(t: torch.Tensor, width: int) -> torch.Tensor:
     return _pad_to(t.float(), 1, width).contiguous()
 
 
-def _kernel_dtype(compute_dtype) -> None:
-    if compute_dtype != torch.bfloat16:
-        raise TypeError("the CUDA cell kernels compute in bfloat16; got "
-                        f"compute_dtype={compute_dtype}")
+def _kernel_dtype(compute_dtype) -> str:
+    """The C entry points' suffix for the compute dtype: the sm90 kernel
+    (bf16) or its fp32 instance."""
+    if compute_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError("the CUDA cell kernels compute in bfloat16 or "
+                        f"float32; got compute_dtype={compute_dtype}")
+    return "_f32" if compute_dtype == torch.float32 else ""
 
 
 def fused_lstm_cell(params: LSTMParams, x, h, c, *,
@@ -242,25 +254,26 @@ def fused_lstm_cell(params: LSTMParams, x, h, c, *,
     if x.device.type == "cpu":
         return reference_lstm_cell(params, x, h, c, compute_dtype=dt,
                                    packed=packed)
-    _kernel_dtype(dt)
+    suffix = _kernel_dtype(dt)
     H = params.wh.shape[0]
     pack = lstm_cell_pack(params, dt, packed)
-    dev, bf, f32 = x.device, torch.bfloat16, torch.float32
+    dev, f32 = x.device, torch.float32
     N = x.shape[0]
     Dp, Hp = pack.dp, pack.hp
-    xk, x_f32 = _operand(x, Dp)
-    hk, h_f32 = _operand(h, Hp)
+    xk, x_f32 = _operand(x, Dp, dt)
+    hk, h_f32 = _operand(h, Hp, dt)
     ck = _state(c, Hp)
     w_x, w_h = pack.w[:Dp], pack.w[Dp:]
     _check(dev, x=(xk, xk.dtype, (N, Dp)), h=(hk, hk.dtype, (N, Hp)),
-           c=(ck, f32, (N, Hp)), w_x=(w_x, bf, (Dp, 4 * Hp)),
-           w_h=(w_h, bf, (Hp, 4 * Hp)), b=(pack.b, f32, (4 * Hp,)))
+           c=(ck, f32, (N, Hp)), w_x=(w_x, dt, (Dp, 4 * Hp)),
+           w_h=(w_h, dt, (Hp, 4 * Hp)), b=(pack.b, f32, (4 * Hp,)))
     h_out = torch.empty((N, Hp), dtype=f32, device=dev)
     c_out = torch.empty((N, Hp), dtype=f32, device=dev)
     ptrs = [t.data_ptr() for t in (xk, hk, ck, w_x, w_h, pack.b, h_out,
                                    c_out)]
-    _run("ck_lstm_cell", ptrs + [N, Dp, Hp, x_f32, h_f32, dev.index or 0,
-                                 _stream(dev)])
+    flags = [] if suffix else [x_f32, h_f32]
+    _run("ck_lstm_cell" + suffix, ptrs + [N, Dp, Hp, *flags,
+                                          dev.index or 0, _stream(dev)])
     fused_lstm_cell.launches += 1
     return _unpad(h_out, H), _unpad(c_out, H)
 
@@ -276,29 +289,30 @@ def fused_copy_lstm_cell(params: CopyLSTMParams, x, h, c, c_star, *,
     if x.device.type == "cpu":
         return reference_copy_lstm_cell(params, x, h, c, c_star,
                                         compute_dtype=dt, packed=packed)
-    _kernel_dtype(dt)
+    suffix = _kernel_dtype(dt)
     H = params.base.wh.shape[0]
     pack = copy_lstm_cell_pack(params, dt, packed)
-    dev, bf, f32 = x.device, torch.bfloat16, torch.float32
+    dev, f32 = x.device, torch.float32
     N = x.shape[0]
     Dp, Hp = pack.dp, pack.hp
-    xk, x_f32 = _operand(x, Dp)
-    hk, h_f32 = _operand(h, Hp)
+    xk, x_f32 = _operand(x, Dp, dt)
+    hk, h_f32 = _operand(h, Hp, dt)
     ck, csk = _state(c, Hp), _state(c_star, Hp)
     w_x, w_h = pack.w[:Dp], pack.w[Dp:]
     w_rx, w_rh, w_rc = pack.wr[:Dp], pack.wr[Dp:Dp + Hp], pack.wr[Dp + Hp:]
     _check(dev, x=(xk, xk.dtype, (N, Dp)), h=(hk, hk.dtype, (N, Hp)),
            c=(ck, f32, (N, Hp)), c_star=(csk, f32, (N, Hp)),
-           w_x=(w_x, bf, (Dp, 4 * Hp)), w_h=(w_h, bf, (Hp, 4 * Hp)),
-           w_rx=(w_rx, bf, (Dp, Hp)), w_rh=(w_rh, bf, (Hp, Hp)),
-           w_rc=(w_rc, bf, (Hp, Hp)), b=(pack.b, f32, (4 * Hp,)),
+           w_x=(w_x, dt, (Dp, 4 * Hp)), w_h=(w_h, dt, (Hp, 4 * Hp)),
+           w_rx=(w_rx, dt, (Dp, Hp)), w_rh=(w_rh, dt, (Hp, Hp)),
+           w_rc=(w_rc, dt, (Hp, Hp)), b=(pack.b, f32, (4 * Hp,)),
            br=(pack.br, f32, (Hp,)))
     h_out = torch.empty((N, Hp), dtype=f32, device=dev)
     c_out = torch.empty((N, Hp), dtype=f32, device=dev)
     ptrs = [t.data_ptr() for t in (xk, hk, ck, csk, w_x, w_h, w_rx, w_rh,
                                    w_rc, pack.b, pack.br, h_out, c_out)]
-    _run("ck_copy_lstm_cell", ptrs + [N, Dp, Hp, x_f32, h_f32,
-                                      dev.index or 0, _stream(dev)])
+    flags = [] if suffix else [x_f32, h_f32]
+    _run("ck_copy_lstm_cell" + suffix, ptrs + [N, Dp, Hp, *flags,
+                                               dev.index or 0, _stream(dev)])
     fused_copy_lstm_cell.launches += 1
     return _unpad(h_out, H), _unpad(c_out, H)
 

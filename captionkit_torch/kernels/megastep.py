@@ -18,8 +18,10 @@ DCNet's step is ``dcnet_score`` (ω over the caption), the grouped ω→ctx
 product and ``dcnet_cell`` (context gate, then the decoder LSTM over
 [emb | part | h]).
 
-Each wrapper launches its CUDA kernels for CUDA tensors (bf16 pack, fp32
-activations) or raises, and runs its plain PyTorch version,
+Each wrapper launches its CUDA kernels for CUDA tensors (fp32 activations;
+a bf16 pack, or an fp32 one under ``compute_dtype="float32"``, which runs
+the kernels' fp32 instances: fp32 products on the CUDA cores, not TF32)
+or raises, and runs its plain PyTorch version,
 ``reference_<name>``, for CPU tensors; ``<wrapper>.launches`` counts its
 calls that launched. The plain versions repeat the kernels' arithmetic on
 the same pack: products of operands rounded to the compute dtype with
@@ -376,10 +378,10 @@ def reference_dcnet_cell(pack: DCNetCellPack, emb, ctx, h, c):
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ck_att_cell.argtypes = [p] * 21 + [i] * 8 + [p]
-    lib.ck_lang_cell.argtypes = [p] * 19 + [i] * 4 + [p]
-    lib.ck_dcnet_score.argtypes = [p] * 8 + [i] * 6 + [p]
-    lib.ck_dcnet_cell.argtypes = [p] * 13 + [i] * 4 + [p]
+    lib.ck_att_cell.argtypes = [p] * 21 + [i] * 9 + [p]
+    lib.ck_lang_cell.argtypes = [p] * 20 + [i] * 5 + [p]
+    lib.ck_dcnet_score.argtypes = [p] * 8 + [i] * 7 + [p]
+    lib.ck_dcnet_cell.argtypes = [p] * 13 + [i] * 5 + [p]
     for name in ("ck_att_cell", "ck_lang_cell", "ck_dcnet_score",
                  "ck_dcnet_cell", "ck_megastep_gate_width",
                  "ck_megastep_plain_width"):
@@ -444,13 +446,24 @@ def _rows(N, B):
         raise ValueError(f"row count {N} not a multiple of image count {B}")
 
 
+def _pack_dtype(pack) -> tuple[torch.dtype, int]:
+    """The kernels' compute dtype, the pack's (bf16 or fp32), and the
+    fp32 flag the C entry points take."""
+    dt = pack.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the cell kernels take a bf16 or fp32 pack, got "
+                        f"{dt}")
+    return dt, int(dt == torch.float32)
+
+
 def att_cell(pack: CellPack, emb, h_att, c_att, h_lang):
     """Kernel A (``att_phase``'s pallas_call): (h_att', c_att', α, β).
     CUDA tensors: ``csrc/megastep.cu::ck_att_cell`` (3 launches), counted
     in ``att_cell.launches``; CPU tensors: ``reference_att_cell``."""
     if emb.device.type == "cpu":
         return reference_att_cell(pack, emb, h_att, c_att, h_lang)
-    dev, bf, f32 = emb.device, torch.bfloat16, torch.float32
+    dev, f32 = emb.device, torch.float32
+    dt, is_f32 = _pack_dtype(pack)
     N, Ep = emb.shape
     B, R, Ap = pack.vis_keys.shape
     T = pack.scma_keys.shape[1]
@@ -459,64 +472,71 @@ def att_cell(pack: CellPack, emb, h_att, c_att, h_lang):
     _check(dev, emb=(emb, f32, (N, Ep)), h_att=(h_att, f32, (N, Hp)),
            c_att=(c_att, f32, (N, Hp)), h_lang=(h_lang, f32, (N, Hp)),
            zvb=(pack.zvb, f32, (N, 4 * Hp)),
-           w_emb=(pack.w_emb, bf, (Ep, 4 * Hp)),
-           w_hl=(pack.w_hl, bf, (Hp, 4 * Hp)),
-           w_ha=(pack.w_ha, bf, (Hp, 4 * Hp)),
-           wq=(pack.wq, bf, (Hp, 2 * Ap)),
+           w_emb=(pack.w_emb, dt, (Ep, 4 * Hp)),
+           w_hl=(pack.w_hl, dt, (Hp, 4 * Hp)),
+           w_ha=(pack.w_ha, dt, (Hp, 4 * Hp)),
+           wq=(pack.wq, dt, (Hp, 2 * Ap)),
            vis_b=(pack.vis_b, f32, (Ap,)), vis_v=(pack.vis_v, f32, (Ap,)),
            scma_b=(pack.scma_b, f32, (Ap,)),
            scma_v=(pack.scma_v, f32, (Ap,)),
-           vis_keys=(pack.vis_keys, bf, (B, R, Ap)),
-           scma_keys=(pack.scma_keys, bf, (B, T, Ap)),
+           vis_keys=(pack.vis_keys, dt, (B, R, Ap)),
+           scma_keys=(pack.scma_keys, dt, (B, T, Ap)),
            scma_mask=(pack.scma_mask, f32, (B, T)))
     lib = _library()
     h_out = torch.empty((N, Hp), dtype=f32, device=dev)
     c_out = torch.empty((N, Hp), dtype=f32, device=dev)
-    alpha = torch.empty((N, R), dtype=bf, device=dev)
-    beta = torch.empty((N, T), dtype=bf, device=dev)
+    alpha = torch.empty((N, R), dtype=dt, device=dev)
+    beta = torch.empty((N, T), dtype=dt, device=dev)
     q = torch.empty((N, 2 * Ap), dtype=f32, device=dev)
     ptrs = [t.data_ptr() for t in (
         emb, h_att, c_att, h_lang, pack.zvb, pack.w_emb, pack.w_hl,
         pack.w_ha, pack.wq, pack.vis_b, pack.vis_v, pack.scma_b,
         pack.scma_v, pack.vis_keys, pack.scma_keys, pack.scma_mask, h_out,
         c_out, alpha, beta, q)]
-    _run(lib, "ck_att_cell", ptrs + [N, B, Ep, Hp, Ap, R, T, dev.index or 0,
-                                     _stream(dev)])
+    _run(lib, "ck_att_cell", ptrs + [N, B, Ep, Hp, Ap, R, T, is_f32,
+                                     dev.index or 0, _stream(dev)])
     att_cell.launches += 1
     return h_out, c_out, alpha, beta
 
 
 def lang_cell(pack: CellPack, vhat_raw, h_att, h_lang, c_lang, c_star):
     """Kernel B (``fused_step_hidden``'s pallas_call): (h_lang', c_lang').
-    CUDA tensors: ``csrc/megastep.cu::ck_lang_cell`` (2 launches), counted
-    in ``lang_cell.launches``; CPU tensors: ``reference_lang_cell``."""
+    CUDA tensors: ``csrc/megastep.cu::ck_lang_cell`` (2 launches: bf16 on
+    ``csrc/sm90_cell.cuh``, fp32 on ``cell_common.cuh``'s fp32 tile),
+    counted in ``lang_cell.launches``; CPU tensors:
+    ``reference_lang_cell``."""
     if vhat_raw.device.type == "cpu":
         return reference_lang_cell(pack, vhat_raw, h_att, h_lang, c_lang,
                                    c_star)
-    dev, bf, f32 = vhat_raw.device, torch.bfloat16, torch.float32
+    dev, f32 = vhat_raw.device, torch.float32
+    dt, is_f32 = _pack_dtype(pack)
     N, Fp = vhat_raw.shape
     Hp = pack.hp
     _check(dev, vhat_raw=(vhat_raw, f32, (N, Fp)),
            h_att=(h_att, f32, (N, Hp)), h_lang=(h_lang, f32, (N, Hp)),
            c_lang=(c_lang, f32, (N, Hp)), c_star=(c_star, f32, (N, Hp)),
-           gate_w=(pack.gate_w, bf, (Hp, Fp)),
+           gate_w=(pack.gate_w, dt, (Hp, Fp)),
            gate_b=(pack.gate_b, f32, (Fp,)),
-           lang_wv=(pack.lang_wv, bf, (Fp, 4 * Hp)),
-           lang_wha=(pack.lang_wha, bf, (Hp, 4 * Hp)),
-           lang_wh=(pack.lang_wh, bf, (Hp, 4 * Hp)),
+           lang_wv=(pack.lang_wv, dt, (Fp, 4 * Hp)),
+           lang_wha=(pack.lang_wha, dt, (Hp, 4 * Hp)),
+           lang_wh=(pack.lang_wh, dt, (Hp, 4 * Hp)),
            lang_b=(pack.lang_b, f32, (4 * Hp,)),
-           wr_v=(pack.wr_v, bf, (Fp, Hp)), wr_ha=(pack.wr_ha, bf, (Hp, Hp)),
-           wr_hl=(pack.wr_hl, bf, (Hp, Hp)), wr_c=(pack.wr_c, bf, (Hp, Hp)),
+           wr_v=(pack.wr_v, dt, (Fp, Hp)), wr_ha=(pack.wr_ha, dt, (Hp, Hp)),
+           wr_hl=(pack.wr_hl, dt, (Hp, Hp)), wr_c=(pack.wr_c, dt, (Hp, Hp)),
            br=(pack.br, f32, (Hp,)))
     lib = _library()
     h_out = torch.empty((N, Hp), dtype=f32, device=dev)
     c_out = torch.empty((N, Hp), dtype=f32, device=dev)
-    vhat = torch.empty((N, Fp), dtype=bf, device=dev)
+    vhat = torch.empty((N, Fp), dtype=dt, device=dev)
+    # bf16: the gate launch's bf16 copies of h_att, h_lang and c*.
+    act16 = None if is_f32 else torch.empty((3, N, Hp), dtype=dt,
+                                            device=dev)
     ptrs = [t.data_ptr() for t in (
         vhat_raw, h_att, h_lang, c_lang, c_star, pack.gate_w, pack.gate_b,
         pack.lang_wv, pack.lang_wha, pack.lang_wh, pack.lang_b, pack.wr_v,
         pack.wr_ha, pack.wr_hl, pack.wr_c, pack.br, h_out, c_out, vhat)]
-    _run(lib, "ck_lang_cell", ptrs + [N, Hp, Fp, dev.index or 0,
+    ptrs.append(None if act16 is None else act16.data_ptr())
+    _run(lib, "ck_lang_cell", ptrs + [N, Hp, Fp, is_f32, dev.index or 0,
                                       _stream(dev)])
     lang_cell.launches += 1
     return h_out, c_out
@@ -528,21 +548,22 @@ def dcnet_score(pack: DCNetCellPack, h):
     ``dcnet_score.launches``; CPU tensors: ``reference_dcnet_score``."""
     if h.device.type == "cpu":
         return reference_dcnet_score(pack, h)
-    dev, bf, f32 = h.device, torch.bfloat16, torch.float32
+    dev, f32 = h.device, torch.float32
+    dt, is_f32 = _pack_dtype(pack)
     N, Hp = h.shape
     B, T, Ap = pack.att_keys.shape
     _rows(N, B)
-    _check(dev, h=(h, f32, (N, Hp)), att_wq=(pack.att_wq, bf, (Hp, Ap)),
+    _check(dev, h=(h, f32, (N, Hp)), att_wq=(pack.att_wq, dt, (Hp, Ap)),
            att_b=(pack.att_b, f32, (Ap,)), att_v=(pack.att_v, f32, (Ap,)),
-           att_keys=(pack.att_keys, bf, (B, T, Ap)),
+           att_keys=(pack.att_keys, dt, (B, T, Ap)),
            mask=(pack.mask, f32, (B, T)))
     lib = _library()
-    omega = torch.empty((N, T), dtype=bf, device=dev)
+    omega = torch.empty((N, T), dtype=dt, device=dev)
     q = torch.empty((N, Ap), dtype=f32, device=dev)
     ptrs = [t.data_ptr() for t in (h, pack.att_wq, pack.att_b, pack.att_v,
                                    pack.att_keys, pack.mask, omega, q)]
-    _run(lib, "ck_dcnet_score", ptrs + [N, B, Hp, Ap, T, dev.index or 0,
-                                        _stream(dev)])
+    _run(lib, "ck_dcnet_score", ptrs + [N, B, Hp, Ap, T, is_f32,
+                                        dev.index or 0, _stream(dev)])
     dcnet_score.launches += 1
     return omega
 
@@ -553,24 +574,25 @@ def dcnet_cell(pack: DCNetCellPack, emb, ctx, h, c):
     ``dcnet_cell.launches``; CPU tensors: ``reference_dcnet_cell``."""
     if emb.device.type == "cpu":
         return reference_dcnet_cell(pack, emb, ctx, h, c)
-    dev, bf, f32 = emb.device, torch.bfloat16, torch.float32
+    dev, f32 = emb.device, torch.float32
+    dt, is_f32 = _pack_dtype(pack)
     N, Ep = emb.shape
     Hp = pack.hp
     _check(dev, emb=(emb, f32, (N, Ep)), ctx=(ctx, f32, (N, Hp)),
            h=(h, f32, (N, Hp)), c=(c, f32, (N, Hp)),
-           gate_w=(pack.gate_w, bf, (Hp, Hp)),
+           gate_w=(pack.gate_w, dt, (Hp, Hp)),
            gate_b=(pack.gate_b, f32, (Hp,)),
-           w_emb=(pack.w_emb, bf, (Ep, 4 * Hp)),
-           w_part=(pack.w_part, bf, (Hp, 4 * Hp)),
-           w_h=(pack.w_h, bf, (Hp, 4 * Hp)), b=(pack.b, f32, (4 * Hp,)))
+           w_emb=(pack.w_emb, dt, (Ep, 4 * Hp)),
+           w_part=(pack.w_part, dt, (Hp, 4 * Hp)),
+           w_h=(pack.w_h, dt, (Hp, 4 * Hp)), b=(pack.b, f32, (4 * Hp,)))
     lib = _library()
     h_out = torch.empty((N, Hp), dtype=f32, device=dev)
     c_out = torch.empty((N, Hp), dtype=f32, device=dev)
-    part = torch.empty((N, Hp), dtype=bf, device=dev)
+    part = torch.empty((N, Hp), dtype=dt, device=dev)
     ptrs = [t.data_ptr() for t in (emb, ctx, h, c, pack.gate_w, pack.gate_b,
                                    pack.w_emb, pack.w_part, pack.w_h, pack.b,
                                    h_out, c_out, part)]
-    _run(lib, "ck_dcnet_cell", ptrs + [N, Ep, Hp, dev.index or 0,
+    _run(lib, "ck_dcnet_cell", ptrs + [N, Ep, Hp, is_f32, dev.index or 0,
                                        _stream(dev)])
     dcnet_cell.launches += 1
     return h_out, c_out

@@ -10,12 +10,15 @@ log-sum-exp (``kernels/head.py``, ``extract="mask"``) inside the launch:
 is the whole decode step: ``att_phase`` (``att_cell`` and the grouped
 α→v̂, β→c* products), then ``fused_lang_head_topk``.
 
-On a CUDA tensor the wrapper launches the kernel (the visual-gate GEMM,
-then one cooperative launch for the Copy-LSTM tiles, the head tiles and
-the merge; counted in ``fused_lang_head_topk.launches``) or raises; the
-pack must be bf16. On a CPU tensor it runs ``reference_lang_head_topk``:
-``reference_lang_cell``, then ``reference_head_topk`` of h_lang' in the
-compute dtype.
+On a CUDA tensor the wrapper launches the kernel or raises (counted in
+``fused_lang_head_topk.launches``): with a bf16 pack, one persistent
+cooperative launch on ``csrc/sm90_cell.cuh`` (the visual gate, the
+Copy-LSTM, the head tiles and the merge, phases apart by grid syncs); with
+an fp32 pack (``compute_dtype="float32"``), the fp32 route: the fp32 gate
+and Copy-LSTM tiles and the one-pass fp32 sweep of the head, three
+launches. Any k up to ``head.KMAX``. On a CPU tensor it runs
+``reference_lang_head_topk``: ``reference_lang_cell``, then
+``reference_head_topk`` of h_lang' in the compute dtype.
 """
 
 from __future__ import annotations
@@ -26,13 +29,14 @@ from typing import Optional
 import torch
 
 from captionkit_torch.kernels.head import (
-    KMAX,
     TILE_V,
+    kmax_for,
     reference_head_topk,
 )
 from captionkit_torch.kernels.megastep import (
     CellPack,
     _check,
+    _pack_dtype,
     _pad_to,
     _stream,
     att_phase,
@@ -70,13 +74,16 @@ def _library() -> ctypes.CDLL:
 
         lib = build.load("wholestep")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ck_lang_head_topk.argtypes = [p] * 29 + [i] * 6 + [p]
-        for name in ("ck_lang_head_topk", "ck_wholestep_grid",
-                     "ck_wholestep_regs", "ck_wholestep_smem"):
+        lib.ck_lang_head_topk.argtypes = [p] * 30 + [i] * 6 + [p]
+        lib.ck_lang_head_topk_f32.argtypes = [p] * 24 + [i] * 6 + [p]
+        for name in ("ck_lang_head_topk", "ck_lang_head_topk_f32",
+                     "ck_wholestep_grid", "ck_wholestep_regs",
+                     "ck_wholestep_smem", "ck_wholestep_threads"):
             getattr(lib, name).restype = i
         lib.ck_wholestep_grid.argtypes = [i]
         lib.ck_wholestep_regs.argtypes = []
         lib.ck_wholestep_smem.argtypes = []
+        lib.ck_wholestep_threads.argtypes = []
         lib.ck_wholestep_error_string.argtypes = [i]
         lib.ck_wholestep_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -84,37 +91,41 @@ def _library() -> ctypes.CDLL:
 
 
 def launch_info(device: int = 0) -> dict:
-    """The cooperative kernel's grid on ``device`` (resident blocks per SM
-    x SMs), registers per thread and static shared memory per block."""
+    """The cooperative kernel's grid on ``device`` (resident CTAs per SM x
+    SMs), registers per thread, dynamic shared memory and threads per
+    CTA."""
     lib = _library()
     return {"grid": lib.ck_wholestep_grid(device),
             "regs_per_thread": lib.ck_wholestep_regs(),
-            "smem_bytes": lib.ck_wholestep_smem(), "threads": 320}
+            "smem_bytes": lib.ck_wholestep_smem(),
+            "threads": lib.ck_wholestep_threads()}
 
 
 def _lang_head_kernel(pack: CellPack, vhat_raw, h_att, h_lang, c_lang,
                       c_star, head_w, head_b, k: int):
-    dev, bf, f32 = vhat_raw.device, torch.bfloat16, torch.float32
+    dev, f32 = vhat_raw.device, torch.float32
+    dt, is_f32 = _pack_dtype(pack)
     N, Fp = vhat_raw.shape
     Hp = pack.hp
     V = head_w.shape[1]
     if V % TILE_V:
         raise ValueError(f"the head's vocab width must be a multiple of "
                          f"{TILE_V} (prepad_head), got {V}")
-    if not 1 <= k <= min(KMAX, V):
-        raise ValueError(f"k must be in [1, {min(KMAX, V)}], got {k}")
+    kmax_for(k)
+    if k > V:
+        raise ValueError(f"k must be at most V = {V}, got {k}")
     _check(dev, vhat_raw=(vhat_raw, f32, (N, Fp)),
            h_att=(h_att, f32, (N, Hp)), h_lang=(h_lang, f32, (N, Hp)),
            c_lang=(c_lang, f32, (N, Hp)), c_star=(c_star, f32, (N, Hp)),
-           gate_w=(pack.gate_w, bf, (Hp, Fp)),
+           gate_w=(pack.gate_w, dt, (Hp, Fp)),
            gate_b=(pack.gate_b, f32, (Fp,)),
-           lang_wv=(pack.lang_wv, bf, (Fp, 4 * Hp)),
-           lang_wha=(pack.lang_wha, bf, (Hp, 4 * Hp)),
-           lang_wh=(pack.lang_wh, bf, (Hp, 4 * Hp)),
+           lang_wv=(pack.lang_wv, dt, (Fp, 4 * Hp)),
+           lang_wha=(pack.lang_wha, dt, (Hp, 4 * Hp)),
+           lang_wh=(pack.lang_wh, dt, (Hp, 4 * Hp)),
            lang_b=(pack.lang_b, f32, (4 * Hp,)),
-           wr_v=(pack.wr_v, bf, (Fp, Hp)), wr_ha=(pack.wr_ha, bf, (Hp, Hp)),
-           wr_hl=(pack.wr_hl, bf, (Hp, Hp)), wr_c=(pack.wr_c, bf, (Hp, Hp)),
-           br=(pack.br, f32, (Hp,)), head_w=(head_w, bf, (Hp, V)),
+           wr_v=(pack.wr_v, dt, (Fp, Hp)), wr_ha=(pack.wr_ha, dt, (Hp, Hp)),
+           wr_hl=(pack.wr_hl, dt, (Hp, Hp)), wr_c=(pack.wr_c, dt, (Hp, Hp)),
+           br=(pack.br, f32, (Hp,)), head_w=(head_w, dt, (Hp, V)),
            head_b=(head_b, f32, (V,)))
     lib = _library()
     n_tiles = V // TILE_V
@@ -125,17 +136,20 @@ def _lang_head_kernel(pack: CellPack, vhat_raw, h_att, h_lang, c_lang,
     h_out, c_out = empty((N, Hp), f32), empty((N, Hp), f32)
     vals, idx, lse = empty((N, k), f32), empty((N, k), torch.int32), \
         empty((N,), f32)
-    scratch = (empty((N, Fp), bf), empty((N, Hp), bf),
-               empty((N * n_tiles,), f32), empty((N * n_tiles,), f32),
-               empty((N * n_tiles * k,), f32),
-               empty((N * n_tiles * k,), torch.int32))
+    # The scratch sizes follow k: the partials hold k entries a tile.
+    scratch = (empty((N, Fp), dt),) if is_f32 else (
+        empty((N, Fp), dt), empty((N, Hp), dt),
+        empty((N * n_tiles,), f32), empty((N * n_tiles,), f32),
+        empty((N * n_tiles * k,), f32),
+        empty((N * n_tiles * k,), torch.int32),
+        empty((3, N, Hp), dt))  # bf16 copies of h_att, h_lang, c*
     ptrs = [t.data_ptr() for t in (
         vhat_raw, h_att, h_lang, c_lang, c_star, pack.gate_w, pack.gate_b,
         pack.lang_wv, pack.lang_wha, pack.lang_wh, pack.lang_b, pack.wr_v,
         pack.wr_ha, pack.wr_hl, pack.wr_c, pack.br, head_w, head_b, h_out,
         c_out, vals, idx, lse, *scratch)]
-    err = lib.ck_lang_head_topk(*ptrs, N, Hp, Fp, V, k, dev.index or 0,
-                                _stream(dev))
+    fn = lib.ck_lang_head_topk_f32 if is_f32 else lib.ck_lang_head_topk
+    err = fn(*ptrs, N, Hp, Fp, V, k, dev.index or 0, _stream(dev))
     if err:
         raise RuntimeError(
             "ck_lang_head_topk launch failed: "
@@ -151,8 +165,8 @@ def fused_lang_head_topk(pack: CellPack, vhat_raw, h_att2, c_star, h_lang,
     [H or Hp, V] in the compute dtype, head_b [V] fp32 (``prepad_head``).
     Returns (h_lang', c_lang' [N, H], vals [N, k] fp32, idx [N, k] int32,
     lse [N] fp32). CUDA tensors: ``csrc/wholestep.cu::ck_lang_head_topk``
-    (2 launches, the second cooperative), counted in
-    ``fused_lang_head_topk.launches``; CPU tensors:
+    (one cooperative launch; fp32 pack: ``ck_lang_head_topk_f32``, three
+    launches), counted in ``fused_lang_head_topk.launches``; CPU tensors:
     ``reference_lang_head_topk``."""
     if vhat_raw.device.type == "cpu":
         return reference_lang_head_topk(pack, vhat_raw, h_att2, c_star,

@@ -73,14 +73,33 @@ prints no result line:
 12. wholestep — editnet_beam5 with cell_impl="wholestep" behind
               CaptionServer(batch=512); fused_lang_head_topk against its
               plain version at paper shape (N = 2560) with planted faults
-              and exact ties; a forced-full decode (median of 3) beside the
-              pallas decode in turns, 22 launches a batch each of att_cell
-              and fused_lang_head_topk and none of lang_cell and
-              fused_head_topk; the steps check; a profile.
+              and exact ties, timed beside lang_cell + fused_head_topk and
+              lang_cell + head_sweep_topk launched apart; a forced-full
+              decode (median of 3) beside the pallas decode in turns, 22
+              launches a batch each of att_cell and fused_lang_head_topk
+              and none of lang_cell and fused_head_topk; the steps check;
+              a profile.
 
-Then a {"kernels": [...]} line listing all 12 wrappers (each with its
-launches on its path, check, ms, plain ms, bound ms, CUDA launches per
-call), the nvidia-smi line, and, last,
+13. fp32    — compute_dtype="float32" through every kernel's fp32
+              instance (fp32 products on the CUDA cores, TF32 off): each
+              kernel against its plain version at its path's shape within
+              1e-5 (heads: idx agreement >= 0.999), an operand rounded to
+              bf16 must fail; kernel, plain, library and fp32 bound times;
+              then the fp32 paths at batch 512 (editnet_beam5 with pallas
+              and wholestep cells, dcnet_beam5 pallas, the thresh
+              extraction, the single sweep, the int8 head, the greedy
+              dispatch decodes), launches per batch of each kernel.
+14. beam10  — editnet_beam5 with decode.beam_size=10 (k = 10 > 8): the
+              head kernel's decode and its steps check on the decode's own
+              states, and the whole-step decode at k = 10 beside pallas,
+              with its steps check.
+15. wide_head — the single sweep (h streamed beside W) and the int8 head
+              (quantized rows in K chunks) at H = 2048 and 4096 against
+              their plain versions, a skipped h chunk must fail; times.
+
+Then a {"kernels": [...]} line listing all 12 wrappers and the 11 fp32
+instances (each with its launches on its path, check, ms, plain ms, bound
+ms, CUDA launches per call), the nvidia-smi line, and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Kernels are built into build/captionkit_torch/ under the checkout; the
 scratch files of the run go to build/captionkit_torch/smoke/.
@@ -449,14 +468,17 @@ def _sweep_faults(h, w, b, k):
             ("share_left_out", share_left_out)]
 
 
-def _head_bound(N, H, V, k, *, int8: bool) -> dict:
+def _head_bound(N, H, V, k, *, int8: bool, fp32: bool = False) -> dict:
     """Least time of the head at the function's own vocab V: 2 N H V
-    products (bf16 or int8 peak) against h, W, scales, bias read once and
-    the outputs written once."""
+    products (bf16, int8 or, under ``fp32``, fp32 CUDA-core peak) against
+    h, W, scales, bias read once and the outputs written once."""
     ops = 2.0 * N * H * V
     if int8:
         n_bytes = N * H * 4 + H * V + 2 * V * 4 + N * k * 8 + N * 4
         t_ops = ops / PEAK_INT8_OPS
+    elif fp32:
+        n_bytes = N * H * 4 + H * V * 4 + V * 4 + N * k * 8 + N * 4
+        t_ops = ops / PEAK_FP32_FLOPS
     else:
         n_bytes = N * H * 2 + H * V * 2 + V * 4 + N * k * 8 + N * 4
         t_ops = ops / PEAK_BF16_FLOPS
@@ -781,25 +803,24 @@ def phase_decode(cfg, model, params, vocab, wrappers, card):
     return result
 
 
-def _float_plain_head(params, ctx_k, state):
-    import torch
-
+def _float_plain_head(params, ctx_k, state, k=BEAM):
+    """The plain head on the decode's h_lang in the pack's head dtype."""
     from captionkit_torch.kernels.head import reference_head_topk
 
-    return reference_head_topk(state.h_lang.to(torch.bfloat16),
-                               params.fc_w.to(torch.bfloat16), params.fc_b,
-                               BEAM)
+    dt = ctx_k.head_w.dtype
+    return reference_head_topk(state.h_lang.to(dt), params.fc_w.to(dt),
+                               params.fc_b, k)
 
 
-def _int8_plain_head(params, ctx_k, state):
+def _int8_plain_head(params, ctx_k, state, k=BEAM):
     from captionkit_torch.kernels.head import reference_head_topk_int8
 
     return reference_head_topk_int8(state.h_lang, ctx_k.head_w,
-                                    ctx_k.head_scale, ctx_k.head_b, BEAM)
+                                    ctx_k.head_scale, ctx_k.head_b, k)
 
 
 def _check_steps(model, params, inputs, kw, plain=_float_plain_head,
-                 agree=head_agreement) -> dict:
+                 agree=head_agreement, beam=BEAM) -> dict:
     """The head kernel against its plain version on the states the decode
     visits: the batch's K hypotheses per image (``all_tokens`` of one
     kernel decode) are fed back step by step, and at each of the 22 steps
@@ -819,18 +840,18 @@ def _check_steps(model, params, inputs, kw, plain=_float_plain_head,
     faults_caught = {}
     with torch.inference_mode():
         ctx = model.encode(params, feats, existing, existing_len)
-        res = beam_search(model, params, ctx, beam_size=BEAM,
+        res = beam_search(model, params, ctx, beam_size=beam,
                           start_id=kw["start_id"], end_id=kw["end_id"],
                           pad_id=kw["pad_id"], max_len=MAX_LEN)
-        hyps = res.all_tokens.reshape(N_IMAGES * BEAM, MAX_LEN)
-        ctx_k = model.prepare_topk(params, model.beam_expand(ctx, BEAM),
-                                   BEAM)
+        hyps = res.all_tokens.reshape(N_IMAGES * beam, MAX_LEN)
+        ctx_k = model.prepare_topk(params, model.beam_expand(ctx, beam),
+                                   beam)
         state = model.init_state(params, ctx_k)
-        tok = torch.full((N_IMAGES * BEAM,), kw["start_id"],
+        tok = torch.full((N_IMAGES * beam,), kw["start_id"],
                          dtype=torch.int32, device="cuda")
         for t in range(MAX_LEN):
-            state, *got = model.step_topk(params, ctx_k, state, tok, BEAM)
-            want = plain(params, ctx_k, state)
+            state, *got = model.step_topk(params, ctx_k, state, tok, beam)
+            want = plain(params, ctx_k, state, beam)
             res = agree(got, want)
             check(res["ok"], f"step {t}: kernel vs plain head on the "
                              f"decode's state: {res}")
@@ -844,7 +865,7 @@ def _check_steps(model, params, inputs, kw, plain=_float_plain_head,
             tok = hyps[:, t].contiguous()
     for name, caught in faults_caught.items():
         check(caught, f"planted fault {name} passes the head bar")
-    return {"steps": MAX_LEN, "bar": agree.__name__, **worst,
+    return {"steps": MAX_LEN, "beam": beam, "bar": agree.__name__, **worst,
             "planted_faults_caught": faults_caught}
 
 
@@ -925,25 +946,31 @@ def _profile_calls(fn, keys, calls: int = 10) -> tuple[float, float]:
     whose names hold one of ``keys`` (all when None), counted and their
     durations summed by torch.profiler over ``calls`` calls after a
     warm-up, divided by ``calls`` (a profile of a single call on that
-    machine can miss a kernel record)."""
+    machine can miss a kernel record). A profile that records no matching
+    kernel at all is taken once more: torch.profiler now and then returns
+    one empty."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [ev for ev in prof.key_averages()
-              if ev.device_type == DeviceType.CUDA
-              and (keys is None or any(key in ev.key for key in keys))]
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CUDA
+                  and (keys is None or any(key in ev.key for key in keys))]
+        if events:
+            break
     return (sum(ev.count for ev in events) / calls,
             sum(ev.device_time_total for ev in events) / calls / 1e3)
 
 
-def _cuda_kernels(fn, keys=("gemm_kernel", "scores_kernel")) -> int:
+def _cuda_kernels(fn, keys=("gemm_kernel", "scores_kernel",
+                            "cell_kernel")) -> int:
     """The CUDA kernels whose names hold one of ``keys`` (by default those
     of csrc/megastep.cu) that one call of ``fn`` launches."""
     return round(_profile_calls(fn, keys)[0])
@@ -967,7 +994,7 @@ def _cross_columns(w, hp):
     return w.contiguous()
 
 
-def _cell_bound(name, N, B, E, H, A, F, R, T) -> dict:
+def _cell_bound(name, N, B, E, H, A, F, R, T, fp32=False) -> dict:
     """The least time the card could take for one call at the function's
     own widths: operations against bytes (each input read once, each output
     written once, at 3.35 TB/s). The bf16 products (989 TFLOP/s, tensor
@@ -975,8 +1002,10 @@ def _cell_bound(name, N, B, E, H, A, F, R, T) -> dict:
     on separate units at once, so the operations take the longer of the
     two. The fp32 work per (row, position, A) term is one add (key + the
     row's q + b, summed once per row) and one multiply-add into the score:
-    3 operations. tanh count noted apart (special-function unit)."""
-    f4, b2 = 4, 2
+    3 operations. tanh count noted apart (special-function unit).
+    ``fp32``: weights, keys and the softmax weights in fp32, every product
+    on the CUDA cores."""
+    f4, b2 = 4, (4 if fp32 else 2)
     if name == "att_cell":
         mm = 2 * N * (E + 2 * H) * 4 * H + 2 * N * H * 2 * A
         ew = 3 * N * (R + T) * A
@@ -1008,12 +1037,7 @@ def _cell_bound(name, N, B, E, H, A, F, R, T) -> dict:
                 + (E + 2 * H) * 4 * H * b2 + 5 * H * f4)
         n_out = 2 * N * H * f4
         tanh = 0
-    t_ops = max(mm / PEAK_BF16_FLOPS, ew / PEAK_FP32_FLOPS)
-    t_bytes = (n_in + n_out) / PEAK_BYTES
-    return {"bf16_gflop": mm / 1e9, "fp32_gflop": ew / 1e9,
-            "mbytes": (n_in + n_out) / 1e6, "tanh_m": tanh / 1e6,
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    return {**_ops_bound(mm, ew, n_in + n_out, fp32), "tanh_m": tanh / 1e6}
 
 
 def _encoded(model, params, mc, k=BEAM):
@@ -1071,6 +1095,8 @@ def phase_megastep(ed, dc) -> dict:
             **agree, "planted_faults_caught": caught,
             "ms": time_ms(kernel), "plain_ms": time_ms(plain),
             "library_ms": None,
+            "device_ms": _device_ms(kernel, ("gemm_kernel", "scores_kernel",
+                                             "cell_kernel")),
             "cuda_launches_per_call": _cuda_kernels(kernel)}
         return want
 
@@ -1130,6 +1156,8 @@ def phase_megastep(ed, dc) -> dict:
     for name, res in results.items():
         res.update(_cell_bound(name, **dims))
         res["achieved_tflops"] = res["bf16_gflop"] / res["ms"]
+        res["bound_share"] = res["bound_ms"] / res["ms"]
+        res["device_bound_share"] = res["bound_ms"] / res["device_ms"]
     result = {"phase": "megastep", "ok": True, "shape": dims,
               "atol_state": CELL_ATOL, "weights_bar": "1 bf16 ulp",
               "kernels": results}
@@ -1203,7 +1231,7 @@ def _timed_decodes(decodes, batch_of, params, runs=3) -> dict:
 
 
 def _decode_pair(cfg, model, params, vocab, wrappers, path_names,
-                 other="xla"):
+                 other="xla", beam=BEAM):
     """The forced-full decode of the timed batch with the model as given
     (its cell_impl) and with cell_impl=``other``: launches per batch of
     each wrapper on the path (22 each), captions/s of both in turns,
@@ -1248,13 +1276,13 @@ def _decode_pair(cfg, model, params, vocab, wrappers, path_names,
     with torch.inference_mode():
         feats, existing, existing_len = (t.cuda() for t in batch)
         ctx = model.encode(params, feats, existing, existing_len)
-        res = beam_search(model, params, ctx, beam_size=BEAM,
+        res = beam_search(model, params, ctx, beam_size=beam,
                           start_id=kw["start_id"], end_id=kw["end_id"],
                           pad_id=kw["pad_id"], max_len=MAX_LEN)
-        ctx_k = model.prepare_topk(params, model.beam_expand(ctx, BEAM),
-                                   BEAM)
+        ctx_k = model.prepare_topk(params, model.beam_expand(ctx, beam),
+                                   beam)
     check(ctx_k.cell_pack is not None, "prepare_topk built no cell pack")
-    hyps = res.all_tokens.reshape(N_IMAGES * BEAM, MAX_LEN)
+    hyps = res.all_tokens.reshape(N_IMAGES * beam, MAX_LEN)
     out = {"launches_per_batch": launches,
            "captions_per_s": timed[impl]["captions_per_s"],
            "runs": timed[impl]["runs"],
@@ -1471,10 +1499,13 @@ DISPATCH = ("fused_lstm_cell", "fused_copy_lstm_cell",
             "fused_additive_attention")
 
 
-def _ops_bound(mm, ew, n_bytes) -> dict:
+def _ops_bound(mm, ew, n_bytes, fp32=False) -> dict:
     """The least time of a call: bf16 products on the tensor cores and fp32
     arithmetic on the CUDA cores (separate units, so the longer of the
-    two) against the bytes read and written once."""
+    two) against the bytes read and written once. ``fp32``: the products
+    too are fp32 on the CUDA cores (compute_dtype="float32", no TF32)."""
+    if fp32:
+        mm, ew = 0, mm + ew
     t_ops = max(mm / PEAK_BF16_FLOPS, ew / PEAK_FP32_FLOPS)
     t_bytes = n_bytes / PEAK_BYTES
     return {"bf16_gflop": mm / 1e9, "fp32_gflop": ew / 1e9,
@@ -1482,42 +1513,47 @@ def _ops_bound(mm, ew, n_bytes) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def _lstm_bound(N, D, H, copy) -> dict:
+def _lstm_bound(N, D, H, copy, fp32=False) -> dict:
     """2 N (D + H) 4H bf16 products (and 2 N (D + 2H) H for the copy
-    gate); x, h, c (and c*) read in fp32, the weights in bf16 and the
-    biases in fp32 once, h' and c' written in fp32."""
+    gate); x, h, c (and c*) read in fp32, the weights in bf16 (fp32 under
+    ``fp32``) and the biases in fp32 once, h' and c' written in fp32."""
+    wb = 4 if fp32 else 2
     mm = 2 * N * (D + H) * 4 * H
-    n_bytes = 4 * N * (D + 2 * H) + 2 * (D + H) * 4 * H + 16 * H + 8 * N * H
+    n_bytes = 4 * N * (D + 2 * H) + wb * (D + H) * 4 * H + 16 * H + 8 * N * H
     if copy:
         mm += 2 * N * (D + 2 * H) * H
-        n_bytes += 4 * N * H + 2 * (D + 2 * H) * H + 4 * H
-    return _ops_bound(mm, 0, n_bytes)
+        n_bytes += 4 * N * H + wb * (D + 2 * H) * H + 4 * H
+    return _ops_bound(mm, 0, n_bytes, fp32)
 
 
-def _attention_bound(B, P, A, V, Q, n_valid) -> dict:
+def _attention_bound(B, P, A, V, Q, n_valid, fp32=False) -> dict:
     """The query product 2 B Q A in bf16; per valid (row, position) 3 A
     fp32 operations for the score and 2 V for the context (``n_valid``
     sums the rows' valid positions: the masked ones need no key, value
     or arithmetic); q (fp32), Wq (bf16), b, v read once, the valid keys
-    and values in bf16, ctx and w written in fp32."""
+    and values in bf16 (fp32 under ``fp32``), ctx and w written in fp32."""
+    wb = 4 if fp32 else 2
     mm = 2 * B * Q * A
     ew = n_valid * (3 * A + 2 * V)
-    n_bytes = (4 * B * Q + 2 * Q * A + 8 * A + 2 * n_valid * (A + V) + 4 * B
-               + 4 * B * V + 4 * B * P)
-    return _ops_bound(mm, ew, n_bytes)
+    n_bytes = (4 * B * Q + wb * Q * A + 8 * A + wb * n_valid * (A + V)
+               + 4 * B + 4 * B * V + 4 * B * P)
+    return _ops_bound(mm, ew, n_bytes, fp32)
 
 
-def _wholestep_bound(N, H, F, V, k) -> dict:
+def _wholestep_bound(N, H, F, V, k, fp32=False) -> dict:
     """The lang cell's products (visual gate 2 N H F, base gates 2 N
     (F + 2H) 4H, copy gate 2 N (F + 3H) H) and the head's 2 N H V in bf16;
     v_hat_raw, h_att, c*, h_lang, c_lang read in fp32, the weights in
-    bf16 and the biases in fp32 once, h', c', the top-k and lse written."""
+    bf16 (fp32 under ``fp32``) and the biases in fp32 once, h', c', the
+    top-k and lse written."""
+    wb = 4 if fp32 else 2
     mm = (2 * N * H * F + 2 * N * (F + 2 * H) * 4 * H
           + 2 * N * (F + 3 * H) * H + 2 * N * H * V)
-    n_bytes = (4 * N * F + 16 * N * H + 2 * H * F + 2 * (F + 2 * H) * 4 * H
-               + 2 * (F + 3 * H) * H + 4 * (F + 5 * H) + 2 * H * V + 4 * V
-               + 8 * N * H + 8 * N * k + 4 * N)
-    return _ops_bound(mm, 0, n_bytes)
+    n_bytes = (4 * N * F + 16 * N * H + wb * H * F
+               + wb * (F + 2 * H) * 4 * H + wb * (F + 3 * H) * H
+               + 4 * (F + 5 * H) + wb * H * V + 4 * V + 8 * N * H
+               + 8 * N * k + 4 * N)
+    return _ops_bound(mm, 0, n_bytes, fp32)
 
 
 def attention_agreement(got, want) -> dict:
@@ -1729,13 +1765,13 @@ def phase_cell_kernels(ed, dc) -> dict:
             lambda: kl.fused_lstm_cell(*lstm_args, packed=dec_w, **kw),
             lambda: kl.reference_lstm_cell(*lstm_args, packed=dec_w, **kw),
             library_lstm, _lstm_bound(N, E + H, H, False),
-            ("lstm_cell_kernel",)),
+            ("cell_kernel",)),
         "fused_copy_lstm_cell": (
             lambda: kl.fused_copy_lstm_cell(*copy_args, packed=pk["lang"],
                                             **kw),
             lambda: kl.reference_copy_lstm_cell(*copy_args,
                                                 packed=pk["lang"], **kw),
-            None, _lstm_bound(N, F + H, H, True), ("lstm_cell_kernel",)),
+            None, _lstm_bound(N, F + H, H, True), ("cell_kernel",)),
     }
     for name, (ap, keys, values, mask, wq) in att_cases.items():
         n_valid = int(mask.sum()) if mask is not None else \
@@ -1942,7 +1978,8 @@ def wholestep_agreement(got, want) -> dict:
     return out
 
 
-def _check_wholestep_steps(model, mc, params, ctx_k, hyps, start_id) -> dict:
+def _check_wholestep_steps(model, mc, params, ctx_k, hyps, start_id,
+                           beam=BEAM) -> dict:
     """The whole step (``step_topk`` with cell_impl="wholestep") against
     the plain step on the states the decode visits: the batch's K
     hypotheses fed back for 22 steps; each state field within STEP_ATOL of
@@ -1965,13 +2002,13 @@ def _check_wholestep_steps(model, mc, params, ctx_k, hyps, start_id) -> dict:
     caught = {}
     with torch.inference_mode():
         for t in range(MAX_LEN):
-            ws, *got = model.step_topk(params, ctx_k, state, tok, BEAM)
+            ws, *got = model.step_topk(params, ctx_k, state, tok, beam)
             plain, _ = editnet._step_hidden(params, mc, plain_ctx, state, tok)
             err = {f: float((getattr(ws, f) - getattr(plain, f)).abs().max())
                    for f in fields}
             check(max(err.values()) <= STEP_ATOL,
                   f"step {t}: whole step vs plain step {err}")
-            want = _float_plain_head(params, ctx_k, ws)
+            want = _float_plain_head(params, ctx_k, ws, beam)
             res = head_agreement(got, want)
             check(res["ok"], f"step {t}: whole-step head vs plain head {res}")
             for f in fields:
@@ -1991,8 +2028,8 @@ def _check_wholestep_steps(model, mc, params, ctx_k, hyps, start_id) -> dict:
             tok = hyps[:, t].contiguous()
     for name, ok in caught.items():
         check(ok, f"planted fault {name} passes the whole-step steps bar")
-    return {"steps": MAX_LEN, "atol_state": STEP_ATOL, **worst,
-            "planted_faults_caught": caught}
+    return {"steps": MAX_LEN, "beam": beam, "atol_state": STEP_ATOL,
+            **worst, "planted_faults_caught": caught}
 
 
 def phase_wholestep(ed, wrappers, card) -> dict:
@@ -2076,20 +2113,32 @@ def phase_wholestep(ed, wrappers, card) -> dict:
         return thead.fused_head_topk(hl.to(torch.bfloat16), head_w_p,
                                      head_b, k=BEAM)
 
+    def lang_then_sweep():  # the same two steps apart: lang cell + sweep
+        hl, _ = ms.lang_cell(pack, vhat_raw, h2, hl_p, cl_p, c_star)
+        return thead.head_sweep_topk(hl.to(torch.bfloat16), head_w_p,
+                                     head_b, k=BEAM)
+
     bound = _wholestep_bound(N, H, mc.feat_dim, mc.vocab_size, BEAM)
     ms_call = time_ms(kernel, iters=10)
-    timing = {"ms": ms_call, "plain_ms": time_ms(plain, iters=5),
-              "library_ms": None,
-              "two_programs_ms": time_ms(two_programs, iters=10), **bound,
+    dev_ms = _device_ms(kernel, ("lang_head_kernel",))
+    timing = {"ms": ms_call, "device_ms": dev_ms,
+              "plain_ms": time_ms(plain, iters=5), "library_ms": None,
+              "two_programs_ms": time_ms(two_programs, iters=10),
+              "two_programs_device_ms": _device_ms(two_programs),
+              "lang_cell_then_sweep_ms": time_ms(lang_then_sweep, iters=10),
+              "lang_cell_then_sweep_device_ms": _device_ms(lang_then_sweep),
+              **bound, "bound_share": bound["bound_ms"] / ms_call,
+              "device_bound_share": bound["bound_ms"] / dev_ms,
               "cuda_launches_per_call": _cuda_kernels(
                   kernel, ("gemm_kernel", "lang_head_kernel")),
-              "two_programs_cuda_launches": _cuda_kernels(
-                  two_programs, ("gemm_kernel", "head_")),
+              "two_programs_cuda_launches": _cuda_kernels(two_programs, None),
+              "lang_cell_then_sweep_cuda_launches": _cuda_kernels(
+                  lang_then_sweep, None),
               "achieved_tflops": bound["bf16_gflop"] / ms_call,
               "launch": ws.launch_info(0)}
-    check(timing["cuda_launches_per_call"] <= 3,
+    check(timing["cuda_launches_per_call"] == 1,
           f"the whole step takes {timing['cuda_launches_per_call']} "
-          "CUDA launches a call, more than 3")
+          "CUDA launches a call, not 1")
 
     out, decode, batch, ctx_d, hyps = _decode_pair(
         cfg_w, model, params, vocab, wrappers,
@@ -2111,6 +2160,498 @@ def phase_wholestep(ed, wrappers, card) -> dict:
               **out, "steps_check": steps, "profile": profile}
     emit(result)
     return result
+
+
+# --------------------------------------------------------------------------
+# compute_dtype="float32", beam widths above 8, wide heads
+# --------------------------------------------------------------------------
+
+F32_ATOL = 1e-5  # fp32 products summed in another order
+F32_SETS = {"model.compute_dtype": "float32"}
+
+
+def f32_agreement(got, want) -> dict:
+    """An fp32 instance against its plain version: every float output
+    within F32_ATOL and finite, integer outputs (top-k ids) agreeing on
+    >= 0.999 of their entries."""
+    import torch
+
+    errs, idx = [], 1.0
+    finite = True
+    for g, w in zip(got, want):
+        if g.dtype in (torch.int32, torch.int64):
+            idx = min(idx, float((g == w).float().mean()))
+        else:
+            errs.append(float((g.float() - w.float()).abs().max()))
+            finite = finite and bool(torch.isfinite(g).all())
+    out = {"max_abs_err": max(errs), "idx_agreement": idx}
+    out["ok"] = out["max_abs_err"] <= F32_ATOL and idx >= 0.999 and finite
+    return out
+
+
+def _count_decode(cfg, model, params, vocab, wrappers, sweep=False):
+    """One forced-full decode of the timed batch (after a warm-up): the
+    wrappers' launches and the tokens. ``sweep`` sets the single-sweep
+    flag on the head module for the decode."""
+    from captionkit_torch.decode import make_decode_fn
+    from captionkit_torch.kernels import head as thead
+
+    batch = _batch(cfg.model)
+    decode = make_decode_fn(model, cfg.decode, start_id=vocab.start,
+                            end_id=-1, pad_id=vocab.pad, device="cuda")
+    thead.SWEEP = sweep
+    try:
+        decode(params, *batch).cpu()
+        _reset(wrappers)
+        tokens = decode(params, *batch).cpu()
+    finally:
+        thead.SWEEP = False
+    launches = {w.__name__: w.launches for w in wrappers}
+    check(tuple(tokens.shape) == (N_IMAGES, MAX_LEN)
+          and bool(((tokens >= 0) & (tokens < cfg.model.vocab_size)).all()),
+          "tokens of the wrong shape or out of range")
+    return launches, tokens
+
+
+def phase_fp32(ed, dc, wrappers, card) -> dict:
+    """compute_dtype="float32" through every kernel's fp32 instance (fp32
+    products on the CUDA cores; TF32 is off): each kernel against its
+    plain version at its path's shape within F32_ATOL (heads: idx
+    agreement >= 0.999), an operand rounded to bf16 (a planted fault) must
+    fail that bar; kernel, plain, library and fp32 bound times. Then the
+    fp32 paths at batch 512: editnet_beam5 with cell_impl="pallas" and
+    "wholestep" (beside the fp32 xla and pallas decodes), dcnet_beam5
+    pallas, the thresh extraction, the single sweep, the int8 head, and
+    the greedy dispatch decodes (B5, B6); launches per batch of each."""
+    import dataclasses
+
+    import torch
+
+    from captionkit_torch.config import get_named_config
+    from captionkit_torch.decode import make_decode_fn
+    from captionkit_torch.kernels import attention as ka
+    from captionkit_torch.kernels import head as thead
+    from captionkit_torch.kernels import lstm as kl
+    from captionkit_torch.kernels import megastep as ms
+    from captionkit_torch.kernels import wholestep as ws
+    from captionkit_torch.models import dcnet as dmod
+    from captionkit_torch.models import editnet as emod
+    from captionkit_torch.models import get_model
+    from captionkit_torch.nn.attention import AdditiveAttentionParams
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the plain fp32 versions would not be fp32")
+    kernels = {}
+
+    def case(name, run, plain, library, bound, keys, faults):
+        res = _hold(f"{name} fp32", run, plain, f32_agreement, faults)
+        ms_ = time_ms(run, iters=5)
+        kernels[name] = {
+            **res, "ms": ms_, "plain_ms": time_ms(plain, iters=3),
+            "library_ms": time_ms(library, iters=5) if library else None,
+            **bound, "bound_share": bound["bound_ms"] / ms_,
+            "device_ms": _device_ms(run, keys),
+            "cuda_launches_per_call": _cuda_kernels(run, keys)}
+
+    # The heads at paper shape.
+    N, H, V, k = N_IMAGES * BEAM, 1024, 9490, BEAM
+    g = torch.Generator().manual_seed(7)
+    h = torch.randn((N, H), generator=g).cuda()
+    w = (torch.randn((H, V), generator=g) * 0.03).cuda()
+    b = (torch.randn((V,), generator=g) * 0.01).cuda()
+    w_p, b_p = thead.prepad_head(w, b, compute_dtype=torch.float32)
+    h16 = h.bfloat16().float()
+
+    def library_head():  # torch.matmul (fp32, TF32 off) + topk + logsumexp
+        logits = torch.matmul(h, w) + b
+        return torch.topk(logits, k).values, torch.logsumexp(logits, 1)
+
+    heads = {"fused_head_topk": thead.fused_head_topk,
+             "fused_head_topk_thresh": thead.fused_head_topk_thresh,
+             "head_sweep_topk": thead.head_sweep_topk}
+    for name, fn in heads.items():
+        case(name, lambda fn=fn: fn(h, w_p, b_p, k=k),
+             lambda: thead.reference_head_topk(h, w_p, b_p, k), library_head,
+             _head_bound(N, H, V, k, int8=False, fp32=True), ("head_",),
+             [("operand_rounded_to_bf16",
+               lambda fn=fn: fn(h16, w_p, b_p, k=k))])
+
+    # The cells at paper shape, on fp32 packs from the timed batch.
+    cfg, _, params, vocab = ed
+    dcfg, _, dparams, dvocab = dc
+
+    def packed(setup_cfg, p):
+        mc = dataclasses.replace(setup_cfg.model, cell_impl="pallas",
+                                 compute_dtype="float32")
+        with torch.inference_mode():
+            return mc, _encoded(get_model(mc), p, mc)
+
+    mc, ctx_k = packed(cfg, params)
+    pack = ctx_k.cell_pack
+    dmc, dctx_k = packed(dcfg, dparams)
+    dpack = dctx_k.cell_pack
+    check(pack.dtype == torch.float32 and dpack.dtype == torch.float32,
+          "compute_dtype=float32 built a bf16 pack")
+    B, R, _ = pack.vis_keys.shape
+    T = pack.scma_keys.shape[1]
+    Hp, Ep = pack.hp, pack.w_emb.shape[0]
+    g = torch.Generator().manual_seed(11)
+    h_att, c_att, h_lang, c_lang = (
+        (torch.randn((N, Hp), generator=g) * 0.5).cuda() for _ in range(4))
+    emb = (torch.randn((N, Ep), generator=g) * 0.1).cuda()
+    r16 = lambda x: x.bfloat16().float()  # noqa: E731
+    dims = dict(N=N, B=B, E=mc.emb_dim, H=mc.hidden_dim, A=mc.att_dim,
+                F=mc.feat_dim, R=R, T=T)
+    keys = ("gemm_kernel", "scores_kernel")
+    att_args = (emb, h_att, c_att, h_lang)
+    case("att_cell", lambda: ms.att_cell(pack, *att_args),
+         lambda: ms.reference_att_cell(pack, *att_args), None,
+         _cell_bound("att_cell", **dims, fp32=True), keys,
+         [("operand_rounded_to_bf16", lambda: ms.att_cell(
+             pack, emb, r16(h_att), c_att, h_lang))])
+    with torch.inference_mode():
+        h2, _, alpha, beta = ms.reference_att_cell(pack, *att_args)
+        vhat_raw = ms._grouped(alpha, pack.features)
+        c_star = ms._grouped(beta, pack.enc_cs)
+    lang_args = (vhat_raw, h2, h_lang, c_lang, c_star)
+    case("lang_cell", lambda: ms.lang_cell(pack, *lang_args),
+         lambda: ms.reference_lang_cell(pack, *lang_args), None,
+         _cell_bound("lang_cell", **dims, fp32=True), keys,
+         [("operand_rounded_to_bf16", lambda: ms.lang_cell(
+             pack, r16(vhat_raw), *lang_args[1:]))])
+    dHp, dEp = dpack.hp, dpack.w_emb.shape[0]
+    # (A query rounded to bf16 moves the 22-position softmax by less than
+    # F32_ATOL here, so the score kernel's planted fault is the mask.)
+    no_mask = dataclasses.replace(dpack, mask=torch.ones_like(dpack.mask))
+    case("dcnet_score", lambda: (ms.dcnet_score(dpack, h_att[:, :dHp]),),
+         lambda: (ms.reference_dcnet_score(dpack, h_att[:, :dHp]),), None,
+         _cell_bound("dcnet_score", **dims, fp32=True), keys,
+         [("mask_dropped",
+           lambda: (ms.dcnet_score(no_mask, h_att[:, :dHp]),))])
+    with torch.inference_mode():
+        omega = ms.reference_dcnet_score(dpack, h_att[:, :dHp])
+        dctx = ms._grouped(omega, dpack.enc_hs)
+    cell_args = (emb[:, :dEp], dctx, h_att[:, :dHp], c_att[:, :dHp])
+    case("dcnet_cell", lambda: ms.dcnet_cell(dpack, *cell_args),
+         lambda: ms.reference_dcnet_cell(dpack, *cell_args), None,
+         _cell_bound("dcnet_cell", **dims, fp32=True), keys,
+         [("operand_rounded_to_bf16", lambda: ms.dcnet_cell(
+             dpack, emb[:, :dEp], r16(dctx), *cell_args[2:]))])
+
+    # The whole step at paper shape.
+    w_h, b_h = thead.prepad_head(params.fc_w, params.fc_b,
+                                 compute_dtype=torch.float32)
+    H1 = mc.hidden_dim
+    ws_args = (pack, vhat_raw, h2, c_star, h_lang[:, :H1].contiguous(),
+               c_lang[:, :H1].contiguous(), w_h, b_h)
+    case("fused_lang_head_topk",
+         lambda: ws.fused_lang_head_topk(*ws_args, k=k),
+         lambda: ws.reference_lang_head_topk(*ws_args, k=k), None,
+         _wholestep_bound(N, H1, mc.feat_dim, mc.vocab_size, k, fp32=True),
+         ("gemm_kernel", "head_"),
+         [("operand_rounded_to_bf16", lambda: ws.fused_lang_head_topk(
+             pack, r16(vhat_raw), *ws_args[2:], k=k))])
+
+    # B5 and B6 at the greedy step's shapes (512 rows), the models' weights.
+    G = N_IMAGES
+    dec = dparams.decoder
+    D = dec.wx.shape[0]
+    x = (torch.randn((G, D), generator=g) * 0.5).cuda()
+    hg, cg_, csg = ((torch.randn((G, H), generator=g) * 0.5).cuda()
+                    for _ in range(3))
+    kw = dict(compute_dtype=torch.float32)
+    w_ih, w_hh = dec.wx.t().contiguous(), dec.wh.t().contiguous()
+    zb = torch.zeros_like(dec.b)
+    case("fused_lstm_cell", lambda: kl.fused_lstm_cell(dec, x, hg, cg_, **kw),
+         lambda: kl.reference_lstm_cell(dec, x, hg, cg_, **kw),
+         lambda: torch.lstm_cell(x, (hg, cg_), w_ih, w_hh, dec.b, zb),
+         _lstm_bound(G, D, H, False, fp32=True), ("gemm_kernel",),
+         [("operand_rounded_to_bf16", lambda: kl.fused_lstm_cell(
+             dec, r16(x), hg, cg_, **kw))])
+    lang = params.lang_lstm
+    Dc = lang.base.wx.shape[0]
+    xc = (torch.randn((G, Dc), generator=g) * 0.5).cuda()
+    case("fused_copy_lstm_cell",
+         lambda: kl.fused_copy_lstm_cell(lang, xc, hg, cg_, csg, **kw),
+         lambda: kl.reference_copy_lstm_cell(lang, xc, hg, cg_, csg, **kw),
+         None, _lstm_bound(G, Dc, H, True, fp32=True), ("gemm_kernel",),
+         [("operand_rounded_to_bf16", lambda: kl.fused_copy_lstm_cell(
+             lang, r16(xc), hg, cg_, csg, **kw))])
+    va = params.vis_attention
+    P, A, Vf = mc.num_regions, mc.att_dim, mc.feat_dim
+    keys_a = (torch.randn((G, P, A), generator=g) * 0.5).cuda()
+    values = torch.randn((G, P, Vf), generator=g).cuda()
+    q = torch.randn((G, H), generator=g).cuda()
+    case("fused_additive_attention",
+         lambda: ka.fused_additive_attention(va, keys_a, values, q, None,
+                                             **kw),
+         lambda: ka.reference_additive_attention(va, keys_a, values, q, None,
+                                                 **kw),
+         None, _attention_bound(G, P, A, Vf, H, G * P, fp32=True),
+         ("gemm_kernel", "attention_kernel"),
+         [("operand_rounded_to_bf16", lambda: ka.fused_additive_attention(
+             va, keys_a, r16(values), q, None, **kw))])
+
+    # The fp32 paths at batch 512: launches of each kernel a batch.
+    paths = {}
+    cfg_p = cfg.override({**F32_SETS, "model.cell_impl": "pallas"})
+    out_p, *_ = _decode_pair(cfg_p, get_model(cfg_p.model), params, vocab,
+                             wrappers, ("att_cell", "lang_cell",
+                                        "fused_head_topk"))
+    paths["editnet_beam5_pallas"] = out_p
+    cfg_w = cfg.override({**F32_SETS, "model.cell_impl": "wholestep"})
+    out_w, *_ = _decode_pair(cfg_w, get_model(cfg_w.model), params, vocab,
+                             wrappers, ("att_cell", "fused_lang_head_topk"),
+                             other="pallas")
+    paths["editnet_beam5_wholestep"] = out_w
+    dcfg_p = dcfg.override({**F32_SETS, "model.cell_impl": "pallas"})
+    out_d, *_ = _decode_pair(dcfg_p, get_model(dcfg_p.model), dparams,
+                             dvocab, wrappers, ("dcnet_score", "dcnet_cell",
+                                                "fused_head_topk"))
+    paths["dcnet_beam5_pallas"] = out_d
+    cfg_x = cfg.override(F32_SETS)
+    model_x = get_model(cfg_x.model)
+    for name, sets, sweep, want in (
+            ("thresh", {"model.head_extract": "thresh"}, False,
+             "fused_head_topk_thresh"),
+            ("sweep", {}, True, "head_sweep_topk"),
+            ("int8", {"model.head_quant": "int8"}, False,
+             "fused_head_topk_int8")):
+        c = cfg_x.override(sets)
+        launches, _ = _count_decode(c, get_model(c.model), params, vocab,
+                                    wrappers, sweep=sweep)
+        check(launches[want] == MAX_LEN,
+              f"fp32 {name} decode: {launches}")
+        paths[f"editnet_beam5_{name}"] = {"launches_per_batch": launches}
+    for name, setup, mod, want in (
+            ("editnet_greedy", ed, emod,
+             {"fused_copy_lstm_cell": MAX_LEN,
+              "fused_additive_attention": 2 * MAX_LEN}),
+            ("dcnet_greedy", dc, dmod,
+             {"fused_lstm_cell": MAX_LEN,
+              "fused_additive_attention": MAX_LEN})):
+        _, _, p, voc = setup
+        gcfg = get_named_config(name).override(
+            {"decode.batch_size": N_IMAGES, **F32_SETS})
+        gmc = gcfg.model
+        gmodel = get_model(gmc)
+        kmodel = dataclasses.replace(
+            gmodel, step=lambda pp, c, st, t, mod=mod, gmc=gmc: mod.step(
+                pp, gmc, c, st, t, use_pallas=True))
+        kwd = dict(start_id=voc.start, end_id=-1, pad_id=voc.pad,
+                   device="cuda")
+        batch = _batch(gmc)
+        plain = make_decode_fn(gmodel, gcfg.decode, **kwd)
+        dispatch = make_decode_fn(kmodel, gcfg.decode, **kwd)
+        plain(p, *batch).cpu()
+        dispatch(p, *batch).cpu()
+        _reset(wrappers)
+        tokens = dispatch(p, *batch).cpu()
+        per_batch = {w_.__name__: w_.launches for w_ in wrappers}
+        for kname, n in want.items():
+            check(per_batch[kname] == n, f"fp32 {name}: {per_batch}")
+        timed = _timed_decodes({"plain": plain, "dispatch": dispatch},
+                               {"plain": batch, "dispatch": batch}, p)
+        agree = float((tokens == plain(p, *batch).cpu()).float().mean())
+        check(agree >= 0.5, f"fp32 {name}: dispatch tokens agree with the "
+                            f"plain decode on {agree} < 0.5")
+        paths[name] = {"launches_per_batch": per_batch,
+                       "captions_per_s": timed["dispatch"]["captions_per_s"],
+                       "runs": timed["dispatch"]["runs"],
+                       "plain_cells": timed["plain"],
+                       "token_agreement_dispatch_vs_plain": agree}
+    _reset(wrappers)
+    result = {"phase": "fp32", "ok": True, "card": card, "atol": F32_ATOL,
+              "tf32": False, "kernels": kernels, "paths": paths}
+    emit(result)
+    return result
+
+
+def _k10_kernels(ed, k) -> dict:
+    """Each head kernel and the whole step at k (the k <= 16 instances)
+    against its plain version at paper shape (N = 2560), with kernel,
+    device, plain, library and bound times."""
+    import dataclasses
+
+    import torch
+
+    from captionkit_torch.kernels import head as thead
+    from captionkit_torch.kernels import megastep as ms
+    from captionkit_torch.kernels import wholestep as ws
+    from captionkit_torch.models import get_model
+
+    N, H, V = N_IMAGES * BEAM, 1024, 9490
+    h, w, b = _head_inputs(N, H, V, 7)
+    h8, w_q, scale, b_q = _int8_inputs(N, H, V, 7)
+
+    def library():
+        logits = torch.matmul(h, w).float() + b
+        return torch.topk(logits, k).values, torch.logsumexp(logits, 1)
+
+    cases = {
+        "fused_head_topk": (lambda: thead.fused_head_topk(h, w, b, k=k),
+                            lambda: thead.reference_head_topk(h, w, b, k),
+                            head_agreement, library, False),
+        "fused_head_topk_thresh": (
+            lambda: thead.fused_head_topk_thresh(h, w, b, k=k),
+            lambda: thead.reference_head_topk(h, w, b, k), head_agreement,
+            library, False),
+        "head_sweep_topk": (lambda: thead.head_sweep_topk(h, w, b, k=k),
+                            lambda: thead.reference_head_topk(h, w, b, k),
+                            head_agreement, library, False),
+        "fused_head_topk_int8": (
+            lambda: thead.fused_head_topk_int8(h8, w_q, scale, b_q, k=k),
+            lambda: thead.reference_head_topk_int8(h8, w_q, scale, b_q, k),
+            int8_agreement, None, True),
+    }
+    out = {}
+    for name, (run, plain, agree, lib, int8) in cases.items():
+        res = _hold(f"{name} k={k}", run, plain, agree)
+        ms_ = time_ms(run, iters=10)
+        bound = _head_bound(N, H, V, k, int8=int8)
+        out[name] = {**res, "ms": ms_,
+                     "device_ms": _device_ms(run, ("head_",)),
+                     "plain_ms": time_ms(plain, iters=3),
+                     "library_ms": time_ms(lib, iters=10) if lib else None,
+                     **bound, "bound_share": bound["bound_ms"] / ms_}
+    cfg, _, params, _ = ed
+    mc = dataclasses.replace(cfg.model, cell_impl="wholestep")
+    with torch.inference_mode():
+        ctx_k = _encoded(get_model(mc), params, mc)
+    pack = ctx_k.cell_pack
+    g = torch.Generator().manual_seed(11)
+    h_att, c_att, h_lang, c_lang = (
+        (torch.randn((N, mc.hidden_dim), generator=g) * 0.5).cuda()
+        for _ in range(4))
+    emb = (torch.randn((N, mc.emb_dim), generator=g) * 0.1).cuda()
+    with torch.inference_mode():
+        h2, _, vhat_raw, c_star = ms.att_phase(pack, h_att, c_att, h_lang,
+                                               emb)
+    args = (pack, vhat_raw, h2, c_star, h_lang, c_lang, ctx_k.head_w,
+            ctx_k.head_b)
+    run = lambda: ws.fused_lang_head_topk(*args, k=k)  # noqa: E731
+    res = _hold(f"fused_lang_head_topk k={k}", run,
+                lambda: ws.reference_lang_head_topk(*args, k=k),
+                wholestep_agreement)
+    ms_ = time_ms(run, iters=10)
+    bound = _wholestep_bound(N, mc.hidden_dim, mc.feat_dim, mc.vocab_size, k)
+    out["fused_lang_head_topk"] = {
+        **res, "ms": ms_,
+        "device_ms": _device_ms(run, ("lang_head_kernel",)),
+        "plain_ms": time_ms(lambda: ws.reference_lang_head_topk(*args, k=k),
+                            iters=3), "library_ms": None, **bound,
+        "bound_share": bound["bound_ms"] / ms_}
+    return out
+
+
+def phase_beam10(ed, wrappers, card) -> dict:
+    """decode.beam_size = 10 (k = 10, above the first kernels' largest 8)
+    on editnet_beam5 at batch 512: the default path's decode through the
+    head kernel (22 launches a batch, captions/s), the head kernel against
+    its plain version on the decode's own states; the whole-step path at
+    k = 10 (decode beside the pallas cells, 22 launches a batch, its steps
+    check); and each head kernel and the whole step at k = 10 at paper
+    shape, timed."""
+    from captionkit_torch.kernels.head import fused_head_topk
+    from captionkit_torch.models import get_model
+
+    cfg, _, params, vocab = ed
+    beam = 10
+    cfg10 = cfg.override({"decode.beam_size": beam})
+    model = get_model(cfg10.model)
+    kw = dict(start_id=vocab.start, end_id=-1, pad_id=vocab.pad,
+              device="cuda")
+    launches, tokens = _count_decode(cfg10, model, params, vocab, wrappers)
+    check(launches["fused_head_topk"] == MAX_LEN,
+          f"beam 10 decode: {launches}")
+    from captionkit_torch.decode import make_decode_fn
+
+    batch = _batch(cfg10.model)
+    decode = make_decode_fn(model, cfg10.decode, **kw)
+    timed = _timed_decodes({"beam10": decode}, {"beam10": batch}, params)
+    steps = _check_steps(model, params, [t.cuda() for t in batch], kw,
+                         beam=beam)
+    cfg_w = cfg10.override({"model.cell_impl": "wholestep"})
+    model_w = get_model(cfg_w.model)
+    out_w, _, _, ctx_k, hyps = _decode_pair(
+        cfg_w, model_w, params, vocab, wrappers,
+        ("att_cell", "fused_lang_head_topk"), other="pallas", beam=beam)
+    steps_w = _check_wholestep_steps(model_w, cfg_w.model, params, ctx_k,
+                                     hyps, vocab.start, beam=beam)
+    result = {"phase": "beam10", "ok": True, "card": card, "beam": beam,
+              "batch": N_IMAGES, "steps": MAX_LEN,
+              "launches_per_batch": launches,
+              "head_launches": fused_head_topk.launches,
+              "captions_per_s": timed["beam10"]["captions_per_s"],
+              "runs": timed["beam10"]["runs"], "steps_check": steps,
+              "wholestep": {**out_w, "steps_check": steps_w},
+              "kernels": _k10_kernels(ed, beam)}
+    emit(result)
+    return result
+
+
+def phase_wide_head(card) -> dict:
+    """The single sweep (h streamed beside W above H = 1024) and the int8
+    head (its quantized rows in K chunks) at H = 2048 and 4096, N = 2560,
+    V = 9490, k = 5: within their bars against their plain versions; a
+    sweep that skips h's second 64-wide chunk (a planted fault) must fail;
+    kernel, plain, library and bound times."""
+    import torch
+
+    from captionkit_torch.kernels import head as thead
+
+    N, V, k = N_IMAGES * BEAM, 9490, BEAM
+    out = {}
+    for H in (2048, 4096):
+        g = torch.Generator().manual_seed(H)
+        h = torch.randn((N, H), generator=g).cuda()
+        w = (torch.randn((H, V), generator=g) * H ** -0.5).cuda()
+        b = (torch.randn((V,), generator=g) * 0.01).cuda()
+        hb = h.bfloat16()
+        w_p, b_p = thead.prepad_head(w, b, compute_dtype=torch.bfloat16)
+        skipped = hb.clone()
+        skipped[:, 64:128] = 0
+        sweep = _hold(f"head_sweep_topk H={H}",
+                      lambda: thead.head_sweep_topk(hb, w_p, b_p, k=k),
+                      lambda: thead.reference_head_topk(hb, w_p, b_p, k),
+                      head_agreement,
+                      [("second_h_chunk_skipped",
+                        lambda: thead.head_sweep_topk(skipped, w_p, b_p,
+                                                      k=k))])
+        wb = w.bfloat16()
+
+        def library():
+            logits = torch.matmul(hb, wb).float() + b
+            return torch.topk(logits, k).values, torch.logsumexp(logits, 1)
+
+        run = lambda: thead.head_sweep_topk(hb, w_p, b_p, k=k)  # noqa: E731
+        ms_ = time_ms(run, iters=10)
+        bound = _head_bound(N, H, V, k, int8=False)
+        out[f"head_sweep_topk/H={H}"] = {
+            **sweep, "ms": ms_, "device_ms": _device_ms(run, ("head_",)),
+            "plain_ms": time_ms(lambda: thead.reference_head_topk(
+                hb, w_p, b_p, k), iters=5),
+            "library_ms": time_ms(library, iters=10), **bound,
+            "bound_share": bound["bound_ms"] / ms_}
+        w_q, scale, b_q = thead.quantize_head(w, b)
+        run8 = lambda: thead.fused_head_topk_int8(  # noqa: E731
+            h, w_q, scale, b_q, k=k)
+        int8 = _hold(f"fused_head_topk_int8 H={H}", run8,
+                     lambda: thead.reference_head_topk_int8(h, w_q, scale,
+                                                            b_q, k),
+                     int8_agreement)
+        ms8 = time_ms(run8, iters=10)
+        bound8 = _head_bound(N, H, V, k, int8=True)
+        out[f"fused_head_topk_int8/H={H}"] = {
+            **int8, "ms": ms8, "device_ms": _device_ms(run8, ("head_",)),
+            "plain_ms": time_ms(lambda: thead.reference_head_topk_int8(
+                h, w_q, scale, b_q, k), iters=3), "library_ms": None,
+            **bound8, "bound_share": bound8["bound_ms"] / ms8}
+    result = {"phase": "wide_head", "ok": True, "card": card, "N": N,
+              "V": V, "k": k, "kernels": out}
+    emit(result)
+    return result
+
 
 
 def main() -> int:
@@ -2158,6 +2699,12 @@ def main() -> int:
         greedy = phase_greedy(ed, dc, WRAPPERS, card)
         phase = "wholestep"
         whole = phase_wholestep(ed, WRAPPERS, card)
+        phase = "fp32"
+        fp32 = phase_fp32(ed, dc, WRAPPERS, card)
+        phase = "beam10"
+        phase_beam10(ed, WRAPPERS, card)
+        phase = "wide_head"
+        phase_wide_head(card)
     except Exception as e:  # every failed phase ends the run non-zero
         traceback.print_exc()
         emit({"phase": phase, "ok": False,
@@ -2317,6 +2864,40 @@ def main() -> int:
             "cuda_launches_per_call": res["cuda_launches_per_call"],
             "check": "ok",
             "max_abs_err": err,
+            "ms": res["ms"],
+            "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"],
+            "library_ms": res["library_ms"],
+        })
+    # The fp32 instances (compute_dtype="float32"), each with its launches
+    # a batch on the fp32 path that runs it.
+    sources = {e["name"]: (e["source"], e["replaces"]) for e in kernels}
+    fp32_paths = {
+        "fused_head_topk": "editnet_beam5_pallas",
+        "fused_head_topk_thresh": "editnet_beam5_thresh",
+        "head_sweep_topk": "editnet_beam5_sweep",
+        "att_cell": "editnet_beam5_pallas", "lang_cell":
+        "editnet_beam5_pallas", "dcnet_score": "dcnet_beam5_pallas",
+        "dcnet_cell": "dcnet_beam5_pallas",
+        "fused_lang_head_topk": "editnet_beam5_wholestep",
+        "fused_lstm_cell": "dcnet_greedy",
+        "fused_copy_lstm_cell": "editnet_greedy",
+        "fused_additive_attention": "editnet_greedy"}
+    for name, res in fp32["kernels"].items():
+        launches = fp32["paths"][fp32_paths[name]]["launches_per_batch"][name]
+        check(launches > 0, f"fp32 kernel {name} was not launched on its "
+                            "path")
+        kernels.append({
+            "name": f"{name}[fp32]",
+            "route": "cuda",
+            "source": sources[name][0],
+            "replaces": sources[name][1],
+            "launches": launches,
+            "launches_per_batch": launches,
+            "cuda_launches_per_call": res["cuda_launches_per_call"],
+            "check": "ok",
+            "max_abs_err": res["max_abs_err"],
             "ms": res["ms"],
             "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"],

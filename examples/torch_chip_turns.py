@@ -7,11 +7,12 @@ Runs ``python3 chip_smoke.py`` in PARENT_DIR and CHANGE_DIR (default: this
 checkout) in the order parent, change, change, parent, each as its own
 process, and writes each run's output to DIR/<label>_<n>.log. Then prints
 one JSON object: for every kernel of the runs' ``kernels`` lines its ms per
-run, for every measured field of the redesigned kernels' rows (the
-``cell_kernels`` times, the ``head_variants`` kernels) their values per
-run, and every captions/s figure of the decode phases per run, each with
-the change's mean over the parent's. Fails if any run fails. Imports
-nothing of JAX; needs the card.
+run, for every measured field of the kernels' rows (the ``cell_kernels``
+times, the ``head_variants``, ``megastep``, ``fp32``, ``beam10`` and
+``wide_head`` kernels, the ``wholestep`` kernel and the two programs it is set
+against) their values per run, and every captions/s figure of the decode
+phases per run, each with the change's mean over the parent's. Fails if
+any run fails. Imports nothing of JAX; needs the card.
 """
 
 from __future__ import annotations
@@ -25,7 +26,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 FIELDS = ("ms", "device_ms", "library_ms", "library_device_ms", "plain_ms",
-          "bound_ms", "bound_share", "cuda_launches_per_call")
+          "bound_ms", "bound_share", "device_bound_share",
+          "cuda_launches_per_call", "two_programs_ms",
+          "two_programs_device_ms", "lang_cell_then_sweep_ms",
+          "lang_cell_then_sweep_device_ms")
 
 
 def run(checkout: Path, log: Path) -> list[dict]:
@@ -64,11 +68,17 @@ def summary(lines: list[dict]) -> dict:
                 for f in FIELDS:
                     if t.get(f) is not None:
                         out[f"cell_kernels/{name}/{f}"] = t[f]
-        if phase == "head_variants":
+        if phase in ("head_variants", "megastep", "fp32", "beam10",
+                     "wide_head"):
             for name, t in line["kernels"].items():
                 for f in FIELDS:
                     if t.get(f) is not None:
-                        out[f"head_variants/{name}/{f}"] = t[f]
+                        out[f"{phase}/{name}/{f}"] = t[f]
+        if phase == "wholestep":
+            for f in FIELDS:
+                if line["kernel"].get(f) is not None:
+                    out[f"wholestep/fused_lang_head_topk/{f}"] = \
+                        line["kernel"][f]
         if phase is not None:
             for path, value in captions(line):
                 out[f"{phase}/{path}/captions_per_s"] = value

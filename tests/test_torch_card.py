@@ -68,15 +68,26 @@ def test_kernel_ties_exact(card, V, k):
 
 
 def test_kernel_rejects_what_it_does_not_take(card):
-    h = torch.zeros((4, 16), device=card)  # fp32, not bf16
+    h = torch.zeros((4, 16), device=card)  # fp32 h against bf16 w
     w = torch.zeros((16, 128), device=card, dtype=torch.bfloat16)
     b = torch.zeros((128,), device=card)
     with pytest.raises(TypeError):
         thead.fused_head_topk(h, w, b, k=5)
     with pytest.raises(ValueError):  # V not a multiple of 8
         thead.fused_head_topk(h.bfloat16(), w[:, :100], b[:100], k=5)
-    with pytest.raises(ValueError):  # k above the kernel's largest
-        thead.fused_head_topk(h.bfloat16(), w, b, k=9)
+    # k = 9, above the first kernels' largest (8), runs and matches the
+    # plain version; above the largest instance (64) raises with the limit.
+    g = torch.Generator().manual_seed(9)
+    hr = torch.randn((40, 16), generator=g).to(card, torch.bfloat16)
+    wr = torch.randn((16, 128), generator=g).to(card, torch.bfloat16)
+    got = thead.fused_head_topk(hr, wr, b, k=9)
+    want = thead.reference_head_topk(hr, wr, b, 9)
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=0)
+    before = thead.fused_head_topk.launches
+    with pytest.raises(ValueError, match="64"):
+        thead.fused_head_topk(h.bfloat16(), w, b, k=65)
+    assert thead.fused_head_topk.launches == before
 
 
 def _paper_head(card, seed=7):
@@ -218,12 +229,23 @@ def test_sweep_kernel_ragged_rows_and_share_ties(card, N, k):
 
 
 def test_sweep_kernel_rejects_a_wide_h(card):
-    """The sweep keeps h resident: H above 1024 raises, nothing runs."""
-    h = torch.zeros((4, 1032), device=card, dtype=torch.bfloat16)
-    w = torch.zeros((1032, 128), device=card, dtype=torch.bfloat16)
+    """H above the resident 1024 now streams h beside W and matches the
+    plain head; an H the tensor maps cannot take (not a multiple of 8)
+    raises, and nothing runs."""
+    g = torch.Generator().manual_seed(1032)
+    h = torch.randn((70, 1032), generator=g).to(card, torch.bfloat16)
+    w = (torch.randn((1032, 384), generator=g) * 0.03).to(card,
+                                                          torch.bfloat16)
+    b = torch.zeros((384,), device=card)
+    got = thead.head_sweep_topk(h, w, b, k=5)
+    want = thead.reference_head_topk(h, w, b, 5)
+    assert float((got[1] == want[1]).float().mean()) >= 0.999
+    torch.testing.assert_close(got[0], want[0], atol=1e-3, rtol=0)
+    torch.testing.assert_close(got[2], want[2], atol=1e-3, rtol=0)
     before = thead.head_sweep_topk.launches
-    with pytest.raises(ValueError, match="1024"):
-        thead.head_sweep_topk(h, w, torch.zeros((128,), device=card), k=5)
+    with pytest.raises(ValueError):
+        thead.head_sweep_topk(h[:, :1028].contiguous(),
+                              w[:1028].contiguous(), b, k=5)
     assert thead.head_sweep_topk.launches == before
 
 
@@ -659,8 +681,14 @@ def test_attention_kernel_planted_fault_fails(card):
 
 def test_cell_kernels_reject_what_they_do_not_take(card):
     params, x, h, c, _ = _lstm_case(card, 8, 128, 128, copy=False)
-    with pytest.raises(TypeError):  # the kernels compute in bf16 only
-        tlstm.fused_lstm_cell(params, x, h, c, compute_dtype=torch.float32)
+    # fp32 compute runs the fp32 instance and matches its plain version.
+    got = tlstm.fused_lstm_cell(params, x, h, c, compute_dtype=torch.float32)
+    want = tlstm.reference_lstm_cell(params, x, h, c,
+                                     compute_dtype=torch.float32)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, atol=1e-5, rtol=0)
+    with pytest.raises(TypeError):  # no fp16 instance
+        tlstm.fused_lstm_cell(params, x, h, c, compute_dtype=torch.float16)
     aparams, keys, values, query, mask = _attention_case(card, 4, 10, 8, 32,
                                                          16)
     with pytest.raises(ValueError):  # no grouped beam layout
@@ -677,7 +705,11 @@ def test_cell_kernels_reject_what_they_do_not_take(card):
 
 
 @pytest.mark.parametrize("over,B,k", [(SMALL_CELLS, 7, 5), (SMALL_CELLS, 3, 1),
-                                      (PAPER_CELLS, 512, 5)])
+                                      (PAPER_CELLS, 512, 5),
+                                      (SMALL_CELLS, 3, 9),
+                                      (SMALL_CELLS, 3, 16),
+                                      (SMALL_CELLS, 3, 64),
+                                      (PAPER_CELLS, 512, 10)])
 def test_wholestep_kernel_matches_plain(card, over, B, k):
     """B9 against its plain version (lang cell, then the head of h_lang'
     in bf16): h and c within 1e-3, vals and lse within 1e-3, idx agreement
@@ -791,3 +823,353 @@ def test_cli_serves_on_card(card, config, sets, tmp_path, monkeypatch,
     assert all(isinstance(r["caption"], str) for r in out[1:])
     launched = twhole.fused_lang_head_topk.launches - before
     assert (launched > 0) == (config == "editnet_beam5")
+
+
+# -- any k, fp32 compute, wide heads, the sm90 lang cell ----------------------
+
+KS = (1, 9, 16, 32, 64)
+F32_CELLS = {"model.compute_dtype": "float32"}
+
+
+def _float_head(kernel, h, w, b, k):
+    if kernel == "mask":
+        return thead.fused_head_topk(h, w, b, k=k)
+    if kernel == "thresh":
+        return thead.fused_head_topk_thresh(h, w, b, k=k)
+    return thead.head_sweep_topk(h, w, b, k=k)
+
+
+def _head_pair(kernel, h, w, b, k, dt=torch.bfloat16):
+    """(kernel, plain) results of one head on the same inputs; float heads
+    take h and w in dt, the int8 head fp32 h and quantize_head's w."""
+    if kernel == "int8":
+        w_q, scale, b_p = thead.quantize_head(w, b)
+        return (thead.fused_head_topk_int8(h, w_q, scale, b_p, k=k),
+                thead.reference_head_topk_int8(h, w_q, scale, b_p, k))
+    h, w = h.to(dt), w.to(dt)
+    return _float_head(kernel, h, w, b, k), thead.reference_head_topk(h, w,
+                                                                      b, k)
+
+
+def _head_bar(got, want, kernel, atol=1e-3):
+    if kernel == "int8":
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        torch.testing.assert_close(got[2], want[2], atol=2e-4, rtol=0)
+        return
+    assert float((got[1] == want[1]).float().mean()) >= 0.999
+    torch.testing.assert_close(got[0], want[0], atol=atol, rtol=0)
+    torch.testing.assert_close(got[2], want[2], atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("kernel", ["mask", "thresh", "sweep", "int8"])
+def test_head_kernels_take_any_k(card, kernel, k):
+    """Every head kernel at k up to the largest instance: exact on integer
+    ties inside and across the 128-wide tiles (and, for the sweep, across
+    its cluster shares), and within its bar at paper shape."""
+    h, w, b = _tie_case(card, "adversarial")
+    got, want = _head_pair(kernel, h, w, b, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if kernel == "sweep":
+        (hs, ws, bs), _ = _share_tie_case(card, 65)
+        got = thead.head_sweep_topk(hs, ws, bs, k=k)
+        want = thead.reference_head_topk(hs, ws, bs, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    h, w, b = _paper_head(card)
+    w_p, b_p = thead.prepad_head(w, b, compute_dtype=torch.float32)
+    got, want = _head_pair(kernel, h, w_p if kernel != "int8" else w,
+                           b_p if kernel != "int8" else b, k)
+    assert tuple(got[0].shape) == (h.shape[0], k)
+    _head_bar(got, want, kernel)
+
+
+def test_k_above_the_largest_instance_raises(card):
+    """k = 65 raises with the limit named in every head wrapper and the
+    whole-step kernel, and nothing is counted."""
+    h, w, b = _tie_case(card, 384)
+    w_q, scale, b_p = thead.quantize_head(w, b)
+    calls = [
+        (thead.fused_head_topk, lambda: thead.fused_head_topk(
+            h.bfloat16(), w.bfloat16(), b, k=65)),
+        (thead.head_sweep_topk, lambda: thead.head_sweep_topk(
+            h.bfloat16(), w.bfloat16(), b, k=65)),
+        (thead.fused_head_topk_int8, lambda: thead.fused_head_topk_int8(
+            h, w_q, scale, b_p, k=65)),
+    ]
+    for wrapper, call in calls:
+        before = wrapper.launches
+        with pytest.raises(ValueError, match="64"):
+            call()
+        assert wrapper.launches == before
+    assert thead.kmax_for(9) == 16 and thead.kmax_for(64) == 64
+
+
+@pytest.mark.parametrize("kernel", ["mask", "sweep", "int8"])
+def test_ties_to_the_higher_id_fail_at_k16(card, kernel):
+    """A planted fault: the kernel run on the reversed vocab (ties broken
+    to the higher id once the ids are mapped back) must fail the exact bar
+    on the tie patterns at k = 16."""
+    h, w, b = _tie_case(card, "adversarial")
+    V = w.shape[1]
+    got, _ = _head_pair(kernel, h, w.flip(1).contiguous(), b.flip(0), 16)
+    _, want = _head_pair(kernel, h, w, b, 16)
+    idx = (V - 1) - got[1]
+    assert not torch.equal(idx, want[1])
+
+
+@pytest.mark.parametrize("kernel", ["mask", "thresh", "sweep"])
+def test_fp32_heads_match_plain(card, kernel):
+    """compute_dtype="float32": fp32 h and w through each float head's fp32
+    instance (fp32 products, not TF32) within 1e-5 of the plain version at
+    paper shape, idx agreement >= 0.999, ties exact at k = 16; an operand
+    rounded to bf16 (a planted fault) fails the 1e-5 bar."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    h, w, b = _paper_head(card)
+    w_p, b_p = thead.prepad_head(w, b, compute_dtype=torch.float32)
+    got, want = _head_pair(kernel, h, w_p, b_p, 5, torch.float32)
+    _head_bar(got, want, kernel, atol=1e-5)
+    bad = _float_head(kernel, h.bfloat16().float(), w_p, b_p, 5)
+    assert float((bad[2] - want[2]).abs().max()) > 1e-5
+    h, w, b = _tie_case(card, "adversarial")
+    got, want = _head_pair(kernel, h, w, b, 16, torch.float32)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("k", [5, 16])
+@pytest.mark.parametrize("H", [2048, 4096])
+@pytest.mark.parametrize("kernel", ["sweep", "int8"])
+def test_wide_heads_match_plain(card, kernel, H, k):
+    """The sweep (h streamed beside W above H = 1024) and the int8 head
+    (its quantized rows in K chunks) at H = 2048 and 4096, paper vocab:
+    within their bars. A sweep that skipped h's second 64-wide chunk (a
+    planted fault) fails the head bar."""
+    g = torch.Generator().manual_seed(H + k)
+    N, V = 2560, 9490
+    h = torch.randn((N, H), generator=g).to(card)
+    w = (torch.randn((H, V), generator=g) * H ** -0.5).to(card)
+    b = (torch.randn((V,), generator=g) * 0.01).to(card)
+    if kernel == "sweep":
+        w, b = thead.prepad_head(w, b, compute_dtype=torch.bfloat16)
+    got, want = _head_pair(kernel, h, w, b, k)
+    _head_bar(got, want, kernel)
+    if kernel == "sweep":
+        hs = h.bfloat16().clone()
+        hs[:, 64:128] = 0
+        bad = thead.head_sweep_topk(hs, w, b, k=k)
+        assert float((bad[2] - want[2]).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("over,B", [({**SMALL_CELLS, **F32_CELLS}, 7),
+                                    (F32_CELLS, 512)])
+def test_fp32_cell_kernels_match_plain(card, over, B):
+    """compute_dtype="float32": att_cell, lang_cell, dcnet_score and
+    dcnet_cell through their fp32 instances within 1e-5 of their plain
+    versions (fp32 sums in another order)."""
+    mc, pack, (h_att, c_att, h_lang, c_lang), emb = _cell_setup(
+        "editnet", over, card, B)
+    assert pack.dtype == torch.float32
+    got = megastep.att_cell(pack, emb, h_att, c_att, h_lang)
+    want = megastep.reference_att_cell(pack, emb, h_att, c_att, h_lang)
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == torch.float32
+        torch.testing.assert_close(g_, w_, atol=1e-5, rtol=0)
+    vhat = megastep._grouped(want[2], pack.features)
+    c_star = megastep._grouped(want[3], pack.enc_cs)
+    got = megastep.lang_cell(pack, vhat, want[0], h_lang, c_lang, c_star)
+    want = megastep.reference_lang_cell(pack, vhat, want[0], h_lang, c_lang,
+                                        c_star)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, atol=1e-5, rtol=0)
+    _, dpack, (h, c, _, _), demb = _cell_setup("dcnet", over, card, B)
+    got = megastep.dcnet_score(dpack, h)
+    want = megastep.reference_dcnet_score(dpack, h)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    ctx = megastep._grouped(want, dpack.enc_hs)
+    got = megastep.dcnet_cell(dpack, demb, ctx, h, c)
+    want = megastep.reference_dcnet_cell(dpack, demb, ctx, h, c)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("copy", [False, True])
+@pytest.mark.parametrize("N,D,H", [(8, 128, 128), (5, 48, 72),
+                                   (512, 3072, 1024), (65, 2080, 96)])
+def test_fp32_lstm_kernels_match_plain(card, N, D, H, copy):
+    """B5's fp32 instance within 1e-5 of its plain version; the same
+    inputs rounded to bf16 first (a planted fault) fail that bar."""
+    params, x, h, c, cs = _lstm_case(card, N, D, H, copy)
+    wrapper = tlstm.fused_copy_lstm_cell if copy else tlstm.fused_lstm_cell
+    plain = (tlstm.reference_copy_lstm_cell if copy
+             else tlstm.reference_lstm_cell)
+    tail = (cs,) if copy else ()
+    before = wrapper.launches
+    got = wrapper(params, x, h, c, *tail, compute_dtype=torch.float32)
+    assert wrapper.launches == before + 1
+    want = plain(params, x, h, c, *tail, compute_dtype=torch.float32)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, atol=1e-5, rtol=0)
+    bad = wrapper(params, x.bfloat16().float(), h, c, *tail,
+                  compute_dtype=torch.float32)
+    assert max(float((g_ - w_).abs().max()) for g_, w_ in zip(bad, want)) \
+        > 1e-5
+
+
+@pytest.mark.parametrize("B,N,A,V,Q,masked", [
+    (8, 36, 512, 2048, 1024, True), (6, 22, 64, 96, 96, True),
+    (512, 36, 512, 2048, 1024, False)])
+def test_fp32_attention_kernel_matches_plain(card, B, N, A, V, Q, masked):
+    """B6's fp32 instance (fp32 keys and values, fp32 query product):
+    ctx and weights within 1e-5 of its plain version."""
+    params, keys, values, query, mask = _attention_case(card, B, N, A, V, Q,
+                                                        masked=masked)
+    keys, values = keys.float(), values.float()
+    ctx, w = tattn.fused_additive_attention(
+        params, keys, values, query, mask, compute_dtype=torch.float32)
+    ctx_r, w_r = tattn.reference_additive_attention(
+        params, keys, values, query, mask, compute_dtype=torch.float32)
+    torch.testing.assert_close(w, w_r, atol=1e-5, rtol=0)
+    torch.testing.assert_close(ctx, ctx_r, atol=1e-5, rtol=0)
+
+
+def _wholestep_args(card, over, B, dt=torch.bfloat16, seed=3, K=5):
+    """(pack, the whole-step kernel's arguments) from an encoded batch of
+    B images with K beams each."""
+    mc, pack, (h_att, c_att, h_lang, c_lang), emb = _cell_setup(
+        "editnet", over, card, B, K=K)
+    g = torch.Generator().manual_seed(seed)
+    H, V = mc.hidden_dim, mc.vocab_size
+    w, b = thead.prepad_head(
+        (torch.randn((H, V), generator=g) * H ** -0.5).to(card),
+        (torch.randn((V,), generator=g) * 0.1).to(card), compute_dtype=dt)
+    h2, _, vhat_raw, c_star = megastep.att_phase(
+        pack, h_att[:, :H], c_att[:, :H], h_lang[:, :H], emb[:, :mc.emb_dim])
+    return pack, (pack, vhat_raw, h2, c_star, h_lang[:, :H].contiguous(),
+                  c_lang[:, :H].contiguous(), w, b)
+
+
+@pytest.mark.parametrize("over,B,k", [({**SMALL_CELLS, **F32_CELLS}, 7, 5),
+                                      ({**SMALL_CELLS, **F32_CELLS}, 3, 16),
+                                      (F32_CELLS, 512, 5)])
+def test_fp32_wholestep_kernel_matches_plain(card, over, B, k):
+    """The whole step's fp32 route within 1e-5 of its plain version (h, c,
+    vals, lse), idx agreement >= 0.999."""
+    _, args = _wholestep_args(card, over, B, torch.float32)
+    before = twhole.fused_lang_head_topk.launches
+    got = twhole.fused_lang_head_topk(*args, k=k)
+    assert twhole.fused_lang_head_topk.launches == before + 1
+    want = twhole.reference_lang_head_topk(*args, k=k)
+    for i in (0, 1, 2, 4):
+        torch.testing.assert_close(got[i], want[i], atol=1e-5, rtol=0)
+    assert float((got[3] == want[3]).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("F", [48, 2080])
+@pytest.mark.parametrize("N", [1, 65, 2561])
+def test_sm90_lang_cell_ragged_shapes(card, N, F):
+    """The sm90 lang cell and the whole-step kernel at row counts that
+    leave partial 128-row tiles (N = 1, 65, 2561) and feature widths that
+    pad to one and to 17 column blocks (F = 48, 2080): h, c within 1e-3;
+    the whole step's head within its bar."""
+    B, K = {1: (1, 1), 65: (13, 5), 2561: (2561, 1)}[N]
+    over = {"model.feat_dim": F}
+    pack, args = _wholestep_args(card, over, B, K=K)
+    _, vhat, h2, c_star, h_lang, c_lang, _, _ = args
+    got = megastep.lang_cell(pack, vhat, h2, h_lang, c_lang, c_star)
+    want = megastep.reference_lang_cell(pack, vhat, h2, h_lang, c_lang,
+                                        c_star)
+    for g_, w_ in zip(got, want):
+        assert tuple(g_.shape) == (N, pack.hp)
+        torch.testing.assert_close(g_, w_, atol=1e-3, rtol=0)
+    got = twhole.fused_lang_head_topk(*args, k=5)
+    want = twhole.reference_lang_head_topk(*args, k=5)
+    for g_, w_ in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g_, w_, atol=1e-3, rtol=0)
+    _head_bar(got[2:], want[2:], "mask")
+
+
+def test_sm90_lang_cell_planted_faults_fail(card):
+    """The bar catches, in the sm90 lang cell and the whole-step kernel, a
+    pack whose Copy-LSTM reads the gates of two hidden columns crossed and
+    one whose copy gate drops the c* K range."""
+    mc, pack, (h_att, c_att, h_lang, c_lang), emb = _cell_setup(
+        "editnet", PAPER_CELLS, card, 7)
+    H, Hp = mc.hidden_dim, pack.hp
+    h2, _, vhat, c_star = megastep.att_phase(
+        pack, h_att[:, :H], c_att[:, :H], h_lang[:, :H], emb[:, :mc.emb_dim])
+    want = megastep.reference_lang_cell(pack, vhat, h2, h_lang, c_lang,
+                                        c_star)
+    crossed = dataclasses.replace(pack, lang_w=torch.cat(
+        [pack.lang_w[:, :Hp].reshape(-1, Hp // 2, 2).flip(-1).reshape(-1, Hp),
+         pack.lang_w[:, Hp:]], dim=1).contiguous())
+    no_copy_k = dataclasses.replace(pack, wr=torch.cat(
+        [pack.wr[:-Hp], torch.zeros_like(pack.wr[-Hp:])]).contiguous())
+    for bad in (crossed, no_copy_k):
+        got = megastep.lang_cell(bad, vhat, h2, h_lang, c_lang, c_star)
+        err = max(float((g_ - w_).abs().max()) for g_, w_ in zip(got, want))
+        assert err > 1e-3
+    _, args = _wholestep_args(card, PAPER_CELLS, 7)
+    want = twhole.reference_lang_head_topk(*args, k=5)
+    for bad in (crossed, no_copy_k):
+        got = twhole.fused_lang_head_topk(bad, *args[1:], k=5)
+        assert float((got[0] - want[0]).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("cell_impl", ["xla", "pallas", "wholestep"])
+@pytest.mark.parametrize("arch", ["editnet", "dcnet"])
+def test_small_fp32_decode_on_card_matches_cpu(card, arch, cell_impl):
+    """A small model with compute_dtype="float32" decoded on the card
+    (every kernel of its path in its fp32 instance) and on the CPU: the
+    same captions for nearly every image; the kernels were launched."""
+    cfg = CaptionKitConfig().override({
+        **SMALL_CELLS, "model.arch": arch, "model.cell_impl": cell_impl,
+        "model.compute_dtype": "float32", "decode.beam_size": 5,
+        "decode.max_decode_len": 10})
+    model = get_model(cfg.model)
+    rng = np.random.default_rng(0)
+    B = 16
+    feats = torch.from_numpy(
+        rng.standard_normal((B, 6, 72)).astype(np.float32))
+    ex = torch.from_numpy(rng.integers(4, 300, (B, 8)))
+    ln = torch.from_numpy(rng.integers(2, 9, (B,)))
+    from captionkit_torch.kernels import WRAPPERS
+
+    out, launched = {}, {}
+    for dev in ("cpu", "cuda"):
+        params = model.init(0, dev)
+        fn = make_decode_fn(model, cfg.decode, start_id=2, end_id=-1,
+                            device=dev)
+        before = sum(w.launches for w in WRAPPERS)
+        out[dev] = fn(params, feats, ex, ln).cpu()
+        launched[dev] = sum(w.launches for w in WRAPPERS) - before
+    assert launched["cpu"] == 0 and launched["cuda"] >= 10
+    rows = (out["cpu"] == out["cuda"]).all(dim=1).float().mean()
+    assert float(rows) >= 0.9
+
+
+@pytest.mark.parametrize("cell_impl", ["xla", "wholestep"])
+def test_small_beam10_decode_on_card_matches_cpu(card, cell_impl):
+    """decode.beam_size = 10 (k = 10 > 8) through the head kernel and the
+    whole-step kernel on the card: the same captions as the CPU for nearly
+    every image."""
+    cfg = CaptionKitConfig().override({
+        **SMALL_CELLS, "model.cell_impl": cell_impl, "decode.beam_size": 10,
+        "decode.max_decode_len": 10})
+    model = get_model(cfg.model)
+    rng = np.random.default_rng(0)
+    B = 16
+    feats = torch.from_numpy(
+        rng.standard_normal((B, 6, 72)).astype(np.float32))
+    ex = torch.from_numpy(rng.integers(4, 300, (B, 8)))
+    ln = torch.from_numpy(rng.integers(2, 9, (B,)))
+    wrapper = (twhole.fused_lang_head_topk if cell_impl == "wholestep"
+               else thead.fused_head_topk)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = model.init(0, dev)
+        fn = make_decode_fn(model, cfg.decode, start_id=2, end_id=-1,
+                            device=dev)
+        before = wrapper.launches
+        out[dev] = fn(params, feats, ex, ln).cpu()
+        assert wrapper.launches - before == (10 if dev == "cuda" else 0)
+    rows = (out["cpu"] == out["cuda"]).all(dim=1).float().mean()
+    assert float(rows) >= 0.9
