@@ -1,28 +1,27 @@
 // Shared pieces of the decode-cell kernels (megastep.cu, lstm.cu,
 // attention.cu, wholestep.cu): the split-operand GEMM tile with its gated
-// (LSTM, Copy-LSTM) and plain epilogues.
+// (LSTM, Copy-LSTM) and plain epilogues, for the fp32 instances
+// (compute_dtype="float32") of every cell kernel and for the two bf16
+// query products not yet on sm90_cell.cuh (dcnet_score's and B6's).
 //
-// gemm_tile<G, EPI, NT>: one block accumulates a 64-row tile against G
-// column groups of 32 with bf16 tensor-core MMA (nvcuda::wmma, fp32
-// accumulation), 2 (rows) x G (column groups) warps of a block of NT >= 64 G
-// threads; the other warps help load and run the epilogue. The operands
-// are successive K ranges of one accumulation, so a split operand ([x | h |
-// c*], [v_hat | h_att | h_lang | c*]) never exists concatenated in device
-// memory. fp32 operands are rounded to bf16 as they are loaded, as the
-// reference rounds them before its products.
-//
+// gemm_tile<G, EPI, NT, T>: one block owns a 64-row tile and G column
+// groups of 32. The operands are successive K ranges of one accumulation,
+// so a split operand ([x | h | c*], [v_hat | h_att | h_lang | c*]) never
+// exists concatenated in device memory.
+// - T = float: fp32 operands and fp32 weights staged through shared
+//   memory and multiplied with fp32 FMA on the CUDA cores (not TF32), each
+//   of the tile's first 64 G threads register-blocked over 8 rows x 4
+//   columns.
+// - T = bf16 (EPI_STORE only): bf16 tensor-core MMA (nvcuda::wmma, fp32
+//   accumulation), 2 (rows) x G (column groups) warps of a block of NT >=
+//   64 G threads, the other warps helping to load; fp32 operands are
+//   rounded to bf16 as they are loaded, as the reference rounds them
+//   before its products.
+// The fp32 result tile lands in shared memory and the epilogue runs on it.
 // In the gated epilogues a block owns hidden columns [j, j+32) and its
 // column groups are the i, f, g, o (and copy-gate r) tiles of those
-// columns, read straight from gate-major [K, 4H] weights; the LSTM update
-// runs on the tile in shared memory and the gate pre-activations are never
-// written out.
-//
-// fp32 (compute_dtype="float32"): every tile and epilogue takes an element
-// type T. T = float stages fp32 operands and fp32 weights through shared
-// memory and multiplies them with fp32 FMA on the CUDA cores (not TF32),
-// each of the tile's first 64 G threads register-blocked over 8 rows x 4
-// columns; the fp32 result tile lands in the same shared-memory place and
-// the same epilogues run on it (EPI_GATE_MUL then writes fp32).
+// columns, read straight from gate-major [K, 4H] weights; the gate
+// pre-activations are never written out.
 //
 // Everything lives in namespace `cell`, so a source can include this and
 // head_common.cuh side by side.
@@ -53,7 +52,7 @@ constexpr int LDAF = BM + 4;  // fp32: the k-major activation stage's stride
 enum Epilogue : int {
   EPI_LSTM = 0,       // 4 gate groups; h, c = LSTM(z + zadd + bias, c_prev)
   EPI_COPY_LSTM = 1,  // 5 gate groups (i f g o r); the Copy-LSTM update
-  EPI_GATE_MUL = 2,   // out bf16 = sigmoid(z + bias) * x
+  EPI_GATE_MUL = 2,   // out fp32 = sigmoid(z + bias) * x
   EPI_STORE = 3,      // out fp32 = z
 };
 
@@ -78,11 +77,9 @@ struct GemmArgs {
   const float* c_prev;      // gated: [N, cols]
   const float* c_star;      // EPI_COPY_LSTM: [N, cols]
   const float* x;           // EPI_GATE_MUL: [N, cols]
-  int x_round;              // EPI_GATE_MUL: round x to bf16 first
   float* h_out;             // gated: [N, cols]
   float* c_out;             // gated: [N, cols]
-  __nv_bfloat16* h_bf16;    // gated: h rounded to bf16 [N, cols], or null
-  void* out;                // EPI_GATE_MUL T / EPI_STORE fp32 [N, cols]
+  void* out;                // EPI_GATE_MUL, EPI_STORE: fp32 [N, cols]
 };
 
 __device__ __forceinline__ float sigmoidf(float x) {
@@ -250,6 +247,7 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& args, int nb,
   constexpr bool GATED = (EPI == EPI_LSTM || EPI == EPI_COPY_LSTM);
   constexpr bool F32 = std::is_same<T, float>::value;
   static_assert(NT >= 64 * G, "a tile needs 2 x G warps");
+  static_assert(F32 || EPI == EPI_STORE, "the bf16 tile is a plain store");
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Bs = As + BM * LDA;
   float* Cs = reinterpret_cast<float*>(smem);
@@ -273,12 +271,7 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& args, int nb,
 
   for (int s = 0; s < args.n_ops; ++s) {
     const Operand op = args.op[s];
-    const auto* w_gates = static_cast<const __nv_bfloat16*>(op.w_gates);
-    const auto* w_copy = static_cast<const __nv_bfloat16*>(op.w_copy);
-    // A gated operand may feed only some gate groups (c* feeds only r).
-    const bool active =
-        mma_warp &&
-        (!GATED || (wc < 4 ? w_gates != nullptr : w_copy != nullptr));
+    const auto* w = static_cast<const __nv_bfloat16*>(op.w_gates);
     for (int k0 = 0; k0 < op.k; k0 += BK) {
       for (int v = tid; v < BM * BK / 8; v += NT) {  // A tile
         const int r = v / (BK / 8);
@@ -297,25 +290,12 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& args, int nb,
       for (int v = tid; v < BK * TN / 8; v += NT) {  // weight tile
         const int r = v / (TN / 8);
         const int t = (v % (TN / 8)) * 8;
-        const size_t krow = (size_t)(k0 + r);
-        const __nv_bfloat16* src = nullptr;
-        if (GATED) {
-          const int g = t / BN;
-          const int col = nb * BN + t % BN;
-          if (g < 4) {
-            if (w_gates) src = w_gates + krow * 4 * cols + g * cols + col;
-          } else if (w_copy) {
-            src = w_copy + krow * cols + col;
-          }
-        } else {
-          src = w_gates + krow * cols + nb * TN + t;
-        }
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (src) val = *reinterpret_cast<const uint4*>(src);
-        *reinterpret_cast<uint4*>(Bs + r * LDB + t) = val;
+        *reinterpret_cast<uint4*>(Bs + r * LDB + t) =
+            *reinterpret_cast<const uint4*>(w + (size_t)(k0 + r) * cols +
+                                            nb * TN + t);
       }
       __syncthreads();
-      if (active) {
+      if (mma_warp) {
 #pragma unroll
         for (int kk = 0; kk < BK; kk += 16) {
           wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
@@ -381,10 +361,8 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& args, int nb,
         const float rg = sigmoidf(cr[4 * BN + c] + args.bias_r[j]);
         c_new = rg * args.c_star[idx] + (1.0f - rg) * c_new;
       }
-      const float h_new = sigmoidf(zo) * tanhf(c_new);
-      args.h_out[idx] = h_new;
+      args.h_out[idx] = sigmoidf(zo) * tanhf(c_new);
       args.c_out[idx] = c_new;
-      if (args.h_bf16) args.h_bf16[idx] = __float2bfloat16_rn(h_new);
     }
   } else {
     for (int e = tid; e < BM * TN; e += NT) {
@@ -395,28 +373,18 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& args, int nb,
       const int col = nb * TN + c;
       const size_t idx = (size_t)gr * cols + col;
       const float z = Cs[r * LDC + c];
-      if (EPI == EPI_GATE_MUL) {
-        float x = args.x[idx];
-        if (args.x_round) x = __bfloat162float(__float2bfloat16_rn(x));
-        if constexpr (F32)
-          static_cast<float*>(args.out)[idx] = sigmoidf(z + args.bias[col]) * x;
-        else
-          static_cast<__nv_bfloat16*>(args.out)[idx] =
-              __float2bfloat16_rn(sigmoidf(z + args.bias[col]) * x);
-      } else {
-        static_cast<float*>(args.out)[idx] = z;
-      }
+      static_cast<float*>(args.out)[idx] =
+          EPI == EPI_GATE_MUL ? sigmoidf(z + args.bias[col]) * args.x[idx]
+                              : z;
     }
   }
 }
 
 // One tile per block: grid = (column blocks, 64-row blocks). The gated
-// epilogues leave the register count to the compiler (64 for the
-// Copy-LSTM, ~100 for the LSTM). The plain ones ask for four resident
-// blocks per SM, which holds them to 64 registers; left alone the
-// compiler gives them 100 and they run slower (PERF.md). Naming a
-// minimum of one block for the gated ones is not the same as naming none:
-// it moves the Copy-LSTM to 86 registers, also slower.
+// (fp32) instances leave the register count to the compiler. The plain
+// ones ask for four resident blocks per SM, which holds the bf16 tile to
+// 64 registers; left alone the compiler gave it 100 and it ran slower
+// (PERF.md).
 template <int G, int EPI, typename T = __nv_bfloat16>
 __global__ void __launch_bounds__(64 * G)
     gemm_kernel(const __grid_constant__ GemmArgs args) {

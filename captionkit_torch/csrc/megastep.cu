@@ -20,20 +20,41 @@
 // Design. A TPU row block holds all 4H gate columns of its rows, so the
 // Pallas kernels finish h_att and multiply it by Wq in the same kernel. On
 // Hopper the blocks run in parallel and one cannot hold [rows, 4H] fp32,
-// so each C entry point below is two or three launches on one stream:
+// so each C entry point below is two or three launches on one stream.
 //
-//   gemm_kernel<G, EPI> and gemm_kernel_plain<G, EPI> (cell_common.cuh,
-//     shared with lstm.cu, attention.cu and wholestep.cu), grid = (column
-//     blocks, 64-row blocks): a block
-//     accumulates a 64-row tile against G column groups of 32 with bf16
-//     tensor-core MMA (nvcuda::wmma, fp32 accumulation). The split operands
-//     of a cell ([emb | h_lang | h_att], [v_hat | h_att | h_lang | c*],
-//     [emb | part | h]) are successive K ranges of one accumulation, so no
-//     concat exists in device memory. In the gated epilogues a block owns
-//     hidden columns [j, j+32) and its column groups are the i, f, g, o
-//     (and copy-gate r) tiles of those columns, read straight from the
-//     gate-major [K, 4H] weights; the LSTM update runs on the tile in
-//     shared memory and the gate pre-activations are never written out.
+// The bf16 cell GEMMs run on sm90_cell.cuh, the TMA-ring / register-A
+// wgmma GEMM shared with lstm.cu and wholestep.cu: a CTA of 384 threads
+// owns 128 rows and either 32 hidden columns of a gated product (its i, f,
+// g, o boxes, plus r for the Copy-LSTM) or 128 columns of a plain one; the
+// split operands of a cell ([emb | h_lang | h_att], [v_hat | h_att |
+// h_lang | c*], [emb | part | h]) are successive K ranges of one
+// accumulation, so no concat exists in device memory, and the LSTM update
+// runs in registers. At N = 2560 a gated launch is 20 x 32 = 640 CTAs
+// (4.8 waves on 132 SMs).
+//
+//   ck_att_cell (3 launches):
+//     1. the att-LSTM over [emb | h_lang | h_att], all fp32 rounded to bf16
+//        in registers, K = E + 2H = 3072, plus the row's zvb (kLstmZadd),
+//        writing h' and c' in fp32 and h' rounded to bf16: 64.4 GFLOP;
+//     2. the two query products as one plain GEMM of that bf16 h' against
+//        [Wq_vis | Wq_scma] -> q fp32 [N, 2A] (kStore): 5.4 GFLOP;
+//     3. scores_kernel for both heads.
+//   ck_lang_cell (2 launches):
+//     1. the visual gate, v_hat = sigmoid(h_att Wg + bg) * round_bf16(
+//        vhat_raw) -> bf16 [N, Fp] (kGateMul): 10.7 GFLOP; its idle threads
+//        write bf16 copies of h_att, h_lang and c* (15.7 MB);
+//     2. the Copy-LSTM over [v_hat | h_att | h_lang | c*], all bf16: K = F
+//        + 2H = 4096 for the base gates and F + 3H = 5120 for r (c* feeds
+//        only r), 112.7 GFLOP.
+//   ck_dcnet_score (2 launches): the query product on cell_common.cuh's
+//     wmma tile (gemm_kernel_plain, 2.7 GFLOP), then scores_kernel.
+//   ck_dcnet_cell (2 launches):
+//     1. the context gate, part = bf16(sigmoid(h Wg + bg) * ctx) with the
+//        fp32 ctx unrounded (kGateMulX32, as the reference multiplies the
+//        fp32 einsum): 5.4 GFLOP;
+//     2. the decoder LSTM over [emb | part | h] (emb and h fp32 rounded in
+//        registers, part bf16), K = 3072, bias b: 64.4 GFLOP.
+//
 //   scores_kernel, grid = (images, attention heads): one block per image.
 //     Each warp takes a key position, holds that key row in registers and
 //     reuses it for the image's K query rows (the keys are read once per
@@ -41,36 +62,15 @@
 //     is reduced over A with warp shuffles; then one warp per query row
 //     takes the masked softmax over the positions.
 //
-// Launches per call: ck_att_cell 3 (gates + LSTM; the two query products
-// as one GEMM against [Wq_vis | Wq_scma]; scores + softmax for both
-// heads), ck_lang_cell 2 (visual gate -> v_hat; base + copy gates +
-// blend), ck_dcnet_score 2 (query GEMM; scores + softmax), ck_dcnet_cell 2
-// (context gate -> part; LSTM).
-//
 // What bounds them on the H100 (paper shape, N = 512 images x 5 beams):
-// the cell GEMMs are bound by operations (2 N K 4H with K = 3072 for the
-// att-LSTM: 64 GFLOP, 65 us at 989 TFLOP/s) and the score kernels by bytes
-// (the per-image keys). att_cell and the DCNet kernels are still the first
-// plain version: wmma rather than wgmma, one shared-memory stage, no
-// cp.async or TMA pipeline, and every 64-row block streams its weight
-// columns from L2.
-//
-// ck_lang_cell (bf16) runs on sm90_cell.cuh, the TMA-ring / register-A
-// wgmma GEMM shared with lstm.cu and wholestep.cu. Its two launches:
-//   1. the visual gate, v_hat = sigmoid(h_att Wg + bg) * round_bf16(
-//      vhat_raw) -> bf16 [N, Fp]: 128 x 128 tiles, 2 N H F = 10.7 GFLOP;
-//   2. the Copy-LSTM over [v_hat | h_att | h_lang | c*], all bf16 (the
-//      gate launch's idle threads write bf16 copies of the three fp32
-//      ones, 15.7 MB): 128 rows x 32 hidden columns a CTA (the i,
-//      f, g, o boxes plus r), K = F + 2H = 4096 for the base gates and F +
-//      3H = 5120 for r (c* feeds only r), 112.7 GFLOP, the update in
-//      registers.
-// At N = 2560 that is 20 x 32 = 640 CTAs (4.8 waves on 132 SMs). What
-// bounds it is not the products (0.125 ms at 989 TFLOP/s) but the L2 -> SM
-// traffic: each 128-row block reads the 44.1 MB of Copy-LSTM weights'
-// columns once (20 x 44.1 = 0.88 GB), each 32-column block its rows'
-// activations (10 KB of bf16 a row: 32 x 26 MB = 0.84 GB; read in fp32,
-// h_att, h_lang and c* would make it 14 KB a row, 1.15 GB).
+// the cell GEMMs are bound by operations (the att-LSTM's 64.4 GFLOP is 65
+// us at 989 TFLOP/s) and the score kernels by bytes (the per-image keys).
+// What stands between the sm90 GEMMs and the tensor-core rate is the L2 ->
+// SM traffic: each 128-row block reads its weight columns (the att-LSTM's
+// 25.2 MB: 20 x 25.2 = 0.50 GB), each 32-column block its rows'
+// activations (the att-LSTM's 12 KB of fp32 a row: 32 x 31.5 MB = 1.0 GB;
+// the lang cell's 10 KB of bf16 a row, 0.84 GB, against 0.88 GB of
+// weights).
 //
 // fp32 (compute_dtype="float32"): every entry point runs cell_common.cuh's
 // fp32 tile (fp32 FMA on the CUDA cores, not TF32) with the same
@@ -256,6 +256,70 @@ cudaError_t lang_cell_sm90(const void* vhat_raw, const void* h_att,
   return launch_cell<kCopyLstm, 4, 0u, 0b0111u, 0b1111u>(g, Hp / TILE, s);
 }
 
+// ck_att_cell's bf16 products on sm90_cell.cuh: the att-LSTM over [emb |
+// h_lang | h_att] (fp32, rounded in registers) plus the row's zvb, writing
+// h' also rounded to bf16 (h16), then the query product h16 [Wq_vis |
+// Wq_scma] -> q fp32.
+cudaError_t att_cell_sm90(const void* emb, const void* h_att,
+                          const void* c_att, const void* h_lang,
+                          const void* zvb, const void* w_emb,
+                          const void* w_hl, const void* w_ha, const void* wq,
+                          void* h_out, void* c_out, void* h16, void* q, int N,
+                          int Ep, int Hp, int Ap, cudaStream_t s) {
+  using namespace sm90cell;
+  if (N < 1 || Ep < 128 || Ep % 128 || Hp < 128 || Hp % 128 || Ap < 64 ||
+      Ap % 64)
+    return cudaErrorInvalidValue;
+  CellArgs g = gated_args(N, Hp);
+  CK_TRY(set_operand(g, 0, emb, 1, Ep, w_emb, 4 * Hp, nullptr));
+  CK_TRY(set_operand(g, 1, h_lang, 1, Hp, w_hl, 4 * Hp, nullptr));
+  CK_TRY(set_operand(g, 2, h_att, 1, Hp, w_ha, 4 * Hp, nullptr));
+  g.zadd = f32(zvb);
+  g.c_prev = f32(c_att);
+  g.h_out = static_cast<float*>(h_out);
+  g.c_out = static_cast<float*>(c_out);
+  g.h_bf16 = static_cast<__nv_bfloat16*>(h16);
+  CK_TRY((launch_cell<kLstmZadd, 3, 0b111u, 0b111u, 0u>(g, Hp / TILE, s)));
+
+  CellArgs gq = plain_args(N, 2 * Ap);
+  CK_TRY(set_operand(gq, 0, h16, 0, Hp, wq, 2 * Ap, nullptr));
+  gq.out = q;
+  return launch_cell<kStore, 1, 0u, 1u, 0u>(gq, 2 * Ap / 128, s);
+}
+
+// ck_dcnet_cell's bf16 launches on sm90_cell.cuh: the context gate, part
+// = bf16(sigmoid(h Wg + bg) * ctx) with ctx unrounded, then the decoder
+// LSTM over [emb | part | h] (emb and h fp32, part bf16). A bf16 copy of h
+// written by the gate launch's idle threads (as the lang cell does) made
+// the pair slower on the card (PERF.md), so the LSTM rounds h itself.
+cudaError_t dcnet_cell_sm90(const void* emb, const void* ctx, const void* h,
+                            const void* c, const void* gate_w,
+                            const void* gate_b, const void* w_emb,
+                            const void* w_part, const void* w_h,
+                            const void* b, void* h_out, void* c_out,
+                            void* part, int N, int Ep, int Hp,
+                            cudaStream_t s) {
+  using namespace sm90cell;
+  if (N < 1 || Ep < 128 || Ep % 128 || Hp < 128 || Hp % 128)
+    return cudaErrorInvalidValue;
+  CellArgs gp = plain_args(N, Hp);
+  CK_TRY(set_operand(gp, 0, h, 1, Hp, gate_w, Hp, nullptr));
+  gp.bias = f32(gate_b);
+  gp.x = f32(ctx);
+  gp.out = part;
+  CK_TRY((launch_cell<kGateMulX32, 1, 1u, 1u, 0u>(gp, Hp / 128, s)));
+
+  CellArgs g = gated_args(N, Hp);
+  CK_TRY(set_operand(g, 0, emb, 1, Ep, w_emb, 4 * Hp, nullptr));
+  CK_TRY(set_operand(g, 1, part, 0, Hp, w_part, 4 * Hp, nullptr));
+  CK_TRY(set_operand(g, 2, h, 1, Hp, w_h, 4 * Hp, nullptr));
+  g.bias = f32(b);
+  g.c_prev = f32(c);
+  g.h_out = static_cast<float*>(h_out);
+  g.c_out = static_cast<float*>(c_out);
+  return launch_cell<kLstm, 3, 0b101u, 0b111u, 0u>(g, Hp / TILE, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -266,39 +330,46 @@ extern "C" {
 // [Hp, 4Hp], wq [Hp, 2Ap] (visual | SCMA query products); fp32 vis_b,
 // vis_v, scma_b, scma_v [Ap]; keys vis_keys [B, R, Ap], scma_keys [B, T,
 // Ap]; fp32 mask [B, T]. Outputs: h_out, c_out [N, Hp] fp32, alpha [N, R]
-// and beta [N, T]. Scratch: q [N, 2Ap] fp32. Weights, keys, alpha and
-// beta are bf16, or fp32 when f32.
+// and beta [N, T]. Scratch: q [N, 2Ap] fp32 and (bf16 only) h16 [N, Hp]
+// bf16. Weights, keys, alpha and beta are bf16 (sm90_cell.cuh; Ep, Hp
+// multiples of 128), or fp32 when f32 (cell_common.cuh's fp32 tile; h16
+// unused).
 int ck_att_cell(const void* emb, const void* h_att, const void* c_att,
                 const void* h_lang, const void* zvb, const void* w_emb,
                 const void* w_hl, const void* w_ha, const void* wq,
                 const void* vis_b, const void* vis_v, const void* scma_b,
                 const void* scma_v, const void* vis_keys,
                 const void* scma_keys, const void* mask, void* h_out,
-                void* c_out, void* alpha, void* beta, void* q, int N, int B,
-                int Ep, int Hp, int Ap, int R, int T, int f32, int device,
-                void* stream) {
+                void* c_out, void* alpha, void* beta, void* q, void* h16,
+                int N, int B, int Ep, int Hp, int Ap, int R, int T, int f32,
+                int device, void* stream) {
   if (B < 1 || N % B || R < 1 || T < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 
-  GemmArgs g = gemm_args(N, Hp);
-  g.op[0] = operand(emb, 1, Ep, w_emb);
-  g.op[1] = operand(h_lang, 1, Hp, w_hl);
-  g.op[2] = operand(h_att, 1, Hp, w_ha);
-  g.n_ops = 3;
-  g.zadd = cell::f32(zvb);
-  g.c_prev = cell::f32(c_att);
-  g.h_out = static_cast<float*>(h_out);
-  g.c_out = static_cast<float*>(c_out);
-  err = launch_gemm<4, EPI_LSTM>(g, f32, s);
-  if (err != cudaSuccess) return (int)err;
+  if (f32) {
+    GemmArgs g = gemm_args(N, Hp);
+    g.op[0] = operand(emb, 1, Ep, w_emb);
+    g.op[1] = operand(h_lang, 1, Hp, w_hl);
+    g.op[2] = operand(h_att, 1, Hp, w_ha);
+    g.n_ops = 3;
+    g.zadd = cell::f32(zvb);
+    g.c_prev = cell::f32(c_att);
+    g.h_out = static_cast<float*>(h_out);
+    g.c_out = static_cast<float*>(c_out);
+    err = launch_gemm<4, EPI_LSTM, float>(g, s);
+    if (err != cudaSuccess) return (int)err;
 
-  GemmArgs gq = gemm_args(N, 2 * Ap);
-  gq.op[0] = operand(h_out, 1, Hp, wq);
-  gq.n_ops = 1;
-  gq.out = q;
-  err = launch_gemm<4, EPI_STORE>(gq, f32, s);
+    GemmArgs gq = gemm_args(N, 2 * Ap);
+    gq.op[0] = operand(h_out, 1, Hp, wq);
+    gq.n_ops = 1;
+    gq.out = q;
+    err = launch_gemm<4, EPI_STORE, float>(gq, s);
+  } else {
+    err = att_cell_sm90(emb, h_att, c_att, h_lang, zvb, w_emb, w_hl, w_ha,
+                        wq, h_out, c_out, h16, q, N, Ep, Hp, Ap, s);
+  }
   if (err != cudaSuccess) return (int)err;
 
   ScoreArgs sc = {};
@@ -392,15 +463,19 @@ int ck_dcnet_score(const void* h, const void* att_wq, const void* att_b,
 // DCNet LSTM kernel. fp32 emb [N, Ep], ctx (the omega-weighted encoder
 // states), h, c [N, Hp]; gate_w [Hp, Hp], w_emb [Ep, 4Hp], w_part, w_h [Hp,
 // 4Hp]; fp32 gate_b [Hp], b [4Hp]. Outputs: h_out, c_out [N, Hp] fp32.
-// Scratch: part [N, Hp]. Weights and part are bf16, or fp32 when f32.
+// Scratch: part [N, Hp]. Weights and part are bf16 (sm90_cell.cuh; Ep,
+// Hp multiples of 128), or fp32 when f32 (cell_common.cuh's fp32 tile).
 int ck_dcnet_cell(const void* emb, const void* ctx, const void* h,
                   const void* c, const void* gate_w, const void* gate_b,
                   const void* w_emb, const void* w_part, const void* w_h,
-                  const void* b, void* h_out, void* c_out, void* part, int N,
-                  int Ep, int Hp, int f32, int device, void* stream) {
+                  const void* b, void* h_out, void* c_out, void* part,
+                  int N, int Ep, int Hp, int f32, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!f32)
+    return (int)dcnet_cell_sm90(emb, ctx, h, c, gate_w, gate_b, w_emb, w_part,
+                                w_h, b, h_out, c_out, part, N, Ep, Hp, s);
 
   GemmArgs gp = gemm_args(N, Hp);
   gp.op[0] = operand(h, 1, Hp, gate_w);
@@ -408,19 +483,19 @@ int ck_dcnet_cell(const void* emb, const void* ctx, const void* h,
   gp.bias = cell::f32(gate_b);
   gp.x = cell::f32(ctx);
   gp.out = part;
-  err = launch_gemm<4, EPI_GATE_MUL>(gp, f32, s);
+  err = launch_gemm<4, EPI_GATE_MUL, float>(gp, s);
   if (err != cudaSuccess) return (int)err;
 
   GemmArgs g = gemm_args(N, Hp);
   g.op[0] = operand(emb, 1, Ep, w_emb);
-  g.op[1] = operand(part, f32, Hp, w_part);
+  g.op[1] = operand(part, 1, Hp, w_part);
   g.op[2] = operand(h, 1, Hp, w_h);
   g.n_ops = 3;
   g.bias = cell::f32(b);
   g.c_prev = cell::f32(c);
   g.h_out = static_cast<float*>(h_out);
   g.c_out = static_cast<float*>(c_out);
-  return (int)launch_gemm<4, EPI_LSTM>(g, f32, s);
+  return (int)launch_gemm<4, EPI_LSTM, float>(g, s);
 }
 
 const char* ck_megastep_error_string(int code) {

@@ -1,10 +1,12 @@
 // The shared sm90 split-operand gated GEMM of the cell kernels: lstm.cu
-// (fused_lstm_cell, fused_copy_lstm_cell), megastep.cu's lang cell and
-// wholestep.cu's persistent kernel.
+// (fused_lstm_cell, fused_copy_lstm_cell), megastep.cu's bf16 cells
+// (att_cell, lang_cell, dcnet_cell) and wholestep.cu's persistent kernel.
 //
 // Replaces, on the H100, the products of the TPU kernels of
 // captionkit/ops/lstm.py (_run_cell), captionkit/ops/megastep.py
-// (fused_step_hidden: the visual gate and the Copy-LSTM) and
+// (att_phase: the att-LSTM and the query product; fused_step_hidden: the
+// visual gate and the Copy-LSTM; dcnet_fused_step_hidden's LSTM kernel:
+// the context gate and the decoder LSTM) and
 // captionkit/ops/wholestep.py (fused_lang_head_topk): on the TPU one grid
 // step multiplies a row block by every gate column in VMEM; here a CTA owns
 // 128 rows x 128 product columns and streams K.
@@ -45,8 +47,11 @@
 // - The epilogues run in registers. wgmma's accumulator puts column 8 j +
 //   2 (lane % 4) + e of rows lane / 4 + {0, 8} in a thread, a set closed
 //   under + 32, so a gated tile's four gates (and r) of a hidden column are
-//   one thread's: LSTM, Copy-LSTM (optionally also h' rounded to bf16),
-//   gate-multiply (sigmoid(z + b) * round_bf16(x) -> bf16) and store.
+//   one thread's: LSTM (bias per column, or a per-row zadd term),
+//   Copy-LSTM (either optionally also writes h' rounded to bf16),
+//   gate-multiply (sigmoid(z + b) * x -> bf16, x rounded to bf16 first or
+//   not) and store. Each variant is its own template instance, so adding
+//   one leaves the registers of the others as they were.
 //
 // The one-tile-per-CTA kernel is cell_kernel; wholestep.cu drives
 // produce_tile / consume_tile / the epilogues from its persistent kernel,
@@ -81,7 +86,19 @@ constexpr int THREADS = 384;  // warpgroups 0, 1 consume; 2 produces
 constexpr int SMEM = 1024 + STAGES * STAGE + 2 * STAGES * 8;
 static_assert(STAGE % 1024 == 0, "stages stay on 1024-byte boundaries");
 
-enum Epi : int { kLstm = 0, kCopyLstm = 1, kGateMul = 2, kStore = 3 };
+// kLstmZadd: the LSTM with a per-row term zadd [N, 4 cols] added to the
+// gates in place of the per-column bias (EditNet's att-LSTM: the hoisted
+// v_mean product, which carries the bias). kGateMulX32: the gate-multiply
+// with x taken unrounded (DCNet's context gate multiplies the fp32
+// context; EditNet's visual gate rounds v_hat's raw input first).
+enum Epi : int {
+  kLstm = 0,
+  kCopyLstm = 1,
+  kGateMul = 2,
+  kStore = 3,
+  kLstmZadd = 4,
+  kGateMulX32 = 5,
+};
 
 struct CellArgs {
   CUtensorMap a[MAX_OPS];   // activations [N, K_op]: 128 x 32 boxes
@@ -96,7 +113,7 @@ struct CellArgs {
   const float* bias_r;  // copy [cols]
   const float* c_prev;  // gated [N, cols]
   const float* c_star;  // copy [N, cols]
-  const float* x;       // gate-mul [N, cols], rounded to bf16 before use
+  const float* x;       // gate-mul [N, cols] (kGateMul rounds it to bf16)
   float* h_out;         // gated [N, cols]
   float* c_out;         // gated [N, cols]
   __nv_bfloat16* h_bf16;  // gated: h' rounded to bf16 [N, cols], or null
@@ -109,6 +126,7 @@ struct CellArgs {
   const float* cvt_src[3];
   __nv_bfloat16* cvt_dst[3];
   long long cvt_n;
+  const float* zadd;  // kLstmZadd [N, 4 cols], gate-major
 };
 
 __device__ __forceinline__ float sigmoidf(float x) {
@@ -315,8 +333,9 @@ __device__ __forceinline__ void produce_tile(const CellArgs& args,
 // ---------------------------------------------------------------------------
 
 // LSTM / Copy-LSTM: gate g of hidden column 8 jj + 2 q + e (of the tile's
-// 32) is acc[4 (4 g + jj) + 2 hr + e]; r is accr[4 jj + 2 hr + e].
-template <bool COPY>
+// 32) is acc[4 (4 g + jj) + 2 hr + e]; r is accr[4 jj + 2 hr + e]. ZADD:
+// the gates add the row's zadd instead of bias.
+template <bool COPY, bool ZADD = false>
 __device__ __forceinline__ void epi_gated(const CellArgs& args,
                                           const float (&acc)[64],
                                           const float (&accr)[16], int gr0,
@@ -333,15 +352,18 @@ __device__ __forceinline__ void epi_gated(const CellArgs& args,
       const float2 cp = *reinterpret_cast<const float2*>(args.c_prev + idx);
       float2 cs = make_float2(0.0f, 0.0f);
       if (COPY) cs = *reinterpret_cast<const float2*>(args.c_star + idx);
+      // The additive term of each gate: bias [4 Hp], or the row's zadd.
+      const float* add =
+          ZADD ? args.zadd + static_cast<size_t>(gr) * 4 * Hp : args.bias;
       float hv[2], cv[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int j = col + e;
         const int d = 2 * hr + e;
-        const float zi = acc[4 * jj + d] + args.bias[j];
-        const float zf = acc[4 * (4 + jj) + d] + args.bias[Hp + j];
-        const float zg = acc[4 * (8 + jj) + d] + args.bias[2 * Hp + j];
-        const float zo = acc[4 * (12 + jj) + d] + args.bias[3 * Hp + j];
+        const float zi = acc[4 * jj + d] + add[j];
+        const float zf = acc[4 * (4 + jj) + d] + add[Hp + j];
+        const float zg = acc[4 * (8 + jj) + d] + add[2 * Hp + j];
+        const float zo = acc[4 * (12 + jj) + d] + add[3 * Hp + j];
         float c_new = sigmoidf(zf) * (e ? cp.y : cp.x) +
                       sigmoidf(zi) * tanhf(zg);
         if (COPY) {
@@ -360,7 +382,9 @@ __device__ __forceinline__ void epi_gated(const CellArgs& args,
 }
 
 // Plain tiles: column nb * 128 + 8 j + 2 q + e is acc[4 j + 2 hr + e].
-// Gate-multiply: out = bf16(sigmoid(z + b) * round_bf16(x)).
+// Gate-multiply: out = bf16(sigmoid(z + b) * round_bf16(x)), or, X32,
+// bf16(sigmoid(z + b) * x).
+template <bool X32 = false>
 __device__ __forceinline__ void epi_gate_mul(const CellArgs& args,
                                              const float (&acc)[64], int gr0,
                                              int q, int nb) {
@@ -375,10 +399,10 @@ __device__ __forceinline__ void epi_gate_mul(const CellArgs& args,
       const size_t idx = static_cast<size_t>(gr) * cols + col;
       const float2 x = *reinterpret_cast<const float2*>(args.x + idx);
       const float2 b = *reinterpret_cast<const float2*>(args.bias + col);
-      const float v0 =
-          sigmoidf(acc[4 * j + 2 * hr] + b.x) * round_bf16(x.x);
-      const float v1 =
-          sigmoidf(acc[4 * j + 2 * hr + 1] + b.y) * round_bf16(x.y);
+      const float v0 = sigmoidf(acc[4 * j + 2 * hr] + b.x) *
+                       (X32 ? x.x : round_bf16(x.x));
+      const float v1 = sigmoidf(acc[4 * j + 2 * hr + 1] + b.y) *
+                       (X32 ? x.y : round_bf16(x.y));
       *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(args.out) +
                                    idx) = pack2(v0, v1);
     }
@@ -413,6 +437,9 @@ __device__ __forceinline__ void epilogue(const CellArgs& args,
   if constexpr (EPI == kCopyLstm) epi_gated<true>(args, acc, accr, gr0, q, nb);
   if constexpr (EPI == kGateMul) epi_gate_mul(args, acc, gr0, q, nb);
   if constexpr (EPI == kStore) epi_store(args, acc, gr0, q, nb);
+  if constexpr (EPI == kLstmZadd)
+    epi_gated<false, true>(args, acc, accr, gr0, q, nb);
+  if constexpr (EPI == kGateMulX32) epi_gate_mul<true>(args, acc, gr0, q, nb);
 }
 
 // The 1024-aligned dynamic shared memory: the ring, then the full and

@@ -50,11 +50,12 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build(names=SOURCES, *, verbose: bool = False) -> dict[str, float]:
+def build(names=SOURCES, *, reports: dict | None = None) -> dict[str, float]:
     """Compile every named source that has no current library, all at
     once. Returns {name: seconds} for the ones built (0.0 = up to date).
-    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report of
-    registers and shared memory."""
+    ``reports``: a dict that receives, for each source built, the
+    compiler's report of registers, shared memory and spills
+    (``-Xptxas -v``)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     compiler = nvcc() if any(not library_path(n).exists() for n in names) \
         else None
@@ -65,7 +66,8 @@ def build(names=SOURCES, *, verbose: bool = False) -> dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [compiler, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+        cmd = [compiler, *NVCC_FLAGS,
+               *(["-Xptxas", "-v"] if reports is not None else []),
                "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -79,8 +81,8 @@ def build(names=SOURCES, *, verbose: bool = False) -> dict[str, float]:
             failures.append(f"nvcc {name}.cu failed ({proc.returncode}):\n"
                             f"{log}")
             continue
-        if verbose and log:
-            print(log, flush=True)
+        if reports is not None:
+            reports[name] = log
         os.replace(tmp, out)
     if failures:
         raise RuntimeError("\n".join(failures))

@@ -361,13 +361,17 @@ def reference_dcnet_score(pack: DCNetCellPack, h):
                    pack.mask > 0).to(dt)
 
 
-def reference_dcnet_cell(pack: DCNetCellPack, emb, ctx, h, c):
+def reference_dcnet_cell(pack: DCNetCellPack, emb, ctx, h, c, part=None):
     """(h' [N, Hp], c' [N, Hp]) fp32 from emb [N, Ep], the ω-weighted
-    context ctx [N, Hp] and the state, all fp32."""
+    context ctx [N, Hp] and the state, all fp32. The gated context is
+    rounded once, after the multiply (ctx is not rounded first); ``part``,
+    if given ([N, Hp] in the pack's dtype), receives it."""
     dt = pack.dtype
     gate = torch.sigmoid(mm(h, pack.gate_w, dt) + pack.gate_b)
-    part = (gate * ctx).to(dt).float()
-    x = torch.cat([emb, part, h], dim=1)
+    gated = (gate * ctx).to(dt)
+    if part is not None:
+        part.copy_(gated)
+    x = torch.cat([emb, gated.float(), h], dim=1)
     return lstm_gates(mm(x, pack.dec_w, dt) + pack.b, c)
 
 
@@ -378,7 +382,7 @@ def reference_dcnet_cell(pack: DCNetCellPack, emb, ctx, h, c):
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ck_att_cell.argtypes = [p] * 21 + [i] * 9 + [p]
+    lib.ck_att_cell.argtypes = [p] * 22 + [i] * 9 + [p]
     lib.ck_lang_cell.argtypes = [p] * 20 + [i] * 5 + [p]
     lib.ck_dcnet_score.argtypes = [p] * 8 + [i] * 7 + [p]
     lib.ck_dcnet_cell.argtypes = [p] * 13 + [i] * 5 + [p]
@@ -458,8 +462,10 @@ def _pack_dtype(pack) -> tuple[torch.dtype, int]:
 
 def att_cell(pack: CellPack, emb, h_att, c_att, h_lang):
     """Kernel A (``att_phase``'s pallas_call): (h_att', c_att', α, β).
-    CUDA tensors: ``csrc/megastep.cu::ck_att_cell`` (3 launches), counted
-    in ``att_cell.launches``; CPU tensors: ``reference_att_cell``."""
+    CUDA tensors: ``csrc/megastep.cu::ck_att_cell`` (3 launches: bf16 on
+    ``csrc/sm90_cell.cuh``, fp32 on ``cell_common.cuh``'s fp32 tile),
+    counted in ``att_cell.launches``; CPU tensors:
+    ``reference_att_cell``."""
     if emb.device.type == "cpu":
         return reference_att_cell(pack, emb, h_att, c_att, h_lang)
     dev, f32 = emb.device, torch.float32
@@ -488,11 +494,14 @@ def att_cell(pack: CellPack, emb, h_att, c_att, h_lang):
     alpha = torch.empty((N, R), dtype=dt, device=dev)
     beta = torch.empty((N, T), dtype=dt, device=dev)
     q = torch.empty((N, 2 * Ap), dtype=f32, device=dev)
+    # bf16: h_att' rounded to bf16, the query product's operand.
+    h16 = None if is_f32 else torch.empty((N, Hp), dtype=dt, device=dev)
     ptrs = [t.data_ptr() for t in (
         emb, h_att, c_att, h_lang, pack.zvb, pack.w_emb, pack.w_hl,
         pack.w_ha, pack.wq, pack.vis_b, pack.vis_v, pack.scma_b,
         pack.scma_v, pack.vis_keys, pack.scma_keys, pack.scma_mask, h_out,
         c_out, alpha, beta, q)]
+    ptrs.append(None if h16 is None else h16.data_ptr())
     _run(lib, "ck_att_cell", ptrs + [N, B, Ep, Hp, Ap, R, T, is_f32,
                                      dev.index or 0, _stream(dev)])
     att_cell.launches += 1
@@ -568,12 +577,15 @@ def dcnet_score(pack: DCNetCellPack, h):
     return omega
 
 
-def dcnet_cell(pack: DCNetCellPack, emb, ctx, h, c):
-    """DCNet's LSTM kernel: (h', c'). CUDA tensors:
-    ``csrc/megastep.cu::ck_dcnet_cell`` (2 launches), counted in
-    ``dcnet_cell.launches``; CPU tensors: ``reference_dcnet_cell``."""
+def dcnet_cell(pack: DCNetCellPack, emb, ctx, h, c, part=None):
+    """DCNet's LSTM kernel: (h', c'); ``part``, if given ([N, Hp] in the
+    pack's dtype), receives the gated context. CUDA tensors:
+    ``csrc/megastep.cu::ck_dcnet_cell`` (2 launches: bf16 on
+    ``csrc/sm90_cell.cuh``, fp32 on ``cell_common.cuh``'s fp32 tile),
+    counted in ``dcnet_cell.launches``; CPU tensors:
+    ``reference_dcnet_cell``."""
     if emb.device.type == "cpu":
-        return reference_dcnet_cell(pack, emb, ctx, h, c)
+        return reference_dcnet_cell(pack, emb, ctx, h, c, part)
     dev, f32 = emb.device, torch.float32
     dt, is_f32 = _pack_dtype(pack)
     N, Ep = emb.shape
@@ -588,7 +600,9 @@ def dcnet_cell(pack: DCNetCellPack, emb, ctx, h, c):
     lib = _library()
     h_out = torch.empty((N, Hp), dtype=f32, device=dev)
     c_out = torch.empty((N, Hp), dtype=f32, device=dev)
-    part = torch.empty((N, Hp), dtype=dt, device=dev)
+    if part is None:
+        part = torch.empty((N, Hp), dtype=dt, device=dev)
+    _check(dev, part=(part, dt, (N, Hp)))
     ptrs = [t.data_ptr() for t in (emb, ctx, h, c, pack.gate_w, pack.gate_b,
                                    pack.w_emb, pack.w_part, pack.w_h, pack.b,
                                    h_out, c_out, part)]

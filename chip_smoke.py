@@ -7,7 +7,10 @@ Phases, each printing one JSON line; any failure exits non-zero and
 prints no result line:
 
 1. device   — CUDA present; the card's name and power limit (nvidia-smi).
-2. build    — every kernel of ``captionkit_torch/csrc`` built by nvcc.
+2. build    — every kernel of ``captionkit_torch/csrc`` built by nvcc;
+              the registers, shared memory and spills of the kernels on
+              sm90_cell.cuh (the full -Xptxas -v report in
+              build/captionkit_torch/smoke/ptxas.log).
 3. head     — the fused vocab-head kernel against its plain version on the
               card: paper shape (N = 512 images x 5 beams, H = 1024,
               V = 9490) in bf16, and exact-tie patterns across the kernel's
@@ -32,8 +35,14 @@ prints no result line:
 6. megastep — the four fused decode-cell kernels (EditNet's att_cell and
               lang_cell, DCNet's dcnet_score and dcnet_cell) against their
               plain versions on the card at paper shape, on packs built
-              from encoded batches; planted faults must fail the bars;
-              kernel, plain and bound times, CUDA launches per call.
+              from encoded batches; planted faults must fail the bars
+              (among them the gates of two hidden columns crossed and
+              att_cell's zvb dropped); DCNet's gated context bit-equal to
+              its plain version on ctx values halfway between bf16
+              neighbours, and a ctx rounded first must differ; kernel,
+              plain and bound times, CUDA launches per call, the device
+              time of each launch of att_cell, lang_cell and dcnet_cell
+              (no cell_common.cuh wmma launch among them).
 7. decode_cells — editnet_beam5 with cell_impl="pallas": a forced-full
               decode of the 512-image batch, 22 launches per batch of
               each cell kernel and of the head, captions/s (median of 3)
@@ -196,13 +205,63 @@ def phase_device():
     return info
 
 
+def _ptxas(log: str) -> dict:
+    """{kernel: registers, static shared memory, stack and spill bytes}
+    from one source's ``-Xptxas -v`` report, names demangled (c++filt)
+    where the machine has it."""
+    import re
+    import shutil
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack=int(m[1]), spill_stores=int(m[2]),
+                             spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name].update(registers=int(m[1]),
+                             static_smem=int(smem[1]) if smem else 0)
+    if out and shutil.which("c++filt"):
+        names = list(out)
+        demangled = subprocess.run(
+            ["c++filt"], input="\n".join(names), capture_output=True,
+            text=True, timeout=60).stdout.splitlines()
+        if len(demangled) == len(names):
+            out = {d.replace("(anonymous namespace)::", ""): out[n]
+                   for n, d in zip(names, demangled)}
+    return out
+
+
 def phase_build():
+    """Every source built; each kernel's registers, shared memory and
+    spills (the full compiler report goes to SMOKE_DIR/ptxas.log)."""
     from captionkit_torch.kernels import build
 
     t0 = time.perf_counter()
-    seconds = build.build(verbose=True)
+    logs = {}
+    seconds = build.build(reports=logs)
+    SMOKE_DIR.mkdir(parents=True, exist_ok=True)
+    (SMOKE_DIR / "ptxas.log").write_text(
+        "".join(f"=== {n}.cu\n{log}\n" for n, log in logs.items()))
+    # The kernels on sm90_cell.cuh by source (cell_kernel instances and
+    # the whole step's lang_head_kernel); every kernel's report is in the
+    # log.
+    cells = {n: {k: v for k, v in _ptxas(log).items()
+                 if "cell_kernel" in k or "lang_head_kernel" in k}
+             for n, log in logs.items()}
     emit({"phase": "build", "ok": True, "sources": list(build.SOURCES),
-          "seconds": time.perf_counter() - t0, "per_source": seconds})
+          "seconds": time.perf_counter() - t0, "per_source": seconds,
+          "sm90_cell_kernels": {n: c for n, c in cells.items() if c}})
 
 
 def _head_inputs(N, H, V, seed):
@@ -941,14 +1000,14 @@ def _swap_if(w, hp):
     return torch.cat([f, i, g, o], dim=-1).contiguous()
 
 
-def _profile_calls(fn, keys, calls: int = 10) -> tuple[float, float]:
-    """(CUDA launches, device ms) of one call of ``fn``: the CUDA kernels
-    whose names hold one of ``keys`` (all when None), counted and their
-    durations summed by torch.profiler over ``calls`` calls after a
-    warm-up, divided by ``calls`` (a profile of a single call on that
-    machine can miss a kernel record). A profile that records no matching
-    kernel at all is taken once more: torch.profiler now and then returns
-    one empty."""
+def _profile_kernels(fn, keys, calls: int = 10) -> dict:
+    """{kernel name: (CUDA launches, device ms) of one call of ``fn``} for
+    the CUDA kernels whose names hold one of ``keys`` (all when None),
+    counted and their durations summed by torch.profiler over ``calls``
+    calls after a warm-up, divided by ``calls`` (a profile of a single
+    call on that machine can miss a kernel record). A profile that records
+    no matching kernel at all is taken once more: torch.profiler now and
+    then returns one empty."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -965,8 +1024,15 @@ def _profile_calls(fn, keys, calls: int = 10) -> tuple[float, float]:
                   and (keys is None or any(key in ev.key for key in keys))]
         if events:
             break
-    return (sum(ev.count for ev in events) / calls,
-            sum(ev.device_time_total for ev in events) / calls / 1e3)
+    return {ev.key: (ev.count / calls, ev.device_time_total / calls / 1e3)
+            for ev in events}
+
+
+def _profile_calls(fn, keys, calls: int = 10) -> tuple[float, float]:
+    """(CUDA launches, device ms) of one call of ``fn``: the sums of
+    ``_profile_kernels``."""
+    kernels = _profile_kernels(fn, keys, calls).values()
+    return sum(n for n, _ in kernels), sum(ms for _, ms in kernels)
 
 
 def _cuda_kernels(fn, keys=("gemm_kernel", "scores_kernel",
@@ -1040,6 +1106,45 @@ def _cell_bound(name, N, B, E, H, A, F, R, T, fp32=False) -> dict:
     return {**_ops_bound(mm, ew, n_in + n_out, fp32), "tanh_m": tanh / 1e6}
 
 
+def _halfway_bf16(x):
+    """x with its low 16 bits set to 0x8000: exactly halfway between two
+    neighbouring bf16 values."""
+    import torch
+
+    return ((x.view(torch.int32) & -65536) | 0x8000).view(torch.float32)
+
+
+def _ctx_halfway_check(ms, dpack, cell_args, g) -> dict:
+    """dcnet_cell's context gate multiplies the fp32 context unrounded
+    and rounds once: with gate_w = 0, a random gate_b (the model's is 0,
+    and a gate of 1/2 commutes with rounding) and every ctx value halfway
+    between bf16 neighbours, the kernel's part is bit-equal to the plain
+    version's bf16(sigmoid(gate_b) * ctx); the same kernel fed ctx rounded
+    to bf16 first (what a kernel that rounds ctx before the multiply
+    computes) must differ."""
+    import dataclasses
+
+    import torch
+
+    emb, ctx, h, c = cell_args
+    ctx = _halfway_bf16(torch.randn(ctx.shape, generator=g).to(ctx.device))
+    pack = dataclasses.replace(
+        dpack, gate_w=torch.zeros_like(dpack.gate_w),
+        gate_b=torch.randn(dpack.gate_b.shape, generator=g).to(ctx.device))
+    part, want, bad = (torch.empty(ctx.shape, dtype=dpack.dtype,
+                                   device=ctx.device) for _ in range(3))
+    ms.dcnet_cell(pack, emb, ctx, h, c, part=part)
+    ms.reference_dcnet_cell(pack, emb, ctx, h, c, part=want)
+    ms.dcnet_cell(pack, emb, ctx.bfloat16().float(), h, c, part=bad)
+    check(torch.equal(part, want), "dcnet_cell: part is not bit-equal to "
+          "bf16(sigmoid(gate_b) * ctx) on halfway ctx")
+    differ = float((bad != want).float().mean())
+    check(differ > 0, "dcnet_cell: rounding ctx first passes the halfway "
+          "check")
+    return {"part_bit_equal": True, "ctx_rounded_first_differs_share":
+            differ}
+
+
 def _encoded(model, params, mc, k=BEAM):
     """The timed batch encoded on the card, beam-expanded and prepared
     (pack and head) as beam search prepares it."""
@@ -1079,7 +1184,10 @@ def phase_megastep(ed, dc) -> dict:
     emb = (torch.randn((N, Ep), generator=g) * 0.1).cuda()
     results = {}
 
-    def hold(name, kernel, plain, kinds, faults):
+    def hold(name, kernel, plain, kinds, faults, launches=None):
+        """``launches``: {label: a name key of one of the call's CUDA
+        kernels}, whose device times are reported apart; then no
+        gemm_kernel (cell_common.cuh's wmma tile) may run in the call."""
         got = kernel()
         want = plain()
         torch.cuda.synchronize()
@@ -1091,21 +1199,42 @@ def phase_megastep(ed, dc) -> dict:
             caught[fault] = not bad["ok"]
             check(caught[fault], f"{name}: planted fault {fault} passes "
                                  f"the bar: {bad}")
+        # One profile for the call's device time, its launches and, by
+        # name, each launch's share.
+        kernels = _profile_kernels(kernel, ("gemm_kernel", "scores_kernel",
+                                            "cell_kernel"))
         results[name] = {
             **agree, "planted_faults_caught": caught,
             "ms": time_ms(kernel), "plain_ms": time_ms(plain),
             "library_ms": None,
-            "device_ms": _device_ms(kernel, ("gemm_kernel", "scores_kernel",
-                                             "cell_kernel")),
-            "cuda_launches_per_call": _cuda_kernels(kernel)}
+            "device_ms": sum(ms for _, ms in kernels.values()),
+            "cuda_launches_per_call": round(
+                sum(n for n, _ in kernels.values()))}
+        if launches:
+            by = {label: sum(ms for k, (_, ms) in kernels.items() if key in k)
+                  for label, key in launches.items()}
+            wmma = round(sum(n for k, (n, _) in kernels.items()
+                             if "gemm_kernel" in k))
+            check(wmma == 0, f"{name}: {wmma} gemm_kernel launches a call")
+            check(all(by.values()), f"{name}: a launch missing from the "
+                                    f"profile: {by}")
+            results[name].update(device_ms_by_launch=by,
+                                 gemm_kernel_launches=wmma)
         return want
 
     att_args = (emb, h_att, c_att, h_lang)
     swapped = dataclasses.replace(
         pack, w_att=_swap_if(pack.w_att, Hp), zvb=_swap_if(pack.zvb, Hp))
+    crossed = dataclasses.replace(
+        pack, w_att=_cross_columns(pack.w_att, Hp),
+        zvb=_cross_columns(pack.zvb, Hp))
+    no_zvb = dataclasses.replace(pack, zvb=torch.zeros_like(pack.zvb))
     no_mask = dataclasses.replace(
         pack, scma_mask=torch.ones_like(pack.scma_mask))
     check(bool((pack.scma_mask == 0).any()), "the batch masks no position")
+    # The sm90 instances by their epilogue (sm90_cell.cuh's Epi): 4 the
+    # att-LSTM with zvb, 3 the query store, 2 / 1 the lang cell's gate and
+    # Copy-LSTM, 5 / 0 DCNet's context gate and LSTM.
     att = hold(
         "att_cell",
         lambda: ms.att_cell(pack, *att_args),
@@ -1113,8 +1242,16 @@ def phase_megastep(ed, dc) -> dict:
         ("state", "state", "weights", "weights"),
         [("i_f_gates_exchanged",
           lambda: ms.att_cell(swapped, *att_args)),
+         ("hidden_columns_crossed",
+          lambda: ms.att_cell(crossed, *att_args)),
+         ("zvb_dropped", lambda: ms.att_cell(no_zvb, *att_args)),
          ("scma_mask_dropped",
-          lambda: ms.att_cell(no_mask, *att_args))])
+          lambda: ms.att_cell(no_mask, *att_args))],
+        {"lstm": "cell_kernel<4,", "query": "cell_kernel<3,",
+         "scores": "scores_kernel"})
+    by = results["att_cell"]["device_ms_by_launch"]
+    results["att_cell"]["scores_share_of_device_ms"] = \
+        by["scores"] / sum(by.values())
 
     vhat_raw = ms._grouped(att[2], pack.features)
     c_star = ms._grouped(att[3], pack.enc_cs)
@@ -1130,7 +1267,8 @@ def phase_megastep(ed, dc) -> dict:
          ("state", "state"),
          [("i_f_gates_exchanged", lambda: ms.lang_cell(swapped, *lang_args)),
           ("copy_gate_c_star_rows_dropped",
-           lambda: ms.lang_cell(no_copy, *lang_args))])
+           lambda: ms.lang_cell(no_copy, *lang_args))],
+         {"gate": "cell_kernel<2,", "copy_lstm": "cell_kernel<1,"})
 
     dHp, dEp = dpack.hp, dpack.w_emb.shape[0]
     no_mask = dataclasses.replace(dpack, mask=torch.ones_like(dpack.mask))
@@ -1144,12 +1282,20 @@ def phase_megastep(ed, dc) -> dict:
     cell_args = (emb[:, :dEp], ctx, h_att[:, :dHp], c_att[:, :dHp])
     swapped = dataclasses.replace(
         dpack, dec_w=_swap_if(dpack.dec_w, dHp), b=_swap_if(dpack.b, dHp))
+    crossed = dataclasses.replace(
+        dpack, dec_w=_cross_columns(dpack.dec_w, dHp),
+        b=_cross_columns(dpack.b, dHp))
     hold("dcnet_cell",
          lambda: ms.dcnet_cell(dpack, *cell_args),
          lambda: ms.reference_dcnet_cell(dpack, *cell_args),
          ("state", "state"),
          [("i_f_gates_exchanged",
-           lambda: ms.dcnet_cell(swapped, *cell_args))])
+           lambda: ms.dcnet_cell(swapped, *cell_args)),
+          ("hidden_columns_crossed",
+           lambda: ms.dcnet_cell(crossed, *cell_args))],
+         {"gate": "cell_kernel<5,", "lstm": "cell_kernel<0,"})
+    results["dcnet_cell"]["ctx_halfway"] = _ctx_halfway_check(
+        ms, dpack, cell_args, g)
 
     dims = dict(N=N, B=B, E=mc.emb_dim, H=mc.hidden_dim, A=mc.att_dim,
                 F=mc.feat_dim, R=R, T=T)

@@ -7,7 +7,8 @@ Runs ``python3 chip_smoke.py`` in PARENT_DIR and CHANGE_DIR (default: this
 checkout) in the order parent, change, change, parent, each as its own
 process, and writes each run's output to DIR/<label>_<n>.log. Then prints
 one JSON object: for every kernel of the runs' ``kernels`` lines its ms per
-run, for every measured field of the kernels' rows (the ``cell_kernels``
+run, for every measured field of the kernels' rows (each launch's device
+time where a row gives it; the ``cell_kernels``
 times, the ``head_variants``, ``megastep``, ``fp32``, ``beam10`` and
 ``wide_head`` kernels, the ``wholestep`` kernel and the two programs it is set
 against) their values per run, and every captions/s figure of the decode
@@ -74,6 +75,8 @@ def summary(lines: list[dict]) -> dict:
                 for f in FIELDS:
                     if t.get(f) is not None:
                         out[f"{phase}/{name}/{f}"] = t[f]
+                for label, v in t.get("device_ms_by_launch", {}).items():
+                    out[f"{phase}/{name}/device_ms/{label}"] = v
         if phase == "wholestep":
             for f in FIELDS:
                 if line["kernel"].get(f) is not None:

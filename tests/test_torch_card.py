@@ -1114,6 +1114,104 @@ def test_sm90_lang_cell_planted_faults_fail(card):
         assert float((got[0] - want[0]).abs().max()) > 1e-3
 
 
+NARROW_CELLS = {"model.emb_dim": 48, "model.hidden_dim": 48}  # one block
+
+
+def _cross_hidden(w, hp):
+    """A gate-major [..., 4Hp] tensor whose i-gate columns of hidden
+    columns 2m and 2m + 1 are exchanged: an LSTM epilogue that reads the
+    gates of two hidden columns crossed."""
+    i = w[..., :hp]
+    crossed = i.reshape(*i.shape[:-1], hp // 2, 2).flip(-1).reshape(i.shape)
+    return torch.cat([crossed, w[..., hp:]], dim=-1).contiguous()
+
+
+def _att_and_dcnet_cells(card, arch, over, B, K=5):
+    """(pack, arguments, the kernel's outputs, the plain version's) of
+    att_cell or dcnet_cell on an encoded batch of B images x K beams."""
+    _, pack, (h, c, h2, _), emb = _cell_setup(arch, over, card, B, K=K)
+    if arch == "editnet":
+        args = (emb, h, c, h2)
+        return (pack, args, megastep.att_cell(pack, *args),
+                megastep.reference_att_cell(pack, *args))
+    omega = megastep.reference_dcnet_score(pack, h)
+    args = (emb, megastep._grouped(omega, pack.enc_hs), h, c)
+    return (pack, args, megastep.dcnet_cell(pack, *args),
+            megastep.reference_dcnet_cell(pack, *args))
+
+
+@pytest.mark.parametrize("width", ["narrow", "paper"])
+@pytest.mark.parametrize("N", [1, 65, 2561])
+@pytest.mark.parametrize("arch", ["editnet", "dcnet"])
+def test_sm90_att_and_dcnet_cells_ragged_shapes(card, arch, N, width):
+    """att_cell and dcnet_cell on sm90_cell.cuh at row counts that leave
+    partial 128-row tiles (N = 1, 65, 2561) and at widths that pad to one
+    128 block (E = H = 48) or are the paper's: h, c within 1e-3, α and β
+    within one bf16 ulp; one counted launch a call."""
+    B, K = {1: (1, 1), 65: (13, 5), 2561: (2561, 1)}[N]
+    over = NARROW_CELLS if width == "narrow" else PAPER_CELLS
+    wrapper = megastep.att_cell if arch == "editnet" else megastep.dcnet_cell
+    before = wrapper.launches
+    pack, _, got, want = _att_and_dcnet_cells(card, arch, over, B, K)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    for g_, w_ in zip(got[:2], want[:2]):
+        assert tuple(g_.shape) == (N, pack.hp)
+        torch.testing.assert_close(g_, w_, atol=1e-3, rtol=0)
+    for g_, w_ in zip(got[2:], want[2:]):
+        assert g_.dtype == torch.bfloat16
+        _weights_close(g_, w_)
+
+
+def test_sm90_att_and_dcnet_cells_planted_faults_fail(card):
+    """The bar catches, in att_cell, a pack whose LSTM reads the gates of
+    two hidden columns crossed and one whose zvb is dropped; in
+    dcnet_cell, the gates of two hidden columns crossed."""
+    for arch in ("editnet", "dcnet"):
+        pack, args, _, want = _att_and_dcnet_cells(card, arch, PAPER_CELLS, 7)
+        Hp = pack.hp
+        if arch == "editnet":
+            bad_packs = (
+                dataclasses.replace(pack, w_att=_cross_hidden(pack.w_att, Hp),
+                                    zvb=_cross_hidden(pack.zvb, Hp)),
+                dataclasses.replace(pack, zvb=torch.zeros_like(pack.zvb)))
+            run = megastep.att_cell
+        else:
+            bad_packs = (dataclasses.replace(
+                pack, dec_w=_cross_hidden(pack.dec_w, Hp),
+                b=_cross_hidden(pack.b, Hp)),)
+            run = megastep.dcnet_cell
+        for bad in bad_packs:
+            got = run(bad, *args)
+            err = max(float((g_ - w_).abs().max())
+                      for g_, w_ in zip(got[:2], want[:2]))
+            assert err > 1e-3
+
+
+@pytest.mark.parametrize("width", ["narrow", "paper"])
+def test_dcnet_cell_context_gate_rounds_once(card, width):
+    """The context gate multiplies the fp32 context unrounded and rounds
+    once, as the reference does: with gate_w = 0, a random gate_b (a gate
+    of 1/2 would commute with rounding) and every ctx value halfway
+    between bf16 neighbours, part is bit-equal to bf16(sigmoid(gate_b) *
+    ctx); ctx rounded to bf16 first gives another part."""
+    over = NARROW_CELLS if width == "narrow" else PAPER_CELLS
+    _, pack, (h, c, _, _), emb = _cell_setup("dcnet", over, card, 13)
+    g = torch.Generator().manual_seed(5)
+    pack = dataclasses.replace(
+        pack, gate_w=torch.zeros_like(pack.gate_w),
+        gate_b=torch.randn(pack.gate_b.shape, generator=g).to(card))
+    x = torch.randn(h.shape, generator=g).to(card)
+    ctx = ((x.view(torch.int32) & -65536) | 0x8000).view(torch.float32)
+    want = (torch.sigmoid(pack.gate_b) * ctx).to(torch.bfloat16)
+    part, bad = (torch.empty_like(want) for _ in range(2))
+    megastep.dcnet_cell(pack, emb, ctx, h, c, part=part)
+    torch.cuda.synchronize()
+    assert torch.equal(part, want)
+    megastep.dcnet_cell(pack, emb, ctx.bfloat16().float(), h, c, part=bad)
+    assert not torch.equal(bad, want)
+
+
 @pytest.mark.parametrize("cell_impl", ["xla", "pallas", "wholestep"])
 @pytest.mark.parametrize("arch", ["editnet", "dcnet"])
 def test_small_fp32_decode_on_card_matches_cpu(card, arch, cell_impl):

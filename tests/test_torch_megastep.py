@@ -212,6 +212,160 @@ def test_dcnet_omega_masks_padding():
                                rtol=0)
 
 
+def _jax_whole(maker, out_shape, *args):
+    """One of ``captionkit.ops.megastep``'s Pallas kernels on whole arrays
+    (one grid step), in interpret mode."""
+    from jax.experimental import pallas as pl
+
+    return pl.pallas_call(maker, out_shape=out_shape, interpret=True)(*args)
+
+
+def _padded(rng, n, width, padded, scale):
+    """[n, width] standard normals times ``scale``, zero-padded to
+    ``padded`` columns, fp32."""
+    x = rng.standard_normal((n, width)).astype(np.float32) * scale
+    return np.pad(x, ((0, 0), (0, padded - width)))
+
+
+def _weights_close(j, t, dtype, msg):
+    """Attention weights: fp32 within the fp32 bar; bf16 within one bf16
+    ulp of the larger value (both sides sum the same fp32 terms in other
+    orders, so a weight may round to the neighbouring bf16 value)."""
+    j = np.asarray(j, np.float32)
+    t = t.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(t, j, atol=ATOL[dtype], rtol=0,
+                                   err_msg=msg)
+        return
+    _, e = np.frexp(np.maximum(np.abs(j), np.abs(t)))
+    assert (np.abs(t - j) <= np.ldexp(1.0, e - 8)).all(), msg
+
+
+# Row counts that leave ragged tiles (N = 1, 65) and widths that pad to one
+# 128 block (E = 12, H = 16; E = H = 48).
+RAGGED = [(1, 1, {}), (13, 5, {}), (13, 5, dict(emb_dim=48, hidden_dim=48))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,k,over", RAGGED)
+def test_reference_att_cell_matches_jax_kernel(dtype, batch, k, over):
+    """``reference_att_cell``, the plain version the card holds
+    ``att_cell`` against, against the reference's att kernel
+    (``_make_att_kernel``, interpret) on the same packs and inputs: h and
+    c within the dtype's bar, α and β as ``_weights_close`` says."""
+    jcfg, jp, jctx, tcfg, tp, tctx = _setup("editnet", dtype, batch=batch,
+                                            k=k, **over)
+    jpack = jax_megastep.prepare_cell_pack(jp, jcfg, jctx)
+    tpack = megastep.prepare_cell_pack(tp, tcfg, tctx)
+    N, E, H = batch * k, jcfg.emb_dim, jcfg.hidden_dim
+    Ep, Hp = tpack.w_emb.shape[0], tpack.hp
+    rng = np.random.default_rng(3)
+    h_att, c_att, h_lang = (_padded(rng, N, H, Hp, 0.5) for _ in range(3))
+    emb = _padded(rng, N, E, Ep, 0.1)
+    dt = JDT[dtype]
+    R, T = CFG["num_regions"], tctx.mask.shape[1]
+    Rp, Tp = jpack.vis_keys.shape[1], jpack.scma_keys.shape[1]
+    f32 = jnp.float32
+    j = _jax_whole(
+        jax_megastep._make_att_kernel(k, R, dt),
+        [jax.ShapeDtypeStruct((N, Hp), f32), jax.ShapeDtypeStruct((N, Hp), f32),
+         jax.ShapeDtypeStruct((N, Rp), dt), jax.ShapeDtypeStruct((N, Tp), dt)],
+        jnp.asarray(emb).astype(dt), jnp.asarray(h_att), jnp.asarray(c_att),
+        jnp.asarray(h_lang), jpack.zvb, jpack.w_emb, jpack.w_hl, jpack.w_ha,
+        jpack.vis_wq, jpack.vis_v, jpack.vis_b, jpack.vis_keys,
+        jpack.scma_wq, jpack.scma_v, jpack.scma_b, jpack.scma_keys,
+        jpack.scma_mask)
+    t = megastep.reference_att_cell(
+        tpack, *(torch.from_numpy(x) for x in (emb, h_att, c_att, h_lang)))
+    assert tuple(t[2].shape) == (N, R) and tuple(t[3].shape) == (N, T)
+    _close(j[0], t[0], ATOL[dtype], "h_att")
+    _close(j[1], t[1], ATOL[dtype], "c_att")
+    _weights_close(np.asarray(j[2], np.float32)[:, :R], t[2], dtype, "alpha")
+    _weights_close(np.asarray(j[3], np.float32)[:, :T], t[3], dtype, "beta")
+
+
+def _dcnet_lstm_jax(jpack, dt, emb, ctx, h, c):
+    N, Hp = h.shape
+    out = jax.ShapeDtypeStruct((N, Hp), jnp.float32)
+    return _jax_whole(
+        jax_megastep._make_dcnet_lstm_kernel(dt), [out, out],
+        jnp.asarray(emb).astype(dt), jnp.asarray(ctx), jnp.asarray(h),
+        jnp.asarray(c), jpack.gate_w, jpack.gate_b, jpack.w_emb,
+        jpack.w_part, jpack.w_h, jpack.b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch,k,over", RAGGED)
+def test_reference_dcnet_cell_matches_jax_kernel(dtype, batch, k, over):
+    """``reference_dcnet_cell`` against the reference's DCNet LSTM kernel
+    (``_make_dcnet_lstm_kernel``, interpret) on the same packs and
+    inputs: h and c within the dtype's bar."""
+    jcfg, jp, jctx, tcfg, tp, tctx = _setup("dcnet", dtype, batch=batch,
+                                            k=k, **over)
+    jpack = jax_megastep.prepare_dcnet_cell_pack(jp, jcfg, jctx)
+    tpack = megastep.prepare_dcnet_cell_pack(tp, tcfg, tctx)
+    N, E, H = batch * k, jcfg.emb_dim, jcfg.hidden_dim
+    Ep, Hp = tpack.w_emb.shape[0], tpack.hp
+    rng = np.random.default_rng(4)
+    ctx, h, c = (_padded(rng, N, H, Hp, 0.5) for _ in range(3))
+    emb = _padded(rng, N, E, Ep, 0.1)
+    j = _dcnet_lstm_jax(jpack, JDT[dtype], emb, ctx, h, c)
+    t = megastep.reference_dcnet_cell(
+        tpack, *(torch.from_numpy(x) for x in (emb, ctx, h, c)))
+    _close(j[0], t[0], ATOL[dtype], "h")
+    _close(j[1], t[1], ATOL[dtype], "c")
+
+
+@pytest.mark.parametrize("over", [{}, dict(emb_dim=48, hidden_dim=48)])
+def test_reference_dcnet_cell_rounds_the_gated_context_once(over):
+    """bf16, every ctx value halfway between bf16 neighbours: the
+    reference multiplies the fp32 context unrounded and rounds the product
+    once, and so does ``reference_dcnet_cell``. A pack built to read the
+    gated context back (gate_w = 0 with a random gate_b, the decoder's
+    part rows the identity into the i gate, every other weight 0, the g
+    and o biases 20, c = 0) gives c' = sigmoid(part): one bf16 ulp of part
+    moves c' by ~1e-3, so the two sides agree within 1e-6; ctx rounded to
+    bf16 first moves c' by more than 1e-4."""
+    jcfg, jp, jctx, tcfg, tp, tctx = _setup("dcnet", "bfloat16", batch=13,
+                                            k=5, **over)
+    jpack = jax_megastep.prepare_dcnet_cell_pack(jp, jcfg, jctx)
+    tpack = megastep.prepare_dcnet_cell_pack(tp, tcfg, tctx)
+    N, E, H = 65, jcfg.emb_dim, jcfg.hidden_dim
+    Ep, Hp = tpack.w_emb.shape[0], tpack.hp
+    rng = np.random.default_rng(7)
+    gate_b = rng.standard_normal(Hp).astype(np.float32)
+    w_part = np.zeros((Hp, 4 * Hp), np.float32)
+    w_part[:, :Hp] = np.eye(Hp)
+    b = np.zeros(4 * Hp, np.float32)
+    b[2 * Hp:] = 20.0
+    x = rng.standard_normal((N, Hp)).astype(np.float32)
+    ctx = ((x.view(np.uint32) & 0xFFFF0000) | 0x8000).view(np.float32)
+    emb, h = _padded(rng, N, E, Ep, 0.1), _padded(rng, N, H, Hp, 0.5)
+    c = np.zeros((N, Hp), np.float32)
+    bf = jnp.bfloat16
+    jpack = jpack._replace(
+        gate_w=jnp.zeros_like(jpack.gate_w), gate_b=jnp.asarray(gate_b)[None],
+        w_emb=jnp.zeros_like(jpack.w_emb), w_part=jnp.asarray(w_part, bf),
+        w_h=jnp.zeros_like(jpack.w_h), b=jnp.asarray(b)[None])
+    tpack = dataclasses.replace(
+        tpack, gate_w=torch.zeros_like(tpack.gate_w),
+        gate_b=torch.from_numpy(gate_b),
+        dec_w=torch.cat([torch.zeros((Ep, 4 * Hp)), torch.from_numpy(w_part),
+                         torch.zeros((Hp, 4 * Hp))]).bfloat16(),
+        b=torch.from_numpy(b))
+    j = _dcnet_lstm_jax(jpack, bf, emb, ctx, h, c)
+    t_in = [torch.from_numpy(v) for v in (emb, ctx, h, c)]
+    part = torch.empty((N, Hp), dtype=torch.bfloat16)
+    t = megastep.reference_dcnet_cell(tpack, *t_in, part=part)
+    want = (torch.sigmoid(torch.from_numpy(gate_b)) * t_in[1]).bfloat16()
+    assert torch.equal(part, want)
+    np.testing.assert_allclose(t[1].numpy(), np.asarray(j[1]), atol=1e-6,
+                               rtol=0)
+    t_in[1] = t_in[1].bfloat16().float()
+    bad = megastep.reference_dcnet_cell(tpack, *t_in)
+    assert float((bad[1] - t[1]).abs().max()) > 1e-4
+
+
 def _decode_inputs(B=4, t_in=6, seed=2):
     rng = np.random.default_rng(seed)
     feats = rng.standard_normal(
