@@ -1,8 +1,9 @@
-// Shared pieces of the vocab-head kernels (head_topk.cu, head_int8.cu,
-// head_sweep.cu, wholestep.cu): the (value descending, vocab id ascending)
-// order, the per-row top-k of a 128-column logits tile in its two
-// extractions, pass 2 (the merge of the tiles' partial results), and the
-// fp32 route: an fp32 logits tile on the CUDA cores and the one-pass fp32
+// Shared pieces of the vocab-head kernels (head_sm90.cuh and through it
+// head_topk.cu, head_int8.cu, head_sweep.cu; wholestep.cu): the (value
+// descending, vocab id ascending) order, the candidate lists and the warp
+// arg-max merge, and the fp32 route: the per-row top-k of an fp32 logits
+// tile in its two extractions, pass 2 (the merge of the tiles' partial
+// results), the fp32 logits tile on the CUDA cores and the one-pass fp32
 // sweep.
 //
 // Replaces the extraction and merge of the TPU kernels in
@@ -15,8 +16,7 @@
 // their length (the k = 8 instance is the one every kernel had before),
 // and the host picks the smallest instance that holds k (kmax_for). A
 // tile row's own list needs no more than a lane's COLS_PER_LANE columns,
-// whatever k; it keeps the 8 entries it always had (a shorter list moved
-// the mask kernel from 80 to 99 registers, PERF.md).
+// whatever k; it keeps the 8 entries it always had.
 
 #pragma once
 

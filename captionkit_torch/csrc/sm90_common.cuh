@@ -1,9 +1,7 @@
-// Hopper (sm_90a) building blocks of the redesigned kernels, lstm.cu and
-// head_sweep.cu: mbarriers, TMA tensor and bulk loads, cluster barriers and
-// distributed shared memory, warpgroup MMA (wgmma) with its shared-memory
-// descriptors, and the host-side encoding of the tensor maps. The older
-// kernels keep their own headers (cell_common.cuh, head_common.cuh), which
-// this one leaves alone.
+// Hopper (sm_90a) building blocks of the redesigned kernels (sm90_cell.cuh,
+// head_sm90.cuh): mbarriers, TMA tensor and bulk loads, cluster barriers
+// and distributed shared memory, warpgroup MMA (wgmma, bf16 and s8) with its
+// shared-memory descriptors, and the host-side encoding of the tensor maps.
 //
 // Shared-memory layouts. A TMA box lands in shared memory row after row,
 // the 16-byte chunks of each 128-byte (SW128) or 64-byte (SW64) row
@@ -158,6 +156,18 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Orders this thread's generic-proxy writes to global memory before later
+// async-proxy (TMA) reads of them, once a barrier has passed them on.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
 // The fragments of the accumulator of a m64nNk16 product, per thread of the
 // warpgroup: d[4 j + 2 h + e] is row 16 (warp % 4) + lane / 4 + 8 h, column
 // 8 j + 2 (lane % 4) + e. A register A fragment holds two bf16 a register,
@@ -238,6 +248,35 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// D[64 x 128] (s32) += A[64 x 32] (s8, shared memory, K-major) * B[32 x 128]
+// (s8, shared memory, K-major: 128 rows of N, K innermost). 8-bit wgmma has
+// no transpose: both operands must be K-major. The accumulator fragments
+// are laid out as the f32 ones above.
+__device__ __forceinline__ void wgmma_m64n128k32_s8_ss(int (&d)[64],
+                                                      uint64_t desc_a,
+                                                      uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
 
 // ---------------------------------------------------------------------------
 // Host: tensor maps

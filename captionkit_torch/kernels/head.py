@@ -1,6 +1,7 @@
 """Fused vocab head: matmul + log-sum-exp + per-row top-k
 (``captionkit.ops.head``; the kernels are ``csrc/head_topk.cu``,
-``csrc/head_sweep.cu`` and ``csrc/head_int8.cu``).
+``csrc/head_sweep.cu`` and ``csrc/head_int8.cu``, all three on the one
+kernel template of ``csrc/head_sm90.cuh`` for bf16 and int8).
 
 Every head returns (vals [N, k] fp32 raw logits, descending, equal values
 lowest index first; idx [N, k] int32; lse [N] fp32). On a CUDA tensor a
@@ -16,17 +17,20 @@ function with its plain version, which forms the full logits.
   ``CAPTIONKIT_HEAD_SWEEP`` set (read once, at import, as the reference
   reads it) it runs ``head_sweep_topk``, the single-sweep kernel, and
   ignores ``extract``.
-- ``fused_head_topk_int8(h, w_q, w_scale, b, k=k, extract=...)``: the
-  int8 head of ``head_quant="int8"``: logits = (q8(h) @ w_q) * (s_h * s_w)
-  + b, with fp32 h quantized per row inside the kernel and w_q from
-  ``quantize_head``. Bit-identical to ``reference_head_topk_int8``'s
-  values and ids.
+- ``fused_head_topk_int8(h, w_q, w_scale, b, k=k, extract=..., w_qt=...)``:
+  the int8 head of ``head_quant="int8"``: logits = (q8(h) @ w_q) * (s_h *
+  s_w) + b, with fp32 h quantized per row inside the kernel and w_q from
+  ``quantize_head``; the kernel reads ``w_qt = kmajor_head(w_q)``, the
+  K-major copy that 8-bit wgmma needs. Bit-identical to
+  ``reference_head_topk_int8``'s values and ids.
 
-Every kernel takes any k up to ``KMAX`` (64): its candidate lists are
-template instances of 8, 16, 32 and 64 entries and the smallest that holds
-k runs; above ``KMAX`` a CUDA call raises. Any H: the sweep keeps h
-resident up to ``SWEEP_RESIDENT_H`` and streams it beside W above; the
-int8 head streams its quantized rows in K chunks.
+The bf16 and int8 kernels run one launch a call: for each block of 64 rows
+a cluster of CTAs splits the vocab (``sweep_plan``, from the clusters the
+card holds, ``cluster_table``) and merges on chip. Every kernel takes any
+k up to ``KMAX`` (64): its candidate lists are template instances of 8,
+16, 32 and 64 entries and the smallest that holds k runs; above ``KMAX`` a
+CUDA call raises. Any H: the kernels keep h (or the quantized rows)
+resident up to ``SWEEP_RESIDENT_H`` and stream it beside W above.
 
 ``prepad_head`` and ``quantize_head`` prepare the head once per decode
 batch: the vocab axis padded to a multiple of the kernels' 128-column
@@ -52,9 +56,9 @@ _EXTRACT_CODE = {"mask": 0, "thresh": 1}
 #: ``CAPTIONKIT_HEAD_SWEEP``, read once at import: when set,
 #: ``fused_head_topk`` runs the single-sweep kernel.
 SWEEP = bool(os.environ.get("CAPTIONKIT_HEAD_SWEEP", ""))
-# The sweep (csrc/head_sweep.cu, which rejects other values): 64 rows a
-# CTA, h resident up to H = 1024 and streamed with W above, the vocab split
-# over the CTAs of a cluster, at most 4 of them.
+# The bf16 and int8 kernels (csrc/head_sm90.cuh, which rejects other
+# values): 64 rows a CTA, h resident up to H = 1024 and streamed with W
+# above, the vocab split over the CTAs of a cluster, at most 4 of them.
 SWEEP_ROWS = 64
 SWEEP_RESIDENT_H = 1024
 SWEEP_MAX_SHARES = 4
@@ -113,6 +117,18 @@ def quantize_head(w: torch.Tensor, b: torch.Tensor
     b_p = torch.full((Vp,), HEAD_PAD, dtype=torch.float32, device=b.device)
     b_p[:V] = b.float()
     return w_q, scale_p, b_p
+
+
+def kmajor_head(w_q: torch.Tensor) -> torch.Tensor:
+    """The int8 kernel's K-major copy of ``quantize_head``'s w_q [H, Vp]:
+    w_qt [Vp, Hp] int8, w_qt[v, :H] = w_q[:, v], zeros in the columns up
+    to Hp = H rounded up to 16 (a TMA row is a multiple of 16 bytes).
+    8-bit wgmma reads both operands K-major only; ``prepare_topk`` makes
+    this once a batch, beside ``quantize_head``."""
+    H, Vp = w_q.shape
+    w_qt = w_q.new_zeros((Vp, _round_up(H, 16)))
+    w_qt[:, :H] = w_q.t()
+    return w_qt
 
 
 def quantize_rows(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -188,28 +204,37 @@ def _library(name: str) -> ctypes.CDLL:
     lib = build.load(name)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if name == "head_topk":
-        lib.ck_head_topk.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
-        lib.ck_head_topk.restype = i32
+        lib.ck_head_topk.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
+        lib.ck_head_topk_f32.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+        lib.ck_head_topk_f32.restype = i32
         _bind_common(lib, "ck_head_tile_width", "ck_head_kmax")
     elif name == "head_sweep":
         lib.ck_head_sweep.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
-        lib.ck_head_sweep.restype = i32
         lib.ck_head_sweep_f32.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         lib.ck_head_sweep_f32.restype = i32
         _bind_common(lib, "ck_head_sweep_tile_width", "ck_head_sweep_kmax")
-        lib.ck_head_sweep_max_clusters.argtypes = [i32, i32, i32]
-        lib.ck_head_sweep_max_clusters.restype = i32
         lib.ck_head_sweep_resident_h.argtypes = []
         lib.ck_head_sweep_resident_h.restype = i32
         if lib.ck_head_sweep_resident_h() != SWEEP_RESIDENT_H:
-            raise RuntimeError("csrc/head_sweep.cu and kernels/head.py "
+            raise RuntimeError("csrc/head_sm90.cuh and kernels/head.py "
                                "disagree on the resident h width")
     else:
-        lib.ck_head_topk_int8.argtypes = [ptr] * 11 + [i32] * 6 + [ptr]
-        lib.ck_head_topk_int8.restype = i32
+        lib.ck_head_topk_int8.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
         _bind_common(lib, "ck_head_int8_tile_width", "ck_head_int8_kmax")
+    entry, clusters = _ENTRIES[name]
+    getattr(lib, entry).restype = i32
+    getattr(lib, clusters).argtypes = [i32, i32, i32]
+    getattr(lib, clusters).restype = i32
     _bound[name] = lib
     return lib
+
+
+# Each library's bf16 or int8 entry and its clusters query.
+_ENTRIES = {
+    "head_topk": ("ck_head_topk", "ck_head_topk_max_clusters"),
+    "head_sweep": ("ck_head_sweep", "ck_head_sweep_max_clusters"),
+    "head_int8": ("ck_head_topk_int8", "ck_head_int8_max_clusters"),
+}
 
 
 def _check_cuda_inputs(h, w, b, k, *, h_dtype, w_dtype, h_mult, v_mult,
@@ -276,7 +301,10 @@ def _float_dtype(h: torch.Tensor) -> torch.dtype:
     return torch.float32 if h.dtype == torch.float32 else torch.bfloat16
 
 
-def _launch_tiled(h, w, b, k, extract, wrapper):
+def _launch_tiled(h, w, b, k, extract, wrapper, fault=0):
+    """The tiled head's kernel: bf16, one launch (``sweep_plan``'s clusters;
+    ``fault=1`` plants a tile skip on a max equal to the running k-th
+    value, for tests); fp32, the tile pass and the merge."""
     dt = _float_dtype(h)
     _check_cuda_inputs(h, w, b, k, h_dtype=dt, w_dtype=dt, h_mult=8,
                        v_mult=8)
@@ -284,13 +312,22 @@ def _launch_tiled(h, w, b, k, extract, wrapper):
     N, H = h.shape
     V = w.shape[1]
     dev = h.device
-    vals, idx, lse, pm, ps, pv, pi = _outputs(N, k, dev, -(-V // TILE_V))
-    err = lib.ck_head_topk(
-        h.data_ptr(), w.data_ptr(), b.data_ptr(), vals.data_ptr(),
-        idx.data_ptr(), lse.data_ptr(), pm.data_ptr(), ps.data_ptr(),
-        pv.data_ptr(), pi.data_ptr(), N, H, V, k, _EXTRACT_CODE[extract],
-        int(dt == torch.float32), dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dt == torch.float32:
+        vals, idx, lse, pm, ps, pv, pi = _outputs(N, k, dev, -(-V // TILE_V))
+        err = lib.ck_head_topk_f32(
+            h.data_ptr(), w.data_ptr(), b.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), lse.data_ptr(), pm.data_ptr(), ps.data_ptr(),
+            pv.data_ptr(), pi.data_ptr(), N, H, V, k, _EXTRACT_CODE[extract],
+            dev.index or 0, stream)
+    else:
+        vals, idx, lse, *_ = _outputs(N, k, dev)
+        shares, _ = sweep_plan(
+            N, V, cluster_table("head_topk", dev, H > SWEEP_RESIDENT_H))
+        err = lib.ck_head_topk(
+            h.data_ptr(), w.data_ptr(), b.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), lse.data_ptr(), N, H, V, k,
+            _EXTRACT_CODE[extract], shares, fault, dev.index or 0, stream)
     _raise_on(lib, err, "head_topk")
     wrapper.launches += 1
     return vals, idx, lse
@@ -325,13 +362,15 @@ def fused_head_topk_thresh(h: torch.Tensor, w: torch.Tensor,
 
 
 def sweep_plan(N: int, V: int, clusters) -> tuple[int, int]:
-    """The sweep's launch plan: (shares, tiles per share). Each block of
-    ``SWEEP_ROWS`` rows is one cluster of ``shares`` CTAs; CTA c sweeps
-    vocab tiles [c P, (c + 1) P) of ``TILE_V`` columns (the last share may
-    be short or empty). ``clusters[s]`` is how many clusters of s CTAs the
-    card holds at once (``sweep_clusters``); the plan takes the shares, at
-    most ``SWEEP_MAX_SHARES`` and the number of tiles, that minimise waves
-    x tiles per share, the fewer waves on a tie."""
+    """The launch plan of the bf16 and int8 kernels (the sweep, the tiled
+    heads): (shares, tiles per share). Each block of ``SWEEP_ROWS`` rows is
+    one cluster of ``shares`` CTAs; CTA c sweeps vocab tiles [c P, (c + 1)
+    P) of ``TILE_V`` columns (the last share may be short or empty),
+    starting at tile c P + (row block mod its tiles). ``clusters[s]`` is how
+    many clusters of s CTAs the card holds at once (``cluster_table``); the
+    plan takes the shares, at most ``SWEEP_MAX_SHARES`` and the number of
+    tiles, that minimise waves x tiles per share, the fewer waves on a
+    tie."""
     row_blocks = -(-N // SWEEP_ROWS)
     n_tiles = -(-V // TILE_V)
     best = None
@@ -344,28 +383,30 @@ def sweep_plan(N: int, V: int, clusters) -> tuple[int, int]:
         if best is None or key < best[0]:
             best = (key, shares, per)
     if best is None:
-        raise RuntimeError("the card holds no cluster of the sweep kernel")
+        raise RuntimeError("the card holds no cluster of the head kernel")
     return best[1], best[2]
 
 
-_clusters: dict[tuple[int, bool], tuple[int, ...]] = {}
+_clusters: dict[tuple[str, int, bool], tuple[int, ...]] = {}
 
 
-def sweep_clusters(device: torch.device, wide: bool = False
-                   ) -> tuple[int, ...]:
+def cluster_table(name: str, device: torch.device, wide: bool = False
+                  ) -> tuple[int, ...]:
     """How many clusters of s CTAs (index s = 1 .. SWEEP_MAX_SHARES) of the
-    sweep kernel the card holds at once, from the occupancy API, for h
-    resident or (``wide``, H > SWEEP_RESIDENT_H) streamed; once per device
-    and layout."""
-    key = (device.index or 0, wide)
+    kernel of library ``name`` ("head_topk", "head_sweep", "head_int8") the
+    card holds at once, from the occupancy API, for h resident or
+    (``wide``, H > SWEEP_RESIDENT_H) streamed; once per kernel, device and
+    layout."""
+    key = (name, device.index or 0, wide)
     table = _clusters.get(key)
     if table is None:
-        lib = _library("head_sweep")
-        counts = [lib.ck_head_sweep_max_clusters(s, int(wide), key[0])
+        lib = _library(name)
+        query = getattr(lib, _ENTRIES[name][1])
+        counts = [query(s, int(wide), key[1])
                   for s in range(1, SWEEP_MAX_SHARES + 1)]
         for s, n in enumerate(counts, 1):
             if n < 0:
-                _raise_on(lib, -n, f"head_sweep cluster query ({s} CTAs)")
+                _raise_on(lib, -n, f"{name} cluster query ({s} CTAs)")
         table = _clusters[key] = (0, *counts)
     return table
 
@@ -396,7 +437,7 @@ def head_sweep_topk(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
             stream)
     else:
         shares, _ = sweep_plan(
-            N, V, sweep_clusters(dev, H > SWEEP_RESIDENT_H))
+            N, V, cluster_table("head_sweep", dev, H > SWEEP_RESIDENT_H))
         err = lib.ck_head_sweep(
             h.data_ptr(), w.data_ptr(), b.data_ptr(), vals.data_ptr(),
             idx.data_ptr(), lse.data_ptr(), N, H, V, k, shares,
@@ -406,34 +447,54 @@ def head_sweep_topk(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     return vals, idx, lse
 
 
-def fused_head_topk_int8(h: torch.Tensor, w_q: torch.Tensor,
-                         w_scale: torch.Tensor, b: torch.Tensor, *, k: int,
-                         extract: str = "mask"):
-    """(vals, idx, lse) of the int8 head over fp32 h [N, H] and
-    ``quantize_head``'s (w_q [H, Vp] int8, w_scale [Vp], b [Vp]), any H
-    (the quantized rows stream in K chunks). CUDA: the kernel, either
-    extraction (counted in ``fused_head_topk_int8.launches``); CPU:
-    ``reference_head_topk_int8``."""
-    _check_extract(extract)
-    if h.device.type == "cpu":
-        return reference_head_topk_int8(h, w_q, w_scale, b, k)
+def _launch_int8(h, w_q, w_scale, b, k, extract, w_qt, fault=0):
+    """The int8 kernel, one launch (``fault`` as ``_launch_tiled``'s)."""
     _check_cuda_inputs(h, w_q, b, k, h_dtype=torch.float32,
                        w_dtype=torch.int8, h_mult=4, v_mult=16,
                        scale=w_scale)
-    lib = _library("head_int8")
     N, H = h.shape
     V = w_q.shape[1]
+    Hp = _round_up(H, 16)
+    if w_qt is None:
+        w_qt = kmajor_head(w_q)
+    if (w_qt.dtype != torch.int8 or w_qt.device != h.device
+            or tuple(w_qt.shape) != (V, Hp) or not w_qt.is_contiguous()
+            or w_qt.data_ptr() % 16):
+        raise ValueError(f"w_qt must be kmajor_head(w_q): contiguous int8 "
+                         f"[{V}, {Hp}] on {h.device}, got {w_qt.dtype} "
+                         f"{tuple(w_qt.shape)} on {w_qt.device}")
+    lib = _library("head_int8")
     dev = h.device
-    vals, idx, lse, pm, ps, pv, pi = _outputs(N, k, dev, -(-V // TILE_V))
+    shares, _ = sweep_plan(
+        N, V, cluster_table("head_int8", dev, Hp > SWEEP_RESIDENT_H))
+    vals, idx, lse, *_ = _outputs(N, k, dev)
+    qh = torch.empty((shares * _round_up(N, SWEEP_ROWS), Hp),
+                     dtype=torch.int8, device=dev)
     err = lib.ck_head_topk_int8(
-        h.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), b.data_ptr(),
-        vals.data_ptr(), idx.data_ptr(), lse.data_ptr(), pm.data_ptr(),
-        ps.data_ptr(), pv.data_ptr(), pi.data_ptr(), N, H, V, k,
-        _EXTRACT_CODE[extract], dev.index or 0,
+        h.data_ptr(), w_qt.data_ptr(), w_scale.data_ptr(), b.data_ptr(),
+        vals.data_ptr(), idx.data_ptr(), lse.data_ptr(), qh.data_ptr(), N, H,
+        V, k, _EXTRACT_CODE[extract], shares, fault, dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "head_topk_int8")
     fused_head_topk_int8.launches += 1
     return vals, idx, lse
+
+
+def fused_head_topk_int8(h: torch.Tensor, w_q: torch.Tensor,
+                         w_scale: torch.Tensor, b: torch.Tensor, *, k: int,
+                         extract: str = "mask",
+                         w_qt: torch.Tensor | None = None):
+    """(vals, idx, lse) of the int8 head over fp32 h [N, H] and
+    ``quantize_head``'s (w_q [H, Vp] int8, w_scale [Vp], b [Vp]), any H.
+    CUDA: the kernel, either extraction, one launch (counted in
+    ``fused_head_topk_int8.launches``); it reads ``w_qt``, the K-major
+    copy ``kmajor_head(w_q)``, made here when not given (a copy launch
+    beside the kernel; ``prepare_topk`` makes it once a batch). CPU:
+    ``reference_head_topk_int8``."""
+    _check_extract(extract)
+    if h.device.type == "cpu":
+        return reference_head_topk_int8(h, w_q, w_scale, b, k)
+    return _launch_int8(h, w_q, w_scale, b, k, extract, w_qt)
 
 
 fused_head_topk.launches = 0

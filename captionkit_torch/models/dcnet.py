@@ -79,6 +79,8 @@ class DCNetContext:
     head_w: Optional[torch.Tensor] = None  # [H, Vp] compute dtype or int8
     head_b: Optional[torch.Tensor] = None  # [Vp] fp32, padding -1e30
     head_scale: Optional[torch.Tensor] = None  # [Vp] fp32, int8 head only
+    # [Vp, Hp] int8, the int8 kernel's K-major copy of head_w (kmajor_head)
+    head_wt: Optional[torch.Tensor] = None
     # Fused decode-cell pack, built by prepare_topk for cell_impl="pallas".
     cell_pack: Optional[DCNetCellPack] = None
 

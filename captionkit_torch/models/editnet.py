@@ -45,6 +45,7 @@ from captionkit_torch.device import resolve_device
 from captionkit_torch.kernels.head import (
     fused_head_topk,
     fused_head_topk_int8,
+    kmajor_head,
     prepad_head,
     quantize_head,
     reference_head_topk,
@@ -107,6 +108,8 @@ class EditNetContext:
     head_w: Optional[torch.Tensor] = None  # [H, Vp] compute dtype or int8
     head_b: Optional[torch.Tensor] = None  # [Vp] fp32, padding -1e30
     head_scale: Optional[torch.Tensor] = None  # [Vp] fp32, int8 head only
+    # [Vp, Hp] int8, the int8 kernel's K-major copy of head_w (kmajor_head)
+    head_wt: Optional[torch.Tensor] = None
     # Fused decode-cell pack, built by prepare_topk for cell_impl="pallas"
     # and "wholestep".
     cell_pack: Optional[CellPack] = None
@@ -323,10 +326,14 @@ def prepare_topk(params: EditNetParams, cfg: ModelConfig,
 
 
 def prepare_head(params, cfg: ModelConfig, ctx):
-    """The per-batch head of ``prepare_topk``, shared with DCNet."""
+    """The per-batch head of ``prepare_topk``, shared with DCNet: int8,
+    ``quantize_head``'s (w_q, scale, b) and the kernel's K-major copy of
+    w_q (``kmajor_head``), as the reference's ``prepare_topk`` quantizes
+    once a batch."""
     if cfg.head_quant == "int8":
         w_q, scale, b_p = quantize_head(params.fc_w, params.fc_b)
-        return ctx.replace(head_w=w_q, head_b=b_p, head_scale=scale)
+        return ctx.replace(head_w=w_q, head_b=b_p, head_scale=scale,
+                           head_wt=kmajor_head(w_q))
     if cfg.head_impl == "xla":
         return ctx
     w_p, b_p = prepad_head(params.fc_w, params.fc_b,
@@ -365,14 +372,16 @@ def _head_topk(params: EditNetParams, cfg: ModelConfig,
     if cfg.head_quant == "int8":
         if ctx.head_scale is None:  # no prepare_topk: quantize here
             w_q, scale, b_p = quantize_head(params.fc_w, params.fc_b)
+            w_qt = None
         else:
             w_q, scale, b_p = ctx.head_w, ctx.head_scale, ctx.head_b
+            w_qt = ctx.head_wt
         # The int8 head quantizes the fp32 rows itself: no bf16 cast.
         h = out.float().contiguous()
         if cfg.head_impl == "xla":
             return reference_head_topk_int8(h, w_q, scale, b_p, k)
         return fused_head_topk_int8(h, w_q, scale, b_p, k=k,
-                                    extract=cfg.head_extract)
+                                    extract=cfg.head_extract, w_qt=w_qt)
     if cfg.head_impl == "xla":
         return reference_head_topk(out.to(dt), params.fc_w.to(dt),
                                    params.fc_b, k)

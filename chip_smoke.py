@@ -9,12 +9,14 @@ prints no result line:
 1. device   — CUDA present; the card's name and power limit (nvidia-smi).
 2. build    — every kernel of ``captionkit_torch/csrc`` built by nvcc;
               the registers, shared memory and spills of the kernels on
-              sm90_cell.cuh (the full -Xptxas -v report in
+              sm90_cell.cuh and of the head kernels on head_sm90.cuh (the
+              full -Xptxas -v report in
               build/captionkit_torch/smoke/ptxas.log).
 3. head     — the fused vocab-head kernel against its plain version on the
               card: paper shape (N = 512 images x 5 beams, H = 1024,
               V = 9490) in bf16, and exact-tie patterns across the kernel's
-              128-wide vocab tiles; kernel, plain and library times.
+              128-wide vocab tiles; kernel, plain and library times, one
+              CUDA launch a call.
    head_variants — the rest of the head family at paper shape and on the
               tie patterns: the thresh extraction bit-equal to the mask
               kernel, the single sweep within the head's bar (ties exact,
@@ -22,8 +24,13 @@ prints no result line:
               that breaks ties to the higher index and a share left out of
               the merge must fail),
               the int8 head's values and ids bit-equal to its plain
-              version (lse within 2e-4); planted faults must fail every
-              bar; kernel, plain, library and bound times.
+              version (lse within 2e-4); the tiled heads (mask, thresh,
+              int8) exact on ties at every share boundary, in every tile
+              and at the running bar, where a merge that breaks ties to
+              the higher id, a share left out and a tile skipped on a max
+              equal to the running k-th value must each fail; planted
+              faults must fail every bar; kernel, plain, library and
+              bound times.
 4. serve    — the main path: EditNet at paper width (editnet_beam5,
               random weights from seed 0 through the .npz bridge) behind
               ``CaptionServer(batch=512)``, answering JSON-lines requests
@@ -103,8 +110,9 @@ prints no result line:
               states, and the whole-step decode at k = 10 beside pallas,
               with its steps check.
 15. wide_head — the single sweep (h streamed beside W) and the int8 head
-              (quantized rows in K chunks) at H = 2048 and 4096 against
-              their plain versions, a skipped h chunk must fail; times.
+              (quantized rows streamed beside w_qt) at H = 2048 and 4096
+              against their plain versions, a skipped h chunk must fail;
+              times.
 
 Then a {"kernels": [...]} line listing all 12 wrappers and the 11 fp32
 instances (each with its launches on its path, check, ms, plain ms, bound
@@ -256,12 +264,19 @@ def phase_build():
     # The kernels on sm90_cell.cuh by source (cell_kernel instances and
     # the whole step's lang_head_kernel); every kernel's report is in the
     # log.
-    cells = {n: {k: v for k, v in _ptxas(log).items()
+    reports = {n: _ptxas(log) for n, log in logs.items()}
+    cells = {n: {k: v for k, v in r.items()
                  if "cell_kernel" in k or "lang_head_kernel" in k}
-             for n, log in logs.items()}
+             for n, r in reports.items()}
+    # The head kernels on head_sm90.cuh: one instance per operands,
+    # epilogue (extraction, list length) and A resident or streamed.
+    heads = {n: {k.split("(")[0].replace("void hsm::", ""): v
+                 for k, v in r.items() if "hsm::head_kernel" in k}
+             for n, r in reports.items()}
     emit({"phase": "build", "ok": True, "sources": list(build.SOURCES),
           "seconds": time.perf_counter() - t0, "per_source": seconds,
-          "sm90_cell_kernels": {n: c for n, c in cells.items() if c}})
+          "sm90_cell_kernels": {n: c for n, c in cells.items() if c},
+          "sm90_head_kernels": {n: c for n, c in heads.items() if c}})
 
 
 def _head_inputs(N, H, V, seed):
@@ -418,6 +433,8 @@ def phase_head():
         "bound_us": 1e3 * bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "kernel_tflops": flops / (kernel_ms * 1e-3) / 1e12,
+        "device_ms": _device_ms(lambda: fused_head_topk(h, w, b, k=k),
+                                ("head_",)),
         "cuda_launches_per_call": _cuda_kernels(
             lambda: fused_head_topk(h, w, b, k=k), ("head_",)),
     }
@@ -426,17 +443,19 @@ def phase_head():
 
 
 def _int8_inputs(N, H, V, seed):
-    """fp32 h on the card (the decode feeds the int8 head fp32 states) and
-    the head quantized by ``quantize_head``."""
+    """fp32 h on the card (the decode feeds the int8 head fp32 states), the
+    head quantized by ``quantize_head`` and the kernel's K-major copy of
+    w_q (``kmajor_head``, made once a batch by ``prepare_topk``)."""
     import torch
 
-    from captionkit_torch.kernels.head import quantize_head
+    from captionkit_torch.kernels.head import kmajor_head, quantize_head
 
     g = torch.Generator().manual_seed(seed)
     h = torch.randn((N, H), generator=g).cuda()
     w = (torch.randn((H, V), generator=g) * 0.03).cuda()
     b = (torch.randn((V,), generator=g) * 0.01).cuda()
-    return (h, *quantize_head(w, b))
+    w_q, scale, b_q = quantize_head(w, b)
+    return h, w_q, scale, b_q, kmajor_head(w_q)
 
 
 def _int8_tie_patterns():
@@ -473,7 +492,7 @@ def _sweep_tie_patterns():
     from captionkit_torch.kernels import head as thead
     from captionkit_torch.kernels.head import TILE_V
 
-    clusters = thead.sweep_clusters(torch.device("cuda"))
+    clusters = thead.cluster_table("head_sweep", torch.device("cuda"))
     V, P = 9600, 16
     cases = []
     for N in (16, N_IMAGES * BEAM):
@@ -511,7 +530,7 @@ def _sweep_faults(h, w, b, k):
     from captionkit_torch.kernels import head as thead
 
     V = w.shape[1]
-    _, per = thead.sweep_plan(h.shape[0], V, thead.sweep_clusters(h.device))
+    _, per = thead.sweep_plan(h.shape[0], V, thead.cluster_table("head_sweep", h.device))
 
     def higher_index_first():
         v, i, l = thead.head_sweep_topk(h, w.flip(1).contiguous(),
@@ -525,6 +544,110 @@ def _sweep_faults(h, w, b, k):
 
     return [("ties_to_higher_index", higher_index_first),
             ("share_left_out", share_left_out)]
+
+
+def _tiled_tie_patterns(kernel):
+    """(name, h, w, b, k) for a tiled head (``kernel`` "mask", "thresh" or
+    "int8") with exact ties on both sides of every boundary between its
+    cluster shares on this card, in every 128-wide tile (the walk of a
+    share starts at a tile rotated by the row block, so a later-walked tile
+    holds a value equal to the running k-th with a lower id) and across
+    whole rows: h is one-hot (row i selects pattern row i mod 16). Float:
+    integer patterns, exact in bf16; int8: columns copied from a few column
+    vectors, so equal columns quantize and dequantize alike (fp32 h, w
+    before quantize_head). 16 rows and the paper's 2560, V = 9600, k = 1,
+    5, 10."""
+    import numpy as np
+    import torch
+
+    from captionkit_torch.kernels import head as thead
+    from captionkit_torch.kernels.head import TILE_V
+
+    lib = "head_int8" if kernel == "int8" else "head_topk"
+    clusters = thead.cluster_table(lib, torch.device("cuda"))
+    V, P = 9600, 16
+    cases = []
+    for N in (16, N_IMAGES * BEAM):
+        shares, per = thead.sweep_plan(N, V, clusters)
+        cuts = [c * per * TILE_V for c in range(1, shares)
+                if c * per * TILE_V < V]
+        check(len(cuts) >= 1, f"{kernel} plan {shares, per} has no boundary")
+        rng = np.random.default_rng(N)
+        if kernel == "int8":
+            kinds = rng.standard_normal((P, 7)).astype(np.float32)
+            kinds[:, 6] = np.abs(kinds[:, 6]) + 4.0  # the top kind
+            kind = rng.integers(0, 6, V)
+            kind[[c + d for c in cuts for d in (-1, 0)]] = 6
+            kind[np.arange(0, V, TILE_V) + 9] = 6
+            pat = kinds[:, kind]
+        else:
+            pat = rng.integers(-2, 2, (P, V)).astype(np.float32)
+            pat[0] = 1.0  # the whole row ties
+            for cut in cuts:
+                pat[1, [cut - 1, cut]] = 5.0
+                pat[2, [cut - 2, cut + 1]] = 6.0
+                pat[3, [cut - 1, cut, 0, V - 1]] = 3.0
+                pat[5, cut - 4:cut + 4] = 4.0
+            for c in range(shares):
+                pat[4, min(c * per * TILE_V + 5, V - 1)] = 7.0
+            for t in range(V // TILE_V):  # an equal best in every tile
+                pat[6, t * TILE_V + 3] = 9.0
+                pat[7, t * TILE_V + 126:t * TILE_V + 130] = 2.0
+        h = np.zeros((N, P), np.float32)
+        h[np.arange(N), np.arange(N) % P] = 1.0
+        dt = torch.float32 if kernel == "int8" else torch.bfloat16
+        for k in (1, 5, 10):
+            cases.append((f"{shares}_shares_{N}_rows_k{k}",
+                          torch.from_numpy(h).to("cuda", dt),
+                          torch.from_numpy(pat).to("cuda", dt),
+                          torch.zeros((V,), device="cuda"), k))
+    return cases
+
+
+def _tiled_run(kernel, h, w, b, k, fault=0):
+    """(kernel run, plain run) of a tiled head on float inputs (the int8
+    head quantizes w here, ``fault`` as in ``kernels/head.py``)."""
+    from captionkit_torch.kernels import head as thead
+
+    if kernel == "int8":
+        w_q, scale, b_q = thead.quantize_head(w, b)
+        w_qt = thead.kmajor_head(w_q)
+        return (lambda: thead._launch_int8(h, w_q, scale, b_q, k, "mask",
+                                           w_qt, fault),
+                lambda: thead.reference_head_topk_int8(h, w_q, scale, b_q,
+                                                       k))
+    wrapper = (thead.fused_head_topk if kernel == "mask"
+               else thead.fused_head_topk_thresh)
+    return (lambda: thead._launch_tiled(h, w, b, k, kernel, wrapper, fault),
+            lambda: thead.reference_head_topk(h, w, b, k))
+
+
+def _tiled_faults(kernel, h, w, b, k):
+    """(name, run) of planted faults of a tiled head, each through the
+    kernel itself: a merge that breaks ties to the higher id (the kernel on
+    the vocab reversed, ids mapped back), a cluster share left out (its
+    columns' bias at HEAD_PAD) and a tile skipped when its max equals the
+    running k-th value (the kernel's fault switch)."""
+    import torch
+
+    from captionkit_torch.kernels import head as thead
+
+    V = w.shape[1]
+    lib = "head_int8" if kernel == "int8" else "head_topk"
+    _, per = thead.sweep_plan(h.shape[0], V,
+                              thead.cluster_table(lib, h.device))
+
+    def higher_id_first():
+        v, i, l = _tiled_run(kernel, h, w.flip(1).contiguous(),
+                             b.flip(0).contiguous(), k)[0]()
+        return v, (V - 1 - i).to(torch.int32), l
+
+    dropped = b.clone()
+    dropped[per * thead.TILE_V:2 * per * thead.TILE_V] = thead.HEAD_PAD
+    return [("ties_to_higher_id", higher_id_first),
+            ("share_left_out", _tiled_run(kernel, h, w, dropped, k)[0]),
+            ("tile_skipped_on_an_equal_max",
+             _tiled_run(kernel, h, w, b, k, fault=1)[0])]
 
 
 def _head_bound(N, H, V, k, *, int8: bool, fp32: bool = False) -> dict:
@@ -558,7 +681,7 @@ def phase_head_variants():
 
     N, H, V, k = N_IMAGES * BEAM, 1024, 9490, BEAM
     h, w, b = _head_inputs(N, H, V, seed=7)
-    h8, w_q, scale, b8 = _int8_inputs(N, H, V, seed=7)
+    h8, w_q, scale, b8, w_qt = _int8_inputs(N, H, V, seed=7)
     mask = thead.fused_head_topk(h, w, b, k=k)
     plain = thead.reference_head_topk(h, w, b, k)
     plain8 = thead.reference_head_topk_int8(h8, w_q, scale, b8, k)
@@ -580,7 +703,7 @@ def phase_head_variants():
     hold("head_sweep_topk", thead.head_sweep_topk(h, w, b, k=k), plain,
          head_agreement)
     int8 = {e: thead.fused_head_topk_int8(h8, w_q, scale, b8, k=k,
-                                          extract=e)
+                                          extract=e, w_qt=w_qt)
             for e in ("mask", "thresh")}
     hold("fused_head_topk_int8", int8["mask"], plain8, int8_agreement)
     check(bit_agreement(int8["thresh"], int8["mask"])["ok"],
@@ -631,9 +754,64 @@ def phase_head_variants():
     for fault, ok in caught.items():
         check(ok, f"head_sweep_topk: planted fault {fault} passes the bar")
     sweep["planted_faults_caught"].update(caught)
+    # The tiled heads: ties at every share boundary, in every tile and at
+    # the running bar, exact (thresh also bit-equal to mask); each planted
+    # fault of the one-launch design must fail the exact bar there, and
+    # the share left out also at paper shape.
+    results["fused_head_topk"] = {"share_ties": {},
+                                  "planted_faults_caught": {}}
+    for kernel, name in (("mask", "fused_head_topk"),
+                         ("thresh", "fused_head_topk_thresh"),
+                         ("int8", "fused_head_topk_int8")):
+        res = results[name]
+        res["share_ties"] = {}
+        caught = {}
+        lse_atol = INT8_LSE_ATOL if kernel == "int8" else 1e-5
+        for case, th, tw, tb, tk in _tiled_tie_patterns(kernel):
+            run, plain_run = _tiled_run(kernel, th, tw, tb, tk)
+            got, want = run(), plain_run()
+            exact = bool(torch.equal(got[0], want[0])
+                         and torch.equal(got[1], want[1]))
+            lse_err = float((got[2] - want[2]).abs().max())
+            if kernel == "thresh":
+                exact = exact and bit_agreement(
+                    got, _tiled_run("mask", th, tw, tb, tk)[0]())["ok"]
+            res["share_ties"][case] = {"exact": exact, "lse_err": lse_err}
+            check(exact and lse_err <= lse_atol,
+                  f"{name} share/bar ties {case}: {got[1][:6].tolist()} "
+                  f"vs {want[1][:6].tolist()}, lse err {lse_err}")
+            for fault, bad in _tiled_faults(kernel, th, tw, tb, tk):
+                v, i, l = bad()
+                if not (torch.equal(v, want[0]) and torch.equal(i, want[1])
+                        and float((l - want[2]).abs().max()) <= lse_atol):
+                    caught[fault] = True
+                caught.setdefault(fault, False)
+        lib = "head_int8" if kernel == "int8" else "head_topk"
+        _, per = thead.sweep_plan(N, w.shape[1],
+                                  thead.cluster_table(lib, h.device))
+        cols = slice(per * thead.TILE_V, 2 * per * thead.TILE_V)
+        if kernel == "int8":
+            dropped = b8.clone()
+            dropped[cols] = thead.HEAD_PAD
+            bad = thead._launch_int8(h8, w_q, scale, dropped, k, "mask",
+                                     w_qt)
+            want = plain8
+        else:
+            dropped = b.clone()
+            dropped[cols] = thead.HEAD_PAD
+            bad = _tiled_run(kernel, h, w, dropped, k)[0]()
+            want = plain
+        caught["share_left_out_paper_shape"] = not head_agreement(
+            bad, want)["ok"]
+        for fault, ok in caught.items():
+            check(ok, f"{name}: planted fault {fault} passes the bar")
+        res["planted_faults_caught"].update(caught)
+        res["clusters"] = list(thead.cluster_table(
+            "head_int8" if kernel == "int8" else "head_topk", h.device))
+        res["plan"] = list(thead.sweep_plan(N, w.shape[1], res["clusters"]))
     # The launch plan: clusters of s CTAs the card holds (index s), and the
     # shares and tiles per share it gives the paper shape.
-    sweep["clusters"] = list(thead.sweep_clusters(h.device))
+    sweep["clusters"] = list(thead.cluster_table("head_sweep", h.device))
     sweep["plan"] = list(thead.sweep_plan(N, w.shape[1], sweep["clusters"]))
     for name, th, tq, ts, tb, tk in _int8_tie_patterns():
         want = thead.reference_head_topk_int8(th, tq, ts, tb, tk)
@@ -672,7 +850,8 @@ def phase_head_variants():
             lambda: thead.head_sweep_topk(h, w, b, k=k), plain_ms,
             library_ms, False),
         "fused_head_topk_int8": (
-            lambda: thead.fused_head_topk_int8(h8, w_q, scale, b8, k=k),
+            lambda: thead.fused_head_topk_int8(h8, w_q, scale, b8, k=k,
+                                               w_qt=w_qt),
             time_ms(lambda: thead.reference_head_topk_int8(
                 h8, w_q, scale, b8, k)), library8_ms, True),
     }
@@ -690,7 +869,7 @@ def phase_head_variants():
     results["fused_head_topk_int8"]["library_error"] = library8_error
     results["fused_head_topk_int8"]["thresh_ms"] = time_ms(
         lambda: thead.fused_head_topk_int8(h8, w_q, scale, b8, k=k,
-                                           extract="thresh"))
+                                           extract="thresh", w_qt=w_qt))
     result = {"phase": "head_variants", "ok": True, "shape": [N, H, V],
               "k": k, "kernels": results,
               "mask_kernel_ms": time_ms(
@@ -2628,7 +2807,7 @@ def _k10_kernels(ed, k) -> dict:
 
     N, H, V = N_IMAGES * BEAM, 1024, 9490
     h, w, b = _head_inputs(N, H, V, 7)
-    h8, w_q, scale, b_q = _int8_inputs(N, H, V, 7)
+    h8, w_q, scale, b_q, w_qt = _int8_inputs(N, H, V, 7)
 
     def library():
         logits = torch.matmul(h, w).float() + b
@@ -2646,7 +2825,8 @@ def _k10_kernels(ed, k) -> dict:
                             lambda: thead.reference_head_topk(h, w, b, k),
                             head_agreement, library, False),
         "fused_head_topk_int8": (
-            lambda: thead.fused_head_topk_int8(h8, w_q, scale, b_q, k=k),
+            lambda: thead.fused_head_topk_int8(h8, w_q, scale, b_q, k=k,
+                                               w_qt=w_qt),
             lambda: thead.reference_head_topk_int8(h8, w_q, scale, b_q, k),
             int8_agreement, None, True),
     }
@@ -2738,7 +2918,8 @@ def phase_beam10(ed, wrappers, card) -> dict:
 
 def phase_wide_head(card) -> dict:
     """The single sweep (h streamed beside W above H = 1024) and the int8
-    head (its quantized rows in K chunks) at H = 2048 and 4096, N = 2560,
+    head (its quantized rows streamed beside w_qt) at H = 2048 and 4096,
+    N = 2560,
     V = 9490, k = 5: within their bars against their plain versions; a
     sweep that skips h's second 64-wide chunk (a planted fault) must fail;
     kernel, plain, library and bound times."""
@@ -2780,8 +2961,9 @@ def phase_wide_head(card) -> dict:
             "library_ms": time_ms(library, iters=10), **bound,
             "bound_share": bound["bound_ms"] / ms_}
         w_q, scale, b_q = thead.quantize_head(w, b)
+        w_qt = thead.kmajor_head(w_q)
         run8 = lambda: thead.fused_head_topk_int8(  # noqa: E731
-            h, w_q, scale, b_q, k=k)
+            h, w_q, scale, b_q, k=k, w_qt=w_qt)
         int8 = _hold(f"fused_head_topk_int8 H={H}", run8,
                      lambda: thead.reference_head_topk_int8(h, w_q, scale,
                                                             b_q, k),

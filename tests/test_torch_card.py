@@ -183,7 +183,7 @@ def _share_tie_case(card, N, V=9600, P=16):
     with ties on both sides of every boundary between the sweep's cluster
     shares on this card (``sweep_plan``): logits row i is pattern row
     i mod P, exact in bf16."""
-    shares, per = thead.sweep_plan(N, V, thead.sweep_clusters(card))
+    shares, per = thead.sweep_plan(N, V, thead.cluster_table("head_sweep", card))
     cuts = [c * per * thead.TILE_V for c in range(1, shares)]
     rng = np.random.default_rng(N)
     pat = rng.integers(-2, 2, (P, V)).astype(np.float32)
@@ -940,7 +940,8 @@ def test_fp32_heads_match_plain(card, kernel):
 @pytest.mark.parametrize("kernel", ["sweep", "int8"])
 def test_wide_heads_match_plain(card, kernel, H, k):
     """The sweep (h streamed beside W above H = 1024) and the int8 head
-    (its quantized rows in K chunks) at H = 2048 and 4096, paper vocab:
+    (its quantized rows streamed beside w_qt) at H = 2048 and 4096, paper
+    vocab:
     within their bars. A sweep that skipped h's second 64-wide chunk (a
     planted fault) fails the head bar."""
     g = torch.Generator().manual_seed(H + k)
@@ -957,6 +958,150 @@ def test_wide_heads_match_plain(card, kernel, H, k):
         hs[:, 64:128] = 0
         bad = thead.head_sweep_topk(hs, w, b, k=k)
         assert float((bad[2] - want[2]).abs().max()) > 1e-3
+
+
+# -- the tiled heads on csrc/head_sm90.cuh (mask, thresh, int8) ---------------
+
+
+def _tiled(kernel, h, w, b, k, fault=0):
+    """One tiled head through its kernel (``fault`` 1: a tile skipped on a
+    max equal to the running k-th value, a planted fault); the int8 head
+    takes fp32 h and the float head's w, quantized here."""
+    if kernel == "int8":
+        w_q, scale, b_p = thead.quantize_head(w.float(), b)
+        return thead._launch_int8(h.float(), w_q, scale, b_p, k, "mask",
+                                  thead.kmajor_head(w_q), fault)
+    wrapper = (thead.fused_head_topk if kernel == "mask"
+               else thead.fused_head_topk_thresh)
+    return thead._launch_tiled(h.bfloat16(), w.bfloat16(), b, k, kernel,
+                               wrapper, fault)
+
+
+def _tiled_plain(kernel, h, w, b, k):
+    if kernel == "int8":
+        w_q, scale, b_p = thead.quantize_head(w.float(), b)
+        return thead.reference_head_topk_int8(h.float(), w_q, scale, b_p, k)
+    return thead.reference_head_topk(h.bfloat16(), w.bfloat16(), b, k)
+
+
+def _tiled_tie_case(card, kernel, N, V=9600, P=16):
+    """h one-hot (row i selects pattern row i mod P) and patterns with
+    exact ties on both sides of every cluster share boundary of this
+    kernel's plan on the card, in every 128-wide tile (so a later-walked
+    tile holds a value equal to the running k-th with a lower id: the
+    walk of a share starts at a tile rotated by the row block) and across
+    whole rows. Float: integer patterns; int8: columns that are copies of
+    a few column vectors, so equal columns quantize and dequantize alike.
+    Returns (h, w, b, shares)."""
+    lib = "head_int8" if kernel == "int8" else "head_topk"
+    shares, per = thead.sweep_plan(N, V, thead.cluster_table(lib, card))
+    cuts = [c * per * thead.TILE_V for c in range(1, shares)]
+    rng = np.random.default_rng(N)
+    if kernel == "int8":
+        kinds = rng.standard_normal((P, 7)).astype(np.float32)
+        kinds[:, 6] = np.abs(kinds[:, 6]) + 4.0
+        kind = rng.integers(0, 6, V)
+        kind[[c + d for c in cuts for d in (-1, 0)]] = 6
+        kind[np.arange(0, V, thead.TILE_V) + 9] = 6
+        pat = kinds[:, kind]
+    else:
+        pat = rng.integers(-2, 2, (P, V)).astype(np.float32)
+        pat[0] = 1.0  # the whole row ties
+        for cut in cuts:
+            pat[1, [cut - 1, cut]] = 5.0
+            pat[2, [cut - 2, cut + 1]] = 6.0
+            pat[3, [cut - 1, cut, 0, V - 1]] = 3.0
+            pat[5, cut - 4:cut + 4] = 4.0
+        for c in range(shares):
+            pat[4, min(c * per * thead.TILE_V + 5, V - 1)] = 7.0
+        for t in range(V // thead.TILE_V):
+            pat[6, t * thead.TILE_V + 3] = 9.0  # an equal best in each tile
+            pat[7, t * thead.TILE_V + 126:t * thead.TILE_V + 130] = 2.0
+    h = np.zeros((N, P), np.float32)
+    h[np.arange(N), np.arange(N) % P] = 1.0
+    return (torch.from_numpy(h).to(card), torch.from_numpy(pat).to(card),
+            torch.zeros((V,), device=card), shares)
+
+
+def _exact(got, want, kernel):
+    lse_atol = 2e-4 if kernel == "int8" else 1e-5
+    return (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            and float((got[2] - want[2]).abs().max()) <= lse_atol)
+
+
+@pytest.mark.parametrize("k", [1, 5, 10, 64])
+@pytest.mark.parametrize("N", [1, 33, 2561])
+@pytest.mark.parametrize("kernel", ["mask", "thresh", "int8"])
+def test_tiled_heads_exact_on_share_and_bar_ties(card, kernel, N, k):
+    """The tiled heads (one launch: clusters that split the vocab, the
+    extraction per tile, the merge on chip) on ties across every tile, at
+    every cluster share boundary and at the running bar, at ragged N:
+    values and ids equal to the plain version's, lse within its bar;
+    thresh bit-equal to mask."""
+    h, w, b, shares = _tiled_tie_case(card, kernel, N)
+    assert shares >= 2
+    got = _tiled(kernel, h, w, b, k)
+    assert _exact(got, _tiled_plain(kernel, h, w, b, k), kernel)
+    if kernel == "thresh":
+        assert all(torch.equal(x, y)
+                   for x, y in zip(got, _tiled("mask", h, w, b, k)))
+
+
+@pytest.mark.parametrize("kernel", ["mask", "thresh", "int8"])
+def test_tiled_heads_planted_faults_fail(card, kernel):
+    """Each planted fault of the one-launch design fails the exact bar on
+    the tie patterns at N = 2560: a merge that breaks ties to the higher
+    id (the kernel on the reversed vocab, ids mapped back), a cluster
+    share left out (its columns' bias at HEAD_PAD) and a tile skipped on
+    a max equal to the running k-th value (the kernel's fault switch)."""
+    N = 2560
+    h, w, b, _ = _tiled_tie_case(card, kernel, N)
+    V = w.shape[1]
+    lib = "head_int8" if kernel == "int8" else "head_topk"
+    _, per = thead.sweep_plan(N, V, thead.cluster_table(lib, card))
+    for k in (1, 5):
+        want = _tiled_plain(kernel, h, w, b, k)
+        assert _exact(_tiled(kernel, h, w, b, k), want, kernel)
+        v, i, l = _tiled(kernel, h, w.flip(1).contiguous(), b.flip(0), k)
+        assert not _exact((v, (V - 1 - i).to(torch.int32), l), want, kernel)
+        dropped = b.clone()
+        dropped[per * thead.TILE_V:2 * per * thead.TILE_V] = thead.HEAD_PAD
+        assert not _exact(_tiled(kernel, h, w, dropped, k), want, kernel)
+        assert not _exact(_tiled(kernel, h, w, b, k, fault=1), want, kernel)
+
+
+def test_tiled_heads_one_launch_and_no_wmma_tile(card):
+    """bf16 mask and thresh and the int8 head (given its K-major weights)
+    run as one CUDA launch a call, the head_sm90.cuh kernel; no tile pass
+    (head_tile_kernel, head_int8_tile_kernel) and no merge launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    h, w, b = _paper_head(card)
+    w_p, b_p = thead.prepad_head(w, b, compute_dtype=torch.bfloat16)
+    hb = h.bfloat16()
+    w_q, scale, b_q = thead.quantize_head(w, b)
+    w_qt = thead.kmajor_head(w_q)
+    runs = {"mask": lambda: thead.fused_head_topk(hb, w_p, b_p, k=5),
+            "thresh": lambda: thead.fused_head_topk_thresh(hb, w_p, b_p,
+                                                           k=5),
+            "int8": lambda: thead.fused_head_topk_int8(
+                h, w_q, scale, b_q, k=5, w_qt=w_qt)}
+    for name, run in runs.items():
+        run()
+        torch.cuda.synchronize()
+        for _ in range(2):  # the profiler now and then records nothing
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    run()
+                torch.cuda.synchronize()
+            kernels = {e.key: e.count for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA}
+            if kernels:
+                break
+        assert sum(kernels.values()) == 3, (name, kernels)
+        assert all("head_kernel" in key for key in kernels), (name, kernels)
+        assert not any("tile_kernel" in key or "merge" in key
+                       for key in kernels)
 
 
 @pytest.mark.parametrize("over,B", [({**SMALL_CELLS, **F32_CELLS}, 7),
