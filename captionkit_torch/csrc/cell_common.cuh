@@ -1,50 +1,37 @@
 // Shared pieces of the decode-cell kernels (megastep.cu, lstm.cu,
-// attention.cu, wholestep.cu): the split-operand GEMM tile with its gated
-// (LSTM, Copy-LSTM) and plain epilogues, for the fp32 instances
-// (compute_dtype="float32") of every cell kernel and for the two bf16
-// query products not yet on sm90_cell.cuh (dcnet_score's and B6's).
+// attention.cu, wholestep.cu): the fp32 split-operand GEMM tile with its
+// gated (LSTM, Copy-LSTM) and plain epilogues, which every fp32 instance
+// (compute_dtype="float32") of a cell kernel runs. The bf16 products run on
+// sm90_cell.cuh.
 //
-// gemm_tile<G, EPI, NT, T>: one block owns a 64-row tile and G column
-// groups of 32. The operands are successive K ranges of one accumulation,
-// so a split operand ([x | h | c*], [v_hat | h_att | h_lang | c*]) never
-// exists concatenated in device memory.
-// - T = float: fp32 operands and fp32 weights staged through shared
-//   memory and multiplied with fp32 FMA on the CUDA cores (not TF32), each
-//   of the tile's first 64 G threads register-blocked over 8 rows x 4
-//   columns.
-// - T = bf16 (EPI_STORE only): bf16 tensor-core MMA (nvcuda::wmma, fp32
-//   accumulation), 2 (rows) x G (column groups) warps of a block of NT >=
-//   64 G threads, the other warps helping to load; fp32 operands are
-//   rounded to bf16 as they are loaded, as the reference rounds them
-//   before its products.
-// The fp32 result tile lands in shared memory and the epilogue runs on it.
-// In the gated epilogues a block owns hidden columns [j, j+32) and its
-// column groups are the i, f, g, o (and copy-gate r) tiles of those
-// columns, read straight from gate-major [K, 4H] weights; the gate
-// pre-activations are never written out.
+// gemm_tile<G, EPI, NT>: one block owns a 64-row tile and G column groups
+// of 32. The operands are successive K ranges of one accumulation, so a
+// split operand ([x | h | c*], [v_hat | h_att | h_lang | c*]) never exists
+// concatenated in device memory. fp32 operands and fp32 weights are staged
+// through shared memory and multiplied with fp32 FMA on the CUDA cores (not
+// TF32), each of the tile's first 64 G threads register-blocked over 8 rows
+// x 4 columns. The fp32 result tile lands in shared memory and the
+// epilogue runs on it. In the gated epilogues a block owns hidden columns
+// [j, j+32) and its column groups are the i, f, g, o (and copy-gate r)
+// tiles of those columns, read straight from gate-major [K, 4H] weights;
+// the gate pre-activations are never written out.
 //
 // Everything lives in namespace `cell`, so a source can include this and
 // head_common.cuh side by side.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cmath>
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 namespace cell {
 
-using namespace nvcuda;
-
-constexpr int BM = 64;       // rows per tile
-constexpr int BN = 32;       // columns per group (one gate tile)
-constexpr int BK = 32;       // depth of one shared-memory stage
-constexpr int LDA = BK + 8;  // shared-memory strides, in elements
+constexpr int BM = 64;  // rows per tile
+constexpr int BN = 32;  // columns per group (one gate tile)
+constexpr int BK = 32;  // operands' K ranges are multiples of this
 constexpr int MAX_OPS = 4;
 constexpr int BKF = 16;       // fp32: depth of one shared-memory stage
 constexpr int LDAF = BM + 4;  // fp32: the k-major activation stage's stride
@@ -57,11 +44,10 @@ enum Epilogue : int {
 };
 
 struct Operand {
-  const void* a;  // [N, k] row-major, fp32 (a_f32) or bf16; fp32 when T is
-  int a_f32;
-  int k;  // a multiple of BK
+  const void* a;  // [N, k] row-major fp32
+  int k;          // a multiple of BK
   // Gated epilogues: [k, 4 cols] gate-major (i|f|g|o), or null when this
-  // operand does not feed those gates. Plain epilogues: [k, cols]. In T.
+  // operand does not feed those gates. Plain epilogues: [k, cols]. fp32.
   const void* w_gates;
   const void* w_copy;  // EPI_COPY_LSTM: [k, cols], or null
 };
@@ -100,19 +86,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ unsigned pack2(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&p);
-}
-
-// Eight fp32 values rounded to bf16, as one 16-byte vector.
-__device__ __forceinline__ uint4 round8(const float* src) {
-  const float4 lo = *reinterpret_cast<const float4*>(src);
-  const float4 hi = *reinterpret_cast<const float4*>(src + 4);
-  return make_uint4(pack2(lo.x, lo.y), pack2(lo.z, lo.w), pack2(hi.x, hi.y),
-                    pack2(hi.z, hi.w));
-}
-
 // The fp32 result tile's row stride (elements) and the shared memory a
 // tile of G column groups needs: the operand tiles and, after the
 // products, the fp32 result tile share one buffer.
@@ -121,23 +94,18 @@ __host__ __device__ constexpr int tile_ldc() {
   return G * BN + 4;
 }
 
-template <int G, typename T = __nv_bfloat16>
+template <int G>
 __host__ __device__ constexpr int tile_smem() {
-  return std::is_same<T, float>::value
-             ? ((BKF * LDAF + BKF * (G * BN + 4)) * 4 > BM * tile_ldc<G>() * 4
-                    ? (BKF * LDAF + BKF * (G * BN + 4)) * 4
-                    : BM * tile_ldc<G>() * 4)
-             : ((BM * LDA + BK * (G * BN + 8)) * 2 > BM * tile_ldc<G>() * 4
-                    ? (BM * LDA + BK * (G * BN + 8)) * 2
-                    : BM * tile_ldc<G>() * 4);
+  return (BKF * LDAF + BKF * (G * BN + 4)) * 4 > BM * tile_ldc<G>() * 4
+             ? (BKF * LDAF + BKF * (G * BN + 4)) * 4
+             : BM * tile_ldc<G>() * 4;
 }
 
-// The fp32 products of one tile into Cs (T = float): for every operand,
+// The fp32 products of one tile into Cs: for every operand,
 // K in stages of BKF; activations k-major [BKF][LDAF], weights [BKF][TN +
 // 4]. Thread t < 64 G owns columns 4 (t % 8G) + {0..3} of rows 8 (t / 8G)
-// + {0..7}; an operand that feeds none of its columns' group is skipped, as
-// the wmma warps skip it. Ends with the block synchronised and the fp32
-// tile in Cs.
+// + {0..7}; an operand that feeds none of its columns' group is skipped.
+// Ends with the block synchronised and the fp32 tile in Cs.
 template <int G, bool GATED, int NT>
 __device__ __forceinline__ void f32_products(const GemmArgs& args, int nb,
                                              int row0, unsigned char* smem) {
@@ -238,99 +206,19 @@ __device__ __forceinline__ void f32_products(const GemmArgs& args, int nb,
 // [32 nb, 32 nb + 32) of every gate group when gated, else output columns
 // [32 G nb, 32 G (nb + 1))). Every thread of the block calls it; it ends
 // with the epilogue's writes issued.
-template <int G, int EPI, int NT, typename T = __nv_bfloat16>
+template <int G, int EPI, int NT>
 __device__ __forceinline__ void gemm_tile(const GemmArgs& args, int nb,
                                           int row0, unsigned char* smem) {
   constexpr int TN = G * BN;  // tile columns
-  constexpr int LDB = TN + 8;
   constexpr int LDC = tile_ldc<G>();
   constexpr bool GATED = (EPI == EPI_LSTM || EPI == EPI_COPY_LSTM);
-  constexpr bool F32 = std::is_same<T, float>::value;
-  static_assert(NT >= 64 * G, "a tile needs 2 x G warps");
-  static_assert(F32 || EPI == EPI_STORE, "the bf16 tile is a plain store");
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + BM * LDA;
+  static_assert(NT >= 64 * G, "a tile needs 64 G threads");
   float* Cs = reinterpret_cast<float*>(smem);
-
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const bool mma_warp = warp < 2 * G;
-  const int wr = warp / G;  // warp's 32-row band
-  const int wc = warp % G;  // warp's 32-column group
   const int N = args.N;
   const int cols = args.cols;
 
-  if constexpr (F32) {
-    f32_products<G, GATED, NT>(args, nb, row0, smem);
-  } else {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int s = 0; s < args.n_ops; ++s) {
-    const Operand op = args.op[s];
-    const auto* w = static_cast<const __nv_bfloat16*>(op.w_gates);
-    for (int k0 = 0; k0 < op.k; k0 += BK) {
-      for (int v = tid; v < BM * BK / 8; v += NT) {  // A tile
-        const int r = v / (BK / 8);
-        const int c = (v % (BK / 8)) * 8;
-        const int gr = row0 + r;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (gr < N) {
-          const size_t off = (size_t)gr * op.k + k0 + c;
-          val = op.a_f32
-                    ? round8(static_cast<const float*>(op.a) + off)
-                    : *reinterpret_cast<const uint4*>(
-                          static_cast<const __nv_bfloat16*>(op.a) + off);
-        }
-        *reinterpret_cast<uint4*>(As + r * LDA + c) = val;
-      }
-      for (int v = tid; v < BK * TN / 8; v += NT) {  // weight tile
-        const int r = v / (TN / 8);
-        const int t = (v % (TN / 8)) * 8;
-        *reinterpret_cast<uint4*>(Bs + r * LDB + t) =
-            *reinterpret_cast<const uint4*>(w + (size_t)(k0 + r) * cols +
-                                            nb * TN + t);
-      }
-      __syncthreads();
-      if (mma_warp) {
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> a[2];
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> b[2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            wmma::load_matrix_sync(a[i], As + (wr * 32 + i * 16) * LDA + kk,
-                                   LDA);
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::load_matrix_sync(b[j], Bs + kk * LDB + wc * 32 + j * 16,
-                                   LDB);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-              wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-  if (mma_warp) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(
-            Cs + (wr * 32 + i * 16) * LDC + wc * 32 + j * 16, acc[i][j], LDC,
-            wmma::mem_row_major);
-  }
-  __syncthreads();
-  }
+  f32_products<G, GATED, NT>(args, nb, row0, smem);
 
   if (GATED) {
     for (int e = tid; e < BM * BN; e += NT) {
@@ -381,22 +269,20 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& args, int nb,
 }
 
 // One tile per block: grid = (column blocks, 64-row blocks). The gated
-// (fp32) instances leave the register count to the compiler. The plain
-// ones ask for four resident blocks per SM, which holds the bf16 tile to
-// 64 registers; left alone the compiler gave it 100 and it ran slower
-// (PERF.md).
-template <int G, int EPI, typename T = __nv_bfloat16>
+// instances leave the register count to the compiler; the plain ones ask
+// for four resident blocks per SM.
+template <int G, int EPI>
 __global__ void __launch_bounds__(64 * G)
     gemm_kernel(const __grid_constant__ GemmArgs args) {
-  __shared__ __align__(128) unsigned char smem[tile_smem<G, T>()];
-  gemm_tile<G, EPI, 64 * G, T>(args, blockIdx.x, blockIdx.y * BM, smem);
+  __shared__ __align__(128) unsigned char smem[tile_smem<G>()];
+  gemm_tile<G, EPI, 64 * G>(args, blockIdx.x, blockIdx.y * BM, smem);
 }
 
-template <int G, int EPI, typename T = __nv_bfloat16>
+template <int G, int EPI>
 __global__ void __launch_bounds__(64 * G, 4)
     gemm_kernel_plain(const __grid_constant__ GemmArgs args) {
-  __shared__ __align__(128) unsigned char smem[tile_smem<G, T>()];
-  gemm_tile<G, EPI, 64 * G, T>(args, blockIdx.x, blockIdx.y * BM, smem);
+  __shared__ __align__(128) unsigned char smem[tile_smem<G>()];
+  gemm_tile<G, EPI, 64 * G>(args, blockIdx.x, blockIdx.y * BM, smem);
 }
 
 // Column blocks of a GEMM: gated widths are multiples of BN, plain output
@@ -417,30 +303,22 @@ cudaError_t check_gemm(const GemmArgs& a) {
   return cudaSuccess;
 }
 
-template <int G, int EPI, typename T = __nv_bfloat16>
+template <int G, int EPI>
 cudaError_t launch_gemm(const GemmArgs& a, cudaStream_t s) {
   const cudaError_t err = check_gemm<G, EPI>(a);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.cols / column_width<G, EPI>(), (a.N + BM - 1) / BM);
   if constexpr (EPI == EPI_LSTM || EPI == EPI_COPY_LSTM)
-    gemm_kernel<G, EPI, T><<<grid, 64 * G, 0, s>>>(a);
+    gemm_kernel<G, EPI><<<grid, 64 * G, 0, s>>>(a);
   else
-    gemm_kernel_plain<G, EPI, T><<<grid, 64 * G, 0, s>>>(a);
+    gemm_kernel_plain<G, EPI><<<grid, 64 * G, 0, s>>>(a);
   return cudaGetLastError();
 }
 
-// The bf16 or the fp32 instance, as `f32` says.
-template <int G, int EPI>
-cudaError_t launch_gemm(const GemmArgs& a, int f32, cudaStream_t s) {
-  return f32 ? launch_gemm<G, EPI, float>(a, s)
-             : launch_gemm<G, EPI, __nv_bfloat16>(a, s);
-}
-
-inline Operand operand(const void* a, int a_f32, int k, const void* w_gates,
+inline Operand operand(const void* a, int k, const void* w_gates,
                        const void* w_copy = nullptr) {
   Operand o;
   o.a = a;
-  o.a_f32 = a_f32;
   o.k = k;
   o.w_gates = w_gates;
   o.w_copy = w_copy;

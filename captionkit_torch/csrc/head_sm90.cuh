@@ -893,14 +893,16 @@ cudaError_t max_clusters(int shares, int* clusters) {
 template <class Ops, class Epi, bool STREAM>
 cudaError_t launch(const CUtensorMap& a_map, const CUtensorMap& w_map,
                    const Args& a, int shares, cudaStream_t stream) {
-  // The first launch at each cluster size checks that the card holds one.
-  static bool checked[MAX_SHARES + 1] = {};
-  if (!checked[shares]) {
+  // The first launch at each cluster size on a device checks that the
+  // card holds one (and sets the kernel's shared-memory size there).
+  static bool checked[sm90::kDevices][MAX_SHARES + 1] = {};
+  const int dev = sm90::device_slot();
+  if (dev < 0 || !checked[dev][shares]) {
     int clusters = 0;
     const cudaError_t err = max_clusters<Ops, Epi, STREAM>(shares, &clusters);
     if (err != cudaSuccess) return err;
     if (clusters < 1) return cudaErrorInvalidConfiguration;
-    checked[shares] = true;
+    if (dev >= 0) checked[dev][shares] = true;
   }
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =

@@ -125,19 +125,19 @@ cudaError_t launch_f32(const void* x, const void* h, const void* c,
                        cudaStream_t stream) {
   using namespace cell;
   GemmArgs g = gemm_args(N, Hp);
-  g.op[0] = operand(x, 1, Dp, w_x, w_rx);
-  g.op[1] = operand(h, 1, Hp, w_h, w_rh);
+  g.op[0] = operand(x, Dp, w_x, w_rx);
+  g.op[1] = operand(h, Hp, w_h, w_rh);
   g.n_ops = 2;
   g.bias = f32(b);
   g.c_prev = f32(c);
   g.h_out = static_cast<float*>(h_out);
   g.c_out = static_cast<float*>(c_out);
-  if (c_star == nullptr) return launch_gemm<4, EPI_LSTM, float>(g, stream);
-  g.op[2] = operand(c_star, 1, Hp, nullptr, w_rc);
+  if (c_star == nullptr) return launch_gemm<4, EPI_LSTM>(g, stream);
+  g.op[2] = operand(c_star, Hp, nullptr, w_rc);
   g.n_ops = 3;
   g.bias_r = f32(br);
   g.c_star = f32(c_star);
-  return launch_gemm<5, EPI_COPY_LSTM, float>(g, stream);
+  return launch_gemm<5, EPI_COPY_LSTM>(g, stream);
 }
 
 }  // namespace

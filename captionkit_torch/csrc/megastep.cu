@@ -46,8 +46,9 @@
 //     2. the Copy-LSTM over [v_hat | h_att | h_lang | c*], all bf16: K = F
 //        + 2H = 4096 for the base gates and F + 3H = 5120 for r (c* feeds
 //        only r), 112.7 GFLOP.
-//   ck_dcnet_score (2 launches): the query product on cell_common.cuh's
-//     wmma tile (gemm_kernel_plain, 2.7 GFLOP), then scores_kernel.
+//   ck_dcnet_score (2 launches): the query product from fp32 h (rounded
+//     to bf16 in registers) -> q fp32 [N, A] (kStore): 2.7 GFLOP; then
+//     dcnet_scores_kernel.
 //   ck_dcnet_cell (2 launches):
 //     1. the context gate, part = bf16(sigmoid(h Wg + bg) * ctx) with the
 //        fp32 ctx unrounded (kGateMulX32, as the reference multiplies the
@@ -55,16 +56,24 @@
 //     2. the decoder LSTM over [emb | part | h] (emb and h fp32 rounded in
 //        registers, part bf16), K = 3072, bias b: 64.4 GFLOP.
 //
-//   scores_kernel, grid = (images, attention heads): one block per image.
-//     Each warp takes a key position, holds that key row in registers and
-//     reuses it for the image's K query rows (the keys are read once per
-//     image, never repeated K-fold in device memory); tanh(key + q + b) . v
-//     is reduced over A with warp shuffles; then one warp per query row
-//     takes the masked softmax over the positions.
+//   scores_kernel (att_cell; every fp32 score), grid = (images, attention
+//     heads): one block per image. Each warp takes a key position, holds
+//     that key row in registers and reuses it for the image's K query rows
+//     (the keys are read once per image, never repeated K-fold in device
+//     memory); tanh(key + q + b) . v is reduced over A with warp shuffles;
+//     then one warp per query row takes the masked softmax.
+//   dcnet_scores_kernel (bf16 dcnet_score): one warp per query row, its
+//     q, b and v in registers, walking its image's attendable keys two at
+//     a time (read from L1 after the image's first row); then the row's
+//     softmax.
 //
 // What bounds them on the H100 (paper shape, N = 512 images x 5 beams):
 // the cell GEMMs are bound by operations (the att-LSTM's 64.4 GFLOP is 65
-// us at 989 TFLOP/s) and the score kernels by bytes (the per-image keys).
+// us at 989 TFLOP/s) and the score kernels by the tanh: one per attendable
+// (row, position, A) term, two special-function operations each (MUFU.EX2,
+// MUFU.RCP; dcnet_scores_kernel's tanh_ex2 issues just those and three
+// other instructions, the accurate tanhf of scores_kernel some 15), against
+// 8 MB of keys.
 // What stands between the sm90 GEMMs and the tensor-core rate is the L2 ->
 // SM traffic: each 128-row block reads its weight columns (the att-LSTM's
 // 25.2 MB: 20 x 25.2 = 0.50 GB), each 32-column block its rows'
@@ -320,6 +329,167 @@ cudaError_t dcnet_cell_sm90(const void* emb, const void* ctx, const void* h,
   return launch_cell<kLstm, 3, 0b101u, 0b111u, 0u>(g, Hp / TILE, s);
 }
 
+// ---------------------------------------------------------------------------
+// ck_dcnet_score, bf16: the query product on sm90_cell.cuh, then
+// dcnet_scores_kernel.
+// ---------------------------------------------------------------------------
+
+constexpr int DS_ROWS = 4;  // query rows of a dcnet_scores_kernel block
+
+struct DcnetScoreArgs {
+  const float* q;              // [N, A] fp32 (the query product)
+  const float* b;              // [A] bias inside tanh
+  const float* v;              // [A] score vector
+  const __nv_bfloat16* keys;   // [B, T, A]
+  const float* mask;           // [B, T] (> 0 = attendable)
+  __nv_bfloat16* omega;        // [N, T] softmax weights
+  int N;
+  int K;  // query rows per image
+  int T;
+  int A;  // a multiple of 128, at most 256 NC
+};
+
+__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+  x[0] = lo.x, x[1] = lo.y, x[2] = lo.z, x[3] = lo.w;
+  x[4] = hi.x, x[5] = hi.y, x[6] = hi.z, x[7] = hi.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p,
+                                      float (&x)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) x[j] = __bfloat162float(h[j]);
+}
+
+// One warp a query row n of image n / K, DS_ROWS rows a block: lane l
+// keeps q, b and v of columns 8 l + 256 c + {0..7} (c < NC) in registers
+// for the row and walks the image's attendable positions (a ballot of the
+// mask, 32 positions at a time), two at a time as two independent chains,
+// each key read as 16-byte loads (an image's K rows run in neighbouring
+// warps, so its keys come from L1 after the first); tanh(key + q + b) . v
+// is reduced over A with shuffles into shared memory, then the warp takes
+// its row's softmax and writes omega in bf16.
+template <int NC>
+__global__ void __launch_bounds__(32 * DS_ROWS)
+    dcnet_scores_kernel(const __grid_constant__ DcnetScoreArgs a) {
+  extern __shared__ float ds_scores[];  // [DS_ROWS, T]
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * DS_ROWS + warp;
+  if (row >= a.N) return;
+  const int A = a.A, T = a.T;
+  const int img = row / a.K;
+  float qr[NC][8], br[NC][8], vr[NC][8];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int col = min(8 * lane + 256 * c, A - 8);
+    load8(a.q + (size_t)row * A + col, qr[c]);
+    load8(a.b + col, br[c]);
+    load8(a.v + col, vr[c]);
+  }
+  float* ss = ds_scores + warp * T;
+  const __nv_bfloat16* kimg = a.keys + (size_t)img * T * A;
+  for (int t0 = 0; t0 < T; t0 += 32) {
+    const int pl = t0 + lane;
+    const bool attend = pl < T && a.mask[(size_t)img * T + pl] > 0.0f;
+    if (pl < T && !attend) ss[pl] = NEG_INF;
+    unsigned bits = __ballot_sync(0xffffffffu, attend);
+    while (bits) {
+      const int p0 = t0 + __ffs(bits) - 1;
+      bits &= bits - 1;
+      int p1 = p0;  // p0 again when it is the last one
+      if (bits) {
+        p1 = t0 + __ffs(bits) - 1;
+        bits &= bits - 1;
+      }
+      float acc0 = 0.0f, acc1 = 0.0f;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int col = 8 * lane + 256 * c;
+        if (col < A) {
+          float k0[8], k1[8];
+          load8(kimg + (size_t)p0 * A + col, k0);
+          load8(kimg + (size_t)p1 * A + col, k1);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            acc0 += sm90::tanh_ex2(k0[j] + qr[c][j] + br[c][j]) * vr[c][j];
+            acc1 += sm90::tanh_ex2(k1[j] + qr[c][j] + br[c][j]) * vr[c][j];
+          }
+        }
+      }
+      acc0 = warp_sum(acc0);
+      acc1 = warp_sum(acc1);
+      if (lane == 0) {
+        ss[p0] = acc0;
+        ss[p1] = acc1;
+      }
+    }
+  }
+  __syncwarp();
+  float m = -INFINITY;
+  for (int p = lane; p < T; p += 32) m = fmaxf(m, ss[p]);
+  m = warp_max(m);
+  float sum = 0.0f;
+  for (int p = lane; p < T; p += 32) sum += expf(ss[p] - m);
+  sum = warp_sum(sum);
+  __nv_bfloat16* o = a.omega + (size_t)row * T;
+  for (int p = lane; p < T; p += 32)
+    o[p] = __float2bfloat16_rn(expf(ss[p] - m) / sum);
+}
+
+template <int NC>
+cudaError_t launch_dcnet_scores(const DcnetScoreArgs& a, cudaStream_t s) {
+  const size_t smem = sizeof(float) * DS_ROWS * (size_t)a.T;
+  // The largest shared-memory size set on each device (48 KB needs none).
+  static size_t sized[sm90::kDevices] = {};
+  const int dev = sm90::device_slot();
+  if (smem > 48 * 1024 && (dev < 0 || smem > sized[dev])) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dcnet_scores_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    if (dev >= 0) sized[dev] = smem;
+  }
+  dcnet_scores_kernel<NC>
+      <<<(a.N + DS_ROWS - 1) / DS_ROWS, 32 * DS_ROWS, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+// ck_dcnet_score's bf16 launches: the query product on sm90_cell.cuh (fp32
+// h rounded to bf16 in registers, q fp32: kStore), then
+// dcnet_scores_kernel with the lanes' columns in NC = A / 256 (1, 2 or 4)
+// register chunks.
+cudaError_t dcnet_score_sm90(const void* h, const void* wq, const void* b,
+                             const void* v, const void* keys,
+                             const void* mask, void* omega, void* q, int N,
+                             int B, int Hp, int Ap, int T, cudaStream_t s) {
+  using namespace sm90cell;
+  if (N < 1 || Hp < 128 || Hp % 128 || Ap < 128 || Ap % 128 || Ap > 1024)
+    return cudaErrorInvalidValue;
+  CellArgs gq = plain_args(N, Ap);
+  CK_TRY(set_operand(gq, 0, h, 1, Hp, wq, Ap, nullptr));
+  gq.out = q;
+  CK_TRY((launch_cell<kStore, 1, 1u, 1u, 0u>(gq, Ap / 128, s)));
+
+  DcnetScoreArgs a;
+  a.q = static_cast<const float*>(q);
+  a.b = cell::f32(b);
+  a.v = cell::f32(v);
+  a.keys = static_cast<const __nv_bfloat16*>(keys);
+  a.mask = cell::f32(mask);
+  a.omega = static_cast<__nv_bfloat16*>(omega);
+  a.N = N;
+  a.K = N / B;
+  a.T = T;
+  a.A = Ap;
+  if (Ap <= 256) return launch_dcnet_scores<1>(a, s);
+  if (Ap <= 512) return launch_dcnet_scores<2>(a, s);
+  return launch_dcnet_scores<4>(a, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -350,22 +520,22 @@ int ck_att_cell(const void* emb, const void* h_att, const void* c_att,
 
   if (f32) {
     GemmArgs g = gemm_args(N, Hp);
-    g.op[0] = operand(emb, 1, Ep, w_emb);
-    g.op[1] = operand(h_lang, 1, Hp, w_hl);
-    g.op[2] = operand(h_att, 1, Hp, w_ha);
+    g.op[0] = operand(emb, Ep, w_emb);
+    g.op[1] = operand(h_lang, Hp, w_hl);
+    g.op[2] = operand(h_att, Hp, w_ha);
     g.n_ops = 3;
     g.zadd = cell::f32(zvb);
     g.c_prev = cell::f32(c_att);
     g.h_out = static_cast<float*>(h_out);
     g.c_out = static_cast<float*>(c_out);
-    err = launch_gemm<4, EPI_LSTM, float>(g, s);
+    err = launch_gemm<4, EPI_LSTM>(g, s);
     if (err != cudaSuccess) return (int)err;
 
     GemmArgs gq = gemm_args(N, 2 * Ap);
-    gq.op[0] = operand(h_out, 1, Hp, wq);
+    gq.op[0] = operand(h_out, Hp, wq);
     gq.n_ops = 1;
     gq.out = q;
-    err = launch_gemm<4, EPI_STORE, float>(gq, s);
+    err = launch_gemm<4, EPI_STORE>(gq, s);
   } else {
     err = att_cell_sm90(emb, h_att, c_att, h_lang, zvb, w_emb, w_hl, w_ha,
                         wq, h_out, c_out, h16, q, N, Ep, Hp, Ap, s);
@@ -410,19 +580,19 @@ int ck_lang_cell(const void* vhat_raw, const void* h_att, const void* h_lang,
                                c_out, vhat, act16, N, Hp, Fp, s);
 
   GemmArgs gv = gemm_args(N, Fp);
-  gv.op[0] = operand(h_att, 1, Hp, gate_w);
+  gv.op[0] = operand(h_att, Hp, gate_w);
   gv.n_ops = 1;
   gv.bias = cell::f32(gate_b);
   gv.x = cell::f32(vhat_raw);
   gv.out = vhat;
-  err = launch_gemm<4, EPI_GATE_MUL, float>(gv, s);
+  err = launch_gemm<4, EPI_GATE_MUL>(gv, s);
   if (err != cudaSuccess) return (int)err;
 
   GemmArgs g = gemm_args(N, Hp);
-  g.op[0] = operand(vhat, 1, Fp, lang_wv, wr_v);
-  g.op[1] = operand(h_att, 1, Hp, lang_wha, wr_ha);
-  g.op[2] = operand(h_lang, 1, Hp, lang_wh, wr_hl);
-  g.op[3] = operand(c_star, 1, Hp, nullptr, wr_c);
+  g.op[0] = operand(vhat, Fp, lang_wv, wr_v);
+  g.op[1] = operand(h_att, Hp, lang_wha, wr_ha);
+  g.op[2] = operand(h_lang, Hp, lang_wh, wr_hl);
+  g.op[3] = operand(c_star, Hp, nullptr, wr_c);
   g.n_ops = 4;
   g.bias = cell::f32(lang_b);
   g.bias_r = cell::f32(br);
@@ -430,12 +600,14 @@ int ck_lang_cell(const void* vhat_raw, const void* h_att, const void* h_lang,
   g.c_star = cell::f32(c_star);
   g.h_out = static_cast<float*>(h_out);
   g.c_out = static_cast<float*>(c_out);
-  return (int)launch_gemm<5, EPI_COPY_LSTM, float>(g, s);
+  return (int)launch_gemm<5, EPI_COPY_LSTM>(g, s);
 }
 
 // DCNet score kernel. fp32 h [N, Hp]; att_wq [Hp, Ap]; fp32 att_b, att_v
 // [Ap]; keys [B, T, Ap]; fp32 mask [B, T]. Output: omega [N, T]. Scratch:
-// q [N, Ap] fp32. att_wq, keys and omega are bf16, or fp32 when f32.
+// q [N, Ap] fp32. att_wq, keys and omega are bf16 (sm90_cell.cuh, then
+// dcnet_scores_kernel; Ap at most 1024), or fp32 when f32
+// (cell_common.cuh's fp32 tile, then scores_kernel).
 int ck_dcnet_score(const void* h, const void* att_wq, const void* att_b,
                    const void* att_v, const void* keys, const void* mask,
                    void* omega, void* q, int N, int B, int Hp, int Ap, int T,
@@ -444,12 +616,15 @@ int ck_dcnet_score(const void* h, const void* att_wq, const void* att_b,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!f32)
+    return (int)dcnet_score_sm90(h, att_wq, att_b, att_v, keys, mask, omega,
+                                 q, N, B, Hp, Ap, T, s);
 
   GemmArgs gq = gemm_args(N, Ap);
-  gq.op[0] = operand(h, 1, Hp, att_wq);
+  gq.op[0] = operand(h, Hp, att_wq);
   gq.n_ops = 1;
   gq.out = q;
-  err = launch_gemm<4, EPI_STORE>(gq, f32, s);
+  err = launch_gemm<4, EPI_STORE>(gq, s);
   if (err != cudaSuccess) return (int)err;
 
   ScoreArgs sc = {};
@@ -457,7 +632,7 @@ int ck_dcnet_score(const void* h, const void* att_wq, const void* att_b,
   sc.A = Ap;
   sc.head[0] = {static_cast<const float*>(q), Ap, cell::f32(att_b),
                 cell::f32(att_v), keys, cell::f32(mask), T, omega};
-  return (int)launch_scores(sc, B, 1, f32, s);
+  return (int)launch_scores(sc, B, 1, 1, s);
 }
 
 // DCNet LSTM kernel. fp32 emb [N, Ep], ctx (the omega-weighted encoder
@@ -478,24 +653,24 @@ int ck_dcnet_cell(const void* emb, const void* ctx, const void* h,
                                 w_h, b, h_out, c_out, part, N, Ep, Hp, s);
 
   GemmArgs gp = gemm_args(N, Hp);
-  gp.op[0] = operand(h, 1, Hp, gate_w);
+  gp.op[0] = operand(h, Hp, gate_w);
   gp.n_ops = 1;
   gp.bias = cell::f32(gate_b);
   gp.x = cell::f32(ctx);
   gp.out = part;
-  err = launch_gemm<4, EPI_GATE_MUL, float>(gp, s);
+  err = launch_gemm<4, EPI_GATE_MUL>(gp, s);
   if (err != cudaSuccess) return (int)err;
 
   GemmArgs g = gemm_args(N, Hp);
-  g.op[0] = operand(emb, 1, Ep, w_emb);
-  g.op[1] = operand(part, 1, Hp, w_part);
-  g.op[2] = operand(h, 1, Hp, w_h);
+  g.op[0] = operand(emb, Ep, w_emb);
+  g.op[1] = operand(part, Hp, w_part);
+  g.op[2] = operand(h, Hp, w_h);
   g.n_ops = 3;
   g.bias = cell::f32(b);
   g.c_prev = cell::f32(c);
   g.h_out = static_cast<float*>(h_out);
   g.c_out = static_cast<float*>(c_out);
-  return (int)launch_gemm<4, EPI_LSTM, float>(g, s);
+  return (int)launch_gemm<4, EPI_LSTM>(g, s);
 }
 
 const char* ck_megastep_error_string(int code) {

@@ -1,6 +1,8 @@
 // The shared sm90 split-operand gated GEMM of the cell kernels: lstm.cu
 // (fused_lstm_cell, fused_copy_lstm_cell), megastep.cu's bf16 cells
-// (att_cell, lang_cell, dcnet_cell) and wholestep.cu's persistent kernel.
+// (att_cell, lang_cell, dcnet_cell, dcnet_score's query product),
+// wholestep.cu's persistent kernel and, through its producer and consumer
+// pieces, attention.cu's K-split query product.
 //
 // Replaces, on the H100, the products of the TPU kernels of
 // captionkit/ops/lstm.py (_run_cell), captionkit/ops/megastep.py
@@ -534,17 +536,19 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // One launch of cell_kernel over `col_blocks` x ceil(N / 128) CTAs. The
-// first launch of each instance sets its shared-memory size.
+// first launch of each instance on a device sets its shared-memory size
+// there.
 template <int EPI, int NOPS, uint32_t F32, uint32_t GATES, uint32_t COPY>
 cudaError_t launch_cell(const CellArgs& args, int col_blocks,
                         cudaStream_t stream) {
   auto* kernel = cell_kernel<EPI, NOPS, F32, GATES, COPY>;
-  static bool sized = false;
-  if (!sized) {
+  static bool sized[sm90::kDevices] = {};
+  const int dev = sm90::device_slot();
+  if (dev < 0 || !sized[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess) return err;
-    sized = true;
+    if (dev >= 0) sized[dev] = true;
   }
   const dim3 grid(col_blocks, (args.N + BM - 1) / BM);
   kernel<<<grid, THREADS, SMEM, stream>>>(args);

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the redesigned kernels (sm90_cell.cuh,
-// head_sm90.cuh): mbarriers, TMA tensor and bulk loads, cluster barriers
-// and distributed shared memory, warpgroup MMA (wgmma, bf16 and s8) with its
-// shared-memory descriptors, and the host-side encoding of the tensor maps.
+// head_sm90.cuh, attention.cu): mbarriers, TMA tensor and bulk loads,
+// cluster barriers and distributed shared memory, programmatic dependent
+// launch, warpgroup MMA (wgmma, bf16 and s8) with its shared-memory
+// descriptors, and the host-side encoding of the tensor maps.
 //
 // Shared-memory layouts. A TMA box lands in shared memory row after row,
 // the 16-byte chunks of each 128-byte (SW128) or 64-byte (SW64) row
@@ -118,6 +119,34 @@ __device__ __forceinline__ T* cluster_map(T* p, uint32_t cta) {
 // Named barrier over `threads` threads (a multiple of 32).
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Programmatic dependent launch. The primary grid lets the next grid of
+// its stream start once every CTA has executed launch_dependents (or
+// exited); that grid, launched with programmatic stream serialization,
+// calls grid_dependency_wait before it reads what the primary writes: the
+// wait returns once the primary has completed and its writes are visible.
+// Both are no-ops where the launches were not so made.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// tanh(x) = 1 - 2 / (2^(2 x log2 e) + 1): one MUFU.EX2 and one MUFU.RCP on
+// the special-function unit and three other instructions, where the
+// accurate tanhf issues the same two MUFU operations among some 15 (both
+// of its branches, the polynomial for |x| < 0.6 included). ex2.approx and
+// rcp.approx are within about 2^-22 relative, so the result is within
+// 3e-7 of tanh in absolute terms at every x (tanhf: one ulp relative);
+// +-inf and large |x| give +-1, NaN NaN.
+__device__ __forceinline__ float tanh_ex2(float x) {
+  float e, r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(x * 2.88539008f));
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(e + 1.0f));
+  return fmaf(-2.0f, r, 1.0f);
 }
 
 // ---------------------------------------------------------------------------
@@ -276,6 +305,21 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8_ss(int (&d)[64],
         "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// Host: per-device launch settings
+// ---------------------------------------------------------------------------
+
+// A kernel's shared-memory attribute and its occupancy belong to a device,
+// so the host caches them per device: in the slot of the current device,
+// one of the first kDevices (past them nothing is cached, and every call
+// asks again).
+constexpr int kDevices = 16;
+
+inline int device_slot() {
+  int d = -1;
+  return cudaGetDevice(&d) == cudaSuccess && d >= 0 && d < kDevices ? d : -1;
 }
 
 // ---------------------------------------------------------------------------

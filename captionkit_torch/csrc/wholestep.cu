@@ -473,19 +473,19 @@ int ck_lang_head_topk_f32(const void* vhat_raw, const void* h_att,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 
   GemmArgs gv = gemm_args(N, Fp);
-  gv.op[0] = operand(h_att, 1, Hp, gate_w);
+  gv.op[0] = operand(h_att, Hp, gate_w);
   gv.n_ops = 1;
   gv.bias = f32(gate_b);
   gv.x = f32(vhat_raw);
   gv.out = vhat;
-  err = launch_gemm<4, EPI_GATE_MUL, float>(gv, s);
+  err = launch_gemm<4, EPI_GATE_MUL>(gv, s);
   if (err != cudaSuccess) return (int)err;
 
   GemmArgs g = gemm_args(N, Hp);
-  g.op[0] = operand(vhat, 1, Fp, lang_wv, wr_v);
-  g.op[1] = operand(h_att, 1, Hp, lang_wha, wr_ha);
-  g.op[2] = operand(h_lang, 1, Hp, lang_wh, wr_hl);
-  g.op[3] = operand(c_star, 1, Hp, nullptr, wr_c);
+  g.op[0] = operand(vhat, Fp, lang_wv, wr_v);
+  g.op[1] = operand(h_att, Hp, lang_wha, wr_ha);
+  g.op[2] = operand(h_lang, Hp, lang_wh, wr_hl);
+  g.op[3] = operand(c_star, Hp, nullptr, wr_c);
   g.n_ops = 4;
   g.bias = f32(lang_b);
   g.bias_r = f32(br);
@@ -493,7 +493,7 @@ int ck_lang_head_topk_f32(const void* vhat_raw, const void* h_att,
   g.c_star = f32(c_star);
   g.h_out = static_cast<float*>(h_out);
   g.c_out = static_cast<float*>(c_out);
-  err = launch_gemm<5, EPI_COPY_LSTM, float>(g, s);
+  err = launch_gemm<5, EPI_COPY_LSTM>(g, s);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_sweep_f32(
       static_cast<const float*>(h_out), static_cast<const float*>(head_w),

@@ -13,19 +13,22 @@ is reduced to a valid-prefix count per row, as the TPU kernel reduces it
 (the framework's masks are length masks); positions at or past it score
 ``NEG_INF``.
 
-On a CUDA tensor the wrapper launches the kernel (the query product, then
-scores, softmax and context in one kernel; counted in
-``fused_additive_attention.launches``) or raises: it takes keys in the
-compute dtype (bf16, or fp32 under ``compute_dtype=float32``, whose
-instance multiplies in fp32 on the CUDA cores, not TF32) and one query row
-per key row (no grouped beam layout, as the TPU kernel). On a CPU tensor it
-runs
+On a CUDA tensor the wrapper launches the kernel (counted in
+``fused_additive_attention.launches``) or raises: in bf16 the query
+product on wgmma, then ``context_kernel``, which streams each row's keys
+and values through a shared-memory ring and computes the scores, softmax
+and context, started early as a programmatic dependent so that its loads
+overlap the product; in fp32 (``compute_dtype=float32``, products on the
+CUDA cores, not TF32) an fp32 product tile, then one block a row. It
+takes keys in the compute dtype and one query row per key row (no grouped
+beam layout, as the TPU kernel). On a CPU tensor it runs
 ``reference_additive_attention``, the same arithmetic in PyTorch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -43,8 +46,26 @@ from captionkit_torch.nn.attention import AdditiveAttentionParams
 from captionkit_torch.nn.cells import mm
 from captionkit_torch.nn.masking import NEG_INF
 
-K_TILE = 32  # the query product's K depth (cell_common.cuh BK)
+K_TILE = 32  # the query product's K granularity (cell_common.cuh BK)
 V_VEC = 8  # the context columns a thread owns (one 16-byte bf16 load)
+QUERY_SPLIT = 4  # the most K ranges of the bf16 query product (QK_SPLIT)
+QUERY_TILE = 128  # rows and columns of one of its output tiles
+
+
+def query_split(B: int, Ap: int, sms: int) -> int:
+    """The K ranges (partials) of the bf16 query product at B rows and Ap
+    columns: QUERY_SPLIT, halved while its CTAs (a range of a 128 x 128
+    tile each) would fill more than one wave of the card's ``sms`` SMs."""
+    tiles = (Ap // QUERY_TILE) * -(-B // QUERY_TILE)
+    split = QUERY_SPLIT
+    while split > 1 and split * tiles > sms:
+        split //= 2
+    return split
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def valid_counts(mask: Optional[torch.Tensor], B: int, N: int,
@@ -100,15 +121,18 @@ def _library() -> ctypes.CDLL:
 
         lib = build.load("attention")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ck_additive_attention.argtypes = [p] * 10 + [i] * 8 + [p]
+        lib.ck_additive_attention.argtypes = [p] * 10 + [i] * 9 + [p]
         lib.ck_additive_attention.restype = i
-        lib.ck_attention_width.argtypes = []
-        lib.ck_attention_width.restype = i
+        for name in ("ck_attention_width", "ck_attention_query_split"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i
         lib.ck_attention_error_string.argtypes = [i]
         lib.ck_attention_error_string.restype = ctypes.c_char_p
-        if lib.ck_attention_width() != LANE:
+        if (lib.ck_attention_width(), lib.ck_attention_query_split()) != (
+                LANE, QUERY_SPLIT):
             raise RuntimeError("csrc/attention.cu and kernels/attention.py "
-                               "disagree on the query product's width")
+                               "disagree on the query product's width or "
+                               "K ranges")
         _LIB = lib
     return _LIB
 
@@ -174,12 +198,15 @@ def fused_additive_attention(
     lib = _library()
     ctx = torch.empty((B, Vp), dtype=f32, device=dev)
     w = torch.empty((B, N), dtype=f32, device=dev)
-    qa = torch.empty((B, Ap), dtype=f32, device=dev)
+    # The query product's K-range partials (fp32: one).
+    index = dev.index or 0
+    split = 1 if dt == f32 else query_split(B, Ap, _sms(index))
+    qa = torch.empty((split, B, Ap), dtype=f32, device=dev)
     err = lib.ck_additive_attention(
         *(t.data_ptr() for t in (q, wq, b, v, keys_k, values_k, nvalid, ctx,
                                  w, qa)),
-        B, Qp, Ap, N, Vp, int(q.dtype == f32), int(dt == f32),
-        dev.index or 0, _stream(dev))
+        B, Qp, Ap, N, Vp, int(q.dtype == f32), int(dt == f32), split, index,
+        _stream(dev))
     if err:
         raise RuntimeError(
             "ck_additive_attention launch failed: "

@@ -553,7 +553,9 @@ def lang_cell(pack: CellPack, vhat_raw, h_att, h_lang, c_lang, c_star):
 
 def dcnet_score(pack: DCNetCellPack, h):
     """DCNet's score kernel: ω [N, T]. CUDA tensors:
-    ``csrc/megastep.cu::ck_dcnet_score`` (2 launches), counted in
+    ``csrc/megastep.cu::ck_dcnet_score`` (2 launches: bf16, the query
+    product on ``csrc/sm90_cell.cuh`` and ``dcnet_scores_kernel``; fp32,
+    ``cell_common.cuh``'s fp32 tile and ``scores_kernel``), counted in
     ``dcnet_score.launches``; CPU tensors: ``reference_dcnet_score``."""
     if h.device.type == "cpu":
         return reference_dcnet_score(pack, h)

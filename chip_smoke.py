@@ -9,9 +9,13 @@ prints no result line:
 1. device   — CUDA present; the card's name and power limit (nvidia-smi).
 2. build    — every kernel of ``captionkit_torch/csrc`` built by nvcc;
               the registers, shared memory and spills of the kernels on
-              sm90_cell.cuh and of the head kernels on head_sm90.cuh (the
-              full -Xptxas -v report in
-              build/captionkit_torch/smoke/ptxas.log).
+              sm90_cell.cuh, of the head kernels on head_sm90.cuh and of
+              the bf16 B6 and dcnet_score kernels (query_kernel,
+              context_kernel, dcnet_scores_kernel; the full -Xptxas -v
+              report in
+              build/captionkit_torch/smoke/ptxas.log); the MUFU operations
+              a tanhf compiles to (cuobjdump -sass of a probe; the bounds
+              charge a tanh the one MUFU.TANH it needs at least).
 3. head     — the fused vocab-head kernel against its plain version on the
               card: paper shape (N = 512 images x 5 beams, H = 1024,
               V = 9490) in bf16, and exact-tie patterns across the kernel's
@@ -48,8 +52,8 @@ prints no result line:
               its plain version on ctx values halfway between bf16
               neighbours, and a ctx rounded first must differ; kernel,
               plain and bound times, CUDA launches per call, the device
-              time of each launch of att_cell, lang_cell and dcnet_cell
-              (no cell_common.cuh wmma launch among them).
+              time of each launch of att_cell, lang_cell, dcnet_score and
+              dcnet_cell (no cell_common.cuh gemm_kernel among them).
 7. decode_cells — editnet_beam5 with cell_impl="pallas": a forced-full
               decode of the 512-image batch, 22 launches per batch of
               each cell kernel and of the head, captions/s (median of 3)
@@ -76,10 +80,14 @@ prints no result line:
               greedy step's shapes (512 rows, paper width: DCNet's LSTM,
               EditNet's Copy-LSTM, visual attention and SCMA, DCNet's text
               attention), at examples/bench_cell_kernels.py's shapes (2560
-              rows) and on unaligned shapes, with planted faults (among
-              them the gates of two hidden columns crossed); kernel, plain,
-              bound and (LSTM: torch.lstm_cell) library times, and device
-              times from the profiler beside them.
+              rows), on unaligned shapes and with prefix lengths 0, 1 and
+              22, with planted faults (among them the gates of two hidden
+              columns crossed, a lane's partial score left out and a
+              thread's 8 context columns written over the next 8); kernel,
+              plain, bound and (LSTM: torch.lstm_cell) library times,
+              device times from the profiler beside them, and for the
+              attention each launch's device time, the call's device span
+              and no gemm_kernel launch.
 11. greedy  — editnet_greedy and dcnet_greedy at paper width behind
               CaptionServer(batch=512); a forced-full 22-step greedy decode
               (median of 3) beside the same decode with the dispatch sites
@@ -141,6 +149,11 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
 PEAK_INT8_OPS = 1979e12
+# Special-function unit: 16 results a clock per SM for 32-bit ex2, rcp,
+# rsqrt, lg2, sin, cos (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0), 132 SMs at the 1,980 MHz boost clock
+# that the fp32 peak above assumes (132 x 128 FMA x 2 x 1.98 GHz).
+PEAK_SFU_OPS = 132 * 16 * 1.98e9
 
 N_IMAGES, BEAM, MAX_LEN = 512, 5, 22
 HEAD_ATOL = 1e-3  # fp32 sums of 1024 bf16 products in another order
@@ -250,6 +263,35 @@ def _ptxas(log: str) -> dict:
     return out
 
 
+def tanh_sfu_ops() -> dict:
+    """The special-function-unit (MUFU) instructions one accurate tanhf
+    compiles to for sm_90a with the port's flags: a probe kernel built by
+    nvcc into a cubin and read back with cuobjdump -sass (the compiled
+    tanhf has no branch: it issues them for every input). The bounds do
+    not read it: they charge a tanh one MUFU operation, the MUFU.TANH
+    (tanh.approx.f32) a tanh needs at least on sm_90."""
+    import re
+
+    from captionkit_torch.kernels import build
+
+    SMOKE_DIR.mkdir(parents=True, exist_ok=True)
+    src, cubin = SMOKE_DIR / "tanh_probe.cu", SMOKE_DIR / "tanh_probe.cubin"
+    src.write_text(
+        "__global__ void tanh_probe(const float* x, float* y) {\n"
+        "  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
+        "  y[i] = tanhf(x[i]);\n}\n")
+    nvcc = build.nvcc()
+    subprocess.run([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-o", str(cubin), str(src)],
+                   check=True, capture_output=True, text=True, timeout=300)
+    sass = subprocess.run([str(Path(nvcc).with_name("cuobjdump")), "-sass",
+                           str(cubin)], check=True, capture_output=True,
+                          text=True, timeout=120).stdout
+    mufu = re.findall(r"MUFU\.\w+", sass)
+    check(bool(mufu), "cuobjdump shows no MUFU instruction in a tanhf")
+    return {"mufu_per_tanhf": len(mufu), "mufu": mufu}
+
+
 def phase_build():
     """Every source built; each kernel's registers, shared memory and
     spills (the full compiler report goes to SMOKE_DIR/ptxas.log)."""
@@ -273,10 +315,20 @@ def phase_build():
     heads = {n: {k.split("(")[0].replace("void hsm::", ""): v
                  for k, v in r.items() if "hsm::head_kernel" in k}
              for n, r in reports.items()}
+    # The bf16 kernels of B6 (its K-split query product and context
+    # kernel) and dcnet_score's score kernel.
+    scores = {n: {k.split("(")[0].replace("void ", ""): v
+                  for k, v in r.items()
+                  if any(key in k for key in ("query_kernel", "context_kernel",
+                                              "dcnet_scores_kernel"))}
+              for n, r in reports.items()}
+    tanh = tanh_sfu_ops()
     emit({"phase": "build", "ok": True, "sources": list(build.SOURCES),
           "seconds": time.perf_counter() - t0, "per_source": seconds,
           "sm90_cell_kernels": {n: c for n, c in cells.items() if c},
-          "sm90_head_kernels": {n: c for n, c in heads.items() if c}})
+          "sm90_head_kernels": {n: c for n, c in heads.items() if c},
+          "score_kernels": {n: c for n, c in scores.items() if c},
+          "tanhf_sass": tanh, "peak_sfu_ops_per_s": PEAK_SFU_OPS})
 
 
 def _head_inputs(N, H, V, seed):
@@ -1182,29 +1234,71 @@ def _swap_if(w, hp):
 def _profile_kernels(fn, keys, calls: int = 10) -> dict:
     """{kernel name: (CUDA launches, device ms) of one call of ``fn``} for
     the CUDA kernels whose names hold one of ``keys`` (all when None),
-    counted and their durations summed by torch.profiler over ``calls``
-    calls after a warm-up, divided by ``calls`` (a profile of a single
-    call on that machine can miss a kernel record). A profile that records
-    no matching kernel at all is taken once more: torch.profiler now and
-    then returns one empty."""
+    from torch.profiler over ``calls`` calls after a warm-up: the launches
+    it recorded divided by ``calls``, and the mean duration of a recorded
+    launch times the launches a call (that count rounded). On the H100
+    machine a profiling session after the first of its process can drop
+    kernel records, never add one (PERF.md §7), a kernel's records in a
+    session or all of them: so three sessions are taken, and each kernel
+    keeps the session that recorded the most of its launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    best = {}
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        events = [ev for ev in prof.key_averages()
-                  if ev.device_type == DeviceType.CUDA
-                  and (keys is None or any(key in ev.key for key in keys))]
-        if events:
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA or not (
+                    keys is None or any(key in ev.key for key in keys)):
+                continue
+            n = ev.count / calls
+            if n > best.get(ev.key, (0.0, 0.0))[0]:
+                best[ev.key] = (n, ev.device_time_total / ev.count
+                                * max(1, round(n)) / 1e3)
+    return best
+
+
+def _device_span_ms(fn, first: str, last: str, calls: int = 10) -> float:
+    """Device time of one call of ``fn`` from the start of its kernel named
+    ``first`` to the end of the next kernel named ``last``, the mean over
+    the calls of ``calls`` the profiler recorded both of (it now and then
+    misses a record). Where a call's launches overlap (a programmatic
+    dependent launch starts before its primary ends) the sum of their
+    durations counts the overlap twice; the span does not, and it takes
+    in the gaps between them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    spans = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((ev.time_range.start, ev.time_range.end, ev.name)
+                        for ev in prof.events()
+                        if ev.device_type == DeviceType.CUDA)
+        start = None
+        for t0, t1, name in events:
+            if first in name:
+                start = t0
+            elif last in name and start is not None:
+                spans.append(t1 - start)
+                start = None
+        if len(spans) >= calls // 2:
             break
-    return {ev.key: (ev.count / calls, ev.device_time_total / calls / 1e3)
-            for ev in events}
+    check(len(spans) >= calls // 2,
+          f"{len(spans)} spans of {first} .. {last} in {calls} calls")
+    return statistics.mean(spans) / 1e3
 
 
 def _profile_calls(fn, keys, calls: int = 10) -> tuple[float, float]:
@@ -1239,26 +1333,31 @@ def _cross_columns(w, hp):
     return w.contiguous()
 
 
-def _cell_bound(name, N, B, E, H, A, F, R, T, fp32=False) -> dict:
+def _cell_bound(name, N, B, E, H, A, F, R, T, fp32=False,
+                t_valid=None) -> dict:
     """The least time the card could take for one call at the function's
     own widths: operations against bytes (each input read once, each output
     written once, at 3.35 TB/s). The bf16 products (989 TFLOP/s, tensor
-    cores) and the fp32 attention arithmetic (67 TFLOP/s, CUDA cores) run
-    on separate units at once, so the operations take the longer of the
-    two. The fp32 work per (row, position, A) term is one add (key + the
-    row's q + b, summed once per row) and one multiply-add into the score:
-    3 operations. tanh count noted apart (special-function unit).
-    ``fp32``: weights, keys and the softmax weights in fp32, every product
-    on the CUDA cores."""
+    cores), the fp32 attention arithmetic (67 TFLOP/s, CUDA cores) and the
+    tanh (special-function unit) run on separate units at once, so the
+    operations take the longest of the three. Each attended (row,
+    position, A) term is one add (key + the row's q + b, summed once per
+    row) and one multiply-add into the score: 3 fp32 operations and one
+    tanh. ``t_valid``: the attendable (image, caption position) pairs of
+    the mask (all B T when None); a masked position needs no key and no
+    arithmetic. ``fp32``: weights, keys and the softmax weights in fp32,
+    every product on the CUDA cores."""
     f4, b2 = 4, (4 if fp32 else 2)
+    K = N // B
+    t_valid = B * T if t_valid is None else t_valid
     if name == "att_cell":
         mm = 2 * N * (E + 2 * H) * 4 * H + 2 * N * H * 2 * A
-        ew = 3 * N * (R + T) * A
+        tanh = N * R * A + K * t_valid * A
+        ew = 3 * tanh
         n_in = (N * E * f4 + 3 * N * H * f4 + N * 4 * H * f4
                 + (E + 2 * H) * 4 * H * b2 + H * 2 * A * b2 + 4 * A * f4
-                + B * (R + T) * A * b2 + B * T * f4)
+                + (B * R + t_valid) * A * b2 + B * T * f4)
         n_out = 2 * N * H * f4 + N * (R + T) * b2
-        tanh = N * (R + T) * A
     elif name == "lang_cell":
         mm = (2 * N * H * F + 2 * N * (F + 2 * H) * 4 * H
               + 2 * N * (F + 3 * H) * H)
@@ -1270,11 +1369,11 @@ def _cell_bound(name, N, B, E, H, A, F, R, T, fp32=False) -> dict:
         tanh = 0
     elif name == "dcnet_score":
         mm = 2 * N * H * A
-        ew = 3 * N * T * A
-        n_in = (N * H * f4 + H * A * b2 + 2 * A * f4 + B * T * A * b2
+        tanh = K * t_valid * A
+        ew = 3 * tanh
+        n_in = (N * H * f4 + H * A * b2 + 2 * A * f4 + t_valid * A * b2
                 + B * T * f4)
         n_out = N * T * b2
-        tanh = N * T * A
     else:  # dcnet_cell
         mm = 2 * N * H * H + 2 * N * (E + 2 * H) * 4 * H
         ew = 0
@@ -1282,7 +1381,18 @@ def _cell_bound(name, N, B, E, H, A, F, R, T, fp32=False) -> dict:
                 + (E + 2 * H) * 4 * H * b2 + 5 * H * f4)
         n_out = 2 * N * H * f4
         tanh = 0
-    return {**_ops_bound(mm, ew, n_in + n_out, fp32), "tanh_m": tanh / 1e6}
+    return _ops_bound(mm, ew, n_in + n_out, fp32, tanh)
+
+
+def _lane_share_dropped(v):
+    """The score vector v [A] with columns 0..7 zeroed: the terms of lane
+    0's first eight columns, one lane's partial score of a warp's
+    reduction over A, left out. It moves the weights only where the keys
+    vary across positions, so it is planted on random keys (scale 0.5):
+    the models' encoded keys barely do."""
+    v = v.clone()
+    v[0:8] = 0.0
+    return v
 
 
 def _halfway_bf16(x):
@@ -1366,7 +1476,8 @@ def phase_megastep(ed, dc) -> dict:
     def hold(name, kernel, plain, kinds, faults, launches=None):
         """``launches``: {label: a name key of one of the call's CUDA
         kernels}, whose device times are reported apart; then no
-        gemm_kernel (cell_common.cuh's wmma tile) may run in the call."""
+        gemm_kernel (cell_common.cuh's fp32 tile, once also a bf16 wmma
+        tile) may run in the call."""
         got = kernel()
         want = plain()
         torch.cuda.synchronize()
@@ -1456,7 +1567,25 @@ def phase_megastep(ed, dc) -> dict:
         lambda: (ms.dcnet_score(dpack, h_att),),
         lambda: (ms.reference_dcnet_score(dpack, h_att),),
         ("weights",),
-        [("mask_dropped", lambda: (ms.dcnet_score(no_mask, h_att),))])[0]
+        [("mask_dropped", lambda: (ms.dcnet_score(no_mask, h_att),))],
+        {"query": "cell_kernel<3,", "scores": "dcnet_scores_kernel"})[0]
+    check(results["dcnet_score"]["cuda_launches_per_call"] == 2,
+          f"dcnet_score: {results['dcnet_score']['cuda_launches_per_call']} "
+          "CUDA launches a call, expected 2")
+    # On random keys: the kernel within the bar, and a lane's partial score
+    # left out of the warp's reduction over A past it.
+    rkeys = dataclasses.replace(dpack, att_keys=(torch.randn(
+        dpack.att_keys.shape, generator=g) * 0.5).to(dpack.dtype).cuda())
+    want_r = (ms.reference_dcnet_score(rkeys, h_att),)
+    agree = cell_agreement((ms.dcnet_score(rkeys, h_att),), want_r,
+                           ("weights",))
+    bad = cell_agreement((ms.dcnet_score(dataclasses.replace(
+        rkeys, att_v=_lane_share_dropped(rkeys.att_v)), h_att),), want_r,
+        ("weights",))
+    check(agree["ok"] and not bad["ok"],
+          f"dcnet_score on random keys: {agree}; lane share left out: {bad}")
+    results["dcnet_score"]["random_keys"] = {
+        **agree, "planted_faults_caught": {"lane_share_left_out": True}}
     ctx = ms._grouped(omega, dpack.enc_hs)
     cell_args = (emb[:, :dEp], ctx, h_att[:, :dHp], c_att[:, :dHp])
     swapped = dataclasses.replace(
@@ -1478,8 +1607,11 @@ def phase_megastep(ed, dc) -> dict:
 
     dims = dict(N=N, B=B, E=mc.emb_dim, H=mc.hidden_dim, A=mc.att_dim,
                 F=mc.feat_dim, R=R, T=T)
+    # The attendable caption positions (a masked one needs no key).
+    t_valid = {"att_cell": int((pack.scma_mask > 0).sum()),
+               "dcnet_score": int((dpack.mask > 0).sum())}
     for name, res in results.items():
-        res.update(_cell_bound(name, **dims))
+        res.update(_cell_bound(name, **dims, t_valid=t_valid.get(name)))
         res["achieved_tflops"] = res["bf16_gflop"] / res["ms"]
         res["bound_share"] = res["bound_ms"] / res["ms"]
         res["device_bound_share"] = res["bound_ms"] / res["device_ms"]
@@ -1824,18 +1956,25 @@ DISPATCH = ("fused_lstm_cell", "fused_copy_lstm_cell",
             "fused_additive_attention")
 
 
-def _ops_bound(mm, ew, n_bytes, fp32=False) -> dict:
-    """The least time of a call: bf16 products on the tensor cores and fp32
-    arithmetic on the CUDA cores (separate units, so the longer of the
-    two) against the bytes read and written once. ``fp32``: the products
-    too are fp32 on the CUDA cores (compute_dtype="float32", no TF32)."""
+def _ops_bound(mm, ew, n_bytes, fp32=False, tanh=0) -> dict:
+    """The least time of a call: bf16 products on the tensor cores, fp32
+    arithmetic on the CUDA cores and ``tanh`` tanh on the special-function
+    unit (one MUFU operation each, the least a tanh needs: sm_90's
+    MUFU.TANH; separate units, so the longest of the three) against the
+    bytes read and written once. ``fp32``: the products too are fp32 on the
+    CUDA cores (compute_dtype="float32", no TF32)."""
     if fp32:
         mm, ew = 0, mm + ew
-    t_ops = max(mm / PEAK_BF16_FLOPS, ew / PEAK_FP32_FLOPS)
-    t_bytes = n_bytes / PEAK_BYTES
+    units = {"tensor cores": mm / PEAK_BF16_FLOPS,
+             "CUDA cores": ew / PEAK_FP32_FLOPS,
+             "special-function unit": tanh / PEAK_SFU_OPS,
+             "bytes": n_bytes / PEAK_BYTES}
+    unit = max(units, key=units.get)
     return {"bf16_gflop": mm / 1e9, "fp32_gflop": ew / 1e9,
-            "mbytes": n_bytes / 1e6, "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "tanh_m": tanh / 1e6,
+            "mbytes": n_bytes / 1e6, "bound_ms": 1e3 * units[unit],
+            "bound_by": "bytes" if unit == "bytes" else "operations",
+            "bound_unit": unit}
 
 
 def _lstm_bound(N, D, H, copy, fp32=False) -> dict:
@@ -1853,16 +1992,17 @@ def _lstm_bound(N, D, H, copy, fp32=False) -> dict:
 
 def _attention_bound(B, P, A, V, Q, n_valid, fp32=False) -> dict:
     """The query product 2 B Q A in bf16; per valid (row, position) 3 A
-    fp32 operations for the score and 2 V for the context (``n_valid``
-    sums the rows' valid positions: the masked ones need no key, value
-    or arithmetic); q (fp32), Wq (bf16), b, v read once, the valid keys
-    and values in bf16 (fp32 under ``fp32``), ctx and w written in fp32."""
+    fp32 operations and A tanh for the score and 2 V for the context
+    (``n_valid`` sums the rows' valid positions: the masked ones need no
+    key, value or arithmetic); q (fp32), Wq (bf16), b, v read once, the
+    valid keys and values in bf16 (fp32 under ``fp32``), ctx and w written
+    in fp32."""
     wb = 4 if fp32 else 2
     mm = 2 * B * Q * A
     ew = n_valid * (3 * A + 2 * V)
     n_bytes = (4 * B * Q + wb * Q * A + 8 * A + wb * n_valid * (A + V)
                + 4 * B + 4 * B * V + 4 * B * P)
-    return _ops_bound(mm, ew, n_bytes, fp32)
+    return _ops_bound(mm, ew, n_bytes, fp32, tanh=n_valid * A)
 
 
 def _wholestep_bound(N, H, F, V, k, fp32=False) -> dict:
@@ -2004,10 +2144,25 @@ def phase_cell_kernels(ed, dc) -> dict:
                        dctx.mask, dpk["att_wq"]),
     }
     check(bool((~ctx.mask).any()), "the batch masks no caption position")
+    # Prefix lengths 0, 1 and T in turn at the masked class's shape.
+    T = ctx.mask.shape[1]
+    lengths = torch.tensor([0, 1, T], device="cuda").repeat(N // 3 + 1)[:N]
+    att_cases["lengths_0_1_T"] = (
+        params.scma, ctx.scma_keys, ctx.enc_cs,
+        torch.arange(T, device="cuda")[None, :] < lengths[:, None],
+        pk["scma_wq"])
     for name, (ap, keys, values, mask, wq) in att_cases.items():
         args = (ap, keys, values, q, mask)
+        # Planted faults of the kernels' two reductions: a thread's 8
+        # context columns written over the next 8, and (on random keys) a
+        # lane's partial score left out of the warp's sum over A.
+        slid = values.clone()
+        slid[..., 8:16] = values[..., 0:8]
         faults = [("values_of_next_row", lambda: ka.fused_additive_attention(
-            ap, keys, torch.roll(values, 1, 0), q, mask, w_q=wq, **kw))]
+            ap, keys, torch.roll(values, 1, 0), q, mask, w_q=wq, **kw)),
+                  ("slice_in_wrong_columns",
+                   lambda: ka.fused_additive_attention(
+                       ap, keys, slid, q, mask, w_q=wq, **kw))]
         if mask is not None:
             faults.append(("mask_dropped", lambda: ka.fused_additive_attention(
                 ap, keys, values, q, None, w_q=wq, **kw)))
@@ -2016,6 +2171,18 @@ def phase_cell_kernels(ed, dc) -> dict:
             lambda: ka.fused_additive_attention(*args, w_q=wq, **kw),
             lambda: ka.reference_additive_attention(*args, w_q=wq, **kw),
             attention_agreement, faults)
+        no_share = AdditiveAttentionParams(
+            w_enc=ap.w_enc, w_q=ap.w_q, v=_lane_share_dropped(ap.v), b=ap.b)
+        rk = (torch.randn(keys.shape, generator=g) * 0.5).to(keys.dtype).cuda()
+        out["attention"][f"{name}_random_keys"] = _hold(
+            f"fused_additive_attention {name} random keys",
+            lambda: ka.fused_additive_attention(ap, rk, values, q, mask,
+                                                w_q=wq, **kw),
+            lambda: ka.reference_additive_attention(ap, rk, values, q, mask,
+                                                    w_q=wq, **kw),
+            attention_agreement,
+            [("lane_share_left_out", lambda: ka.fused_additive_attention(
+                no_share, rk, values, q, mask, w_q=wq, **kw))])
 
     # examples/bench_cell_kernels.py's shapes: 2560 rows.
     M = N * BEAM
@@ -2098,6 +2265,7 @@ def phase_cell_kernels(ed, dc) -> dict:
                                                 packed=pk["lang"], **kw),
             None, _lstm_bound(N, F + H, H, True), ("cell_kernel",)),
     }
+    del att_cases["lengths_0_1_T"]  # checked, not a path's shape
     for name, (ap, keys, values, mask, wq) in att_cases.items():
         n_valid = int(mask.sum()) if mask is not None else \
             N * keys.shape[1]
@@ -2111,7 +2279,8 @@ def phase_cell_kernels(ed, dc) -> dict:
             None,
             _attention_bound(N, keys.shape[1], A, values.shape[2], H,
                              n_valid),
-            ("gemm_kernel", "attention_kernel"))
+            ("query_kernel", "context_kernel", "gemm_kernel",
+             "attention_kernel"))
     times = {}
     for name, (run, plain, library, bound, keys) in timings.items():
         ms = time_ms(run, iters=10)
@@ -2122,6 +2291,26 @@ def phase_cell_kernels(ed, dc) -> dict:
             "device_ms": _device_ms(run, keys),
             "library_device_ms": _device_ms(library) if library else None,
             "cuda_launches_per_call": _cuda_kernels(run, keys)}
+        if name.startswith("fused_additive_attention"):
+            # The bf16 call: the K-split wgmma query product and
+            # context_kernel, a programmatic dependent that starts during
+            # the product (the span counts the overlap once); no
+            # cell_common.cuh tile.
+            by = _profile_kernels(run, keys)
+            tile = round(sum(n for k, (n, _) in by.items()
+                             if "gemm_kernel" in k))
+            check(tile == 0 and times[name]["cuda_launches_per_call"] == 2,
+                  f"{name}: {by} (expected the query product and "
+                  "context_kernel, no gemm_kernel)")
+            times[name].update(
+                device_ms_by_launch={
+                    "query": sum(ms_ for k, (_, ms_) in by.items()
+                                 if "query_kernel" in k),
+                    "context": sum(ms_ for k, (_, ms_) in by.items()
+                                   if "context_kernel" in k)},
+                device_span_ms=_device_span_ms(run, "query_kernel",
+                                               "context_kernel"),
+                gemm_kernel_launches=tile)
     result = {"phase": "cell_kernels", "ok": True, "rows": N,
               "atol_state": CELL_ATOL,
               "weights_bar": "max(1 bf16 ulp, 1e-4)",
@@ -2631,7 +2820,8 @@ def phase_fp32(ed, dc, wrappers, card) -> dict:
     att_args = (emb, h_att, c_att, h_lang)
     case("att_cell", lambda: ms.att_cell(pack, *att_args),
          lambda: ms.reference_att_cell(pack, *att_args), None,
-         _cell_bound("att_cell", **dims, fp32=True), keys,
+         _cell_bound("att_cell", **dims, fp32=True,
+                     t_valid=int((pack.scma_mask > 0).sum())), keys,
          [("operand_rounded_to_bf16", lambda: ms.att_cell(
              pack, emb, r16(h_att), c_att, h_lang))])
     with torch.inference_mode():
@@ -2650,7 +2840,8 @@ def phase_fp32(ed, dc, wrappers, card) -> dict:
     no_mask = dataclasses.replace(dpack, mask=torch.ones_like(dpack.mask))
     case("dcnet_score", lambda: (ms.dcnet_score(dpack, h_att[:, :dHp]),),
          lambda: (ms.reference_dcnet_score(dpack, h_att[:, :dHp]),), None,
-         _cell_bound("dcnet_score", **dims, fp32=True), keys,
+         _cell_bound("dcnet_score", **dims, fp32=True,
+                     t_valid=int((dpack.mask > 0).sum())), keys,
          [("mask_dropped",
            lambda: (ms.dcnet_score(no_mask, h_att[:, :dHp]),))])
     with torch.inference_mode():

@@ -1,0 +1,135 @@
+#!/usr/bin/env python3
+"""Per-launch device times of the dispatch attention (B6) and DCNet's
+score kernel on one card.
+
+    python3 examples/profile_score_kernels.py [CHECKOUT ...]
+
+For each checkout (default: this one), in a process of its own that
+imports that checkout's ``captionkit_torch`` and builds its kernels, runs
+``fused_additive_attention`` at the shapes of its paths, paper widths,
+bf16: the greedy step's 512 rows (EditNet's visual attention, 36 regions
+x 2048, no mask; the masked 22 x 1024 class of the SCMA and DCNet's text
+attention, caption lengths 8 to 22 as ``chip_smoke.py``'s batch has
+them) and 2560 rows of the visual class; and ``dcnet_score`` at 2560 rows
+(512 images x 5 beams, 22 caption positions). Inputs are random from seed
+0. Each case is measured with this repo's ``chip_smoke.py`` helpers:
+CUDA-event ms a call (``time_ms``), each launch's device ms a call by
+kernel name (``_profile_kernels``), their sum with and without the
+wrapper's own PyTorch launches, and a call's device span from the port's
+first kernel to its last (``_device_span_ms``), which counts once the
+time two launches overlap. Prints one JSON line per checkout with the
+card's name and power limit. Needs the card; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+# A call's first and last kernel: this tree's names, then the wmma-era
+# names of earlier trees.
+SPANS = {"fused_additive_attention": (("query_kernel", "gemm_kernel"),
+                                      ("context_kernel", "attention_kernel")),
+         "dcnet_score": (("cell_kernel", "gemm_kernel"), ("scores_kernel",))}
+
+
+def _smoke():
+    """This repo's chip_smoke.py as a module (not a checkout's)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def cases():
+    import torch
+
+    from captionkit_torch.kernels import attention as ka
+    from captionkit_torch.kernels import megastep as ms
+    from captionkit_torch.nn.attention import AdditiveAttentionParams
+
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).cuda()
+
+    H, A = 1024, 512
+    att = AdditiveAttentionParams(
+        w_enc=randn(8, A), w_q=randn(H, A, scale=H ** -0.5),
+        v=randn(A, scale=A ** -0.5), b=randn(A, scale=0.1))
+    wq = att.w_q.to(bf)
+    lengths = torch.randint(8, 23, (512,), generator=g).cuda()
+    mask = torch.arange(22, device="cuda")[None, :] < lengths[:, None]
+    out = {}
+    for name, (B, P, V, m) in {"visual_512": (512, 36, 2048, None),
+                               "masked_512": (512, 22, 1024, mask),
+                               "visual_2560": (2560, 36, 2048, None)}.items():
+        keys = randn(B, P, A, scale=0.5).to(bf)
+        values = randn(B, P, V).to(bf)
+        q = randn(B, H, scale=0.5)
+        out[f"fused_additive_attention/{name}"] = (
+            lambda keys=keys, values=values, q=q, m=m:
+            ka.fused_additive_attention(att, keys, values, q, m, w_q=wq,
+                                        compute_dtype=bf))
+    N, B, T = 2560, 512, 22
+    dmask = (torch.arange(T, device="cuda")[None, :]
+             < lengths[:, None]).float()
+    small = torch.zeros((128, 128), dtype=bf, device="cuda")
+    pack = ms.DCNetCellPack(
+        att_wq=randn(H, A, scale=H ** -0.5).to(bf),
+        att_v=randn(A, scale=A ** -0.5), att_b=randn(A, scale=0.1),
+        gate_w=small, gate_b=small[0].float(), dec_w=small,
+        b=small[0].float(), att_keys=randn(B, T, A, scale=0.5).to(bf),
+        enc_hs=small[None], mask=dmask)
+    h = randn(N, H, scale=0.5)
+    out["dcnet_score/2560"] = lambda: ms.dcnet_score(pack, h)
+    return out
+
+
+def child(checkout: Path) -> None:
+    import torch
+
+    smoke = _smoke()
+    res = {}
+    for name, fn in cases().items():
+        by_launch = smoke._profile_kernels(fn, None, calls=20)
+        first, last = (next(k for k in keys
+                            if any(k in n for n in by_launch))
+                       for keys in SPANS[name.split("/")[0]])
+        res[name] = {
+            "ms": smoke.time_ms(fn, iters=50, warm=5),
+            "by_launch": {k[:100]: v for k, v in by_launch.items()},
+            "device_ms": sum(ms for _, ms in by_launch.values()),
+            "kernel_device_ms": sum(ms for k, (_, ms) in by_launch.items()
+                                    if "at::native" not in k),
+            "device_span_ms": smoke._device_span_ms(fn, first, last,
+                                                    calls=20)}
+    print(json.dumps({"checkout": str(checkout),
+                      "card": smoke.nvidia_smi_line(),
+                      "device": torch.cuda.get_device_name(0),
+                      "cases": res}), flush=True)
+
+
+def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--child":
+        sys.path.insert(0, sys.argv[2])
+        child(Path(sys.argv[2]))
+        return 0
+    checkouts = [Path(p).resolve() for p in sys.argv[1:]] or [HERE]
+    for checkout in checkouts:
+        proc = subprocess.run(
+            [sys.executable, __file__, "--child", str(checkout)],
+            cwd=checkout, timeout=900)
+        if proc.returncode:
+            return proc.returncode
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

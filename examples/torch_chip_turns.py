@@ -8,7 +8,7 @@ checkout) in the order parent, change, change, parent, each as its own
 process, and writes each run's output to DIR/<label>_<n>.log. Then prints
 one JSON object: for every kernel of the runs' ``kernels`` lines its ms per
 run, for every measured field of the kernels' rows (each launch's device
-time where a row gives it; the ``cell_kernels``
+time and a call's device span where a row gives them; the ``cell_kernels``
 times, the ``head_variants``, ``megastep``, ``fp32``, ``beam10`` and
 ``wide_head`` kernels, the ``wholestep`` kernel and the two programs it is set
 against) their values per run, and every captions/s figure of the decode
@@ -30,7 +30,7 @@ FIELDS = ("ms", "device_ms", "library_ms", "library_device_ms", "plain_ms",
           "bound_ms", "bound_share", "device_bound_share",
           "cuda_launches_per_call", "two_programs_ms",
           "two_programs_device_ms", "lang_cell_then_sweep_ms",
-          "lang_cell_then_sweep_device_ms")
+          "lang_cell_then_sweep_device_ms", "device_span_ms")
 
 
 def run(checkout: Path, log: Path) -> list[dict]:
@@ -69,6 +69,8 @@ def summary(lines: list[dict]) -> dict:
                 for f in FIELDS:
                     if t.get(f) is not None:
                         out[f"cell_kernels/{name}/{f}"] = t[f]
+                for label, v in t.get("device_ms_by_launch", {}).items():
+                    out[f"cell_kernels/{name}/device_ms/{label}"] = v
         if phase in ("head_variants", "megastep", "fp32", "beam10",
                      "wide_head"):
             for name, t in line["kernels"].items():

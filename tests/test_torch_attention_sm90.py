@@ -1,0 +1,376 @@
+"""The bf16 score kernels on the CPU: a torch model of how the kernels of
+``csrc/attention.cu`` (the dispatch attention, B6) and of
+``csrc/megastep.cu``'s ``ck_dcnet_score`` split one call (the kernels
+themselves run on a card: test_torch_card.py), held against
+``captionkit.ops.attention.fused_additive_attention`` and the score kernel
+of ``captionkit.ops.megastep.dcnet_fused_step_hidden`` in interpret mode.
+
+The model follows the kernels step by step, in fp32:
+- the query product of each 128-row x 128-column output tile (the
+  ``sm90_cell.cuh`` GEMM), summed over 64-deep K stages of bf16 operands;
+  B6's product split over K into the ranges ``query_split`` picks for an
+  H100's 132 SMs, one partial each, which the context kernel adds in rank
+  order;
+- each score as one warp takes it: lane l sums tanh(k + q + b) v over its
+  columns 8 l + 256 c + {0..7} in that order, and the 32 partial scores
+  meet in the xor butterfly of ``warp_sum``; tanh as the kernels take it,
+  1 - 2 / (2^(2 x log2 e) + 1);
+- B6's ``context_kernel``: per row, the key stages of 14 KB (the valid
+  prefix only; ``NEG_INF`` after it), the softmax over all P positions,
+  then per 1024-column group the value stages (the valid prefix, or all P
+  when it is empty), thread group g of G = 128 / (columns / 8) summing the
+  positions g, g + G, ... of each stage, and the groups' partial sums
+  added;
+- ``dcnet_scores_kernel``: one warp a query row against its image's keys,
+  ``NEG_INF`` where the mask is not > 0, the row's softmax rounded to bf16
+  once.
+
+Bars (the port's dispatch and megastep tests): B6's weights within 1e-4
+and its context within 1e-3 of the JAX kernel, and within max(1 bf16 ulp,
+1e-4) and 1e-3 of the plain version; DCNet's ω within one bf16 ulp. Each
+planted fault (a lane's partial score left out of the reduction, a
+thread's 8 context columns written to the next slice) must fail them.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from captionkit.nn.attention import AdditiveAttentionParams as JaxAttParams
+from captionkit.ops import megastep as jax_megastep
+from captionkit.ops.attention import fused_additive_attention as jax_attn
+
+from captionkit_torch.kernels import attention as tattn
+from captionkit_torch.kernels import megastep
+from captionkit_torch.nn.attention import AdditiveAttentionParams
+from captionkit_torch.nn.masking import NEG_INF
+
+ROWS, COLS, K_STAGE = 128, 128, 64  # sm90_cell.cuh's tile and stage
+H100_SMS = 132
+STAGE_BYTES, VCOLS, CONSUMERS = 14 * 1024, 1024, 128  # context_kernel
+FAULTS = ("lane_share_left_out", "slice_in_wrong_columns")
+bf = torch.bfloat16
+
+
+def _round_up(x, m):
+    return (x + m - 1) // m * m
+
+
+def _query(q, wq, split=1):
+    """q [N, Qp] (rounded to bf16) times wq [Qp, Ap] bf16, fp32 sums: each
+    128 x 128 output tile summed over 64-deep K stages, in ``split`` K
+    ranges of Qp / split (a partial each, stages cut at the range's end),
+    the partials added in rank order."""
+    N, Qp = q.shape
+    Ap = wq.shape[1]
+    Kc = Qp // split
+    a, w = q.to(bf).float(), wq.float()
+    parts = torch.zeros((split, N, Ap))
+    for c in range(split):
+        for r0 in range(0, N, ROWS):
+            for c0 in range(0, Ap, COLS):
+                acc = torch.zeros((min(ROWS, N - r0), COLS))
+                for k0 in range(c * Kc, (c + 1) * Kc, K_STAGE):
+                    k1 = min(k0 + K_STAGE, (c + 1) * Kc)
+                    acc += a[r0:r0 + ROWS, k0:k1] @ w[k0:k1, c0:c0 + COLS]
+                parts[c, r0:r0 + ROWS, c0:c0 + COLS] = acc
+    out = parts[0]
+    for c in range(1, split):
+        out = out + parts[c]
+    return out
+
+
+def _tanh_ex2(x):
+    """The kernels' tanh, 1 - 2 / (2^(2 x log2 e) + 1), in fp32."""
+    return 1.0 - 2.0 / (torch.exp2(x * 2.88539008) + 1.0)
+
+
+def _warp_score(terms, fault=None):
+    """The warp's sum of terms [..., A]: lane l's partial over columns
+    8 l + 256 c + j (c, then j), then the xor butterfly; lane 0's total.
+    ``lane_share_left_out``: lane 3's partial dropped."""
+    A = terms.shape[-1]
+    nc = -(-A // 256)
+    t = F.pad(terms, (0, 256 * nc - A)).reshape(*terms.shape[:-1], nc, 32, 8)
+    part = torch.zeros(terms.shape[:-1] + (32,))
+    for c in range(nc):
+        for j in range(8):
+            part = part + t[..., c, :, j]
+    if fault == "lane_share_left_out":
+        part[..., 3] = 0.0
+    lanes = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        part = part + part[..., lanes ^ off]
+    return part[..., 0]
+
+
+def _b6_model(q, wq, b, v, keys, values, nvalid, fault=None, split=None):
+    """(ctx [B, V], w [B, P]) as the bf16 kernels compute them; q fp32
+    [B, Qp], wq bf16 [Qp, Ap], b, v fp32 [Ap], keys bf16 [B, P, Ap],
+    values bf16 [B, P, V], nvalid [B]; the query product in ``split`` K
+    ranges (the wrapper's choice on an H100 when None). Also the number of
+    value positions each row reads."""
+    if split is None:
+        split = tattn.query_split(q.shape[0], wq.shape[1], H100_SMS)
+    qa = _query(q, wq, split)
+    B, P, A = keys.shape
+    V = values.shape[2]
+    kc = STAGE_BYTES // (2 * A)
+    ctx, w = torch.zeros((B, V)), torch.zeros((B, P))
+    read = []
+    for row in range(B):
+        nk = max(0, min(int(nvalid[row]), P))
+        nval = nk if nk > 0 else P
+        s = torch.full((P,), NEG_INF)
+        for p0 in range(0, nk, kc):
+            k = keys[row, p0:min(nk, p0 + kc)].float()
+            s[p0:p0 + k.shape[0]] = _warp_score(
+                _tanh_ex2(k + qa[row] + b) * v, fault)
+        w[row] = torch.softmax(s, dim=0)
+        for c0 in range(0, V, VCOLS):
+            cw = min(VCOLS, V - c0)
+            pc = STAGE_BYTES // (2 * cw)
+            G = CONSUMERS // (cw // 8)
+            part = torch.zeros((G, cw))
+            for p0 in range(0, nval, pc):
+                for j in range(min(pc, nval - p0)):
+                    part[j % G] += w[row, p0 + j] * \
+                        values[row, p0 + j, c0:c0 + cw].float()
+            out = part.sum(dim=0)
+            if fault == "slice_in_wrong_columns" and cw >= 16:
+                out[8:16] = out[0:8].clone()
+            ctx[row, c0:c0 + cw] = out
+        read.append(nval)
+    return ctx, w, read
+
+
+def _dcnet_model(h, wq, b, v, keys, mask, fault=None):
+    """ω [N, T] bf16 as the bf16 kernels compute it: q = bf16(h) wq, then
+    one warp a row against its image's keys."""
+    q = _query(h, wq)
+    B, T, A = keys.shape
+    N = h.shape[0]
+    img = torch.arange(N) // (N // B)
+    e = _tanh_ex2(keys.float()[img] + q[:, None, :] + b) * v
+    s = _warp_score(e, fault)
+    s = torch.where(mask[img] > 0, s, NEG_INF)
+    return torch.softmax(s, dim=-1).to(bf)
+
+
+def _ulp_close(got, want):
+    """Within one bf16 ulp of the larger magnitude."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    _, e = np.frexp(np.maximum(np.abs(got), np.abs(want)))
+    return bool((np.abs(got - want) <= np.ldexp(1.0, e - 8)).all())
+
+
+def _w_close(got, want):
+    """max(1 bf16 ulp, 1e-4): the card's bar for the fp32 weights."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    _, e = np.frexp(np.maximum(np.abs(got), np.abs(want)))
+    bar = np.maximum(np.ldexp(1.0, e - 8), 1e-4)
+    return bool((np.abs(got - want) <= bar).all())
+
+
+def _lengths(pattern, B, P, rng):
+    if pattern == "full":
+        return np.full(B, P)
+    if pattern == "zero_one_full":
+        return np.array([(0, 1, P)[i % 3] for i in range(B)])
+    return rng.integers(0, P + 1, B)
+
+
+def _b6_case(B, P, A, V, Q, pattern, seed=7):
+    rng = np.random.default_rng(seed)
+    arrays = dict(
+        w_enc=rng.uniform(-1, 1, (V, A)).astype(np.float32) * V ** -0.5,
+        w_q=rng.uniform(-1, 1, (Q, A)).astype(np.float32) * Q ** -0.5,
+        v=rng.uniform(-1, 1, (A,)).astype(np.float32) * A ** -0.5,
+        b=rng.uniform(-0.1, 0.1, (A,)).astype(np.float32))
+    values = rng.standard_normal((B, P, V)).astype(np.float32)
+    keys = (rng.standard_normal((B, P, A)) * 0.5).astype(np.float32)
+    query = rng.standard_normal((B, Q)).astype(np.float32)
+    lengths = _lengths(pattern, B, P, rng)
+    mask = np.arange(P)[None, :] < lengths[:, None]
+    return arrays, keys, values, query, mask, lengths
+
+
+def _b6_both(arrays, keys, values, query, mask, lengths, fault=None,
+             split=None):
+    """(JAX kernel (ctx, w), model (ctx, w, read), plain (ctx, w))."""
+    jp = JaxAttParams(**{k: jnp.asarray(v) for k, v in arrays.items()})
+    jk = jnp.asarray(keys).astype(jnp.bfloat16)
+    jv = jnp.asarray(values).astype(jnp.bfloat16)
+    j = jax_attn(jp, jk, jv, jnp.asarray(query), jnp.asarray(mask),
+                 compute_dtype=jnp.bfloat16, interpret=True)
+    tp = AdditiveAttentionParams(
+        **{k: torch.from_numpy(v) for k, v in arrays.items()})
+    B, P, A = keys.shape
+    Q = query.shape[1]
+    Qp, Ap = _round_up(Q, tattn.K_TILE), _round_up(A, 128)
+    wq = F.pad(tp.w_q, (0, Ap - A, 0, Qp - Q)).to(bf)
+    tk = F.pad(torch.from_numpy(keys), (0, Ap - A)).to(bf)
+    tv = torch.from_numpy(values).to(bf)
+    q = F.pad(torch.from_numpy(query), (0, Qp - Q))
+    m = _b6_model(q, wq, F.pad(tp.b, (0, Ap - A)), F.pad(tp.v, (0, Ap - A)),
+                  tk, tv, torch.from_numpy(lengths), fault, split)
+    plain = tattn.reference_additive_attention(
+        tp, tk[..., :A], tv, torch.from_numpy(query),
+        torch.from_numpy(mask), compute_dtype=bf)
+    return j, m, plain
+
+
+def _b6_ok(j, m, plain, lengths):
+    """The bars against the JAX kernel on rows with a valid position, and
+    against the plain version on every row. (The JAX kernel pads P to a
+    multiple of 8 and spreads a row with none valid over the padded
+    positions too, 1 / Np each; the port, as the reference's jnp twin,
+    gives 1 / P.)"""
+    ctx, w = m[0].numpy(), m[1].numpy()
+    j_ctx, j_w = np.asarray(j[0], np.float32), np.asarray(j[1], np.float32)
+    some = np.asarray(lengths) > 0
+    return (np.abs(w - j_w)[some].max() <= 1e-4
+            and np.abs(ctx - j_ctx)[some].max() <= 1e-3
+            and _w_close(w, plain[1].numpy())
+            and np.abs(ctx - plain[0].numpy()).max() <= 1e-3)
+
+
+@pytest.mark.parametrize("B,P,A,V,Q,pattern", [
+    (8, 36, 512, 2048, 1024, "full"),         # visual class: two groups
+    (8, 36, 512, 2048, 1024, "zero_one_full"),
+    (6, 22, 64, 96, 96, "zero_one_full"),     # SCMA class, unaligned
+    (6, 22, 64, 96, 96, "random"),
+    (130, 22, 128, 1024, 64, "zero_one_full"),  # past a 128-row tile
+    (3, 5, 128, 2056, 32, "zero_one_full"),     # three column groups
+    (4, 7, 128, 1600, 32, "zero_one_full"),     # a group of 576 columns
+])
+def test_b6_partition_matches_jax_fused(B, P, A, V, Q, pattern):
+    """The model of the bf16 B6 kernels gives the JAX kernel's (ctx, w)
+    and the plain version's, at prefix lengths 0, 1 and P; a row with none
+    valid reads all P values (uniform weights), any other its prefix."""
+    case = _b6_case(B, P, A, V, Q, pattern)
+    j, m, plain = _b6_both(*case)
+    lengths = case[5]
+    assert _b6_ok(j, m, plain, lengths)
+    assert m[2] == [int(n) if n > 0 else P for n in lengths]
+    none_valid = lengths == 0
+    if none_valid.any():
+        np.testing.assert_allclose(m[1][torch.from_numpy(none_valid)].numpy(),
+                                   1.0 / P, rtol=1e-6)
+    valid = torch.from_numpy(case[4])
+    rows = torch.from_numpy(~none_valid)
+    assert bool((m[1][rows][~valid[rows]] == 0).all())
+
+
+@pytest.mark.parametrize("B,Ap,want", [
+    (512, 512, 4),    # the greedy step: 16 tiles, 64 CTAs
+    (1024, 512, 4),   # 32 tiles, 128 CTAs
+    (1100, 512, 2),   # 36 tiles: 4 ranges would be 144 CTAs
+    (2560, 512, 1),   # the bench rows: 80 tiles
+    (1024, 1024, 2),  # 64 tiles
+    (6, 128, 4),      # one tile
+])
+def test_query_split_keeps_one_wave(B, Ap, want):
+    """The wrapper splits the bf16 query product into as many K ranges (at
+    most 4) as keep its CTAs in one wave of an H100's 132 SMs, and sizes
+    its scratch qa [split, B, Ap] by it."""
+    split = tattn.query_split(B, Ap, H100_SMS)
+    assert split == want
+    tiles = (Ap // 128) * -(-B // 128)
+    assert split * tiles <= H100_SMS or split == 1
+
+
+@pytest.mark.parametrize("split", [1, 2, 4])
+def test_b6_query_split_partials_match_jax(split):
+    """The query product in 1, 2 or 4 K ranges, their fp32 partials added
+    in rank order, gives the JAX kernel's (ctx, w) within the bars at the
+    visual class's widths (Q = 1024) and at an unaligned Q = 96 (ranges of
+    24)."""
+    for case in (_b6_case(8, 36, 512, 2048, 1024, "zero_one_full"),
+                 _b6_case(6, 22, 64, 96, 96, "zero_one_full")):
+        j, m, plain = _b6_both(*case, split=split)
+        assert _b6_ok(j, m, plain, case[5])
+
+
+@pytest.mark.parametrize("fault", FAULTS)
+def test_b6_partition_planted_faults_fail(fault):
+    """A lane's partial score left out of the warp's reduction, or a
+    thread's 8 context columns written to the next slice, fails the
+    bars at the visual class's shape."""
+    case = _b6_case(8, 36, 512, 2048, 1024, "full")
+    j, m, plain = _b6_both(*case, fault=fault)
+    assert not _b6_ok(j, m, plain, case[5])
+
+
+def _dcnet_case(B, K, T, H, A, seed=3):
+    rng = np.random.default_rng(seed)
+    Hp, Ap = _round_up(H, 128), _round_up(A, 128)
+    h = np.zeros((B * K, Hp), np.float32)
+    h[:, :H] = rng.standard_normal((B * K, H)) * 0.5
+    wq = np.zeros((Hp, Ap), np.float32)
+    wq[:H, :A] = rng.uniform(-1, 1, (H, A)) * H ** -0.5
+    v, b = np.zeros((1, Ap), np.float32), np.zeros((1, Ap), np.float32)
+    v[0, :A] = rng.uniform(-1, 1, A) * A ** -0.5
+    b[0, :A] = rng.uniform(-0.1, 0.1, A)
+    keys = np.zeros((B, T, Ap), np.float32)
+    keys[..., :A] = rng.standard_normal((B, T, A)) * 0.5
+    lengths = np.array([(0, 1, T)[i % 3] if i < 3 else rng.integers(1, T + 1)
+                        for i in range(B)])
+    mask = (np.arange(T)[None, :] < lengths[:, None]).astype(np.float32)
+    return h, wq, v, b, keys, mask
+
+
+def _dcnet_both(case, K, fault=None):
+    h, wq, v, b, keys, mask = case
+    jb = jnp.bfloat16
+    j = jax_megastep._make_dcnet_score_kernel(K, jb)
+    from jax.experimental import pallas as pl
+
+    omega = pl.pallas_call(
+        j, out_shape=jax.ShapeDtypeStruct((h.shape[0], keys.shape[1]), jb),
+        interpret=True)(jnp.asarray(h), jnp.asarray(wq).astype(jb),
+                        jnp.asarray(v), jnp.asarray(b),
+                        jnp.asarray(keys).astype(jb), jnp.asarray(mask))
+    t = [torch.from_numpy(x) for x in case]
+    m = _dcnet_model(t[0], t[1].to(bf), t[3][0], t[2][0], t[4].to(bf), t[5],
+                     fault)
+    return np.asarray(omega, np.float32), m.float().numpy()
+
+
+@pytest.mark.parametrize("B,K,T,H,A", [
+    (7, 1, 6, 16, 8),        # K = 1, small widths, one 128 block
+    (7, 5, 6, 16, 8),        # K = 5 beams a row
+    (26, 5, 22, 48, 512),    # A = 512 (two chunks a lane), 130 rows
+    (3, 5, 22, 1024, 1024),  # A = 1024 (four chunks), 16 K stages
+])
+def test_dcnet_score_partition_matches_jax_kernel(B, K, T, H, A):
+    """The model of the bf16 dcnet_score kernels gives the reference's
+    score kernel's ω (interpret) within one bf16 ulp, and the plain
+    version's; masked positions weigh exactly 0, a row with none valid
+    weighs all T equally."""
+    case = _dcnet_case(B, K, T, H, A)
+    j, m = _dcnet_both(case, K)
+    assert _ulp_close(m, j)
+    h, wq, v, b, keys, mask = (torch.from_numpy(x) for x in case)
+    small = torch.zeros((128, 128), dtype=bf)
+    pack = megastep.DCNetCellPack(
+        att_wq=wq.to(bf), att_v=v[0], att_b=b[0], gate_w=small,
+        gate_b=small[0].float(), dec_w=small, b=small[0].float(),
+        att_keys=keys.to(bf), enc_hs=small[None], mask=mask)
+    assert _ulp_close(m, megastep.reference_dcnet_score(pack, h).float())
+    rows = mask.repeat_interleave(K, dim=0)
+    valid_rows = rows.sum(dim=1) > 0
+    assert bool((torch.from_numpy(m)[valid_rows][rows[valid_rows] == 0]
+                 == 0).all())
+    np.testing.assert_allclose(m[~valid_rows.numpy()], 1.0 / T, rtol=4e-3)
+
+
+def test_dcnet_score_partition_planted_fault_fails():
+    """A lane's partial score left out of the warp's reduction moves ω
+    past one bf16 ulp at A = 512."""
+    case = _dcnet_case(26, 5, 22, 48, 512)
+    j, m = _dcnet_both(case, 5, fault="lane_share_left_out")
+    assert not _ulp_close(m, j)

@@ -8,6 +8,10 @@ machine with a card and without JAX it runs on its own:
 """
 
 import dataclasses
+import json
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -473,6 +477,42 @@ def test_dcnet_cell_kernels_match_plain(card, over, B):
         torch.testing.assert_close(g, w, atol=1e-3, rtol=0)
 
 
+@pytest.mark.parametrize("K", [1, 5])
+@pytest.mark.parametrize("over", [SMALL_CELLS, PAPER_CELLS])
+def test_dcnet_score_prefix_lengths_and_faults(card, over, K):
+    """dcnet_score with K = 1 and 5 beams a row at attendable lengths 0, 1
+    and T in turn: ω within one bf16 ulp, masked positions 0, a row with
+    none attendable 1 / T; a lane's partial score left out of the sum over
+    A, and the mask dropped, fail the bar. The keys are random (scale 0.5):
+    the model's encoded keys barely vary across positions, so a share of
+    the score left out would move every position alike."""
+    _, pack, (h, _, _, _), _ = _cell_setup("dcnet", over, card, 64, K=K)
+    B, T = pack.mask.shape
+    lengths = torch.tensor([0, 1, T], device=card).repeat(B)[:B]
+    g = torch.Generator().manual_seed(5)
+    keys = (torch.randn(pack.att_keys.shape, generator=g) * 0.5).to(card)
+    pack = dataclasses.replace(
+        pack, att_keys=keys.to(pack.att_keys.dtype),
+        mask=(torch.arange(T, device=card)[None, :]
+              < lengths[:, None]).float())
+    before = megastep.dcnet_score.launches
+    got = megastep.dcnet_score(pack, h)
+    torch.cuda.synchronize()
+    assert megastep.dcnet_score.launches == before + 1
+    want = megastep.reference_dcnet_score(pack, h)
+    _weights_close(got, want)
+    rows = pack.mask.repeat_interleave(K, dim=0) > 0
+    some = rows.any(dim=1)
+    assert bool((got[some][~rows[some]] == 0).all())
+    assert bool((got[~some].float() == torch.tensor(
+        1 / T).bfloat16().float()).all())
+    for bad in (dataclasses.replace(pack, att_v=_lane_share_dropped(
+            pack.att_v)), dataclasses.replace(
+                pack, mask=torch.ones_like(pack.mask))):
+        with pytest.raises(AssertionError):
+            _weights_close(megastep.dcnet_score(bad, h), want)
+
+
 def test_cell_wrappers_reject_what_they_do_not_take(card):
     mc, pack, (h_att, c_att, h_lang, c_lang), emb = _cell_setup(
         "editnet", SMALL_CELLS, card, 3)
@@ -621,6 +661,8 @@ def test_lstm_kernel_planted_faults_fail(card):
 
 
 def _attention_case(dev, B, N, A, V, Q, seed=4, masked=True):
+    """``masked``: True for random prefix lengths 1..N, "0_1_P" for
+    lengths 0, 1 and N in turn, False for no mask."""
     g = torch.Generator().manual_seed(seed)
     params = AdditiveAttentionParams(
         w_enc=_u(g, (V, A), V ** -0.5, dev), w_q=_u(g, (Q, A), Q ** -0.5, dev),
@@ -632,6 +674,8 @@ def _attention_case(dev, B, N, A, V, Q, seed=4, masked=True):
     mask = None
     if masked:
         lengths = torch.randint(1, N + 1, (B,), generator=g).to(dev)
+        if masked == "0_1_P":
+            lengths = torch.tensor([0, 1, N], device=dev).repeat(B)[:B]
         mask = torch.arange(N, device=dev)[None, :] < lengths[:, None]
     return params, keys, values, query, mask
 
@@ -649,6 +693,14 @@ def _weights_bar(got, want):
     (4, 10, 8, 32, 16, False),         # no mask
     (512, 36, 512, 2048, 1024, False),  # EditNet's greedy visual attention
     (512, 22, 512, 1024, 1024, True),  # its SCMA / DCNet's text attention
+    (512, 36, 512, 2048, 1024, "0_1_P"),  # prefix lengths 0, 1 and P
+    (512, 22, 512, 1024, 1024, "0_1_P"),
+    (6, 22, 64, 96, 96, "0_1_P"),
+    (2560, 36, 512, 2048, 1024, False),  # the bench shape
+    (3, 5, 128, 2056, 32, "0_1_P"),    # three value column groups
+    (4, 7, 128, 1600, 32, "0_1_P"),    # a 576-column group: idle threads
+    (16, 10, 1024, 256, 64, True),     # A past the lanes' registers
+    (2, 3000, 128, 8, 32, "0_1_P"),    # many key and value stages a row
 ])
 def test_attention_kernel_matches_plain(card, B, N, A, V, Q, masked):
     params, keys, values, query, mask = _attention_case(card, B, N, A, V, Q,
@@ -663,8 +715,11 @@ def test_attention_kernel_matches_plain(card, B, N, A, V, Q, masked):
     assert w.dtype == torch.float32 and tuple(ctx.shape) == (B, V)
     assert _weights_bar(w, w_r), float((w - w_r).abs().max())
     torch.testing.assert_close(ctx, ctx_r, atol=1e-3, rtol=0)
-    if masked:  # a masked position weighs exactly 0
-        assert bool((w[~mask] == 0).all())
+    if masked:  # a masked position weighs exactly 0; none valid: 1 / N
+        some = mask.any(dim=1)
+        assert bool((w[some][~mask[some]] == 0).all())
+        torch.testing.assert_close(w[~some], torch.full_like(w[~some], 1 / N),
+                                   atol=1e-7, rtol=0)
 
 
 def test_attention_kernel_planted_fault_fails(card):
@@ -677,6 +732,117 @@ def test_attention_kernel_planted_fault_fails(card):
     _, w = tattn.fused_additive_attention(params, keys, values, query, None,
                                           compute_dtype=torch.bfloat16)
     assert not _weights_bar(w, w_r)
+
+
+def _lane_share_dropped(v):
+    """v with columns 0..7 zeroed: lane 0's first eight score terms, one
+    lane's partial of the warp's reduction over A, left out."""
+    v = v.clone()
+    v[0:8] = 0.0
+    return v
+
+
+@pytest.mark.parametrize("fault", ["lane_share_left_out",
+                                   "slice_in_wrong_columns"])
+@pytest.mark.parametrize("B,N,A,V,Q,masked", [
+    (512, 36, 512, 2048, 1024, False), (6, 22, 64, 96, 96, "0_1_P")])
+def test_attention_kernel_reduction_faults_fail(card, B, N, A, V, Q, masked,
+                                                fault):
+    """The bars catch the faults of the kernels' two reductions: a lane's
+    partial score left out of the sum over A, and a thread's 8 context
+    columns written over the next 8."""
+    params, keys, values, query, mask = _attention_case(card, B, N, A, V, Q,
+                                                        masked=masked)
+    ctx_r, w_r = tattn.reference_additive_attention(
+        params, keys, values, query, mask, compute_dtype=torch.bfloat16)
+    if fault == "lane_share_left_out":
+        params = dataclasses.replace(params, v=_lane_share_dropped(params.v),
+                                     cache={})
+    else:
+        values = values.clone()
+        values[..., 8:16] = values[..., 0:8]
+    ctx, w = tattn.fused_additive_attention(
+        params, keys, values, query, mask, compute_dtype=torch.bfloat16)
+    assert not (_weights_bar(w, w_r)
+                and float((ctx - ctx_r).abs().max()) <= 1e-3)
+
+
+def _profiled_runs(card, group):
+    """The calls whose CUDA launches a test counts: the tiled heads
+    (``"heads"``: bf16 mask and thresh, int8 given its K-major weights, at
+    paper shape) or the bf16 score kernels (``"scores"``: the dispatch
+    attention at the masked 512 x 22 x 1024 class, dcnet_score at 320
+    rows)."""
+    if group == "heads":
+        h, w, b = _paper_head(card)
+        w_p, b_p = thead.prepad_head(w, b, compute_dtype=torch.bfloat16)
+        hb = h.bfloat16()
+        w_q, scale, b_q = thead.quantize_head(w, b)
+        w_qt = thead.kmajor_head(w_q)
+        return {"mask": lambda: thead.fused_head_topk(hb, w_p, b_p, k=5),
+                "thresh": lambda: thead.fused_head_topk_thresh(
+                    hb, w_p, b_p, k=5),
+                "int8": lambda: thead.fused_head_topk_int8(
+                    h, w_q, scale, b_q, k=5, w_qt=w_qt)}
+    params, keys, values, query, mask = _attention_case(
+        card, 512, 22, 512, 1024, 1024)
+    _, dpack, (h, _, _, _), _ = _cell_setup("dcnet", PAPER_CELLS, card, 64)
+    return {"attention": lambda: tattn.fused_additive_attention(
+                params, keys, values, query, mask,
+                compute_dtype=torch.bfloat16),
+            "dcnet_score": lambda: megastep.dcnet_score(dpack, h)}
+
+
+def _profile_launches(run, calls):
+    """{CUDA kernel name: launches} of ``calls`` calls of ``run`` (after
+    one unprofiled call), from one torch.profiler session."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def _kernels_a_call(group, name, calls=3):
+    """{CUDA kernel name: launches} of ``calls`` calls of
+    ``_profiled_runs(card, group)[name]``, profiled in a process of its
+    own. On the H100 machine a torch.profiler session records every
+    kernel only as the first session of its process: a later one, after
+    other work, drops kernel records (PERF.md §7)."""
+    root = Path(__file__).resolve().parents[1]
+    code = (
+        "import json, sys\n"
+        f"sys.path[:0] = [{str(root)!r}, {str(root / 'tests')!r}]\n"
+        "import torch\n"
+        "import test_torch_card as t\n"
+        f"run = t._profiled_runs(torch.device('cuda'), {group!r})[{name!r}]\n"
+        f"print(json.dumps(t._profile_launches(run, {calls})))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_score_kernels_two_launches_no_gemm_tile(card):
+    """A bf16 call of fused_additive_attention is the K-split wgmma query
+    product (query_kernel) and context_kernel; one of dcnet_score the
+    wgmma query product (cell_kernel) and dcnet_scores_kernel: two CUDA
+    launches each, and no cell_common.cuh gemm_kernel (the wmma tile is
+    gone)."""
+    runs = {"attention": ("query_kernel", "context_kernel"),
+            "dcnet_score": ("cell_kernel", "dcnet_scores_kernel")}
+    for name, (first, second) in runs.items():
+        kernels = {k: n for k, n in _kernels_a_call("scores", name).items()
+                   if "at::native" not in k}
+        assert not any("gemm_kernel" in k for k in kernels), (name, kernels)
+        assert sum(kernels.values()) == 6, (name, kernels)
+        assert sum(n for k, n in kernels.items() if first in k) == 3
+        assert sum(n for k, n in kernels.items() if second in k) == 3
 
 
 def test_cell_kernels_reject_what_they_do_not_take(card):
@@ -1073,31 +1239,10 @@ def test_tiled_heads_planted_faults_fail(card, kernel):
 def test_tiled_heads_one_launch_and_no_wmma_tile(card):
     """bf16 mask and thresh and the int8 head (given its K-major weights)
     run as one CUDA launch a call, the head_sm90.cuh kernel; no tile pass
-    (head_tile_kernel, head_int8_tile_kernel) and no merge launch."""
-    from torch.profiler import ProfilerActivity, profile
-
-    h, w, b = _paper_head(card)
-    w_p, b_p = thead.prepad_head(w, b, compute_dtype=torch.bfloat16)
-    hb = h.bfloat16()
-    w_q, scale, b_q = thead.quantize_head(w, b)
-    w_qt = thead.kmajor_head(w_q)
-    runs = {"mask": lambda: thead.fused_head_topk(hb, w_p, b_p, k=5),
-            "thresh": lambda: thead.fused_head_topk_thresh(hb, w_p, b_p,
-                                                           k=5),
-            "int8": lambda: thead.fused_head_topk_int8(
-                h, w_q, scale, b_q, k=5, w_qt=w_qt)}
-    for name, run in runs.items():
-        run()
-        torch.cuda.synchronize()
-        for _ in range(2):  # the profiler now and then records nothing
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(3):
-                    run()
-                torch.cuda.synchronize()
-            kernels = {e.key: e.count for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA}
-            if kernels:
-                break
+    (head_tile_kernel, head_int8_tile_kernel) and no merge launch. Each
+    is profiled in a process of its own (``_kernels_a_call``)."""
+    for name in ("mask", "thresh", "int8"):
+        kernels = _kernels_a_call("heads", name)
         assert sum(kernels.values()) == 3, (name, kernels)
         assert all("head_kernel" in key for key in kernels), (name, kernels)
         assert not any("tile_kernel" in key or "merge" in key
