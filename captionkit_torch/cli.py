@@ -1,4 +1,5 @@
-"""captionkit_torch CLI (``captionkit.cli``, the serving slice).
+"""captionkit_torch CLI (``captionkit.cli``: serving, decoding and scoring
+a split, data preparation).
 
     python -m captionkit_torch.cli configs
     python -m captionkit_torch.cli serve --config editnet_beam5 --synthetic \\
@@ -13,21 +14,42 @@
     python -m captionkit_torch.cli serve --config editnet_greedy --synthetic
     python -m captionkit_torch.cli serve --config editnet_beam5 --synthetic \\
         --set model.cell_impl=wholestep
+    python -m captionkit_torch.cli prepare --karpathy dataset_coco.json \\
+        --out prep --existing train=aoanet_train.json \\
+        --existing test=aoanet_test.json --features test=test_feats.npy
+    python -m captionkit_torch.cli decode --config editnet_beam5 \\
+        --prepared prep --split test --params params.npz --out results.json
+    python -m captionkit_torch.cli decode --config editnet_beam5 \\
+        --wordmap WORDMAP.json --captions TEST_CAPTIONS.json \\
+        --caplens TEST_CAPLENS.json --existing TEST_EXISTING.json \\
+        --existing-lens TEST_EXISTING_CAPLENS.json \\
+        --features TEST_FEATURES.npy --params params.npz
 
-Every named decode config serves: the beam configs ``editnet_beam5`` and
-``dcnet_beam5`` and the greedy ones ``editnet_greedy`` and
-``dcnet_greedy`` (``--set decode.method=sample`` samples; DCNet's textual
-encoder reads the caption only; requests still carry features, which it
-ignores, as in the reference). ``--set model.cell_impl=pallas`` runs the
-fused decode-cell kernels (``kernels/megastep.py``) in place of the plain
-cells, ``--set model.cell_impl=wholestep`` (EditNet beam, float head) the
-whole-step kernel (``kernels/wholestep.py``). ``--set
-model.head_quant=int8`` runs the int8 vocab-head kernel, ``--set
-decode.feed_dtype=int8`` ships the features to the card quantized per
-region (dequantized there), and ``--set model.head_extract=thresh`` picks
-the heads' read-only top-k extraction (the same captions). ``--params``
-takes the flat ``.npz`` that either package's ``save_params_npz`` writes,
-for the config's arch; without it the weights are random from ``--seed``.
+Every named decode config serves and decodes: the beam configs
+``editnet_beam5`` and ``dcnet_beam5`` and the greedy ones
+``editnet_greedy`` and ``dcnet_greedy`` (``--set decode.method=sample``
+samples; DCNet's textual encoder reads the caption only; requests still
+carry features, which it ignores, as in the reference). ``--set
+model.cell_impl=pallas`` runs the fused decode-cell kernels
+(``kernels/megastep.py``) in place of the plain cells, ``--set
+model.cell_impl=wholestep`` (EditNet beam, float head) the whole-step
+kernel (``kernels/wholestep.py``). ``--set model.head_quant=int8`` runs
+the int8 vocab-head kernel, ``--set decode.feed_dtype=int8`` ships the
+features to the card quantized per region (dequantized there), and
+``--set model.head_extract=thresh`` picks the heads' read-only top-k
+extraction (the same captions); ``--set decode.beam_impl=backptr`` the
+backpointer beam history (the same captions). ``--params`` takes the flat
+``.npz`` that either package's ``save_params_npz`` writes, for the
+config's arch; without it the weights are random from ``--seed``.
+
+``decode`` decodes a split (``--synthetic``, a ``prepare`` directory with
+``--prepared``/``--split``, or the reference's raw artifacts) and, where
+the split has references and ``--no-metrics`` is absent, scores it; it
+prints the metrics (and decode stats) as JSON rounded to 4 places and
+writes the results JSON keyed by the split's real image ids with
+``--out``. ``--num-shards``/``--shard-index`` decode one strided shard.
+``prepare`` is host work only and needs no card.
+
 ``--device`` defaults to ``cuda`` and raises when there is no card;
 ``--device cpu`` runs the plain versions of the kernels on the CPU. The
 reference's other subcommands, ``--stacked`` and checkpoint ensembles are
@@ -47,8 +69,8 @@ from captionkit_torch.config import (
     list_named_configs,
 )
 
-NOT_PORTED = ("decode", "decode-stacked", "train-xe", "train-scst",
-              "convert", "parity-gate", "prepare")
+NOT_PORTED = ("decode-stacked", "train-xe", "train-scst", "convert",
+              "parity-gate")
 
 
 def _parse_value(raw: str) -> Any:
@@ -93,6 +115,58 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--seed", type=int, default=0)
     sp.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+
+    sp = sub.add_parser("decode", help="decode + score a split")
+    sp.add_argument("--config", required=True,
+                    help="named config (see `configs`)")
+    sp.add_argument("--set", action="append", default=[], metavar="K=V",
+                    help="dotted config override")
+    sp.add_argument("--synthetic", action="store_true",
+                    help="use the generated toy dataset")
+    sp.add_argument("--images", type=int, default=64,
+                    help="synthetic dataset size")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--prepared",
+                    help="prepare output dir (carries the references)")
+    sp.add_argument("--split", default="train",
+                    help="split name inside --prepared")
+    sp.add_argument("--wordmap"), sp.add_argument("--captions")
+    sp.add_argument("--caplens"), sp.add_argument("--existing")
+    sp.add_argument("--existing-lens", dest="existing_lens")
+    sp.add_argument("--features", default="")
+    sp.add_argument("--captions-per-image", dest="captions_per_image",
+                    type=int, default=None,
+                    help="GT captions per image in raw artifacts (needed "
+                         "without --features to group references by "
+                         "image)")
+    sp.add_argument("--params", help="params .npz (else random weights)")
+    sp.add_argument("--out", help="results JSON path")
+    sp.add_argument("--no-metrics", action="store_true")
+    sp.add_argument("--num-shards", dest="num_shards", type=int, default=1,
+                    help="split the eval set across processes; run one "
+                         "per shard and concatenate the results JSONs")
+    sp.add_argument("--shard-index", dest="shard_index", type=int,
+                    default=0, help="this process's shard (0-based)")
+    sp.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+
+    sp = sub.add_parser(
+        "prepare", help="Karpathy JSON + existing captions (+features) -> "
+                        "prepared artifacts dir")
+    sp.add_argument("--karpathy", required=True,
+                    help="Karpathy-split dataset JSON (dataset_coco.json)")
+    sp.add_argument("--out", required=True, help="output artifact dir")
+    sp.add_argument("--existing", action="append", required=True,
+                    metavar="SPLIT=PATH",
+                    help="existing-caption JSON per split (repeatable)")
+    sp.add_argument("--features", action="append", default=[],
+                    metavar="SPLIT=PATH",
+                    help="[N,R,F] feature .npy per split")
+    sp.add_argument("--min-word-freq", dest="min_word_freq", type=int,
+                    default=5)
+    sp.add_argument("--max-len", dest="max_len", type=int, default=22)
+    sp.add_argument("--captions-per-image", dest="captions_per_image",
+                    type=int, default=5)
     for name in NOT_PORTED:
         sub.add_parser(name, help="not yet ported")
     return p
@@ -110,7 +184,6 @@ def cmd_serve(args) -> int:
     from captionkit_torch.data import SyntheticCaptionSource, Vocab
     from captionkit_torch.device import resolve_device
     from captionkit_torch.models import get_model
-    from captionkit_torch.params import load_params_npz
     from captionkit_torch.serve import CaptionServer, serve_stream
 
     if not args.synthetic and not args.wordmap:
@@ -127,14 +200,7 @@ def cmd_serve(args) -> int:
         vocab = Vocab.load(args.wordmap)
     cfg = cfg.override({"model.vocab_size": len(vocab)})
     model = get_model(cfg.model)
-    if args.params:
-        if "," in args.params.strip(","):
-            raise SystemExit("serve: checkpoint ensembles are not yet "
-                             "ported; pass one --params file")
-        params = load_params_npz(args.params.strip(","), device,
-                                 arch=cfg.model.arch)
-    else:
-        params = model.init(args.seed, device)
+    params = _load_params(args, model, cfg.model.arch, device)
     ladder = [int(s) for s in args.ladder.split(",")] if args.ladder else ()
     server = CaptionServer(cfg, params, model, vocab, ladder=ladder,
                            device=device)
@@ -145,12 +211,107 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def _load_params(args, model, arch: str, device):
+    """One ``--params`` checkpoint, else random weights from ``--seed``."""
+    from captionkit_torch.params import load_params_npz
+
+    if not args.params:
+        return model.init(args.seed, device)
+    if "," in args.params.strip(","):
+        raise SystemExit(f"{args.cmd}: checkpoint ensembles are not yet "
+                         "ported; pass one --params file")
+    return load_params_npz(args.params.strip(","), device, arch=arch)
+
+
+def _load_eval_dataset(args, cfg):
+    """The split to decode, one row per image."""
+    from captionkit_torch.data import CaptionDataset, SyntheticCaptionSource
+
+    if args.synthetic:
+        return SyntheticCaptionSource(
+            num_images=args.images,
+            captions_per_image=cfg.data.captions_per_image,
+            num_regions=cfg.model.num_regions, feat_dim=cfg.model.feat_dim,
+            max_len=cfg.data.max_len, seed=cfg.data.seed).eval_view()
+    if args.prepared:
+        from captionkit_torch.data.prepare import load_prepared_split
+
+        return load_prepared_split(args.prepared, args.split,
+                                   max_len=cfg.data.max_len).eval_view()
+    return CaptionDataset.from_reference_files(
+        wordmap_path=args.wordmap,
+        captions_path=args.captions,
+        caplens_path=args.caplens,
+        existing_captions_path=args.existing,
+        existing_caplens_path=args.existing_lens,
+        features_path=args.features,
+        max_len=cfg.data.max_len,
+        captions_per_image=args.captions_per_image,
+    ).eval_view()
+
+
+def cmd_decode(args) -> int:
+    from captionkit_torch.decode.driver import decode_split, evaluate_split
+    from captionkit_torch.device import resolve_device
+    from captionkit_torch.models import get_model
+
+    device = resolve_device(args.device)
+    cfg = _apply_overrides(get_named_config(args.config), args.set)
+    eval_ds = _load_eval_dataset(args, cfg)
+    if args.num_shards > 1:
+        eval_ds = eval_ds.shard(args.num_shards, args.shard_index)
+    cfg = cfg.override({"model.vocab_size": len(eval_ds.vocab)})
+    model = get_model(cfg.model)
+    params = _load_params(args, model, cfg.model.arch, device)
+    if eval_ds.references is not None and not args.no_metrics:
+        metrics = evaluate_split(model, params, eval_ds, cfg.decode,
+                                 results_path=args.out, device=device)
+    else:
+        _, metrics = decode_split(model, params, eval_ds, cfg.decode,
+                                  results_path=args.out, device=device)
+    print(json.dumps({k: round(float(v), 4) for k, v in metrics.items()},
+                     indent=2))
+    return 0
+
+
+def _parse_split_paths(pairs: list[str], flag: str) -> dict[str, str]:
+    out = {}
+    for p in pairs:
+        if "=" not in p:
+            raise SystemExit(f"{flag} expects split=path, got {p!r}")
+        split, path = p.split("=", 1)
+        out[split] = path
+    return out
+
+
+def cmd_prepare(args) -> int:
+    import dataclasses
+
+    from captionkit_torch.data.prepare import prepare_from_karpathy
+
+    out = prepare_from_karpathy(
+        karpathy_json=args.karpathy,
+        output_dir=args.out,
+        existing_captions=_parse_split_paths(args.existing, "--existing"),
+        features=(_parse_split_paths(args.features, "--features")
+                  if args.features else None),
+        min_word_freq=args.min_word_freq,
+        max_len=args.max_len,
+        captions_per_image=args.captions_per_image,
+    )
+    print(json.dumps(
+        {split: dataclasses.asdict(ps) for split, ps in out.items()},
+        indent=2))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.cmd in NOT_PORTED:
         raise SystemExit(f"captionkit_torch: '{args.cmd}' is not yet ported "
                          "(use captionkit.cli)")
-    return {"configs": cmd_configs, "serve": cmd_serve}[args.cmd](args)
+    return {"configs": cmd_configs, "serve": cmd_serve, "decode": cmd_decode,
+            "prepare": cmd_prepare}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -137,6 +137,13 @@ class DecodeConfig:
     # "int8" (per-region quantization on the host, dequantized on the
     # device; data/featquant.py).
     feed_dtype: str = "float32"
+    # Beam-search sequence-history layout (decode/beam.py): "register"
+    # carries the [B, K, L] sequences through the loop; "backptr" records
+    # each step's [B, K] tokens and parents and rebuilds the sequences once
+    # after the loop. The results are identical. The reference warns when
+    # "backptr" meets cell_impl="pallas" because that pair took minutes to
+    # compile on a TPU; nothing is compiled here, so the port takes the
+    # pair without a warning.
     beam_impl: str = "register"
 
     def __post_init__(self) -> None:
@@ -144,6 +151,10 @@ class DecodeConfig:
             raise ValueError(
                 f"decode.feed_dtype must be one of float32/bfloat16/int8,"
                 f" got {self.feed_dtype!r}")
+        if self.beam_impl not in ("register", "backptr"):
+            raise ValueError(
+                f"decode.beam_impl must be 'register' or 'backptr', got "
+                f"{self.beam_impl!r}")
 
 
 @dataclass(frozen=True)

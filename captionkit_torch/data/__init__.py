@@ -1,5 +1,7 @@
-"""Input pipeline: vocabulary, tokenization, static-shape batching, the
-synthetic source and the host->device feature feed."""
+"""Input pipeline: vocabulary, tokenization, static-shape batching, split
+loading (reference artifacts, the native feature store, offline
+preparation in ``data.prepare``), the synthetic source and the
+host->device feature feed."""
 
 from captionkit_torch.data.vocab import (  # noqa: F401
     PAD, START, END, UNK,
@@ -19,4 +21,5 @@ from captionkit_torch.data.pipeline import (  # noqa: F401
 from captionkit_torch.data.sources import (  # noqa: F401
     CaptionDataset,
     SyntheticCaptionSource,
+    load_hdf5_features,
 )

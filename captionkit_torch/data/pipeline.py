@@ -113,3 +113,42 @@ def make_batches(
             valid=valid,
             image_id=image_id[idx].astype(np.int32, copy=False),
         )
+
+
+def length_mask(lengths: np.ndarray, max_len: int) -> np.ndarray:
+    """[B] lengths -> [B, max_len] bool mask (host-side)."""
+    return np.arange(max_len)[None, :] < lengths[:, None]
+
+
+def bucket_batches(
+    batches: "Iterator[Batch]",
+    boundaries: Sequence[int],
+) -> Iterator[Batch]:
+    """Length-bucketed batching: the rows of each incoming batch are
+    re-emitted with their time axes cut to the smallest boundary >= the
+    batch's longest real sequence (at most the original width). Rows,
+    their order and the lengths are unchanged; only the padding tail goes,
+    so masked computations give the same numbers."""
+    bounds = sorted(boundaries)
+
+    def width(max_needed: int, cap: int) -> int:
+        for b in bounds:
+            if b >= max_needed:
+                return min(b, cap)
+        return cap
+
+    for b in batches:
+        ex_w = width(int(b.existing_len.max()), b.existing.shape[1])
+        if b.target is not None:
+            t_w = width(int(b.target_len.max()), b.target.shape[1])
+            out_kw = dict(target=b.target[:, :t_w], target_len=b.target_len)
+        else:
+            out_kw = dict(target=None, target_len=None)
+        yield Batch(
+            features=b.features,
+            existing=b.existing[:, :ex_w],
+            existing_len=b.existing_len,
+            valid=b.valid,
+            image_id=b.image_id,
+            **out_kw,
+        )

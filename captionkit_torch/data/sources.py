@@ -1,5 +1,10 @@
-"""Data sources: an in-memory split and the synthetic source (copies of
-the parts of ``captionkit.data.sources`` that serving uses).
+"""Data sources (a copy of ``captionkit.data.sources``): the reader of the
+reference's on-disk split artifacts, an in-memory split and the synthetic
+source.
+
+``load_hdf5_features`` opens a split's [N, R, F] features: ``.npy``
+through the native ``FeatureStore`` (threaded row gather), ``.npz``
+read whole, HDF5 through h5py (optional; absent, it raises).
 
 ``SyntheticCaptionSource`` draws from ``np.random.default_rng(seed)`` in
 the same order as the reference, so the same seed gives the same vocab,
@@ -8,6 +13,7 @@ captions and features on both sides.
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
 from typing import Iterator, Optional
 
@@ -15,6 +21,26 @@ import numpy as np
 
 from captionkit_torch.data.pipeline import Batch, encode_captions, make_batches
 from captionkit_torch.data.vocab import Vocab
+
+
+def load_hdf5_features(path: str, dataset: str = "features"):
+    """[N, R, F] features of a split: a ``.npy`` through the native
+    ``FeatureStore``, the ``dataset`` array of a ``.npz``, else the
+    ``dataset`` of an HDF5 file (needs h5py)."""
+    if path.endswith(".npy"):
+        from captionkit_torch.data.faststore import FeatureStore
+
+        return FeatureStore(path)
+    if path.endswith(".npz"):
+        return np.load(path)[dataset]
+    try:
+        import h5py  # type: ignore
+    except ImportError as e:
+        raise ImportError(
+            "h5py is required for HDF5 feature files; convert to .npy instead"
+        ) from e
+    f = h5py.File(path, "r")
+    return f[dataset]
 
 
 @dataclass
@@ -31,6 +57,65 @@ class CaptionDataset:
     vocab: Vocab
     references: Optional[list[list[list[str]]]] = None
     image_ids: Optional[np.ndarray] = None  # [N_img] original ids
+
+    @classmethod
+    def from_reference_files(
+        cls,
+        *,
+        wordmap_path: str,
+        captions_path: str,
+        caplens_path: str,
+        existing_captions_path: str,
+        existing_caplens_path: str,
+        features_path: str = "",
+        max_len: int = 22,
+        captions_per_image: Optional[int] = None,
+    ) -> "CaptionDataset":
+        """Read reference-prepared JSON artifacts and features. Caption
+        rows are image-major, ``captions_per_image`` an image (derived from
+        the features' row count when not given); each image's references
+        are rebuilt from its GT rows."""
+        vocab = Vocab.load(wordmap_path)
+
+        def _load_ids(p: str) -> np.ndarray:
+            with open(p) as f:
+                rows = json.load(f)
+            out = np.zeros((len(rows), max_len), dtype=np.int32)
+            for i, row in enumerate(rows):
+                n = min(len(row), max_len)
+                out[i, :n] = row[:n]
+            return out
+
+        def _load_lens(p: str) -> np.ndarray:
+            with open(p) as f:
+                return np.asarray(json.load(f), dtype=np.int32).reshape(-1)
+
+        target = _load_ids(captions_path)
+        target_len = np.minimum(_load_lens(caplens_path), max_len)
+        existing = _load_ids(existing_captions_path)
+        existing_len = np.minimum(_load_lens(existing_caplens_path), max_len)
+        features = (
+            load_hdf5_features(features_path) if features_path else None)
+        n = existing.shape[0]
+        n_img = n if features is None else features.shape[0]
+        # Without a features file the image count is not derivable from
+        # the artifacts: pass captions_per_image then.
+        cpi = captions_per_image or max(1, n // max(1, n_img))
+        image_index = np.arange(n, dtype=np.int32) // cpi
+        references: list[list[list[str]]] = [
+            [] for _ in range(int(image_index[-1]) + 1 if n else 0)]
+        for row, img in enumerate(image_index):
+            references[int(img)].append(vocab.decode(target[row]))
+        return cls(
+            features=features,
+            existing=existing,
+            existing_len=existing_len,
+            target=target,
+            target_len=target_len,
+            image_index=image_index,
+            vocab=vocab,
+            references=references,
+        )
 
     @property
     def size(self) -> int:
@@ -51,6 +136,29 @@ class CaptionDataset:
             image_ids=self.image_ids,
         )
 
+    def shard(self, num_shards: int, index: int) -> "CaptionDataset":
+        """Rows ``index::num_shards`` (round-robin, so caption lengths stay
+        spread evenly over the shards). Features, references and image ids
+        are shared, not copied. Shard ``eval_view()`` to split a decode
+        over processes: each results file keys by the real image ids, so
+        the shards' files concatenate."""
+        if not 0 <= index < num_shards:
+            raise ValueError(
+                f"shard index {index} outside [0, {num_shards})")
+        sel = np.arange(index, self.size, num_shards)
+        return CaptionDataset(
+            features=self.features,
+            existing=self.existing[sel],
+            existing_len=self.existing_len[sel],
+            target=None if self.target is None else self.target[sel],
+            target_len=(None if self.target_len is None
+                        else self.target_len[sel]),
+            image_index=self.image_index[sel],
+            vocab=self.vocab,
+            references=self.references,
+            image_ids=self.image_ids,
+        )
+
     def batches(
         self,
         batch_size: int,
@@ -66,7 +174,19 @@ class CaptionDataset:
             image_index = self.image_index
 
             def features(idx, _src=source, _map=image_index):
-                return _src[_map[idx]]
+                rows = _map[idx]
+                if hasattr(_src, "gather"):
+                    return _src.gather(rows)
+                if isinstance(_src, np.ndarray):
+                    return _src[rows]
+                # An h5py dataset takes sorted unique indices: read those
+                # rows once and scatter them back in the batch's order.
+                order = np.argsort(rows, kind="stable")
+                uniq, inverse = np.unique(rows[order], return_inverse=True)
+                block = _src[uniq]
+                out = np.empty((len(rows), *block.shape[1:]), block.dtype)
+                out[order] = block[inverse]
+                return out
 
         return make_batches(
             features=features,

@@ -1,5 +1,4 @@
-"""Batched static-shape beam search (``captionkit.decode.beam``,
-``impl="register"``).
+"""Batched static-shape beam search (``captionkit.decode.beam``).
 
 * All B images x K beams step together as one flattened [B*K] batch, rows
   b*K .. b*K+K-1 per image; the per-step reorder is one row gather of each
@@ -9,17 +8,27 @@
   own row's top-K, so the K*K candidates give the exact top-K of K*V.
 * Finished beams are frozen: their only continuation is <pad> at log-prob
   0, so they keep competing with their final score.
-* A per-image register holds the top-K hypotheses ever finished (rank
-  score, sequence, length), merged the step they finish; the result is
-  that register, or the live beams where nothing finished.
+* A per-image register holds the top-K hypotheses ever finished, merged
+  the step they finish; the result is that register, or the live beams
+  where nothing finished.
 * The loop is a Python loop; it stops after ``max_len`` steps or once
   every beam of every image is finished (one device-to-host read of the
   done flags per step).
 
+Two sequence-history layouts (``impl=``) with identical results:
+
+* ``"register"`` (default): the loop carries the [B, K, L] sequences
+  (gathered by parent, the step's token written in place) and the
+  register keeps a finished hypothesis's whole sequence.
+* ``"backptr"``: the loop records only each step's [B, K] tokens and
+  parent slots, in [L, B, K] histories on the device, and the register
+  keeps scalars (rank score, finish step, finish slot, length). The
+  sequences are rebuilt once, after the loop, on the device, by walking
+  the parents back from each selected (step, slot) (``_reconstruct``).
+
 Every place where the reference calls ``lax.top_k`` calls
 ``topk_lowest_index``: equal scores (NEG_INF plateaus of finished beams,
 equal register entries) resolve to the lowest index as they do there.
-The reference's ``impl="backptr"`` history layout is not ported yet.
 """
 
 from __future__ import annotations
@@ -59,6 +68,53 @@ def _reorder_rows(state: Any, rows: torch.Tensor) -> Any:
         for f in dataclasses.fields(state)})
 
 
+def _pick(old: torch.Tensor, new: torch.Tensor,
+          sel: torch.Tensor) -> torch.Tensor:
+    """Entries ``sel`` [B, J] of [old | new] along dim 1 (the register
+    merge of [B, K] scalars)."""
+    return torch.take_along_dim(torch.cat([old, new], dim=1), sel, dim=1)
+
+
+def _reconstruct(
+    tok_hist: torch.Tensor,  # [L, B, K]
+    par_hist: torch.Tensor,  # [L, B, K]
+    t_sel: torch.Tensor,  # [B, J] finish step of each selected hypothesis
+    slot_sel: torch.Tensor,  # [B, J] the slot it occupied at that step
+    active: torch.Tensor,  # [B, J] bool: False rows come out all-pad
+    pad_id: int,
+    *,
+    return_path: bool = False,
+):
+    """Walk the backpointer chains once, newest step first: position t of a
+    selected hypothesis is ``tok_hist[t]`` at its ancestor's slot, found
+    by following ``par_hist`` back from (``t_sel``, ``slot_sel``). Returns
+    [B, J, L] tokens, pad-filled beyond ``t_sel``.
+
+    With ``return_path=True`` also returns ``slot_at`` [B, J, L], the slot
+    the hypothesis occupied after step t (where its step-t token landed),
+    and ``src_at`` [B, J, L], the slot it occupied entering step t (the
+    parent slot, which indexes what a step records before the reorder).
+    Both mean something only for t <= t_sel."""
+    L = tok_hist.shape[0]
+    cur = slot_sel.long()
+    toks, slots, srcs = [], [], []
+    for t in range(L - 1, -1, -1):
+        on = (t <= t_sel) & active
+        tok = torch.gather(tok_hist[t], 1, cur)
+        par = torch.gather(par_hist[t], 1, cur)
+        toks.append(torch.where(on, tok, pad_id))
+        slots.append(cur)
+        srcs.append(par)
+        cur = torch.where(on, par.long(), cur)
+
+    def unrev(xs):  # newest-first list of [B, J] -> [B, J, L]
+        return torch.stack(xs[::-1], dim=2)
+
+    if return_path:
+        return unrev(toks), unrev(slots).to(torch.int32), unrev(srcs)
+    return unrev(toks)
+
+
 def beam_search(
     model: ModelDef,
     params: Any,
@@ -75,13 +131,12 @@ def beam_search(
     """Beam search over a whole batch; ``ctx`` tensors are [B, ...].
 
     length_penalty alpha: rank score = logprob_sum / length**alpha (0 ranks
-    by the raw sum)."""
-    if impl == "backptr":
-        raise NotImplementedError(
-            "beam_search impl='backptr' is not ported yet; use 'register'")
-    if impl != "register":
-        raise ValueError(f"beam_search impl must be 'register' or "
-                         f"'backptr', got {impl!r}")
+    by the raw sum). impl: "register" or "backptr", the sequence-history
+    layout (module docstring); the results are identical."""
+    if impl not in ("backptr", "register"):
+        raise ValueError(
+            f"beam_search impl must be 'backptr' or 'register', got {impl!r}")
+    backptr = impl == "backptr"
     if model.beam_expand is None:
         raise ValueError(f"model {model.name!r} has no beam_expand")
     K = beam_size
@@ -133,23 +188,34 @@ def beam_search(
                 cand_tok.reshape(B, K * K), flat, dim=1).to(torch.int32)
         return new_state, top_scores, parent, new_tok
 
-    seq = torch.full((B, K, max_len), pad_id, **i32)
     scores = torch.full((B, K), NEG_INF, **f32)
     scores[:, 0] = 0.0  # one live start hypothesis per image
     done = torch.zeros((B, K), dtype=torch.bool, device=dev)
     lengths = torch.zeros((B, K), **i32)
     tok = torch.full((B * K,), start_id, **i32)
     fin_scores = torch.full((B, K), NEG_INF, **f32)
-    fin_seq = torch.full((B, K, max_len), pad_id, **i32)
     fin_len = torch.zeros((B, K), **i32)
     row_base = torch.arange(B, device=dev)[:, None] * K
+    if backptr:
+        tok_hist = torch.full((max_len, B, K), pad_id, **i32)
+        par_hist = torch.zeros((max_len, B, K), **i32)
+        fin_t = torch.zeros((B, K), **i32)
+        fin_slot = torch.zeros((B, K), **i32)
+        slot_ids = torch.arange(K, **i32).expand(B, K)
+    else:
+        seq = torch.full((B, K, max_len), pad_id, **i32)
+        fin_seq = torch.full((B, K, max_len), pad_id, **i32)
 
     t = 0
     while t < max_len and not bool(done.all()):
         new_state, top_scores, parent, new_tok = select_candidates(
             model_state, tok, scores, done)
-        seq = _gather_bk(seq, parent)
-        seq[:, :, t] = new_tok
+        if backptr:
+            tok_hist[t] = new_tok
+            par_hist[t] = parent
+        else:
+            seq = _gather_bk(seq, parent)
+            seq[:, :, t] = new_tok
         was_done = _gather_bk(done, parent)
         lengths = _gather_bk(lengths, parent) + (~was_done).to(torch.int32)
         done = was_done | (new_tok == end_id)
@@ -161,10 +227,13 @@ def beam_search(
         cand_rank = torch.where(newly, rank(top_scores, lengths), NEG_INF)
         fin_scores, sel = topk_lowest_index(
             torch.cat([fin_scores, cand_rank], dim=1), K)
-        fin_seq = torch.take_along_dim(
-            torch.cat([fin_seq, seq], dim=1), sel[:, :, None], dim=1)
-        fin_len = torch.take_along_dim(
-            torch.cat([fin_len, lengths], dim=1), sel, dim=1)
+        if backptr:  # scalars only: the sequence is (finish step, slot)
+            fin_t = _pick(fin_t, torch.full((B, K), t, **i32), sel)
+            fin_slot = _pick(fin_slot, slot_ids, sel)
+        else:
+            fin_seq = torch.take_along_dim(
+                torch.cat([fin_seq, seq], dim=1), sel[:, :, None], dim=1)
+        fin_len = _pick(fin_len, lengths, sel)
         scores = top_scores
         tok = new_tok.reshape(B * K)
         t += 1
@@ -175,10 +244,17 @@ def beam_search(
     live_rank = torch.where(any_fin[:, None], NEG_INF, rank(scores, lengths))
     all_scores, sel = topk_lowest_index(
         torch.cat([fin_scores, live_rank], dim=1), K)
-    all_tokens = torch.take_along_dim(
-        torch.cat([fin_seq, seq], dim=1), sel[:, :, None], dim=1)
-    all_lengths = torch.take_along_dim(
-        torch.cat([fin_len, lengths], dim=1), sel, dim=1)
+    all_lengths = _pick(fin_len, lengths, sel)
+    if backptr:
+        # Live beams walk back from the last step run, from their slot.
+        live_t = torch.full((B, K), max(t - 1, 0), **i32)
+        all_tokens = _reconstruct(
+            tok_hist, par_hist, _pick(fin_t, live_t, sel),
+            _pick(fin_slot, slot_ids, sel), all_scores > NEG_INF / 2,
+            pad_id)
+    else:
+        all_tokens = torch.take_along_dim(
+            torch.cat([fin_seq, seq], dim=1), sel[:, :, None], dim=1)
     return BeamResult(
         tokens=all_tokens[:, 0, :],
         scores=all_scores[:, 0],

@@ -4,9 +4,10 @@
 batch_idx) -> tokens [B, L] function; ``decode_split`` streams a dataset
 split through it batch by batch, dispatching batch k+1 before it reads
 batch k's tokens back, and drops the padding rows of the last batch on
-the host. The method is the reference's choice: beam search when
-``method="beam"`` and ``beam_size > 1``, sampling for ``"sample"``, else
-greedy.
+the host; ``evaluate_split`` scores the decoded split against its
+references (``metrics.eval.CaptionEvaluator``). The method is the
+reference's choice: beam search when ``method="beam"`` and
+``beam_size > 1``, sampling for ``"sample"``, else greedy.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from captionkit_torch.data.sources import CaptionDataset
 from captionkit_torch.decode.beam import beam_search
 from captionkit_torch.decode.greedy import greedy_decode, sample_decode
 from captionkit_torch.device import resolve_device
+from captionkit_torch.metrics.eval import CaptionEvaluator
 from captionkit_torch.models.base import ModelDef
 
 
@@ -161,3 +163,32 @@ def decode_split(
                  for k, v in sorted(hypotheses.items())],
                 f, indent=0)
     return hypotheses, stats
+
+
+def evaluate_split(
+    model: ModelDef,
+    params: Any,
+    dataset: CaptionDataset,
+    decode_cfg: DecodeConfig,
+    *,
+    evaluator: Optional[CaptionEvaluator] = None,
+    results_path: Optional[str] = None,
+    decode_fn=None,
+    device: "str | torch.device" = "cuda",
+) -> dict[str, float]:
+    """Decode a split and score it against ``dataset.references``: the
+    evaluator's metrics and ``decode_split``'s stats in one dict. Pass a
+    prebuilt ``decode_fn`` to reuse it across repeated validations."""
+    if dataset.references is None:
+        raise ValueError("dataset has no reference captions to score against")
+    hyps, stats = decode_split(
+        model, params, dataset, decode_cfg, results_path=results_path,
+        decode_fn=decode_fn, device=device)
+    refs = {
+        int(img): [" ".join(toks) for toks in dataset.references[int(img)]]
+        for img in hyps
+    }
+    evaluator = evaluator or CaptionEvaluator()
+    metrics = evaluator.evaluate(refs, hyps)
+    metrics.update(stats)
+    return metrics

@@ -132,6 +132,7 @@ scratch files of the run go to build/captionkit_torch/smoke/.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import statistics
@@ -3173,6 +3174,275 @@ def phase_wide_head(card) -> dict:
 
 
 
+N_TEST, REFS_A_IMAGE = 5000, 5  # the Karpathy test split
+
+
+def _write_karpathy(root: Path, V: int) -> dict:
+    """A synthetic split in the Karpathy layout, from seed 0: train
+    captions whose words give ``prepare`` a wordmap of exactly V entries
+    (V - 4 words, each 5 times, the default min_word_freq), N_TEST test
+    images with 5 references each (5 to 16 words of the train vocab,
+    Zipf-distributed), an existing-caption JSON per split (the test
+    split's: a reference with a word dropped), and the test features
+    [N_TEST, 36, 2048] float32 as .npy."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    words = [f"w{i:04d}" for i in range(V - 4)]
+    stream = np.repeat(np.arange(len(words)), 5)
+    rng.shuffle(stream)
+    sents = [[words[j] for j in stream[i:i + 10]]
+             for i in range(0, len(stream), 10)]
+    images, existing = [], {"train": [], "test": []}
+    cocoid = 100000
+    for lo in range(0, len(sents), REFS_A_IMAGE):
+        caps = sents[lo:lo + REFS_A_IMAGE]
+        images.append({"split": "train", "cocoid": cocoid,
+                       "sentences": [{"tokens": c} for c in caps]})
+        existing["train"].append({"image_id": cocoid,
+                                  "caption": " ".join(caps[0])})
+        cocoid += 1
+    test_ids = []
+    for _ in range(N_TEST):
+        caps = [[words[min(int(j), len(words)) - 1]
+                 for j in rng.zipf(1.3, int(rng.integers(5, 17)))]
+                for _ in range(REFS_A_IMAGE)]
+        images.append({"split": "test", "cocoid": cocoid,
+                       "sentences": [{"tokens": c} for c in caps]})
+        existing["test"].append({"image_id": cocoid,
+                                 "caption": " ".join(caps[0][1:])})
+        test_ids.append(cocoid)
+        cocoid += 3
+    root.mkdir(parents=True, exist_ok=True)
+    paths = {"karpathy": root / "dataset_coco.json",
+             "features": root / "test_features.npy"}
+    paths["karpathy"].write_text(json.dumps({"images": images}))
+    for split, rows in existing.items():
+        paths[f"existing_{split}"] = root / f"existing_{split}.json"
+        paths[f"existing_{split}"].write_text(json.dumps(rows))
+    feats = np.lib.format.open_memmap(
+        paths["features"], mode="w+", dtype=np.float32,
+        shape=(N_TEST, 36, 2048))
+    for lo in range(0, N_TEST, 500):
+        feats[lo:lo + 500] = rng.standard_normal(
+            (min(500, N_TEST - lo), 36, 2048), dtype=np.float32)
+    feats.flush()
+    del feats
+    return {"paths": paths, "test_ids": test_ids}
+
+
+def _cli(*argv, timeout=900) -> dict:
+    """``python -m captionkit_torch.cli ARGV`` in a process of its own;
+    its printed JSON."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "captionkit_torch.cli", *map(str, argv)],
+        cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    check(proc.returncode == 0,
+          f"cli {argv[0]} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return json.loads(proc.stdout)
+
+
+def phase_evaluate(ed, wrappers, card) -> dict:
+    """Decode and score a split at full width: a synthetic Karpathy split
+    (5,000 test images, 5 references each) through ``cli prepare`` and
+    ``cli decode --prepared`` (editnet_beam5, batch 512, the end id
+    enabled, the weights of the serve phase) in processes of their own;
+    the same artifacts through the raw reference-file flags in this
+    process (launches counted): identical captions and metrics; the
+    native CIDEr-D against the Python CiderD on the decoded hypotheses;
+    the native FeatureStore gather against numpy's; the backpointer beam
+    against the register beam on one batch."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from captionkit_torch import cli
+    from captionkit_torch.data.prepare import load_prepared_split
+    from captionkit_torch.data.tokenize import ptb_tokenize
+    from captionkit_torch.decode.beam import beam_search
+    from captionkit_torch.kernels.head import fused_head_topk
+    from captionkit_torch.metrics.cider import CiderD, NgramDocFreq
+    from captionkit_torch.metrics.eval import CaptionEvaluator
+    from captionkit_torch.metrics.fast import NativeCiderD
+
+    cfg, model, params, _ = ed
+    root = SMOKE_DIR / "evaluate"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        made = _write_karpathy(root, cfg.model.vocab_size)
+        paths, test_ids = made["paths"], made["test_ids"]
+        write_s = time.perf_counter() - t0
+        prep = root / "prepared"
+        t0 = time.perf_counter()
+        _cli("prepare", "--karpathy", paths["karpathy"], "--out", prep,
+             "--existing", f"train={paths['existing_train']}",
+             "--existing", f"test={paths['existing_test']}",
+             "--features", f"test={paths['features']}")
+        prepare_s = time.perf_counter() - t0
+        paths["features"].unlink()
+        wordmap = json.loads((prep / "WORDMAP.json").read_text())
+        check(len(wordmap) == cfg.model.vocab_size,
+              f"prepare made a wordmap of {len(wordmap)} entries")
+        npz = SMOKE_DIR / "params_editnet.npz"
+        common = ["--config", "editnet_beam5", "--params", npz,
+                  "--set", f"decode.batch_size={N_IMAGES}"]
+        t0 = time.perf_counter()
+        metrics = _cli("decode", *common, "--prepared", prep, "--split",
+                       "test", "--out", root / "results.json")
+        decode_cli_s = time.perf_counter() - t0
+        results = json.loads((root / "results.json").read_text())
+        check(len(results) == N_TEST,
+              f"{len(results)} results for {N_TEST} images")
+        check([r["image_id"] for r in results] == test_ids,
+              "results are not keyed by the split's cocoids")
+        keys = [f"BLEU-{n}" for n in range(1, 5)] + ["ROUGE-L", "CIDEr"]
+        check(all(k in metrics for k in keys), f"metrics {sorted(metrics)}")
+        check(metrics["captions"] == N_TEST and
+              metrics["captions_per_sec"] > 0, f"stats {metrics}")
+
+        # The raw reference-file route, in this process, counted.
+        raw_out = io.StringIO()
+        for w in wrappers:
+            w.launches = 0
+        with contextlib.redirect_stdout(raw_out):
+            rc = cli.main([str(a) for a in (
+                "decode", *common, "--wordmap", prep / "WORDMAP.json",
+                "--captions", prep / "TEST_CAPTIONS.json",
+                "--caplens", prep / "TEST_CAPLENS.json",
+                "--existing", prep / "TEST_EXISTING.json",
+                "--existing-lens", prep / "TEST_EXISTING_CAPLENS.json",
+                "--features", prep / "TEST_FEATURES.npy",
+                "--out", root / "raw.json", "--device", "cuda")])
+        launches = {w.__name__: w.launches for w in wrappers}
+        check(rc == 0, f"raw-file decode returned {rc}")
+        check(launches["fused_head_topk"] > 0,
+              f"the decode launched no head kernel: {launches}")
+        raw_metrics = json.loads(raw_out.getvalue())
+        raw = json.loads((root / "raw.json").read_text())
+        hyps = [r["caption"] for r in results]
+        check([r["caption"] for r in raw] == hyps,
+              "the raw-file route decoded other captions: "
+              f"{sum(a['caption'] != b for a, b in zip(raw, hyps))} differ")
+        check(all(raw_metrics[k] == metrics[k] for k in keys),
+              f"raw-file metrics {raw_metrics} against {metrics}")
+
+        # Scoring: the Python metrics, and CIDEr-D native against Python.
+        ds = load_prepared_split(str(prep), "test")
+        refs = {i: [" ".join(t) for t in ds.references[i]]
+                for i in range(N_TEST)}
+        hyp_by_img = dict(enumerate(hyps))
+        t0 = time.perf_counter()
+        scored = CaptionEvaluator().evaluate(refs, hyp_by_img)
+        score_s = time.perf_counter() - t0
+        check(all(round(scored[k], 4) == metrics[k] for k in keys),
+              f"scores {scored} against the decode's {metrics}")
+        hyp_tok = [ptb_tokenize(h) for h in hyps]
+        ref_tok = [[ptb_tokenize(r) for r in refs[i]] for i in range(N_TEST)]
+        df = NgramDocFreq.build(ref_tok)
+        t0 = time.perf_counter()
+        _, py_cider = CiderD(df).compute(hyp_tok, ref_tok)
+        py_cider_s = time.perf_counter() - t0
+        native = NativeCiderD(df)
+        t0 = time.perf_counter()
+        nat_cider = native.score(hyp_tok, ref_tok)
+        native_cider_s = time.perf_counter() - t0
+        cider_err = float(np.abs(nat_cider - py_cider).max())
+        check(cider_err <= 1e-9,
+              f"native CIDEr-D off the Python CiderD by {cider_err}")
+        check(abs(float(py_cider.mean()) - scored["CIDEr"]) <= 1e-12,
+              "CiderD with the split's df is not the evaluator's CIDEr")
+
+        # The feature store: native, and byte-equal to numpy on a batch.
+        from captionkit_torch.data.faststore import FeatureStore
+
+        store = ds.features
+        check(store.is_native, "FeatureStore did not take the native path")
+        plain = FeatureStore(store.path, native=False)
+        rows = np.random.default_rng(1).permutation(N_TEST)[:N_IMAGES]
+        check(store.gather(rows).tobytes() == plain.gather(rows).tobytes(),
+              "native gather differs from numpy's")
+        gather_ms = {}
+        for name, s in (("native", store), ("numpy", plain)):
+            runs = []
+            for i in range(5):
+                sel = np.sort(rows) if i % 2 else rows
+                t0 = time.perf_counter()
+                s.gather(sel)
+                runs.append(1e3 * (time.perf_counter() - t0))
+            gather_ms[name] = statistics.median(runs)
+
+        # backptr against register on the first batch: with the split's
+        # end id, and with the token the register decode emits most often
+        # taken as the end id, so that hypotheses finish at many steps.
+        batch = next(ds.eval_view().batches(N_IMAGES))
+        beams = {}
+        with torch.inference_mode():
+            ctx = model.encode(
+                params, torch.from_numpy(batch.features).cuda(),
+                torch.from_numpy(batch.existing).long().cuda(),
+                torch.from_numpy(batch.existing_len).long().cuda())
+            kw = dict(beam_size=cfg.decode.beam_size,
+                      start_id=ds.vocab.start, pad_id=ds.vocab.pad,
+                      max_len=MAX_LEN)
+            end_id = ds.vocab.end
+            for end_name in ("split_end_id", "frequent_token"):
+                if end_name == "frequent_token":
+                    counts = torch.bincount(
+                        out["register"].all_tokens.flatten().long())
+                    counts[ds.vocab.pad] = 0
+                    end_id = int(counts.argmax())
+                out, ms = {}, {}
+                for impl in ("register", "backptr"):
+                    for w in wrappers:
+                        w.launches = 0
+                    out[impl] = beam_search(model, params, ctx, impl=impl,
+                                            end_id=end_id, **kw)
+                    check(fused_head_topk.launches > 0,
+                          f"{impl} beam launched no head kernel")
+                    ms[impl] = time_ms(
+                        lambda: beam_search(model, params, ctx, impl=impl,
+                                            end_id=end_id, **kw),
+                        iters=3, warm=1)
+                for f in out["register"]._fields:
+                    check(torch.equal(getattr(out["backptr"], f),
+                                      getattr(out["register"], f)),
+                          f"backptr {f} differs from register's "
+                          f"({end_name})")
+                done = (out["backptr"].all_tokens == end_id).any(dim=2)
+                beams[end_name] = {
+                    "end_id": end_id, "ms_a_batch": ms,
+                    "finished_hypotheses": int(done.sum()),
+                    "finish_steps": len(set(out["backptr"].all_lengths[done]
+                                            .tolist()))}
+        check(beams["frequent_token"]["finish_steps"] > 1,
+              f"hypotheses finished at too few steps: {beams}")
+        result = {
+            "phase": "evaluate", "ok": True, "card": card,
+            "images": N_TEST, "refs_a_image": REFS_A_IMAGE,
+            "batch": N_IMAGES, "config": "editnet_beam5",
+            "write_split_s": write_s, "prepare_s": prepare_s,
+            "decode_cli_s": decode_cli_s,
+            "decode_wall_s": metrics["wall_s"],
+            "captions_per_s": metrics["captions_per_sec"],
+            "raw_route": {"decode_wall_s": raw_metrics["wall_s"],
+                          "captions_per_s": raw_metrics["captions_per_sec"],
+                          "launches": launches},
+            "metrics": {k: metrics[k] for k in keys},
+            "empty_hypotheses": sum(not h for h in hyps),
+            "scoring_s": score_s, "python_cider_d_s": py_cider_s,
+            "native_cider_d_s": native_cider_s,
+            "native_cider_d_max_err": cider_err,
+            "gather_ms_a_batch": gather_ms,
+            "beams": beams,
+            "nvidia_smi": card}
+        emit(result)
+        return result
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not (ROOT / "captionkit_torch" / "csrc").is_dir():
         print("chip_smoke.py: no captionkit_torch package beside it",
@@ -3224,6 +3494,8 @@ def main() -> int:
         phase_beam10(ed, WRAPPERS, card)
         phase = "wide_head"
         phase_wide_head(card)
+        phase = "evaluate"
+        phase_evaluate(ed, WRAPPERS, card)
     except Exception as e:  # every failed phase ends the run non-zero
         traceback.print_exc()
         emit({"phase": phase, "ok": False,

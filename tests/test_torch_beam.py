@@ -100,9 +100,12 @@ def test_beam_impl_backptr_not_ported():
     ctx = tm.encode(tp, torch.zeros((1, 5, 12)),
                     torch.zeros((1, 3), dtype=torch.long),
                     torch.ones((1,), dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="backptr"):
-        beam_search(tm, tp, ctx, beam_size=2, start_id=START, end_id=END,
-                    impl="backptr")
+    # Ported since: the backpointer layout gives the register's result.
+    bp = beam_search(tm, tp, ctx, beam_size=2, start_id=START, end_id=END,
+                     impl="backptr")
+    reg = beam_search(tm, tp, ctx, beam_size=2, start_id=START, end_id=END)
+    for f in bp._fields:
+        assert torch.equal(getattr(bp, f), getattr(reg, f)), f
     with pytest.raises(ValueError):
         beam_search(tm, tp, ctx, beam_size=2, start_id=START, end_id=END,
                     impl="other")

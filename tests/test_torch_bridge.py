@@ -88,7 +88,9 @@ def test_port_imports_no_jax_and_nothing_of_captionkit():
     assert "captionkit_torch.models.dcnet" in modules
     assert "captionkit_torch.data.featquant" in modules
     for name in ("kernels.lstm", "kernels.attention", "kernels.wholestep",
-                 "nn.dispatch", "decode.greedy"):
+                 "nn.dispatch", "decode.greedy", "metrics.eval",
+                 "metrics.fast", "metrics.meteor", "metrics.external",
+                 "data.prepare", "data.faststore", "utils.nativebuild"):
         assert f"captionkit_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

@@ -1561,3 +1561,76 @@ def test_small_beam10_decode_on_card_matches_cpu(card, cell_impl):
         assert wrapper.launches - before == (10 if dev == "cuda" else 0)
     rows = (out["cpu"] == out["cuda"]).all(dim=1).float().mean()
     assert float(rows) >= 0.9
+
+
+# -- decoding and scoring a split (decode.beam backptr, cli decode) ----------
+
+SMALL_DECODE = {
+    "model.emb_dim": 32, "model.hidden_dim": 64, "model.att_dim": 16,
+    "model.feat_dim": 48, "model.num_regions": 6, "decode.beam_size": 5,
+    "decode.max_decode_len": 10}
+
+
+@pytest.mark.parametrize("arch", ["editnet", "dcnet"])
+def test_backptr_beam_on_card_equals_register(card, arch):
+    """The backpointer and register beam layouts on the card, bf16,
+    through the head kernel, with the token the decode emits most often as
+    the end id (so hypotheses finish at many steps): every field of the
+    result bit-equal."""
+    from captionkit_torch.decode.beam import beam_search
+
+    cfg = CaptionKitConfig().override({
+        **SMALL_DECODE, "model.arch": arch, "model.vocab_size": 300})
+    model = get_model(cfg.model)
+    params = model.init(0, card)
+    rng = np.random.default_rng(0)
+    B = 16
+    with torch.inference_mode():
+        ctx = model.encode(
+            params, torch.from_numpy(rng.standard_normal(
+                (B, 6, 48)).astype(np.float32)).to(card),
+            torch.from_numpy(rng.integers(4, 300, (B, 8))).to(card),
+            torch.from_numpy(rng.integers(2, 9, (B,))).to(card))
+        kw = dict(beam_size=5, start_id=2, max_len=10)
+        counts = torch.bincount(beam_search(
+            model, params, ctx, end_id=-1, **kw).all_tokens.flatten().long())
+        counts[0] = 0
+        end_id = int(counts.argmax())
+        before = thead.fused_head_topk.launches
+        out = {impl: beam_search(model, params, ctx, end_id=end_id,
+                                 impl=impl, **kw)
+               for impl in ("register", "backptr")}
+    assert thead.fused_head_topk.launches > before
+    for f in out["register"]._fields:
+        assert torch.equal(getattr(out["backptr"], f),
+                           getattr(out["register"], f)), f
+    done = (out["backptr"].all_tokens == end_id).any(dim=2)
+    assert len(set(out["backptr"].all_lengths[done].tolist())) > 1
+
+
+def test_cli_decode_on_card_matches_cpu(card, tmp_path, capsys):
+    """``cli decode --synthetic`` on the card (the default device) and with
+    ``--device cpu``: the same metric keys, the same captions for nearly
+    every image (a near-tie may flip between the devices), and the card's
+    run launched the head kernel."""
+    from captionkit_torch import cli
+
+    sets = [a for k, v in {**SMALL_DECODE, "decode.batch_size": 8}.items()
+            for a in ("--set", f"{k}={v}")]
+    argv = ["decode", "--config", "editnet_beam5", "--synthetic",
+            "--images", "24", *sets]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        path = tmp_path / f"{dev}.json"
+        before = thead.fused_head_topk.launches
+        assert cli.main(argv + ["--out", str(path)] + (
+            ["--device", "cpu"] if dev == "cpu" else [])) == 0
+        launched = thead.fused_head_topk.launches - before
+        assert (launched > 0) == (dev == "cuda")
+        outs[dev] = (json.loads(capsys.readouterr().out),
+                     json.loads(path.read_text()))
+    assert list(outs["cuda"][0]) == list(outs["cpu"][0])
+    assert outs["cuda"][0]["captions"] == 24.0
+    same = [a["caption"] == b["caption"]
+            for a, b in zip(outs["cuda"][1], outs["cpu"][1])]
+    assert len(same) == 24 and sum(same) >= 0.9 * 24

@@ -278,8 +278,8 @@ def test_cli_serve_dcnet_random_weights(monkeypatch, capsys):
 def test_unported_dcnet_options_raise():
     """DCNet with ``cell_impl="wholestep"`` builds and, as in the
     reference, keeps the plain cells: ``prepare_topk`` builds no cell pack
-    and its step equals the plain model's. ``impl="backptr"`` beam search
-    still raises."""
+    and its step equals the plain model's. ``impl="backptr"`` beam search,
+    ported since, gives the register layout's result."""
     from captionkit_torch.decode.beam import beam_search
 
     jm, jp, tm, tp = _models()
@@ -297,9 +297,10 @@ def test_unported_dcnet_options_raise():
                         state, tok, 2)
     for g, w in zip(got[1:], want[1:]):
         assert torch.equal(g, w)
-    with pytest.raises(NotImplementedError, match="backptr"):
-        beam_search(ws, tp, ctx, beam_size=2, start_id=2, end_id=3,
-                    impl="backptr")
+    bp, reg = (beam_search(ws, tp, ctx, beam_size=2, start_id=2, end_id=3,
+                           impl=impl) for impl in ("backptr", "register"))
+    for f in bp._fields:
+        assert torch.equal(getattr(bp, f), getattr(reg, f)), f
     # The int8 head (with its DCNet warning) and thresh extraction build.
     with pytest.warns(UserWarning, match="head_quant='int8' with "
                                          "arch='dcnet'"):

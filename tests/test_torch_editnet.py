@@ -137,8 +137,8 @@ def test_plain_head_config_matches_fused_head_on_cpu():
 def test_unported_options_raise():
     """``cell_impl="wholestep"`` is ported: it builds, ``prepare_topk``
     gives it the fused-cell pack, and its ``step_topk`` answers on the
-    CPU. The beam search's ``impl="backptr"`` history layout still
-    raises."""
+    CPU. The beam search's ``impl="backptr"`` history layout, ported
+    since, gives the register layout's result."""
     from captionkit_torch.decode.beam import beam_search
 
     _, _, tm, tp = _models("float32")
@@ -154,9 +154,10 @@ def test_unported_options_raise():
                                      torch.arange(6), 2)
     assert tuple(idx.shape) == (6, 2) and bool(torch.isfinite(lse).all())
     assert int(idx.max()) < SMALL["vocab_size"]
-    with pytest.raises(NotImplementedError, match="backptr"):
-        beam_search(tm, tp, ctx, beam_size=2, start_id=2, end_id=3,
-                    impl="backptr")
+    bp, reg = (beam_search(tm, tp, ctx, beam_size=2, start_id=2, end_id=3,
+                           impl=impl) for impl in ("backptr", "register"))
+    for f in bp._fields:
+        assert torch.equal(getattr(bp, f), getattr(reg, f)), f
     # The fused cells, the int8 head, the thresh extraction and DCNet build.
     for kw in ({"cell_impl": "pallas"}, {"head_quant": "int8"},
                {"head_extract": "thresh"}):

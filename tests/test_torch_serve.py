@@ -225,8 +225,9 @@ def test_entry_points_default_to_the_card(both):
 
 def test_unported_decode_options_raise(both):
     """Greedy, sampling and ``beam_size`` 1 (which decodes greedily, as in
-    the reference) decode; an unknown method and the ``backptr`` beam
-    layout raise; the int8 feed is staged and answers."""
+    the reference) decode; an unknown method raises; the ``backptr`` beam
+    layout (ported since) decodes the register layout's tokens; the int8
+    feed is staged and answers."""
     _, (tcfg, tm, tp), _ = both
     ex = torch.from_numpy(np.random.default_rng(1).integers(4, 15, (2, 6)))
     ln = torch.tensor([6, 3])
@@ -245,9 +246,11 @@ def test_unported_decode_options_raise(both):
         make_decode_fn(tm, tcfg.override({"decode.method": "topk"}).decode,
                        start_id=2, end_id=3, device="cpu")
     dc = tcfg.override({"decode.beam_impl": "backptr"}).decode
-    with pytest.raises(NotImplementedError, match="backptr"):
+    assert torch.equal(
         make_decode_fn(tm, dc, start_id=2, end_id=3, device="cpu")(
-            tp, feats, ex, ln)
+            tp, feats, ex, ln),
+        make_decode_fn(tm, tcfg.decode, start_id=2, end_id=3,
+                       device="cpu")(tp, feats, ex, ln))
     # The int8 feed is ported: decode_split stages it and answers.
     dc = tcfg.override({"decode.feed_dtype": "int8"}).decode
     hyps, _ = decode_split(tm, tp, _source(SyntheticCaptionSource)
