@@ -19,6 +19,9 @@ a split, data preparation).
         --existing test=aoanet_test.json --features test=test_feats.npy
     python -m captionkit_torch.cli decode --config editnet_beam5 \\
         --prepared prep --split test --params params.npz --out results.json
+    python -m captionkit_torch.cli train-xe --config xe_train \\
+        --prepared prep --split train --val-split val --max-steps 100 \\
+        --export-params params.npz [--resume] [--device cpu]
     python -m captionkit_torch.cli decode --config editnet_beam5 \\
         --wordmap WORDMAP.json --captions TEST_CAPTIONS.json \\
         --caplens TEST_CAPLENS.json --existing TEST_EXISTING.json \\
@@ -50,6 +53,17 @@ writes the results JSON keyed by the split's real image ids with
 ``--out``. ``--num-shards``/``--shard-index`` decode one strided shard.
 ``prepare`` is host work only and needs no card.
 
+``train-xe`` trains with cross-entropy (``train/loop.py::
+run_xe_training``) on ``--synthetic`` data, a ``--prepared`` split or the
+raw artifacts, validating each epoch on the split's one-row-per-image view
+(or on ``--val-split`` of the ``--prepared`` directory; ``--no-val``
+skips it), checkpointing under ``train.checkpoint_dir`` (``--resume``
+continues from its latest checkpoint), and writing the final raw or EMA
+weights as a decode-ready ``.npz`` with ``--export-params`` /
+``--export-ema``. ``--run-dir`` writes ``metrics.jsonl``. It prints the
+report as JSON. ``--num-shards`` above 1 is refused until data-parallel
+training is ported.
+
 ``--device`` defaults to ``cuda`` and raises when there is no card;
 ``--device cpu`` runs the plain versions of the kernels on the CPU. The
 reference's other subcommands, ``--stacked`` and checkpoint ensembles are
@@ -69,8 +83,7 @@ from captionkit_torch.config import (
     list_named_configs,
 )
 
-NOT_PORTED = ("decode-stacked", "train-xe", "train-scst", "convert",
-              "parity-gate")
+NOT_PORTED = ("decode-stacked", "train-scst", "convert", "parity-gate")
 
 
 def _parse_value(raw: str) -> Any:
@@ -116,39 +129,46 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
 
+    def add_common(sp):
+        """The config, the split (synthetic, prepared or raw) and the
+        device: the flags ``decode`` and ``train-xe`` share."""
+        sp.add_argument("--config", required=True,
+                        help="named config (see `configs`)")
+        sp.add_argument("--set", action="append", default=[],
+                        metavar="K=V", help="dotted config override")
+        sp.add_argument("--synthetic", action="store_true",
+                        help="use the generated toy dataset")
+        sp.add_argument("--images", type=int, default=64,
+                        help="synthetic dataset size")
+        sp.add_argument("--seed", type=int, default=0)
+        sp.add_argument("--prepared",
+                        help="prepare output dir (carries the references)")
+        sp.add_argument("--split", default="train",
+                        help="split name inside --prepared")
+        sp.add_argument("--wordmap"), sp.add_argument("--captions")
+        sp.add_argument("--caplens"), sp.add_argument("--existing")
+        sp.add_argument("--existing-lens", dest="existing_lens")
+        sp.add_argument("--features", default="")
+        sp.add_argument("--captions-per-image", dest="captions_per_image",
+                        type=int, default=None,
+                        help="GT captions per image in raw artifacts "
+                             "(needed without --features to group "
+                             "references by image)")
+        sp.add_argument("--num-shards", dest="num_shards", type=int,
+                        default=1,
+                        help="decode: split the eval set across processes;"
+                             " run one per shard and concatenate the "
+                             "results JSONs")
+        sp.add_argument("--shard-index", dest="shard_index", type=int,
+                        default=0, help="this process's shard (0-based)")
+        sp.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu")
+
     sp = sub.add_parser("decode", help="decode + score a split")
-    sp.add_argument("--config", required=True,
-                    help="named config (see `configs`)")
-    sp.add_argument("--set", action="append", default=[], metavar="K=V",
-                    help="dotted config override")
-    sp.add_argument("--synthetic", action="store_true",
-                    help="use the generated toy dataset")
-    sp.add_argument("--images", type=int, default=64,
-                    help="synthetic dataset size")
-    sp.add_argument("--seed", type=int, default=0)
-    sp.add_argument("--prepared",
-                    help="prepare output dir (carries the references)")
-    sp.add_argument("--split", default="train",
-                    help="split name inside --prepared")
-    sp.add_argument("--wordmap"), sp.add_argument("--captions")
-    sp.add_argument("--caplens"), sp.add_argument("--existing")
-    sp.add_argument("--existing-lens", dest="existing_lens")
-    sp.add_argument("--features", default="")
-    sp.add_argument("--captions-per-image", dest="captions_per_image",
-                    type=int, default=None,
-                    help="GT captions per image in raw artifacts (needed "
-                         "without --features to group references by "
-                         "image)")
+    add_common(sp)
     sp.add_argument("--params", help="params .npz (else random weights)")
     sp.add_argument("--out", help="results JSON path")
     sp.add_argument("--no-metrics", action="store_true")
-    sp.add_argument("--num-shards", dest="num_shards", type=int, default=1,
-                    help="split the eval set across processes; run one "
-                         "per shard and concatenate the results JSONs")
-    sp.add_argument("--shard-index", dest="shard_index", type=int,
-                    default=0, help="this process's shard (0-based)")
-    sp.add_argument("--device", default="cuda",
-                    help="cuda (default) or cpu")
 
     sp = sub.add_parser(
         "prepare", help="Karpathy JSON + existing captions (+features) -> "
@@ -167,6 +187,25 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--max-len", dest="max_len", type=int, default=22)
     sp.add_argument("--captions-per-image", dest="captions_per_image",
                     type=int, default=5)
+    sp = sub.add_parser("train-xe", help="cross-entropy training")
+    add_common(sp)
+    sp.add_argument("--val-split", dest="val_split",
+                    help="validate on this split of --prepared (default: "
+                         "the training split's one-row-per-image view)")
+    sp.add_argument("--max-steps", dest="max_steps", type=int)
+    sp.add_argument("--no-val", dest="no_val", action="store_true")
+    sp.add_argument("--resume", action="store_true",
+                    help="resume from the latest checkpoint in "
+                         "train.checkpoint_dir")
+    sp.add_argument("--export-params", dest="export_params",
+                    metavar="OUT.npz",
+                    help="write the final raw weights as a decode-ready "
+                         ".npz")
+    sp.add_argument("--export-ema", dest="export_ema", metavar="OUT.npz",
+                    help="write the final EMA weights (needs "
+                         "train.ema_decay > 0)")
+    sp.add_argument("--run-dir", dest="run_dir", default="",
+                    help="write metrics.jsonl there")
     for name in NOT_PORTED:
         sub.add_parser(name, help="not yet ported")
     return p
@@ -223,22 +262,25 @@ def _load_params(args, model, arch: str, device):
     return load_params_npz(args.params.strip(","), device, arch=arch)
 
 
-def _load_eval_dataset(args, cfg):
-    """The split to decode, one row per image."""
+def _load_dataset(args, cfg):
+    """(the split, its one-row-per-image view): ``--synthetic``, a
+    ``--prepared`` split, or the raw reference artifacts."""
     from captionkit_torch.data import CaptionDataset, SyntheticCaptionSource
 
     if args.synthetic:
-        return SyntheticCaptionSource(
+        src = SyntheticCaptionSource(
             num_images=args.images,
             captions_per_image=cfg.data.captions_per_image,
             num_regions=cfg.model.num_regions, feat_dim=cfg.model.feat_dim,
-            max_len=cfg.data.max_len, seed=cfg.data.seed).eval_view()
+            max_len=cfg.data.max_len, seed=cfg.data.seed)
+        return src.dataset, src.eval_view()
     if args.prepared:
         from captionkit_torch.data.prepare import load_prepared_split
 
-        return load_prepared_split(args.prepared, args.split,
-                                   max_len=cfg.data.max_len).eval_view()
-    return CaptionDataset.from_reference_files(
+        ds = load_prepared_split(args.prepared, args.split,
+                                 max_len=cfg.data.max_len)
+        return ds, ds.eval_view()
+    ds = CaptionDataset.from_reference_files(
         wordmap_path=args.wordmap,
         captions_path=args.captions,
         caplens_path=args.caplens,
@@ -247,7 +289,8 @@ def _load_eval_dataset(args, cfg):
         features_path=args.features,
         max_len=cfg.data.max_len,
         captions_per_image=args.captions_per_image,
-    ).eval_view()
+    )
+    return ds, ds.eval_view()
 
 
 def cmd_decode(args) -> int:
@@ -257,7 +300,7 @@ def cmd_decode(args) -> int:
 
     device = resolve_device(args.device)
     cfg = _apply_overrides(get_named_config(args.config), args.set)
-    eval_ds = _load_eval_dataset(args, cfg)
+    _, eval_ds = _load_dataset(args, cfg)
     if args.num_shards > 1:
         eval_ds = eval_ds.shard(args.num_shards, args.shard_index)
     cfg = cfg.override({"model.vocab_size": len(eval_ds.vocab)})
@@ -271,6 +314,88 @@ def cmd_decode(args) -> int:
                                   results_path=args.out, device=device)
     print(json.dumps({k: round(float(v), 4) for k, v in metrics.items()},
                      indent=2))
+    return 0
+
+
+def _load_train_datasets(args, cfg):
+    """(train split, validation split): the validation split is one row
+    per image, of ``--val-split`` when given, else of the training
+    split."""
+    ds, val = _load_dataset(args, cfg)
+    if args.val_split:
+        if not args.prepared:
+            raise SystemExit("train-xe: --val-split needs --prepared")
+        from captionkit_torch.data.prepare import load_prepared_split
+
+        val = load_prepared_split(args.prepared, args.val_split,
+                                  max_len=cfg.data.max_len).eval_view()
+    return ds, val
+
+
+def _export_trained_params(args, state) -> None:
+    """``--export-params`` / ``--export-ema``: decode-ready ``.npz``
+    weights of the final state."""
+    from captionkit_torch.params import save_params_npz
+    from captionkit_torch.train.state import ema_params
+
+    if args.export_params:
+        save_params_npz(state.params, args.export_params)
+    if args.export_ema:
+        avg = ema_params(state)
+        if avg is None:
+            raise SystemExit(
+                "--export-ema needs EMA tracking enabled: set "
+                "--set train.ema_decay=0.999 (or similar) on this run")
+        save_params_npz(avg, args.export_ema)
+
+
+def cmd_train_xe(args) -> int:
+    import logging
+
+    from captionkit_torch.device import resolve_device
+    from captionkit_torch.models import get_model
+    from captionkit_torch.train.checkpoint import CheckpointManager
+    from captionkit_torch.train.loop import run_xe_training
+    from captionkit_torch.train.state import create_train_state
+    from captionkit_torch.utils.logging import MetricsLogger
+    from captionkit_torch.utils.preemption import PreemptionGuard
+
+    if args.num_shards > 1:
+        raise SystemExit(
+            "train-xe: --num-shards > 1 needs data-parallel training, "
+            "which is not ported yet; train on one card")
+    device = resolve_device(args.device)
+    cfg = _apply_overrides(get_named_config(args.config), args.set)
+    train_ds, val_ds = _load_train_datasets(args, cfg)
+    cfg = cfg.override({"model.vocab_size": len(train_ds.vocab)})
+    model = get_model(cfg.model)
+    state = create_train_state(lambda seed: model.init(seed, device),
+                               cfg.train)
+    ckpt = CheckpointManager(cfg.train.checkpoint_dir,
+                             keep=cfg.train.keep_checkpoints)
+    if args.resume and ckpt.latest_step() is not None:
+        state = ckpt.restore(state)
+        logging.getLogger("captionkit_torch.cli").info(
+            "resumed from step %s", state.step)
+    mlogger = MetricsLogger(args.run_dir) if args.run_dir else None
+    with PreemptionGuard() as guard:
+        state, report = run_xe_training(
+            model, state, cfg, train_ds, None if args.no_val else val_ds,
+            ckpt=ckpt, max_steps=args.max_steps, metrics_logger=mlogger,
+            preemption=guard, device=device)
+    if mlogger is not None:
+        mlogger.close()
+    _export_trained_params(args, state)
+    best = report.best_metric if report.best_metric > float("-inf") \
+        else None
+    print(json.dumps({
+        "epochs_run": report.epochs_run,
+        "best_val_cider": best,
+        "preempted": report.preempted,
+        "step": state.step,
+        "history": report.history,
+    }, indent=2, default=float))
+    ckpt.close()
     return 0
 
 
@@ -311,7 +436,7 @@ def main(argv=None) -> int:
         raise SystemExit(f"captionkit_torch: '{args.cmd}' is not yet ported "
                          "(use captionkit.cli)")
     return {"configs": cmd_configs, "serve": cmd_serve, "decode": cmd_decode,
-            "prepare": cmd_prepare}[args.cmd](args)
+            "prepare": cmd_prepare, "train-xe": cmd_train_xe}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -4,13 +4,14 @@
 ``FeatureStore.gather`` assembles a batch of feature rows with
 ``native/featstore.cpp``: a threaded memcpy from a memory map, outside the
 interpreter lock, with no numpy fancy-indexing temporaries. The library is
-built at first use (``utils.nativebuild``); a failed build raises. The
-numpy mmap gather is its plain version, used only when the caller passes
-``native=False``.
+built at first use (``utils.nativebuild``); a failed build raises.
 
 The native path takes plain little-endian C-contiguous ``.npy`` files of
-float32, float16, int32, int64 or uint8 (what ``data.prepare`` writes);
-another layout raises unless ``native=False``.
+float32, float16, int32, int64 or uint8 (what ``data.prepare`` writes).
+Any other file (another dtype such as float64, Fortran order, big-endian,
+not a ``.npy``) is read through the numpy mmap gather, as the reference
+reads it; the route is chosen from the file's header before anything is
+built. ``native=False`` takes the numpy gather for every file.
 """
 
 from __future__ import annotations
@@ -76,17 +77,13 @@ class FeatureStore:
         self._threads = threads or min(8, os.cpu_count() or 1)
         self._native = None
         self._np = None
-        if not native:
+        parsed = (_parse_npy_header(path)
+                  if native and path.endswith(".npy") else None)
+        if parsed is None:
             self._np = np.load(path, mmap_mode="r")
             self.shape = self._np.shape
             self.dtype = self._np.dtype
             return
-        parsed = _parse_npy_header(path) if path.endswith(".npy") else None
-        if parsed is None:
-            raise ValueError(
-                f"{path}: the native gather takes a little-endian "
-                f"C-contiguous .npy of {', '.join(_NATIVE_DTYPES)}; pass "
-                "native=False for the numpy gather")
         offset, self.shape, self.dtype = parsed
         row_bytes = int(np.prod(self.shape[1:])) * self.dtype.itemsize
         lib = _load_lib()

@@ -3,7 +3,8 @@ reference's on-disk split artifacts, an in-memory split and the synthetic
 source.
 
 ``load_hdf5_features`` opens a split's [N, R, F] features: ``.npy``
-through the native ``FeatureStore`` (threaded row gather), ``.npz``
+through ``FeatureStore`` (threaded native row gather; numpy's for a
+layout the native gather cannot read), ``.npz``
 read whole, HDF5 through h5py (optional; absent, it raises).
 
 ``SyntheticCaptionSource`` draws from ``np.random.default_rng(seed)`` in
@@ -24,8 +25,9 @@ from captionkit_torch.data.vocab import Vocab
 
 
 def load_hdf5_features(path: str, dataset: str = "features"):
-    """[N, R, F] features of a split: a ``.npy`` through the native
-    ``FeatureStore``, the ``dataset`` array of a ``.npz``, else the
+    """[N, R, F] features of a split: a ``.npy`` through ``FeatureStore``
+    (the native gather, or numpy's for a layout the native one cannot
+    read), the ``dataset`` array of a ``.npz``, else the
     ``dataset`` of an HDF5 file (needs h5py)."""
     if path.endswith(".npy"):
         from captionkit_torch.data.faststore import FeatureStore

@@ -18,8 +18,12 @@ dcnet_fused_step_hidden``; the visual config and ``cell_impl=
 head of beam search, its per-batch preparation and its int8 variant are
 EditNet's (``editnet.prepare_head``, ``editnet._head_topk``).
 
-Not ported yet: ``forward_seq`` and training dropout (training), and
-``step_attn`` (introspection).
+Training: ``step(train=True)`` applies dropout to the decoder's h;
+``forward_seq`` is teacher forcing with the embedding gather, the emb
+slice of the decoder's gate product and the vocab head outside the loop,
+autograd through the loop by default, or, with ``dcnet_deferred_backward``
+and the textual config, ``dcnet_backward.DCNetRecurrentSeq``. Not ported
+yet: ``step_attn`` (introspection).
 """
 
 from __future__ import annotations
@@ -37,13 +41,21 @@ from captionkit_torch.kernels.megastep import (
     dcnet_fused_step_hidden,
     prepare_dcnet_cell_pack,
 )
-from captionkit_torch.models.base import HeadInfo, ModelDef
+from captionkit_torch.models.base import (
+    HeadInfo,
+    ModelDef,
+    apply_dropout_mask,
+    default_generator,
+    dropout,
+    dropout_mask,
+)
+from captionkit_torch.models.dcnet_backward import dcnet_recurrent_seq
 from captionkit_torch.models.editnet import _cdt, _head_topk, prepare_head
 from captionkit_torch.nn.attention import (
     AdditiveAttentionParams,
     project_keys,
 )
-from captionkit_torch.nn.cells import LSTMParams, lstm_encode, mm
+from captionkit_torch.nn.cells import LSTMParams, lstm_encode, lstm_gates, mm
 from captionkit_torch.nn.dispatch import get_attention_fn, get_lstm_cell_fn
 from captionkit_torch.nn.masking import length_mask
 
@@ -141,21 +153,34 @@ def init(seed: int, cfg: ModelConfig,
     )
 
 
+def _pack_contexts(params: DCNetParams, cfg: ModelConfig) -> dict:
+    """The weights of ``_recurrent_contexts`` rounded to the compute
+    dtype, from the live parameters (gradients reach them)."""
+    dt = _cdt(cfg)
+    pk = {"gate_w": params.gate_w.to(dt),
+          "att_wq": params.attention.w_q.to(dt)}
+    if params.vis_attention is not None:
+        pk["vis_wq"] = params.vis_attention.w_q.to(dt)
+    return pk
+
+
+def _pack(params: DCNetParams, cfg: ModelConfig) -> dict:
+    """The plain step's weights, packed and rounded to the compute dtype,
+    from the live parameters."""
+    dt = _cdt(cfg)
+    dec = params.decoder
+    return dict(_pack_contexts(params, cfg),
+                dec_w=torch.cat([dec.wx, dec.wh], dim=0).to(dt),
+                fc_w=params.fc_w.to(dt))
+
+
 def _packed(params: DCNetParams, cfg: ModelConfig) -> dict:
-    """The plain step's weights, packed and rounded once per parameter
-    object and compute dtype."""
+    """``_pack``, built once per parameter object and compute dtype for
+    decoding."""
     dt = _cdt(cfg)
     pk = params.cache.get(dt)
     if pk is None:
-        dec = params.decoder
-        pk = {
-            "dec_w": torch.cat([dec.wx, dec.wh], dim=0).to(dt),
-            "gate_w": params.gate_w.to(dt),
-            "att_wq": params.attention.w_q.to(dt),
-            "fc_w": params.fc_w.to(dt),
-        }
-        if params.vis_attention is not None:
-            pk["vis_wq"] = params.vis_attention.w_q.to(dt)
+        pk = _pack(params, cfg)
         params.cache[dt] = pk
     return pk
 
@@ -196,12 +221,11 @@ def beam_expand(ctx: DCNetContext, k: int) -> DCNetContext:
 
 
 def _recurrent_contexts(params: DCNetParams, cfg: ModelConfig,
-                        ctx: DCNetContext, h: torch.Tensor,
+                        ctx: DCNetContext, h: torch.Tensor, pk: dict,
                         use_pallas: bool = False) -> list[torch.Tensor]:
     """The state-dependent decoder inputs: the gated text context, and the
     visual context when the visual head is on."""
     dt = _cdt(cfg)
-    pk = _packed(params, cfg)
     attention = get_attention_fn(use_pallas)
     att_ctx, _ = attention(
         params.attention, ctx.att_keys, ctx.enc_hs, h, ctx.mask,
@@ -218,33 +242,99 @@ def _recurrent_contexts(params: DCNetParams, cfg: ModelConfig,
 
 def _step_hidden(params: DCNetParams, cfg: ModelConfig, ctx: DCNetContext,
                  state: DCNetState, token: torch.Tensor,
-                 use_pallas: bool = False
+                 use_pallas: bool = False,
+                 generator: Optional[torch.Generator] = None,
+                 train: bool = False
                  ) -> tuple[DCNetState, torch.Tensor]:
-    """One decode step up to the vocab head: (state, h). ``use_pallas`` is
-    handed to ``nn.dispatch`` at the plain step's cell call sites."""
+    """One decode step up to the vocab head: (state, h, dropped out when
+    ``train``). ``use_pallas`` is handed to ``nn.dispatch`` at the plain
+    step's cell call sites; ``train`` takes the plain cells on weights
+    packed from the live parameters."""
     emb = params.embedding[token]  # [B, E]
-    if ctx.cell_pack is not None:
+    if ctx.cell_pack is not None and not train:
         h, c = dcnet_fused_step_hidden(ctx.cell_pack, state.h, state.c, emb)
         return DCNetState(h=h, c=c), h
+    pk = _pack(params, cfg) if train else _packed(params, cfg)
     lstm_cell = get_lstm_cell_fn(use_pallas)
-    x = torch.cat([emb] + _recurrent_contexts(params, cfg, ctx, state.h,
+    x = torch.cat([emb] + _recurrent_contexts(params, cfg, ctx, state.h, pk,
                                               use_pallas), dim=-1)
     h, c = lstm_cell(params.decoder, x, state.h, state.c,
-                     compute_dtype=_cdt(cfg),
-                     packed=_packed(params, cfg)["dec_w"])
-    return DCNetState(h=h, c=c), h
+                     compute_dtype=_cdt(cfg), packed=pk["dec_w"])
+    return DCNetState(h=h, c=c), dropout(h, cfg.dropout, generator, train)
 
 
 def step(params: DCNetParams, cfg: ModelConfig, ctx: DCNetContext,
-         state: DCNetState, token: torch.Tensor, use_pallas: bool = False
+         state: DCNetState, token: torch.Tensor, use_pallas: bool = False,
+         generator: Optional[torch.Generator] = None, train: bool = False
          ) -> tuple[DCNetState, torch.Tensor]:
     """One decode step with the full logits [B, V] fp32 (greedy and
     sampling decode). ``use_pallas=True`` takes the cell kernels at the
-    dispatch call sites."""
+    dispatch call sites; ``train`` applies dropout with masks from
+    ``generator``."""
     new_state, out = _step_hidden(params, cfg, ctx, state, token,
-                                  use_pallas)
-    logits = mm(out, _packed(params, cfg)["fc_w"], _cdt(cfg)) + params.fc_b
-    return new_state, logits
+                                  use_pallas, generator, train)
+    dt = _cdt(cfg)
+    fc_w = params.fc_w.to(dt) if train else _packed(params, cfg)["fc_w"]
+    return new_state, mm(out, fc_w, dt) + params.fc_b
+
+
+def forward_seq(params: DCNetParams, cfg: ModelConfig, ctx: DCNetContext,
+                state0: DCNetState, tokens_in: torch.Tensor,  # [B, T]
+                generator: Optional[torch.Generator] = None,
+                train: bool = False) -> torch.Tensor:
+    """Teacher forcing (``ModelDef.forward_seq``; see
+    ``editnet.forward_seq``): logits [B, T, V] fp32. The embedding gather,
+    the emb slice of the decoder's gate product (with its bias) and the
+    vocab head run outside the loop. Dropout keep masks are drawn step by
+    step from ``generator`` (one seeded with 0 when None) in the same
+    order on both routes."""
+    dt = _cdt(cfg)
+    E = cfg.emb_dim
+    B, T = tokens_in.shape
+    H = params.fc_w.shape[0]
+    dev = tokens_in.device
+    dec = params.decoder
+    emb_seq = params.embedding[tokens_in]  # [B, T, E]
+    z_x = mm(emb_seq, dec.wx[:E], dt) + dec.b  # [B, T, 4H] fp32
+    keep = None
+    if train and cfg.dropout > 0.0:
+        gen = default_generator(generator, dev)
+        keep = [dropout_mask((B, H), cfg.dropout, gen, dev)
+                for _ in range(T)]
+    if cfg.dcnet_deferred_backward and not cfg.dcnet_use_visual:
+        outs = dcnet_recurrent_seq(dt, cfg.dropout, ctx.mask,
+                                   None if keep is None else
+                                   torch.stack(keep), {
+            "w_rec_ctx": dec.wx[E:],
+            "w_rec_h": dec.wh,
+            "att_wq": params.attention.w_q,
+            "att_v": params.attention.v,
+            "att_b": params.attention.b,
+            "gate_w": params.gate_w,
+            "gate_b": params.gate_b,
+            "att_keys": ctx.att_keys,
+            "enc_hs": ctx.enc_hs,
+            "h0": state0.h,
+            "c0": state0.c,
+            "zx": z_x.transpose(0, 1),
+        }).transpose(0, 1)  # [B, T, H]
+    else:
+        # w_rec rounded once outside the loop, the attention's and the
+        # gate's weights inside it, as in the reference's scan.
+        w_rec = torch.cat([dec.wx[E:], dec.wh], dim=0).to(dt)
+        state, outs = state0, []
+        for t in range(T):
+            x_rec = torch.cat(_recurrent_contexts(
+                params, cfg, ctx, state.h, _pack_contexts(params, cfg))
+                + [state.h],
+                dim=-1)
+            z = z_x[:, t] + mm(x_rec, w_rec, dt)
+            h, c = lstm_gates(z, state.c)
+            state = DCNetState(h=h, c=c)
+            outs.append(h if keep is None
+                        else apply_dropout_mask(h, keep[t], cfg.dropout))
+        outs = torch.stack(outs, dim=1)
+    return mm(outs, params.fc_w, dt) + params.fc_b
 
 
 def prepare_topk(params: DCNetParams, cfg: ModelConfig, ctx: DCNetContext,
@@ -275,8 +365,9 @@ def make_model(cfg: ModelConfig) -> ModelDef:
         encode=lambda params, features, existing, existing_len: encode(
             params, cfg, features, existing, existing_len),
         init_state=init_state,
-        step=lambda params, ctx, state, token: step(
-            params, cfg, ctx, state, token),
+        step=lambda params, ctx, state, token, generator=None, train=False:
+        step(params, cfg, ctx, state, token, generator=generator,
+             train=train),
         beam_expand=beam_expand,
         step_topk=(
             (lambda params, ctx, state, token, k: step_topk(
@@ -292,4 +383,8 @@ def make_model(cfg: ModelConfig) -> ModelDef:
             compute_dtype=_cdt(cfg),
             extract=cfg.head_extract,
         ),
+        forward_seq=(
+            lambda params, ctx, state0, tokens_in, generator=None,
+            train=False: forward_seq(params, cfg, ctx, state0, tokens_in,
+                                     generator, train)),
     )

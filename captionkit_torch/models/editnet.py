@@ -1,5 +1,5 @@
 """EditNet — visually grounded caption editor with SCMA + Copy-LSTM
-(``captionkit.models.editnet``, the serving path).
+(``captionkit.models.editnet``: serving and teacher forcing).
 
 1. An LSTM encoder reads the existing caption and keeps its hidden states
    {h_i} and cell states {c_i}; the cell states are SCMA's copy pool.
@@ -30,6 +30,13 @@ vocab head of beam search is a CUDA kernel of ``kernels/head.py``: the
 float head with either extraction (``head_extract``), or, with
 ``head_quant="int8"``, the int8 head over the fp32 hidden state and the
 head quantized once per batch.
+
+Training: ``step(train=True)`` applies dropout to h_lang with masks from
+a ``torch.Generator`` and packs its weights from the live parameters
+(``_pack``; ``_packed`` caches them for decoding). ``forward_seq`` is
+teacher forcing with the state-independent work outside the loop and,
+with ``deferred_backward`` and soft SCMA, the recurrence as
+``editnet_backward.RecurrentSeq``.
 """
 
 from __future__ import annotations
@@ -57,7 +64,15 @@ from captionkit_torch.kernels.megastep import (
     prepare_cell_pack,
 )
 from captionkit_torch.kernels.wholestep import fused_step_topk
-from captionkit_torch.models.base import HeadInfo, ModelDef
+from captionkit_torch.models.base import (
+    HeadInfo,
+    ModelDef,
+    apply_dropout_mask,
+    default_generator,
+    dropout,
+    dropout_mask,
+)
+from captionkit_torch.models.editnet_backward import recurrent_seq
 from captionkit_torch.nn.attention import (
     AdditiveAttentionParams,
     project_keys,
@@ -177,24 +192,36 @@ def init(seed: int, cfg: ModelConfig,
         fc_w=u((H, V), H ** -0.5), fc_b=zeros((V,)))
 
 
+def _pack_finish(params: EditNetParams, cfg: ModelConfig) -> dict:
+    """The weights of ``_finish_step`` rounded to the compute dtype, from
+    the live parameters (gradients reach them)."""
+    dt = _cdt(cfg)
+    return {
+        "gate_w": params.vis_gate_w.to(dt),
+        "vis_wq": params.vis_attention.w_q.to(dt),
+        "scma_wq": params.scma.w_q.to(dt),
+        "lang": pack_copy_lstm(params.lang_lstm, dt),
+    }
+
+
+def _pack(params: EditNetParams, cfg: ModelConfig) -> dict:
+    """The step's weights packed and rounded to the compute dtype (the
+    reference's loop-invariant concats), from the live parameters."""
+    dt = _cdt(cfg)
+    E, F = cfg.emb_dim, cfg.feat_dim
+    wx = params.att_lstm.wx
+    w_att = torch.cat([wx[:E], wx[E + F:], params.att_lstm.wh], dim=0)
+    return dict(_pack_finish(params, cfg), w_att=w_att.to(dt),
+                fc_w=params.fc_w.to(dt))
+
+
 def _packed(params: EditNetParams, cfg: ModelConfig) -> dict:
-    """The step's weights packed and rounded to the compute dtype, built
-    once per parameter object and dtype (the reference's loop-invariant
-    concats, which XLA hoists out of its decode loop)."""
+    """``_pack``, built once per parameter object and dtype for decoding
+    (which XLA hoists out of the reference's decode loop)."""
     dt = _cdt(cfg)
     pk = params.cache.get(dt)
     if pk is None:
-        E, F = cfg.emb_dim, cfg.feat_dim
-        wx = params.att_lstm.wx
-        w_att = torch.cat([wx[:E], wx[E + F:], params.att_lstm.wh], dim=0)
-        pk = {
-            "w_att": w_att.to(dt),
-            "gate_w": params.vis_gate_w.to(dt),
-            "vis_wq": params.vis_attention.w_q.to(dt),
-            "scma_wq": params.scma.w_q.to(dt),
-            "lang": pack_copy_lstm(params.lang_lstm, dt),
-            "fc_w": params.fc_w.to(dt),
-        }
+        pk = _pack(params, cfg)
         params.cache[dt] = pk
     return pk
 
@@ -242,20 +269,24 @@ def beam_expand(ctx: EditNetContext, k: int) -> EditNetContext:
 
 def _step_hidden(params: EditNetParams, cfg: ModelConfig,
                  ctx: EditNetContext, state: EditNetState,
-                 token: torch.Tensor, use_pallas: bool = False
+                 token: torch.Tensor, use_pallas: bool = False,
+                 generator: Optional[torch.Generator] = None,
+                 train: bool = False
                  ) -> tuple[EditNetState, torch.Tensor]:
-    """One decode step up to the vocab head: (state, h_lang).
-    ``use_pallas`` is handed to ``nn.dispatch`` at the plain step's cell
-    call sites."""
+    """One decode step up to the vocab head: (state, h_lang, dropped out
+    when ``train``). ``use_pallas`` is handed to ``nn.dispatch`` at the
+    plain step's cell call sites. ``train`` steps through the plain cells
+    on weights packed from the live parameters (the fused cells have no
+    backward and skip dropout, as in the reference)."""
     emb = params.embedding[token]  # [B, E]
-    if ctx.cell_pack is not None:
+    if ctx.cell_pack is not None and not train:
         h_att, c_att, h_lang, c_lang = fused_step_hidden(
             ctx.cell_pack, state.h_att, state.c_att, state.h_lang,
             state.c_lang, emb)
         return EditNetState(h_att=h_att, c_att=c_att, h_lang=h_lang,
                             c_lang=c_lang), h_lang
     dt = _cdt(cfg)
-    pk = _packed(params, cfg)
+    pk = _pack(params, cfg) if train else _packed(params, cfg)
     # 1. Attention LSTM over the step-varying inputs plus the hoisted
     # v_mean term.
     x_var = torch.cat([emb, state.h_lang, state.h_att], dim=-1)
@@ -264,18 +295,19 @@ def _step_hidden(params: EditNetParams, cfg: ModelConfig,
     if z.shape[0] != zv.shape[0]:  # grouped ctx without beam_expand
         zv = zv.repeat_interleave(z.shape[0] // zv.shape[0], dim=0)
     h_att, c_att = lstm_gates(z + zv + params.att_lstm.b, state.c_att)
-    return _finish_step(params, cfg, ctx, state, h_att, c_att, use_pallas)
+    new_state, h_lang = _finish_step(params, cfg, ctx, state, h_att, c_att,
+                                     pk, use_pallas)
+    return new_state, dropout(h_lang, cfg.dropout, generator, train)
 
 
 def _finish_step(params: EditNetParams, cfg: ModelConfig,
                  ctx: EditNetContext, state: EditNetState,
-                 h_att: torch.Tensor, c_att: torch.Tensor,
+                 h_att: torch.Tensor, c_att: torch.Tensor, pk: dict,
                  use_pallas: bool = False
                  ) -> tuple[EditNetState, torch.Tensor]:
     """Visual attention, SCMA and the Copy-LSTM, given the att-LSTM
-    state."""
+    state and the packed weights ``pk``. Returns (state, h_lang)."""
     dt = _cdt(cfg)
-    pk = _packed(params, cfg)
     copy_lstm_cell = get_copy_lstm_cell_fn(use_pallas)
     attention = get_attention_fn(use_pallas)
     # 2. Visual attention over the regions (all valid: no mask).
@@ -301,16 +333,101 @@ def _finish_step(params: EditNetParams, cfg: ModelConfig,
 
 
 def step(params: EditNetParams, cfg: ModelConfig, ctx: EditNetContext,
-         state: EditNetState, token: torch.Tensor, use_pallas: bool = False
+         state: EditNetState, token: torch.Tensor, use_pallas: bool = False,
+         generator: Optional[torch.Generator] = None, train: bool = False
          ) -> tuple[EditNetState, torch.Tensor]:
     """One decode step with the full logits [B, V] fp32 (greedy and
-    sampling decode). ``use_pallas=True`` takes the cell kernels at the
-    dispatch call sites."""
+    sampling decode, teacher forcing without ``forward_seq``).
+    ``use_pallas=True`` takes the cell kernels at the dispatch call sites;
+    ``train`` applies dropout to h_lang with masks from ``generator``."""
     new_state, out = _step_hidden(params, cfg, ctx, state, token,
-                                  use_pallas)
+                                  use_pallas, generator, train)
     dt = _cdt(cfg)
-    logits = mm(out, _packed(params, cfg)["fc_w"], dt) + params.fc_b
+    fc_w = params.fc_w.to(dt) if train else _packed(params, cfg)["fc_w"]
+    logits = mm(out, fc_w, dt) + params.fc_b
     return new_state, logits
+
+
+def forward_seq(params: EditNetParams, cfg: ModelConfig,
+                ctx: EditNetContext, state0: EditNetState,
+                tokens_in: torch.Tensor,  # [B, T]
+                generator: Optional[torch.Generator] = None,
+                train: bool = False) -> torch.Tensor:
+    """Teacher forcing (``ModelDef.forward_seq``): logits [B, T, V] fp32,
+    row for row the math of a loop of ``step``, with the state-independent
+    work outside the recurrence: the embedding gather of every step (one
+    gather, so one scatter in the backward), the emb slice of the att-LSTM
+    gate product with the hoisted v_mean term and the bias (zx), and the
+    vocab head (one [B·T, H] x [H, V] product).
+
+    With ``deferred_backward`` and soft SCMA (the defaults) the recurrence
+    is ``editnet_backward.RecurrentSeq``, whose backward forms every large
+    weight gradient once after its reverse loop; otherwise (hard SCMA, or
+    ``deferred_backward=False``) autograd runs through the loop. Dropout
+    keep masks are drawn step by step from ``generator`` (one seeded with
+    0 when None) in the same order on both routes."""
+    dt = _cdt(cfg)
+    E, F = cfg.emb_dim, cfg.feat_dim
+    B, T = tokens_in.shape
+    H = params.fc_w.shape[0]
+    dev = tokens_in.device
+    wx = params.att_lstm.wx
+    emb_seq = params.embedding[tokens_in]  # [B, T, E]
+    z_x = mm(emb_seq, wx[:E], dt) + ctx.att_zv[:, None, :] \
+        + params.att_lstm.b  # [B, T, 4H] fp32
+    keep = None
+    if train and cfg.dropout > 0.0:
+        gen = default_generator(generator, dev)
+        keep = [dropout_mask((B, H), cfg.dropout, gen, dev)
+                for _ in range(T)]
+    if cfg.deferred_backward and cfg.scma_select == "soft":
+        outs = recurrent_seq(dt, cfg.dropout, ctx.mask,
+                             None if keep is None else torch.stack(keep), {
+            "w_rec_lang": wx[E + F:],
+            "w_rec_att": params.att_lstm.wh,
+            "lang_wx": params.lang_lstm.base.wx,
+            "lang_wh": params.lang_lstm.base.wh,
+            "lang_b": params.lang_lstm.base.b,
+            "lang_wrx": params.lang_lstm.wrx,
+            "lang_wrh": params.lang_lstm.wrh,
+            "lang_wrc": params.lang_lstm.wrc,
+            "lang_br": params.lang_lstm.br,
+            "vis_wq": params.vis_attention.w_q,
+            "vis_v": params.vis_attention.v,
+            "vis_b": params.vis_attention.b,
+            "gate_w": params.vis_gate_w,
+            "gate_b": params.vis_gate_b,
+            "scma_wq": params.scma.w_q,
+            "scma_v": params.scma.v,
+            "scma_b": params.scma.b,
+            "vis_keys": ctx.vis_keys,
+            "features": ctx.features,
+            "scma_keys": ctx.scma_keys,
+            "enc_cs": ctx.enc_cs,
+            "h_att0": state0.h_att,
+            "c_att0": state0.c_att,
+            "h_lang0": state0.h_lang,
+            "c_lang0": state0.c_lang,
+            "zx": z_x.transpose(0, 1),
+        }).transpose(0, 1)  # [B, T, H]
+    else:
+        # As in the reference's scan: w_rec is rounded once, outside the
+        # loop, the step's other weights inside it (``_pack``), so each
+        # step's gradient of those is rounded on its own and summed in
+        # float32.
+        w_rec = torch.cat([wx[E + F:], params.att_lstm.wh], dim=0).to(dt)
+        state, outs = state0, []
+        for t in range(T):
+            hh = torch.cat([state.h_lang, state.h_att], dim=-1)
+            z = z_x[:, t] + mm(hh, w_rec, dt)
+            h_att, c_att = lstm_gates(z, state.c_att)
+            state, out = _finish_step(params, cfg, ctx, state, h_att, c_att,
+                                      _pack_finish(params, cfg))
+            if keep is not None:
+                out = apply_dropout_mask(out, keep[t], cfg.dropout)
+            outs.append(out)
+        outs = torch.stack(outs, dim=1)
+    return mm(outs, params.fc_w, dt) + params.fc_b
 
 
 def prepare_topk(params: EditNetParams, cfg: ModelConfig,
@@ -398,8 +515,9 @@ def make_model(cfg: ModelConfig) -> ModelDef:
         encode=lambda params, features, existing, existing_len: encode(
             params, cfg, features, existing, existing_len),
         init_state=init_state,
-        step=lambda params, ctx, state, token: step(
-            params, cfg, ctx, state, token),
+        step=lambda params, ctx, state, token, generator=None, train=False:
+        step(params, cfg, ctx, state, token, generator=generator,
+             train=train),
         beam_expand=beam_expand,
         step_topk=(
             (lambda params, ctx, state, token, k: step_topk(
@@ -415,4 +533,8 @@ def make_model(cfg: ModelConfig) -> ModelDef:
             compute_dtype=_cdt(cfg),
             extract=cfg.head_extract,
         ),
+        forward_seq=(
+            lambda params, ctx, state0, tokens_in, generator=None,
+            train=False: forward_seq(params, cfg, ctx, state0, tokens_in,
+                                     generator, train)),
     )

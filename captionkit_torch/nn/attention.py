@@ -103,5 +103,6 @@ def scma_select(
         memories, 1,
         idx.reshape(kB, G, 1).expand(kB, G, memories.shape[-1]),
     ).reshape(qB, -1).float()
-    # The reference's straight-through form, evaluated in the same order.
-    return ctx_soft + (hard - ctx_soft), weights
+    # The reference's straight-through form, evaluated in the same order:
+    # the forward value is the gathered state, the gradient the soft read's.
+    return ctx_soft + (hard - ctx_soft).detach(), weights

@@ -47,18 +47,54 @@ def matmul_route(device: "str | torch.device") -> str:
     return "float32 product of bf16-rounded operands"
 
 
+class _MatmulF32Out(torch.autograd.Function):
+    """The card's bf16 x bf16 -> float32 product (``torch.mm``/``torch.bmm``
+    with ``out_dtype``) with the reference's transpose: each operand's
+    gradient is a float32 product of the float32 cotangent and the other
+    operand upcast (TF32 is off), rounded once to the operand's dtype —
+    what JAX's transpose of ``dot(..., preferred_element_type=f32)`` on
+    bf16 operands gives, and what the CPU route gets from its casts."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.dim() == 2:
+            return torch.mm(a, b, out_dtype=torch.float32)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = (g @ b.float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = (a.float().transpose(-1, -2) @ g).to(b.dtype)
+        return ga, gb
+
+
+def _f32_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 operands on the card, float32 product; through
+    ``_MatmulF32Out`` when a gradient is wanted."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _MatmulF32Out.apply(a, b)
+    if a.dim() == 2:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
 def mm(a: torch.Tensor, b: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """``jnp.dot(a.astype(dt), b.astype(dt), preferred_element_type=f32)``
     for a [..., K] and b [K, M]: a float32 [..., M]. On a card, a bf16
     product with a float32 output (``torch.mm(..., out_dtype=...)``, which
-    a torch without it refuses); on the CPU the float32 product of the
-    rounded operands (bf16 values are exact in float32)."""
+    a torch without it refuses; its gradient from ``_MatmulF32Out``); on
+    the CPU the float32 product of the rounded operands (bf16 values are
+    exact in float32; the casts round the gradients)."""
     if dt == torch.float32:
         return a.float() @ b.float()
     a, b = a.to(dt), b.to(dt)
     if a.is_cuda:
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b,
-                       out_dtype=torch.float32)
+        out = _f32_out(a.reshape(-1, a.shape[-1]), b)
         return out.reshape(*a.shape[:-1], b.shape[-1])
     return a.float() @ b.float()
 
@@ -72,7 +108,7 @@ def bmm(a: torch.Tensor, b: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
         return a.float() @ b.float()
     a, b = a.to(dt), b.to(dt)
     if a.is_cuda:
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return _f32_out(a, b)
     return a.float() @ b.float()
 
 

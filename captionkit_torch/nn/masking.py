@@ -1,4 +1,5 @@
-"""Masking helpers (``captionkit.nn.masking``).
+"""Masking helpers and the masked training metrics
+(``captionkit.nn.masking``).
 
 ``NEG_INF`` is the attention-mask and beam-search constant. The vocab head
 pads with its own, larger constant (``kernels.head.HEAD_PAD``); the two are
@@ -21,3 +22,29 @@ def length_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
 def mask_logits(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Set masked positions to NEG_INF (softmax-safe)."""
     return torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+
+
+def masked_cross_entropy(logits: torch.Tensor,  # [B, T, V]
+                         targets: torch.Tensor,  # [B, T] int
+                         mask: torch.Tensor,  # [B, T] bool/float
+                         *, label_smoothing: float = 0.0) -> torch.Tensor:
+    """Token-mean masked cross-entropy over the float32 log-softmax, with
+    optional label smoothing toward the uniform distribution."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    if label_smoothing > 0.0:
+        smooth = -logp.mean(dim=-1)
+        nll = (1.0 - label_smoothing) * nll + label_smoothing * smooth
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def top5_accuracy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Share of counted steps whose target is in the top 5: a rank count
+    (fewer than 5 logits strictly above the target's), not a sort."""
+    tgt = torch.gather(logits, -1, targets.long()[..., None])
+    rank = (logits > tgt).sum(dim=-1)  # [B, T]
+    mask = mask.float()
+    return ((rank < 5).float() * mask).sum() / torch.clamp(mask.sum(),
+                                                           min=1.0)

@@ -71,11 +71,9 @@ def _attention(t, prefix):
     return AdditiveAttentionParams(*(t[f"{prefix}/{n}"] for n in _ATTENTION))
 
 
-def editnet_params_from_numpy(arrays: Mapping[str, np.ndarray],
-                              device: "str | torch.device") -> EditNetParams:
-    """EditNetParams (float32 tensors on ``device``) from flat named
-    arrays. Raises on a missing name."""
-    t = _tensors(arrays, EDITNET_NAMES, "EditNet", device)
+def editnet_params_from_tensors(t: Mapping[str, torch.Tensor]
+                                ) -> EditNetParams:
+    """EditNetParams holding the named tensors themselves (no copy)."""
     return EditNetParams(
         embedding=t["embedding"],
         encoder=_lstm(t, "encoder"),
@@ -93,14 +91,10 @@ def editnet_params_from_numpy(arrays: Mapping[str, np.ndarray],
     )
 
 
-def dcnet_params_from_numpy(arrays: Mapping[str, np.ndarray],
-                            device: "str | torch.device") -> DCNetParams:
-    """DCNetParams (float32 tensors on ``device``) from flat named arrays;
-    the visual head when its names are present. Raises on a missing
-    name."""
-    visual = any(n in arrays for n in DCNET_VISUAL_NAMES)
-    names = DCNET_NAMES + (DCNET_VISUAL_NAMES if visual else ())
-    t = _tensors(arrays, names, "DCNet", device)
+def dcnet_params_from_tensors(t: Mapping[str, torch.Tensor]) -> DCNetParams:
+    """DCNetParams holding the named tensors themselves (no copy); the
+    visual head when its names are present."""
+    visual = any(n in t for n in DCNET_VISUAL_NAMES)
     return DCNetParams(
         embedding=t["embedding"],
         encoder=_lstm(t, "encoder"),
@@ -118,6 +112,24 @@ def dcnet_params_from_numpy(arrays: Mapping[str, np.ndarray],
     )
 
 
+def editnet_params_from_numpy(arrays: Mapping[str, np.ndarray],
+                              device: "str | torch.device") -> EditNetParams:
+    """EditNetParams (float32 tensors on ``device``) from flat named
+    arrays. Raises on a missing name."""
+    return editnet_params_from_tensors(
+        _tensors(arrays, EDITNET_NAMES, "EditNet", device))
+
+
+def dcnet_params_from_numpy(arrays: Mapping[str, np.ndarray],
+                            device: "str | torch.device") -> DCNetParams:
+    """DCNetParams (float32 tensors on ``device``) from flat named arrays;
+    the visual head when its names are present. Raises on a missing
+    name."""
+    visual = any(n in arrays for n in DCNET_VISUAL_NAMES)
+    names = DCNET_NAMES + (DCNET_VISUAL_NAMES if visual else ())
+    return dcnet_params_from_tensors(_tensors(arrays, names, "DCNet", device))
+
+
 def _names(params: Params) -> tuple[str, ...]:
     if isinstance(params, EditNetParams):
         return EDITNET_NAMES
@@ -126,16 +138,32 @@ def _names(params: Params) -> tuple[str, ...]:
     return DCNET_NAMES
 
 
-def params_to_numpy(params: Params) -> dict[str, np.ndarray]:
-    """The inverse of ``editnet_params_from_numpy`` and
-    ``dcnet_params_from_numpy``, for either arch."""
+def named_tensors(params: Params) -> dict[str, torch.Tensor]:
+    """Every weight of ``params`` by its checkpoint name, the tensors
+    themselves (no copy)."""
     def get(name):
         obj = params
         for part in name.split("/"):
             obj = getattr(obj, part)
-        return obj.detach().float().cpu().numpy()
+        return obj
 
     return {name: get(name) for name in _names(params)}
+
+
+def params_from_tensors(tensors: Mapping[str, torch.Tensor],
+                        like: Params) -> Params:
+    """A parameter object of ``like``'s arch holding ``tensors`` (no copy),
+    with empty packed-weight caches."""
+    if isinstance(like, EditNetParams):
+        return editnet_params_from_tensors(tensors)
+    return dcnet_params_from_tensors(tensors)
+
+
+def params_to_numpy(params: Params) -> dict[str, np.ndarray]:
+    """The inverse of ``editnet_params_from_numpy`` and
+    ``dcnet_params_from_numpy``, for either arch."""
+    return {name: t.detach().float().cpu().numpy()
+            for name, t in named_tensors(params).items()}
 
 
 def params_arch(arrays: Mapping[str, np.ndarray]) -> str:

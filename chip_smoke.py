@@ -121,6 +121,19 @@ prints no result line:
               (quantized rows streamed beside w_qt) at H = 2048 and 4096
               against their plain versions, a skipped h chunk must fail;
               times.
+16. evaluate — a synthetic Karpathy split (5,000 test images) prepared,
+              decoded and scored through cli prepare and cli decode.
+17. train   — cross-entropy training at xe_train's paper width (batch
+              256): a synthetic split (949 train images x 5 captions, 512
+              val images) prepared; cli train-xe for one epoch with CIDEr
+              validation through the head kernel (launches counted); the
+              epoch resumed from step 12 against the uninterrupted run;
+              the exported weights decoded by cli decode; the deferred
+              backward against autograd on one batch with a planted
+              dropped term; ms a step, tokens/s, peak memory, deferred and
+              autograd in turns, a profile (``--profile-train``, a process
+              of its own), dcnet_xe_train for a few steps; the step's
+              bound.
 
 Then a {"kernels": [...]} line listing all 12 wrappers and the 11 fp32
 instances (each with its launches on its path, check, ms, plain ms, bound
@@ -3177,14 +3190,18 @@ def phase_wide_head(card) -> dict:
 N_TEST, REFS_A_IMAGE = 5000, 5  # the Karpathy test split
 
 
-def _write_karpathy(root: Path, V: int) -> dict:
+def _write_karpathy(root: Path, V: int, *, n_test: int = N_TEST,
+                    train_features: bool = False, n_val: int = 0) -> dict:
     """A synthetic split in the Karpathy layout, from seed 0: train
     captions whose words give ``prepare`` a wordmap of exactly V entries
-    (V - 4 words, each 5 times, the default min_word_freq), N_TEST test
-    images with 5 references each (5 to 16 words of the train vocab,
-    Zipf-distributed), an existing-caption JSON per split (the test
-    split's: a reference with a word dropped), and the test features
-    [N_TEST, 36, 2048] float32 as .npy."""
+    (V - 4 words, each 5 times, the default min_word_freq; 949 images of 5
+    ten-word captions at V = 9490), ``n_test`` test images with 5
+    references each (5 to 16 words of the train vocab, Zipf-distributed),
+    an existing-caption JSON per split (the test split's: a reference with
+    a word dropped), and the test features [n_test, 36, 2048] float32 as
+    .npy. ``train_features`` adds the train images' features, ``n_val`` a
+    val split drawn as the test split is, with its features (both drawn
+    after everything else, so the test split is the same either way)."""
     import numpy as np
 
     rng = np.random.default_rng(0)
@@ -3193,7 +3210,7 @@ def _write_karpathy(root: Path, V: int) -> dict:
     rng.shuffle(stream)
     sents = [[words[j] for j in stream[i:i + 10]]
              for i in range(0, len(stream), 10)]
-    images, existing = [], {"train": [], "test": []}
+    images, existing = [], {"train": []}
     cocoid = 100000
     for lo in range(0, len(sents), REFS_A_IMAGE):
         caps = sents[lo:lo + REFS_A_IMAGE]
@@ -3202,33 +3219,50 @@ def _write_karpathy(root: Path, V: int) -> dict:
         existing["train"].append({"image_id": cocoid,
                                   "caption": " ".join(caps[0])})
         cocoid += 1
-    test_ids = []
-    for _ in range(N_TEST):
-        caps = [[words[min(int(j), len(words)) - 1]
-                 for j in rng.zipf(1.3, int(rng.integers(5, 17)))]
-                for _ in range(REFS_A_IMAGE)]
-        images.append({"split": "test", "cocoid": cocoid,
-                       "sentences": [{"tokens": c} for c in caps]})
-        existing["test"].append({"image_id": cocoid,
-                                 "caption": " ".join(caps[0][1:])})
-        test_ids.append(cocoid)
-        cocoid += 3
+    n_train = len(existing["train"])
+
+    def held_out(split, n):
+        nonlocal cocoid
+        ids = []
+        existing[split] = []
+        for _ in range(n):
+            caps = [[words[min(int(j), len(words)) - 1]
+                     for j in rng.zipf(1.3, int(rng.integers(5, 17)))]
+                    for _ in range(REFS_A_IMAGE)]
+            images.append({"split": split, "cocoid": cocoid,
+                           "sentences": [{"tokens": c} for c in caps]})
+            existing[split].append({"image_id": cocoid,
+                                    "caption": " ".join(caps[0][1:])})
+            ids.append(cocoid)
+            cocoid += 3
+        return ids
+
+    test_ids = held_out("test", n_test) if n_test else []
     root.mkdir(parents=True, exist_ok=True)
-    paths = {"karpathy": root / "dataset_coco.json",
-             "features": root / "test_features.npy"}
+    paths = {"karpathy": root / "dataset_coco.json"}
+
+    def features(name, n):
+        paths[name] = root / f"{name}.npy"
+        feats = np.lib.format.open_memmap(
+            paths[name], mode="w+", dtype=np.float32, shape=(n, 36, 2048))
+        for lo in range(0, n, 500):
+            feats[lo:lo + 500] = rng.standard_normal(
+                (min(500, n - lo), 36, 2048), dtype=np.float32)
+        feats.flush()
+
+    if n_test:
+        features("features", n_test)
+    val_ids = held_out("val", n_val) if n_val else []
+    if train_features:
+        features("features_train", n_train)
+    if n_val:
+        features("features_val", n_val)
     paths["karpathy"].write_text(json.dumps({"images": images}))
     for split, rows in existing.items():
         paths[f"existing_{split}"] = root / f"existing_{split}.json"
         paths[f"existing_{split}"].write_text(json.dumps(rows))
-    feats = np.lib.format.open_memmap(
-        paths["features"], mode="w+", dtype=np.float32,
-        shape=(N_TEST, 36, 2048))
-    for lo in range(0, N_TEST, 500):
-        feats[lo:lo + 500] = rng.standard_normal(
-            (min(500, N_TEST - lo), 36, 2048), dtype=np.float32)
-    feats.flush()
-    del feats
-    return {"paths": paths, "test_ids": test_ids}
+    return {"paths": paths, "test_ids": test_ids, "val_ids": val_ids,
+            "n_train": n_train}
 
 
 def _cli(*argv, timeout=900) -> dict:
@@ -3443,6 +3477,440 @@ def phase_evaluate(ed, wrappers, card) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# Cross-entropy training (train/): xe_train at paper width
+# --------------------------------------------------------------------------
+
+N_VAL = 512  # validation images, 5 references each
+TRAIN_DEVICE = "cuda"
+TRAIN_BATCH = 256  # DataConfig.batch_size of xe_train
+# The deferred backward against autograd through the loop, per weight:
+# max |deferred - autograd| / max |autograd|. The two routes round
+# differently in bf16 (the deferred one rounds every step's product
+# cotangent to bf16 for its single weight-gradient product, as the
+# reference's does; autograd rounds each step's weight gradient), so they
+# differ by a few bf16 ulps of the larger gradients: GRAD_RTOL. The
+# attentions' query kernels and biases get a gradient that is the
+# remainder of a sum over positions which cancels to first order (a
+# softmax backward sums to zero) and sits at the rounding floor of its
+# terms: GRAD_RTOL_FLOOR (a dropped or wrong term moves a gradient by its
+# whole size, 1.0).
+GRAD_RTOL = 5e-2
+GRAD_RTOL_FLOOR = 0.5
+GRAD_FLOOR = ("vis_attention/w_q", "vis_attention/b", "scma/w_q", "scma/b")
+
+
+def _train_bound(P, B, T, Tm, E, H, A, F, R, V) -> dict:
+    """The least time of an XE step (``xe_train``, EditNet): every product
+    of the forward once and of the backward twice (the input's and the
+    weight's gradient; the region features need none), bf16 on the tensor
+    cores; the attention tanh on the special-function unit; the step's
+    inputs read once and its outputs written once in bytes: the batch's
+    features, and the P fp32 weights with Adam's two moments read and
+    written."""
+    step = (2 * B * 2 * H * 4 * H + 2 * 2 * B * H * A + 2 * B * H * F
+            + 2 * B * (F + 2 * H) * 4 * H + 2 * B * (F + 3 * H) * H
+            + 2 * B * R * F + 2 * B * Tm * H)
+    fwd = (2 * B * Tm * E * 4 * H + 2 * B * Tm * H * 4 * H
+           + 2 * B * R * F * A + 2 * B * Tm * H * A + 2 * B * F * 4 * H
+           + 2 * B * T * E * 4 * H + T * step + 2 * B * T * H * V)
+    mm = 3 * fwd - 2 * B * R * F * A
+    tanh = B * T * (R + Tm) * A
+    ew = 3 * B * T * (R + Tm) * A  # the score terms, forward
+    n_bytes = 4 * B * R * F + 8 * B * (2 * Tm + 2) + 6 * 4 * P
+    return _ops_bound(mm, ew, n_bytes, tanh=tanh)
+
+
+def _grad_errors(got: dict, want: dict) -> dict:
+    """Per weight: max |got - want| / max |want|."""
+    return {n: float((got[n] - want[n]).abs().max()
+                     / want[n].abs().max().clamp_min(1e-30)) for n in want}
+
+
+def _grads(model, params, batch):
+    import torch
+
+    from captionkit_torch.params import named_tensors
+    from captionkit_torch.train.xe import BATCH_KEYS, xe_loss
+
+    loss, _ = xe_loss(model, params, *(batch[k] for k in BATCH_KEYS),
+                      train=True)
+    named = named_tensors(params)
+    return dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+
+
+def _grad_check_fails(errors: dict) -> list:
+    return [n for n, e in errors.items()
+            if e > (GRAD_RTOL_FLOOR if n in GRAD_FLOOR else GRAD_RTOL)]
+
+
+def _train_steps_timed(fn, state, batches) -> dict:
+    """Run ``fn`` over ``batches`` with CUDA events around every step;
+    ms a step over the steps after the first, tokens/s over the same
+    steps, the first and last loss, the peak memory."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, metrics = [], []
+    for b in batches:
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        state, m = fn(state, b)
+        e.record()
+        events.append((s, e))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e in events]
+    losses = [float(m["loss"]) for m in metrics]
+    tokens = [int(m["tokens"]) for m in metrics]
+    return {"state": state, "ms_first": ms[0],
+            "ms_a_step": statistics.mean(ms[1:]),
+            "ms_steps": ms,
+            "tokens_per_s": 1e3 * sum(tokens[1:]) / sum(ms[1:]),
+            "tokens_a_step": statistics.mean(tokens),
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _device_batches(ds, cfg, n, dev, epoch=0):
+    from captionkit_torch.train.xe import batch_to_device_dict
+
+    out = []
+    for i, b in enumerate(ds.batches(cfg.data.batch_size, shuffle=True,
+                                     seed=cfg.train.seed + epoch)):
+        if i == n:
+            break
+        out.append(batch_to_device_dict(b, dev))
+    return out
+
+
+def _cli_in_process(argv) -> dict:
+    from captionkit_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main([str(a) for a in argv])
+    check(rc == 0, f"cli {argv[0]} returned {rc}")
+    return json.loads(out.getvalue())
+
+
+def profile_train(prep: str) -> None:
+    """``chip_smoke.py --profile-train PREP``: two xe_train steps under
+    torch.profiler, in a process of its own (the profiler records every
+    kernel only in a process's first session); prints one JSON line."""
+    import torch
+
+    from captionkit_torch.config import get_named_config
+    from captionkit_torch.data.prepare import load_prepared_split
+    from captionkit_torch.models import get_model
+    from captionkit_torch.train.state import create_train_state
+    from captionkit_torch.train.xe import make_xe_train_step
+
+    dev = torch.device(TRAIN_DEVICE)
+    cfg = get_named_config("xe_train")
+    ds = load_prepared_split(prep, "train", max_len=cfg.data.max_len)
+    cfg = cfg.override({"model.vocab_size": len(ds.vocab)})
+    model = get_model(cfg.model)
+    state = create_train_state(lambda seed: model.init(seed, dev),
+                               cfg.train)
+    fn = make_xe_train_step(model, cfg.train)
+    batches = _device_batches(ds, cfg, 4, dev)
+    for b in batches[:2]:
+        state, _ = fn(state, b)
+    torch.cuda.synchronize()
+    holder = {"state": state}
+
+    def run():
+        for b in batches[2:]:
+            holder["state"], m = fn(holder["state"], b)
+        torch.cuda.synchronize()
+
+    prof = _profile(run, top=12)
+    prof["steps"] = len(batches) - 2
+    print(json.dumps(prof), flush=True)
+
+
+def mm_dtype_derivative() -> str:
+    """Whether ``torch.mm(bf16, bf16, out_dtype=float32)`` has a derivative
+    of its own here: "present", or the error its backward raises
+    (``nn.cells._MatmulF32Out`` gives the port's route one either way)."""
+    import torch
+
+    a = torch.randn(8, 16, device=TRAIN_DEVICE, requires_grad=True)
+    b = torch.randn(16, 4, device=TRAIN_DEVICE, requires_grad=True)
+    try:
+        torch.mm(a.bfloat16(), b.bfloat16(),
+                 out_dtype=torch.float32).sum().backward()
+    except (RuntimeError, NotImplementedError) as e:
+        return f"absent: {type(e).__name__}: {str(e)[:200]}"
+    return "present"
+
+
+def phase_train(wrappers, card) -> dict:
+    """Cross-entropy training at xe_train's paper width (EditNet, V 9490,
+    batch 256, targets of 22): a synthetic Karpathy split (949 train
+    images x 5 ten-word captions, 36x2048 float32 features; 512 val
+    images, 5 references each) through ``cli prepare``; then in this
+    process, wrapper launches counted: ``cli train-xe`` for one epoch (19
+    steps) with its CIDEr validation on the val split (the beam through
+    fused_head_topk); the same epoch as 12 steps, then ``--resume`` for
+    the rest, against the uninterrupted run; ``--export-params`` decoded
+    by ``cli decode`` in a process of its own; the deferred backward
+    against autograd through the loop on one batch (bf16, dropout 0),
+    with a planted dropped term that must fail; ms a step by CUDA events,
+    tokens/s, peak memory, the deferred and autograd steps in turns, a
+    profile in a process of its own, and dcnet_xe_train for a few
+    steps."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from captionkit_torch.config import get_named_config
+    from captionkit_torch.data.prepare import load_prepared_split
+    from captionkit_torch.models import editnet_backward, get_model
+    from captionkit_torch.params import load_params_npz, named_tensors
+    from captionkit_torch.train.state import create_train_state
+    from captionkit_torch.train.xe import make_xe_train_step
+
+    dev = torch.device(TRAIN_DEVICE)
+    root = SMOKE_DIR / "train"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        base = get_named_config("xe_train")
+        V = base.model.vocab_size
+        t0 = time.perf_counter()
+        made = _write_karpathy(root, V, n_test=0, train_features=True,
+                               n_val=N_VAL)
+        paths = made["paths"]
+        write_s = time.perf_counter() - t0
+        prep = root / "prepared"
+        t0 = time.perf_counter()
+        _cli("prepare", "--karpathy", paths["karpathy"], "--out", prep,
+             "--existing", f"train={paths['existing_train']}",
+             "--existing", f"val={paths['existing_val']}",
+             "--features", f"train={paths['features_train']}",
+             "--features", f"val={paths['features_val']}")
+        prepare_s = time.perf_counter() - t0
+        for k in ("features_train", "features_val"):
+            paths[k].unlink()
+        ds = load_prepared_split(str(prep), "train",
+                                 max_len=base.data.max_len)
+        check(len(ds.vocab) == V, f"wordmap of {len(ds.vocab)} entries")
+        per_epoch = -(-ds.size // TRAIN_BATCH)
+        common = ["train-xe", "--config", "xe_train", "--prepared", prep,
+                  "--split", "train", "--device", TRAIN_DEVICE,
+                  "--set", "train.epochs=1", "--set",
+                  "train.keep_checkpoints=1", "--set", "train.log_every=5"]
+
+        # 1. One epoch with validation: the main path, launches counted.
+        for w in wrappers:
+            w.launches = 0
+        t0 = time.perf_counter()
+        full = _cli_in_process(common + [
+            "--val-split", "val", "--set",
+            f"train.checkpoint_dir={root / 'ck_full'}",
+            "--export-params", root / "full.npz",
+            "--run-dir", root / "run"])
+        epoch_s = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in wrappers}
+        check(full["step"] == per_epoch,
+              f"the epoch ran {full['step']} steps, not {per_epoch}")
+        check(launches["fused_head_topk"] > 0,
+              f"the validation launched no head kernel: {launches}")
+        hist = full["history"][0]
+        check(np.isfinite(hist["loss"]) and hist["val_cider"] >= 0,
+              f"epoch record {hist}")
+        log_rows = [json.loads(x) for x in
+                    (root / "run" / "metrics.jsonl").read_text()
+                    .splitlines()]
+        check(any("val/cider" in r for r in log_rows) and
+              any("train/tokens_per_sec" in r for r in log_rows),
+              f"metrics.jsonl rows {log_rows[:3]}")
+
+        # 2. Determinism of the card's step, then the resumed run.
+        cfg = base.override({"model.vocab_size": V})
+        model = get_model(cfg.model)
+        batches = _device_batches(ds, cfg, per_epoch, dev)
+        twice = []
+        for _ in range(2):
+            st = create_train_state(lambda seed: model.init(seed, dev),
+                                    cfg.train)
+            fn = make_xe_train_step(model, cfg.train)
+            for b in batches[:2]:
+                st, _ = fn(st, b)
+            twice.append({n: t.detach().clone()
+                          for n, t in named_tensors(st.params).items()})
+        det_diff = max(float((twice[0][n] - twice[1][n]).abs().max())
+                       for n in twice[0])
+        deterministic = det_diff == 0.0
+        del twice, st
+        part = _cli_in_process(common + [
+            "--no-val", "--max-steps", "12", "--set",
+            f"train.checkpoint_dir={root / 'ck_resume'}"])
+        resumed = _cli_in_process(common + [
+            "--no-val", "--resume", "--set",
+            f"train.checkpoint_dir={root / 'ck_resume'}",
+            "--export-params", root / "resumed.npz"])
+        check(part["step"] == 12 and resumed["step"] == per_epoch,
+              f"resume ran to {part['step']}, {resumed['step']}")
+        a = load_params_npz(str(root / "full.npz"), "cpu")
+        b = load_params_npz(str(root / "resumed.npz"), "cpu")
+        resume_diff = max(float((x - named_tensors(b)[n]).abs().max())
+                          for n, x in named_tensors(a).items())
+        lr, n_after = cfg.train.learning_rate, per_epoch - 12
+        # Bit-equal when the step is deterministic; else Adam moves every
+        # weight by at most about lr a step, so two runs whose gradients
+        # differ in rounding stay within 2 lr a resumed step.
+        resume_tol = 0.0 if deterministic else 2 * lr * n_after
+        check(resume_diff <= resume_tol,
+              f"resumed params off the uninterrupted run by {resume_diff}")
+        loss_full = hist["loss"]
+        loss_parts = (12 * part["history"][0]["loss"] + n_after
+                      * resumed["history"][0]["loss"]) / per_epoch
+        loss_rel = abs(loss_parts - loss_full) / abs(loss_full)
+        check(loss_rel <= (1e-6 if deterministic else 1e-3),
+              f"resumed losses {loss_parts} against {loss_full}")
+
+        # 3. The exported weights decode through cli decode.
+        t0 = time.perf_counter()
+        decoded = _cli("decode", "--config", "editnet_beam5", "--prepared",
+                       prep, "--split", "val", "--params", root / "full.npz",
+                       "--set", f"decode.batch_size={N_IMAGES}",
+                       "--device", TRAIN_DEVICE)
+        decode_cli_s = time.perf_counter() - t0
+        check(decoded["captions"] == N_VAL and "CIDEr" in decoded,
+              f"decode of the exported weights: {decoded}")
+
+        # 4. The deferred backward against autograd on one batch.
+        nodrop = cfg.override({"model.dropout": 0.0})
+        m_def = get_model(nodrop.model)
+        m_auto = get_model(nodrop.override(
+            {"model.deferred_backward": False}).model)
+        st = create_train_state(lambda seed: m_def.init(seed, dev),
+                                cfg.train)
+        want = _grads(m_auto, st.params, batches[0])
+        got = _grads(m_def, st.params, batches[0])
+        errors = _grad_errors(got, want)
+        failing = _grad_check_fails(errors)
+        check(not failing, f"deferred gradients off autograd: "
+                           f"{ {n: errors[n] for n in failing} }")
+        editnet_backward.PLANTED_FAULT = "lang_wrc"
+        try:
+            planted = _grad_check_fails(_grad_errors(
+                _grads(m_def, st.params, batches[0]), want))
+        finally:
+            editnet_backward.PLANTED_FAULT = None
+        check(planted == ["lang_lstm/wrc"],
+              f"the dropped lang_wrc term was not caught: {planted}")
+        del want, got, st
+        torch.cuda.empty_cache()
+
+        # 5. Times: one epoch from a fresh state (deferred, the default),
+        # then the deferred and autograd steps in turns.
+        st = create_train_state(lambda seed: model.init(seed, dev),
+                                cfg.train)
+        timed = _train_steps_timed(make_xe_train_step(model, cfg.train),
+                                   st, batches)
+        del st, timed["state"]
+        torch.cuda.empty_cache()
+        m_auto_d = get_model(cfg.override(
+            {"model.deferred_backward": False}).model)
+        turns = {"deferred": [], "autograd": []}
+        peak = {}
+        states = {}
+        fns = {"deferred": make_xe_train_step(model, cfg.train),
+               "autograd": make_xe_train_step(m_auto_d, cfg.train)}
+        for name in fns:
+            states[name] = create_train_state(
+                lambda seed: model.init(seed, dev), cfg.train)
+            states[name], _ = fns[name](states[name], batches[0])
+        for rnd in range(4):
+            for name in (("deferred", "autograd") if rnd % 2 == 0
+                         else ("autograd", "deferred")):
+                r = _train_steps_timed(fns[name], states[name],
+                                       batches[1 + 3 * rnd:4 + 3 * rnd])
+                states[name] = r["state"]
+                turns[name].append(statistics.mean(r["ms_steps"]))
+                peak[name] = max(peak.get(name, 0.0), r["peak_memory_gb"])
+        del states
+        torch.cuda.empty_cache()
+
+        # 6. A profile of two steps, in a process of its own.
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--profile-train",
+             str(prep)], cwd=ROOT, capture_output=True, text=True,
+            timeout=600)
+        check(proc.returncode == 0,
+              f"train profile exited {proc.returncode}: "
+              f"{proc.stderr[-3000:]}")
+        prof = json.loads(proc.stdout.strip().splitlines()[-1])
+
+        # 7. dcnet_xe_train for a few steps.
+        dcfg = get_named_config("dcnet_xe_train").override(
+            {"model.vocab_size": V})
+        dmodel = get_model(dcfg.model)
+        dst = create_train_state(lambda seed: dmodel.init(seed, dev),
+                                 dcfg.train)
+        dc = _train_steps_timed(make_xe_train_step(dmodel, dcfg.train), dst,
+                                batches[:6])
+        del dst, dc["state"]
+        check(np.isfinite(dc["loss_last"]), f"DCNet loss {dc['loss_last']}")
+
+        P = sum(t.numel() for t in named_tensors(model.init(0, "cpu"))
+                .values())
+        bound = _train_bound(P, TRAIN_BATCH, base.data.max_len - 1,
+                             base.data.max_existing_len, 1024, 1024, 512,
+                             2048, 36, V)
+        result = {
+            "phase": "train", "ok": True, "card": card,
+            "config": "xe_train", "batch": TRAIN_BATCH,
+            "train_images": made["n_train"], "train_captions": ds.size,
+            "val_images": N_VAL, "steps_a_epoch": per_epoch,
+            "params": P,
+            "write_split_s": write_s, "prepare_s": prepare_s,
+            "epoch_cli_s": epoch_s,
+            "epoch": {k: hist[k] for k in hist},
+            "validation": {"decode_s": hist["val_decode_s"],
+                           "score_s": hist["val_score_s"],
+                           "cider": hist["val_cider"],
+                           "head_launches": launches["fused_head_topk"]},
+            "launches": launches,
+            "deterministic": deterministic,
+            "same_steps_max_abs_diff": det_diff,
+            "mm_dtype_derivative": mm_dtype_derivative(),
+            "resume": {"max_abs_diff": resume_diff, "tol": resume_tol,
+                       "loss_rel_diff": loss_rel},
+            "export_decode": {"cli_s": decode_cli_s,
+                              "cider": decoded["CIDEr"]},
+            "grad_check": {"rtol": GRAD_RTOL,
+                           "rtol_floor": GRAD_RTOL_FLOOR,
+                           "max_rel_err": max(
+                               e for n, e in errors.items()
+                               if n not in GRAD_FLOOR),
+                           "max_rel_err_floor": max(
+                               errors[n] for n in GRAD_FLOOR),
+                           "errors": errors,
+                           "planted_lang_wrc_caught": True},
+            "step": {k: v for k, v in timed.items() if k != "ms_steps"},
+            "ms_steps": timed["ms_steps"],
+            "turns_ms": turns,
+            "turns_mean_ms": {k: statistics.mean(v)
+                              for k, v in turns.items()},
+            "turns_peak_memory_gb": peak,
+            "profile": prof,
+            "bound": bound,
+            "dcnet_xe_train": {k: v for k, v in dc.items()
+                               if k not in ("state", "ms_steps")},
+            "nvidia_smi": card}
+        emit(result)
+        return result
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not (ROOT / "captionkit_torch" / "csrc").is_dir():
         print("chip_smoke.py: no captionkit_torch package beside it",
@@ -3496,6 +3964,8 @@ def main() -> int:
         phase_wide_head(card)
         phase = "evaluate"
         phase_evaluate(ed, WRAPPERS, card)
+        phase = "train"
+        train = phase_train(WRAPPERS, card)
     except Exception as e:  # every failed phase ends the run non-zero
         traceback.print_exc()
         emit({"phase": phase, "ok": False,
@@ -3507,6 +3977,7 @@ def main() -> int:
         "source": "captionkit_torch/csrc/head_topk.cu",
         "replaces": "captionkit/ops/head.py:490",
         "launches": serve["launches"]["fused_head_topk"],
+        "launches_train": train["launches"]["fused_head_topk"],
         "launches_per_batch": decode["head_launches"],
         "cuda_launches_per_call": head["cuda_launches_per_call"],
         "check": "ok",
@@ -3703,4 +4174,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--profile-train"]:
+        sys.path.insert(0, str(ROOT))
+        profile_train(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

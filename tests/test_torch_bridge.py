@@ -90,7 +90,10 @@ def test_port_imports_no_jax_and_nothing_of_captionkit():
     for name in ("kernels.lstm", "kernels.attention", "kernels.wholestep",
                  "nn.dispatch", "decode.greedy", "metrics.eval",
                  "metrics.fast", "metrics.meteor", "metrics.external",
-                 "data.prepare", "data.faststore", "utils.nativebuild"):
+                 "data.prepare", "data.faststore", "utils.nativebuild",
+                 "models.editnet_backward", "models.dcnet_backward",
+                 "train.state", "train.xe", "train.checkpoint",
+                 "train.loop", "utils.logging", "utils.preemption"):
         assert f"captionkit_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

@@ -1634,3 +1634,128 @@ def test_cli_decode_on_card_matches_cpu(card, tmp_path, capsys):
     same = [a["caption"] == b["caption"]
             for a, b in zip(outs["cuda"][1], outs["cpu"][1])]
     assert len(same) == 24 and sum(same) >= 0.9 * 24
+
+
+# --------------------------------------------------------------------------
+# Training: the card's matmul route with a gradient, one train step
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_mm_gradient_route_rounds_as_the_cpu_route(card, batched):
+    """``nn.cells.mm``/``bmm`` at bf16 on the card (``torch.mm``/``bmm``
+    with ``out_dtype`` through ``_MatmulF32Out``) against the CPU route
+    (the float32 product of the rounded operands, whose casts round the
+    gradients): the products agree to float32 rounding; each operand's
+    gradient is a float32 product rounded once to bf16 (so exactly a bf16
+    value), and the two devices' agree but for a bf16 rounding that
+    float32 sums in another order may flip (one bf16 ulp, in few
+    elements)."""
+    from captionkit_torch.nn.cells import bmm, mm
+
+    g = torch.Generator().manual_seed(0)
+    shape_a, shape_b = ((3, 40, 96), (3, 96, 24)) if batched else \
+        ((40, 96), (96, 24))
+    a = torch.randn(shape_a, generator=g)
+    b = torch.randn(shape_b, generator=g)
+    cot = torch.randn((*shape_a[:-1], shape_b[-1]), generator=g)
+    fn = bmm if batched else mm
+    out = {}
+    for dev in ("cpu", "cuda"):
+        x = a.to(dev).detach().requires_grad_(True)
+        y = b.to(dev).detach().requires_grad_(True)
+        z = fn(x, y, torch.bfloat16)
+        assert z.dtype == torch.float32
+        (z * cot.to(dev)).sum().backward()
+        out[dev] = (z.detach().cpu(), x.grad.cpu(), y.grad.cpu())
+    # The products: float32 sums of bf16 products in another order.
+    assert torch.allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                          atol=1e-5)
+    for want, got in zip(out["cpu"][1:], out["cuda"][1:]):
+        assert torch.equal(got.bfloat16().float(), got)  # rounded once
+        ulp = torch.where(want == 0, torch.ones_like(want),
+                          want.abs()) * 2.0 ** -8
+        assert bool(((got - want).abs() <= ulp + 1e-6).all())
+        assert float((got == want).float().mean()) >= 0.9
+
+
+SMALL_TRAIN = dict(vocab_size=60, emb_dim=16, hidden_dim=32, att_dim=16,
+                   feat_dim=24, num_regions=5, dropout=0.0)
+
+
+def _train_batch(dev, B=6, T_in=7, T_out=9, seed=0):
+    r = np.random.default_rng(seed)
+    V = SMALL_TRAIN["vocab_size"]
+    tl = np.asarray([9, 3, 6, 2, 9, 5][:B])
+    tgt = r.integers(4, V, (B, T_out))
+    tgt[:, 0] = 1
+    for i in range(B):
+        tgt[i, tl[i] - 1] = 2
+        tgt[i, tl[i]:] = 0
+    return {"features": torch.from_numpy(r.standard_normal(
+                (B, 5, 24)).astype(np.float32)).to(dev),
+            "existing": torch.from_numpy(r.integers(4, V, (B, T_in))).to(dev),
+            "existing_len": torch.from_numpy(
+                np.asarray([7, 2, 5, 3, 1, 7][:B])).to(dev),
+            "target": torch.from_numpy(tgt).to(dev),
+            "target_len": torch.from_numpy(tl).to(dev),
+            "valid": torch.ones(B, dtype=torch.bool, device=dev)}
+
+
+def _xe_grads(model, params, batch):
+    from captionkit_torch.params import named_tensors
+    from captionkit_torch.train.xe import BATCH_KEYS, xe_loss
+
+    loss, _ = xe_loss(model, params, *(batch[k] for k in BATCH_KEYS),
+                      train=True)
+    named = named_tensors(params)
+    return dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_on_card_matches_plain_loop_and_cpu(card, dtype):
+    """One XE step on the card: the deferred backward's gradients against
+    autograd through the loop on the card, and the card's deferred
+    gradients against the CPU's. Per weight, max |diff| / max |want|
+    within 1e-4 (fp32) or 5e-2 (bf16: the routes round the cotangents
+    differently), the attentions' query kernels and biases (a cancelling
+    sum at its rounding floor) within 0.5. Then a whole train step (SGD,
+    so that no Adam normalization blows rounding up) through the deferred
+    backward and through the loop: the weights within 1e-6 at fp32."""
+    from captionkit_torch.config import ModelConfig, TrainConfig
+    from captionkit_torch.params import named_tensors
+    from captionkit_torch.train.state import create_train_state
+    from captionkit_torch.train.xe import make_xe_train_step
+
+    floor = ("vis_attention/w_q", "vis_attention/b", "scma/w_q", "scma/b")
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    cfg = ModelConfig(arch="editnet", compute_dtype=dtype, **SMALL_TRAIN)
+    models = {"deferred": get_model(cfg), "loop": get_model(
+        dataclasses.replace(cfg, deferred_backward=False))}
+    tcfg = TrainConfig(seed=3, optimizer="sgd", learning_rate=0.1)
+
+    def state(dev):
+        return create_train_state(
+            lambda seed: models["deferred"].init(seed, dev), tcfg)
+
+    grads = {
+        "card": _xe_grads(models["deferred"], state("cuda").params,
+                          _train_batch("cuda")),
+        "loop": _xe_grads(models["loop"], state("cuda").params,
+                          _train_batch("cuda")),
+        "cpu": _xe_grads(models["deferred"], state("cpu").params,
+                         _train_batch("cpu"))}
+    for want in ("loop", "cpu"):
+        for n, g in grads["card"].items():
+            w = grads[want][n].cpu()
+            err = float((g.cpu() - w).abs().max()
+                        / w.abs().max().clamp_min(1e-30))
+            assert err <= (0.5 if n in floor else tol), (want, n, err)
+    if dtype == "float32":
+        after = {}
+        for name, model in models.items():
+            st, m = make_xe_train_step(model, tcfg)(state("cuda"),
+                                                    _train_batch("cuda"))
+            assert torch.isfinite(m["loss"]) and st.step == 1
+            after[name] = named_tensors(st.params)
+        for n, t in after["deferred"].items():
+            assert torch.allclose(t, after["loop"][n], atol=1e-6, rtol=0), n

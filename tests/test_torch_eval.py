@@ -209,3 +209,42 @@ def test_cli_decode_refuses_ensembles_and_defaults_to_the_card(split_dir,
             cli.main(argv)
     got = _run(cli.main, argv + ["--device", "cpu", "--no-metrics"])
     assert got["captions"] == 3.0
+
+
+@pytest.mark.parametrize("layout", ["float64", "fortran_float32",
+                                    "big_endian"])
+def test_npy_layouts_the_native_gather_cannot_read_decode_as_in_jax(
+        split_dir, layout):
+    """A feature ``.npy`` of float64, Fortran order or big-endian loads
+    through the numpy gather (``load_hdf5_features``, as the reference's)
+    and decodes and scores as the reference does."""
+    from captionkit.data.sources import load_hdf5_features as j_load
+
+    from captionkit_torch.data.sources import load_hdf5_features
+
+    base = np.load(str(split_dir / "feats_test.npy"))
+    arr = {"float64": base.astype(np.float64),
+           "fortran_float32": np.asfortranarray(base),
+           "big_endian": base.astype(">f4")}[layout]
+    path = str(split_dir / f"feats_{layout}.npy")
+    np.save(path, arr)
+    t_feats, j_feats = load_hdf5_features(path), j_load(path)
+    assert not t_feats.is_native
+    idx = np.asarray([6, 0, 3, 3])
+    np.testing.assert_array_equal(t_feats.gather(idx), j_feats.gather(idx))
+    j_ds = j_load_prepared(str(split_dir / "p"), "test").eval_view()
+    t_ds = load_prepared_split(str(split_dir / "p"), "test").eval_view()
+    j_ds.features, t_ds.features = j_feats, t_feats
+    kw = dict(SMALL, arch="editnet", vocab_size=len(t_ds.vocab))
+    jm = jax_get_model(JaxModelConfig(**kw))
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm, tp = get_model(ModelConfig(**kw)), editnet_params_from_numpy(
+        _flat(jp), "cpu")
+    j_out, t_out = (split_dir / f"j_{layout}.json",
+                    split_dir / f"t_{layout}.json")
+    want = j_evaluate_split(jm, jp, j_ds, JaxDecodeConfig(**DECODE),
+                            results_path=str(j_out))
+    got = evaluate_split(tm, tp, t_ds, DecodeConfig(**DECODE),
+                         results_path=str(t_out), device="cpu")
+    assert t_out.read_bytes() == j_out.read_bytes()
+    assert _strip(got) == _strip(want)

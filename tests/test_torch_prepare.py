@@ -259,10 +259,15 @@ def test_feature_store_native_byte_equal_to_numpy(tmp_path, idx):
 
 def test_feature_store_rejects_what_the_native_gather_does_not_take(
         tmp_path):
-    path = str(tmp_path / "f64.npy")
+    """A layout the native gather cannot read (float64, Fortran order,
+    big-endian) goes to the numpy gather, chosen from the header."""
     arr = np.arange(24, dtype=np.float64).reshape(4, 2, 3)
-    np.save(path, arr)
-    with pytest.raises(ValueError, match="native=False"):
-        FeatureStore(path)
-    np.testing.assert_array_equal(
-        FeatureStore(path, native=False).gather([3, 0]), arr[[3, 0]])
+    for name, a in (("f64", arr), ("fortran", np.asfortranarray(
+            arr.astype(np.float32))), ("big", arr.astype(">f4"))):
+        path = str(tmp_path / f"{name}.npy")
+        np.save(path, a)
+        store = FeatureStore(path)
+        assert not store.is_native, name
+        np.testing.assert_array_equal(store.gather([3, 0]), a[[3, 0]])
+        np.testing.assert_array_equal(
+            FeatureStore(path, native=False).gather([3, 0]), a[[3, 0]])
