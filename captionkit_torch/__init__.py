@@ -13,10 +13,14 @@ Layout mirrors the reference's module names:
 * ``nn``              — masking, LSTM / Copy-LSTM cells, additive attention
                         and SCMA, the lowest-index top-k helper
 * ``params``          — the weight bridge from the reference's flat ``.npz``
-* ``models``          — ``ModelDef`` and EditNet
+* ``models``          — ``ModelDef``, EditNet, DCNet and checkpoint
+                        ensembles
 * ``kernels``         — hand-written CUDA kernels (``csrc/``), their build and
                         their wrappers; each has a plain PyTorch twin
-* ``decode``          — beam search and the split-decode driver
+* ``decode``          — beam search, greedy and sampling rollouts, the
+                        stacked DCNet -> EditNet editor, the split-decode
+                        driver
+* ``train``           — XE and SCST training, the optimizer, checkpoints
 * ``serve`` / ``cli`` — the JSON-lines caption server and its entry point
 
 Numerics: TF32 is switched off for matmuls and for cuDNN when this package

@@ -1,5 +1,5 @@
 """captionkit_torch CLI (``captionkit.cli``: serving, decoding and scoring
-a split, data preparation).
+a split, stacked editing, data preparation, XE and SCST training).
 
     python -m captionkit_torch.cli configs
     python -m captionkit_torch.cli serve --config editnet_beam5 --synthetic \\
@@ -22,6 +22,17 @@ a split, data preparation).
     python -m captionkit_torch.cli train-xe --config xe_train \\
         --prepared prep --split train --val-split val --max-steps 100 \\
         --export-params params.npz [--resume] [--device cpu]
+    python -m captionkit_torch.cli train-scst --config scst_train \\
+        --prepared prep --split train --val-split val --params xe.npz \\
+        --export-params scst.npz [--pipeline] [--device cpu]
+    python -m captionkit_torch.cli decode --config editnet_beam5 \\
+        --prepared prep --split test --params a.npz,b.npz \\
+        [--ensemble-mode prob]
+    python -m captionkit_torch.cli decode-stacked --config editnet_beam5 \\
+        --prepared prep --split test --dcnet-params dc.npz \\
+        --editnet-params ed.npz --out results.json
+    python -m captionkit_torch.cli serve --config editnet_beam5 --synthetic \\
+        --stacked [--dcnet-params dc.npz] [--params ed.npz]
     python -m captionkit_torch.cli decode --config editnet_beam5 \\
         --wordmap WORDMAP.json --captions TEST_CAPTIONS.json \\
         --caplens TEST_CAPLENS.json --existing TEST_EXISTING.json \\
@@ -43,7 +54,18 @@ features to the card quantized per region (dequantized there), and
 extraction (the same captions); ``--set decode.beam_impl=backptr`` the
 backpointer beam history (the same captions). ``--params`` takes the flat
 ``.npz`` that either package's ``save_params_npz`` writes, for the
-config's arch; without it the weights are random from ``--seed``.
+config's arch; without it the weights are random from ``--seed``. For
+``decode`` and ``serve`` a comma list of such files decodes their
+checkpoint ensemble (``models/ensemble.py``), its members combined by
+``--ensemble-mode`` (``logprob``, the default: the mean of the member
+logits; ``prob``: the mean of their probabilities). ``serve --stacked``
+serves the DCNet -> EditNet pipeline (``--dcnet-params`` for DCNet,
+``--params`` for EditNet; either may be a list).
+
+``decode-stacked`` decodes a split through the same pipeline: DCNet
+greedy, then EditNet as ``decode`` configures it, with
+``--dcnet-params`` and ``--editnet-params`` (each one file, a comma list
+or absent: random weights).
 
 ``decode`` decodes a split (``--synthetic``, a ``prepare`` directory with
 ``--prepared``/``--split``, or the reference's raw artifacts) and, where
@@ -61,13 +83,17 @@ skips it), checkpointing under ``train.checkpoint_dir`` (``--resume``
 continues from its latest checkpoint), and writing the final raw or EMA
 weights as a decode-ready ``.npz`` with ``--export-params`` /
 ``--export-ema``. ``--run-dir`` writes ``metrics.jsonl``. It prints the
-report as JSON. ``--num-shards`` above 1 is refused until data-parallel
+report as JSON. ``train-scst`` fine-tunes with SCST (``train/loop.py::
+run_scst_training``) from one ``--params`` checkpoint (the XE weights;
+random weights without it), with the same data, validation, export and
+run-log flags, ``--pipeline`` to enqueue each batch's rollout before the
+previous batch's reward and update, and no ``--resume`` (as in the
+reference). Both refuse ``--num-shards`` above 1 until data-parallel
 training is ported.
 
 ``--device`` defaults to ``cuda`` and raises when there is no card;
 ``--device cpu`` runs the plain versions of the kernels on the CPU. The
-reference's other subcommands, ``--stacked`` and checkpoint ensembles are
-not yet ported.
+reference's ``convert`` and ``parity-gate`` are not yet ported.
 """
 
 from __future__ import annotations
@@ -83,7 +109,7 @@ from captionkit_torch.config import (
     list_named_configs,
 )
 
-NOT_PORTED = ("decode-stacked", "train-scst", "convert", "parity-gate")
+NOT_PORTED = ("convert", "parity-gate")
 
 
 def _parse_value(raw: str) -> Any:
@@ -108,14 +134,30 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("captionkit_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     sub.add_parser("configs", help="list named configs")
+
+    def add_ensemble_mode(sp):
+        sp.add_argument("--ensemble-mode", dest="ensemble_mode",
+                        choices=("logprob", "prob"), default="logprob",
+                        help="member combination of a comma list of "
+                             "checkpoints: mean logits (default) or mean "
+                             "probabilities")
     sp = sub.add_parser(
         "serve", help="JSON-lines caption-edit server on stdin/stdout")
     sp.add_argument("--config", default="editnet_beam5")
     sp.add_argument("--set", action="append", default=[], metavar="K=V")
-    sp.add_argument("--params", help="params .npz (else random weights)")
+    sp.add_argument("--params",
+                    help="params .npz (else random weights); a comma list "
+                         "serves their ensemble")
+    add_ensemble_mode(sp)
     sp.add_argument("--wordmap", help="WORDMAP json (reference format)")
     sp.add_argument("--synthetic", action="store_true",
                     help="toy vocab + random weights (demo/tests)")
+    sp.add_argument("--stacked", action="store_true",
+                    help="serve the DCNet->EditNet stacked pipeline "
+                         "(--params = EditNet, --dcnet-params = DCNet)")
+    sp.add_argument("--dcnet-params", dest="dcnet_params",
+                    help="DCNet params .npz for --stacked; a comma list "
+                         "ensembles that stage")
     sp.add_argument("--batch", type=int, default=8,
                     help="largest micro-batch")
     sp.add_argument("--ladder", default="",
@@ -166,7 +208,23 @@ def build_parser() -> argparse.ArgumentParser:
 
     sp = sub.add_parser("decode", help="decode + score a split")
     add_common(sp)
-    sp.add_argument("--params", help="params .npz (else random weights)")
+    sp.add_argument("--params",
+                    help="params .npz (else random weights); a comma list "
+                         "decodes their ensemble")
+    add_ensemble_mode(sp)
+    sp.add_argument("--out", help="results JSON path")
+    sp.add_argument("--no-metrics", action="store_true")
+
+    sp = sub.add_parser("decode-stacked",
+                        help="DCNet->EditNet stacked editing of a split")
+    add_common(sp)
+    sp.add_argument("--dcnet-params", dest="dcnet_params",
+                    help="DCNet params .npz; a comma list ensembles that "
+                         "stage")
+    sp.add_argument("--editnet-params", dest="editnet_params",
+                    help="EditNet params .npz; a comma list ensembles "
+                         "that stage")
+    add_ensemble_mode(sp)
     sp.add_argument("--out", help="results JSON path")
     sp.add_argument("--no-metrics", action="store_true")
 
@@ -187,25 +245,40 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--max-len", dest="max_len", type=int, default=22)
     sp.add_argument("--captions-per-image", dest="captions_per_image",
                     type=int, default=5)
+    def add_train(sp):
+        """The flags ``train-xe`` and ``train-scst`` share."""
+        add_common(sp)
+        sp.add_argument("--val-split", dest="val_split",
+                        help="validate on this split of --prepared "
+                             "(default: the training split's "
+                             "one-row-per-image view)")
+        sp.add_argument("--max-steps", dest="max_steps", type=int)
+        sp.add_argument("--no-val", dest="no_val", action="store_true")
+        sp.add_argument("--export-params", dest="export_params",
+                        metavar="OUT.npz",
+                        help="write the final raw weights as a "
+                             "decode-ready .npz")
+        sp.add_argument("--export-ema", dest="export_ema",
+                        metavar="OUT.npz",
+                        help="write the final EMA weights (needs "
+                             "train.ema_decay > 0)")
+        sp.add_argument("--run-dir", dest="run_dir", default="",
+                        help="write metrics.jsonl there")
+
     sp = sub.add_parser("train-xe", help="cross-entropy training")
-    add_common(sp)
-    sp.add_argument("--val-split", dest="val_split",
-                    help="validate on this split of --prepared (default: "
-                         "the training split's one-row-per-image view)")
-    sp.add_argument("--max-steps", dest="max_steps", type=int)
-    sp.add_argument("--no-val", dest="no_val", action="store_true")
+    add_train(sp)
     sp.add_argument("--resume", action="store_true",
                     help="resume from the latest checkpoint in "
                          "train.checkpoint_dir")
-    sp.add_argument("--export-params", dest="export_params",
-                    metavar="OUT.npz",
-                    help="write the final raw weights as a decode-ready "
-                         ".npz")
-    sp.add_argument("--export-ema", dest="export_ema", metavar="OUT.npz",
-                    help="write the final EMA weights (needs "
-                         "train.ema_decay > 0)")
-    sp.add_argument("--run-dir", dest="run_dir", default="",
-                    help="write metrics.jsonl there")
+    sp = sub.add_parser("train-scst", help="SCST fine-tuning")
+    add_train(sp)
+    sp.add_argument("--params",
+                    help="the XE weights to fine-tune (one .npz; else "
+                         "random weights)")
+    sp.add_argument("--pipeline", action="store_true",
+                    help="enqueue each batch's rollout before the previous "
+                         "batch's reward and update (one-step-stale "
+                         "policy)")
     for name in NOT_PORTED:
         sub.add_parser(name, help="not yet ported")
     return p
@@ -238,11 +311,34 @@ def cmd_serve(args) -> int:
     else:
         vocab = Vocab.load(args.wordmap)
     cfg = cfg.override({"model.vocab_size": len(vocab)})
-    model = get_model(cfg.model)
-    params = _load_params(args, model, cfg.model.arch, device)
+    model, params = _load_stage_params(args, get_model(cfg.model),
+                                       args.params, device)
     ladder = [int(s) for s in args.ladder.split(",")] if args.ladder else ()
+    decode_fn = None
+    if args.stacked:
+        # DCNet edits the incoming caption greedily, then EditNet (the
+        # configured decode) edits DCNet's output.
+        import dataclasses
+
+        from captionkit_torch.decode.stacked import make_stacked_decode_fn
+
+        dcnet, dp = _load_stage_params(
+            args, get_model(dataclasses.replace(cfg.model, arch="dcnet")),
+            args.dcnet_params, device)
+        stacked = make_stacked_decode_fn(
+            dcnet, model,
+            first_stage=dataclasses.replace(cfg.decode, method="greedy",
+                                            beam_size=1),
+            second_stage=cfg.decode, start_id=vocab.start,
+            end_id=vocab.end, pad_id=vocab.pad,
+            feed_dtype=cfg.decode.feed_dtype, device=device)
+        params = (dp, params)
+
+        def decode_fn(pair, feats, ids, lens, _step):
+            return stacked(pair[0], pair[1], feats, ids, lens)
+
     server = CaptionServer(cfg, params, model, vocab, ladder=ladder,
-                           device=device)
+                           decode_fn=decode_fn, device=device)
     if args.warmup:
         server.warmup()
     serve_stream(server, sys.stdin, sys.stdout,
@@ -250,16 +346,26 @@ def cmd_serve(args) -> int:
     return 0
 
 
-def _load_params(args, model, arch: str, device):
-    """One ``--params`` checkpoint, else random weights from ``--seed``."""
+def _load_stage_params(args, model, raw, device):
+    """(model, params) of one ``--params``-style value: none, random
+    weights from ``--seed``; one path, that checkpoint; a comma list, the
+    checkpoint ensemble of ``model`` under ``--ensemble-mode``."""
     from captionkit_torch.params import load_params_npz
 
-    if not args.params:
-        return model.init(args.seed, device)
-    if "," in args.params.strip(","):
-        raise SystemExit(f"{args.cmd}: checkpoint ensembles are not yet "
-                         "ported; pass one --params file")
-    return load_params_npz(args.params.strip(","), device, arch=arch)
+    paths = [p for p in (raw or "").split(",") if p]
+    if len(paths) > 1:
+        from captionkit_torch.models.ensemble import (
+            ensemble_model,
+            load_ensemble_params,
+        )
+
+        return (ensemble_model(model, len(paths),
+                               mode=getattr(args, "ensemble_mode",
+                                            "logprob")),
+                load_ensemble_params(model, paths, device))
+    if paths:
+        return model, load_params_npz(paths[0], device, arch=model.name)
+    return model, model.init(args.seed, device)
 
 
 def _load_dataset(args, cfg):
@@ -304,8 +410,8 @@ def cmd_decode(args) -> int:
     if args.num_shards > 1:
         eval_ds = eval_ds.shard(args.num_shards, args.shard_index)
     cfg = cfg.override({"model.vocab_size": len(eval_ds.vocab)})
-    model = get_model(cfg.model)
-    params = _load_params(args, model, cfg.model.arch, device)
+    model, params = _load_stage_params(args, get_model(cfg.model),
+                                       args.params, device)
     if eval_ds.references is not None and not args.no_metrics:
         metrics = evaluate_split(model, params, eval_ds, cfg.decode,
                                  results_path=args.out, device=device)
@@ -324,7 +430,7 @@ def _load_train_datasets(args, cfg):
     ds, val = _load_dataset(args, cfg)
     if args.val_split:
         if not args.prepared:
-            raise SystemExit("train-xe: --val-split needs --prepared")
+            raise SystemExit(f"{args.cmd}: --val-split needs --prepared")
         from captionkit_torch.data.prepare import load_prepared_split
 
         val = load_prepared_split(args.prepared, args.val_split,
@@ -349,6 +455,25 @@ def _export_trained_params(args, state) -> None:
         save_params_npz(avg, args.export_ema)
 
 
+def _refuse_shards(args) -> None:
+    if args.num_shards > 1:
+        raise SystemExit(
+            f"{args.cmd}: --num-shards > 1 needs data-parallel training, "
+            "which is not ported yet; train on one card")
+
+
+def _print_report(report, state) -> None:
+    best = report.best_metric if report.best_metric > float("-inf") \
+        else None
+    print(json.dumps({
+        "epochs_run": report.epochs_run,
+        "best_val_cider": best,
+        "preempted": report.preempted,
+        "step": state.step,
+        "history": report.history,
+    }, indent=2, default=float))
+
+
 def cmd_train_xe(args) -> int:
     import logging
 
@@ -360,10 +485,7 @@ def cmd_train_xe(args) -> int:
     from captionkit_torch.utils.logging import MetricsLogger
     from captionkit_torch.utils.preemption import PreemptionGuard
 
-    if args.num_shards > 1:
-        raise SystemExit(
-            "train-xe: --num-shards > 1 needs data-parallel training, "
-            "which is not ported yet; train on one card")
+    _refuse_shards(args)
     device = resolve_device(args.device)
     cfg = _apply_overrides(get_named_config(args.config), args.set)
     train_ds, val_ds = _load_train_datasets(args, cfg)
@@ -386,16 +508,110 @@ def cmd_train_xe(args) -> int:
     if mlogger is not None:
         mlogger.close()
     _export_trained_params(args, state)
-    best = report.best_metric if report.best_metric > float("-inf") \
-        else None
-    print(json.dumps({
-        "epochs_run": report.epochs_run,
-        "best_val_cider": best,
-        "preempted": report.preempted,
-        "step": state.step,
-        "history": report.history,
-    }, indent=2, default=float))
+    _print_report(report, state)
     ckpt.close()
+    return 0
+
+
+def cmd_train_scst(args) -> int:
+    from captionkit_torch.device import resolve_device
+    from captionkit_torch.models import get_model
+    from captionkit_torch.params import load_params_npz
+    from captionkit_torch.train.checkpoint import CheckpointManager
+    from captionkit_torch.train.loop import run_scst_training
+    from captionkit_torch.train.state import create_train_state
+    from captionkit_torch.utils.logging import MetricsLogger
+    from captionkit_torch.utils.preemption import PreemptionGuard
+
+    _refuse_shards(args)
+    if args.params and "," in args.params:
+        raise SystemExit(
+            "train-scst takes one --params checkpoint (the XE weights to "
+            "fine-tune); multi-checkpoint ensembles (--params a.npz,b.npz) "
+            "are supported by `decode` and `serve` only")
+    device = resolve_device(args.device)
+    cfg = _apply_overrides(get_named_config(args.config), args.set)
+    train_ds, val_ds = _load_train_datasets(args, cfg)
+    cfg = cfg.override({"model.vocab_size": len(train_ds.vocab)})
+    model = get_model(cfg.model)
+
+    def init_params(seed):
+        if args.params:
+            return load_params_npz(args.params, device, arch=model.name)
+        return model.init(seed, device)
+
+    # The optimizer state (and the EMA, when on) starts from the loaded
+    # weights.
+    state = create_train_state(init_params, cfg.train)
+    ckpt = CheckpointManager(cfg.train.checkpoint_dir,
+                             keep=cfg.train.keep_checkpoints)
+    mlogger = MetricsLogger(args.run_dir) if args.run_dir else None
+    with PreemptionGuard() as guard:
+        state, report = run_scst_training(
+            model, state, cfg, train_ds, None if args.no_val else val_ds,
+            ckpt=ckpt, max_steps=args.max_steps, metrics_logger=mlogger,
+            pipeline=args.pipeline, preemption=guard, device=device)
+    if mlogger is not None:
+        mlogger.close()
+    _export_trained_params(args, state)
+    _print_report(report, state)
+    ckpt.close()
+    return 0
+
+
+def cmd_decode_stacked(args) -> int:
+    """DCNet -> EditNet stacked editing of a split: DCNet greedy, then
+    EditNet as the config's decode says."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from captionkit_torch.data.featquant import quantize_for_feed
+    from captionkit_torch.decode.stacked import make_stacked_decode_fn
+    from captionkit_torch.device import resolve_device
+    from captionkit_torch.metrics.eval import CaptionEvaluator
+    from captionkit_torch.models import get_model
+
+    device = resolve_device(args.device)
+    cfg = _apply_overrides(get_named_config(args.config), args.set)
+    _, eval_ds = _load_dataset(args, cfg)
+    if args.num_shards > 1:
+        eval_ds = eval_ds.shard(args.num_shards, args.shard_index)
+    vocab = eval_ds.vocab
+    dcnet, dp = _load_stage_params(args, get_model(dataclasses.replace(
+        cfg.model, arch="dcnet", vocab_size=len(vocab))),
+        args.dcnet_params, device)
+    editnet, ep = _load_stage_params(args, get_model(dataclasses.replace(
+        cfg.model, arch="editnet", vocab_size=len(vocab))),
+        args.editnet_params, device)
+    fn = make_stacked_decode_fn(
+        dcnet, editnet,
+        first_stage=dataclasses.replace(cfg.decode, method="greedy",
+                                        beam_size=1),
+        second_stage=cfg.decode, start_id=vocab.start, end_id=vocab.end,
+        pad_id=vocab.pad, feed_dtype=cfg.decode.feed_dtype, device=device)
+    hyps = {}
+    for batch in eval_ds.batches(cfg.decode.batch_size):
+        toks = fn(dp, ep,
+                  quantize_for_feed(batch.features, cfg.decode.feed_dtype),
+                  torch.from_numpy(np.asarray(batch.existing, np.int64)),
+                  torch.from_numpy(np.asarray(batch.existing_len,
+                                              np.int64))).cpu().numpy()
+        for row, valid, img in zip(toks, batch.valid, batch.image_id):
+            if valid:
+                hyps[int(img)] = vocab.decode_to_string(row)
+    out = {"captions": len(hyps)}
+    if eval_ds.references is not None and not args.no_metrics:
+        refs = {i: [" ".join(t) for t in eval_ds.references[i]]
+                for i in hyps}
+        out.update(CaptionEvaluator().evaluate(refs, hyps))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump([{"image_id": k, "caption": v}
+                       for k, v in sorted(hyps.items())], f)
+    print(json.dumps({k: round(float(v), 4) for k, v in out.items()},
+                     indent=2))
     return 0
 
 
@@ -436,7 +652,9 @@ def main(argv=None) -> int:
         raise SystemExit(f"captionkit_torch: '{args.cmd}' is not yet ported "
                          "(use captionkit.cli)")
     return {"configs": cmd_configs, "serve": cmd_serve, "decode": cmd_decode,
-            "prepare": cmd_prepare, "train-xe": cmd_train_xe}[args.cmd](args)
+            "decode-stacked": cmd_decode_stacked, "prepare": cmd_prepare,
+            "train-xe": cmd_train_xe,
+            "train-scst": cmd_train_scst}[args.cmd](args)
 
 
 if __name__ == "__main__":

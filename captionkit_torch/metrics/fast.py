@@ -8,6 +8,10 @@ first use (``utils.nativebuild``); a failed build raises.
 
 Tokens are interned to dense int32 ids per scorer instance: n-gram keys
 are raw id-sequence bytes, so equality is exactly string-token equality.
+``intern_references`` turns references into ids once, where their owner
+holds them (the SCST loop: the training set's, at its start), and
+``score_sets`` scores several hypothesis sets against those ids in one
+call (the SCST reward: sample and greedy captions, or n samples).
 """
 
 from __future__ import annotations
@@ -20,7 +24,6 @@ import numpy as np
 from captionkit_torch.metrics.cider import MAX_N, NgramDocFreq
 from captionkit_torch.utils import nativebuild
 
-
 def _load_lib() -> ctypes.CDLL:
     lib = nativebuild.load("cider")
     i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
@@ -32,9 +35,10 @@ def _load_lib() -> ctypes.CDLL:
     lib.cider_set_df.restype = None
     lib.cider_set_df.argtypes = [ctypes.c_void_p, i32, i32, f64,
                                  ctypes.c_int64, ctypes.c_int64]
-    lib.cider_d_score.restype = None
-    lib.cider_d_score.argtypes = [ctypes.c_void_p, i32, i32, i32, i32, i32,
-                                  ctypes.c_int64, f64]
+    lib.cider_d_score_sets.restype = None
+    lib.cider_d_score_sets.argtypes = [ctypes.c_void_p, ctypes.c_int64, i32,
+                                       i32, i32, i32, i32, ctypes.c_int64,
+                                       f64]
     return lib
 
 
@@ -77,6 +81,55 @@ class NativeCiderD:
         except Exception:
             pass
 
+    def _ids(self, tokens: Sequence[str], flat: list[int]) -> int:
+        flat.extend(self._tok_id(t) for t in tokens)
+        return len(tokens)
+
+    def intern_references(
+        self, references: Sequence[Sequence[Sequence[str]]]
+    ) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Each image's references as int32 (token ids, lengths), the form
+        ``score_sets`` takes. A token's id never changes once given, so
+        the ids stay valid for every later call of this scorer."""
+        out = []
+        for refs in references:
+            flat: list[int] = []
+            lens = [self._ids(r, flat) for r in refs]
+            out.append((np.asarray(flat, np.int32),
+                        np.asarray(lens, np.int32)))
+        return out
+
+    def score_sets(
+        self,
+        hypothesis_sets: Sequence[Sequence[Sequence[str]]],
+        reference_ids: Sequence[tuple[np.ndarray, np.ndarray]],
+    ) -> np.ndarray:
+        """[S, B] per-image CIDEr-D scores of S hypothesis sets against the
+        same B images' references (``intern_references``), in one native
+        call that builds each image's reference vectors once. The
+        hypotheses are interned set by set, in the order S ``score`` calls
+        would intern them, so every score is bit-equal to scoring its set
+        alone."""
+        B = len(reference_ids)
+        hyp_flat: list[int] = []
+        hyp_lens: list[int] = []
+        for hyps in hypothesis_sets:
+            if len(hyps) != B:
+                raise ValueError("hypotheses and references must align")
+            hyp_lens.extend(self._ids(h, hyp_flat) for h in hyps)
+        S = len(hypothesis_sets)
+        ref_flat = np.concatenate([i for i, _ in reference_ids] + [[0]])
+        ref_lens = np.concatenate([n for _, n in reference_ids] + [[0]])
+        refs_per_img = np.array([len(n) for _, n in reference_ids],
+                                np.int32)
+        out = np.zeros(S * B, np.float64)
+        self._lib.cider_d_score_sets(
+            self._handle, S, np.asarray(hyp_flat or [0], np.int32),
+            np.asarray(hyp_lens or [0], np.int32),
+            ref_flat.astype(np.int32), ref_lens.astype(np.int32),
+            refs_per_img, B, out)
+        return out.reshape(S, B)
+
     def score(
         self,
         hypotheses: Sequence[Sequence[str]],
@@ -85,24 +138,5 @@ class NativeCiderD:
         """Per-image CIDEr-D scores (matches CiderD.compute()[1])."""
         if len(hypotheses) != len(references):
             raise ValueError("hypotheses and references must align")
-        B = len(hypotheses)
-        hyp_flat: list[int] = []
-        hyp_lens = np.empty(B, np.int32)
-        ref_flat: list[int] = []
-        ref_lens: list[int] = []
-        refs_per_img = np.empty(B, np.int32)
-        for b, (hyp, refs) in enumerate(zip(hypotheses, references)):
-            hyp_lens[b] = len(hyp)
-            hyp_flat.extend(self._tok_id(t) for t in hyp)
-            refs_per_img[b] = len(refs)
-            for r in refs:
-                ref_lens.append(len(r))
-                ref_flat.extend(self._tok_id(t) for t in r)
-        out = np.zeros(B, np.float64)
-        self._lib.cider_d_score(
-            self._handle,
-            np.asarray(hyp_flat or [0], np.int32), hyp_lens,
-            np.asarray(ref_flat or [0], np.int32),
-            np.asarray(ref_lens or [0], np.int32),
-            refs_per_img, B, out)
-        return out
+        return self.score_sets([hypotheses],
+                               self.intern_references(references))[0]

@@ -9,6 +9,8 @@ A model is a ``ModelDef``: plain functions over explicit parameter objects.
               -> (state, logits [B, V] fp32); ``train`` applies dropout
               with masks drawn from ``generator``
 
+Not ported: ``step_attn`` (introspection).
+
 Random draws come from an explicit ``torch.Generator``, never from the
 global one: the same generator state gives the same dropout masks.
 """
@@ -19,6 +21,17 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import torch
+
+from captionkit_torch.config import ModelConfig
+from captionkit_torch.kernels.head import (
+    fused_head_topk,
+    fused_head_topk_int8,
+    kmajor_head,
+    prepad_head,
+    quantize_head,
+    reference_head_topk,
+    reference_head_topk_int8,
+)
 
 
 @dataclass(frozen=True)
@@ -31,6 +44,75 @@ class HeadInfo:
     quant: str = "none"
     compute_dtype: Any = torch.float32
     extract: str = "mask"
+
+
+def prepared_head(w: torch.Tensor, b: torch.Tensor, info: HeadInfo) -> dict:
+    """The head of w [H, V] and b [V] as ``info``'s head takes it, made once
+    a batch (the context's ``head_*`` fields): int8, ``quantize_head``'s
+    (w_q, scale, b) and the int8 kernel's K-major copy of w_q; the float
+    kernel, w in the compute dtype and b, padded (``prepad_head``); the
+    plain head, w in the compute dtype."""
+    if info.quant == "int8":
+        w_q, scale, b_p = quantize_head(w, b)
+        return dict(head_w=w_q, head_b=b_p, head_scale=scale,
+                    head_wt=kmajor_head(w_q))
+    if info.impl == "xla":
+        return dict(head_w=w.to(info.compute_dtype), head_b=b)
+    w_p, b_p = prepad_head(w, b, compute_dtype=info.compute_dtype)
+    return dict(head_w=w_p, head_b=b_p)
+
+
+def head_topk(out: torch.Tensor, ctx: Any, k: int, info: HeadInfo):
+    """(top-k logits, their vocab ids, log-sum-exp) of the hidden rows
+    ``out`` [N, H] through ``ctx``'s prepared head (``prepared_head``):
+    under ``quant="int8"`` the int8 kernel (``impl="xla"``: its plain
+    version) on the fp32 rows, which it quantizes itself; else the float
+    kernel with ``info.extract`` (``"xla"``: the plain full-logits head)."""
+    if info.quant == "int8":
+        h = out.float().contiguous()
+        if info.impl == "xla":
+            return reference_head_topk_int8(h, ctx.head_w, ctx.head_scale,
+                                            ctx.head_b, k)
+        return fused_head_topk_int8(h, ctx.head_w, ctx.head_scale,
+                                    ctx.head_b, k=k, extract=info.extract,
+                                    w_qt=ctx.head_wt)
+    h = out.to(info.compute_dtype)
+    if info.impl == "xla":
+        return reference_head_topk(h, ctx.head_w, ctx.head_b, k)
+    return fused_head_topk(h.contiguous(), ctx.head_w, ctx.head_b, k=k,
+                           extract=info.extract)
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The dtype the step's products round their operands to."""
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else \
+        torch.float32
+
+
+def head_info(cfg: ModelConfig) -> HeadInfo:
+    """The configured vocab head of EditNet and DCNet (their params both
+    hold it as ``fc_w``, ``fc_b``)."""
+    return HeadInfo(get_wb=lambda p: (p.fc_w, p.fc_b), impl=cfg.head_impl,
+                    quant=cfg.head_quant, compute_dtype=compute_dtype(cfg),
+                    extract=cfg.head_extract)
+
+
+def prepare_head(params, cfg: ModelConfig, ctx):
+    """The per-batch head of a model's ``prepare_topk`` (``prepared_head``:
+    int8 quantized once a batch with its K-major copy, as the reference's
+    ``prepare_topk`` quantizes; the float kernel's padded head; the plain
+    head in the compute dtype)."""
+    return ctx.replace(**prepared_head(params.fc_w, params.fc_b,
+                                       head_info(cfg)))
+
+
+def configured_head_topk(params, cfg: ModelConfig, ctx, out: torch.Tensor,
+                         k: int):
+    """The vocab-head top-k (``head_topk``) on the prepared head, made here
+    when ``prepare_topk`` did not run."""
+    if ctx.head_w is None:
+        ctx = prepare_head(params, cfg, ctx)
+    return head_topk(out, ctx, k, head_info(cfg))
 
 
 @dataclass(frozen=True)
@@ -57,6 +139,15 @@ class ModelDef:
     # vocab head) outside the recurrence; row for row the math of a loop
     # of ``step``.
     forward_seq: Optional[Callable[..., torch.Tensor]] = None
+    # (params, ctx, state, token) -> (state, h [B, H]): the step's
+    # recurrent math stopped before the vocab head, without dropout. The
+    # ensemble runs it per member and puts its own head after it.
+    step_hidden: Optional[Callable[..., tuple[Any, torch.Tensor]]] = None
+    # (params, ctx) -> ctx: the fused-cell pack that ``prepare_topk``
+    # builds when the config runs the cell kernels (unchanged ctx when it
+    # does not), without the head; the ensemble prepares its members with
+    # it and keeps one combined head.
+    prepare_cells: Optional[Callable[[Any, Any], Any]] = None
 
 
 def default_generator(generator: Optional[torch.Generator],

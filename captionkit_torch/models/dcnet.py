@@ -16,14 +16,15 @@ fused-cell pack and ``_step_hidden`` run ``kernels/megastep.py::
 dcnet_fused_step_hidden``; the visual config and ``cell_impl=
 "wholestep"`` keep the plain cells, as in the reference. The vocab
 head of beam search, its per-batch preparation and its int8 variant are
-EditNet's (``editnet.prepare_head``, ``editnet._head_topk``).
+EditNet's (``base.prepare_head``, ``base.configured_head_topk``).
 
 Training: ``step(train=True)`` applies dropout to the decoder's h;
 ``forward_seq`` is teacher forcing with the embedding gather, the emb
 slice of the decoder's gate product and the vocab head outside the loop,
 autograd through the loop by default, or, with ``dcnet_deferred_backward``
-and the textual config, ``dcnet_backward.DCNetRecurrentSeq``. Not ported
-yet: ``step_attn`` (introspection).
+and the textual config, ``dcnet_backward.DCNetRecurrentSeq``.
+``step_hidden`` (the ensemble's member step) is exported through the
+``ModelDef``. Not ported yet: ``step_attn`` (introspection).
 """
 
 from __future__ import annotations
@@ -42,15 +43,17 @@ from captionkit_torch.kernels.megastep import (
     prepare_dcnet_cell_pack,
 )
 from captionkit_torch.models.base import (
-    HeadInfo,
     ModelDef,
     apply_dropout_mask,
+    compute_dtype,
+    configured_head_topk,
     default_generator,
     dropout,
     dropout_mask,
+    head_info,
+    prepare_head,
 )
 from captionkit_torch.models.dcnet_backward import dcnet_recurrent_seq
-from captionkit_torch.models.editnet import _cdt, _head_topk, prepare_head
 from captionkit_torch.nn.attention import (
     AdditiveAttentionParams,
     project_keys,
@@ -156,7 +159,7 @@ def init(seed: int, cfg: ModelConfig,
 def _pack_contexts(params: DCNetParams, cfg: ModelConfig) -> dict:
     """The weights of ``_recurrent_contexts`` rounded to the compute
     dtype, from the live parameters (gradients reach them)."""
-    dt = _cdt(cfg)
+    dt = compute_dtype(cfg)
     pk = {"gate_w": params.gate_w.to(dt),
           "att_wq": params.attention.w_q.to(dt)}
     if params.vis_attention is not None:
@@ -167,7 +170,7 @@ def _pack_contexts(params: DCNetParams, cfg: ModelConfig) -> dict:
 def _pack(params: DCNetParams, cfg: ModelConfig) -> dict:
     """The plain step's weights, packed and rounded to the compute dtype,
     from the live parameters."""
-    dt = _cdt(cfg)
+    dt = compute_dtype(cfg)
     dec = params.decoder
     return dict(_pack_contexts(params, cfg),
                 dec_w=torch.cat([dec.wx, dec.wh], dim=0).to(dt),
@@ -177,7 +180,7 @@ def _pack(params: DCNetParams, cfg: ModelConfig) -> dict:
 def _packed(params: DCNetParams, cfg: ModelConfig) -> dict:
     """``_pack``, built once per parameter object and compute dtype for
     decoding."""
-    dt = _cdt(cfg)
+    dt = compute_dtype(cfg)
     pk = params.cache.get(dt)
     if pk is None:
         pk = _pack(params, cfg)
@@ -190,7 +193,7 @@ def encode(params: DCNetParams, cfg: ModelConfig,
            existing: torch.Tensor,  # [B, T]
            existing_len: torch.Tensor,  # [B]
            ) -> DCNetContext:
-    dt = _cdt(cfg)
+    dt = compute_dtype(cfg)
     emb = params.embedding[existing]
     hs, cs = lstm_encode(params.encoder, emb, existing_len, compute_dtype=dt)
     keys = project_keys(params.attention, hs, compute_dtype=dt).to(dt)
@@ -225,7 +228,7 @@ def _recurrent_contexts(params: DCNetParams, cfg: ModelConfig,
                         use_pallas: bool = False) -> list[torch.Tensor]:
     """The state-dependent decoder inputs: the gated text context, and the
     visual context when the visual head is on."""
-    dt = _cdt(cfg)
+    dt = compute_dtype(cfg)
     attention = get_attention_fn(use_pallas)
     att_ctx, _ = attention(
         params.attention, ctx.att_keys, ctx.enc_hs, h, ctx.mask,
@@ -259,7 +262,7 @@ def _step_hidden(params: DCNetParams, cfg: ModelConfig, ctx: DCNetContext,
     x = torch.cat([emb] + _recurrent_contexts(params, cfg, ctx, state.h, pk,
                                               use_pallas), dim=-1)
     h, c = lstm_cell(params.decoder, x, state.h, state.c,
-                     compute_dtype=_cdt(cfg), packed=pk["dec_w"])
+                     compute_dtype=compute_dtype(cfg), packed=pk["dec_w"])
     return DCNetState(h=h, c=c), dropout(h, cfg.dropout, generator, train)
 
 
@@ -273,7 +276,7 @@ def step(params: DCNetParams, cfg: ModelConfig, ctx: DCNetContext,
     ``generator``."""
     new_state, out = _step_hidden(params, cfg, ctx, state, token,
                                   use_pallas, generator, train)
-    dt = _cdt(cfg)
+    dt = compute_dtype(cfg)
     fc_w = params.fc_w.to(dt) if train else _packed(params, cfg)["fc_w"]
     return new_state, mm(out, fc_w, dt) + params.fc_b
 
@@ -288,7 +291,7 @@ def forward_seq(params: DCNetParams, cfg: ModelConfig, ctx: DCNetContext,
     vocab head run outside the loop. Dropout keep masks are drawn step by
     step from ``generator`` (one seeded with 0 when None) in the same
     order on both routes."""
-    dt = _cdt(cfg)
+    dt = compute_dtype(cfg)
     E = cfg.emb_dim
     B, T = tokens_in.shape
     H = params.fc_w.shape[0]
@@ -343,10 +346,17 @@ def prepare_topk(params: DCNetParams, cfg: ModelConfig, ctx: DCNetContext,
     "pallas"`` and the config is textual (``"wholestep"`` builds none and
     runs the plain cells, as the reference does), and the head (quantized
     under ``head_quant="int8"``, else padded)."""
+    return prepare_head(params, cfg, prepare_cells(params, cfg, ctx))
+
+
+def prepare_cells(params: DCNetParams, cfg: ModelConfig,
+                  ctx: DCNetContext) -> DCNetContext:
+    """The fused-cell pack of ``prepare_topk`` (``cell_impl == "pallas"``,
+    textual config), without the head."""
     if cfg.cell_impl == "pallas" and not cfg.dcnet_use_visual:
         ctx = ctx.replace(
             cell_pack=prepare_dcnet_cell_pack(params, cfg, ctx))
-    return prepare_head(params, cfg, ctx)
+    return ctx
 
 
 def step_topk(params: DCNetParams, cfg: ModelConfig, ctx: DCNetContext,
@@ -354,7 +364,7 @@ def step_topk(params: DCNetParams, cfg: ModelConfig, ctx: DCNetContext,
     """Decode step with the fused head: (state, top-k logits, their vocab
     ids, log-sum-exp)."""
     new_state, out = _step_hidden(params, cfg, ctx, state, token)
-    vals, idx, lse = _head_topk(params, cfg, ctx, out, k)
+    vals, idx, lse = configured_head_topk(params, cfg, ctx, out, k)
     return new_state, vals, idx, lse
 
 
@@ -376,15 +386,12 @@ def make_model(cfg: ModelConfig) -> ModelDef:
         prepare_topk=(
             (lambda params, ctx, k: prepare_topk(params, cfg, ctx, k))
             if cfg.use_fused_head else None),
-        head_info=HeadInfo(
-            get_wb=lambda p: (p.fc_w, p.fc_b),
-            impl=cfg.head_impl,
-            quant=cfg.head_quant,
-            compute_dtype=_cdt(cfg),
-            extract=cfg.head_extract,
-        ),
+        head_info=head_info(cfg),
         forward_seq=(
             lambda params, ctx, state0, tokens_in, generator=None,
             train=False: forward_seq(params, cfg, ctx, state0, tokens_in,
                                      generator, train)),
+        step_hidden=lambda params, ctx, state, token: _step_hidden(
+            params, cfg, ctx, state, token),
+        prepare_cells=lambda params, ctx: prepare_cells(params, cfg, ctx),
     )

@@ -49,15 +49,6 @@ import torch
 
 from captionkit_torch.config import ModelConfig
 from captionkit_torch.device import resolve_device
-from captionkit_torch.kernels.head import (
-    fused_head_topk,
-    fused_head_topk_int8,
-    kmajor_head,
-    prepad_head,
-    quantize_head,
-    reference_head_topk,
-    reference_head_topk_int8,
-)
 from captionkit_torch.kernels.megastep import (
     CellPack,
     fused_step_hidden,
@@ -65,12 +56,15 @@ from captionkit_torch.kernels.megastep import (
 )
 from captionkit_torch.kernels.wholestep import fused_step_topk
 from captionkit_torch.models.base import (
-    HeadInfo,
     ModelDef,
     apply_dropout_mask,
+    compute_dtype,
+    configured_head_topk,
     default_generator,
     dropout,
     dropout_mask,
+    head_info,
+    prepare_head,
 )
 from captionkit_torch.models.editnet_backward import recurrent_seq
 from captionkit_torch.nn.attention import (
@@ -141,11 +135,6 @@ class EditNetState:
     c_lang: torch.Tensor
 
 
-def _cdt(cfg: ModelConfig) -> torch.dtype:
-    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else \
-        torch.float32
-
-
 def init(seed: int, cfg: ModelConfig,
          device: "str | torch.device" = "cuda") -> EditNetParams:
     """Random parameters from ``seed`` on ``device`` (the card unless the
@@ -195,7 +184,7 @@ def init(seed: int, cfg: ModelConfig,
 def _pack_finish(params: EditNetParams, cfg: ModelConfig) -> dict:
     """The weights of ``_finish_step`` rounded to the compute dtype, from
     the live parameters (gradients reach them)."""
-    dt = _cdt(cfg)
+    dt = compute_dtype(cfg)
     return {
         "gate_w": params.vis_gate_w.to(dt),
         "vis_wq": params.vis_attention.w_q.to(dt),
@@ -207,7 +196,7 @@ def _pack_finish(params: EditNetParams, cfg: ModelConfig) -> dict:
 def _pack(params: EditNetParams, cfg: ModelConfig) -> dict:
     """The step's weights packed and rounded to the compute dtype (the
     reference's loop-invariant concats), from the live parameters."""
-    dt = _cdt(cfg)
+    dt = compute_dtype(cfg)
     E, F = cfg.emb_dim, cfg.feat_dim
     wx = params.att_lstm.wx
     w_att = torch.cat([wx[:E], wx[E + F:], params.att_lstm.wh], dim=0)
@@ -218,7 +207,7 @@ def _pack(params: EditNetParams, cfg: ModelConfig) -> dict:
 def _packed(params: EditNetParams, cfg: ModelConfig) -> dict:
     """``_pack``, built once per parameter object and dtype for decoding
     (which XLA hoists out of the reference's decode loop)."""
-    dt = _cdt(cfg)
+    dt = compute_dtype(cfg)
     pk = params.cache.get(dt)
     if pk is None:
         pk = _pack(params, cfg)
@@ -231,7 +220,7 @@ def encode(params: EditNetParams, cfg: ModelConfig,
            existing: torch.Tensor,  # [B, T]
            existing_len: torch.Tensor,  # [B]
            ) -> EditNetContext:
-    dt = _cdt(cfg)
+    dt = compute_dtype(cfg)
     E, F = cfg.emb_dim, cfg.feat_dim
     emb = params.embedding[existing]
     hs, cs = lstm_encode(params.encoder, emb, existing_len, compute_dtype=dt)
@@ -285,7 +274,7 @@ def _step_hidden(params: EditNetParams, cfg: ModelConfig,
             state.c_lang, emb)
         return EditNetState(h_att=h_att, c_att=c_att, h_lang=h_lang,
                             c_lang=c_lang), h_lang
-    dt = _cdt(cfg)
+    dt = compute_dtype(cfg)
     pk = _pack(params, cfg) if train else _packed(params, cfg)
     # 1. Attention LSTM over the step-varying inputs plus the hoisted
     # v_mean term.
@@ -307,7 +296,7 @@ def _finish_step(params: EditNetParams, cfg: ModelConfig,
                  ) -> tuple[EditNetState, torch.Tensor]:
     """Visual attention, SCMA and the Copy-LSTM, given the att-LSTM
     state and the packed weights ``pk``. Returns (state, h_lang)."""
-    dt = _cdt(cfg)
+    dt = compute_dtype(cfg)
     copy_lstm_cell = get_copy_lstm_cell_fn(use_pallas)
     attention = get_attention_fn(use_pallas)
     # 2. Visual attention over the regions (all valid: no mask).
@@ -342,7 +331,7 @@ def step(params: EditNetParams, cfg: ModelConfig, ctx: EditNetContext,
     ``train`` applies dropout to h_lang with masks from ``generator``."""
     new_state, out = _step_hidden(params, cfg, ctx, state, token,
                                   use_pallas, generator, train)
-    dt = _cdt(cfg)
+    dt = compute_dtype(cfg)
     fc_w = params.fc_w.to(dt) if train else _packed(params, cfg)["fc_w"]
     logits = mm(out, fc_w, dt) + params.fc_b
     return new_state, logits
@@ -366,7 +355,7 @@ def forward_seq(params: EditNetParams, cfg: ModelConfig,
     ``deferred_backward=False``) autograd runs through the loop. Dropout
     keep masks are drawn step by step from ``generator`` (one seeded with
     0 when None) in the same order on both routes."""
-    dt = _cdt(cfg)
+    dt = compute_dtype(cfg)
     E, F = cfg.emb_dim, cfg.feat_dim
     B, T = tokens_in.shape
     H = params.fc_w.shape[0]
@@ -433,29 +422,19 @@ def forward_seq(params: EditNetParams, cfg: ModelConfig,
 def prepare_topk(params: EditNetParams, cfg: ModelConfig,
                  ctx: EditNetContext, k: int) -> EditNetContext:
     """Once per decode batch: the fused-cell pack when ``cell_impl`` is
-    "pallas" or "wholestep" and SCMA is soft, and the head: quantized
-    (``quantize_head``) under ``head_quant="int8"``, else padded
-    (``prepad_head``) for the kernel."""
+    "pallas" or "wholestep" and SCMA is soft, and the head
+    (``prepare_head``)."""
+    return prepare_head(params, cfg, prepare_cells(params, cfg, ctx))
+
+
+def prepare_cells(params: EditNetParams, cfg: ModelConfig,
+                  ctx: EditNetContext) -> EditNetContext:
+    """The fused-cell pack of ``prepare_topk`` (``cell_impl`` "pallas" or
+    "wholestep", soft SCMA), without the head."""
     if cfg.cell_impl in ("pallas", "wholestep") and \
             cfg.scma_select == "soft":
         ctx = ctx.replace(cell_pack=prepare_cell_pack(params, cfg, ctx))
-    return prepare_head(params, cfg, ctx)
-
-
-def prepare_head(params, cfg: ModelConfig, ctx):
-    """The per-batch head of ``prepare_topk``, shared with DCNet: int8,
-    ``quantize_head``'s (w_q, scale, b) and the kernel's K-major copy of
-    w_q (``kmajor_head``), as the reference's ``prepare_topk`` quantizes
-    once a batch."""
-    if cfg.head_quant == "int8":
-        w_q, scale, b_p = quantize_head(params.fc_w, params.fc_b)
-        return ctx.replace(head_w=w_q, head_b=b_p, head_scale=scale,
-                           head_wt=kmajor_head(w_q))
-    if cfg.head_impl == "xla":
-        return ctx
-    w_p, b_p = prepad_head(params.fc_w, params.fc_b,
-                           compute_dtype=_cdt(cfg))
-    return ctx.replace(head_w=w_p, head_b=b_p)
+    return ctx
 
 
 def step_topk(params: EditNetParams, cfg: ModelConfig, ctx: EditNetContext,
@@ -464,7 +443,8 @@ def step_topk(params: EditNetParams, cfg: ModelConfig, ctx: EditNetContext,
     ids, log-sum-exp), without the [B, V] logits. ``cell_impl=
     "wholestep"`` with a prepared pack and the float kernel head runs the
     whole-step kernel (its extraction is always "mask", as the
-    reference's); everything else runs the cells, then ``_head_topk``."""
+    reference's); everything else runs the cells, then
+    ``base.configured_head_topk``."""
     if (cfg.cell_impl == "wholestep" and ctx.cell_pack is not None
             and cfg.head_impl == "pallas" and cfg.head_quant == "none"):
         # prepare_topk built the pack and, for this head, the padded head.
@@ -475,37 +455,8 @@ def step_topk(params: EditNetParams, cfg: ModelConfig, ctx: EditNetContext,
         return (EditNetState(h_att=h_att, c_att=c_att, h_lang=h_lang,
                              c_lang=c_lang), vals, idx, lse)
     new_state, out = _step_hidden(params, cfg, ctx, state, token)
-    vals, idx, lse = _head_topk(params, cfg, ctx, out, k)
+    vals, idx, lse = configured_head_topk(params, cfg, ctx, out, k)
     return new_state, vals, idx, lse
-
-
-def _head_topk(params: EditNetParams, cfg: ModelConfig,
-               ctx: EditNetContext, out: torch.Tensor, k: int):
-    """The vocab-head top-k: under ``head_quant="int8"`` the int8 kernel
-    (or, with ``head_impl="xla"``, its plain version) over the fp32 hidden
-    state; else the float kernel (``head_impl="pallas"``, the default, with
-    ``head_extract``) or the plain full-logits head (``"xla"``)."""
-    dt = _cdt(cfg)
-    if cfg.head_quant == "int8":
-        if ctx.head_scale is None:  # no prepare_topk: quantize here
-            w_q, scale, b_p = quantize_head(params.fc_w, params.fc_b)
-            w_qt = None
-        else:
-            w_q, scale, b_p = ctx.head_w, ctx.head_scale, ctx.head_b
-            w_qt = ctx.head_wt
-        # The int8 head quantizes the fp32 rows itself: no bf16 cast.
-        h = out.float().contiguous()
-        if cfg.head_impl == "xla":
-            return reference_head_topk_int8(h, w_q, scale, b_p, k)
-        return fused_head_topk_int8(h, w_q, scale, b_p, k=k,
-                                    extract=cfg.head_extract, w_qt=w_qt)
-    if cfg.head_impl == "xla":
-        return reference_head_topk(out.to(dt), params.fc_w.to(dt),
-                                   params.fc_b, k)
-    if ctx.head_w is None:
-        raise ValueError("step_topk needs the head from prepare_topk")
-    return fused_head_topk(out.to(dt).contiguous(), ctx.head_w, ctx.head_b,
-                           k=k, extract=cfg.head_extract)
 
 
 def make_model(cfg: ModelConfig) -> ModelDef:
@@ -526,15 +477,12 @@ def make_model(cfg: ModelConfig) -> ModelDef:
         prepare_topk=(
             (lambda params, ctx, k: prepare_topk(params, cfg, ctx, k))
             if cfg.use_fused_head else None),
-        head_info=HeadInfo(
-            get_wb=lambda p: (p.fc_w, p.fc_b),
-            impl=cfg.head_impl,
-            quant=cfg.head_quant,
-            compute_dtype=_cdt(cfg),
-            extract=cfg.head_extract,
-        ),
+        head_info=head_info(cfg),
         forward_seq=(
             lambda params, ctx, state0, tokens_in, generator=None,
             train=False: forward_seq(params, cfg, ctx, state0, tokens_in,
                                      generator, train)),
+        step_hidden=lambda params, ctx, state, token: _step_hidden(
+            params, cfg, ctx, state, token),
+        prepare_cells=lambda params, ctx: prepare_cells(params, cfg, ctx),
     )

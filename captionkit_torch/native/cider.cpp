@@ -113,28 +113,39 @@ void cider_set_df(void* handle, const int32_t* flat, const int32_t* orders,
   c->log_corpus = std::log(std::max<int64_t>(corpus_size, 1));
 }
 
-// Score B hypotheses against their references (CIDEr-D).
-// hyps: flat ids + lens. refs: flat ids + lens + refs_per_img offsets.
-void cider_d_score(void* handle, const int32_t* hyp_flat,
-                   const int32_t* hyp_lens, const int32_t* ref_flat,
-                   const int32_t* ref_lens, const int32_t* refs_per_img,
-                   int64_t batch, double* out_scores) {
+// Score S sets of B hypotheses against the same B images' references
+// (CIDEr-D): out_scores[s * B + b]. Each image's reference vectors are
+// built once for all S sets; every score is the arithmetic of scoring its
+// set alone. hyps: flat ids + lens, set-major. refs: flat ids + lens +
+// refs_per_img counts.
+void cider_d_score_sets(void* handle, int64_t sets, const int32_t* hyp_flat,
+                        const int32_t* hyp_lens, const int32_t* ref_flat,
+                        const int32_t* ref_lens, const int32_t* refs_per_img,
+                        int64_t batch, double* out_scores) {
   auto* c = static_cast<Cider*>(handle);
-  int64_t hyp_off = 0, ref_off = 0, ref_idx = 0;
+  std::vector<int64_t> hyp_off(static_cast<size_t>(sets * batch) + 1, 0);
+  for (int64_t i = 0; i < sets * batch; ++i) {
+    hyp_off[i + 1] = hyp_off[i] + hyp_lens[i];
+  }
+  int64_t ref_off = 0, ref_idx = 0;
+  std::vector<SentVec> rvs;
   for (int64_t b = 0; b < batch; ++b) {
-    SentVec hv;
-    build_vec(*c, hyp_flat + hyp_off, hyp_lens[b], &hv);
-    hyp_off += hyp_lens[b];
-    double acc = 0.0;
     int nr = refs_per_img[b];
+    rvs.clear();
+    rvs.resize(static_cast<size_t>(nr));
     for (int r = 0; r < nr; ++r) {
-      SentVec rv;
-      build_vec(*c, ref_flat + ref_off, ref_lens[ref_idx], &rv);
+      build_vec(*c, ref_flat + ref_off, ref_lens[ref_idx], &rvs[r]);
       ref_off += ref_lens[ref_idx];
       ++ref_idx;
-      acc += sim_cider_d(*c, hv, rv);
     }
-    out_scores[b] = nr > 0 ? acc / nr : 0.0;
+    for (int64_t s = 0; s < sets; ++s) {
+      int64_t i = s * batch + b;
+      SentVec hv;
+      build_vec(*c, hyp_flat + hyp_off[i], hyp_lens[i], &hv);
+      double acc = 0.0;
+      for (int r = 0; r < nr; ++r) acc += sim_cider_d(*c, hv, rvs[r]);
+      out_scores[i] = nr > 0 ? acc / nr : 0.0;
+    }
   }
 }
 

@@ -1,5 +1,5 @@
-"""The host's epoch driver for cross-entropy training
-(``captionkit.train.loop``, its XE half; SCST is not ported yet).
+"""The host's epoch drivers for cross-entropy and SCST training
+(``captionkit.train.loop``).
 
 ``run_xe_training`` iterates epochs of shuffled batches, runs the train
 step (``train/xe.py``; k steps a call with ``steps_per_dispatch`` > 1),
@@ -9,7 +9,14 @@ when EMA is on), keeps the best checkpoint by it, decays the learning
 rate on a plateau and stops early, as the reference does. Step metrics
 stay on the card until a log boundary: no per-step ``.item()``.
 
-Two differences from the reference, both by design:
+``run_scst_training`` is the self-critical phase (``train/scst.py``):
+serial (rollout, host reward, update, batch after batch) or pipelined
+(batch k+1's rollout is enqueued before batch k's reward and update, so it
+reads the parameters from before update k: one step of policy staleness,
+as in the reference). Each epoch validates (EMA weights when EMA is on)
+and keeps the best checkpoint by CIDEr.
+
+Two differences from the reference in the XE loop, both by design:
 
 * lr decay reaches every step. The reference rebuilds only its single
   step with the decayed rate, so the k-step programs it runs with the
@@ -23,6 +30,7 @@ Two differences from the reference, both by design:
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from dataclasses import dataclass, field
@@ -39,6 +47,14 @@ from captionkit_torch.metrics.eval import CaptionEvaluator
 from captionkit_torch.models.base import ModelDef
 from captionkit_torch.params import named_tensors, params_from_tensors
 from captionkit_torch.train.checkpoint import CheckpointManager
+from captionkit_torch.metrics.cider import NgramDocFreq
+from captionkit_torch.train.scst import (
+    ScstRewarder,
+    apply_rollout,
+    make_scst_rollout,
+    make_scst_update,
+    scst_train_step,
+)
 from captionkit_torch.train.state import TrainState, ema_params
 from captionkit_torch.train.xe import (
     BATCH_KEYS,
@@ -330,5 +346,182 @@ def run_xe_training(
         report.history.append(epoch_stats)
         report.epochs_run = epoch + 1
         if max_steps is not None and steps_done >= max_steps:
+            break
+    return state, report
+
+
+def _apply_pending(state, pending, update_fn, rewarder):
+    """Finish a pipelined SCST step through the shared reward and update
+    path."""
+    dev_batch, refs, roll = pending
+    return apply_rollout(update_fn=update_fn, rewarder=rewarder, state=state,
+                         batch=dev_batch, references=refs, roll=roll)
+
+
+def _seeded(*words: int) -> int:
+    """A generator seed from integers, through ``numpy.random.SeedSequence``
+    (independent streams for different words)."""
+    return int(np.random.SeedSequence([int(w) for w in words])
+               .generate_state(1, np.uint64)[0])
+
+
+def run_scst_training(
+    model: ModelDef,
+    state: TrainState,
+    cfg: CaptionKitConfig,
+    train_dataset: CaptionDataset,
+    val_dataset: Optional[CaptionDataset] = None,
+    *,
+    mesh=None,
+    ckpt: Optional[CheckpointManager] = None,
+    df: Optional[NgramDocFreq] = None,
+    max_steps: Optional[int] = None,
+    metrics_logger: Optional[MetricsLogger] = None,
+    pipeline: bool = False,
+    preemption=None,
+    device: "str | torch.device" = "cuda",
+) -> tuple[TrainState, TrainReport]:
+    """The SCST fine-tuning phase, ``train.scst_epochs`` epochs at
+    ``train.scst_learning_rate`` with ``train.scst_num_samples`` samples.
+
+    Serial mode seeds each step's sampling generator from (rng_seed,
+    step), as ``TrainState.next_generator`` does; pipelined mode from
+    (rng_seed, epoch, rollouts enqueued this epoch), the reference's
+    ``fold_in(fold_in(rng, epoch), dispatched)``. ``preemption`` is polled
+    between steps: in pipelined mode the in-flight rollout is dropped (it
+    changed no state), so the checkpoint is exact. Step metrics stay on
+    the card until a log boundary."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "data-parallel training is not ported yet: pass mesh=None")
+    if train_dataset.references is None:
+        raise ValueError("SCST needs per-image reference captions")
+    dev = resolve_device(device)
+    tcfg = cfg.train
+    vocab = train_dataset.vocab
+    if df is None:
+        df = NgramDocFreq.build(train_dataset.references)
+    rewarder = ScstRewarder(vocab, df)
+    ref_ids = rewarder.intern(train_dataset.references)
+    rollout_fn = make_scst_rollout(
+        model, start_id=vocab.start, end_id=vocab.end, pad_id=vocab.pad,
+        max_len=cfg.decode.max_decode_len,
+        num_samples=tcfg.scst_num_samples)
+    update_fn = make_scst_update(
+        model, dataclasses.replace(tcfg,
+                                   learning_rate=tcfg.scst_learning_rate),
+        start_id=vocab.start, num_samples=tcfg.scst_num_samples)
+    report = TrainReport()
+    steps_done = 0
+    val_decode_fn = (_make_val_decode_fn(model, val_dataset, cfg, dev)
+                     if val_dataset is not None else None)
+
+    def _prep(batch):
+        refs = [ref_ids[int(i)] for i in batch.image_id]
+        return batch_to_device_dict(_host_dict(batch), dev), refs
+
+    pending_metrics: list = []
+
+    def _drain():
+        # The progress signal: the masked mean advantage (sample - greedy)
+        # for one sample; with n samples the leave-one-out advantages sum
+        # to zero per image, so the samples' mean reward.
+        for m in pending_metrics:
+            meter_rw.update(float(m.get("reward_sample_mean",
+                                        m["mean_advantage"])))
+        pending_metrics.clear()
+
+    def _tick(metrics, epoch):
+        nonlocal steps_done
+        steps_done += 1
+        pending_metrics.append(metrics)
+        if steps_done % tcfg.log_every == 0:
+            _drain()
+            multi = "reward_sample_mean" in metrics
+            log.info("scst epoch %d step %d %s %.4f", epoch, steps_done,
+                     "mean sample reward" if multi else "mean advantage",
+                     meter_rw.avg)
+            if metrics_logger is not None:
+                key = ("scst/reward_sample_mean" if multi
+                       else "scst/mean_advantage")
+                metrics_logger.log(steps_done, {key: meter_rw.avg})
+
+    def _done() -> bool:
+        return max_steps is not None and steps_done >= max_steps
+
+    for epoch in range(tcfg.scst_epochs):
+        meter_rw = AverageMeter()
+        batches = train_dataset.batches(
+            cfg.data.batch_size, shuffle=True,
+            seed=tcfg.seed + 1000 + epoch)
+        if not pipeline:
+            for batch in batches:
+                if preemption is not None and preemption.requested:
+                    break
+                dev_batch, refs = _prep(batch)
+                state, metrics = scst_train_step(
+                    rollout_fn=rollout_fn, update_fn=update_fn,
+                    rewarder=rewarder, state=state, batch=dev_batch,
+                    references=refs,
+                    generator=state.next_generator(dev))
+                _tick(metrics, epoch)
+                if _done():
+                    break
+        else:
+            # Batch k+1's rollout is enqueued (with the parameters from
+            # before update k) before batch k's reward and update.
+            pending = None  # (dev_batch, refs, roll)
+            dispatched = 0  # rollouts enqueued this epoch
+            for batch in batches:
+                if preemption is not None and preemption.requested:
+                    pending = None  # not applied: no state changed
+                    break
+                dev_batch, refs = _prep(batch)
+                gen = torch.Generator(device=dev).manual_seed(
+                    _seeded(state.rng_seed, epoch, dispatched))
+                dispatched += 1
+                roll = rollout_fn(state.params, dev_batch, gen)
+                if pending is not None:
+                    state, metrics = _apply_pending(state, pending,
+                                                    update_fn, rewarder)
+                    _tick(metrics, epoch)
+                    if _done():
+                        pending = None
+                        break
+                pending = (dev_batch, refs, roll)
+            if pending is not None and not _done():
+                state, metrics = _apply_pending(state, pending, update_fn,
+                                                rewarder)
+                _tick(metrics, epoch)
+        _drain()
+        if preemption is not None and preemption.requested:
+            log.warning("preempted at scst step %d: checkpointing and "
+                        "exiting cleanly", steps_done)
+            if ckpt is not None:
+                ckpt.save(state, extra={"preempted": True})
+            report.preempted = True
+            report.epochs_run = epoch + 1
+            report.history.append({"epoch": epoch,
+                                   "mean_advantage": meter_rw.avg,
+                                   "preempted": True})
+            return state, report
+
+        stats = {"epoch": epoch, "mean_advantage": meter_rw.avg}
+        if val_dataset is not None:
+            vm = _validate(model, state, val_dataset, cfg, val_decode_fn,
+                           dev)
+            cider = vm.get("CIDEr", 0.0)
+            stats.update(val_cider=cider, val_decode_s=vm["wall_s"],
+                         val_score_s=vm["score_s"])
+            if cider > report.best_metric:
+                report.best_metric = cider
+                report.best_epoch = epoch
+            if ckpt is not None:
+                ckpt.save(state, metric=cider)
+        elif ckpt is not None:
+            ckpt.save(state)
+        report.history.append(stats)
+        report.epochs_run = epoch + 1
+        if _done():
             break
     return state, report

@@ -117,10 +117,12 @@ prints no result line:
               head kernel's decode and its steps check on the decode's own
               states, and the whole-step decode at k = 10 beside pallas,
               with its steps check.
-15. wide_head — the single sweep (h streamed beside W) and the int8 head
-              (quantized rows streamed beside w_qt) at H = 2048 and 4096
-              against their plain versions, a skipped h chunk must fail;
-              times.
+15. wide_head — the single sweep and the tiled bf16 heads, mask and
+              thresh (h streamed beside W), and the int8 head (quantized
+              rows streamed beside w_qt) at H = 2048 and 4096 against
+              their plain versions, a skipped h chunk must fail; the tiled
+              heads exact on ties at the wide plan's share boundaries,
+              with planted merge faults failing; times.
 16. evaluate — a synthetic Karpathy split (5,000 test images) prepared,
               decoded and scored through cli prepare and cli decode.
 17. train   — cross-entropy training at xe_train's paper width (batch
@@ -135,7 +137,29 @@ prints no result line:
               of its own), dcnet_xe_train for a few steps; the step's
               bound.
 
-Then a {"kernels": [...]} line listing all 12 wrappers and the 11 fp32
+18. scst    — SCST fine-tuning at scst_train's paper width (batch 256)
+              from the train phase's exported XE weights on its split:
+              the greedy leg bit-equal to greedy_decode, the native
+              rewards within 1e-9 of CiderD, the update's gradients
+              against autograd through the plain loop (a dropped lang_wrc
+              term and a flipped advantage must fail), ms a step split
+              into rollout, reward and update, serial and pipelined in
+              turns, peak memory with 1 and 4 samples, cli train-scst
+              with validation (launches counted), its export through cli
+              decode, dcnet_scst_train, a profile (``--profile-scst``, a
+              process of its own).
+19. ensemble — editnet_beam5 as a two-member logprob ensemble served at
+              batch 512; a forced-full decode (22 launches a batch of
+              fused_head_topk at H' = 2048) in turns beside the single
+              model; the combined head against its plain version on the
+              decode's states; two copies of one checkpoint against the
+              single model; the int8, thresh and prob ensembles; the
+              stacked DCNet -> EditNet pipeline served and timed (no
+              launch in stage 1, 22 head launches a batch in stage 2).
+              (wide_head holds the tiled bf16 heads at H = 2048, 4096.)
+
+Then a {"kernels": [...]} line listing all 12 wrappers, the tiled bf16
+heads' wide instances (mask and thresh at H' = 2048) and the 11 fp32
 instances (each with its launches on its path, check, ms, plain ms, bound
 ms, CUDA launches per call), the nvidia-smi line, and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -976,9 +1000,10 @@ def _paper_setup(name="editnet_beam5", sets=None):
 
 
 def phase_serve(cfg, model, params, vocab, wrappers, expect,
-                phase="serve"):
+                phase="serve", decode_fn=None):
     """Serve a full batch and a flush through ``serve_stream``; every
-    wrapper named in ``expect`` must have launched."""
+    wrapper named in ``expect`` must have launched. ``decode_fn`` replaces
+    the server's decode (the stacked pipeline)."""
     import numpy as np
 
     from captionkit_torch.serve import CaptionServer, serve_stream
@@ -998,7 +1023,7 @@ def phase_serve(cfg, model, params, vocab, wrappers, expect,
     lines = [json.dumps({"id": i, "caption": caps[i % 4],
                          "features": paths[i % 4]}) for i in range(n_req)]
     server = CaptionServer(cfg, params, model, vocab, ladder=(8,),
-                           device="cuda")
+                           decode_fn=decode_fn, device="cuda")
     server.warmup()
     for w in wrappers:
         w.launches = 0
@@ -3121,12 +3146,123 @@ def phase_beam10(ed, wrappers, card) -> dict:
     return result
 
 
+def _wide_tie_patterns(H):
+    """(name, h, w, b, k) of the tiled float heads at a wide H (h streamed):
+    h one-hot in its last 16 columns (row i selects pattern row i mod 16),
+    the integer patterns of ``_tiled_tie_patterns`` in W's last 16 rows and
+    random integers in W's other rows (met by h's zeros, so every logit is
+    exact in bf16): ties on both sides of every cluster share boundary of
+    the wide plan, in every tile and across whole rows; 2560 rows, V =
+    9600, k = 1, 5, 16."""
+    import numpy as np
+    import torch
+
+    from captionkit_torch.kernels import head as thead
+    from captionkit_torch.kernels.head import TILE_V
+
+    N, V, P = N_IMAGES * BEAM, 9600, 16
+    shares, per = thead.sweep_plan(N, V, thead.cluster_table(
+        "head_topk", torch.device("cuda"), wide=True))
+    cuts = [c * per * TILE_V for c in range(1, shares)
+            if c * per * TILE_V < V]
+    check(len(cuts) >= 1, f"wide plan {shares, per} has no boundary")
+    rng = np.random.default_rng(N + H)
+    pat = rng.integers(-2, 2, (P, V)).astype(np.float32)
+    pat[0] = 1.0
+    for cut in cuts:
+        pat[1, [cut - 1, cut]] = 5.0
+        pat[2, [cut - 2, cut + 1]] = 6.0
+        pat[3, [cut - 1, cut, 0, V - 1]] = 3.0
+        pat[5, cut - 4:cut + 4] = 4.0
+    for c in range(shares):
+        pat[4, min(c * per * TILE_V + 5, V - 1)] = 7.0
+    for t in range(V // TILE_V):
+        pat[6, t * TILE_V + 3] = 9.0
+        pat[7, t * TILE_V + 126:t * TILE_V + 130] = 2.0
+    w = rng.integers(-3, 3, (H, V)).astype(np.float32)
+    w[H - P:] = pat
+    h = np.zeros((N, H), np.float32)
+    h[np.arange(N), H - P + np.arange(N) % P] = 1.0
+    args = (torch.from_numpy(h).to("cuda", torch.bfloat16),
+            torch.from_numpy(w).to("cuda", torch.bfloat16),
+            torch.zeros((V,), device="cuda"))
+    return [(f"{shares}_shares_k{k}", *args, k) for k in (1, 5, 16)]
+
+
+def _wide_tiled(H, hb, w_p, b_p, skipped, k) -> dict:
+    """The tiled bf16 heads, mask and thresh, at a wide H (h streamed
+    beside W): each within the head bar against its plain version with
+    h's second 64-wide chunk zeroed (a planted fault) failing it; thresh
+    bit-equal to mask; exact on the wide plan's share, tile and row ties,
+    where a merge that breaks ties to the higher id, a share left out and
+    a tile skipped on an equal max must fail; kernel, device, plain,
+    library and bound times."""
+    import torch
+
+    from captionkit_torch.kernels import head as thead
+
+    N, V = hb.shape[0], 9490
+    out = {}
+    plain = lambda: thead.reference_head_topk(hb, w_p, b_p, k)  # noqa: E731
+    mask = thead.fused_head_topk(hb, w_p, b_p, k=k)
+    wb = w_p[:, :V]
+
+    def library():
+        logits = torch.matmul(hb, wb).float() + b_p[:V]
+        return torch.topk(logits, k).values, torch.logsumexp(logits, 1)
+
+    plain_ms = time_ms(plain, iters=5)
+    library_ms = time_ms(library, iters=10)
+    ties = _wide_tie_patterns(H)
+    for name, fn in (("fused_head_topk", thead.fused_head_topk),
+                     ("fused_head_topk_thresh",
+                      thead.fused_head_topk_thresh)):
+        run = lambda fn=fn: fn(hb, w_p, b_p, k=k)  # noqa: E731
+        res = _hold(f"{name} H={H}", run, plain, head_agreement,
+                    [("second_h_chunk_skipped",
+                      lambda fn=fn: fn(skipped, w_p, b_p, k=k))])
+        if fn is thead.fused_head_topk_thresh:
+            check(bit_agreement(run(), mask)["ok"],
+                  f"thresh differs from mask at H={H}")
+        kernel = "mask" if fn is thead.fused_head_topk else "thresh"
+        res["share_ties"], caught = {}, {}
+        for case, th, tw, tb, tk in ties:
+            got, want = fn(th, tw, tb, k=tk), \
+                thead.reference_head_topk(th, tw, tb, tk)
+            lse_err = float((got[2] - want[2]).abs().max())
+            exact = bool(torch.equal(got[0], want[0])
+                         and torch.equal(got[1], want[1]))
+            if kernel == "thresh":
+                exact = exact and bit_agreement(
+                    got, thead.fused_head_topk(th, tw, tb, k=tk))["ok"]
+            res["share_ties"][case] = {"exact": exact, "lse_err": lse_err}
+            check(exact and lse_err <= 1e-5,
+                  f"{name} H={H} ties {case}: lse err {lse_err}")
+            for fault, bad in _tiled_faults(kernel, th, tw, tb, tk):
+                v, i, l = bad()
+                caught[fault] = caught.get(fault, False) or not (
+                    torch.equal(v, want[0]) and torch.equal(i, want[1]))
+        check(all(caught.values()),
+              f"{name} H={H}: planted faults on the ties: {caught}")
+        res["tie_faults_caught"] = caught
+        ms_ = time_ms(run, iters=10)
+        bound = _head_bound(N, H, V, k, int8=False)
+        launches, dev_ms = _profile_calls(run, ("head_",))
+        out[f"{name}/H={H}"] = {
+            **res, "ms": ms_, "device_ms": dev_ms,
+            "cuda_launches_per_call": round(launches),
+            "plain_ms": plain_ms, "library_ms": library_ms, **bound,
+            "bound_share": bound["bound_ms"] / ms_}
+    return out
+
+
 def phase_wide_head(card) -> dict:
-    """The single sweep (h streamed beside W above H = 1024) and the int8
+    """The single sweep (h streamed beside W above H = 1024), the tiled
+    bf16 heads mask and thresh (h streamed; ``_wide_tiled``) and the int8
     head (its quantized rows streamed beside w_qt) at H = 2048 and 4096,
-    N = 2560,
-    V = 9490, k = 5: within their bars against their plain versions; a
-    sweep that skips h's second 64-wide chunk (a planted fault) must fail;
+    N = 2560, V = 9490, k = 5: within their bars against their plain
+    versions; a float head that skips h's second 64-wide chunk (a planted
+    fault) must fail; the tiled heads exact on the wide plan's ties;
     kernel, plain, library and bound times."""
     import torch
 
@@ -3156,6 +3292,7 @@ def phase_wide_head(card) -> dict:
             logits = torch.matmul(hb, wb).float() + b
             return torch.topk(logits, k).values, torch.logsumexp(logits, 1)
 
+        out.update(_wide_tiled(H, hb, w_p, b_p, skipped, k))
         run = lambda: thead.head_sweep_topk(hb, w_p, b_p, k=k)  # noqa: E731
         ms_ = time_ms(run, iters=10)
         bound = _head_bound(N, H, V, k, int8=False)
@@ -3907,8 +4044,565 @@ def phase_train(wrappers, card) -> dict:
             "nvidia_smi": card}
         emit(result)
         return result
-    finally:
+    except BaseException:
         shutil.rmtree(root, ignore_errors=True)
+        raise
+
+
+SCST_STEPS = 3  # steps of each timed run, of the cli run and of DCNet's
+
+
+def _scst_batches(ds, cfg, n, dev, rewarder):
+    """The first ``n`` SCST batches of epoch 0 on ``dev`` (the loop's
+    shuffle), each with its images' references and their ids from
+    ``rewarder.intern`` (the loop interns them once, before its steps)."""
+    from captionkit_torch.train.xe import batch_to_device_dict
+
+    out = []
+    for i, b in enumerate(ds.batches(cfg.data.batch_size, shuffle=True,
+                                     seed=cfg.train.seed + 1000)):
+        if i == n:
+            break
+        refs = [ds.references[int(j)] for j in b.image_id]
+        out.append((batch_to_device_dict(b, dev), refs,
+                    rewarder.intern(refs)))
+    return out
+
+
+def _scst_setup(prep, xe_npz, name="scst_train", **over):
+    """(cfg, model, train split, train state from the XE weights)."""
+    from captionkit_torch.config import get_named_config
+    from captionkit_torch.data.prepare import load_prepared_split
+    from captionkit_torch.models import get_model
+    from captionkit_torch.params import load_params_npz
+    from captionkit_torch.train.state import create_train_state
+
+    base = get_named_config(name)
+    ds = load_prepared_split(str(prep), "train", max_len=base.data.max_len)
+    cfg = base.override({"model.vocab_size": len(ds.vocab), **over})
+    model = get_model(cfg.model)
+    state = create_train_state(
+        lambda seed: load_params_npz(str(xe_npz), TRAIN_DEVICE,
+                                     arch=model.name), cfg.train)
+    return cfg, model, ds, state
+
+
+def _scst_fns(model, cfg, vocab, n=1):
+    from captionkit_torch.train.scst import make_scst_rollout, \
+        make_scst_update
+
+    return (make_scst_rollout(model, start_id=vocab.start, end_id=vocab.end,
+                              pad_id=vocab.pad,
+                              max_len=cfg.decode.max_decode_len,
+                              num_samples=n),
+            make_scst_update(model, cfg.override(
+                {"train.learning_rate": cfg.train.scst_learning_rate}).train,
+                start_id=vocab.start, num_samples=n))
+
+
+def _scst_grads(model, cfg, vocab, state, batch, toks, mask, adv) -> dict:
+    """The gradient one SCST update applies, by name: the update function
+    itself, its optimizer replaced by one that keeps the gradients and
+    changes nothing."""
+    from captionkit_torch.train import scst as scst_mod
+
+    kept = {}
+
+    class Keep:
+        def update(self, grads, opt_state, params):
+            kept.update({n: g.detach().clone() for n, g in grads.items()})
+
+    real = scst_mod.make_optimizer
+    scst_mod.make_optimizer = lambda *a, **k: Keep()
+    try:
+        fn = scst_mod.make_scst_update(model, cfg.train,
+                                       start_id=vocab.start)
+    finally:
+        scst_mod.make_optimizer = real
+    fn(state, batch, toks, mask, adv)
+    return kept
+
+
+def _scst_step_split(rollout_fn, update_fn, rewarder, state, batches,
+                     dev) -> dict:
+    """Serial steps with the host clock around each part: the rollout
+    (both legs, until its tokens reached the host), the host reward, the
+    update (synchronized); ms a step over the steps after the first."""
+    import torch
+
+    from captionkit_torch.train.scst import host_tokens
+
+    parts = {"rollout": [], "reward": [], "update": [], "step": []}
+    for i, (batch, _, ids) in enumerate(batches):
+        gen = torch.Generator(device=dev).manual_seed(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        roll = rollout_fn(state.params, batch, gen)
+        s_tok = host_tokens(roll, "sample_tokens")
+        g_tok = host_tokens(roll, "greedy_tokens")
+        t1 = time.perf_counter()
+        adv = rewarder.advantage(s_tok, g_tok, ids)
+        t2 = time.perf_counter()
+        state, m = update_fn(state, batch, roll["sample_tokens"],
+                             roll["sample_mask"],
+                             torch.from_numpy(adv).to(dev))
+        check(bool(torch.isfinite(m["scst_loss"])), f"loss {m}")
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, a, b in (("rollout", t0, t1), ("reward", t1, t2),
+                          ("update", t2, t3), ("step", t0, t3)):
+            parts[key].append(1e3 * (b - a))
+    return {"state": state, **{f"{k}_ms": statistics.mean(v[1:])
+                               for k, v in parts.items()},
+            "ms_steps": parts["step"]}
+
+
+def _reward_turns(rewarder, vocab, s_tok, g_tok, refs, ids,
+                  rounds=3) -> dict:
+    """The rewarder's advantage (both legs in one native call against the
+    references' ids) against the one-set-at-a-time path it replaced
+    (``Vocab.decode`` row by row, each leg scored alone with its
+    references interned again), in turns on one batch: host ms of each
+    and whether the advantages are bit-equal."""
+    import numpy as np
+
+    native = rewarder._native
+
+    def one_at_a_time():
+        legs = [native.score([vocab.decode(r) for r in t],
+                             [list(r) for r in refs]) for t in (s_tok, g_tok)]
+        return (legs[0] - legs[1]).astype(np.float32)
+
+    runs = {"sets": [], "one_at_a_time": []}
+    for _ in range(rounds):
+        for name, fn in (("sets", lambda: rewarder.advantage(s_tok, g_tok,
+                                                             ids)),
+                         ("one_at_a_time", one_at_a_time)):
+            t0 = time.perf_counter()
+            fn()
+            runs[name].append(1e3 * (time.perf_counter() - t0))
+    equal = bool(np.array_equal(rewarder.advantage(s_tok, g_tok, ids),
+                                one_at_a_time()))
+    check(equal, "the set scorer's advantages differ from one at a time")
+    return {"ms": {k: statistics.median(v) for k, v in runs.items()},
+            "runs": runs, "bit_equal": equal}
+
+
+def _reward_at_reference_length(rewarder, vocab, refs, ids, max_len,
+                                rounds=3) -> dict:
+    """The rewarder's advantage with both legs replaced by the batch's own
+    reference captions (each image's first as the sample, its second as
+    the greedy baseline, cut to ``max_len`` tokens): host ms a call at the
+    length of real captions, which a barely trained model's greedy leg
+    does not reach. Also the mean words a leg."""
+    import numpy as np
+
+    legs = [np.array([vocab.encode(r[j], max_len, add_bos_eos=False)[0]
+                      for r in refs], np.int32) for j in (0, 1)]
+    runs = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        rewarder.advantage(legs[0], legs[1], ids)
+        runs.append(1e3 * (time.perf_counter() - t0))
+    words = [statistics.mean(len(vocab.decode(r)) for r in t) for t in legs]
+    return {"ms": statistics.median(runs), "runs": runs,
+            "mean_words": {"sample": words[0], "greedy": words[1]}}
+
+
+def profile_scst(prep: str, xe_npz: str) -> None:
+    """``chip_smoke.py --profile-scst PREP XE.npz``: two serial
+    ``scst_train`` steps under torch.profiler, in a process of its own;
+    prints one JSON line (device time, busy share, top device ops)."""
+    import torch
+
+    from captionkit_torch.metrics.cider import NgramDocFreq
+    from captionkit_torch.train.scst import ScstRewarder, scst_train_step
+
+    dev = torch.device(TRAIN_DEVICE)
+    cfg, model, ds, state = _scst_setup(prep, xe_npz)
+    rollout_fn, update_fn = _scst_fns(model, cfg, ds.vocab)
+    rewarder = ScstRewarder(ds.vocab, NgramDocFreq.build(ds.references))
+    batches = _scst_batches(ds, cfg, 3, dev, rewarder)
+    holder = {"state": state}
+
+    def step(i):
+        holder["state"], _ = scst_train_step(
+            rollout_fn=rollout_fn, update_fn=update_fn, rewarder=rewarder,
+            state=holder["state"], batch=batches[i][0],
+            references=batches[i][2],
+            generator=torch.Generator(device=dev).manual_seed(i))
+
+    step(0)
+    torch.cuda.synchronize()
+
+    def run():
+        for i in (1, 2):
+            step(i)
+        torch.cuda.synchronize()
+
+    prof = _profile(run, top=12)
+    prof["steps"] = 2
+    print(json.dumps(prof), flush=True)
+
+
+def phase_scst(wrappers, card) -> dict:
+    """SCST fine-tuning (``scst_train``: EditNet at paper width, batch 256,
+    bf16) from the train phase's exported XE weights on its synthetic
+    split: the greedy leg bit-equal to ``greedy_decode`` on the same
+    context; the native rewards within 1e-9 of the Python ``CiderD``; the
+    update's gradients (deferred backward) against autograd through the
+    plain loop at the train phase's bars, with a dropped ``lang_wrc`` term
+    and a flipped advantage that must fail; ms a step split into rollout,
+    reward and update, and the reward again with both legs replaced by
+    reference captions (the XE weights' greedy leg stops early); serial
+    and pipelined ``run_scst_training`` in turns; peak memory of a step
+    with 1 and 4 samples; ``cli train-scst`` for a few steps with
+    validation (launches counted); its export decoded by ``cli decode``;
+    ``dcnet_scst_train`` for a few steps through the CLI; a profile of two
+    steps in a process of its own."""
+    import numpy as np
+    import torch
+
+    from captionkit_torch.decode.greedy import greedy_decode
+    from captionkit_torch.metrics.cider import CiderD, NgramDocFreq
+    from captionkit_torch.models import editnet_backward, get_model
+    from captionkit_torch.params import named_tensors, params_from_tensors
+    from captionkit_torch.train.loop import run_scst_training
+    from captionkit_torch.train.scst import ScstRewarder, host_tokens
+
+    dev = torch.device(TRAIN_DEVICE)
+    root = SMOKE_DIR / "train"
+    prep, xe = root / "prepared", root / "full.npz"
+    cfg, model, ds, state = _scst_setup(prep, xe)
+    vocab = ds.vocab
+    df = NgramDocFreq.build(ds.references)
+    rewarder = ScstRewarder(vocab, df)
+    rollout_fn, update_fn = _scst_fns(model, cfg, vocab)
+    batches = _scst_batches(ds, cfg, 2 + SCST_STEPS, dev, rewarder)
+
+    # 1. The rollout: the greedy leg against greedy_decode on the same
+    # context; the rewards against the Python CiderD.
+    batch, refs, ids = batches[0]
+    roll = rollout_fn(state.params, batch,
+                      torch.Generator(device=dev).manual_seed(0))
+    check(roll["sample_tokens"].grad_fn is None, "the rollout kept a graph")
+    with torch.no_grad():
+        fresh = params_from_tensors({n: t.detach() for n, t in
+                                     named_tensors(state.params).items()},
+                                    state.params)
+        ctx = model.encode(fresh, batch["features"], batch["existing"],
+                           batch["existing_len"])
+        greedy = greedy_decode(model, fresh, ctx, start_id=vocab.start,
+                               end_id=vocab.end, pad_id=vocab.pad,
+                               max_len=cfg.decode.max_decode_len).tokens
+    check(torch.equal(greedy, roll["greedy_tokens"]),
+          "the greedy leg differs from greedy_decode on the same context")
+    s_tok = host_tokens(roll, "sample_tokens")
+    g_tok = host_tokens(roll, "greedy_tokens")
+    reward_err = 0.0
+    for toks in (s_tok, g_tok):
+        hyps = [vocab.decode(r) for r in toks]
+        native = rewarder._native.score(hyps, refs)
+        _, py = CiderD(df).compute(hyps, refs)
+        reward_err = max(reward_err, float(np.abs(native - py).max()))
+    check(reward_err <= 1e-9, f"native rewards off CiderD by {reward_err}")
+    reward_turns = _reward_turns(rewarder, vocab, s_tok, g_tok, refs, ids)
+    reward_ref_len = _reward_at_reference_length(
+        rewarder, vocab, refs, ids, cfg.decode.max_decode_len)
+    adv = torch.from_numpy(rewarder.advantage(s_tok, g_tok, ids)).to(dev)
+    sample_len = float(roll["sample_mask"].float().sum(1).mean())
+    leg_words = {name: statistics.mean(len(vocab.decode(r)) for r in t)
+                 for name, t in (("sample", s_tok), ("greedy", g_tok))}
+
+    # 2. The update's gradients: the deferred backward against autograd
+    # through the plain loop, with planted faults.
+    m_auto = get_model(cfg.override({"model.deferred_backward": False})
+                       .model)
+    args = (batch, roll["sample_tokens"], roll["sample_mask"])
+    want = _scst_grads(m_auto, cfg, vocab, state, *args, adv)
+    got = _scst_grads(model, cfg, vocab, state, *args, adv)
+    errors = _grad_errors(got, want)
+    failing = _grad_check_fails(errors)
+    check(not failing, f"SCST gradients off autograd: "
+                       f"{ {n: errors[n] for n in failing} }")
+    editnet_backward.PLANTED_FAULT = "lang_wrc"
+    try:
+        planted = _grad_check_fails(_grad_errors(_scst_grads(
+            model, cfg, vocab, state, *args, adv), want))
+    finally:
+        editnet_backward.PLANTED_FAULT = None
+    check(planted == ["lang_lstm/wrc"],
+          f"the dropped lang_wrc term was not caught: {planted}")
+    flipped = _grad_check_fails(_grad_errors(_scst_grads(
+        model, cfg, vocab, state, *args, -adv), want))
+    check(len(flipped) > 0, "a flipped advantage passes the gradient bar")
+    del want, got, m_auto
+    torch.cuda.empty_cache()
+
+    # 3. ms a step and its split (serial), then serial against pipelined
+    # run_scst_training in turns.
+    split = _scst_step_split(rollout_fn, update_fn, rewarder, state,
+                             batches[1:], dev)
+    state = split.pop("state")
+    turns = {"serial": [], "pipelined": []}
+    for rnd in range(2):
+        for mode in (("serial", "pipelined") if rnd == 0
+                     else ("pipelined", "serial")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, rep = run_scst_training(
+                model, state, cfg.override({"train.scst_epochs": 1}), ds,
+                None, max_steps=SCST_STEPS, pipeline=mode == "pipelined",
+                device=dev)
+            torch.cuda.synchronize()
+            turns[mode].append(1e3 * (time.perf_counter() - t0)
+                               / SCST_STEPS)
+            check(np.isfinite(rep.history[0]["mean_advantage"]),
+                  f"{mode} run: {rep.history}")
+
+    # 4. Peak memory of one step with 1 and 4 samples.
+    from captionkit_torch.train.scst import scst_train_step
+
+    peak = {}
+    for n in (1, 4):
+        cfg_n = cfg.override({"train.scst_num_samples": n})
+        r_fn, u_fn = _scst_fns(model, cfg_n, vocab, n)
+        torch.cuda.synchronize()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        state, m = scst_train_step(
+            rollout_fn=r_fn, update_fn=u_fn, rewarder=rewarder, state=state,
+            batch=batch, references=ids,
+            generator=torch.Generator(device=dev).manual_seed(n))
+        torch.cuda.synchronize()
+        peak[f"n={n}"] = {"peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                          "before_gb": base_gb,
+                          "grad_norm": float(m["grad_norm"])}
+    del state, batches, roll, args, adv, ctx
+    torch.cuda.empty_cache()
+
+    # 5. cli train-scst with validation (the main path, launches counted),
+    # its export through cli decode, dcnet_scst_train through the CLI.
+    common = ["train-scst", "--prepared", prep, "--split", "train",
+              "--device", TRAIN_DEVICE, "--max-steps", SCST_STEPS,
+              "--set", "train.scst_epochs=1", "--set",
+              "train.keep_checkpoints=1", "--set", "train.log_every=1"]
+    _reset(wrappers)
+    t0 = time.perf_counter()
+    cli_out = _cli_in_process(common + [
+        "--config", "scst_train", "--params", xe, "--val-split", "val",
+        "--set", f"train.checkpoint_dir={root / 'ck_scst'}",
+        "--export-params", root / "scst.npz", "--run-dir",
+        root / "run_scst"])
+    cli_s = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in wrappers}
+    check(cli_out["step"] == SCST_STEPS, f"cli train-scst: {cli_out}")
+    check(launches["fused_head_topk"] > 0,
+          f"the validation launched no head kernel: {launches}")
+    rows = [json.loads(x) for x in (root / "run_scst" / "metrics.jsonl")
+            .read_text().splitlines()]
+    check(any("scst/mean_advantage" in r for r in rows),
+          f"metrics.jsonl rows {rows[:3]}")
+    t0 = time.perf_counter()
+    decoded = _cli("decode", "--config", "editnet_beam5", "--prepared",
+                   prep, "--split", "val", "--params", root / "scst.npz",
+                   "--set", f"decode.batch_size={N_IMAGES}", "--device",
+                   TRAIN_DEVICE)
+    decode_cli_s = time.perf_counter() - t0
+    check(decoded["captions"] == N_VAL and "CIDEr" in decoded,
+          f"decode of the SCST weights: {decoded}")
+    t0 = time.perf_counter()
+    dc_out = _cli_in_process(common + [
+        "--config", "dcnet_scst_train", "--no-val", "--set",
+        f"train.checkpoint_dir={root / 'ck_dcnet_scst'}"])
+    dc_s = time.perf_counter() - t0
+    check(dc_out["step"] == SCST_STEPS and np.isfinite(
+        dc_out["history"][0]["mean_advantage"]),
+        f"dcnet_scst_train: {dc_out}")
+
+    # 6. A profile of two serial steps, in a process of its own.
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--profile-scst",
+         str(prep), str(xe)], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    check(proc.returncode == 0, f"scst profile exited {proc.returncode}: "
+                                f"{proc.stderr[-3000:]}")
+    prof = json.loads(proc.stdout.strip().splitlines()[-1])
+    result = {
+        "phase": "scst", "ok": True, "card": card, "config": "scst_train",
+        "batch": cfg.data.batch_size, "from": "the train phase's export",
+        "greedy_leg_bit_equal": True, "reward_max_abs_err": reward_err,
+        "reward_turns": reward_turns,
+        "reward_at_reference_length": reward_ref_len,
+        "sample_len": sample_len, "leg_mean_words": leg_words,
+        "grad_check": {"rtol": GRAD_RTOL, "rtol_floor": GRAD_RTOL_FLOOR,
+                       "max_rel_err": max(e for n, e in errors.items()
+                                          if n not in GRAD_FLOOR),
+                       "max_rel_err_floor": max(errors[n]
+                                                for n in GRAD_FLOOR),
+                       "planted_lang_wrc_caught": True,
+                       "flipped_advantage_fails": flipped[:5]},
+        "step": split, "turns_ms_a_step": turns,
+        "turns_mean_ms": {k: statistics.mean(v) for k, v in turns.items()},
+        "memory": peak, "cli_s": cli_s, "cli": {
+            k: cli_out[k] for k in ("step", "best_val_cider", "history")},
+        "launches": launches, "export_decode": {
+            "cli_s": decode_cli_s, "cider": decoded["CIDEr"]},
+        "dcnet_scst_train": {"cli_s": dc_s, "history": dc_out["history"]},
+        "profile": prof}
+    emit(result)
+    return result
+
+
+def _ensemble_plain_head(params, ctx_k, state, k=BEAM):
+    """The plain head on the members' hiddens concatenated, over the
+    prepared combined head (bf16 W_m/M stacked, mean bias)."""
+    from captionkit_torch.kernels.head import reference_head_topk
+
+    h = state.h_lang.reshape(state.h_lang.shape[0], -1)
+    return reference_head_topk(h.to(ctx_k.head_w.dtype), ctx_k.head_w,
+                               ctx_k.head_b, k)
+
+
+def phase_ensemble(ed, dc, wrappers, card) -> dict:
+    """Checkpoint ensembles and stacked editing at paper width (the wide
+    tiled heads were held in ``wide_head``): editnet_beam5 as a two-member
+    logprob ensemble (seeds 0 and 1 through the .npz bridge) behind
+    CaptionServer(batch=512); a forced-full decode with 22 launches of
+    fused_head_topk a batch at H' = 2048, captions/s in turns beside the
+    single model; the combined head against its plain version on the
+    decode's own states; two copies of one checkpoint against the single
+    model; the int8, thresh and prob ensembles decoded once each; then
+    ``serve --stacked``'s pipeline (dcnet_beam5's DCNet greedy, then
+    EditNet beam) at batch 512: served, captions/s in turns beside
+    EditNet alone, 0 kernel launches in stage 1 and 22 head launches a
+    batch in stage 2."""
+    import dataclasses
+
+    import torch
+
+    from captionkit_torch.decode import greedy_decode, make_decode_fn
+    from captionkit_torch.decode.stacked import make_stacked_decode_fn
+    from captionkit_torch.models import get_model
+    from captionkit_torch.models.ensemble import ensemble_model, stack_params
+    from captionkit_torch.params import load_params_npz, save_params_npz
+
+    cfg, model, params, vocab = ed
+    npz1 = SMOKE_DIR / "params_editnet_seed1.npz"
+    save_params_npz(model.init(1, "cpu"), str(npz1))
+    second = load_params_npz(str(npz1), "cuda", arch="editnet")
+    ep = stack_params([params, second])
+    ens = ensemble_model(model, 2)
+    serve = phase_serve(cfg, ens, ep, vocab, wrappers, ("fused_head_topk",),
+                        phase="ensemble_serve")
+
+    batch = _batch(cfg.model)
+    kw = dict(start_id=vocab.start, end_id=-1, pad_id=vocab.pad,
+              device="cuda")
+    decode = make_decode_fn(model, cfg.decode, **kw)
+    ens_decode = make_decode_fn(ens, cfg.decode, **kw)
+    ens_decode(ep, *batch).cpu()  # warm-up
+    _reset(wrappers)
+    tokens = ens_decode(ep, *batch).cpu()
+    per_batch = {w.__name__: w.launches for w in wrappers}
+    check(per_batch["fused_head_topk"] == MAX_LEN,
+          f"{per_batch} launches for one ensemble batch")
+    check(tuple(tokens.shape) == (N_IMAGES, MAX_LEN),
+          f"tokens {tuple(tokens.shape)}")
+    timed = _timed_decodes(
+        {"ensemble2": lambda _p, *b: ens_decode(ep, *b),
+         "single": lambda _p, *b: decode(params, *b)},
+        {"ensemble2": batch, "single": batch}, None)
+    steps = _check_steps(ens, ep, [t.cuda() for t in batch], kw,
+                         plain=_ensemble_plain_head)
+    single = decode(params, *batch).cpu()
+    dup = make_decode_fn(ens, cfg.decode, **kw)(
+        stack_params([params, params]), *batch).cpu()
+    dup_agree = float((dup == single).float().mean())
+    check(dup_agree >= 0.5, f"two copies of one checkpoint agree with it "
+                            f"on {dup_agree} < 0.5")
+    others = {}
+    for name, sets, mode, expect in (
+            ("int8", {"model.head_quant": "int8"}, "logprob",
+             "fused_head_topk_int8"),
+            ("thresh", {"model.head_extract": "thresh"}, "logprob",
+             "fused_head_topk_thresh"),
+            ("prob", {}, "prob", None)):
+        m = ensemble_model(get_model(cfg.override(sets).model), 2,
+                           mode=mode)
+        fn = make_decode_fn(m, cfg.decode, **kw)
+        fn(ep, *batch).cpu()
+        _reset(wrappers)
+        t0 = time.perf_counter()
+        toks = fn(ep, *batch).cpu()
+        wall = time.perf_counter() - t0
+        launched = {w.__name__: w.launches for w in wrappers}
+        if expect is None:
+            check(sum(launched.values()) == 0,
+                  f"prob mode launched head kernels: {launched}")
+        else:
+            check(launched[expect] == MAX_LEN,
+                  f"{name} ensemble launches: {launched}")
+        check(bool(((toks >= 0) & (toks < cfg.model.vocab_size)).all()),
+              f"{name} ensemble token ids out of range")
+        others[name] = {"launches_per_batch": launched,
+                        "captions_per_s": N_IMAGES / wall,
+                        "token_agreement_with_logprob": float(
+                            (toks == tokens).float().mean())}
+
+    # The stacked pipeline: DCNet (dcnet_beam5's weights, plain cells)
+    # greedy, then EditNet beam.
+    dcfg, _, dparams, _ = dc
+    dmodel = get_model(dataclasses.replace(cfg.model, arch="dcnet"))
+    first = dataclasses.replace(cfg.decode, method="greedy", beam_size=1)
+    stacked = make_stacked_decode_fn(
+        dmodel, model, first_stage=first, second_stage=cfg.decode,
+        start_id=vocab.start, end_id=vocab.end, pad_id=vocab.pad,
+        feed_dtype=cfg.decode.feed_dtype, device="cuda")
+    pair = (dparams, params)
+    sserve = phase_serve(
+        cfg, model, pair, vocab, wrappers, ("fused_head_topk",),
+        phase="stacked_serve",
+        decode_fn=lambda p, f, i, n, _s: stacked(p[0], p[1], f, i, n))
+    forced = make_stacked_decode_fn(
+        dmodel, model, first_stage=first, second_stage=cfg.decode,
+        start_id=vocab.start, end_id=-1, pad_id=vocab.pad, device="cuda")
+    forced(dparams, params, *batch).cpu()
+    _reset(wrappers)
+    with torch.inference_mode():
+        feats, existing, lens = (t.cuda() for t in batch)
+        g = greedy_decode(dmodel, dparams, dmodel.encode(
+            dparams, feats, existing, lens), start_id=vocab.start,
+            end_id=-1, pad_id=vocab.pad, max_len=MAX_LEN)
+        torch.cuda.synchronize()
+    stage1 = {w.__name__: w.launches for w in wrappers}
+    check(sum(stage1.values()) == 0, f"stage 1 launched {stage1}")
+    check(tuple(g.tokens.shape) == (N_IMAGES, MAX_LEN), "stage 1 shape")
+    _reset(wrappers)
+    stoks = forced(dparams, params, *batch).cpu()
+    stacked_launches = {w.__name__: w.launches for w in wrappers}
+    check(stacked_launches["fused_head_topk"] == MAX_LEN
+          and sum(stacked_launches.values()) == MAX_LEN,
+          f"stacked batch launched {stacked_launches}")
+    check(tuple(stoks.shape) == (N_IMAGES, MAX_LEN), "stacked shape")
+    stimed = _timed_decodes(
+        {"stacked": lambda _p, *b: forced(dparams, params, *b),
+         "editnet": lambda _p, *b: decode(params, *b)},
+        {"stacked": batch, "editnet": batch}, None)
+    result = {
+        "phase": "ensemble", "ok": True, "card": card,
+        "config": "editnet_beam5", "members": 2, "mode": "logprob",
+        "H_combined": 2 * cfg.model.hidden_dim, "batch": N_IMAGES,
+        "serve_launches": serve["launches"], "launches_per_batch":
+        per_batch, "captions_per_s": timed, "steps_check": steps,
+        "duplicate_token_agreement": dup_agree, "variants": others,
+        "stacked": {"serve_launches": sserve["launches"],
+                    "serve_wall_s": sserve["wall_s"],
+                    "stage1_launches": stage1,
+                    "launches_per_batch": stacked_launches,
+                    "captions_per_s": stimed}}
+    emit(result)
+    return result
 
 
 def main() -> int:
@@ -3961,11 +4655,20 @@ def main() -> int:
         phase = "beam10"
         phase_beam10(ed, WRAPPERS, card)
         phase = "wide_head"
-        phase_wide_head(card)
+        wide = phase_wide_head(card)
         phase = "evaluate"
         phase_evaluate(ed, WRAPPERS, card)
         phase = "train"
-        train = phase_train(WRAPPERS, card)
+        try:
+            train = phase_train(WRAPPERS, card)
+            phase = "scst"
+            scst = phase_scst(WRAPPERS, card)
+        finally:
+            import shutil
+
+            shutil.rmtree(SMOKE_DIR / "train", ignore_errors=True)
+        phase = "ensemble"
+        ens = phase_ensemble(ed, dc, WRAPPERS, card)
     except Exception as e:  # every failed phase ends the run non-zero
         traceback.print_exc()
         emit({"phase": phase, "ok": False,
@@ -3978,6 +4681,7 @@ def main() -> int:
         "replaces": "captionkit/ops/head.py:490",
         "launches": serve["launches"]["fused_head_topk"],
         "launches_train": train["launches"]["fused_head_topk"],
+        "launches_scst": scst["launches"]["fused_head_topk"],
         "launches_per_batch": decode["head_launches"],
         "cuda_launches_per_call": head["cuda_launches_per_call"],
         "check": "ok",
@@ -4132,6 +4836,39 @@ def main() -> int:
             "bound_by": res["bound_by"],
             "library_ms": res["library_ms"],
         })
+    # The wide bf16 instances of the tiled heads (h streamed, H' = 2048):
+    # launches from the two-member ensemble's server (mask) and its thresh
+    # decode; held in wide_head at H = 2048 and 4096 and, mask, on the
+    # ensemble decode's own states.
+    for name, launches, per_batch_n, steps_err in (
+            ("fused_head_topk", ens["serve_launches"]["fused_head_topk"],
+             ens["launches_per_batch"]["fused_head_topk"],
+             max(ens["steps_check"]["vals_max_abs_err"],
+                 ens["steps_check"]["lse_max_abs_err"])),
+            ("fused_head_topk_thresh",
+             ens["variants"]["thresh"]["launches_per_batch"][
+                 "fused_head_topk_thresh"],
+             ens["variants"]["thresh"]["launches_per_batch"][
+                 "fused_head_topk_thresh"], 0.0)):
+        res = wide["kernels"][f"{name}/H=2048"]
+        check(launches > 0, f"wide {name} was not launched on its path")
+        kernels.append({
+            "name": f"{name}[H=2048]",
+            "route": "cuda",
+            "source": "captionkit_torch/csrc/head_topk.cu",
+            "replaces": "captionkit/ops/head.py:490",
+            "launches": launches,
+            "launches_per_batch": per_batch_n,
+            "cuda_launches_per_call": res["cuda_launches_per_call"],
+            "check": "ok",
+            "max_abs_err": max(res["vals_max_abs_err"],
+                               res["lse_max_abs_err"], steps_err),
+            "ms": res["ms"],
+            "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"],
+            "library_ms": res["library_ms"],
+        })
     # The fp32 instances (compute_dtype="float32"), each with its launches
     # a batch on the fp32 path that runs it.
     sources = {e["name"]: (e["source"], e["replaces"]) for e in kernels}
@@ -4177,5 +4914,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--profile-train"]:
         sys.path.insert(0, str(ROOT))
         profile_train(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--profile-scst"]:
+        sys.path.insert(0, str(ROOT))
+        profile_scst(sys.argv[2], sys.argv[3])
         sys.exit(0)
     sys.exit(main())

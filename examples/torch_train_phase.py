@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Run ``chip_smoke.py``'s device, build and train phases alone, on one
-card: the quick check of the XE training path (``cli train-xe`` at
-``xe_train``'s paper width, resume, export, the gradient check, times).
+"""Run ``chip_smoke.py``'s device, build, train and scst phases alone, on
+one card: the quick check of the training paths (``cli train-xe`` at
+``xe_train``'s paper width, resume, export, the gradient check, times;
+then SCST from the exported weights: ``cli train-scst``, the rollout,
+reward and update checks, serial and pipelined times, peak memory).
 
     python3 examples/torch_train_phase.py
 
-Prints the phases' JSON lines (the train phase's as ``chip_smoke.py``
-prints it) and the seconds the whole run took.
+Prints the phases' JSON lines (as ``chip_smoke.py`` prints them) and the
+seconds the whole run took. The synthetic split is deleted at the end.
 """
 
+import shutil
 import sys
 import time
 from pathlib import Path
@@ -25,7 +28,11 @@ def main() -> int:
     chip_smoke.phase_build()
     from captionkit_torch.kernels import WRAPPERS
 
-    chip_smoke.phase_train(WRAPPERS, info["nvidia_smi"])
+    try:
+        chip_smoke.phase_train(WRAPPERS, info["nvidia_smi"])
+        chip_smoke.phase_scst(WRAPPERS, info["nvidia_smi"])
+    finally:
+        shutil.rmtree(chip_smoke.SMOKE_DIR / "train", ignore_errors=True)
     print(f"seconds {time.time() - t0:.1f}", flush=True)
     return 0
 

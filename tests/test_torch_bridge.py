@@ -93,7 +93,8 @@ def test_port_imports_no_jax_and_nothing_of_captionkit():
                  "data.prepare", "data.faststore", "utils.nativebuild",
                  "models.editnet_backward", "models.dcnet_backward",
                  "train.state", "train.xe", "train.checkpoint",
-                 "train.loop", "utils.logging", "utils.preemption"):
+                 "train.loop", "utils.logging", "utils.preemption",
+                 "train.scst", "models.ensemble", "decode.stacked"):
         assert f"captionkit_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

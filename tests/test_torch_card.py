@@ -1103,27 +1103,77 @@ def test_fp32_heads_match_plain(card, kernel):
 
 @pytest.mark.parametrize("k", [5, 16])
 @pytest.mark.parametrize("H", [2048, 4096])
-@pytest.mark.parametrize("kernel", ["sweep", "int8"])
+@pytest.mark.parametrize("kernel", ["sweep", "int8", "mask", "thresh"])
 def test_wide_heads_match_plain(card, kernel, H, k):
-    """The sweep (h streamed beside W above H = 1024) and the int8 head
-    (its quantized rows streamed beside w_qt) at H = 2048 and 4096, paper
-    vocab:
-    within their bars. A sweep that skipped h's second 64-wide chunk (a
-    planted fault) fails the head bar."""
+    """The sweep and the tiled bf16 heads (mask, thresh: h streamed beside
+    W above H = 1024) and the int8 head (its quantized rows streamed
+    beside w_qt) at H = 2048 and 4096, paper vocab: within their bars;
+    thresh bit-equal to mask. A float head that skipped h's second 64-wide
+    chunk (a planted fault) fails the head bar."""
     g = torch.Generator().manual_seed(H + k)
     N, V = 2560, 9490
     h = torch.randn((N, H), generator=g).to(card)
     w = (torch.randn((H, V), generator=g) * H ** -0.5).to(card)
     b = (torch.randn((V,), generator=g) * 0.01).to(card)
-    if kernel == "sweep":
+    if kernel != "int8":
         w, b = thead.prepad_head(w, b, compute_dtype=torch.bfloat16)
     got, want = _head_pair(kernel, h, w, b, k)
     _head_bar(got, want, kernel)
-    if kernel == "sweep":
+    if kernel == "thresh":
+        mask = _float_head("mask", h.bfloat16(), w, b, k)
+        assert all(torch.equal(x, y) for x, y in zip(got, mask))
+    if kernel != "int8":
         hs = h.bfloat16().clone()
         hs[:, 64:128] = 0
-        bad = thead.head_sweep_topk(hs, w, b, k=k)
+        bad = _float_head(kernel, hs, w, b, k)
         assert float((bad[2] - want[2]).abs().max()) > 1e-3
+
+
+def _wide_tie_case(card, N, H, V=9600, P=16):
+    """The float tie patterns of ``_tiled_tie_case`` at a wide H: h is
+    one-hot in its last P columns (row i selects pattern row i mod P),
+    the patterns sit in W's last P rows and every other row of W is
+    random, met by h's zeros; ties on both sides of every cluster share
+    boundary of the streamed-h plan. Returns (h, w, b, shares)."""
+    shares, per = thead.sweep_plan(
+        N, V, thead.cluster_table("head_topk", card, wide=True))
+    cuts = [c * per * thead.TILE_V for c in range(1, shares)]
+    rng = np.random.default_rng(N + H)
+    pat = rng.integers(-2, 2, (P, V)).astype(np.float32)
+    pat[0] = 1.0
+    for cut in cuts:
+        pat[1, [cut - 1, cut]] = 5.0
+        pat[2, [cut - 2, cut + 1]] = 6.0
+        pat[3, [cut - 1, cut, 0, V - 1]] = 3.0
+        pat[5, cut - 4:cut + 4] = 4.0
+    for c in range(shares):
+        pat[4, min(c * per * thead.TILE_V + 5, V - 1)] = 7.0
+    for t in range(V // thead.TILE_V):
+        pat[6, t * thead.TILE_V + 3] = 9.0
+        pat[7, t * thead.TILE_V + 126:t * thead.TILE_V + 130] = 2.0
+    w = rng.integers(-3, 3, (H, V)).astype(np.float32)
+    w[H - P:] = pat
+    h = np.zeros((N, H), np.float32)
+    h[np.arange(N), H - P + np.arange(N) % P] = 1.0
+    return (torch.from_numpy(h).to(card, torch.bfloat16),
+            torch.from_numpy(w).to(card, torch.bfloat16),
+            torch.zeros((V,), device=card), shares)
+
+
+@pytest.mark.parametrize("k", [1, 5, 16])
+@pytest.mark.parametrize("H", [2048, 4096])
+def test_wide_tiled_heads_exact_on_share_ties(card, H, k):
+    """mask and thresh at H = 2048 and 4096 (h streamed) on exact ties at
+    every cluster share boundary of the wide plan, in every tile and
+    across whole rows, N = 2560: values and ids equal to the plain
+    version's, thresh bit-equal to mask."""
+    h, w, b, shares = _wide_tie_case(card, 2560, H)
+    assert shares >= 2
+    want = thead.reference_head_topk(h, w, b, k)
+    mask = thead.fused_head_topk(h, w, b, k=k)
+    thresh = thead.fused_head_topk_thresh(h, w, b, k=k)
+    assert _exact(mask, want, "mask")
+    assert all(torch.equal(x, y) for x, y in zip(thresh, mask))
 
 
 # -- the tiled heads on csrc/head_sm90.cuh (mask, thresh, int8) ---------------
@@ -1759,3 +1809,156 @@ def test_train_step_on_card_matches_plain_loop_and_cpu(card, dtype):
             after[name] = named_tensors(st.params)
         for n, t in after["deferred"].items():
             assert torch.allclose(t, after["loop"][n], atol=1e-6, rtol=0), n
+
+
+def _scst_setup(dev, n):
+    """A small EditNet train state on ``dev`` (fp32, SGD), a batch, and
+    fixed sampled tokens, masks and advantages for ``n`` samples."""
+    from captionkit_torch.config import ModelConfig, TrainConfig
+    from captionkit_torch.train.state import create_train_state
+
+    model = get_model(ModelConfig(arch="editnet", compute_dtype="float32",
+                                  **SMALL_TRAIN))
+    tcfg = TrainConfig(seed=3, optimizer="sgd", learning_rate=0.1)
+    state = create_train_state(lambda seed: model.init(seed, dev), tcfg)
+    r = np.random.default_rng(n)
+    toks = r.integers(4, SMALL_TRAIN["vocab_size"], (n, 6, 8)).astype(
+        np.int32)
+    mask = np.zeros((n, 6, 8), bool)
+    for i, j in np.ndindex(n, 6):
+        mask[i, j, :int(r.integers(1, 9))] = True
+    adv = r.standard_normal((n, 6)).astype(np.float32)
+    if n == 1:
+        toks, mask, adv = toks[0], mask[0], adv[0]
+    return (model, tcfg, state, _train_batch(dev),
+            *(torch.from_numpy(x).to(dev) for x in (toks, mask, adv)))
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_scst_update_on_card_matches_cpu(card, n):
+    """One SCST update (n = 1, and n = 3 with one backward a sample) on the
+    card and on the CPU, fp32, SGD: the loss and the metrics within 1e-5
+    relative, every weight within 1e-6."""
+    from captionkit_torch.params import named_tensors
+    from captionkit_torch.train.scst import make_scst_update
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model, tcfg, state, batch, toks, mask, adv = _scst_setup(dev, n)
+        st, m = make_scst_update(model, tcfg, start_id=1, num_samples=n)(
+            state, batch, toks, mask, adv)
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    {k: t.detach().cpu() for k, t in
+                     named_tensors(st.params).items()})
+    for k, v in out["cpu"][0].items():
+        assert out["cuda"][0][k] == pytest.approx(v, rel=1e-5, abs=1e-7), k
+    for k, t in out["cpu"][1].items():
+        assert torch.allclose(out["cuda"][1][k], t, atol=1e-6, rtol=0), k
+
+
+def test_scst_rollout_on_card_reads_the_params_before_a_later_update(card):
+    """The pipelined schedule on one stream: a rollout enqueued before an
+    in-place update decodes what a rollout of a snapshot of the old
+    parameters decodes (the same card, bit-equal); its host copies are the
+    card's tokens once its event completed; the greedy leg agrees with the
+    CPU's for nearly every row."""
+    from captionkit_torch.params import named_tensors, params_from_tensors
+    from captionkit_torch.train.scst import (
+        host_tokens,
+        make_scst_rollout,
+        make_scst_update,
+    )
+
+    model, tcfg, state, batch, toks, mask, adv = _scst_setup("cuda", 1)
+    snap = params_from_tensors({k: t.detach().clone() for k, t in
+                                named_tensors(state.params).items()},
+                               state.params)
+    roll_fn = make_scst_rollout(model, start_id=1, end_id=2, max_len=8)
+    gen = torch.Generator(device="cuda")
+    roll = roll_fn(state.params, batch, gen.manual_seed(5))
+    make_scst_update(model, tcfg, start_id=1)(state, batch, toks, mask, adv)
+    assert isinstance(roll["ready"], torch.cuda.Event)
+    host = host_tokens(roll, "sample_tokens")
+    again = roll_fn(snap, batch, gen.manual_seed(5))
+    torch.cuda.synchronize()
+    for key in ("sample_tokens", "greedy_tokens"):
+        assert torch.equal(roll[key], again[key]), key
+    assert np.array_equal(host, roll["sample_tokens"].cpu().numpy())
+    assert not all(torch.equal(a, b) for a, b in zip(
+        named_tensors(state.params).values(),
+        named_tensors(snap).values()))
+    cpu_model, _, cpu_state, cpu_batch, *_ = _scst_setup("cpu", 1)
+    cpu = make_scst_rollout(cpu_model, start_id=1, end_id=2, max_len=8)(
+        cpu_state.params, cpu_batch, torch.Generator().manual_seed(5))
+    rows = (cpu["greedy_tokens"] == again["greedy_tokens"].cpu()).all(1)
+    assert float(rows.float().mean()) >= 0.8
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+@pytest.mark.parametrize("mode", ["logprob", "prob"])
+def test_ensemble_beam_on_card_matches_cpu(card, mode, quant):
+    """A two-member ensemble of a small fp32 EditNet beam-decoded on the
+    card (logprob: the combined head through the fp32 head kernel or the
+    int8 kernel at H' = 2H; prob: the full-logits branch) and on the CPU:
+    the same captions for nearly every image; the head kernel launched in
+    logprob mode only."""
+    from captionkit_torch.kernels import WRAPPERS
+    from captionkit_torch.models.ensemble import ensemble_model, stack_params
+
+    cfg = CaptionKitConfig().override({
+        **SMALL_CELLS, "model.compute_dtype": "float32",
+        "model.head_quant": quant, "decode.beam_size": 5,
+        "decode.max_decode_len": 10})
+    model = ensemble_model(get_model(cfg.model), 2, mode=mode)
+    rng = np.random.default_rng(1)
+    B = 16
+    feats = torch.from_numpy(
+        rng.standard_normal((B, 6, 72)).astype(np.float32))
+    ex = torch.from_numpy(rng.integers(4, 300, (B, 8)))
+    ln = torch.from_numpy(rng.integers(2, 9, (B,)))
+    out, launched = {}, {}
+    for dev in ("cpu", "cuda"):
+        member = get_model(cfg.model)
+        params = stack_params([member.init(s, dev) for s in (0, 1)])
+        fn = make_decode_fn(model, cfg.decode, start_id=2, end_id=-1,
+                            device=dev)
+        before = sum(w.launches for w in WRAPPERS)
+        out[dev] = fn(params, feats, ex, ln).cpu()
+        launched[dev] = sum(w.launches for w in WRAPPERS) - before
+    assert launched["cpu"] == 0
+    assert (launched["cuda"] >= 10) == (mode == "logprob")
+    rows = (out["cpu"] == out["cuda"]).all(dim=1).float().mean()
+    assert float(rows) >= 0.9
+
+
+def test_ensemble_members_launch_their_cell_kernels(card):
+    """A two-member bf16 EditNet ensemble with ``cell_impl="pallas"``: each
+    step launches att_cell and lang_cell once per member and the combined
+    head once (a forced-full decode of 10 steps), and the captions agree
+    with the plain-cell ensemble's on most tokens."""
+    from captionkit_torch.kernels import WRAPPERS
+    from captionkit_torch.models.ensemble import ensemble_model, stack_params
+
+    over = {**SMALL_CELLS, "decode.beam_size": 5,
+            "decode.max_decode_len": 10}
+    rng = np.random.default_rng(2)
+    B = 16
+    feats = torch.from_numpy(
+        rng.standard_normal((B, 6, 72)).astype(np.float32))
+    ex = torch.from_numpy(rng.integers(4, 300, (B, 8)))
+    ln = torch.from_numpy(rng.integers(2, 9, (B,)))
+    out = {}
+    for impl in ("xla", "pallas"):
+        cfg = CaptionKitConfig().override({**over,
+                                           "model.cell_impl": impl})
+        member = get_model(cfg.model)
+        params = stack_params([member.init(s, "cuda") for s in (0, 1)])
+        fn = make_decode_fn(ensemble_model(member, 2), cfg.decode,
+                            start_id=2, end_id=-1, device="cuda")
+        for w in WRAPPERS:
+            w.launches = 0
+        out[impl] = fn(params, feats, ex, ln).cpu()
+        launched = {w.__name__: w.launches for w in WRAPPERS}
+    assert launched["att_cell"] == launched["lang_cell"] == 2 * 10
+    assert launched["fused_head_topk"] == 10
+    assert float((out["xla"] == out["pallas"]).float().mean()) >= 0.5

@@ -197,11 +197,23 @@ def test_cli_decode_no_metrics_and_shards_identical_to_jax(split_dir,
 
 def test_cli_decode_refuses_ensembles_and_defaults_to_the_card(split_dir,
                                                                params_npz):
+    """A two-checkpoint ``--params a,b`` decodes the checkpoint ensemble:
+    the same results file and metrics as the reference CLI's ensemble, in
+    both modes; without ``--device`` the decode asks for the card."""
+    vocab = len(load_prepared_split(str(split_dir / "p"), "test").vocab)
+    jm = jax_get_model(JaxModelConfig(arch="editnet", vocab_size=vocab,
+                                      **SMALL))
+    second = str(split_dir / "params_b.npz")
+    jax_save_npz(jm.init(jax.random.PRNGKey(2)), second)
+    for mode in ("logprob", "prob"):
+        (got, got_file), (want, want_file) = _decode_both(
+            split_dir, f"{params_npz},{second}", f"ens_{mode}",
+            "--prepared", str(split_dir / "p"), "--split", "test",
+            "--ensemble-mode", mode)
+        assert got_file == want_file
+        assert _strip(got) == _strip(want)
     argv = ["decode", "--config", "editnet_beam5", "--synthetic",
             "--images", "3", *_sets()]
-    with pytest.raises(SystemExit, match="ensembles are not yet ported"):
-        cli.main(argv + ["--params", f"{params_npz},{params_npz}",
-                         "--device", "cpu"])
     import torch
 
     if not torch.cuda.is_available():

@@ -202,7 +202,7 @@ def test_cli_unported_commands_exit(capsys):
     assert cli.main(["configs"]) == 0
     assert "editnet_beam5" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(["train-scst"])
+        cli.main(["convert"])
 
 
 def test_entry_points_default_to_the_card(both):
