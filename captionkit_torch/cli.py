@@ -33,6 +33,11 @@ a split, stacked editing, data preparation, XE and SCST training).
         --editnet-params ed.npz --out results.json
     python -m captionkit_torch.cli serve --config editnet_beam5 --synthetic \\
         --stacked [--dcnet-params dc.npz] [--params ed.npz]
+    python -m captionkit_torch.cli convert --torch BEST.pth.tar \\
+        --arch editnet --out params.npz [--fit-names]
+    python -m captionkit_torch.cli parity-gate --config editnet_beam5 \\
+        --prepared prep --split test --ckpt BEST.pth.tar \\
+        --set model.compute_dtype=float32 [--max-images 64] [--device cpu]
     python -m captionkit_torch.cli decode --config editnet_beam5 \\
         --wordmap WORDMAP.json --captions TEST_CAPTIONS.json \\
         --caplens TEST_CAPLENS.json --existing TEST_EXISTING.json \\
@@ -91,9 +96,18 @@ previous batch's reward and update, and no ``--resume`` (as in the
 reference). Both refuse ``--num-shards`` above 1 until data-parallel
 training is ported.
 
+``convert`` turns a PyTorch checkpoint (a state dict, a pickled module or
+the released training dict) into the flat ``.npz`` (``convert/
+torch_import.py``), by the module-name table (``--name-map`` JSON
+overrides) or, with ``--fit-names``, by the layout fitted from the
+shapes; it is host work and takes no ``--device``. ``parity-gate`` runs
+``convert/gate.py``: convert, greedy-identical against the torch twin
+(exact tokens need ``--set model.compute_dtype=float32``), greedy against
+``--expected-captions``, beam CIDEr against ``--expected-cider``; it prints
+the report as JSON and exits 1 when a check failed.
+
 ``--device`` defaults to ``cuda`` and raises when there is no card;
-``--device cpu`` runs the plain versions of the kernels on the CPU. The
-reference's ``convert`` and ``parity-gate`` are not yet ported.
+``--device cpu`` runs the plain versions of the kernels on the CPU.
 """
 
 from __future__ import annotations
@@ -105,11 +119,10 @@ from typing import Any
 
 from captionkit_torch.config import (
     CaptionKitConfig,
+    ModelConfig,
     get_named_config,
     list_named_configs,
 )
-
-NOT_PORTED = ("convert", "parity-gate")
 
 
 def _parse_value(raw: str) -> Any:
@@ -171,9 +184,10 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
 
-    def add_common(sp):
+    def add_common(sp, shards=True):
         """The config, the split (synthetic, prepared or raw) and the
-        device: the flags ``decode`` and ``train-xe`` share."""
+        device: the flags ``decode``, the trainers and ``parity-gate``
+        share (``parity-gate`` without the shard flags)."""
         sp.add_argument("--config", required=True,
                         help="named config (see `configs`)")
         sp.add_argument("--set", action="append", default=[],
@@ -196,13 +210,14 @@ def build_parser() -> argparse.ArgumentParser:
                         help="GT captions per image in raw artifacts "
                              "(needed without --features to group "
                              "references by image)")
-        sp.add_argument("--num-shards", dest="num_shards", type=int,
-                        default=1,
-                        help="decode: split the eval set across processes;"
-                             " run one per shard and concatenate the "
-                             "results JSONs")
-        sp.add_argument("--shard-index", dest="shard_index", type=int,
-                        default=0, help="this process's shard (0-based)")
+        if shards:
+            sp.add_argument(
+                "--num-shards", dest="num_shards", type=int, default=1,
+                help="decode: split the eval set across processes; run one "
+                     "per shard and concatenate the results JSONs")
+            sp.add_argument("--shard-index", dest="shard_index", type=int,
+                            default=0,
+                            help="this process's shard (0-based)")
         sp.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
 
@@ -279,8 +294,57 @@ def build_parser() -> argparse.ArgumentParser:
                     help="enqueue each batch's rollout before the previous "
                          "batch's reward and update (one-step-stale "
                          "policy)")
-    for name in NOT_PORTED:
-        sub.add_parser(name, help="not yet ported")
+
+    sp = sub.add_parser("convert", help="torch checkpoint -> params .npz")
+    sp.add_argument("--torch", required=True)
+    sp.add_argument("--arch", required=True, choices=["dcnet", "editnet"])
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--name-map", dest="name_map",
+                    help="JSON overrides for the checkpoint module-name "
+                         "table (see convert.torch_import.DEFAULT_NAME_MAPS)")
+    sp.add_argument("--fit-names", dest="fit_names", action="store_true",
+                    help="infer the checkpoint layout from parameter "
+                         "shapes (convert.fit_names) instead of the name "
+                         "map; dims come from --config (default: inferred "
+                         "from the shapes)")
+    sp.add_argument("--config", default="",
+                    help="named config supplying model dims for --fit-names")
+    sp.add_argument("--set", action="append", default=[], metavar="K=V",
+                    help="dotted config overrides for --fit-names dims, "
+                         "e.g. model.hidden_dim=512")
+    sp.add_argument("--fit-candidate", dest="fit_candidate", type=int,
+                    default=0,
+                    help="which ranked fit to convert (0 = best; see "
+                         "--fit-report for the alternates)")
+    sp.add_argument("--fit-report", dest="fit_report",
+                    help="write the fitted translation + alternates + "
+                         "notes as JSON here")
+
+    sp = sub.add_parser(
+        "parity-gate",
+        help="torch ckpt -> convert -> greedy-identical -> beam CIDEr "
+             "tolerance, in one command")
+    add_common(sp, shards=False)
+    sp.add_argument("--ckpt", required=True, help="torch checkpoint path")
+    sp.add_argument("--name-map", dest="name_map",
+                    help="JSON overrides for the checkpoint module-name "
+                         "table")
+    sp.add_argument("--expected-cider", dest="expected_cider", type=float,
+                    help="published CIDEr to gate against (+/- tol)")
+    sp.add_argument("--expected-captions", dest="expected_captions",
+                    help="JSON {image_id: caption} of the original repo's "
+                         "published greedy captions; gates exact string "
+                         "match (catches semantics weights can't express, "
+                         "e.g. soft-vs-hard SCMA)")
+    sp.add_argument("--cider-tol", dest="cider_tol", type=float, default=0.2)
+    sp.add_argument("--max-images", dest="max_images", type=int,
+                    help="cap greedy-identical comparison size")
+    sp.add_argument("--out", help="also write converted params .npz here")
+    sp.add_argument("--fit-names", dest="fit_names", action="store_true",
+                    help="infer the checkpoint layout from shapes and "
+                         "sweep the ranked candidate fits through the "
+                         "gate (decisive only with --expected-cider or "
+                         "--expected-captions)")
     return p
 
 
@@ -646,15 +710,114 @@ def cmd_prepare(args) -> int:
     return 0
 
 
+def _load_name_map(path):
+    if not path:
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def cmd_convert(args) -> int:
+    from captionkit_torch.convert.torch_import import (
+        convert_torch_checkpoint,
+    )
+
+    if args.fit_names:
+        import dataclasses
+
+        from captionkit_torch.convert.fit_names import (
+            fit_params_from_state_dict,
+        )
+        from captionkit_torch.convert.torch_import import (
+            load_torch_state_dict,
+        )
+        from captionkit_torch.params import save_params_npz
+
+        raw = load_torch_state_dict(args.torch)
+        base = get_named_config(args.config) if args.config else None
+        if base is not None:
+            mcfg = _apply_overrides(base, args.set).model
+        elif args.set:
+            mcfg = _apply_overrides(
+                get_named_config(
+                    "editnet_beam5" if args.arch == "editnet"
+                    else "dcnet_beam5"),
+                args.set,
+            ).model
+        else:
+            from captionkit_torch.convert.fit_names import (
+                infer_dims,
+                state_dict_shapes,
+            )
+
+            dims = infer_dims(state_dict_shapes(raw), args.arch)
+            print(f"inferred dims: {dims}")
+            mcfg = ModelConfig(arch=args.arch, **dims)
+        if mcfg.arch != args.arch:
+            mcfg = dataclasses.replace(mcfg, arch=args.arch)
+        params, fit = fit_params_from_state_dict(
+            raw, args.arch, mcfg, candidate=args.fit_candidate,
+            device="cpu")
+        save_params_npz(params, args.out)
+        print(f"wrote {args.out} (fit candidate {args.fit_candidate} of "
+              f"{len(fit.candidates)})")
+        for n in fit.notes:
+            print(f"  note: {n}")
+        if fit.unmatched_raw:
+            print(f"  WARNING: {len(fit.unmatched_raw)} checkpoint "
+                  f"tensor(s) not matched (NOT converted): "
+                  f"{fit.unmatched_raw[:8]}", file=sys.stderr)
+        if args.fit_report:
+            with open(args.fit_report, "w") as f:
+                json.dump({"translation": fit.translation,
+                           "alternates": fit.alternates,
+                           "notes": fit.notes,
+                           "unmatched_raw": fit.unmatched_raw}, f, indent=2)
+            print(f"fit report: {args.fit_report}")
+        return 0
+
+    out = convert_torch_checkpoint(
+        args.torch, args.arch, args.out,
+        name_map=_load_name_map(args.name_map))
+    print(f"wrote {out}")
+    return 0
+
+
+def cmd_parity_gate(args) -> int:
+    """convert -> greedy-identical -> beam CIDEr, as one command."""
+    from captionkit_torch.convert.gate import run_parity_gate
+    from captionkit_torch.device import resolve_device
+
+    device = resolve_device(args.device)
+    cfg = _apply_overrides(get_named_config(args.config), args.set)
+    _, eval_ds = _load_dataset(args, cfg)
+    cfg = cfg.override({"model.vocab_size": len(eval_ds.vocab)})
+    expected_captions = None
+    if args.expected_captions:
+        with open(args.expected_captions) as f:
+            expected_captions = json.load(f)
+    report = run_parity_gate(
+        args.ckpt, cfg, eval_ds,
+        name_map=_load_name_map(args.name_map),
+        expected_cider=args.expected_cider,
+        cider_tol=args.cider_tol,
+        max_images=args.max_images,
+        out_params_path=args.out,
+        expected_captions=expected_captions,
+        fit_names=args.fit_names,
+        device=device,
+    )
+    print(json.dumps(report, indent=2, default=str))
+    return 0 if report["ok"] else 1
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.cmd in NOT_PORTED:
-        raise SystemExit(f"captionkit_torch: '{args.cmd}' is not yet ported "
-                         "(use captionkit.cli)")
     return {"configs": cmd_configs, "serve": cmd_serve, "decode": cmd_decode,
             "decode-stacked": cmd_decode_stacked, "prepare": cmd_prepare,
-            "train-xe": cmd_train_xe,
-            "train-scst": cmd_train_scst}[args.cmd](args)
+            "train-xe": cmd_train_xe, "train-scst": cmd_train_scst,
+            "convert": cmd_convert,
+            "parity-gate": cmd_parity_gate}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -8,8 +8,9 @@ A model is a ``ModelDef``: plain functions over explicit parameter objects.
 * ``step``  — (params, ctx, state, token [B], generator=None, train=False)
               -> (state, logits [B, V] fp32); ``train`` applies dropout
               with masks drawn from ``generator``
-
-Not ported: ``step_attn`` (introspection).
+* ``step_attn`` — (params, ctx, state, token) -> (state, logits, attn):
+              ``step``'s math on the plain cells plus the step's
+              attention distributions (``decode/introspect.py``)
 
 Random draws come from an explicit ``torch.Generator``, never from the
 global one: the same generator state gives the same dropout masks.
@@ -148,6 +149,12 @@ class ModelDef:
     # does not), without the head; the ensemble prepares its members with
     # it and keeps one combined head.
     prepare_cells: Optional[Callable[[Any, Any], Any]] = None
+    # (params, ctx, state, token) -> (state, logits [B, V] fp32, attn):
+    # ``step`` (without dropout) through the plain cells, plus a dict of
+    # the step's attention distributions, fp32 [B, N]. Key convention:
+    # "vis_alpha" is over the regions; "alpha" and "beta" are over the
+    # existing caption's positions (they resolve to source words).
+    step_attn: Optional[Callable[..., tuple[Any, torch.Tensor, dict]]] = None
 
 
 def default_generator(generator: Optional[torch.Generator],

@@ -23,8 +23,9 @@ Training: ``step(train=True)`` applies dropout to the decoder's h;
 slice of the decoder's gate product and the vocab head outside the loop,
 autograd through the loop by default, or, with ``dcnet_deferred_backward``
 and the textual config, ``dcnet_backward.DCNetRecurrentSeq``.
-``step_hidden`` (the ensemble's member step) is exported through the
-``ModelDef``. Not ported yet: ``step_attn`` (introspection).
+``step_hidden`` (the ensemble's member step) and ``step_attn``
+(introspection: the plain step with its attention distributions) are
+exported through the ``ModelDef``.
 """
 
 from __future__ import annotations
@@ -225,20 +226,27 @@ def beam_expand(ctx: DCNetContext, k: int) -> DCNetContext:
 
 def _recurrent_contexts(params: DCNetParams, cfg: ModelConfig,
                         ctx: DCNetContext, h: torch.Tensor, pk: dict,
-                        use_pallas: bool = False) -> list[torch.Tensor]:
+                        use_pallas: bool = False,
+                        attn: Optional[dict] = None) -> list[torch.Tensor]:
     """The state-dependent decoder inputs: the gated text context, and the
-    visual context when the visual head is on."""
+    visual context when the visual head is on. ``attn`` receives "alpha"
+    [B, T] (over the existing caption's positions) and, visual,
+    "vis_alpha" [B, R]."""
     dt = compute_dtype(cfg)
     attention = get_attention_fn(use_pallas)
-    att_ctx, _ = attention(
+    att_ctx, alpha = attention(
         params.attention, ctx.att_keys, ctx.enc_hs, h, ctx.mask,
         compute_dtype=dt, w_q=pk["att_wq"])
+    if attn is not None:
+        attn["alpha"] = alpha
     gate = torch.sigmoid(mm(h, pk["gate_w"], dt) + params.gate_b)
     parts = [gate * att_ctx]
     if ctx.features is not None and params.vis_attention is not None:
-        vis_ctx, _ = attention(
+        vis_ctx, vis_alpha = attention(
             params.vis_attention, ctx.vis_keys, ctx.features, h, None,
             compute_dtype=dt, w_q=pk["vis_wq"])
+        if attn is not None:
+            attn["vis_alpha"] = vis_alpha
         parts.append(vis_ctx)
     return parts
 
@@ -247,20 +255,22 @@ def _step_hidden(params: DCNetParams, cfg: ModelConfig, ctx: DCNetContext,
                  state: DCNetState, token: torch.Tensor,
                  use_pallas: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 train: bool = False
+                 train: bool = False, attn: Optional[dict] = None
                  ) -> tuple[DCNetState, torch.Tensor]:
     """One decode step up to the vocab head: (state, h, dropped out when
     ``train``). ``use_pallas`` is handed to ``nn.dispatch`` at the plain
     step's cell call sites; ``train`` takes the plain cells on weights
-    packed from the live parameters."""
+    packed from the live parameters. ``attn``, a dict, receives the
+    step's attention distributions (``step_attn``), from the plain cells:
+    the fused pack is not taken then."""
     emb = params.embedding[token]  # [B, E]
-    if ctx.cell_pack is not None and not train:
+    if ctx.cell_pack is not None and not train and attn is None:
         h, c = dcnet_fused_step_hidden(ctx.cell_pack, state.h, state.c, emb)
         return DCNetState(h=h, c=c), h
     pk = _pack(params, cfg) if train else _packed(params, cfg)
     lstm_cell = get_lstm_cell_fn(use_pallas)
     x = torch.cat([emb] + _recurrent_contexts(params, cfg, ctx, state.h, pk,
-                                              use_pallas), dim=-1)
+                                              use_pallas, attn), dim=-1)
     h, c = lstm_cell(params.decoder, x, state.h, state.c,
                      compute_dtype=compute_dtype(cfg), packed=pk["dec_w"])
     return DCNetState(h=h, c=c), dropout(h, cfg.dropout, generator, train)
@@ -276,9 +286,28 @@ def step(params: DCNetParams, cfg: ModelConfig, ctx: DCNetContext,
     ``generator``."""
     new_state, out = _step_hidden(params, cfg, ctx, state, token,
                                   use_pallas, generator, train)
+    return new_state, _logits(params, cfg, out, train)
+
+
+def _logits(params: DCNetParams, cfg: ModelConfig, out: torch.Tensor,
+            train: bool = False) -> torch.Tensor:
+    """The vocab head on the decoder's h: logits [B, V] fp32."""
     dt = compute_dtype(cfg)
     fc_w = params.fc_w.to(dt) if train else _packed(params, cfg)["fc_w"]
-    return new_state, mm(out, fc_w, dt) + params.fc_b
+    return mm(out, fc_w, dt) + params.fc_b
+
+
+def step_attn(params: DCNetParams, cfg: ModelConfig, ctx: DCNetContext,
+              state: DCNetState, token: torch.Tensor
+              ) -> tuple[DCNetState, torch.Tensor, dict]:
+    """Introspection step (``ModelDef.step_attn``): ``step``'s math and
+    roundings on the plain cells, plus {"alpha": [B, T] text attention
+    over the existing caption's positions} ("vis_alpha" [B, R] too with
+    the visual head): which source word the denoiser reads while it
+    emits each output word."""
+    attn: dict = {}
+    new_state, out = _step_hidden(params, cfg, ctx, state, token, attn=attn)
+    return new_state, _logits(params, cfg, out), attn
 
 
 def forward_seq(params: DCNetParams, cfg: ModelConfig, ctx: DCNetContext,
@@ -394,4 +423,6 @@ def make_model(cfg: ModelConfig) -> ModelDef:
         step_hidden=lambda params, ctx, state, token: _step_hidden(
             params, cfg, ctx, state, token),
         prepare_cells=lambda params, ctx: prepare_cells(params, cfg, ctx),
+        step_attn=lambda params, ctx, state, token: step_attn(
+            params, cfg, ctx, state, token),
     )

@@ -260,15 +260,17 @@ def _step_hidden(params: EditNetParams, cfg: ModelConfig,
                  ctx: EditNetContext, state: EditNetState,
                  token: torch.Tensor, use_pallas: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 train: bool = False
+                 train: bool = False, attn: Optional[dict] = None
                  ) -> tuple[EditNetState, torch.Tensor]:
     """One decode step up to the vocab head: (state, h_lang, dropped out
     when ``train``). ``use_pallas`` is handed to ``nn.dispatch`` at the
     plain step's cell call sites. ``train`` steps through the plain cells
     on weights packed from the live parameters (the fused cells have no
-    backward and skip dropout, as in the reference)."""
+    backward and skip dropout, as in the reference). ``attn``, a dict,
+    receives the step's attention distributions (``step_attn``); the
+    plain cells compute them, so the fused pack is not taken then."""
     emb = params.embedding[token]  # [B, E]
-    if ctx.cell_pack is not None and not train:
+    if ctx.cell_pack is not None and not train and attn is None:
         h_att, c_att, h_lang, c_lang = fused_step_hidden(
             ctx.cell_pack, state.h_att, state.c_att, state.h_lang,
             state.c_lang, emb)
@@ -285,32 +287,36 @@ def _step_hidden(params: EditNetParams, cfg: ModelConfig,
         zv = zv.repeat_interleave(z.shape[0] // zv.shape[0], dim=0)
     h_att, c_att = lstm_gates(z + zv + params.att_lstm.b, state.c_att)
     new_state, h_lang = _finish_step(params, cfg, ctx, state, h_att, c_att,
-                                     pk, use_pallas)
+                                     pk, use_pallas, attn)
     return new_state, dropout(h_lang, cfg.dropout, generator, train)
 
 
 def _finish_step(params: EditNetParams, cfg: ModelConfig,
                  ctx: EditNetContext, state: EditNetState,
                  h_att: torch.Tensor, c_att: torch.Tensor, pk: dict,
-                 use_pallas: bool = False
+                 use_pallas: bool = False, attn: Optional[dict] = None
                  ) -> tuple[EditNetState, torch.Tensor]:
     """Visual attention, SCMA and the Copy-LSTM, given the att-LSTM
-    state and the packed weights ``pk``. Returns (state, h_lang)."""
+    state and the packed weights ``pk``. Returns (state, h_lang); ``attn``
+    receives "vis_alpha" [B, R] (over the regions) and "beta" [B, T]
+    (SCMA, over the existing caption's positions)."""
     dt = compute_dtype(cfg)
     copy_lstm_cell = get_copy_lstm_cell_fn(use_pallas)
     attention = get_attention_fn(use_pallas)
     # 2. Visual attention over the regions (all valid: no mask).
-    v_hat, _ = attention(
+    v_hat, alpha = attention(
         params.vis_attention, ctx.vis_keys, ctx.features, h_att, None,
         compute_dtype=dt, w_q=pk["vis_wq"])
     v_hat = v_hat.to(dt)
     gate = torch.sigmoid(mm(h_att, pk["gate_w"], dt) + params.vis_gate_b)
     v_hat = (gate * v_hat.float()).to(dt)
     # 3. SCMA: select a memory cell state from the caption encoder.
-    c_star, _ = scma_select(
+    c_star, beta = scma_select(
         params.scma, ctx.scma_keys, ctx.enc_cs, h_att, ctx.mask,
         mode=cfg.scma_select, compute_dtype=dt, w_q=pk["scma_wq"],
         attention_fn=attention)
+    if attn is not None:
+        attn.update(vis_alpha=alpha, beta=beta)
     # 4. Copy-LSTM language model.
     x_lang = torch.cat([v_hat.float(), h_att], dim=-1)
     h_lang, c_lang = copy_lstm_cell(
@@ -331,10 +337,27 @@ def step(params: EditNetParams, cfg: ModelConfig, ctx: EditNetContext,
     ``train`` applies dropout to h_lang with masks from ``generator``."""
     new_state, out = _step_hidden(params, cfg, ctx, state, token,
                                   use_pallas, generator, train)
+    return new_state, _logits(params, cfg, out, train)
+
+
+def _logits(params: EditNetParams, cfg: ModelConfig, out: torch.Tensor,
+            train: bool = False) -> torch.Tensor:
+    """The vocab head on h_lang: logits [B, V] fp32."""
     dt = compute_dtype(cfg)
     fc_w = params.fc_w.to(dt) if train else _packed(params, cfg)["fc_w"]
-    logits = mm(out, fc_w, dt) + params.fc_b
-    return new_state, logits
+    return mm(out, fc_w, dt) + params.fc_b
+
+
+def step_attn(params: EditNetParams, cfg: ModelConfig, ctx: EditNetContext,
+              state: EditNetState, token: torch.Tensor
+              ) -> tuple[EditNetState, torch.Tensor, dict]:
+    """Introspection step (``ModelDef.step_attn``): ``step``'s math and
+    roundings on the plain cells, plus {"vis_alpha": [B, R] visual
+    attention over the regions, "beta": [B, T] SCMA over the existing
+    caption's positions}."""
+    attn: dict = {}
+    new_state, out = _step_hidden(params, cfg, ctx, state, token, attn=attn)
+    return new_state, _logits(params, cfg, out), attn
 
 
 def forward_seq(params: EditNetParams, cfg: ModelConfig,
@@ -485,4 +508,6 @@ def make_model(cfg: ModelConfig) -> ModelDef:
         step_hidden=lambda params, ctx, state, token: _step_hidden(
             params, cfg, ctx, state, token),
         prepare_cells=lambda params, ctx: prepare_cells(params, cfg, ctx),
+        step_attn=lambda params, ctx, state, token: step_attn(
+            params, cfg, ctx, state, token),
     )

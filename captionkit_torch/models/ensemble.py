@@ -31,7 +31,8 @@ runs each member's ``step_hidden`` and then the member's configured head
 (the ``fused_head_topk`` kernel with either extraction, the int8 kernel,
 or their plain versions) once at H' = M·H. Prob mode needs every member's
 whole distribution before any top-k, so it has no ``step_topk`` and beam
-search takes its full-logits branch.
+search takes its full-logits branch. ``step_attn`` (introspection) runs
+each member's and reports their mean attention.
 """
 
 from __future__ import annotations
@@ -214,6 +215,23 @@ def ensemble_model(member: ModelDef, num_members: int, *,
             return (_stack_states(states),
                     *head_topk(torch.cat(hs, dim=1), ctx, k, hi))
 
+    step_attn = None
+    if member.step_attn is not None:
+
+        def step_attn(params, ctx, state, token):
+            states, logits, attns = [], [], []
+            for m, (p, c) in enumerate(zip(_check(params), ctx.members)):
+                s, lg, at = member.step_attn(p, c, _member_state(state, m),
+                                             token)
+                states.append(s)
+                logits.append(lg)
+                attns.append(at)
+            # The ensemble reports its members' mean attention.
+            attn = {key: torch.stack([a[key] for a in attns]).mean(dim=0)
+                    for key in attns[0]}
+            return (_stack_states(states),
+                    _combine(torch.stack(logits, dim=1), mode), attn)
+
     return ModelDef(
         name=f"ensemble{M}[{member.name},{mode}]",
         init=init,
@@ -223,6 +241,7 @@ def ensemble_model(member: ModelDef, num_members: int, *,
         beam_expand=beam_expand,
         step_topk=step_topk,
         prepare_topk=prepare_topk,
+        step_attn=step_attn,
     )
 
 

@@ -1,6 +1,10 @@
 """The host's epoch drivers for cross-entropy and SCST training
 (``captionkit.train.loop``).
 
+Both loops take their batches through ``data/prefetch.py::
+prefetch_to_device``: on the card, two batches ahead, staged in pinned
+memory and copied on a side stream while the current step runs.
+
 ``run_xe_training`` iterates epochs of shuffled batches, runs the train
 step (``train/xe.py``; k steps a call with ``steps_per_dispatch`` > 1),
 validates every ``eval_every_epochs`` by decoding the validation split
@@ -40,6 +44,7 @@ import numpy as np
 import torch
 
 from captionkit_torch.config import CaptionKitConfig
+from captionkit_torch.data.prefetch import prefetch_to_device
 from captionkit_torch.data.sources import CaptionDataset
 from captionkit_torch.decode.driver import evaluate_split, make_decode_fn
 from captionkit_torch.device import resolve_device
@@ -58,7 +63,7 @@ from captionkit_torch.train.scst import (
 from captionkit_torch.train.state import TrainState, ema_params
 from captionkit_torch.train.xe import (
     BATCH_KEYS,
-    batch_to_device_dict,
+    batch_host_tensors,
     make_xe_train_multistep,
     make_xe_train_step,
 )
@@ -174,6 +179,15 @@ def _pack_host_batches(host_batches, k: int, budget=None):
             buf = []
 
 
+def _prefetch_packs(packs, device, size: int = 2):
+    """The tagged-pack form of ``prefetch_to_device``: ("multi", leaves
+    [k, B, ...]) or ("single", leaves [B, ...]) in the train step's dtypes,
+    ``size`` packs ahead on ``device``."""
+    return prefetch_to_device(
+        ((kind, batch_host_tensors(hb)) for kind, hb in packs), size=size,
+        device=device)
+
+
 def _steps_per_epoch(dataset: CaptionDataset, batch_size: int) -> int:
     return -(-dataset.size // batch_size)
 
@@ -250,10 +264,9 @@ def run_xe_training(
         budget = None if max_steps is None else max_steps - steps_done
         packs = (_pack_host_batches(host_batches, k, budget) if k > 1
                  else (("single", hb) for hb in host_batches))
-        for kind, hb in packs:
+        for kind, dev_batch in _prefetch_packs(packs, dev):
             if preemption is not None and preemption.requested:
                 break
-            dev_batch = batch_to_device_dict(hb, dev)
             if kind == "multi":
                 state, metrics = multi_fn(state, dev_batch)
                 n = k
@@ -416,9 +429,13 @@ def run_scst_training(
     val_decode_fn = (_make_val_decode_fn(model, val_dataset, cfg, dev)
                      if val_dataset is not None else None)
 
-    def _prep(batch):
-        refs = [ref_ids[int(i)] for i in batch.image_id]
-        return batch_to_device_dict(_host_dict(batch), dev), refs
+    def _prepared(batches):
+        """(batch on the card, its images' interned references), two
+        batches ahead."""
+        return prefetch_to_device(
+            ((batch_host_tensors(_host_dict(b)),
+              [ref_ids[int(i)] for i in b.image_id]) for b in batches),
+            device=dev)
 
     pending_metrics: list = []
 
@@ -455,10 +472,9 @@ def run_scst_training(
             cfg.data.batch_size, shuffle=True,
             seed=tcfg.seed + 1000 + epoch)
         if not pipeline:
-            for batch in batches:
+            for dev_batch, refs in _prepared(batches):
                 if preemption is not None and preemption.requested:
                     break
-                dev_batch, refs = _prep(batch)
                 state, metrics = scst_train_step(
                     rollout_fn=rollout_fn, update_fn=update_fn,
                     rewarder=rewarder, state=state, batch=dev_batch,
@@ -472,11 +488,10 @@ def run_scst_training(
             # before update k) before batch k's reward and update.
             pending = None  # (dev_batch, refs, roll)
             dispatched = 0  # rollouts enqueued this epoch
-            for batch in batches:
+            for dev_batch, refs in _prepared(batches):
                 if preemption is not None and preemption.requested:
                     pending = None  # not applied: no state changed
                     break
-                dev_batch, refs = _prep(batch)
                 gen = torch.Generator(device=dev).manual_seed(
                     _seeded(state.rng_seed, epoch, dispatched))
                 dispatched += 1

@@ -140,9 +140,10 @@ def make_eval_loss_step(model: ModelDef, mesh=None):
     return step_fn
 
 
-def batch_to_device_dict(batch, device: "str | torch.device") -> dict:
-    """``data.Batch`` (or its host dict) -> the dict of tensors on
-    ``device`` the train step takes (ids as int64, ``valid`` bool)."""
+def batch_host_tensors(batch) -> dict:
+    """``data.Batch`` (or its host dict, or a k-stack of them) -> the
+    ``BATCH_KEYS`` as host tensors in the train step's dtypes (features
+    float32, ids int64, ``valid`` bool)."""
     get = batch.get if isinstance(batch, dict) else \
         (lambda k: getattr(batch, k))
     out = {}
@@ -155,5 +156,13 @@ def batch_to_device_dict(batch, device: "str | torch.device") -> dict:
             t = t.bool()
         else:
             t = t.long()
-        out[k] = t.to(device, non_blocking=True)
+        out[k] = t
     return out
+
+
+def batch_to_device_dict(batch, device: "str | torch.device") -> dict:
+    """``batch_host_tensors`` on ``device``: the dict the train step takes,
+    copied synchronously from pageable memory (the loops use
+    ``data/prefetch.py`` instead)."""
+    return {k: t.to(device, non_blocking=True)
+            for k, t in batch_host_tensors(batch).items()}

@@ -133,9 +133,13 @@ prints no result line:
               the exported weights decoded by cli decode; the deferred
               backward against autograd on one batch with a planted
               dropped term; ms a step, tokens/s, peak memory, deferred and
-              autograd in turns, a profile (``--profile-train``, a process
-              of its own), dcnet_xe_train for a few steps; the step's
-              bound.
+              autograd in turns; the loops' prefetched feed against the
+              synchronous copy (batches byte-equal, two steps bit-equal,
+              ms a step with each and the pinned copy against the
+              pageable one, in turns); a profile (``--profile-train``, a
+              process of its own), dcnet_xe_train for a few steps; the
+              step's bound. The XE and SCST loops take their batches
+              through data/prefetch.py.
 
 18. scst    — SCST fine-tuning at scst_train's paper width (batch 256)
               from the train phase's exported XE weights on its split:
@@ -157,11 +161,29 @@ prints no result line:
               stacked DCNet -> EditNet pipeline served and timed (no
               launch in stage 1, 22 head launches a batch in stage 2).
               (wide_head holds the tiled bf16 heads at H = 2048, 4096.)
+20. convert — the checkpoint converter and the parity gate at paper
+              width: EditNet and DCNet torch twins (seed 0) saved as a
+              state dict, as the training dict {epoch, decoder: <module>}
+              and with scrambled module names; cli convert of each (the
+              last with --fit-names), the .npz array-equal; cli
+              parity-gate at fp32 (--max-images 64) with and without
+              --fit-names over a 512-image prepared split: ok, greedy
+              identical 64 of 64, beam CIDEr through the fp32 head
+              kernel; a planted swap of the i and f gate blocks must fail;
+              the bf16 gate's token agreement with the twin; wall times.
+21. introspect — greedy_decode_with_attention and
+              beam_decode_with_attention at batch 512 (editnet_beam5,
+              dcnet_greedy, a two-member ensemble): tokens bit-equal to
+              the untraced decodes, distributions summing to 1, masked
+              positions 0, the ensemble's trace the mean of its members',
+              an attention_report, captions/s traced and untraced in
+              turns.
 
 Then a {"kernels": [...]} line listing all 12 wrappers, the tiled bf16
 heads' wide instances (mask and thresh at H' = 2048) and the 11 fp32
 instances (each with its launches on its path, check, ms, plain ms, bound
-ms, CUDA launches per call), the nvidia-smi line, and, last,
+ms, CUDA launches per call; the fp32 head also with the parity gate's
+launches), the nvidia-smi line, and, last,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Kernels are built into build/captionkit_torch/ under the checkout; the
 scratch files of the run go to build/captionkit_torch/smoke/.
@@ -1199,17 +1221,20 @@ def _check_steps(model, params, inputs, kw, plain=_float_plain_head,
 
 
 def _profile(run, top: int = 12) -> dict:
-    """One run under torch.profiler: its host wall time, the summed time
-    of the activities on the card (kernels, copies; one stream, so their
-    sum is the busy time) and the ones that took longest."""
+    """One run under torch.profiler (``utils.profiling.trace``, which
+    writes its Chrome trace under SMOKE_DIR/traces): its host wall time,
+    the summed time of the activities on the card (kernels, copies; one
+    stream, so their sum is the busy time) and the ones that took
+    longest."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
+    from captionkit_torch.utils.profiling import annotate, trace
+
+    with trace(str(SMOKE_DIR / "traces")) as prof:
+        with annotate("chip_smoke.profile"):
+            t0 = time.perf_counter()
+            run()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
     rows = sorted(
         ((ev.self_device_time_total, ev.key, ev.count)
          for ev in prof.key_averages()
@@ -3785,6 +3810,118 @@ def mm_dtype_derivative() -> str:
     return "present"
 
 
+def _prefetch_checks(model, cfg, ds, dev, deterministic) -> dict:
+    """The loops' prefetched feed (``data/prefetch.py``) against the
+    synchronous pageable copy (``batch_to_device_dict``) at xe_train's
+    batch: the batches byte-equal; two XE steps from one init with each
+    feed give bit-equal losses and parameters (when the step is
+    deterministic); ms a step with each feed, in turns (host clock to a
+    synchronize, the feed's host work included); the features' copy by
+    CUDA events, pinned against pageable."""
+    import torch
+
+    from captionkit_torch.data.prefetch import prefetch_to_device
+    from captionkit_torch.params import named_tensors
+    from captionkit_torch.train.loop import _host_dict
+    from captionkit_torch.train.state import create_train_state
+    from captionkit_torch.train.xe import (
+        batch_host_tensors,
+        batch_to_device_dict,
+        make_xe_train_step,
+    )
+
+    host = []
+    for b in ds.batches(cfg.data.batch_size, shuffle=True,
+                        seed=cfg.train.seed):
+        host.append(_host_dict(b))
+        if len(host) == 14:
+            break
+
+    def prefetched(hbs):
+        return prefetch_to_device((batch_host_tensors(h) for h in hbs),
+                                  device=dev)
+
+    def synchronous(hbs):
+        return (batch_to_device_dict(h, dev) for h in hbs)
+
+    for got, h in zip(prefetched(host[:4]), host[:4]):
+        want = batch_to_device_dict(h, dev)
+        check(got.keys() == want.keys(), "prefetched keys")
+        for k in want:
+            check(got[k].dtype == want[k].dtype
+                  and torch.equal(got[k], want[k]),
+                  f"prefetched {k} differs from the synchronous copy")
+
+    fn = make_xe_train_step(model, cfg.train)
+    runs = {}
+    for name, feed in (("synchronous", synchronous),
+                       ("prefetch", prefetched)):
+        st = create_train_state(lambda seed: model.init(seed, dev),
+                                cfg.train)
+        losses = []
+        for b in feed(host[:2]):
+            st, m = fn(st, b)
+            losses.append(float(m["loss"]))
+        runs[name] = (losses, {n: t.detach().clone() for n, t in
+                               named_tensors(st.params).items()})
+        del st
+    (l_s, p_s), (l_p, p_p) = runs["synchronous"], runs["prefetch"]
+    param_diff = max(float((p_s[n] - p_p[n]).abs().max()) for n in p_s)
+    if deterministic:
+        check(l_s == l_p and param_diff == 0.0,
+              f"prefetch changed the steps: losses {l_s} against {l_p}, "
+              f"params off by {param_diff}")
+    del runs, p_s, p_p
+    torch.cuda.empty_cache()
+
+    # ms a step with each feed, in turns over the next 12 batches.
+    st = create_train_state(lambda seed: model.init(seed, dev), cfg.train)
+    st, _ = fn(st, batch_to_device_dict(host[2], dev))
+    turns = {"synchronous": [], "prefetch": []}
+    order = ("synchronous", "prefetch", "prefetch", "synchronous")
+    for i, name in enumerate(order):
+        hbs = host[2 + 3 * i:5 + 3 * i]
+        feed = synchronous if name == "synchronous" else prefetched
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in feed(hbs):
+            st, _ = fn(st, b)
+        torch.cuda.synchronize()
+        turns[name].append(1e3 * (time.perf_counter() - t0) / len(hbs))
+    del st
+    torch.cuda.empty_cache()
+
+    # The features' host-to-device copy alone, by CUDA events.
+    feats = batch_host_tensors(host[0])["features"]
+    pinned = feats.pin_memory()
+
+    def copy_ms(src, n=5):
+        src.to(dev, non_blocking=True)
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(n):
+            src.to(dev, non_blocking=True)
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e) / n
+
+    copies = {"pageable": [], "pinned": []}
+    for name in ("pageable", "pinned", "pinned", "pageable"):
+        copies[name].append(copy_ms(feats if name == "pageable"
+                                    else pinned))
+    return {"byte_equal_batches": 4,
+            "two_steps": {"losses_synchronous": l_s,
+                          "losses_prefetch": l_p,
+                          "max_abs_param_diff": param_diff},
+            "step_ms_turns": turns,
+            "step_ms": {k: statistics.mean(v) for k, v in turns.items()},
+            "features_mb": feats.numel() * 4 / 1e6,
+            "copy_ms_turns": copies,
+            "copy_ms": {k: statistics.mean(v) for k, v in copies.items()}}
+
+
 def phase_train(wrappers, card) -> dict:
     """Cross-entropy training at xe_train's paper width (EditNet, V 9490,
     batch 256, targets of 22): a synthetic Karpathy split (949 train
@@ -3797,9 +3934,11 @@ def phase_train(wrappers, card) -> dict:
     by ``cli decode`` in a process of its own; the deferred backward
     against autograd through the loop on one batch (bf16, dropout 0),
     with a planted dropped term that must fail; ms a step by CUDA events,
-    tokens/s, peak memory, the deferred and autograd steps in turns, a
-    profile in a process of its own, and dcnet_xe_train for a few
-    steps."""
+    tokens/s, peak memory, the deferred and autograd steps in turns; the
+    loop's prefetched feed against the synchronous copy (batches
+    byte-equal, two steps bit-equal, ms a step with each in turns, the
+    pinned copy against the pageable one); a profile in a process of its
+    own, and dcnet_xe_train for a few steps."""
     import shutil
 
     import numpy as np
@@ -3975,7 +4114,10 @@ def phase_train(wrappers, card) -> dict:
         del states
         torch.cuda.empty_cache()
 
-        # 6. A profile of two steps, in a process of its own.
+        # 6. The prefetched feed against the synchronous copy.
+        prefetch = _prefetch_checks(model, cfg, ds, dev, deterministic)
+
+        # 7. A profile of two steps, in a process of its own.
         proc = subprocess.run(
             [sys.executable, str(ROOT / "chip_smoke.py"), "--profile-train",
              str(prep)], cwd=ROOT, capture_output=True, text=True,
@@ -3985,7 +4127,7 @@ def phase_train(wrappers, card) -> dict:
               f"{proc.stderr[-3000:]}")
         prof = json.loads(proc.stdout.strip().splitlines()[-1])
 
-        # 7. dcnet_xe_train for a few steps.
+        # 8. dcnet_xe_train for a few steps.
         dcfg = get_named_config("dcnet_xe_train").override(
             {"model.vocab_size": V})
         dmodel = get_model(dcfg.model)
@@ -4037,6 +4179,7 @@ def phase_train(wrappers, card) -> dict:
             "turns_mean_ms": {k: statistics.mean(v)
                               for k, v in turns.items()},
             "turns_peak_memory_gb": peak,
+            "prefetch": prefetch,
             "profile": prof,
             "bound": bound,
             "dcnet_xe_train": {k: v for k, v in dc.items()
@@ -4605,6 +4748,554 @@ def phase_ensemble(ed, dc, wrappers, card) -> dict:
     return result
 
 
+# --------------------------------------------------------------------------
+# The checkpoint converter and the parity gate; attention introspection
+# --------------------------------------------------------------------------
+
+N_GATE = 512  # test images of the convert phase's split
+GATE_IMAGES = 64  # --max-images: the greedy checks' images
+
+
+def _scrambled(arch: str, sd) -> dict:
+    """``sd`` with module names only a shape fit recovers: every EditNet
+    module renamed; DCNet's modules of unique shape renamed (its three
+    [H, H] linears keep the names that break their tie)."""
+    rename = ({"embedding": "blk0", "encoder": "blk1", "att_lstm": "blk2",
+               "vis_attention": "blk3", "f_beta": "blk4", "scma": "blk5",
+               "lang_lstm": "blk6", "fc": "blk7"} if arch == "editnet" else
+              {"embedding": "word_emb", "encoder": "cap_encoder",
+               "decode_step": "decoder_cell", "fc": "logits_out"})
+    out = {}
+    for k, v in sd.items():
+        head, dot, rest = k.partition(".")
+        out[rename.get(head, head) + dot + rest] = v
+    return out
+
+
+def _swap_if_blocks(w):
+    """A torch LSTM weight [4H, in] with its i and f gate blocks swapped."""
+    import torch
+
+    H = w.shape[0] // 4
+    return torch.cat([w[H:2 * H], w[:H], w[2 * H:]])
+
+
+def _greedy_agreement(ours, twin_seqs) -> float:
+    """Share of the twin's tokens (up to its end) that ours equal."""
+    same = total = 0
+    for row, seq in zip(ours, twin_seqs):
+        same += sum(int(a == b) for a, b in zip(row[:len(seq)], seq))
+        total += len(seq)
+    return same / max(total, 1)
+
+
+def _twin_gap(twin, arch, ds, image, prefix) -> float:
+    """The twin's top-2 logit gap for ``image`` after ``prefix`` (the
+    tokens before the first differing step)."""
+    import numpy as np
+    import torch
+
+    dev = next(twin.parameters()).device
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)[image:image + 1]).to(dev)
+
+    with torch.no_grad():
+        ex, ln = t(ds.existing).long(), t(ds.existing_len).long()
+        feats = ds.features[np.asarray(ds.image_index[image:image + 1])]
+        tctx = (twin.encode(ex, ln) if arch == "dcnet" else twin.encode(
+            torch.from_numpy(np.asarray(feats, np.float32)).to(dev), ex,
+            ln))
+        state = list(twin.init_state(tctx))
+        tok = torch.full((1,), ds.vocab.start, dtype=torch.long, device=dev)
+        for nxt in [*prefix, None]:
+            out = twin.step(tctx, *state, tok)
+            state, logits = list(out[:-1]), out[-1]
+            if nxt is not None:
+                tok = torch.full((1,), nxt, dtype=torch.long, device=dev)
+        top = torch.topk(logits[0], 2).values
+    return float(top[0] - top[1])
+
+
+def _check_gate(rep: dict, what: str, twins=None, ds=None) -> None:
+    """The fp32 gate's bar: ok, greedy identical on GATE_IMAGES images,
+    a finite beam CIDEr. On a greedy mismatch the twin's top-2 gap at the
+    first differing step is part of the failure."""
+    import math
+
+    greedy = rep["checks"].get("greedy_identical", {})
+    if greedy.get("status") == "fail" and twins is not None:
+        m = greedy["mismatches"][0]
+        k = next(i for i, (a, b) in enumerate(zip(m["ours"], m["twin"]))
+                 if a != b)
+        gap = _twin_gap(twins[rep["arch"]], rep["arch"], ds, m["image"],
+                        m["twin"][:k])
+        raise PhaseError(f"{what}: greedy differs from the twin at image "
+                         f"{m['image']} step {k}; the twin's top-2 logit "
+                         f"gap there is {gap:.3e}: {greedy}")
+    check(rep["ok"] is True, f"{what}: gate not ok: {rep['checks']}")
+    check(greedy.get("status") == "pass"
+          and greedy.get("images") == GATE_IMAGES,
+          f"{what}: greedy_identical {greedy}")
+    beam = rep["checks"]["beam_cider"]
+    check(beam["status"] == "pass" and math.isfinite(beam["cider"]),
+          f"{what}: beam_cider {beam}")
+
+
+def phase_convert(wrappers, card) -> dict:
+    """The checkpoint converter and the parity gate at paper width: a
+    synthetic prepared split from seed 0 (N_GATE test images, 5
+    references each, a 9,490-word wordmap); EditNet and DCNet torch twins
+    from the port's torch_ref with seed 0, each saved as a bare state
+    dict, as the released training dict {epoch, decoder: <module>} and
+    with scrambled module names; ``cli convert`` of each (the scrambled
+    one with --fit-names) in processes of their own, all at once: the
+    three .npz of an arch array-equal; ``cli parity-gate --set
+    model.compute_dtype=float32 --max-images 64`` in processes of their
+    own, with and without --fit-names: ok, greedy identical on 64 of 64,
+    beam CIDEr; the EditNet gate again in this process on the training
+    dict, launches counted: the beam launches fused_head_topk at most
+    MAX_LEN times a batch; planted faults: the i and f gate blocks of
+    EditNet's lang_lstm.base.weight_ih (DCNet's decode_step.weight_ih)
+    swapped in the converted state dict must disagree with the true
+    twin's greedy tokens, where the sound weights agree on all; the same
+    gate at the default bf16: token agreement with the twin, reported."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from captionkit_torch.config import get_named_config
+    from captionkit_torch.convert import gate
+    from captionkit_torch.convert.torch_import import load_torch_state_dict
+    from captionkit_torch.convert.torch_ref import TorchDCNet, TorchEditNet
+    from captionkit_torch.convert.torch_import import params_from_state_dict
+    from captionkit_torch.data.prepare import load_prepared_split
+    from captionkit_torch.models import get_model
+
+    dev = torch.device("cuda")
+    root = SMOKE_DIR / "convert"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        cfgs = {a: get_named_config(f"{a}_beam5").override(
+                    {"decode.batch_size": N_IMAGES})
+                for a in ("editnet", "dcnet")}
+        mc = cfgs["editnet"].model
+        V = mc.vocab_size
+        t0 = time.perf_counter()
+        made = _write_karpathy(root, V, n_test=N_GATE)
+        paths = made["paths"]
+        _cli_in_process(["prepare", "--karpathy", paths["karpathy"],
+                         "--out", root / "prepared",
+                         "--existing", f"train={paths['existing_train']}",
+                         "--existing", f"test={paths['existing_test']}",
+                         "--features", f"test={paths['features']}"])
+        paths["features"].unlink()
+        prep = root / "prepared"
+        ds = load_prepared_split(str(prep), "test",
+                                 max_len=cfgs["editnet"].data.max_len)
+        ev = ds.eval_view()  # the rows the gate's greedy checks read
+        check(len(ds.vocab) == V and ev.size == N_GATE,
+              f"split of {ev.size} images, wordmap {len(ds.vocab)}")
+        split_s = time.perf_counter() - t0
+
+        # Twins, seed 0, and their three checkpoint files each.
+        t0 = time.perf_counter()
+        twins, ckpts = {}, {}
+        for arch, cls in (("editnet", TorchEditNet), ("dcnet", TorchDCNet)):
+            m = cfgs[arch].model
+            torch.manual_seed(0)
+            twin = (cls(V, m.emb_dim, m.hidden_dim, m.att_dim, m.feat_dim)
+                    if arch == "editnet" else
+                    cls(V, m.emb_dim, m.hidden_dim, m.att_dim)).eval()
+            twins[arch] = twin
+            sd = twin.state_dict()
+            ckpts[arch] = {"bare": root / f"{arch}_bare.pth",
+                           "train": root / f"{arch}_train.pth.tar",
+                           "scrambled": root / f"{arch}_scrambled.pth"}
+            torch.save(sd, ckpts[arch]["bare"])
+            torch.save({"epoch": 0, "decoder": twin}, ckpts[arch]["train"])
+            torch.save(_scrambled(arch, sd), ckpts[arch]["scrambled"])
+        save_s = time.perf_counter() - t0
+
+        # cli convert, six processes at once.
+        procs = {}
+        for arch in ckpts:
+            for kind, ck in ckpts[arch].items():
+                argv = ["convert", "--torch", ck, "--arch", arch, "--out",
+                        root / f"{arch}_{kind}.npz"]
+                if kind == "scrambled":
+                    argv += ["--fit-names", "--config", f"{arch}_beam5"]
+                procs[(arch, kind)] = (time.perf_counter(), subprocess.Popen(
+                    [sys.executable, "-m", "captionkit_torch.cli",
+                     *map(str, argv)], cwd=ROOT, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True))
+        convert_s = {}
+        for (arch, kind), (start, proc) in procs.items():
+            out, err = proc.communicate(timeout=600)
+            convert_s[f"{arch}_{kind}"] = time.perf_counter() - start
+            check(proc.returncode == 0,
+                  f"convert {arch} {kind} exited {proc.returncode}: "
+                  f"{err[-2000:]}")
+        arrays = {}
+        for arch in ckpts:
+            files = [np.load(root / f"{arch}_{kind}.npz") for kind in
+                     ("bare", "train", "scrambled")]
+            names = sorted(files[0].files)
+            for f in files[1:]:
+                check(sorted(f.files) == names, f"{arch}: npz names differ")
+                for n in names:
+                    check(np.array_equal(f[n], files[0][n]),
+                          f"{arch}: {n} differs between the converted files")
+            arrays[arch] = {"names": len(names), "floats": int(sum(
+                files[0][n].size for n in names))}
+            for f in files:
+                f.close()
+
+        # cli parity-gate: EditNet alone (its split timed), then the
+        # other three at once.
+        def gate_argv(arch, ck, fit):
+            return ["parity-gate", "--config", f"{arch}_beam5",
+                    "--prepared", prep, "--split", "test", "--ckpt", ck,
+                    "--device", "cuda", "--set",
+                    "model.compute_dtype=float32", "--set",
+                    f"decode.batch_size={N_IMAGES}", "--max-images",
+                    GATE_IMAGES, *(["--fit-names"] if fit else [])]
+
+        def run_gates(runs):
+            started = {name: (time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m", "captionkit_torch.cli",
+                 *map(str, argv)], cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+                for name, argv in runs.items()}
+            out = {}
+            for name, (start, proc) in started.items():
+                stdout, err = proc.communicate(timeout=900)
+                wall = time.perf_counter() - start
+                check(stdout.strip().startswith("{"),
+                      f"gate {name} exited {proc.returncode}: "
+                      f"{err[-3000:]}")
+                rep = json.loads(stdout)
+                rep["wall_s"] = wall
+                rep["returncode"] = proc.returncode
+                out[name] = rep
+            return out
+
+        reports = run_gates({"editnet": gate_argv(
+            "editnet", ckpts["editnet"]["train"], False)})
+        reports.update(run_gates({
+            "editnet_fit": gate_argv("editnet",
+                                     ckpts["editnet"]["scrambled"], True),
+            "dcnet": gate_argv("dcnet", ckpts["dcnet"]["bare"], False),
+            "dcnet_fit": gate_argv("dcnet", ckpts["dcnet"]["scrambled"],
+                                   True)}))
+        for name, rep in reports.items():
+            _check_gate(rep, f"gate {name}", twins, ev)
+            check(rep["returncode"] == 0, f"gate {name} exited "
+                                          f"{rep['returncode']}")
+            if name.endswith("_fit"):
+                check(rep["fit"]["candidate"] == 0,
+                      f"gate {name}: fit {rep['fit']}")
+
+        # In this process: the sound fp32 EditNet gate on the training
+        # dict, its launches counted (the beam stops once every beam has
+        # finished, so a batch launches the head at most MAX_LEN times).
+        f32 = {a: c.override({"model.compute_dtype": "float32"})
+               for a, c in cfgs.items()}
+        _reset(wrappers)
+        t0 = time.perf_counter()
+        rep32 = gate.run_parity_gate(str(ckpts["editnet"]["train"]),
+                                     f32["editnet"], ds,
+                                     max_images=GATE_IMAGES, device=dev)
+        rep32["wall_s"] = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in wrappers}
+        _check_gate(rep32, "gate editnet (this process)", twins, ev)
+        want = MAX_LEN * -(-N_GATE // N_IMAGES)
+        check(0 < launches["fused_head_topk"] <= want,
+              f"the gate's beam launched {launches}, want 1 to {want} "
+              "fused_head_topk")
+
+        # Planted faults: the i and f gate blocks of the LSTM's input
+        # weight swapped in the converted state dict. Against the true
+        # twin's greedy tokens, the sound weights agree on every token
+        # and the faulty ones must not.
+        n = GATE_IMAGES
+        feats = np.asarray(ev.features[np.asarray(ev.image_index[:n])],
+                           np.float32)
+        twin_seqs, planted = {}, {}
+        for arch, key in (("editnet", "lang_lstm.base.weight_ih"),
+                          ("dcnet", "decode_step.weight_ih")):
+            twin_seqs[arch] = gate._twin_greedy(
+                twins[arch].to(dev), arch, feats, np.asarray(ev.existing[:n]),
+                np.asarray(ev.existing_len[:n]), start_id=ds.vocab.start,
+                end_id=ds.vocab.end, max_len=MAX_LEN)
+            twins[arch].cpu()
+            raw = load_torch_state_dict(str(ckpts[arch]["bare"]))
+            faulty = dict(raw, **{key: _swap_if_blocks(raw[key])})
+            agree = {kind: _greedy_agreement(gate._greedy_tokens(
+                         get_model(f32[arch].model),
+                         params_from_state_dict(sd, arch, device=dev), ev, n,
+                         start_id=ds.vocab.start, end_id=ds.vocab.end,
+                         max_len=MAX_LEN, device=dev), twin_seqs[arch])
+                     for kind, sd in (("sound", raw), ("faulty", faulty))}
+            check(agree["sound"] == 1.0,
+                  f"{arch}: fp32 greedy agreement with the twin "
+                  f"{agree['sound']}")
+            check(agree["faulty"] < 1.0,
+                  f"{arch}: swapped i/f gate blocks agree with the twin")
+            planted[arch] = {f"{kind}_token_agreement_with_twin": a
+                             for kind, a in agree.items()}
+
+        # The default bf16 against the fp32 twin: reported, not gated.
+        t0 = time.perf_counter()
+        rep16 = gate.run_parity_gate(str(ckpts["editnet"]["bare"]),
+                                     cfgs["editnet"], ds,
+                                     max_images=GATE_IMAGES, device=dev)
+        bf16_s = time.perf_counter() - t0
+        params = params_from_state_dict(
+            load_torch_state_dict(str(ckpts["editnet"]["bare"])), "editnet",
+            device=dev)
+        agree16 = _greedy_agreement(gate._greedy_tokens(
+            get_model(cfgs["editnet"].model), params, ev, n,
+            start_id=ds.vocab.start, end_id=ds.vocab.end, max_len=MAX_LEN,
+            device=dev), twin_seqs["editnet"])
+        result = {
+            "phase": "convert", "ok": True, "card": card,
+            "configs": ["editnet_beam5", "dcnet_beam5"],
+            "test_images": N_GATE, "greedy_images": GATE_IMAGES,
+            "vocab": V, "split_s": split_s, "twin_save_s": save_s,
+            "convert_cli_s": convert_s, "converted": arrays,
+            "gates": {name: {"ok": rep["ok"], "wall_s": rep["wall_s"],
+                             "seconds": rep["seconds"],
+                             "greedy_identical":
+                             rep["checks"]["greedy_identical"]["images"],
+                             "beam_cider": rep["checks"]["beam_cider"],
+                             **({"fit": {k: rep["fit"][k] for k in
+                                         ("candidate", "of")},
+                                 "fit_warning": "warning" in rep["fit"]}
+                                if "fit" in rep else {})}
+                      for name, rep in {**reports,
+                                        "editnet_in_process": rep32}.items()},
+            "planted_if_swap": planted,
+            "launches": launches,
+            "gate_batches": -(-N_GATE // N_IMAGES),
+            "bf16": {"greedy_identical":
+                     rep16["checks"]["greedy_identical"]["status"],
+                     "beam_cider": rep16["checks"]["beam_cider"],
+                     "seconds": rep16["seconds"], "wall_s": bf16_s,
+                     "token_agreement_with_twin": agree16,
+                     "meets_0_5": agree16 >= 0.5}}
+        emit(result)
+        return result
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _turns(fns: dict, rounds: int = 2) -> dict:
+    """captions/s of each named zero-argument decode (N_IMAGES captions a
+    call, host clock to a synchronize), in turns: a, b, b, a, ..."""
+    import torch
+
+    out = {name: [] for name in fns}
+    names = list(fns)
+    for r in range(2 * rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[name]()
+            torch.cuda.synchronize()
+            out[name].append(N_IMAGES / (time.perf_counter() - t0))
+    return {name: {"captions_per_s": statistics.median(r), "runs": r}
+            for name, r in out.items()}
+
+
+def _check_trace(trace, mask, what) -> dict:
+    """Every distribution of an emitted step sums to 1 within 1e-3; the
+    existing caption's masked positions get exactly 0."""
+    import torch
+
+    emitted = trace.rollout.mask
+    sums = {}
+    for key, arr in trace.attention.items():
+        err = float((arr.sum(-1) - 1.0).abs()[emitted].max())
+        check(err <= 1e-3, f"{what}: {key} sums off 1 by {err}")
+        sums[key] = err
+        if key != "vis_alpha":
+            pad = ~mask.bool()[:, None, :].expand_as(arr)
+            check(bool((arr[pad] == 0.0).all()),
+                  f"{what}: {key} weights on masked positions")
+    check(bool(torch.isfinite(trace.rollout.logprobs).all()),
+          f"{what}: log-probs not finite")
+    return sums
+
+
+def phase_introspect(ed, wrappers, card) -> dict:
+    """Attention introspection at paper width on the serve phase's
+    weights (params_editnet.npz, params_dcnet.npz), batch 512, bf16, 22
+    steps, the end id enabled: editnet_beam5's greedy trace bit-equal to
+    greedy_decode, its beam trace (K = 5) bit-equal to beam_search over the
+    full logits under register and backptr, beside beam_search with the
+    plain head (head_impl="xla") and the kernel decode (token agreement);
+    every distribution summing to 1, masked positions 0, no kernel launch
+    by a trace; the two-member ensemble's trace the mean of its members'
+    traces on its tokens; dcnet_greedy's trace against greedy_decode; one
+    image's attention_report; captions/s of each traced decode beside the
+    untraced ones, in turns."""
+    import dataclasses
+
+    import torch
+
+    from captionkit_torch.config import get_named_config
+    from captionkit_torch.decode import (
+        attention_report,
+        beam_decode_with_attention,
+        beam_search,
+        greedy_decode,
+        greedy_decode_with_attention,
+    )
+    from captionkit_torch.models import get_model
+    from captionkit_torch.models.ensemble import ensemble_model, stack_params
+    from captionkit_torch.params import load_params_npz, save_params_npz
+
+    cfg, model, params, vocab = ed
+    dev = torch.device("cuda")
+    feats, existing, lens = (t.to(dev) for t in _batch(cfg.model))
+    kw = dict(start_id=vocab.start, end_id=vocab.end, pad_id=vocab.pad,
+              max_len=MAX_LEN)
+    bkw = dict(beam_size=BEAM, **kw)
+    out = {}
+    with torch.inference_mode():
+        ctx = model.encode(params, feats, existing, lens)
+
+        # Greedy: the trace's rollout is greedy_decode's, bit for bit.
+        plain = greedy_decode(model, params, ctx, **kw)
+        _reset(wrappers)
+        trace = greedy_decode_with_attention(model, params, ctx, **kw)
+        torch.cuda.synchronize()
+        traced_launches = {w.__name__: w.launches for w in wrappers}
+        check(sum(traced_launches.values()) == 0,
+              f"the greedy trace launched {traced_launches}")
+        for f in plain._fields:
+            check(torch.equal(getattr(plain, f), getattr(trace.rollout, f)),
+                  f"greedy trace {f} differs from greedy_decode's")
+        out["editnet_greedy"] = {"sum_err": _check_trace(trace, ctx.mask,
+                                                         "editnet greedy")}
+
+        # Beam: bit-equal to the full-logits beam search, both layouts.
+        _reset(wrappers)
+        btrace = beam_decode_with_attention(model, params, ctx, **bkw)
+        torch.cuda.synchronize()
+        check(sum(w.launches for w in wrappers) == 0,
+              "the beam trace launched a kernel")
+        full = get_model(dataclasses.replace(cfg.model,
+                                             use_fused_head=False))
+        xla = get_model(dataclasses.replace(cfg.model, head_impl="xla"))
+        for impl in ("register", "backptr"):
+            ref = beam_search(full, params, ctx, impl=impl, **bkw)
+            for f in ref._fields:
+                check(torch.equal(getattr(ref, f),
+                                  getattr(btrace.result, f)),
+                      f"beam trace {f} differs from the full-logits "
+                      f"beam_search ({impl})")
+        agree = {}
+        for name, m in (("xla_head", xla), ("kernel", model)):
+            r = beam_search(m, params, ctx, **bkw)
+            agree[name] = {
+                "token_agreement": float((r.tokens == btrace.result.tokens)
+                                         .float().mean()),
+                "tokens_equal": bool(torch.equal(r.tokens,
+                                                 btrace.result.tokens)),
+                "max_abs_score_diff": float((r.scores - btrace.result.scores)
+                                            .abs().max())}
+            check(agree[name]["token_agreement"] >= 0.5,
+                  f"beam trace against the {name} decode: {agree[name]}")
+        out["editnet_beam5"] = {
+            "sum_err": _check_trace(btrace, ctx.mask, "editnet beam"),
+            "bit_equal_full_logits_beam": ["register", "backptr"],
+            "agreement": agree}
+        report = attention_report(btrace, 0, vocab, existing[0])
+        check(len(report) == int(btrace.rollout.lengths[0]),
+              f"attention_report has {len(report)} steps")
+        out["attention_report_image0"] = report[:8]
+
+        # The two-member ensemble traces its members' mean attention.
+        npz1 = SMOKE_DIR / "params_editnet_seed1.npz"
+        if not npz1.exists():
+            save_params_npz(model.init(1, "cpu"), str(npz1))
+        second = load_params_npz(str(npz1), dev, arch="editnet")
+        ens = ensemble_model(model, 2)
+        ep = stack_params([params, second])
+        ectx = ens.encode(ep, feats, existing, lens)
+        etrace = greedy_decode_with_attention(ens, ep, ectx, **kw)
+        steps = {}
+        for p, c in zip(ep.members, ectx.members):
+            state = model.init_state(p, c)
+            tok = torch.full((N_IMAGES,), vocab.start, dtype=torch.int32,
+                             device=dev)
+            for t in range(MAX_LEN):
+                state, _, attn = model.step_attn(p, c, state, tok)
+                for key, a in attn.items():
+                    steps.setdefault(key, []).append(a)
+                tok = etrace.rollout.tokens[:, t]
+        ens_err = {}
+        for key, arr in etrace.attention.items():
+            member = torch.stack(steps[key]).reshape(
+                2, MAX_LEN, *steps[key][0].shape)
+            mean = torch.stack([member[0], member[1]]).mean(dim=0)
+            ens_err[key] = float((arr - mean.transpose(0, 1)).abs().max())
+            check(ens_err[key] <= 1e-6,
+                  f"ensemble {key} off its members' mean by {ens_err[key]}")
+        out["ensemble2_greedy"] = {
+            "max_abs_err_to_member_mean": ens_err,
+            "sum_err": _check_trace(etrace, ectx.members[0].mask,
+                                    "ensemble greedy")}
+        del ens, ep, ectx, etrace, second, steps
+
+        # DCNet greedy.
+        dcfg = get_named_config("dcnet_greedy").override(
+            {"decode.batch_size": N_IMAGES,
+             "model.vocab_size": cfg.model.vocab_size})
+        dmodel = get_model(dcfg.model)
+        dparams = load_params_npz(str(SMOKE_DIR / "params_dcnet.npz"), dev,
+                                  arch="dcnet")
+        dctx = dmodel.encode(dparams, None, existing, lens)
+        dplain = greedy_decode(dmodel, dparams, dctx, **kw)
+        dtrace = greedy_decode_with_attention(dmodel, dparams, dctx, **kw)
+        for f in dplain._fields:
+            check(torch.equal(getattr(dplain, f),
+                              getattr(dtrace.rollout, f)),
+                  f"DCNet greedy trace {f} differs from greedy_decode's")
+        check(set(dtrace.attention) == {"alpha"},
+              f"DCNet trace keys {sorted(dtrace.attention)}")
+        out["dcnet_greedy"] = {"sum_err": _check_trace(dtrace, dctx.mask,
+                                                       "dcnet greedy")}
+
+        # captions/s, in turns.
+        out["captions_per_s"] = {
+            "editnet_greedy": _turns({
+                "greedy_decode": lambda: greedy_decode(model, params, ctx,
+                                                       **kw),
+                "traced": lambda: greedy_decode_with_attention(
+                    model, params, ctx, **kw)}),
+            "editnet_beam5": _turns({
+                "kernel_beam_search": lambda: beam_search(
+                    model, params, ctx, **bkw),
+                "full_logits_beam_search": lambda: beam_search(
+                    full, params, ctx, **bkw),
+                "traced": lambda: beam_decode_with_attention(
+                    model, params, ctx, **bkw)}),
+            "dcnet_greedy": _turns({
+                "greedy_decode": lambda: greedy_decode(dmodel, dparams,
+                                                       dctx, **kw),
+                "traced": lambda: greedy_decode_with_attention(
+                    dmodel, dparams, dctx, **kw)})}
+    result = {"phase": "introspect", "ok": True, "card": card,
+              "configs": ["editnet_beam5", "dcnet_greedy"],
+              "batch": N_IMAGES, "max_len": MAX_LEN, "beam": BEAM, **out}
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not (ROOT / "captionkit_torch" / "csrc").is_dir():
         print("chip_smoke.py: no captionkit_torch package beside it",
@@ -4669,6 +5360,10 @@ def main() -> int:
             shutil.rmtree(SMOKE_DIR / "train", ignore_errors=True)
         phase = "ensemble"
         ens = phase_ensemble(ed, dc, WRAPPERS, card)
+        phase = "convert"
+        conv = phase_convert(WRAPPERS, card)
+        phase = "introspect"
+        phase_introspect(ed, WRAPPERS, card)
     except Exception as e:  # every failed phase ends the run non-zero
         traceback.print_exc()
         emit({"phase": phase, "ok": False,
@@ -4903,6 +5598,10 @@ def main() -> int:
             "bound_by": res["bound_by"],
             "library_ms": res["library_ms"],
         })
+    # The parity gate's beam (fp32) runs the fp32 head instance.
+    gate_entry = next(e for e in kernels
+                      if e["name"] == "fused_head_topk[fp32]")
+    gate_entry["launches_parity_gate"] = conv["launches"]["fused_head_topk"]
     emit({"kernels": kernels})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

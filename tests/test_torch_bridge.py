@@ -94,7 +94,10 @@ def test_port_imports_no_jax_and_nothing_of_captionkit():
                  "models.editnet_backward", "models.dcnet_backward",
                  "train.state", "train.xe", "train.checkpoint",
                  "train.loop", "utils.logging", "utils.preemption",
-                 "train.scst", "models.ensemble", "decode.stacked"):
+                 "train.scst", "models.ensemble", "decode.stacked",
+                 "convert.torch_ref", "convert.torch_import",
+                 "convert.fit_names", "convert.gate", "decode.introspect",
+                 "data.prefetch", "utils.profiling"):
         assert f"captionkit_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

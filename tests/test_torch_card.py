@@ -1962,3 +1962,108 @@ def test_ensemble_members_launch_their_cell_kernels(card):
     assert launched["att_cell"] == launched["lang_cell"] == 2 * 10
     assert launched["fused_head_topk"] == 10
     assert float((out["xla"] == out["pallas"]).float().mean()) >= 0.5
+
+
+def _gate_setup(tmp_path):
+    """A small EditNet twin checkpoint, its fp32 config and a synthetic
+    split of 8 images."""
+    from captionkit_torch.convert.torch_ref import TorchEditNet
+    from captionkit_torch.data import SyntheticCaptionSource
+
+    src = SyntheticCaptionSource(num_images=8, captions_per_image=2,
+                                 num_regions=4, feat_dim=10, max_len=12,
+                                 seed=3)
+    torch.manual_seed(0)
+    twin = TorchEditNet(len(src.vocab), 12, 16, 8, 10).eval()
+    ckpt = tmp_path / "ckpt.pth"
+    torch.save({"epoch": 1, "decoder": twin}, ckpt)
+    cfg = CaptionKitConfig().override({
+        "model.vocab_size": len(src.vocab), "model.emb_dim": 12,
+        "model.hidden_dim": 16, "model.att_dim": 8, "model.feat_dim": 10,
+        "model.num_regions": 4, "model.dropout": 0.0,
+        "model.compute_dtype": "float32", "decode.max_decode_len": 12,
+        "decode.batch_size": 8})
+    return src, ckpt, cfg
+
+
+def test_parity_gate_on_card_matches_cpu(card, tmp_path):
+    """The fp32 gate on the card (the twin too) gives the CPU's report:
+    greedy identical to the twin, the same beam CIDEr, and the head kernel
+    launched 12 times for the split's one batch."""
+    from captionkit_torch.convert.gate import run_parity_gate
+    from captionkit_torch.kernels.head import fused_head_topk
+
+    src, ckpt, cfg = _gate_setup(tmp_path)
+    reports = {}
+    for dev in ("cpu", "cuda"):
+        before = fused_head_topk.launches
+        rep = run_parity_gate(str(ckpt), cfg, src.dataset, device=dev)
+        launches = fused_head_topk.launches - before
+        rep.pop("seconds")
+        reports[dev] = rep
+    assert reports["cuda"]["ok"] is True, reports["cuda"]
+    assert reports["cuda"] == reports["cpu"]
+    assert 0 < launches <= 12  # 12 steps a batch, fewer if all finish
+
+
+def test_greedy_trace_on_card_matches_greedy_decode(card):
+    """bf16 on the card: the traced greedy decode's tokens are
+    ``greedy_decode``'s, bit for bit; every distribution sums to 1."""
+    from captionkit_torch.decode import (
+        greedy_decode,
+        greedy_decode_with_attention,
+    )
+
+    cfg = CaptionKitConfig().override(SMALL_CELLS)
+    model = get_model(cfg.model)
+    params = model.init(0, "cuda")
+    rng = np.random.default_rng(4)
+    B = 32
+    ctx = model.encode(
+        params, torch.from_numpy(
+            rng.standard_normal((B, 6, 72)).astype(np.float32)).cuda(),
+        torch.from_numpy(rng.integers(4, 300, (B, 8))).cuda(),
+        torch.from_numpy(rng.integers(2, 9, (B,))).cuda())
+    kw = dict(start_id=2, end_id=3, max_len=12)
+    plain = greedy_decode(model, params, ctx, **kw)
+    trace = greedy_decode_with_attention(model, params, ctx, **kw)
+    assert torch.equal(plain.tokens, trace.rollout.tokens)
+    assert torch.equal(plain.logprobs, trace.rollout.logprobs)
+    for arr in trace.attention.values():
+        torch.testing.assert_close(arr.sum(-1), torch.ones_like(
+            arr[..., 0]), atol=1e-3, rtol=0)
+
+
+def test_prefetch_on_card_is_byte_equal_and_reuses_buffers_safely(card):
+    """Prefetched batches equal the synchronous copy byte for byte; with
+    one batch in flight (a ring of two pinned buffers) and a consumer
+    whose kernels run long, no batch is overwritten by a later one."""
+    from captionkit_torch.data.prefetch import prefetch_to_device
+    from captionkit_torch.train.xe import (
+        batch_host_tensors,
+        batch_to_device_dict,
+    )
+
+    rng = np.random.default_rng(0)
+    host = [{"features": rng.standard_normal((64, 36, 256)).astype(
+                 np.float32),
+             "existing": rng.integers(0, 9490, (64, 22)),
+             "existing_len": rng.integers(1, 23, (64,)),
+             "target": rng.integers(0, 9490, (64, 22)),
+             "target_len": rng.integers(1, 23, (64,)),
+             "valid": rng.random(64) > 0.1} for _ in range(3)]
+    got = list(prefetch_to_device((batch_host_tensors(h) for h in host),
+                                  device="cuda"))
+    for g, h in zip(got, host):
+        want = batch_to_device_dict(h, "cuda")
+        for k in want:
+            assert g[k].dtype == want[k].dtype
+            assert torch.equal(g[k], want[k]), k
+    big = [np.full((16 << 20,), i, np.float32) for i in range(8)]
+    w = torch.randn((4096, 4096), device="cuda")
+    for i, t in enumerate(prefetch_to_device(iter(big), size=1,
+                                             device="cuda")):
+        for _ in range(8):  # keep the stream busy past the next copy
+            w = w @ w
+            w = w / w.norm()
+        assert float(t.min()) == float(t.max()) == float(i)

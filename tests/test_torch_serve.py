@@ -199,10 +199,22 @@ def test_cli_serve_same_output_as_jax_cli(both, monkeypatch, capsys):
 
 
 def test_cli_unported_commands_exit(capsys):
+    """Nothing is left unported: the port's parser offers every
+    subcommand of the reference's."""
+    import argparse
+
     assert cli.main(["configs"]) == 0
     assert "editnet_beam5" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(["convert"])
+
+    def commands(parser):
+        return {name for a in parser._actions
+                if isinstance(a, argparse._SubParsersAction)
+                for name in a.choices}
+
+    want = commands(jax_cli.build_parser())
+    assert {"convert", "parity-gate"} <= want
+    assert commands(cli.build_parser()) == want
+    assert not hasattr(cli, "NOT_PORTED")
 
 
 def test_entry_points_default_to_the_card(both):
