@@ -93,8 +93,14 @@ run_scst_training``) from one ``--params`` checkpoint (the XE weights;
 random weights without it), with the same data, validation, export and
 run-log flags, ``--pipeline`` to enqueue each batch's rollout before the
 previous batch's reward and update, and no ``--resume`` (as in the
-reference). Both refuse ``--num-shards`` above 1 until data-parallel
-training is ported.
+reference). Both train data-parallel with ``--num-shards W --shard-index
+r``: one process per rank, started W times with the same arguments, the
+rendezvous at ``MASTER_ADDR``/``MASTER_PORT`` (torch's ``env://``), rank
+r on ``cuda:{r % device_count}`` over NCCL (``--dist-backend gloo`` names
+gloo, for ranks that share a card; ``--device cpu`` takes gloo). Every
+rank takes its rows of the same global batches (``parallel/mesh.py``);
+rank 0 writes the checkpoints, ``metrics.jsonl`` and the exports, and
+every rank prints the same report.
 
 ``convert`` turns a PyTorch checkpoint (a state dict, a pickled module or
 the released training dict) into the flat ``.npz`` (``convert/
@@ -214,10 +220,13 @@ def build_parser() -> argparse.ArgumentParser:
             sp.add_argument(
                 "--num-shards", dest="num_shards", type=int, default=1,
                 help="decode: split the eval set across processes; run one "
-                     "per shard and concatenate the results JSONs")
+                     "per shard and concatenate the results JSONs. "
+                     "train-xe/train-scst: the data-parallel world size "
+                     "(one process per rank, MASTER_ADDR/MASTER_PORT)")
             sp.add_argument("--shard-index", dest="shard_index", type=int,
                             default=0,
-                            help="this process's shard (0-based)")
+                            help="this process's shard, or its rank "
+                                 "(0-based)")
         sp.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
 
@@ -279,6 +288,11 @@ def build_parser() -> argparse.ArgumentParser:
                              "train.ema_decay > 0)")
         sp.add_argument("--run-dir", dest="run_dir", default="",
                         help="write metrics.jsonl there")
+
+        sp.add_argument("--dist-backend", dest="dist_backend",
+                        choices=["nccl", "gloo"], default=None,
+                        help="--num-shards > 1: the collectives' backend "
+                             "(default nccl on cuda, gloo on the CPU)")
 
     sp = sub.add_parser("train-xe", help="cross-entropy training")
     add_train(sp)
@@ -502,28 +516,42 @@ def _load_train_datasets(args, cfg):
     return ds, val
 
 
-def _export_trained_params(args, state) -> None:
+def _export_trained_params(args, state, mesh=None) -> None:
     """``--export-params`` / ``--export-ema``: decode-ready ``.npz``
-    weights of the final state."""
+    weights of the final state, written by rank 0 of a mesh."""
     from captionkit_torch.params import save_params_npz
     from captionkit_torch.train.state import ema_params
 
+    avg = ema_params(state) if args.export_ema else None
+    if args.export_ema and avg is None:
+        raise SystemExit(
+            "--export-ema needs EMA tracking enabled: set "
+            "--set train.ema_decay=0.999 (or similar) on this run")
+    if mesh is not None and not mesh.is_main:
+        return
     if args.export_params:
         save_params_npz(state.params, args.export_params)
-    if args.export_ema:
-        avg = ema_params(state)
-        if avg is None:
-            raise SystemExit(
-                "--export-ema needs EMA tracking enabled: set "
-                "--set train.ema_decay=0.999 (or similar) on this run")
+    if avg is not None:
         save_params_npz(avg, args.export_ema)
 
 
-def _refuse_shards(args) -> None:
-    if args.num_shards > 1:
+def _train_mesh(args, cfg, device):
+    """None for one process; with ``--num-shards W`` > 1 the mesh of rank
+    ``--shard-index`` (the process group started at torch's ``env://``
+    rendezvous). The index is checked before anything waits on the
+    rendezvous."""
+    if args.num_shards <= 1:
+        return None
+    if not 0 <= args.shard_index < args.num_shards:
         raise SystemExit(
-            f"{args.cmd}: --num-shards > 1 needs data-parallel training, "
-            "which is not ported yet; train on one card")
+            f"{args.cmd}: --shard-index {args.shard_index} outside the "
+            f"W = {args.num_shards} ranks of --num-shards")
+    from captionkit_torch.parallel.mesh import init_ranks, make_mesh
+
+    ranks = init_ranks("env://", args.num_shards, args.shard_index, device,
+                       backend=args.dist_backend)
+    return make_mesh(cfg.train.mesh_shape, cfg.train.mesh_axis_names,
+                     ranks=ranks)
 
 
 def _print_report(report, state) -> None:
@@ -543,37 +571,44 @@ def cmd_train_xe(args) -> int:
 
     from captionkit_torch.device import resolve_device
     from captionkit_torch.models import get_model
+    from captionkit_torch.parallel.mesh import close_ranks
     from captionkit_torch.train.checkpoint import CheckpointManager
     from captionkit_torch.train.loop import run_xe_training
     from captionkit_torch.train.state import create_train_state
     from captionkit_torch.utils.logging import MetricsLogger
     from captionkit_torch.utils.preemption import PreemptionGuard
 
-    _refuse_shards(args)
     device = resolve_device(args.device)
     cfg = _apply_overrides(get_named_config(args.config), args.set)
-    train_ds, val_ds = _load_train_datasets(args, cfg)
-    cfg = cfg.override({"model.vocab_size": len(train_ds.vocab)})
-    model = get_model(cfg.model)
-    state = create_train_state(lambda seed: model.init(seed, device),
-                               cfg.train)
-    ckpt = CheckpointManager(cfg.train.checkpoint_dir,
-                             keep=cfg.train.keep_checkpoints)
-    if args.resume and ckpt.latest_step() is not None:
-        state = ckpt.restore(state)
-        logging.getLogger("captionkit_torch.cli").info(
-            "resumed from step %s", state.step)
-    mlogger = MetricsLogger(args.run_dir) if args.run_dir else None
-    with PreemptionGuard() as guard:
-        state, report = run_xe_training(
-            model, state, cfg, train_ds, None if args.no_val else val_ds,
-            ckpt=ckpt, max_steps=args.max_steps, metrics_logger=mlogger,
-            preemption=guard, device=device)
-    if mlogger is not None:
-        mlogger.close()
-    _export_trained_params(args, state)
-    _print_report(report, state)
-    ckpt.close()
+    mesh = _train_mesh(args, cfg, device)
+    try:
+        device = device if mesh is None else mesh.device
+        train_ds, val_ds = _load_train_datasets(args, cfg)
+        cfg = cfg.override({"model.vocab_size": len(train_ds.vocab)})
+        model = get_model(cfg.model)
+        state = create_train_state(lambda seed: model.init(seed, device),
+                                   cfg.train)
+        ckpt = CheckpointManager(cfg.train.checkpoint_dir,
+                                 keep=cfg.train.keep_checkpoints, mesh=mesh)
+        if args.resume and ckpt.latest_step() is not None:
+            state = ckpt.restore(state)
+            logging.getLogger("captionkit_torch.cli").info(
+                "resumed from step %s", state.step)
+        mlogger = (MetricsLogger(args.run_dir, mesh=mesh) if args.run_dir
+                   else None)
+        with PreemptionGuard() as guard:
+            state, report = run_xe_training(
+                model, state, cfg, train_ds, None if args.no_val else val_ds,
+                mesh=mesh, ckpt=ckpt, max_steps=args.max_steps,
+                metrics_logger=mlogger, preemption=guard, device=device)
+        if mlogger is not None:
+            mlogger.close()
+        _export_trained_params(args, state, mesh)
+        _print_report(report, state)
+        ckpt.close()
+    finally:
+        if mesh is not None:
+            close_ranks(mesh.ranks)
     return 0
 
 
@@ -581,13 +616,13 @@ def cmd_train_scst(args) -> int:
     from captionkit_torch.device import resolve_device
     from captionkit_torch.models import get_model
     from captionkit_torch.params import load_params_npz
+    from captionkit_torch.parallel.mesh import close_ranks
     from captionkit_torch.train.checkpoint import CheckpointManager
     from captionkit_torch.train.loop import run_scst_training
     from captionkit_torch.train.state import create_train_state
     from captionkit_torch.utils.logging import MetricsLogger
     from captionkit_torch.utils.preemption import PreemptionGuard
 
-    _refuse_shards(args)
     if args.params and "," in args.params:
         raise SystemExit(
             "train-scst takes one --params checkpoint (the XE weights to "
@@ -595,31 +630,39 @@ def cmd_train_scst(args) -> int:
             "are supported by `decode` and `serve` only")
     device = resolve_device(args.device)
     cfg = _apply_overrides(get_named_config(args.config), args.set)
-    train_ds, val_ds = _load_train_datasets(args, cfg)
-    cfg = cfg.override({"model.vocab_size": len(train_ds.vocab)})
-    model = get_model(cfg.model)
+    mesh = _train_mesh(args, cfg, device)
+    try:
+        device = device if mesh is None else mesh.device
+        train_ds, val_ds = _load_train_datasets(args, cfg)
+        cfg = cfg.override({"model.vocab_size": len(train_ds.vocab)})
+        model = get_model(cfg.model)
 
-    def init_params(seed):
-        if args.params:
-            return load_params_npz(args.params, device, arch=model.name)
-        return model.init(seed, device)
+        def init_params(seed):
+            if args.params:
+                return load_params_npz(args.params, device, arch=model.name)
+            return model.init(seed, device)
 
-    # The optimizer state (and the EMA, when on) starts from the loaded
-    # weights.
-    state = create_train_state(init_params, cfg.train)
-    ckpt = CheckpointManager(cfg.train.checkpoint_dir,
-                             keep=cfg.train.keep_checkpoints)
-    mlogger = MetricsLogger(args.run_dir) if args.run_dir else None
-    with PreemptionGuard() as guard:
-        state, report = run_scst_training(
-            model, state, cfg, train_ds, None if args.no_val else val_ds,
-            ckpt=ckpt, max_steps=args.max_steps, metrics_logger=mlogger,
-            pipeline=args.pipeline, preemption=guard, device=device)
-    if mlogger is not None:
-        mlogger.close()
-    _export_trained_params(args, state)
-    _print_report(report, state)
-    ckpt.close()
+        # The optimizer state (and the EMA, when on) starts from the
+        # loaded weights.
+        state = create_train_state(init_params, cfg.train)
+        ckpt = CheckpointManager(cfg.train.checkpoint_dir,
+                                 keep=cfg.train.keep_checkpoints, mesh=mesh)
+        mlogger = (MetricsLogger(args.run_dir, mesh=mesh) if args.run_dir
+                   else None)
+        with PreemptionGuard() as guard:
+            state, report = run_scst_training(
+                model, state, cfg, train_ds, None if args.no_val else val_ds,
+                mesh=mesh, ckpt=ckpt, max_steps=args.max_steps,
+                metrics_logger=mlogger, pipeline=args.pipeline,
+                preemption=guard, device=device)
+        if mlogger is not None:
+            mlogger.close()
+        _export_trained_params(args, state, mesh)
+        _print_report(report, state)
+        ckpt.close()
+    finally:
+        if mesh is not None:
+            close_ranks(mesh.ranks)
     return 0
 
 

@@ -8,7 +8,7 @@ validity mask.
 
 from __future__ import annotations
 
-from collections.abc import Iterator, Sequence
+from collections.abc import Callable, Iterator, Sequence
 from dataclasses import dataclass
 from typing import Optional
 
@@ -77,9 +77,19 @@ def make_batches(
     seed: int = 0,
     drop_remainder: bool = False,
     feat_shape: tuple[int, int] = (36, 2048),
+    share: Optional[tuple[int, int]] = None,
 ) -> Iterator[Batch]:
     """Yield fixed-shape Batches over a split. The last partial batch is
-    padded (rows repeated from index 0) with valid=False."""
+    padded (rows repeated from index 0) with valid=False.
+
+    ``share=(r, W)``: the r-th contiguous 1/W of every batch's rows, the
+    batches and their order those of the whole split (data parallelism:
+    each rank gathers only its own rows' features)."""
+    r, w = share or (0, 1)
+    if batch_size % w:
+        raise ValueError(f"a batch of {batch_size} rows does not split "
+                         f"evenly over W = {w} ranks")
+    rows = slice(r * (batch_size // w), (r + 1) * (batch_size // w))
     n = existing.shape[0]
     order = np.arange(n)
     if shuffle:
@@ -98,12 +108,13 @@ def make_batches(
             idx = np.concatenate([idx, fill])
         valid = np.zeros((batch_size,), dtype=bool)
         valid[:b] = True
+        idx, valid = idx[rows], valid[rows]
         if callable(features):
             feats = np.asarray(features(idx), dtype=np.float32)
         elif features is not None:
             feats = features[idx].astype(np.float32, copy=False)
         else:
-            feats = np.zeros((batch_size, *feat_shape), dtype=np.float32)
+            feats = np.zeros((len(idx), *feat_shape), dtype=np.float32)
         yield Batch(
             features=feats,
             existing=existing[idx],
@@ -123,13 +134,20 @@ def length_mask(lengths: np.ndarray, max_len: int) -> np.ndarray:
 def bucket_batches(
     batches: "Iterator[Batch]",
     boundaries: Sequence[int],
+    *,
+    agree: Optional[Callable[[list[int]], list[int]]] = None,
 ) -> Iterator[Batch]:
     """Length-bucketed batching: the rows of each incoming batch are
     re-emitted with their time axes cut to the smallest boundary >= the
     batch's longest real sequence (at most the original width). Rows,
     their order and the lengths are unchanged; only the padding tail goes,
-    so masked computations give the same numbers."""
+    so masked computations give the same numbers.
+
+    ``agree`` maps this process's longest lengths (existing, target) to
+    the ones to cut at: data parallelism passes the maximum over the ranks,
+    so every rank's share of a global batch is cut as the whole batch."""
     bounds = sorted(boundaries)
+    agree = agree or (lambda needed: needed)
 
     def width(max_needed: int, cap: int) -> int:
         for b in bounds:
@@ -138,9 +156,12 @@ def bucket_batches(
         return cap
 
     for b in batches:
-        ex_w = width(int(b.existing_len.max()), b.existing.shape[1])
+        ex_need, t_need = agree([
+            int(b.existing_len.max()),
+            int(b.target_len.max()) if b.target is not None else 0])
+        ex_w = width(ex_need, b.existing.shape[1])
         if b.target is not None:
-            t_w = width(int(b.target_len.max()), b.target.shape[1])
+            t_w = width(t_need, b.target.shape[1])
             out_kw = dict(target=b.target[:, :t_w], target_len=b.target_len)
         else:
             out_kw = dict(target=None, target_len=None)

@@ -122,22 +122,38 @@ class _HostStager:
         return staged
 
 
+def _rank_rows(mesh):
+    """The batch transform of a mesh: every array leaf cut to this rank's
+    rows, still on the host."""
+    from captionkit_torch.parallel.mesh import rank_rows
+
+    def cut(x):
+        t = _as_tensor(x)
+        return t.narrow(0, *rank_rows(mesh, t.shape[0]))
+
+    return lambda batch: _map_batch(batch, cut)
+
+
 def prefetch_to_device(
     batches: Iterable[Any],
     *,
     size: int = 2,
-    device: "str | torch.device" = "cuda",
+    device: "str | torch.device | None" = None,
     mesh: Optional[Any] = None,
 ) -> Iterator[Any]:
     """Yield the batches on ``device`` (the card unless the caller names
-    the CPU), in order, with ``size`` copies in flight. ``mesh`` must be
-    None: data-parallel placement is not ported."""
+    the CPU), in order, with ``size`` copies in flight. With ``mesh``
+    (``parallel/mesh.py``) the batches are global ones and only this
+    rank's rows are staged, on the rank's device."""
     if size < 1:
         raise ValueError("prefetch size must be >= 1")
     if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel placement is not ported yet: pass mesh=None")
-    dev = resolve_device(device)
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} differs from the mesh's "
+                             f"device {mesh.device}")
+        device = mesh.device
+        batches = map(_rank_rows(mesh), batches)
+    dev = resolve_device(device or "cuda")
     stager = (_PinnedStager(dev, size + 1) if dev.type == "cuda"
               else _HostStager())
     queue: collections.deque = collections.deque()

@@ -169,7 +169,10 @@ class CaptionDataset:
         seed: int = 0,
         drop_remainder: bool = False,
         feat_shape: tuple[int, int] = (36, 2048),
+        share: Optional[tuple[int, int]] = None,
     ) -> Iterator[Batch]:
+        """``make_batches`` over the split; ``share=(r, W)`` yields the
+        r-th 1/W of every batch's rows and gathers only their features."""
         features = None
         if self.features is not None:
             source = self.features
@@ -202,6 +205,7 @@ class CaptionDataset:
             seed=seed,
             drop_remainder=drop_remainder,
             feat_shape=feat_shape,
+            share=share,
         )
 
 

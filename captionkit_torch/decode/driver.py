@@ -8,6 +8,13 @@ the host; ``evaluate_split`` scores the decoded split against its
 references (``metrics.eval.CaptionEvaluator``). The method is the
 reference's choice: beam search when ``method="beam"`` and
 ``beam_size > 1``, sampling for ``"sample"``, else greedy.
+
+With a mesh (``parallel/mesh.py``) every rank iterates the split's
+batches in the same order, gathers and decodes only its rows of each
+(the int8 feed's (q, scale) pair split alike), and the token rows, with
+their image ids and valid flags, are gathered to every rank through the
+host, where they go for detokenization anyway: every rank returns the
+whole split's hypotheses.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from captionkit_torch.decode.greedy import greedy_decode, sample_decode
 from captionkit_torch.device import resolve_device
 from captionkit_torch.metrics.eval import CaptionEvaluator
 from captionkit_torch.models.base import ModelDef
+from captionkit_torch.parallel.mesh import gather_rows
 
 
 def make_decode_fn(
@@ -43,6 +51,7 @@ def make_decode_fn(
     end_id: int,
     pad_id: int = 0,
     device: "str | torch.device" = "cuda",
+    mesh=None,
 ):
     """(params, features, existing, existing_len, batch_idx) -> tokens
     [B, L] int32 on ``device``. The inputs may sit on the host; they are
@@ -50,11 +59,14 @@ def make_decode_fn(
     ``quantize_for_feed`` stages it for ``decode_cfg.feed_dtype``: with
     "int8", the (q, scale) pair, dequantized on the device before
     ``encode``. Sampling seeds its generator from ``decode_cfg.seed`` and
-    ``batch_idx`` (``sample_seed``)."""
+    ``batch_idx`` (``sample_seed``). With ``mesh`` the inputs are this
+    rank's rows (``shard_batch_arrays``), the tokens are theirs, on the
+    rank's device, and a sampling decode adds the rank to the seed."""
     if decode_cfg.method not in ("greedy", "beam", "sample"):
         raise ValueError(f"unknown decode method {decode_cfg.method!r}")
     feed_torch_dtype(decode_cfg.feed_dtype)
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
+    rank = () if mesh is None else (mesh.rank,)
     ids = dict(start_id=start_id, end_id=end_id, pad_id=pad_id,
                max_len=decode_cfg.max_decode_len)
 
@@ -73,7 +85,7 @@ def make_decode_fn(
             ).tokens
         if decode_cfg.method == "sample":
             gen = torch.Generator(device=dev).manual_seed(
-                sample_seed(decode_cfg.seed, batch_idx))
+                sample_seed(decode_cfg.seed, batch_idx, *rank))
             return sample_decode(
                 model, params, ctx, gen,
                 temperature=decode_cfg.temperature, top_k=decode_cfg.top_k,
@@ -83,12 +95,14 @@ def make_decode_fn(
     return fn
 
 
-def sample_seed(seed: int, batch_idx: int) -> int:
+def sample_seed(seed: int, batch_idx: int, *rank: int) -> int:
     """The generator seed of batch ``batch_idx`` of a sampling decode: the
-    reference folds the batch index into its key; here both numbers feed
-    one ``numpy.random.SeedSequence``, so batches draw independent
+    reference folds the batch index into its key; here the numbers (and
+    the rank on a mesh) feed one
+    ``numpy.random.SeedSequence``, so batches and ranks draw independent
     streams."""
-    return int(np.random.SeedSequence([int(seed), int(batch_idx)])
+    return int(np.random.SeedSequence([int(seed), int(batch_idx),
+                                       *map(int, rank)])
                .generate_state(1, np.uint64)[0])
 
 
@@ -101,17 +115,20 @@ def decode_split(
     decode_fn=None,
     results_path: Optional[str] = None,
     device: "str | torch.device" = "cuda",
+    mesh=None,
 ) -> tuple[dict[int, str], dict[str, float]]:
     """Decode a dataset split. Returns ({image_id: caption}, stats); stats
     holds the captions decoded, the wall seconds of the whole split and
     the captions/s of the batches after the first (0.0 when the split is
-    one batch: the first batch carries the warm-up)."""
+    one batch: the first batch carries the warm-up). With ``mesh`` each
+    rank decodes its rows of every batch and every rank returns the whole
+    split's captions (only rank 0 writes ``results_path``)."""
     vocab = dataset.vocab
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     if decode_fn is None:
         decode_fn = make_decode_fn(
             model, decode_cfg, start_id=vocab.start, end_id=vocab.end,
-            pad_id=vocab.pad, device=dev)
+            pad_id=vocab.pad, device=dev, mesh=mesh)
     hypotheses: dict[int, str] = {}
     n_decoded = 0
     n_timed = 0
@@ -122,19 +139,28 @@ def decode_split(
         nonlocal n_decoded, n_timed, t_start
         tokens_dev, batch = pending.popleft()
         tokens = tokens_dev.cpu().numpy()
-        n_valid = int(batch.valid.sum())
+        valid_rows, image_ids = batch.valid, batch.image_id
+        if mesh is not None:
+            rows = gather_rows(mesh, np.concatenate(
+                [tokens.astype(np.int64), image_ids[:, None],
+                 valid_rows[:, None]], axis=1))
+            tokens = rows[:, :-2].astype(tokens.dtype)
+            image_ids, valid_rows = rows[:, -2], rows[:, -1].astype(bool)
+        n_valid = int(valid_rows.sum())
         if t_start is None:
             t_start = time.perf_counter()
         else:
             n_timed += n_valid
-        for row, valid, img in zip(tokens, batch.valid, batch.image_id):
+        for row, valid, img in zip(tokens, valid_rows, image_ids):
             if not valid:
                 continue
             hypotheses[int(img)] = vocab.decode_to_string(row)
             n_decoded += 1
 
     t_total = time.perf_counter()
-    for batch_idx, batch in enumerate(dataset.batches(decode_cfg.batch_size)):
+    for batch_idx, batch in enumerate(dataset.batches(
+            decode_cfg.batch_size,
+            share=None if mesh is None else mesh.share)):
         tokens_dev = decode_fn(
             params,
             quantize_for_feed(batch.features, decode_cfg.feed_dtype),
@@ -154,7 +180,7 @@ def decode_split(
         "captions_per_sec": n_timed / elapsed if elapsed > 0 and n_timed
         else 0.0,
     }
-    if results_path:
+    if results_path and (mesh is None or mesh.is_main):
         ids = dataset.image_ids
         with open(results_path, "w") as f:
             json.dump(
@@ -175,15 +201,18 @@ def evaluate_split(
     results_path: Optional[str] = None,
     decode_fn=None,
     device: "str | torch.device" = "cuda",
+    mesh=None,
 ) -> dict[str, float]:
     """Decode a split and score it against ``dataset.references``: the
     evaluator's metrics and ``decode_split``'s stats in one dict. Pass a
-    prebuilt ``decode_fn`` to reuse it across repeated validations."""
+    prebuilt ``decode_fn`` to reuse it across repeated validations. With
+    ``mesh`` the decode is split by rows and every rank scores the whole
+    split's captions (the same numbers on every rank)."""
     if dataset.references is None:
         raise ValueError("dataset has no reference captions to score against")
     hyps, stats = decode_split(
         model, params, dataset, decode_cfg, results_path=results_path,
-        decode_fn=decode_fn, device=device)
+        decode_fn=decode_fn, device=device, mesh=mesh)
     refs = {
         int(img): [" ".join(toks) for toks in dataset.references[int(img)]]
         for img in hyps

@@ -187,12 +187,32 @@ def teacher_forcing_logits(model: ModelDef, params: Any, ctx: Any,
     return torch.stack(out, dim=1)
 
 
-def dropout_mask(shape, rate: float, generator: Optional[torch.Generator],
+@dataclass(frozen=True)
+class RowShare:
+    """A generator whose draws cover the whole of a batch split into
+    ``count`` equal shares of rows, of which this process keeps share
+    ``index`` (data parallelism: W ranks draw the dropout masks of one
+    rank on the global batch and each keeps its rows)."""
+
+    generator: torch.Generator
+    index: int
+    count: int
+
+
+def dropout_mask(shape, rate: float,
+                 generator: "torch.Generator | RowShare | None",
                  device) -> torch.Tensor:
     """The keep mask of inverted dropout: bool, True with probability
     1 - rate (a uniform draw below 1 - rate, as ``jax.random.bernoulli``
-    draws it), from ``generator``."""
-    u = torch.rand(shape, generator=generator, device=device)
+    draws it), from ``generator``; a ``RowShare`` draws the global batch's
+    mask and keeps its share of the rows (axis 0)."""
+    if isinstance(generator, RowShare):
+        n = shape[0]
+        u = torch.rand((n * generator.count, *shape[1:]),
+                       generator=generator.generator, device=device)
+        u = u[generator.index * n:(generator.index + 1) * n]
+    else:
+        u = torch.rand(shape, generator=generator, device=device)
     return u < (1.0 - rate)
 
 

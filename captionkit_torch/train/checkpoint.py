@@ -11,6 +11,11 @@ checkpoints are Orbax directories and the two formats do not read each
 other; the flat ``.npz`` of ``save_params_npz``/``load_params_npz``
 (``captionkit_torch.params``) is the interchange format both packages
 read and write.
+
+With a mesh (``parallel/mesh.py``) only rank 0 writes, and every save and
+every restore passes a barrier: no rank reads a checkpoint before it is
+whole, nor returns from a save before rank 0 has written it, and every
+rank restores the same state.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Any, Optional
 
 import torch
 
+from captionkit_torch.parallel.mesh import barrier, host_max
 from captionkit_torch.params import (  # noqa: F401  (re-exported)
     load_params_npz,
     named_tensors,
@@ -93,21 +99,43 @@ def _read(directory: str, template: TrainState) -> TrainState:
 class CheckpointManager:
     """Rotating step checkpoints plus a best-metric snapshot."""
 
-    def __init__(self, directory: str, *, keep: int = 3):
+    def __init__(self, directory: str, *, keep: int = 3, mesh=None):
         self.directory = os.path.abspath(directory)
         self.keep = int(keep)
+        self.mesh = mesh
         self._recent = os.path.join(self.directory, "recent")
         self._best_dir = os.path.join(self.directory, "best")
         self._meta_path = os.path.join(self.directory, "best.json")
-        os.makedirs(self._recent, exist_ok=True)
+        if self._writes:
+            os.makedirs(self._recent, exist_ok=True)
+        self._barrier()
+
+    @property
+    def _writes(self) -> bool:
+        return self.mesh is None or self.mesh.is_main
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            barrier(self.mesh)
 
     def save(self, state: TrainState, *, metric: Optional[float] = None,
              extra: Optional[dict[str, Any]] = None) -> bool:
         """Save at ``state.step`` and rotate; with ``metric``, track the
-        best. Returns True when this save is the new best."""
+        best. Returns True when this save is the new best (on every rank
+        of a mesh; rank 0 writes)."""
         step = int(state.step)
-        best = self.best_metric()
-        is_best = metric is not None and (best is None or metric > best)
+        is_best = False
+        if self._writes:
+            best = self.best_metric()
+            is_best = metric is not None and (best is None or metric > best)
+            self._save(state, step, best, is_best, metric, extra)
+        if self.mesh is not None:
+            # Rank 0's verdict, after it has written (a barrier as well):
+            # no other rank reads best.json while rank 0 may rewrite it.
+            is_best = bool(host_max(self.mesh, [int(is_best)])[0])
+        return is_best
+
+    def _save(self, state, step, best, is_best, metric, extra) -> None:
         sd = _state_dict(state, metric if is_best else best, extra)
         _write(sd, os.path.join(self._recent, str(step)))
         for old in self.all_steps()[:-self.keep] if self.keep > 0 else ():
@@ -118,12 +146,12 @@ class CheckpointManager:
             payload.update(extra or {})
             with open(self._meta_path, "w") as f:
                 json.dump(payload, f)
-        return is_best
 
     def restore(self, template: TrainState, *,
                 step: Optional[int] = None) -> TrainState:
         """The checkpoint at ``step`` (default the latest), on the devices
         and in the structure of ``template``."""
+        self._barrier()
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -132,11 +160,14 @@ class CheckpointManager:
 
     def restore_best(self, template: TrainState) -> TrainState:
         """The best-metric snapshot (never rotated away)."""
+        self._barrier()
         if not os.path.exists(self._best_dir):
             raise FileNotFoundError(f"no best checkpoint in {self.directory}")
         return _read(self._best_dir, template)
 
     def all_steps(self) -> list[int]:
+        if not os.path.isdir(self._recent):
+            return []
         return sorted(int(d) for d in os.listdir(self._recent)
                       if d.isdigit())
 

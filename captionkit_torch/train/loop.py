@@ -20,6 +20,15 @@ reads the parameters from before update k: one step of policy staleness,
 as in the reference). Each epoch validates (EMA weights when EMA is on)
 and keeps the best checkpoint by CIDEr.
 
+With a mesh (``parallel/mesh.py``) both loops start from rank 0's
+broadcast state; every rank iterates the split's batches in the same
+order and gathers only its rows of each (``CaptionDataset.batches(share=
+...)``), the steps sum what they must over the ranks, validation decodes
+split by rows, and the preemption flag is agreed by all ranks where the
+loop polls it, so every rank stops, validates, decays the lr and stops
+early at the same step. Checkpoints and ``metrics.jsonl`` are written by
+rank 0 (``CheckpointManager`` and ``MetricsLogger`` take the mesh).
+
 Two differences from the reference in the XE loop, both by design:
 
 * lr decay reaches every step. The reference rebuilds only its single
@@ -50,6 +59,7 @@ from captionkit_torch.decode.driver import evaluate_split, make_decode_fn
 from captionkit_torch.device import resolve_device
 from captionkit_torch.metrics.eval import CaptionEvaluator
 from captionkit_torch.models.base import ModelDef
+from captionkit_torch.parallel.mesh import host_max
 from captionkit_torch.params import named_tensors, params_from_tensors
 from captionkit_torch.train.checkpoint import CheckpointManager
 from captionkit_torch.metrics.cider import NgramDocFreq
@@ -60,7 +70,11 @@ from captionkit_torch.train.scst import (
     make_scst_update,
     scst_train_step,
 )
-from captionkit_torch.train.state import TrainState, ema_params
+from captionkit_torch.train.state import (
+    TrainState,
+    broadcast_train_state,
+    ema_params,
+)
 from captionkit_torch.train.xe import (
     BATCH_KEYS,
     batch_host_tensors,
@@ -68,6 +82,7 @@ from captionkit_torch.train.xe import (
     make_xe_train_step,
 )
 from captionkit_torch.utils.logging import MetricsLogger
+from captionkit_torch.utils.preemption import stop_poll
 
 log = logging.getLogger("captionkit_torch.train")
 
@@ -103,15 +118,34 @@ class TrainReport:
     preempted: bool = False
 
 
-def _make_val_decode_fn(model, val_dataset, cfg, device):
+def _make_val_decode_fn(model, val_dataset, cfg, device, mesh=None):
     """The validation decode function, built once a run."""
     v = val_dataset.vocab
     return make_decode_fn(model, cfg.decode, start_id=v.start, end_id=v.end,
-                          pad_id=v.pad, device=device)
+                          pad_id=v.pad, device=device, mesh=mesh)
+
+
+def _run_device(device, mesh) -> torch.device:
+    return resolve_device(device) if mesh is None else mesh.device
+
+
+def _batches(dataset, cfg, seed: int, mesh):
+    """An epoch's shuffled batches (this rank's rows of each with a mesh),
+    bucketed when the config says so: on a mesh each batch is cut at the
+    widths of the whole global batch."""
+    batches = dataset.batches(cfg.data.batch_size, shuffle=True, seed=seed,
+                              share=None if mesh is None else mesh.share)
+    if cfg.data.bucket_boundaries:
+        from captionkit_torch.data.pipeline import bucket_batches
+
+        agree = None if mesh is None else (lambda v: host_max(mesh, v))
+        batches = bucket_batches(batches, cfg.data.bucket_boundaries,
+                                 agree=agree)
+    return batches
 
 
 def _validate(model, state, val_dataset, cfg, decode_fn=None,
-              device="cuda") -> dict[str, float]:
+              device="cuda", mesh=None) -> dict[str, float]:
     """Decode and score the validation split, on the EMA weights when EMA
     is on, without external (JVM) scorers. Returns the evaluator's
     metrics plus the decode wall (``wall_s``) and ``score_s``, the rest of
@@ -128,7 +162,8 @@ def _validate(model, state, val_dataset, cfg, decode_fn=None,
     t0 = time.perf_counter()
     metrics = evaluate_split(
         model, params, val_dataset, cfg.decode, decode_fn=decode_fn,
-        evaluator=CaptionEvaluator(use_external=False), device=device)
+        evaluator=CaptionEvaluator(use_external=False), device=device,
+        mesh=mesh)
     metrics["score_s"] = time.perf_counter() - t0 - metrics["wall_s"]
     log.info("val metrics%s: %s", which,
              {k: round(v, 4) for k, v in metrics.items()})
@@ -210,11 +245,13 @@ def run_xe_training(
     call. ``preemption`` (a ``PreemptionGuard``) is polled between calls of
     the step: on a caught signal the loop drains, saves a checkpoint at the
     exact step, marks ``report.preempted`` and returns. ``device``: the
-    card unless the caller names the CPU."""
+    card unless the caller names the CPU; with ``mesh``, the rank's device
+    (``parallel/mesh.py``; every rank calls this with the same arguments).
+    """
+    dev = _run_device(device, mesh)
     if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training is not ported yet: pass mesh=None")
-    dev = resolve_device(device)
+        broadcast_train_state(mesh, state)
+    preempted = stop_poll(preemption, mesh)
     tcfg = cfg.train
     report = TrainReport()
     lr = tcfg.learning_rate
@@ -223,11 +260,12 @@ def run_xe_training(
 
     def build(rate):
         kw = dict(label_smoothing=tcfg.label_smoothing, learning_rate=rate)
-        return (make_xe_train_step(model, tcfg, **kw),
-                make_xe_train_multistep(model, tcfg, **kw) if k > 1 else None)
+        return (make_xe_train_step(model, tcfg, mesh, **kw),
+                make_xe_train_multistep(model, tcfg, mesh, **kw) if k > 1
+                else None)
 
     step_fn, multi_fn = build(lr)
-    val_decode_fn = (_make_val_decode_fn(model, val_dataset, cfg, dev)
+    val_decode_fn = (_make_val_decode_fn(model, val_dataset, cfg, dev, mesh)
                      if val_dataset is not None else None)
     steps_done = 0
     per_epoch = _steps_per_epoch(train_dataset, cfg.data.batch_size)
@@ -237,13 +275,7 @@ def run_xe_training(
         meter_loss, meter_acc, meter_bt, meter_tok = (
             AverageMeter(), AverageMeter(), AverageMeter(), AverageMeter())
         t0 = time.perf_counter()
-        epoch_batches = train_dataset.batches(
-            cfg.data.batch_size, shuffle=True, seed=tcfg.seed + epoch)
-        if cfg.data.bucket_boundaries:
-            from captionkit_torch.data.pipeline import bucket_batches
-
-            epoch_batches = bucket_batches(epoch_batches,
-                                           cfg.data.bucket_boundaries)
+        epoch_batches = _batches(train_dataset, cfg, tcfg.seed + epoch, mesh)
         host_batches = (_host_dict(b) for i, b in enumerate(epoch_batches)
                         if epoch > start_epoch or i >= skip)
         pending: list = []
@@ -264,8 +296,10 @@ def run_xe_training(
         budget = None if max_steps is None else max_steps - steps_done
         packs = (_pack_host_batches(host_batches, k, budget) if k > 1
                  else (("single", hb) for hb in host_batches))
+        stopped = False
         for kind, dev_batch in _prefetch_packs(packs, dev):
-            if preemption is not None and preemption.requested:
+            if preempted():
+                stopped = True
                 break
             if kind == "multi":
                 state, metrics = multi_fn(state, dev_batch)
@@ -312,7 +346,7 @@ def run_xe_training(
             meter_bt.update((time.perf_counter() - t0) / window_steps,
                             n=window_steps)
 
-        if preemption is not None and preemption.requested:
+        if stopped or preempted():
             log.warning("preempted at step %d: checkpointing and exiting "
                         "cleanly", state.step)
             if ckpt is not None:
@@ -330,7 +364,7 @@ def run_xe_training(
         if val_dataset is not None and \
                 (epoch + 1) % tcfg.eval_every_epochs == 0:
             vm = _validate(model, state, val_dataset, cfg, val_decode_fn,
-                           dev)
+                           dev, mesh)
             cider = vm.get("CIDEr", 0.0)
             epoch_stats.update(val_cider=cider, val_decode_s=vm["wall_s"],
                                val_score_s=vm["score_s"])
@@ -363,12 +397,13 @@ def run_xe_training(
     return state, report
 
 
-def _apply_pending(state, pending, update_fn, rewarder):
+def _apply_pending(state, pending, update_fn, rewarder, mesh=None):
     """Finish a pipelined SCST step through the shared reward and update
     path."""
     dev_batch, refs, roll = pending
     return apply_rollout(update_fn=update_fn, rewarder=rewarder, state=state,
-                         batch=dev_batch, references=refs, roll=roll)
+                         batch=dev_batch, references=refs, roll=roll,
+                         mesh=mesh)
 
 
 def _seeded(*words: int) -> int:
@@ -400,16 +435,18 @@ def run_scst_training(
     Serial mode seeds each step's sampling generator from (rng_seed,
     step), as ``TrainState.next_generator`` does; pipelined mode from
     (rng_seed, epoch, rollouts enqueued this epoch), the reference's
-    ``fold_in(fold_in(rng, epoch), dispatched)``. ``preemption`` is polled
-    between steps: in pipelined mode the in-flight rollout is dropped (it
-    changed no state), so the checkpoint is exact. Step metrics stay on
-    the card until a log boundary."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training is not ported yet: pass mesh=None")
+    ``fold_in(fold_in(rng, epoch), dispatched)``; on a mesh both add the
+    rank. ``preemption`` is polled between steps: in
+    pipelined mode the in-flight rollout is dropped (it changed no state),
+    so the checkpoint is exact. Step metrics stay on the card until a log
+    boundary."""
     if train_dataset.references is None:
         raise ValueError("SCST needs per-image reference captions")
-    dev = resolve_device(device)
+    dev = _run_device(device, mesh)
+    if mesh is not None:
+        broadcast_train_state(mesh, state)
+    preempted = stop_poll(preemption, mesh)
+    rank = () if mesh is None else (mesh.rank,)
     tcfg = cfg.train
     vocab = train_dataset.vocab
     if df is None:
@@ -418,15 +455,15 @@ def run_scst_training(
     ref_ids = rewarder.intern(train_dataset.references)
     rollout_fn = make_scst_rollout(
         model, start_id=vocab.start, end_id=vocab.end, pad_id=vocab.pad,
-        max_len=cfg.decode.max_decode_len,
+        max_len=cfg.decode.max_decode_len, mesh=mesh,
         num_samples=tcfg.scst_num_samples)
     update_fn = make_scst_update(
         model, dataclasses.replace(tcfg,
                                    learning_rate=tcfg.scst_learning_rate),
-        start_id=vocab.start, num_samples=tcfg.scst_num_samples)
+        start_id=vocab.start, mesh=mesh, num_samples=tcfg.scst_num_samples)
     report = TrainReport()
     steps_done = 0
-    val_decode_fn = (_make_val_decode_fn(model, val_dataset, cfg, dev)
+    val_decode_fn = (_make_val_decode_fn(model, val_dataset, cfg, dev, mesh)
                      if val_dataset is not None else None)
 
     def _prepared(batches):
@@ -470,16 +507,19 @@ def run_scst_training(
         meter_rw = AverageMeter()
         batches = train_dataset.batches(
             cfg.data.batch_size, shuffle=True,
-            seed=tcfg.seed + 1000 + epoch)
+            seed=tcfg.seed + 1000 + epoch,
+            share=None if mesh is None else mesh.share)
+        stopped = False
         if not pipeline:
             for dev_batch, refs in _prepared(batches):
-                if preemption is not None and preemption.requested:
+                if preempted():
+                    stopped = True
                     break
                 state, metrics = scst_train_step(
                     rollout_fn=rollout_fn, update_fn=update_fn,
                     rewarder=rewarder, state=state, batch=dev_batch,
                     references=refs,
-                    generator=state.next_generator(dev))
+                    generator=state.next_generator(dev, *rank), mesh=mesh)
                 _tick(metrics, epoch)
                 if _done():
                     break
@@ -489,16 +529,18 @@ def run_scst_training(
             pending = None  # (dev_batch, refs, roll)
             dispatched = 0  # rollouts enqueued this epoch
             for dev_batch, refs in _prepared(batches):
-                if preemption is not None and preemption.requested:
+                if preempted():
+                    stopped = True
                     pending = None  # not applied: no state changed
                     break
                 gen = torch.Generator(device=dev).manual_seed(
-                    _seeded(state.rng_seed, epoch, dispatched))
+                    _seeded(state.rng_seed, epoch, dispatched, *rank))
                 dispatched += 1
                 roll = rollout_fn(state.params, dev_batch, gen)
                 if pending is not None:
                     state, metrics = _apply_pending(state, pending,
-                                                    update_fn, rewarder)
+                                                    update_fn, rewarder,
+                                                    mesh)
                     _tick(metrics, epoch)
                     if _done():
                         pending = None
@@ -506,10 +548,10 @@ def run_scst_training(
                 pending = (dev_batch, refs, roll)
             if pending is not None and not _done():
                 state, metrics = _apply_pending(state, pending, update_fn,
-                                                rewarder)
+                                                rewarder, mesh)
                 _tick(metrics, epoch)
         _drain()
-        if preemption is not None and preemption.requested:
+        if stopped or preempted():
             log.warning("preempted at scst step %d: checkpointing and "
                         "exiting cleanly", steps_done)
             if ckpt is not None:
@@ -524,7 +566,7 @@ def run_scst_training(
         stats = {"epoch": epoch, "mean_advantage": meter_rw.avg}
         if val_dataset is not None:
             vm = _validate(model, state, val_dataset, cfg, val_decode_fn,
-                           dev)
+                           dev, mesh)
             cider = vm.get("CIDEr", 0.0)
             stats.update(val_cider=cider, val_decode_s=vm["wall_s"],
                          val_score_s=vm["score_s"])

@@ -22,8 +22,20 @@ With ``num_samples = n > 1`` the rollout draws n samples in sequence and
 no greedy leg, and each sample's baseline is the mean reward of its n - 1
 siblings (``ScstRewarder.advantage_loo``).
 
+With a mesh (``parallel/mesh.py``) each rank rolls out, rewards and
+updates its rows of the global batch: the update's token count, valid rows
+and advantage sum are summed over the ranks before the forward, the
+gradients after it, so ``num``, ``den`` and ``adv_mean`` are the global
+batch's; the sample axis of ``num_samples = n`` is not split, so the
+leave-one-out baseline stays with its image. The reward of a row depends
+only on that row (the document frequencies are the split's), and the
+reward metrics are summed over the ranks on the host.
+
 Samples come from a ``torch.Generator``: draws from the same distribution
-as the reference's, not its ``jax.random`` samples. The rewarder raises
+as the reference's, not its ``jax.random`` samples. On a mesh the loop
+adds the rank to each generator's seed words, so no two ranks draw the
+same samples (numpy's ``SeedSequence`` pads its words with zeros: rank 0
+draws what one process draws). The rewarder raises
 when the native scorer cannot be built, where the reference steps down to
 the Python ``CiderD``.
 """
@@ -43,7 +55,8 @@ from captionkit_torch.metrics.fast import NativeCiderD
 from captionkit_torch.models.base import ModelDef, teacher_forcing_logits
 from captionkit_torch.params import named_tensors, params_from_tensors
 from captionkit_torch.train.state import TrainState, make_optimizer
-from captionkit_torch.train.xe import _no_mesh, global_norm
+from captionkit_torch.parallel.mesh import all_reduce_, host_sum
+from captionkit_torch.train.xe import global_norm
 
 
 def _host_copy(t: torch.Tensor) -> torch.Tensor:
@@ -80,8 +93,9 @@ def make_scst_rollout(model: ModelDef, *, start_id: int, end_id: int,
     The rollout reads ``params`` through a parameter object of its own, so
     its packed weights are built from the values the parameters have when
     the rollout is enqueued; an update enqueued after it, which changes the
-    parameters in place, does not reach it."""
-    _no_mesh(mesh)
+    parameters in place, does not reach it. With ``mesh`` the batch is
+    this rank's rows and ``generator`` this rank's (the rollout itself
+    needs no collective)."""
     ids = dict(start_id=start_id, end_id=end_id, pad_id=pad_id,
                max_len=max_len)
 
@@ -129,8 +143,8 @@ def make_scst_update(model: ModelDef, cfg: TrainConfig, *, start_id: int,
     Parameters and optimizer state are updated in place; the metrics
     (``scst_loss``, ``mean_advantage``, ``sample_len``, ``grad_norm``)
     stay on the card. The optimizer steps at ``cfg.learning_rate`` (the
-    loop passes ``cfg`` with ``scst_learning_rate`` there)."""
-    _no_mesh(mesh)
+    loop passes ``cfg`` with ``scst_learning_rate`` there). With ``mesh``
+    the inputs are this rank's rows and the metrics the global batch's."""
     tx = make_optimizer(cfg)
 
     def step_fn(state: TrainState, batch: dict, tokens: torch.Tensor,
@@ -144,8 +158,14 @@ def make_scst_update(model: ModelDef, cfg: TrainConfig, *, start_id: int,
         n, B = tokens.shape[0], tokens.shape[1]
         maskf = mask.float() * valid[None, :, None]
         den = maskf.sum()
+        n_valid = valid.sum()
+        adv_sum = (advantage * valid[None, :]).sum()
+        if mesh is not None:
+            totals = all_reduce_(mesh, [torch.stack([den, n_valid,
+                                                     adv_sum])])[0]
+            den, n_valid, adv_sum = totals[0], totals[1], totals[2]
         scale = den.clamp(min=1.0)
-        rows = (n * valid.sum()).clamp(min=1.0)
+        rows = (n * n_valid).clamp(min=1.0)
         ctx = model.encode(state.params, batch["features"],
                            batch["existing"], batch["existing_len"])
         state0 = model.init_state(state.params, ctx)
@@ -170,10 +190,14 @@ def make_scst_update(model: ModelDef, cfg: TrainConfig, *, start_id: int,
             del logits, logp, tok_logp, num, g
         grads = {name: torch.zeros_like(t) if g is None else g
                  for (name, t), g in zip(named.items(), grads)}
+        if mesh is not None:
+            num_total = num_total.reshape(1)
+            all_reduce_(mesh, [*grads.values(), num_total])
+            num_total = num_total[0]
         tx.update(grads, state.opt_state, state.params)
         metrics = {
             "scst_loss": num_total / scale,
-            "mean_advantage": (advantage * valid[None, :]).sum() / rows,
+            "mean_advantage": adv_sum / rows,
             "sample_len": den / rows,
             "grad_norm": global_norm(grads.values()),
         }
@@ -244,13 +268,24 @@ class ScstRewarder:
         return (rewards - baseline).astype(np.float32), rewards
 
 
+def _host_mean(values: np.ndarray, mesh) -> float:
+    """The mean of ``values`` over every rank's rows."""
+    if mesh is None:
+        return float(values.mean())
+    total, count = host_sum(mesh, [float(values.astype(np.float64).sum()),
+                                   values.size])
+    return total / count
+
+
 def apply_rollout(*, update_fn, rewarder: ScstRewarder, state: TrainState,
-                  batch: dict, references, roll: dict
+                  batch: dict, references, roll: dict, mesh=None
                   ) -> tuple[TrainState, dict[str, Any]]:
     """Finish a step from an enqueued rollout: the host reward, then the
     update. [B, L] samples take the greedy baseline, [n, B, L] the
     leave-one-out one; ``references`` are the batch's images' ids from
-    ``rewarder.intern``. Shared by the serial and pipelined loops."""
+    ``rewarder.intern``. Shared by the serial and pipelined loops. With
+    ``mesh`` each rank rewards its rows; the reward metrics are the global
+    batch's."""
     sample_tokens = host_tokens(roll, "sample_tokens")
     dev = roll["sample_tokens"].device
     if sample_tokens.ndim == 3:
@@ -259,7 +294,7 @@ def apply_rollout(*, update_fn, rewarder: ScstRewarder, state: TrainState,
             state, batch, roll["sample_tokens"], roll["sample_mask"],
             torch.from_numpy(adv).to(dev))
         metrics = dict(metrics)
-        metrics["reward_sample_mean"] = float(rewards.mean())
+        metrics["reward_sample_mean"] = _host_mean(rewards, mesh)
         return new_state, metrics
     adv = rewarder.advantage(sample_tokens, host_tokens(roll,
                                                         "greedy_tokens"),
@@ -269,15 +304,16 @@ def apply_rollout(*, update_fn, rewarder: ScstRewarder, state: TrainState,
         torch.from_numpy(adv).to(dev))
     metrics = dict(metrics)
     # The raw (unmasked) mean; ``mean_advantage`` is the valid-row one.
-    metrics["reward_sample_minus_greedy"] = float(adv.mean())
+    metrics["reward_sample_minus_greedy"] = _host_mean(adv, mesh)
     return new_state, metrics
 
 
 def scst_train_step(*, rollout_fn, update_fn, rewarder: ScstRewarder,
                     state: TrainState, batch: dict, references,
-                    generator: torch.Generator
+                    generator: torch.Generator, mesh=None
                     ) -> tuple[TrainState, dict[str, Any]]:
     """One whole SCST step: rollout, host reward, update."""
     roll = rollout_fn(state.params, batch, generator)
     return apply_rollout(update_fn=update_fn, rewarder=rewarder, state=state,
-                         batch=batch, references=references, roll=roll)
+                         batch=batch, references=references, roll=roll,
+                         mesh=mesh)

@@ -26,7 +26,11 @@ Dropout draws: the reference folds the step into its key
 (``fold_in(rng, step)``); here ``next_generator`` seeds a
 ``torch.Generator`` from ``(rng_seed, step)``, so the masks of a step
 depend only on the seed and the step, and a resumed run draws what the
-uninterrupted one drew.
+uninterrupted one drew. On a mesh every rank draws the global batch's
+masks from that generator and keeps its rows (``models.base.RowShare``);
+the SCST samples of a mesh are seeded from (rng_seed, step, rank)
+instead (rank 0's equal one process's: ``SeedSequence`` pads its words
+with zeros).
 """
 
 from __future__ import annotations
@@ -63,13 +67,16 @@ class TrainState:
     step: int
     rng_seed: int  # the dropout generator's seed (see next_generator)
 
-    def next_generator(self, device: "str | torch.device"
-                       ) -> torch.Generator:
+    def next_generator(self, device: "str | torch.device",
+                       rank: Optional[int] = None) -> torch.Generator:
         """The generator of this step's dropout masks, seeded from
-        (rng_seed, step): resume-stable."""
-        seed = np.random.SeedSequence(
-            [int(self.rng_seed), int(self.step)]).generate_state(
-                1, np.uint64)[0]
+        (rng_seed, step): resume-stable. ``rank`` adds a third word, for
+        draws that must differ between ranks (the SCST samples of a
+        mesh)."""
+        words = [int(self.rng_seed), int(self.step)]
+        if rank is not None:
+            words.append(int(rank))
+        seed = np.random.SeedSequence(words).generate_state(1, np.uint64)[0]
         return torch.Generator(device=device).manual_seed(int(seed))
 
 
@@ -179,3 +186,18 @@ def create_train_state(init_params_fn: Callable[[int], Any],
     return TrainState(params=params,
                       opt_state=make_optimizer(cfg).init(params),
                       step=0, rng_seed=rng_seed)
+
+
+def broadcast_train_state(mesh, state: TrainState) -> TrainState:
+    """Rank 0's parameters and optimizer tensors (Adam's moments, the EMA)
+    copied in place to every rank of ``mesh``, in one flat broadcast: the
+    replicated start of data-parallel training. The step, the seed and
+    Adam's count must already agree (the same config or checkpoint)."""
+    from captionkit_torch.parallel.mesh import broadcast_
+
+    st = state.opt_state
+    tensors = list(named_tensors(state.params).values())
+    for d in (st.mu, st.nu, st.ema or {}):
+        tensors.extend(d.values())
+    broadcast_(mesh, tensors)
+    return state

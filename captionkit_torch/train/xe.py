@@ -2,9 +2,16 @@
 
 Teacher forcing through the model's ``forward_seq``, the masked
 cross-entropy over the caption's real steps, then the reference's
-optimizer chain (element clip, Adam, optional EMA; ``train.state``). One
-process and one card: the reference's data-parallel mesh is not ported
-yet, so every builder takes ``mesh=None`` only.
+optimizer chain (element clip, Adam, optional EMA; ``train.state``).
+
+With a mesh (``parallel/mesh.py``) each rank takes its rows of the global
+batch. The token count of the global batch is summed over the ranks
+before the forward, so each rank's loss is its masked NLL sum over the
+global count; the gradients (and the metric sums, in the same flat
+buffer) are then summed, and the optimizer runs the same on every rank.
+Dropout draws the global batch's masks from the (seed, step) generator
+and keeps the rank's rows (``models.base.RowShare``), so W ranks follow
+the trajectory of one rank on the same batches.
 
 A step returns its metrics as device tensors (loss, top-5 accuracy,
 tokens, the gradient's global norm): nothing here reads a value back to
@@ -19,8 +26,13 @@ import numpy as np
 import torch
 
 from captionkit_torch.config import TrainConfig
-from captionkit_torch.models.base import ModelDef, teacher_forcing_logits
+from captionkit_torch.models.base import (
+    ModelDef,
+    RowShare,
+    teacher_forcing_logits,
+)
 from captionkit_torch.nn.masking import masked_cross_entropy, top5_accuracy
+from captionkit_torch.parallel.mesh import all_reduce_
 from captionkit_torch.params import named_tensors
 from captionkit_torch.train.state import TrainState, make_optimizer
 
@@ -28,10 +40,21 @@ BATCH_KEYS = ("features", "existing", "existing_len", "target",
               "target_len", "valid")
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training is not ported yet: pass mesh=None")
+def _global_tokens(batch: dict, mesh) -> torch.Tensor:
+    """The masked steps of the global batch (``xe_loss``'s mask: the first
+    ``target_len - 1`` steps of each valid row) as a float32 scalar: this
+    rank's count summed over the ranks."""
+    steps = batch["target"].shape[1] - 1
+    n = (batch["target_len"] - 1).clamp(0, steps) * batch["valid"]
+    return all_reduce_(mesh, [n.sum().float()])[0]
+
+
+def _reduce_metrics(mesh, metrics: dict, tensors=()) -> None:
+    """Sum ``loss`` and ``top5_acc`` (this rank's shares of the global
+    means) over the ranks, with ``tensors`` in the same flat buffer."""
+    sums = torch.stack([metrics["loss"], metrics["top5_acc"]])
+    all_reduce_(mesh, [*tensors, sums])
+    metrics["loss"], metrics["top5_acc"] = sums[0], sums[1]
 
 
 def xe_loss(model: ModelDef, params: Any,
@@ -41,10 +64,14 @@ def xe_loss(model: ModelDef, params: Any,
             target: torch.Tensor,  # [B, T_out] <start> w1 .. <end> <pad>..
             target_len: torch.Tensor,  # [B]
             valid: torch.Tensor,  # [B] bool: padding rows of a tail batch
-            *, generator: Optional[torch.Generator] = None,
-            train: bool = True, label_smoothing: float = 0.0
+            *, generator: "torch.Generator | RowShare | None" = None,
+            train: bool = True, label_smoothing: float = 0.0,
+            denominator: Optional[torch.Tensor] = None
             ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """Masked cross-entropy and top-5 accuracy on one batch."""
+    """Masked cross-entropy and top-5 accuracy on one batch; with
+    ``denominator`` (the global batch's token count) both are this
+    batch's share of the global means, and ``tokens`` is the global count.
+    """
     ctx = model.encode(params, features, existing, existing_len)
     state0 = model.init_state(params, ctx)
     tokens_in, labels = target[:, :-1], target[:, 1:]
@@ -53,11 +80,13 @@ def xe_loss(model: ModelDef, params: Any,
     steps = torch.arange(labels.shape[1], device=labels.device)[None, :]
     mask = (steps < (target_len[:, None] - 1)) & valid[:, None]
     loss = masked_cross_entropy(logits, labels, mask,
-                                label_smoothing=label_smoothing)
+                                label_smoothing=label_smoothing,
+                                denominator=denominator)
     with torch.no_grad():
-        acc = top5_accuracy(logits, labels, mask)
+        acc = top5_accuracy(logits, labels, mask, denominator=denominator)
+    tokens = mask.sum() if denominator is None else denominator
     return loss, {"loss": loss.detach(), "top5_acc": acc,
-                  "tokens": mask.sum().to(torch.int32)}
+                  "tokens": tokens.to(torch.int32)}
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -65,23 +94,30 @@ def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
 
 
-def _xe_step_body(model: ModelDef, tx, label_smoothing: float):
+def _xe_step_body(model: ModelDef, tx, label_smoothing: float, mesh=None):
     """(TrainState, batch) -> (TrainState, metrics): the body shared by the
     single-step and multi-step builders."""
 
     def step_fn(state: TrainState, batch: dict):
         named = named_tensors(state.params)
         dev = batch["target"].device
+        gen = state.next_generator(dev)
+        count = None
+        if mesh is not None:
+            gen = RowShare(gen, mesh.rank, mesh.size)
+            count = _global_tokens(batch, mesh)
         loss, metrics = xe_loss(
             model, state.params, *(batch[k] for k in BATCH_KEYS),
-            generator=state.next_generator(dev), train=True,
-            label_smoothing=label_smoothing)
+            generator=gen, train=True, label_smoothing=label_smoothing,
+            denominator=count)
         leaves = list(named.values())
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = {n: torch.zeros_like(t) if g is None else g
                  for (n, t), g in zip(named.items(), grads)}
-        tx.update(grads, state.opt_state, state.params)
         metrics = dict(metrics)
+        if mesh is not None:
+            _reduce_metrics(mesh, metrics, grads.values())
+        tx.update(grads, state.opt_state, state.params)
         metrics["grad_norm"] = global_norm(grads.values())
         return TrainState(params=state.params, opt_state=state.opt_state,
                           step=state.step + 1,
@@ -94,25 +130,25 @@ def make_xe_train_step(model: ModelDef, cfg: TrainConfig, mesh=None, *,
                        label_smoothing: float = 0.0,
                        learning_rate: Optional[float] = None):
     """(TrainState, batch dict) -> (TrainState, metrics). The batch holds
-    ``BATCH_KEYS`` as tensors on the card (``batch_to_device_dict``). The
-    state's parameter and optimizer tensors are updated in place (the
-    reference donates them). ``learning_rate`` overrides
-    ``cfg.learning_rate``."""
-    _no_mesh(mesh)
+    ``BATCH_KEYS`` as tensors on the card (``batch_to_device_dict``); with
+    ``mesh``, this rank's rows of the global batch (``shard_batch_arrays``)
+    and the metrics are the global batch's. The state's parameter and
+    optimizer tensors are updated in place (the reference donates them).
+    ``learning_rate`` overrides ``cfg.learning_rate``."""
     return _xe_step_body(model, make_optimizer(cfg, learning_rate),
-                         label_smoothing)
+                         label_smoothing, mesh)
 
 
 def make_xe_train_multistep(model: ModelDef, cfg: TrainConfig, mesh=None,
                             *, label_smoothing: float = 0.0,
                             learning_rate: Optional[float] = None):
-    """k train steps in one call over stacked batches (leaves [k, B, ...]):
-    the same body as ``make_xe_train_step`` k times, each step with its
-    own dropout generator from (rng_seed, step), so the result equals k
-    single steps. Metrics come back stacked, [k] each."""
-    _no_mesh(mesh)
+    """k train steps in one call over stacked batches (leaves [k, B, ...];
+    with ``mesh``, this rank's rows of each, ``shard_batch_arrays(...,
+    stacked=True)``): the same body as ``make_xe_train_step`` k times, each
+    step with its own dropout generator from (rng_seed, step), so the
+    result equals k single steps. Metrics come back stacked, [k] each."""
     step_fn = _xe_step_body(model, make_optimizer(cfg, learning_rate),
-                            label_smoothing)
+                            label_smoothing, mesh)
 
     def multi_fn(state: TrainState, batches: dict):
         k = batches["target"].shape[0]
@@ -128,13 +164,16 @@ def make_xe_train_multistep(model: ModelDef, cfg: TrainConfig, mesh=None,
 
 
 def make_eval_loss_step(model: ModelDef, mesh=None):
-    """(params, batch) -> metrics: the loss without dropout or update."""
-    _no_mesh(mesh)
+    """(params, batch) -> metrics: the loss without dropout or update; with
+    ``mesh``, the global batch's from this rank's rows."""
 
     @torch.no_grad()
     def step_fn(params, batch):
+        count = None if mesh is None else _global_tokens(batch, mesh)
         _, metrics = xe_loss(model, params, *(batch[k] for k in BATCH_KEYS),
-                             generator=None, train=False)
+                             generator=None, train=False, denominator=count)
+        if mesh is not None:
+            _reduce_metrics(mesh, metrics)
         return metrics
 
     return step_fn

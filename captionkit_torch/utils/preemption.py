@@ -7,6 +7,10 @@ grace window. The epoch drivers (``train/loop.py``) poll a
 pending metrics, save a checkpoint at the exact step, mark the report and
 return; ``--resume`` then continues the same trajectory.
 
+On a mesh (``parallel/mesh.py``) the loops poll through ``stop_poll``:
+the flag is agreed by every rank at each poll, so a signal caught on any
+rank stops every rank at the same step.
+
 Usage (``cli train-xe`` installs it):
 
     with PreemptionGuard() as guard:
@@ -19,7 +23,7 @@ import logging
 import signal
 import threading
 from types import FrameType
-from typing import Optional
+from typing import Callable, Optional
 
 log = logging.getLogger(__name__)
 
@@ -73,3 +77,17 @@ class PreemptionGuard:
             signal.signal(s, prev)  # type: ignore[arg-type]
         self._prev.clear()
         return None
+
+
+def stop_poll(guard: Optional[PreemptionGuard], mesh=None
+              ) -> Callable[[], bool]:
+    """() -> whether to stop now. With ``mesh`` every call is one host
+    all-reduce of the flag (every rank must poll alike), so all ranks see
+    True once any rank caught a signal."""
+    if guard is None:
+        return lambda: False
+    if mesh is None:
+        return lambda: guard.requested
+    from captionkit_torch.parallel.mesh import host_max
+
+    return lambda: host_max(mesh, [guard.requested])[0] > 0

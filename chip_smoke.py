@@ -178,6 +178,18 @@ prints no result line:
               positions 0, the ensemble's trace the mean of its members',
               an attention_report, captions/s traced and untraced in
               turns.
+22. data_parallel — (runs right after scst, on train's split and
+              weights) NCCL with a world of one in this process: 3 XE
+              steps (xe_train, global batch 256) against the plain step,
+              the flat gradient all-reduce's device ms, the step's ms in
+              turns; two ranks spawned sharing the card over gloo with
+              CUDA tensors (128 rows each): 3 XE steps, an SCST gradient
+              on a fixed sample table and the sharded forced-full decode
+              of 512 images (editnet_beam5; head launches counted, the
+              kernels line's launches_data_parallel) against one process;
+              cli train-xe --num-shards 2 as two processes with
+              validation, one checkpoint, one export that cli decode
+              decodes.
 
 Then a {"kernels": [...]} line listing all 12 wrappers, the tiled bf16
 heads' wide instances (mask and thresh at H' = 2048) and the 11 fp32
@@ -4243,10 +4255,11 @@ def _scst_fns(model, cfg, vocab, n=1):
                 start_id=vocab.start, num_samples=n))
 
 
-def _scst_grads(model, cfg, vocab, state, batch, toks, mask, adv) -> dict:
+def _scst_grads(model, cfg, vocab, state, batch, toks, mask, adv,
+                mesh=None) -> dict:
     """The gradient one SCST update applies, by name: the update function
     itself, its optimizer replaced by one that keeps the gradients and
-    changes nothing."""
+    changes nothing (with ``mesh``, the gradient summed over the ranks)."""
     from captionkit_torch.train import scst as scst_mod
 
     kept = {}
@@ -4259,7 +4272,7 @@ def _scst_grads(model, cfg, vocab, state, batch, toks, mask, adv) -> dict:
     scst_mod.make_optimizer = lambda *a, **k: Keep()
     try:
         fn = scst_mod.make_scst_update(model, cfg.train,
-                                       start_id=vocab.start)
+                                       start_id=vocab.start, mesh=mesh)
     finally:
         scst_mod.make_optimizer = real
     fn(state, batch, toks, mask, adv)
@@ -4593,6 +4606,530 @@ def phase_scst(wrappers, card) -> dict:
             "cli_s": decode_cli_s, "cider": decoded["CIDEr"]},
         "dcnet_scst_train": {"cli_s": dc_s, "history": dc_out["history"]},
         "profile": prof}
+    emit(result)
+    return result
+
+
+DP_STEPS = 3  # XE steps of each data-parallel check
+DP_TIMEOUT_S = 420  # a spawned rank or a cli rank of the data_parallel phase
+# Two ranks against one process, 3 XE steps: the losses' relative
+# difference, and the weights' distance from one process's over the
+# distance those weights moved from the start (L2 over every weight).
+# Set from readings on the H100 (PERF.md §6, PR 14): sound 3.3e-7 and
+# 2.7e-3; with the gradient sum left out (the planted fault that must fail
+# them) 2.3e-3 and 0.74.
+DP_LOSS_RTOL = 1e-5
+DP_DRIFT = 0.05
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _untimed(history: list) -> list:
+    """Epoch records without their wall times."""
+    return [{k: v for k, v in h.items()
+             if not k.endswith("_s") and k != "sec_per_step"}
+            for h in history]
+
+
+def _dp_setup(prep, xe_npz, dev, share=None):
+    """(xe_train config, model, the first DP_STEPS global batches of
+    epoch 0 on ``dev`` (with ``share=(r, W)``, rank r's rows of each), a
+    function making the train state from the train phase's XE weights)."""
+    from captionkit_torch.config import get_named_config
+    from captionkit_torch.data.prepare import load_prepared_split
+    from captionkit_torch.models import get_model
+    from captionkit_torch.params import load_params_npz
+    from captionkit_torch.train.state import create_train_state, trainable
+    from captionkit_torch.train.xe import batch_to_device_dict
+
+    base = get_named_config("xe_train")
+    ds = load_prepared_split(str(prep), "train", max_len=base.data.max_len)
+    cfg = base.override({"model.vocab_size": len(ds.vocab)})
+    model = get_model(cfg.model)
+    batches = []
+    for i, b in enumerate(ds.batches(TRAIN_BATCH, shuffle=True,
+                                     seed=cfg.train.seed, share=share)):
+        if i == DP_STEPS:
+            break
+        batches.append(batch_to_device_dict(b, dev))
+
+    def state():
+        params = load_params_npz(str(xe_npz), dev, arch=model.name)
+        return create_train_state(lambda seed: trainable(params), cfg.train)
+
+    return cfg, model, ds, batches, state
+
+
+def _dp_steps(fn, state, batches) -> tuple:
+    """(state, losses, ms of each step by CUDA events)."""
+    import torch
+
+    losses, events = [], []
+    torch.cuda.synchronize()
+    for b in batches:
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        state, m = fn(state, b)
+        e.record()
+        events.append((s, e))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    return (state, [float(x) for x in losses],
+            [s.elapsed_time(e) for s, e in events])
+
+
+def _max_weight_diff(a, b) -> float:
+    from captionkit_torch.params import named_tensors
+
+    nb = named_tensors(b)
+    return max(float((t.detach() - nb[n].detach()).abs().max())
+               for n, t in named_tensors(a).items())
+
+
+def _weight_drift(got, want, start) -> float:
+    """||got - want|| over ||want - start||, L2 over every weight: how far
+    a run's weights are from the reference run's, as a share of how far
+    the reference run moved them."""
+    from captionkit_torch.params import named_tensors
+
+    w, s0 = named_tensors(want), named_tensors(start)
+    off = moved = 0.0
+    for n, t in named_tensors(got).items():
+        off += float((t.detach().double() - w[n].detach().double())
+                     .square().sum())
+        moved += float((w[n].detach().double() - s0[n].detach().double())
+                       .square().sum())
+    return (off / moved) ** 0.5
+
+
+def _params_sha1(params) -> str:
+    """A digest of every weight's bytes, in name order."""
+    import hashlib
+
+    from captionkit_torch.params import named_tensors
+
+    h = hashlib.sha1()
+    for n, t in sorted(named_tensors(params).items()):
+        h.update(n.encode())
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _scst_table(V: int, rows: int, seed: int = 5):
+    """A fixed SCST sample table: tokens [rows, 22], masks, advantages."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(4, V, (rows, MAX_LEN)).astype(np.int64)
+    lens = rng.integers(1, MAX_LEN + 1, rows)
+    mask = np.arange(MAX_LEN)[None, :] < lens[:, None]
+    adv = rng.standard_normal(rows).astype(np.float32)
+    return toks, mask, adv
+
+
+def _dp_rank(rank: int, world: int, rdv: str, prep: str, xe_npz: str,
+             out_path: str) -> None:
+    """One of the data_parallel phase's spawned ranks: writes its results
+    (or its failure) as JSON to ``out_path`` and exits non-zero on a
+    failure."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        res = _dp_rank_body(rank, world, rdv, prep, xe_npz)
+        res["ok"] = True
+    except BaseException as e:  # reported to the parent, which fails
+        res = {"ok": False, "error": f"{type(e).__name__}: {e}",
+               "traceback": traceback.format_exc()}
+    Path(out_path).write_text(json.dumps(res))
+    if not res["ok"]:
+        sys.exit(1)
+
+
+def _dp_rank_body(rank, world, rdv, prep, xe_npz) -> dict:
+    """Rank ``rank`` of ``world`` sharing the card over gloo with CUDA
+    tensors: DP_STEPS XE steps on its rows of 256-row global batches, then
+    the same steps with the gradient sum left out (a planted fault); one
+    SCST update's gradient on a fixed sample table; the sharded decode of
+    the 512 val images (editnet_beam5, forced-full), wrapper launches
+    counted. Rank 0 also runs each against one process on the whole
+    batch."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from captionkit_torch.config import get_named_config
+    from captionkit_torch.data.prepare import load_prepared_split
+    from captionkit_torch.decode.driver import decode_split, make_decode_fn
+    from captionkit_torch.kernels import WRAPPERS
+    from captionkit_torch.models import get_model
+    from captionkit_torch.parallel.mesh import (
+        close_ranks,
+        init_ranks,
+        make_mesh,
+        shard_batch_arrays,
+    )
+    from captionkit_torch.train import xe as xe_mod
+    from captionkit_torch.train.state import broadcast_train_state
+    from captionkit_torch.train.xe import make_xe_train_step
+
+    ranks = init_ranks(f"file://{rdv}", world, rank, "cuda", backend="gloo")
+    mesh = make_mesh(ranks=ranks)
+    dev = mesh.device
+    main = mesh.is_main
+    cfg, model, ds, batches, state = _dp_setup(prep, xe_npz, dev,
+                                               mesh.share)
+    out = {"rank": rank, "device": str(dev), "backend": ranks.backend,
+           "rows_a_step": int(batches[0]["target"].shape[0])}
+
+    # 1. XE steps; then the same steps with the metrics summed but not the
+    # gradients (each rank steps on its own half-batch gradient).
+    st, losses, ms = _dp_steps(make_xe_train_step(model, cfg.train, mesh),
+                               broadcast_train_state(mesh, state()),
+                               batches)
+    out["xe"] = {"losses": losses, "ms_steps": ms,
+                 "params_sha1": _params_sha1(st.params)}
+    sound_reduce = xe_mod._reduce_metrics
+    xe_mod._reduce_metrics = \
+        lambda m, metrics, tensors=(): sound_reduce(m, metrics)
+    try:
+        bad, bad_losses, _ = _dp_steps(
+            make_xe_train_step(model, cfg.train, mesh),
+            broadcast_train_state(mesh, state()), batches)
+    finally:
+        xe_mod._reduce_metrics = sound_reduce
+    out["xe_fault"] = {"losses": bad_losses,
+                       "params_sha1": _params_sha1(bad.params)}
+    if main:
+        *_, full, _ = _dp_setup(prep, xe_npz, dev)
+        ref, ref_losses, ref_ms = _dp_steps(
+            make_xe_train_step(model, cfg.train), state(), full)
+        start = state().params
+        out["xe"]["world1_losses"] = ref_losses
+        out["xe"]["world1_ms_steps"] = ref_ms
+        for key, run, run_losses in (("xe", st, losses),
+                                     ("xe_fault", bad, bad_losses)):
+            out[key].update(
+                loss_rel_diff=max(abs(a - b) / abs(b)
+                                  for a, b in zip(run_losses, ref_losses)),
+                weight_drift=_weight_drift(run.params, ref.params, start),
+                weight_max_abs_diff=_max_weight_diff(run.params,
+                                                     ref.params))
+        del ref, full, start
+    del st, bad
+    torch.cuda.empty_cache()
+
+    # 2. One SCST update's gradient on a fixed sample table.
+    scfg = get_named_config("scst_train").override(
+        {"model.vocab_size": cfg.model.vocab_size})
+    scfg = scfg.override({"train.learning_rate":
+                          scfg.train.scst_learning_rate})
+    smodel = get_model(scfg.model)
+    table = [torch.from_numpy(a) for a in _scst_table(
+        cfg.model.vocab_size, TRAIN_BATCH)]
+    st = broadcast_train_state(mesh, state())
+    grads = _scst_grads(smodel, scfg, ds.vocab, st, batches[0],
+                        *shard_batch_arrays(mesh, table), mesh=mesh)
+    if main:
+        *_, full, _ = _dp_setup(prep, xe_npz, dev)
+        want = _scst_grads(smodel, scfg, ds.vocab, state(), full[0],
+                           *(t.to(dev) for t in table))
+        errors = _grad_errors(grads, want)
+        out["scst"] = {"errors": errors, "failing": _grad_check_fails(
+            errors), "max_rel_err": max(e for n, e in errors.items()
+                                        if n not in GRAD_FLOOR)}
+        del want, full
+    del grads, st
+    torch.cuda.empty_cache()
+
+    # 3. The sharded decode of the val split: random weights from seed 0
+    # and the end id disabled, as the decode phase runs it (the one-epoch
+    # XE weights end every caption within two steps).
+    dcfg = get_named_config("editnet_beam5").override(
+        {"model.vocab_size": cfg.model.vocab_size,
+         "decode.batch_size": N_IMAGES})
+    dmodel = get_model(dcfg.model)
+    params = dmodel.init(0, dev)
+    val = load_prepared_split(str(prep), "val",
+                              max_len=dcfg.data.max_len).eval_view()
+    v = val.vocab
+
+    def forced_full(m):
+        return make_decode_fn(dmodel, dcfg.decode, start_id=v.start,
+                              end_id=-1, pad_id=v.pad, device=dev, mesh=m)
+
+    for w in WRAPPERS:
+        w.launches = 0
+    t0 = time.perf_counter()
+    hyps, stats = decode_split(dmodel, params, val, dcfg.decode, mesh=mesh,
+                               decode_fn=forced_full(mesh))
+    out["decode"] = {"wall_s": time.perf_counter() - t0,
+                     "captions": len(hyps),
+                     "rows_a_batch": N_IMAGES // world,
+                     "launches": {w.__name__: w.launches for w in WRAPPERS},
+                     "hyps_sha1": hashlib.sha1(json.dumps(
+                         sorted(hyps.items())).encode()).hexdigest()}
+    if main:
+        t0 = time.perf_counter()
+        one, _ = decode_split(dmodel, params, val, dcfg.decode, device=dev,
+                              decode_fn=forced_full(None))
+        out["decode"].update(
+            world1_wall_s=time.perf_counter() - t0,
+            identical=float(np.mean([hyps[i] == one[i] for i in one])),
+            same_images=sorted(hyps) == sorted(one))
+    close_ranks(ranks)
+    return out
+
+
+def phase_data_parallel(wrappers, card) -> dict:
+    """Data parallelism (``captionkit_torch.parallel``) at xe_train's and
+    editnet_beam5's paper width, from the train phase's prepared split
+    and exported XE weights:
+
+    1. NCCL, a world of one, in this process: DP_STEPS data-parallel XE
+       steps (global batch 256) against plain steps from the same state,
+       losses within rtol 2e-5, weights bit-equal or within 2 lr; the
+       flat all-reduce's device ms over every gradient, the step's ms
+       beside the plain step's (medians of 12 steps each, in turns); the
+       group destroyed.
+    2. Two spawned ranks sharing the card over gloo with CUDA tensors,
+       128 rows each: DP_STEPS XE steps against one process on the 256
+       rows (the ranks' weights bit-equal; losses within DP_LOSS_RTOL and
+       the weights' drift within DP_DRIFT: the bf16 batch sums run in
+       other orders; the same steps without the gradient sum must fail
+       all three); one SCST update's
+       gradient on a fixed sample table at the train phase's bars; the
+       sharded decode of 512 images (random weights from seed 0, the end
+       id disabled: 22 steps) against one process's decode (at least
+       0.95 of the captions identical; cuBLAS may pick another algorithm
+       for 256 rows than for 512), head launches counted.
+       Gloo's all-reduce crosses the host: its ms are a check that the
+       path runs, not a speed figure.
+    3. ``cli train-xe --num-shards 2 --dist-backend gloo`` as two
+       processes (MASTER_ADDR/MASTER_PORT) for 4 steps with validation:
+       the same history and best metric on both ranks, one checkpoint
+       (step 4) and one export, which ``cli decode`` decodes."""
+    import multiprocessing
+    import os
+    import shutil
+
+    import torch
+
+    from captionkit_torch.parallel.mesh import (
+        all_reduce_,
+        close_ranks,
+        init_ranks,
+        make_mesh,
+    )
+    from captionkit_torch.params import named_tensors
+    from captionkit_torch.train.checkpoint import CheckpointManager
+    from captionkit_torch.train.state import broadcast_train_state
+    from captionkit_torch.train.xe import make_xe_train_step
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    root = SMOKE_DIR / "train"
+    prep, xe = root / "prepared", root / "full.npz"
+    dpdir = SMOKE_DIR / "dp"
+    shutil.rmtree(dpdir, ignore_errors=True)
+    dpdir.mkdir(parents=True)
+    t_phase = time.perf_counter()
+
+    # 1. NCCL, a world of one.
+    for w in wrappers:
+        w.launches = 0
+    ranks = init_ranks(f"tcp://127.0.0.1:{_free_port()}", 1, 0, "cuda")
+    try:
+        check(ranks.backend == "nccl", f"backend {ranks.backend}")
+        mesh = make_mesh(ranks=ranks)
+        dev = mesh.device
+        cfg, model, _, batches, state = _dp_setup(prep, xe, dev)
+        lr = cfg.train.learning_rate
+        st_dp, l_dp, ms_dp = _dp_steps(
+            make_xe_train_step(model, cfg.train, mesh),
+            broadcast_train_state(mesh, state()), batches)
+        st, l_plain, ms_plain = _dp_steps(
+            make_xe_train_step(model, cfg.train), state(), batches)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(l_dp, l_plain))
+        check(rel <= 2e-5, f"NCCL world-1 losses {l_dp} against {l_plain}")
+        wdiff = _max_weight_diff(st_dp.params, st.params)
+        check(wdiff <= 2 * lr, f"NCCL world-1 weights off by {wdiff}")
+        # The step's ms in turns (dp, plain, plain, dp, ...), warm.
+        turns = {"dp": [], "plain": []}
+        fns = {"dp": make_xe_train_step(model, cfg.train, mesh),
+               "plain": make_xe_train_step(model, cfg.train)}
+        states = {"dp": st_dp, "plain": st}
+        for rnd in range(4):
+            for name in (("dp", "plain") if rnd % 2 == 0
+                         else ("plain", "dp")):
+                states[name], _, ms = _dp_steps(fns[name], states[name],
+                                                batches)
+                turns[name].extend(ms)
+        st_dp, st = states["dp"], states["plain"]
+        del states
+        grads = [torch.zeros_like(t) for t in
+                 named_tensors(st.params).values()]
+        del st_dp, st
+        P = sum(g.numel() for g in grads)
+        flat = torch.zeros(P, device=dev)
+        times = {"flat_all_reduce": lambda: all_reduce_(mesh, grads),
+                 "nccl_all_reduce": lambda: torch.distributed.all_reduce(
+                     flat, group=ranks.group)}
+        reduce_ms = {name: time_ms(fn, iters=5, warm=2)
+                     for name, fn in times.items()}
+        del grads, flat
+        torch.cuda.empty_cache()
+    finally:
+        close_ranks(ranks)
+    nccl = {"losses": l_dp, "plain_losses": l_plain, "loss_rel_diff": rel,
+            "weight_max_abs_diff": wdiff, "bit_equal": wdiff == 0.0,
+            "dp_ms_steps": ms_dp, "plain_ms_steps": ms_plain,
+            "turns_ms": turns,
+            "dp_ms_a_step": statistics.median(turns["dp"]),
+            "plain_ms_a_step": statistics.median(turns["plain"]),
+            "gradient_mb": 4 * P / 1e6, **{f"{k}_ms": v for k, v in
+                                          reduce_ms.items()},
+            "launches": {w.__name__: w.launches for w in wrappers}}
+
+    # 2. Two spawned ranks sharing the card over gloo.
+    ctx = multiprocessing.get_context("spawn")
+    outs = [dpdir / f"rank{r}.json" for r in range(2)]
+    rdv = dpdir / "rdv"
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_dp_rank, args=(r, 2, str(rdv), str(prep),
+                                                str(xe), str(outs[r])))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    check(not hung, f"data-parallel ranks {hung} hung past {DP_TIMEOUT_S}s")
+    ranks_out = [json.loads(o.read_text()) if o.exists() else {}
+                 for o in outs]
+    for r, (p, res) in enumerate(zip(procs, ranks_out)):
+        check(p.exitcode == 0 and res.get("ok"),
+              f"rank {r} exited {p.exitcode}: {res.get('error')}\n"
+              f"{res.get('traceback', '')[-3000:]}")
+    spawned_s = time.perf_counter() - t0
+    r0, r1 = ranks_out
+    xe_r, bad = r0["xe"], r0["xe_fault"]
+    readings = (f"sound: losses {xe_r['loss_rel_diff']}, drift "
+                f"{xe_r['weight_drift']}; gradient sum left out: losses "
+                f"{bad['loss_rel_diff']}, drift {bad['weight_drift']}")
+    check(r0["xe"]["losses"] == r1["xe"]["losses"],
+          f"the ranks' losses differ: {r0['xe']} {r1['xe']}")
+    check(xe_r["params_sha1"] == r1["xe"]["params_sha1"],
+          "the two ranks' weights differ after the XE steps")
+    check(xe_r["loss_rel_diff"] <= DP_LOSS_RTOL,
+          f"2-rank losses {xe_r['losses']} against "
+          f"{xe_r['world1_losses']} ({readings})")
+    check(xe_r["weight_drift"] <= DP_DRIFT,
+          f"2-rank weights off one process's ({readings})")
+    # The planted fault must fail the replica, loss and drift checks.
+    check(bad["params_sha1"] != r1["xe_fault"]["params_sha1"],
+          "without the gradient sum the ranks' weights still agree")
+    check(bad["loss_rel_diff"] > DP_LOSS_RTOL
+          and bad["weight_drift"] > DP_DRIFT,
+          f"the checks pass without the gradient sum ({readings})")
+    check(not r0["scst"]["failing"],
+          f"2-rank SCST gradient off: {r0['scst']['failing']}")
+    dec = r0["decode"]
+    check(dec["captions"] == r1["decode"]["captions"] == N_VAL
+          and dec["same_images"], f"sharded decode {dec}")
+    check(dec["hyps_sha1"] == r1["decode"]["hyps_sha1"],
+          "the ranks returned different captions")
+    check(dec["identical"] >= 0.95,
+          f"sharded decode: {dec['identical']} of captions identical")
+    head = sum(r["decode"]["launches"]["fused_head_topk"]
+               for r in ranks_out)
+    check(head > 0, "the sharded decode launched no head kernel")
+
+    # 3. cli train-xe --num-shards 2.
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()))
+    ck, npz = dpdir / "ck", dpdir / "dp.npz"
+    argv = [sys.executable, "-m", "captionkit_torch.cli", "train-xe",
+            "--config", "xe_train", "--prepared", str(prep), "--split",
+            "train", "--val-split", "val", "--max-steps", "4", "--set",
+            "train.epochs=1", "--set", f"train.checkpoint_dir={ck}",
+            "--export-params", str(npz), "--num-shards", "2",
+            "--dist-backend", "gloo"]
+    t0 = time.perf_counter()
+    clis = [subprocess.Popen(argv + ["--shard-index", str(r)], cwd=ROOT,
+                             env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+    done = []
+    try:
+        for p in clis:
+            done.append(p.communicate(timeout=max(
+                1.0, DP_TIMEOUT_S - (time.perf_counter() - t0))))
+    finally:
+        for p in clis:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (so, se)) in enumerate(zip(clis, done)):
+        check(p.returncode == 0,
+              f"cli rank {r} exited {p.returncode}: {se[-3000:]}")
+    cli_s = time.perf_counter() - t0
+    reps = [json.loads(so) for so, _ in done]
+    check(_untimed(reps[0]["history"]) == _untimed(reps[1]["history"])
+          and reps[0]["best_val_cider"] == reps[1]["best_val_cider"]
+          and reps[0]["step"] == reps[1]["step"] == 4,
+          f"the cli ranks' reports differ: {reps}")
+    check(CheckpointManager(str(ck)).all_steps() == [4],
+          f"checkpoints {CheckpointManager(str(ck)).all_steps()}")
+    check(npz.exists(), "the export is missing")
+    t0 = time.perf_counter()
+    decoded = _cli("decode", "--config", "editnet_beam5", "--prepared",
+                   prep, "--split", "val", "--params", npz, "--set",
+                   f"decode.batch_size={N_IMAGES}", "--device", TRAIN_DEVICE)
+    check(decoded["captions"] == N_VAL, f"decode of the export: {decoded}")
+    result = {
+        "phase": "data_parallel", "ok": True, "card": card,
+        "config": {"xe_train": {"global_batch": TRAIN_BATCH,
+                                "steps": DP_STEPS},
+                   "editnet_beam5": {"images": N_VAL,
+                                     "batch": N_IMAGES}},
+        "nccl_world1": nccl,
+        "gloo_two_ranks": {
+            "note": "gloo all-reduces CUDA tensors through the host: a "
+                    "check that the path runs, not a speed figure",
+            "rows_a_step": r0["rows_a_step"],
+            "xe": {k: v for k, v in xe_r.items() if k != "params_sha1"},
+            "xe_bars": {"loss_rtol": DP_LOSS_RTOL, "drift": DP_DRIFT},
+            "xe_gradient_sum_left_out": {
+                k: v for k, v in bad.items() if k != "params_sha1"},
+            "replicas_bit_equal": True,
+            "xe_rank1_ms_steps": r1["xe"]["ms_steps"],
+            "scst_grad_max_rel_err": r0["scst"]["max_rel_err"],
+            "scst_grad_errors": r0["scst"]["errors"],
+            "decode": {k: v for k, v in dec.items() if k != "hyps_sha1"},
+            "decode_rank1_launches": r1["decode"]["launches"],
+            "wall_s": spawned_s},
+        "cli": {"wall_s": cli_s, "history": reps[0]["history"],
+                "best_val_cider": reps[0]["best_val_cider"],
+                "export_decode_cider": decoded.get("CIDEr"),
+                "export_decode_s": time.perf_counter() - t0},
+        "launches": {"fused_head_topk": head},
+        "head_launches_per_rank": [r["decode"]["launches"][
+            "fused_head_topk"] for r in ranks_out],
+        "phase_s": time.perf_counter() - t_phase,
+        "nvidia_smi": card}
+    shutil.rmtree(dpdir, ignore_errors=True)
     emit(result)
     return result
 
@@ -5354,6 +5891,8 @@ def main() -> int:
             train = phase_train(WRAPPERS, card)
             phase = "scst"
             scst = phase_scst(WRAPPERS, card)
+            phase = "data_parallel"
+            dp = phase_data_parallel(WRAPPERS, card)
         finally:
             import shutil
 
@@ -5377,6 +5916,7 @@ def main() -> int:
         "launches": serve["launches"]["fused_head_topk"],
         "launches_train": train["launches"]["fused_head_topk"],
         "launches_scst": scst["launches"]["fused_head_topk"],
+        "launches_data_parallel": dp["launches"]["fused_head_topk"],
         "launches_per_batch": decode["head_launches"],
         "cuda_launches_per_call": head["cuda_launches_per_call"],
         "check": "ok",

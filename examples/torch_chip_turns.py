@@ -2,10 +2,14 @@
 """Compare two checkouts of the PyTorch port on one card, in turns.
 
     python3 examples/torch_chip_turns.py PARENT_DIR [CHANGE_DIR] --out DIR
+        [--phases decode,greedy,introspect]
 
 Runs ``python3 chip_smoke.py`` in PARENT_DIR and CHANGE_DIR (default: this
 checkout) in the order parent, change, change, parent, each as its own
-process, and writes each run's output to DIR/<label>_<n>.log. Then prints
+process, and writes each run's output to DIR/<label>_<n>.log. With
+``--phases``, each run is instead the device and build phases, the paper
+setups, and only the named phases of that checkout's ``chip_smoke.py``
+(any of decode, greedy, introspect). Then prints
 one JSON object: for every kernel of the runs' ``kernels`` lines its ms per
 run, for every measured field of the kernels' rows (each launch's device
 time and a call's device span where a row gives them; the ``cell_kernels``
@@ -33,9 +37,30 @@ FIELDS = ("ms", "device_ms", "library_ms", "library_device_ms", "plain_ms",
           "lang_cell_then_sweep_device_ms", "device_span_ms")
 
 
-def run(checkout: Path, log: Path) -> list[dict]:
-    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=checkout,
-                          capture_output=True, text=True, timeout=1500)
+# The named phases of a checkout's chip_smoke.py, after its device and
+# build phases and the paper setups (as its main() runs them).
+PHASES = r"""
+import sys
+sys.path.insert(0, ".")
+import chip_smoke as cs
+card = cs.phase_device()["nvidia_smi"]
+cs.phase_build()
+from captionkit_torch.kernels import WRAPPERS
+ed = cs._paper_setup("editnet_beam5")
+dc = cs._paper_setup("dcnet_beam5", {"model.cell_impl": "pallas"})
+run = {"decode": lambda: cs.phase_decode(*ed, WRAPPERS, card),
+       "greedy": lambda: cs.phase_greedy(ed, dc, WRAPPERS, card),
+       "introspect": lambda: cs.phase_introspect(ed, WRAPPERS, card)}
+for name in sys.argv[1].split(","):
+    run[name]()
+"""
+
+
+def run(checkout: Path, log: Path, phases: str = "") -> list[dict]:
+    cmd = [sys.executable] + (["-c", PHASES, phases] if phases
+                              else ["chip_smoke.py"])
+    proc = subprocess.run(cmd, cwd=checkout, capture_output=True, text=True,
+                          timeout=1500)
     log.write_text(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
     if proc.returncode != 0:
         raise SystemExit(f"chip_smoke.py in {checkout} exited "
@@ -95,6 +120,8 @@ def main() -> int:
     ap.add_argument("parent", type=Path)
     ap.add_argument("change", type=Path, nargs="?", default=ROOT)
     ap.add_argument("--out", type=Path, required=True)
+    ap.add_argument("--phases", default="",
+                    help="run only these phases (comma-separated)")
     args = ap.parse_args()
     args.out.mkdir(parents=True, exist_ok=True)
     order = [("parent", args.parent), ("change", args.change),
@@ -102,7 +129,8 @@ def main() -> int:
     runs = {"parent": [], "change": []}
     smi = None
     for n, (label, checkout) in enumerate(order, 1):
-        lines = run(checkout.resolve(), args.out / f"{label}_{n}.log")
+        lines = run(checkout.resolve(), args.out / f"{label}_{n}.log",
+                    args.phases)
         runs[label].append(summary(lines))
         smi = smi or next((ln.get("nvidia_smi") for ln in lines
                            if ln.get("phase") == "device"), None)

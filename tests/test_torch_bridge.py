@@ -97,7 +97,7 @@ def test_port_imports_no_jax_and_nothing_of_captionkit():
                  "train.scst", "models.ensemble", "decode.stacked",
                  "convert.torch_ref", "convert.torch_import",
                  "convert.fit_names", "convert.gate", "decode.introspect",
-                 "data.prefetch", "utils.profiling"):
+                 "data.prefetch", "utils.profiling", "parallel.mesh"):
         assert f"captionkit_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

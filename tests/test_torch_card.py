@@ -2067,3 +2067,58 @@ def test_prefetch_on_card_is_byte_equal_and_reuses_buffers_safely(card):
             w = w @ w
             w = w / w.norm()
         assert float(t.min()) == float(t.max()) == float(i)
+
+
+def test_nccl_world_of_one_reduces_bit_equal_and_steps_as_plain(card,
+                                                                 tmp_path):
+    """A world of one over NCCL on the card: the flat all-reduce returns
+    its inputs bit-equal, and three data-parallel XE steps (Adam, fp32)
+    equal three plain steps from the same state: losses within 1e-6
+    relative, weights bit-equal when the plain step is deterministic
+    (two plain runs agree), else within 2 lr a step."""
+    from captionkit_torch.config import ModelConfig, TrainConfig
+    from captionkit_torch.params import named_tensors
+    from captionkit_torch.parallel.mesh import (
+        all_reduce_,
+        close_ranks,
+        init_ranks,
+        make_mesh,
+    )
+    from captionkit_torch.train.state import create_train_state
+    from captionkit_torch.train.xe import make_xe_train_step
+
+    ranks = init_ranks(f"file://{tmp_path / 'rdv'}", 1, 0, "cuda")
+    try:
+        assert ranks.backend == "nccl" and ranks.device.type == "cuda"
+        mesh = make_mesh(ranks=ranks)
+        g = torch.Generator(device="cuda").manual_seed(0)
+        xs = [torch.randn(n, device="cuda", generator=g)
+              for n in (1 << 20, 7, 1)]
+        want = [x.clone() for x in xs]
+        all_reduce_(mesh, xs)
+        assert all(torch.equal(x, w) for x, w in zip(xs, want))
+
+        model = get_model(ModelConfig(arch="editnet",
+                                      compute_dtype="float32",
+                                      **SMALL_TRAIN))
+        tcfg = TrainConfig(seed=3, learning_rate=1e-2)
+        batch = _train_batch("cuda")
+        runs = {}
+        for name, m in (("plain", None), ("plain2", None), ("dp", mesh)):
+            st = create_train_state(lambda seed: model.init(seed, "cuda"),
+                                    tcfg)
+            fn = make_xe_train_step(model, tcfg, m)
+            losses = []
+            for _ in range(3):
+                st, met = fn(st, batch)
+                losses.append(float(met["loss"]))
+            runs[name] = (losses, {n: t.detach().clone() for n, t in
+                                   named_tensors(st.params).items()})
+        assert runs["dp"][0] == pytest.approx(runs["plain"][0], rel=1e-6)
+        deterministic = all(torch.equal(t, runs["plain2"][1][n])
+                            for n, t in runs["plain"][1].items())
+        tol = 0.0 if deterministic else 2 * tcfg.learning_rate * 3
+        for n, t in runs["plain"][1].items():
+            assert float((runs["dp"][1][n] - t).abs().max()) <= tol, n
+    finally:
+        close_ranks(ranks)

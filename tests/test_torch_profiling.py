@@ -9,15 +9,18 @@ import json
 import os
 import time
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 from captionkit.data.prefetch import prefetch_to_device as j_prefetch
+from captionkit.parallel import make_mesh as j_make_mesh
 from captionkit.utils.profiling import ThroughputCounter as JaxCounter
 
 from captionkit_torch.data import SyntheticCaptionSource
 from captionkit_torch.data.prefetch import prefetch_to_device
+from captionkit_torch.parallel.mesh import Ranks, make_mesh
 from captionkit_torch.train.loop import _host_dict, _pack_host_batches
 from captionkit_torch.train.loop import _prefetch_packs
 from captionkit_torch.train.xe import batch_to_device_dict
@@ -57,9 +60,26 @@ def test_prefetch_size_below_one_raises():
                lambda b: j_prefetch(b, size=0)):
         with pytest.raises(ValueError, match="size"):
             list(fn(iter(_batches(2))))
-    with pytest.raises(NotImplementedError):
-        list(prefetch_to_device(iter(_batches(1)), device="cpu",
-                                mesh=object()))
+    # With a mesh: each rank stages its rows of every array, the reference's
+    # shard on the same mesh position; rows that do not split raise.
+    batches = _batches(2)
+    jm = j_make_mesh((3,), ("data",), devices=jax.devices()[:3])
+    want = list(j_prefetch(iter(batches), mesh=jm))
+    for r in range(3):
+        mesh = make_mesh((3,), ("data",),
+                         ranks=Ranks(3, r, torch.device("cpu")))
+        got = list(prefetch_to_device(iter(batches), mesh=mesh))
+        assert len(got) == len(want) == 2
+        for g, w in zip(got, want):
+            assert g["none"] is None
+            for k in ("features", "ids", "valid"):
+                shard = next(s for s in w[k].addressable_shards
+                             if s.device == jm.devices.flat[r])
+                np.testing.assert_array_equal(g[k].numpy(),
+                                              np.asarray(shard.data))
+    two = make_mesh((2,), ("data",), ranks=Ranks(2, 0, torch.device("cpu")))
+    with pytest.raises(ValueError, match="W = 2"):
+        list(prefetch_to_device(iter(batches), mesh=two))
 
 
 def test_prefetch_tuples_move_dicts_and_keep_the_rest():

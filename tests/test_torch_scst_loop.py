@@ -342,7 +342,8 @@ def test_cli_train_scst_exports_what_jax_decodes_alike(tmp_path):
         files[who] = path.read_bytes()
     assert files["t"] == files["j"]
     for bad, msg in ((["--params", f"{xe},{xe}"], "one --params"),
-                     (["--num-shards", "2"], "data-parallel"),
+                     (["--num-shards", "2", "--shard-index", "2"],
+                      "W = 2"),
                      (["--val-split", "val"], "--val-split needs")):
         with pytest.raises(SystemExit, match=msg):
             cli.main(["train-scst", *common, *bad])

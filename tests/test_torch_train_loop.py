@@ -314,9 +314,11 @@ def test_cli_train_xe_exports_weights_jax_decodes_alike(tmp_path):
                           "--out", str(path), *_sets(dec)] + post)
         outs[who] = path.read_bytes()
     assert outs["t"] == outs["j"]
-    with pytest.raises(SystemExit, match="num-shards"):
+    # A rank outside --num-shards is refused before any rendezvous.
+    with pytest.raises(SystemExit, match="W = 2"):
         cli.main(["train-xe", "--config", "xe_train", "--synthetic",
-                  "--num-shards", "2", "--device", "cpu"])
+                  "--num-shards", "2", "--shard-index", "2",
+                  "--device", "cpu"])
     with pytest.raises(SystemExit, match="ema_decay"):
         _run(cli.main, ["train-xe", "--config", "xe_train", "--synthetic",
                         "--images", "10", "--max-steps", "1", "--no-val",
