@@ -1,40 +1,65 @@
 // Shared pieces of the decode-cell kernels (megastep.cu, lstm.cu,
-// attention.cu, wholestep.cu): the fp32 split-operand GEMM tile with its
-// gated (LSTM, Copy-LSTM) and plain epilogues, which every fp32 instance
+// attention.cu, wholestep.cu): the fp32 split-operand GEMM with its gated
+// (LSTM, Copy-LSTM) and plain epilogues, which every fp32 instance
 // (compute_dtype="float32") of a cell kernel runs. The bf16 products run on
 // sm90_cell.cuh.
 //
-// gemm_tile<G, EPI, NT>: one block owns a 64-row tile and G column groups
-// of 32. The operands are successive K ranges of one accumulation, so a
+// gemm_kernel<EPI, NBOX>: one CTA owns 128 rows and NBOX boxes of 32
+// product columns: gated, the i, f, g, o (and copy-gate r) tiles of 32
+// hidden columns, read straight from gate-major [K, 4H] weights (the gate
+// pre-activations are never written out); plain, 128 consecutive output
+// columns. The operands are successive K ranges of one accumulation, so a
 // split operand ([x | h | c*], [v_hat | h_att | h_lang | c*]) never exists
-// concatenated in device memory. fp32 operands and fp32 weights are staged
-// through shared memory and multiplied with fp32 FMA on the CUDA cores (not
-// TF32), each of the tile's first 64 G threads register-blocked over 8 rows
-// x 4 columns. The fp32 result tile lands in shared memory and the
-// epilogue runs on it. In the gated epilogues a block owns hidden columns
-// [j, j+32) and its column groups are the i, f, g, o (and copy-gate r)
-// tiles of those columns, read straight from gate-major [K, 4H] weights;
-// the gate pre-activations are never written out.
+// concatenated in device memory; c* feeds only r, and its K range runs the
+// r products alone.
+//
+// What bounds it on the H100: fp32 FMA on the CUDA cores (not TF32), 67
+// TFLOP/s; at DCNet's greedy LSTM (N = 512, K = 3072, 4H = 4096) 12.9
+// GFLOP, 0.19 ms, against 0.03 ms for the bytes read once.
+//
+// Design (sm_90a, one launch, grid (column blocks, ceil(N / 128)), 288
+// threads and one CTA an SM):
+// - One producer thread keeps a ring of 4 stages of K = 32 filled with TMA
+//   loads, completing on mbarriers: a 128 x 32 activation box and the
+//   stage's 32 x 32 weight boxes, all fp32 and 128-byte swizzled, so the
+//   loads overlap the products and no thread stages or transposes a value.
+//   Rows past N read zeros. The consumers free a stage on a second ring.
+// - 256 consumer threads, each 8 rows x 2 columns of every box (8 x 8 = 64
+//   sums; the Copy-LSTM 8 x 10): per 4 K, eight 16-byte loads of the
+//   activations (4 K of a row) and 4 NBOX 8-byte loads of the weights for
+//   64 NBOX FMAs. A warp's lanes are 4 row groups x 8 column pairs, so each
+//   of its loads touches 4 (activations) or 8 (weights) distinct addresses,
+//   which the swizzle keeps in distinct banks (a TMA box cannot be padded).
+// - The epilogues run in registers: a thread holds the four gates (and r)
+//   of its two hidden columns for its 8 rows; the arithmetic is the plain
+//   versions' (expf sigmoid, tanhf) in the same order.
 //
 // Everything lives in namespace `cell`, so a source can include this and
 // head_common.cuh side by side.
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
 
+#include "sm90_common.cuh"
+
 namespace {
 namespace cell {
 
-constexpr int BM = 64;  // rows per tile
-constexpr int BN = 32;  // columns per group (one gate tile)
+constexpr int BN = 32;  // columns per box (one gate tile)
 constexpr int BK = 32;  // operands' K ranges are multiples of this
 constexpr int MAX_OPS = 4;
-constexpr int BKF = 16;       // fp32: depth of one shared-memory stage
-constexpr int LDAF = BM + 4;  // fp32: the k-major activation stage's stride
+constexpr int TILE_ROWS = 128;                 // rows a CTA
+constexpr int STAGE_K = 32;                    // K a stage
+constexpr int RING = 4;                        // stages
+constexpr int A_BOX = TILE_ROWS * STAGE_K * 4;  // 16 KB: 128 rows x 32 K
+constexpr int W_BOX = STAGE_K * BN * 4;         // 4 KB: 32 K x 32 columns
+constexpr int CONSUMERS = 256;                 // 8 warps
+constexpr int GEMM_THREADS = CONSUMERS + 32;   // + the producer warp
 
 enum Epilogue : int {
   EPI_LSTM = 0,       // 4 gate groups; h, c = LSTM(z + zadd + bias, c_prev)
@@ -86,232 +111,297 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// The fp32 result tile's row stride (elements) and the shared memory a
-// tile of G column groups needs: the operand tiles and, after the
-// products, the fp32 result tile share one buffer.
-template <int G>
-__host__ __device__ constexpr int tile_ldc() {
-  return G * BN + 4;
+// The kernel's arguments: the host's GemmArgs and the tensor maps of its
+// operands (activations [N, k] in 128 x 32 boxes; base and copy-gate
+// weights in 32 x 32 boxes), and where a tile's boxes start: box g of
+// column block nb is column g box_stride + nb tile_cols of the base weight
+// (gated: box_stride = cols, tile_cols = 32; plain: 32 and 128).
+struct TileArgs {
+  CUtensorMap a[MAX_OPS];
+  CUtensorMap w[MAX_OPS];
+  CUtensorMap wr[MAX_OPS];
+  GemmArgs g;
+  int box_stride;
+  int tile_cols;
+};
+
+template <int NBOX>
+__host__ __device__ constexpr int stage_bytes() {
+  return A_BOX + NBOX * W_BOX;
 }
 
-template <int G>
-__host__ __device__ constexpr int tile_smem() {
-  return (BKF * LDAF + BKF * (G * BN + 4)) * 4 > BM * tile_ldc<G>() * 4
-             ? (BKF * LDAF + BKF * (G * BN + 4)) * 4
-             : BM * tile_ldc<G>() * 4;
+template <int NBOX>
+__host__ __device__ constexpr int gemm_smem() {
+  return 1024 + RING * stage_bytes<NBOX>() + 2 * RING * 8;
 }
 
-// The fp32 products of one tile into Cs: for every operand,
-// K in stages of BKF; activations k-major [BKF][LDAF], weights [BKF][TN +
-// 4]. Thread t < 64 G owns columns 4 (t % 8G) + {0..3} of rows 8 (t / 8G)
-// + {0..7}; an operand that feeds none of its columns' group is skipped.
-// Ends with the block synchronised and the fp32 tile in Cs.
-template <int G, bool GATED, int NT>
-__device__ __forceinline__ void f32_products(const GemmArgs& args, int nb,
-                                             int row0, unsigned char* smem) {
-  constexpr int TN = G * BN;
-  constexpr int LDB = TN + 4;
-  constexpr int LDC = tile_ldc<G>();
-  float* As = reinterpret_cast<float*>(smem);
-  float* Bs = As + BKF * LDAF;
-  float* Cs = reinterpret_cast<float*>(smem);
-  const int tid = threadIdx.x;
-  const bool mma_thread = tid < 64 * G;
-  const int tc = tid % (8 * G);
-  const int tr = tid / (8 * G);
-  const int grp = (4 * tc) / BN;  // the thread's column group
-  const int N = args.N;
-  const int cols = args.cols;
-  float acc[8][4];
+// One stage's products (K = 32) of boxes FIRST .. NBOX - 1 for a thread's
+// rows rg + 16 i (i < 8; so a row's swizzle is rg % 8) and box columns 2 p
+// + {0, 1}: acc[i][g][e]. A chunk of 4 K of a row is one 16-byte load, a
+// box's 2 columns of a K row one 8-byte load.
+template <int NBOX, int FIRST>
+__device__ __forceinline__ void stage_products(float (&acc)[8][NBOX][2],
+                                               const unsigned char* st,
+                                               int rg, int p) {
+  const unsigned char* ab = st + rg * 128;
+  const unsigned char* wb = st + A_BOX + (p & 1) * 8;
+  const int pc = p >> 1;  // the pair's 16-byte chunk
+#pragma unroll
+  for (int kc = 0; kc < STAGE_K / 4; ++kc) {
+    float4 av[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      av[i] = *reinterpret_cast<const float4*>(ab + i * 2048 +
+                                               ((kc ^ (rg & 7)) << 4));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = 4 * kc + e;
+      float2 bv[NBOX];
+#pragma unroll
+      for (int g = FIRST; g < NBOX; ++g)
+        bv[g] = *reinterpret_cast<const float2*>(wb + g * W_BOX + k * 128 +
+                                                 ((pc ^ (k & 7)) << 4));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float x = e == 0   ? av[i].x
+                        : e == 1 ? av[i].y
+                        : e == 2 ? av[i].z
+                                 : av[i].w;
+#pragma unroll
+        for (int g = FIRST; g < NBOX; ++g) {
+          acc[i][g][0] = fmaf(x, bv[g].x, acc[i][g][0]);
+          acc[i][g][1] = fmaf(x, bv[g].y, acc[i][g][1]);
+        }
+      }
+    }
+  }
+}
+
+// The producer: every operand's stages in order, each its activation box
+// and the weight boxes it feeds (gated: the four base boxes when it has
+// w_gates, r when it has w_copy; plain: the four).
+template <int NBOX>
+__device__ __forceinline__ void produce(const TileArgs& t, unsigned char* smem,
+                                        uint64_t* full, uint64_t* empty,
+                                        int row0, int nb) {
+  int it = 0;
+  for (int s = 0; s < t.g.n_ops; ++s) {
+    const Operand& op = t.g.op[s];
+    const bool base = op.w_gates != nullptr;
+    const bool r = NBOX == 5 && op.w_copy != nullptr;
+    const uint32_t bytes = A_BOX + (base ? 4 * W_BOX : 0) + (r ? W_BOX : 0);
+    for (int k0 = 0; k0 < op.k; k0 += STAGE_K, ++it) {
+      const int slot = it % RING;
+      if (it >= RING) sm90::mbar_wait(&empty[slot], ((it / RING) - 1) & 1);
+      unsigned char* st = smem + slot * stage_bytes<NBOX>();
+      sm90::mbar_expect_tx(&full[slot], bytes);
+      sm90::tma_load_2d(st, &t.a[s], &full[slot], k0, row0);
+      if (base)
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          sm90::tma_load_2d(st + A_BOX + g * W_BOX, &t.w[s], &full[slot],
+                            g * t.box_stride + nb * t.tile_cols, k0);
+      if (r)
+        sm90::tma_load_2d(st + A_BOX + 4 * W_BOX, &t.wr[s], &full[slot],
+                          nb * BN, k0);
+    }
+  }
+}
+
+// Gated epilogue: hidden columns j = 32 nb + 2 p + e of rows row0 + rg + 16
+// i. The plain versions' arithmetic in their order: z = acc (+ zadd) (+
+// bias); c' = sigmoid(f) c + sigmoid(i) tanh(g); Copy-LSTM: r = sigmoid(z_r
+// + b_r), c' = r c* + (1 - r) c'; h' = sigmoid(o) tanh(c').
+template <int NBOX>
+__device__ __forceinline__ void epi_gated(const GemmArgs& a,
+                                          const float (&acc)[8][NBOX][2],
+                                          int row0, int rg, int p, int nb) {
+  const int cols = a.cols;
+  const int j = nb * BN + 2 * p;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gr = row0 + rg + 16 * i;
+    if (gr >= a.N) continue;
+    const size_t idx = static_cast<size_t>(gr) * cols + j;
+    const float2 cp = *reinterpret_cast<const float2*>(a.c_prev + idx);
+    float hv[2], cv[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float z[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        z[g] = acc[i][g][e];
+        if (a.zadd) z[g] += a.zadd[static_cast<size_t>(gr) * 4 * cols +
+                                   g * cols + j + e];
+        if (a.bias) z[g] += a.bias[g * cols + j + e];
+      }
+      float c_new = sigmoidf(z[1]) * (e ? cp.y : cp.x) +
+                    sigmoidf(z[0]) * tanhf(z[2]);
+      if constexpr (NBOX == 5) {
+        const float rgate = sigmoidf(acc[i][4][e] + a.bias_r[j + e]);
+        c_new = rgate * a.c_star[idx + e] + (1.0f - rgate) * c_new;
+      }
+      cv[e] = c_new;
+      hv[e] = sigmoidf(z[3]) * tanhf(c_new);
+    }
+    *reinterpret_cast<float2*>(a.h_out + idx) = make_float2(hv[0], hv[1]);
+    *reinterpret_cast<float2*>(a.c_out + idx) = make_float2(cv[0], cv[1]);
+  }
+}
+
+// Plain epilogue: output columns 128 nb + 32 g + 2 p + e.
+template <int EPI>
+__device__ __forceinline__ void epi_plain(const GemmArgs& a,
+                                          const float (&acc)[8][4][2],
+                                          int row0, int rg, int p, int nb) {
+  const int cols = a.cols;
+  float* out = static_cast<float*>(a.out);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gr = row0 + rg + 16 * i;
+    if (gr >= a.N) continue;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int col = nb * 4 * BN + g * BN + 2 * p;
+      const size_t idx = static_cast<size_t>(gr) * cols + col;
+      float2 v = make_float2(acc[i][g][0], acc[i][g][1]);
+      if constexpr (EPI == EPI_GATE_MUL) {
+        const float2 x = *reinterpret_cast<const float2*>(a.x + idx);
+        v.x = sigmoidf(v.x + a.bias[col]) * x.x;
+        v.y = sigmoidf(v.y + a.bias[col + 1]) * x.y;
+      }
+      *reinterpret_cast<float2*>(out + idx) = v;
+    }
+  }
+}
+
+// One tile per CTA: grid (column blocks, ceil(N / 128)). Warps 0-7
+// consume (warp w: row groups 4 (w % 4) + lane / 8, column pairs 8 (w / 4)
+// + lane % 8); warp 8's first thread produces.
+template <int EPI, int NBOX>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+    gemm_kernel(const __grid_constant__ TileArgs t) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + RING * stage_bytes<NBOX>());
+  uint64_t* empty = full + RING;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int nb = blockIdx.x;
+  const int row0 = blockIdx.y * TILE_ROWS;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < RING; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], CONSUMERS / 32);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS / 32) {
+    if (lane == 0) produce<NBOX>(t, smem, full, empty, row0, nb);
+    return;
+  }
+  const int rg = 4 * (warp % 4) + lane / 8;  // row group 0..15
+  const int p = 8 * (warp / 4) + lane % 8;   // column pair 0..15
+  float acc[8][NBOX][2];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int s = 0; s < args.n_ops; ++s) {
-    const Operand op = args.op[s];
-    const float* a = static_cast<const float*>(op.a);
-    const float* wg = static_cast<const float*>(op.w_gates);
-    const float* wc = static_cast<const float*>(op.w_copy);
-    const bool active =
-        mma_thread && (!GATED || (grp < 4 ? wg != nullptr : wc != nullptr));
-    for (int k0 = 0; k0 < op.k; k0 += BKF) {
-      for (int v = tid; v < BM * BKF / 4; v += NT) {  // activations
-        const int r = v / (BKF / 4);
-        const int c = (v % (BKF / 4)) * 4;
-        const int gr = row0 + r;
-        float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (gr < N)
-          x = *reinterpret_cast<const float4*>(a + (size_t)gr * op.k + k0 +
-                                               c);
-        As[(c + 0) * LDAF + r] = x.x;
-        As[(c + 1) * LDAF + r] = x.y;
-        As[(c + 2) * LDAF + r] = x.z;
-        As[(c + 3) * LDAF + r] = x.w;
-      }
-      for (int v = tid; v < BKF * TN / 4; v += NT) {  // weights
-        const int r = v / (TN / 4);
-        const int t = (v % (TN / 4)) * 4;
-        const size_t krow = (size_t)(k0 + r);
-        const float* src = nullptr;
-        if (GATED) {
-          const int g = t / BN;
-          const int col = nb * BN + t % BN;
-          if (g < 4) {
-            if (wg) src = wg + krow * 4 * cols + g * cols + col;
-          } else if (wc) {
-            src = wc + krow * cols + col;
-          }
-        } else {
-          src = wg + krow * cols + nb * TN + t;
-        }
-        float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (src) x = *reinterpret_cast<const float4*>(src);
-        *reinterpret_cast<float4*>(Bs + r * LDB + t) = x;
-      }
-      __syncthreads();
-      if (active) {
-#pragma unroll
-        for (int kk = 0; kk < BKF; ++kk) {
-          const float4 b =
-              *reinterpret_cast<const float4*>(Bs + kk * LDB + 4 * tc);
-          const float4 a0 =
-              *reinterpret_cast<const float4*>(As + kk * LDAF + 8 * tr);
-          const float4 a1 =
-              *reinterpret_cast<const float4*>(As + kk * LDAF + 8 * tr + 4);
-          const float av[8] = {a0.x, a0.y, a0.z, a0.w,
-                               a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            acc[i][0] = fmaf(av[i], b.x, acc[i][0]);
-            acc[i][1] = fmaf(av[i], b.y, acc[i][1]);
-            acc[i][2] = fmaf(av[i], b.z, acc[i][2]);
-            acc[i][3] = fmaf(av[i], b.w, acc[i][3]);
-          }
-        }
-      }
-      __syncthreads();
+    for (int g = 0; g < NBOX; ++g) acc[i][g][0] = acc[i][g][1] = 0.0f;
+  int it = 0;
+  for (int s = 0; s < t.g.n_ops; ++s) {
+    const Operand& op = t.g.op[s];
+    const bool r_only = NBOX == 5 && op.w_gates == nullptr;
+    for (int k0 = 0; k0 < op.k; k0 += STAGE_K, ++it) {
+      const int slot = it % RING;
+      sm90::mbar_wait(&full[slot], (it / RING) & 1);
+      const unsigned char* st = smem + slot * stage_bytes<NBOX>();
+      if (r_only)
+        stage_products<NBOX, 4>(acc, st, rg, p);
+      else
+        stage_products<NBOX, 0>(acc, st, rg, p);
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&empty[slot]);
     }
   }
-  if (mma_thread) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      *reinterpret_cast<float4*>(Cs + (8 * tr + i) * LDC + 4 * tc) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  }
-  __syncthreads();
-}
-
-// One tile: rows [row0, row0 + 64), column block nb (hidden columns
-// [32 nb, 32 nb + 32) of every gate group when gated, else output columns
-// [32 G nb, 32 G (nb + 1))). Every thread of the block calls it; it ends
-// with the epilogue's writes issued.
-template <int G, int EPI, int NT>
-__device__ __forceinline__ void gemm_tile(const GemmArgs& args, int nb,
-                                          int row0, unsigned char* smem) {
-  constexpr int TN = G * BN;  // tile columns
-  constexpr int LDC = tile_ldc<G>();
-  constexpr bool GATED = (EPI == EPI_LSTM || EPI == EPI_COPY_LSTM);
-  static_assert(NT >= 64 * G, "a tile needs 64 G threads");
-  float* Cs = reinterpret_cast<float*>(smem);
-  const int tid = threadIdx.x;
-  const int N = args.N;
-  const int cols = args.cols;
-
-  f32_products<G, GATED, NT>(args, nb, row0, smem);
-
-  if (GATED) {
-    for (int e = tid; e < BM * BN; e += NT) {
-      const int r = e / BN;
-      const int c = e % BN;
-      const int gr = row0 + r;
-      if (gr >= N) continue;
-      const int j = nb * BN + c;
-      const float* cr = Cs + r * LDC;
-      float zi = cr[c], zf = cr[BN + c], zg = cr[2 * BN + c],
-            zo = cr[3 * BN + c];
-      if (args.zadd) {
-        const float* za = args.zadd + (size_t)gr * 4 * cols;
-        zi += za[j];
-        zf += za[cols + j];
-        zg += za[2 * cols + j];
-        zo += za[3 * cols + j];
-      }
-      if (args.bias) {
-        zi += args.bias[j];
-        zf += args.bias[cols + j];
-        zg += args.bias[2 * cols + j];
-        zo += args.bias[3 * cols + j];
-      }
-      const size_t idx = (size_t)gr * cols + j;
-      float c_new = sigmoidf(zf) * args.c_prev[idx] + sigmoidf(zi) * tanhf(zg);
-      if (EPI == EPI_COPY_LSTM) {
-        const float rg = sigmoidf(cr[4 * BN + c] + args.bias_r[j]);
-        c_new = rg * args.c_star[idx] + (1.0f - rg) * c_new;
-      }
-      args.h_out[idx] = sigmoidf(zo) * tanhf(c_new);
-      args.c_out[idx] = c_new;
-    }
-  } else {
-    for (int e = tid; e < BM * TN; e += NT) {
-      const int r = e / TN;
-      const int c = e % TN;
-      const int gr = row0 + r;
-      if (gr >= N) continue;
-      const int col = nb * TN + c;
-      const size_t idx = (size_t)gr * cols + col;
-      const float z = Cs[r * LDC + c];
-      static_cast<float*>(args.out)[idx] =
-          EPI == EPI_GATE_MUL ? sigmoidf(z + args.bias[col]) * args.x[idx]
-                              : z;
-    }
-  }
-}
-
-// One tile per block: grid = (column blocks, 64-row blocks). The gated
-// instances leave the register count to the compiler; the plain ones ask
-// for four resident blocks per SM.
-template <int G, int EPI>
-__global__ void __launch_bounds__(64 * G)
-    gemm_kernel(const __grid_constant__ GemmArgs args) {
-  __shared__ __align__(128) unsigned char smem[tile_smem<G>()];
-  gemm_tile<G, EPI, 64 * G>(args, blockIdx.x, blockIdx.y * BM, smem);
-}
-
-template <int G, int EPI>
-__global__ void __launch_bounds__(64 * G, 4)
-    gemm_kernel_plain(const __grid_constant__ GemmArgs args) {
-  __shared__ __align__(128) unsigned char smem[tile_smem<G>()];
-  gemm_tile<G, EPI, 64 * G>(args, blockIdx.x, blockIdx.y * BM, smem);
+  if constexpr (EPI == EPI_LSTM || EPI == EPI_COPY_LSTM)
+    epi_gated<NBOX>(t.g, acc, row0, rg, p, nb);
+  else
+    epi_plain<EPI>(t.g, acc, row0, rg, p, nb);
 }
 
 // Column blocks of a GEMM: gated widths are multiples of BN, plain output
-// widths of G BN.
-template <int G, int EPI>
+// widths of 4 BN.
+template <int EPI>
 __host__ __device__ constexpr int column_width() {
-  return (EPI == EPI_LSTM || EPI == EPI_COPY_LSTM) ? BN : G * BN;
+  return (EPI == EPI_LSTM || EPI == EPI_COPY_LSTM) ? BN : 4 * BN;
 }
 
-// Shape checks of a GEMM's arguments; cudaSuccess when it can run.
+// Shape checks of a GEMM's arguments; cudaSuccess when it can run. Every
+// operand of an LSTM or plain GEMM feeds the base boxes; a Copy-LSTM
+// operand feeds r and, unless it is r-only (c*), the base boxes.
 template <int G, int EPI>
 cudaError_t check_gemm(const GemmArgs& a) {
-  for (int i = 0; i < a.n_ops; ++i)
-    if (a.op[i].k < BK || a.op[i].k % BK) return cudaErrorInvalidValue;
-  const int width = column_width<G, EPI>();
+  static_assert(G == (EPI == EPI_COPY_LSTM ? 5 : 4), "boxes of the epilogue");
+  if (a.n_ops < 1 || a.n_ops > MAX_OPS) return cudaErrorInvalidValue;
+  for (int i = 0; i < a.n_ops; ++i) {
+    const Operand& op = a.op[i];
+    if (op.k < BK || op.k % BK) return cudaErrorInvalidValue;
+    if (EPI == EPI_COPY_LSTM ? op.w_copy == nullptr
+                             : op.w_gates == nullptr || op.w_copy != nullptr)
+      return cudaErrorInvalidValue;
+  }
+  const int width = column_width<EPI>();
   if (a.N < 1 || a.cols < width || a.cols % width)
     return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
+// The map of an fp32 row-major [rows, cols] matrix in box_rows x 32 boxes,
+// 128-byte swizzled.
+inline cudaError_t f32_map(CUtensorMap* map, const void* p, int rows,
+                           int cols, int box_rows) {
+  return sm90::tensor_map_2d(map, p, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, rows,
+                             cols, cols, box_rows, 32,
+                             CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
 template <int G, int EPI>
 cudaError_t launch_gemm(const GemmArgs& a, cudaStream_t s) {
-  const cudaError_t err = check_gemm<G, EPI>(a);
+  constexpr bool gated = EPI == EPI_LSTM || EPI == EPI_COPY_LSTM;
+  cudaError_t err = check_gemm<G, EPI>(a);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.cols / column_width<G, EPI>(), (a.N + BM - 1) / BM);
-  if constexpr (EPI == EPI_LSTM || EPI == EPI_COPY_LSTM)
-    gemm_kernel<G, EPI><<<grid, 64 * G, 0, s>>>(a);
-  else
-    gemm_kernel_plain<G, EPI><<<grid, 64 * G, 0, s>>>(a);
+  TileArgs t = {};
+  t.g = a;
+  t.box_stride = gated ? a.cols : BN;
+  t.tile_cols = column_width<EPI>();
+  for (int i = 0; i < a.n_ops; ++i) {
+    const Operand& op = a.op[i];
+    err = f32_map(&t.a[i], op.a, a.N, op.k, TILE_ROWS);
+    if (err == cudaSuccess && op.w_gates)
+      err = f32_map(&t.w[i], op.w_gates, op.k, gated ? 4 * a.cols : a.cols,
+                    STAGE_K);
+    if (err == cudaSuccess && op.w_copy)
+      err = f32_map(&t.wr[i], op.w_copy, op.k, a.cols, STAGE_K);
+    if (err != cudaSuccess) return err;
+  }
+  auto* kernel = gemm_kernel<EPI, G>;
+  constexpr int smem = gemm_smem<G>();
+  static bool sized[sm90::kDevices] = {};
+  const int dev = sm90::device_slot();
+  if (dev < 0 || !sized[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    if (dev >= 0) sized[dev] = true;
+  }
+  const dim3 grid(a.cols / column_width<EPI>(),
+                  (a.N + TILE_ROWS - 1) / TILE_ROWS);
+  kernel<<<grid, GEMM_THREADS, smem, s>>>(t);
   return cudaGetLastError();
 }
 

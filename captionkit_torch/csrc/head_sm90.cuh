@@ -1,24 +1,28 @@
-// The Hopper vocab head shared by head_sweep.cu, head_topk.cu and
-// head_int8.cu: logits = h @ W + b (bf16), or the dequantized int8 logits,
-// then per row the top-k logits (descending, equal values lowest id first),
-// their vocab ids and the log-sum-exp, in one launch with no partial
-// results in device memory.
+// The Hopper vocab head shared by head_sweep.cu, head_topk.cu, head_int8.cu
+// and (its fp32 head) wholestep.cu: logits = h @ W + b (bf16 or fp32), or
+// the dequantized int8 logits, then per row the top-k logits (descending,
+// equal values lowest id first), their vocab ids and the log-sum-exp, in
+// one launch with no partial results in device memory.
 //
 // One kernel template, head_kernel<Ops, Epi, STREAM>:
-// - Ops, the operands: Bf16 (h [N, H] and W [H, V] bf16, W read MN-major)
-//   or S8 (int8 rows quantized in the kernel, and w_qt [Vp, Hp], the
-//   K-major copy of quantize_head's w_q: 8-bit wgmma has no transpose).
+// - Ops, the operands: Bf16 (h [N, H] and W [H, V] bf16, W read MN-major),
+//   S8 (int8 rows quantized in the kernel, and w_qt [Vp, Hp], the K-major
+//   copy of quantize_head's w_q: 8-bit wgmma has no transpose) or F32 (h
+//   and W fp32, compute_dtype="float32": fp32 FMA on the CUDA cores, not
+//   TF32).
 // - Epi, the epilogue over a tile's logits in registers: Sweep (the
 //   single sweep's bar-checked inserts) or Extract<EXTRACT> (the tiled
 //   heads' per-tile extraction, extract="mask" or "thresh").
 // - STREAM: the A operand (h, or the quantized rows) streams with every W
-//   stage instead of staying resident, above HMAX = 1024.
+//   stage instead of staying resident, above HMAX = 1024; always for F32
+//   (64 fp32 rows of H = 1024 are 256 KB).
 //
 // What bounds it on the H100. At the paper shape (N = 2560 = 512 images x 5
 // beams, H = 1024, V = 9490) the products are 2 N H V = 49.8 G operations:
-// 50 us at 989 TFLOP/s dense bf16, 25 us at 1,979 TOP/s int8, against 6-7
-// us for the bytes read once. Every CTA that owns a block of rows sees all
-// of W, so W's reads from L2 grow with the number of row blocks.
+// 50 us at 989 TFLOP/s dense bf16, 25 us at 1,979 TOP/s int8, 0.74 ms at
+// the 67 TFLOP/s of fp32 outside the tensor cores, against 6-7 us for the
+// bf16 bytes read once (13 us in fp32). Every CTA that owns a block of rows
+// sees all of W, so W's reads from L2 grow with the number of row blocks.
 //
 // Design (sm_90a, one launch, a thread-block cluster per 64 rows; 384
 // threads a CTA, one CTA an SM):
@@ -36,11 +40,18 @@
 // - One producer thread keeps a 3-stage ring of W full (32 KB a stage,
 //   128-byte swizzle), completing on mbarriers; a tile's last stage also
 //   brings the tile's bias (and, int8, the column scales) by a bulk copy.
-// - Two consumer warpgroups take the tiles in turns (a ping-pong): each
-//   runs a tile's wgmma chain (m64n128k16 bf16, m64n128k32 s8 with int32
-//   sums) and then its epilogue, which overlaps the other warpgroup's
-//   products. An mbarrier pair orders their main loops, so the ring is
-//   consumed in the order it is filled.
+// - Bf16, S8: two consumer warpgroups take the tiles in turns (a
+//   ping-pong): each runs a tile's wgmma chain (m64n128k16 bf16,
+//   m64n128k32 s8 with int32 sums) and then its epilogue, which overlaps
+//   the other warpgroup's products. An mbarrier pair orders their main
+//   loops, so the ring is consumed in the order it is filled.
+// - F32 (f32_tiles): SIMT products are some 30 times a tile's epilogue, so
+//   every consumer warp multiplies every tile: warpgroup wg the tile's rows
+//   [32 wg, 32 wg + 32), a thread 4 rows x 8 columns (12 16-byte shared
+//   loads per 128 FMAs, each warp load conflict-free under the swizzle),
+//   every K in order. The warpgroup's logits go through shared memory to
+//   the bf16 epilogues' layout, a row a thread (their OWN form: a row's
+//   state is one warpgroup's, so a cluster may hold up to 8 shares).
 // - The epilogue stays in registers: in wgmma's accumulator layout a
 //   thread holds two rows and 32 of the tile's columns (a row's four
 //   threads, a quad, hold its 128). Each warpgroup carries, for each row,
@@ -76,7 +87,7 @@ constexpr int STAGES = 3;
 constexpr int A_BOX = BM * 128;     // one A box: 64 rows x 128 bytes of K
 constexpr int W_STAGE = 32768;      // W bytes a stage
 constexpr int HMAX = 1024;          // A resident up to this K; streamed above
-constexpr int MAX_SHARES = 4;       // shares x slots partials <= 32 lanes
+constexpr int MAX_SHARES = 8;       // and shares x Epi::SLOTS <= 32 lanes
 constexpr int NTHREADS = 384;       // warpgroups 0, 1 consume; 2 produces
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -105,6 +116,7 @@ struct Args {
 struct Bf16 {
   using Acc = float;
   static constexpr bool QUANT = false;
+  static constexpr bool SIMT = false;
   static constexpr int BOXK = 64;     // K elements of an A box
   static constexpr int KS = 2 * BOXK;  // K elements a stage
   static constexpr int SIDE_ARRAYS = 1;  // a tile's bias
@@ -175,6 +187,7 @@ struct Bf16 {
 struct S8 {
   using Acc = int;
   static constexpr bool QUANT = true;
+  static constexpr bool SIMT = false;
   static constexpr int BOXK = 128;
   static constexpr int KS = 2 * BOXK;
   static constexpr int SIDE_ARRAYS = 2;  // a tile's bias, then its scales
@@ -293,6 +306,41 @@ struct S8 {
   }
 };
 
+// fp32 h [N, H] (A boxes 64 rows x 32 K) and W [H, V] row-major: a stage is
+// 64 K x 128 columns, four boxes of 64 K x 32 columns; every box 128-byte
+// swizzled (16-byte chunk c of a 128-byte row r lands at chunk c ^ (r % 8)),
+// which keeps the SIMT loads of f32_stage free of bank conflicts (a TMA box
+// cannot be padded). Always streamed with W.
+struct F32 {
+  using Acc = float;
+  static constexpr bool QUANT = false;
+  static constexpr bool SIMT = true;
+  static constexpr int BOXK = 32;      // K elements of an A box (128 bytes)
+  static constexpr int KS = 2 * BOXK;  // K elements a stage
+  static constexpr int SIDE_ARRAYS = 1;  // a tile's bias
+  static constexpr int SIDE = TN * 4 * SIDE_ARRAYS;
+  static constexpr int W_BOX = KS * 32 * 4;  // 64 K x 32 columns
+  static constexpr int LDC = TN + 8;  // the shared logits tile's row stride
+  static_assert(4 * W_BOX == W_STAGE && BOXK * 4 * BM == A_BOX,
+                "an fp32 stage is the bf16 streamed stage's size");
+
+  __device__ __forceinline__ static void load_w(unsigned char* st,
+                                                const CUtensorMap* map,
+                                                uint64_t* bar, int col,
+                                                int kb) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      tma_load_2d(st + c * W_BOX, map, bar, col + 32 * c, kb * KS);
+  }
+
+  __device__ __forceinline__ static void load_side(unsigned char* side,
+                                                   const Args& a, int col,
+                                                   uint32_t bytes,
+                                                   uint64_t* bar) {
+    bulk_load(side, a.bias + col, bytes, bar);
+  }
+};
+
 // ---------------------------------------------------------------------------
 // Epilogues
 // ---------------------------------------------------------------------------
@@ -349,23 +397,27 @@ __device__ __forceinline__ void fold_lse(const float (&x)[64], int h,
 // lists outgrow the registers and the compiler keeps them in local
 // memory.) Partial states a row per CTA: 8 (one per thread of the row's
 // quads) at KMAX = 8, else 2 (one per warpgroup, the quad merged first).
-template <int KMAX>
-struct Sweep {
-  static constexpr int SLOTS = KMAX == 8 ? 8 : 2;
+// OWN (the F32 consumers): a thread folds one row, its first (x[4 j + e]),
+// and a row's state is the one warpgroup's that owns the row: 4 or 1
+// partial states a row.
+template <int KMAX, bool OWN>
+struct SweepEpi {
+  static constexpr int ROWS = OWN ? 1 : 2;  // rows a thread folds
+  static constexpr int SLOTS = (KMAX == 8 ? 4 : 1) * (OWN ? 1 : 2);
   static constexpr int PART = 2 + 2 * KMAX;  // m, s, KMAX values, ids
 
   struct State {
-    float m[2];
-    float s[2];
-    float lv[2][KMAX];
-    int li[2][KMAX];
-    float bar_v[2];
-    int bar_i[2];
+    float m[ROWS];
+    float s[ROWS];
+    float lv[ROWS][KMAX];
+    int li[ROWS][KMAX];
+    float bar_v[ROWS];
+    int bar_i[ROWS];
   };
 
   __device__ __forceinline__ static void init(State& st, int) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < ROWS; ++h) {
       st.m[h] = -INFINITY;
       st.s[h] = 0.0f;
       clear(st.lv[h], st.li[h]);
@@ -378,7 +430,7 @@ struct Sweep {
                                               int V, int q, const Args&,
                                               State& st) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < ROWS; ++h) {
       float tm = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 16; ++j)
@@ -427,7 +479,7 @@ struct Sweep {
   __device__ __forceinline__ static void write(State& st, int k, int q,
                                                int wg, float* row_part) {
     if constexpr (KMAX == 8) {
-      float* p = row_part + (wg * 4 + q) * PART;
+      float* p = row_part + ((OWN ? 0 : wg * 4) + q) * PART;
       p[0] = st.m[h];
       p[1] = st.s[h];
 #pragma unroll
@@ -436,7 +488,7 @@ struct Sweep {
         reinterpret_cast<int*>(p)[2 + KMAX + i] = st.li[h][i];
       }
     } else {
-      float* p = row_part + wg * PART;
+      float* p = row_part + (OWN ? 0 : wg) * PART;
       const float m = st.m[h];
       const float M = quad_max(m);
       float S = M == -INFINITY ? 0.0f : st.s[h] * expf(m - M);
@@ -478,10 +530,10 @@ struct Sweep {
 // - kMask: round r takes the best (value, id) after the last one taken, a
 //   quad arg-max over the thread's 32 columns (the whole-step kernel's
 //   epi_head).
-// - kThresh: the read-only threshold walk of warp_thresh_topk: round 1's
-//   value is the tile max, each later round a thresholded max, then the
-//   lowest eligible id; over the same registers, so the two give the same
-//   entries in the same order, bit for bit.
+// - kThresh: the reference's read-only threshold walk: round 1's value is
+//   the tile max, each later round a thresholded max, then the lowest
+//   eligible id; over the same registers, so the two give the same entries
+//   in the same order, bit for bit.
 // The running list is the row's top-k so far (kept alike by the row's
 // four threads) and its k-th entry is the bar. A tile whose max is
 // strictly below the bar adds nothing to the list and skips the rounds;
@@ -491,10 +543,12 @@ struct Sweep {
 // first entry that does not beat the bar: the entries come in order, so no
 // later one would; and they scan only the columns that reach the bar at
 // the tile's start, which give the same entries (fold_row). Partial
-// states: 2 a row per CTA (one per warpgroup).
-template <int EXTRACT, int KMAX>
+// states: 2 a row per CTA (one per warpgroup); OWN (the F32 consumers, as
+// Sweep's): a thread folds one row, 1 partial state a row.
+template <int EXTRACT, int KMAX, bool OWN = false>
 struct Extract {
-  static constexpr int SLOTS = 2;
+  static constexpr int ROWS = OWN ? 1 : 2;
+  static constexpr int SLOTS = OWN ? 1 : 2;
   static constexpr int PART = 2 + 2 * KMAX;
 
   // lv, li: the first KMAX - k entries are sentinels (+inf) that nothing
@@ -503,15 +557,15 @@ struct Extract {
   // became a dynamically indexed load, which moved the lists to local
   // memory).
   struct State {
-    float m[2];
-    float s[2];
-    float lv[2][KMAX];
-    int li[2][KMAX];
+    float m[ROWS];
+    float s[ROWS];
+    float lv[ROWS][KMAX];
+    int li[ROWS][KMAX];
   };
 
   __device__ __forceinline__ static void init(State& st, int k) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < ROWS; ++h) {
       st.m[h] = -INFINITY;
       st.s[h] = 0.0f;
 #pragma unroll
@@ -526,7 +580,7 @@ struct Extract {
                                               int V, int q, const Args& a,
                                               State& st) {
     fold_row<0>(x, col0, V, q, a, st);
-    fold_row<1>(x, col0, V, q, a, st);
+    if constexpr (!OWN) fold_row<1>(x, col0, V, q, a, st);
   }
 
   // Row H (0 or 1) of the thread's two. The rounds look only at the
@@ -624,7 +678,7 @@ struct Extract {
     for (int off = 1; off < 4; off <<= 1)
       S += __shfl_xor_sync(0xffffffffu, S, off);
     if (q == 0) {
-      float* p = row_part + wg * PART;
+      float* p = row_part + (OWN ? 0 : wg) * PART;
       p[0] = st.m[h];
       p[1] = S;
       // The merge wants each list sorted, best first: the top-k at slots
@@ -643,24 +697,163 @@ struct Extract {
 };
 
 template <int KMAX>
+using Sweep = SweepEpi<KMAX, false>;
+template <int KMAX>
 using MaskEpi = Extract<kMask, KMAX>;
 template <int KMAX>
 using ThreshEpi = Extract<kThresh, KMAX>;
+// The F32 consumers' epilogues (a thread folds one row).
+template <int KMAX>
+using MaskEpiF32 = Extract<kMask, KMAX, true>;
+template <int KMAX>
+using ThreshEpiF32 = Extract<kThresh, KMAX, true>;
+template <int KMAX>
+using SweepF32 = SweepEpi<KMAX, true>;
+
+// ---------------------------------------------------------------------------
+// The F32 consumers
+// ---------------------------------------------------------------------------
+
+// One F32 stage's products (64 K) for a thread's 4 x 8 block: tile rows r0
+// + 8 i (r0 = 32 wg + rg, rg < 8, so a row's swizzle is rg), columns 4 cg +
+// e and 64 + 4 cg + e (W boxes cg / 8 and cg / 8 + 2, chunk cc = cg % 8).
+// Per 4 K: four 16-byte loads of A (4 K of a row) and eight of W (4
+// columns of a K row), 128 FMAs. A warp's lanes hold 4 row groups x 8
+// column groups, so each of its loads touches 4 (A) or 8 (W) distinct
+// 16-byte chunks, which the swizzle puts in distinct banks.
+__device__ __forceinline__ void f32_stage(float (&acc)[4][8],
+                                          const unsigned char* st, int r0,
+                                          int rg, int cg) {
+  const unsigned char* ab = st + W_STAGE + r0 * 128;
+  const unsigned char* wb = st + (cg >> 3) * F32::W_BOX;
+  const int cc = cg & 7;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // the stage's two A boxes, 32 K each
+#pragma unroll
+    for (int kc = 0; kc < 8; ++kc) {  // 4 K a chunk
+      float4 av[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        av[i] = *reinterpret_cast<const float4*>(ab + r * A_BOX + i * 1024 +
+                                                 ((kc ^ rg) << 4));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kk = 32 * r + 4 * kc + e;  // the W row
+        const int off = kk * 128 + ((cc ^ (kk & 7)) << 4);
+        const float4 b0 = *reinterpret_cast<const float4*>(wb + off);
+        const float4 b1 =
+            *reinterpret_cast<const float4*>(wb + 2 * F32::W_BOX + off);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float x = e == 0   ? av[i].x
+                          : e == 1 ? av[i].y
+                          : e == 2 ? av[i].z
+                                   : av[i].w;
+          acc[i][0] = fmaf(x, b0.x, acc[i][0]);
+          acc[i][1] = fmaf(x, b0.y, acc[i][1]);
+          acc[i][2] = fmaf(x, b0.z, acc[i][2]);
+          acc[i][3] = fmaf(x, b0.w, acc[i][3]);
+          acc[i][4] = fmaf(x, b1.x, acc[i][4]);
+          acc[i][5] = fmaf(x, b1.y, acc[i][5]);
+          acc[i][6] = fmaf(x, b1.z, acc[i][6]);
+          acc[i][7] = fmaf(x, b1.w, acc[i][7]);
+        }
+      }
+    }
+  }
+}
+
+// The F32 consumers' walk over the CTA's share. Warpgroup wg owns the
+// tile rows [32 wg, 32 wg + 32): it multiplies them for every tile (every
+// K in order, one fp32 FMA chain a logit, as a sequential fp32 GEMM sums),
+// writes their logits (bias added, columns past V at -inf) to shared tile t
+// % 2, meets its own warps at a barrier, reads them back a row a thread in
+// the layout of wgmma's accumulator's first row (row 32 wg + 8 (warp % 4) +
+// lane / 4, columns 8 j + 2 q + {0, 1}) and folds them into its running
+// state with the bf16 epilogue (Epi has OWN set). The warpgroup's barrier
+// of tile t + 1 comes after that fold, so tile t + 2 may overwrite the
+// shared tile. The two warpgroups meet only at the ring, which frees a
+// stage when both have read it.
+template <class Epi>
+__device__ __forceinline__ void f32_tiles(
+    const Args& a, const unsigned char* ring, const unsigned char* side,
+    float* logits, uint64_t* full, uint64_t* empty, typename Epi::State& es,
+    int my_tiles, int t_begin, int rot, int KB, int wg, int warp, int lane) {
+  constexpr int STAGE = W_STAGE + 2 * A_BOX;
+  constexpr int LDC = F32::LDC;
+  const int wi = warp % 4;
+  const int rg = 4 * (wi >> 1) + (lane >> 3);  // row group 0..7
+  const int cg = 8 * (wi & 1) + (lane & 7);    // column group 0..15
+  const int r0 = 32 * wg + rg;
+  const int q = lane % 4;
+  const int rl = 32 * wg + 8 * wi + lane / 4;  // the row this thread folds
+  for (int t = 0; t < my_tiles; ++t) {
+    float acc[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    for (int kb = 0; kb < KB; ++kb) {
+      const int it = t * KB + kb;
+      const int s = it % STAGES;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      f32_stage(acc, ring + s * STAGE, r0, rg, cg);
+      if (kb + 1 < KB) {  // the last stage goes once its bias is read
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+    }
+    const int last = (t * KB + KB - 1) % STAGES;
+    const int col0 = (t_begin + (t + rot) % my_tiles) * TN;
+    const float* bias = reinterpret_cast<const float*>(side + last * F32::SIDE);
+    float* tile = logits + (t & 1) * BM * LDC;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int c = 64 * half + 4 * cg;
+      const bool in = col0 + c < a.V;  // V % 8 == 0: c .. c + 3 alike
+      const float4 b = in ? *reinterpret_cast<const float4*>(bias + c)
+                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float* p = acc[i] + 4 * half;
+        *reinterpret_cast<float4*>(tile + (r0 + 8 * i) * LDC + c) =
+            in ? make_float4(p[0] + b.x, p[1] + b.y, p[2] + b.z, p[3] + b.w)
+               : make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[last]);
+    named_sync(3 + wg, 128);  // the warpgroup's rows of the tile are complete
+    float x[64];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float2 v =
+          *reinterpret_cast<const float2*>(tile + rl * LDC + 8 * j + 2 * q);
+      x[4 * j] = v.x;
+      x[4 * j + 1] = v.y;
+      x[4 * j + 2] = x[4 * j + 3] = -INFINITY;  // no second row
+    }
+    Epi::fold(x, col0, a.V, q, a, es);
+  }
+}
 
 // ---------------------------------------------------------------------------
 // The kernel
 // ---------------------------------------------------------------------------
 
 // The shared-memory layout of one instance: A resident (HMAX / BOXK boxes)
-// or, STREAM, two A boxes in every stage; the ring; a side slot a stage
-// (bias, scales); S8's row scales; the mbarriers.
+// or, STREAM, two A boxes in every stage; the ring; F32's two logits
+// tiles; a side slot a stage (bias, scales); S8's row scales; the
+// mbarriers.
 template <class Ops, class Epi, bool STREAM>
 struct Plan {
+  static_assert(STREAM || !Ops::SIMT, "fp32 rows stream with W");
   static constexpr int STAGE = STREAM ? W_STAGE + 2 * A_BOX : W_STAGE;
   static constexpr int RESIDENT = STREAM ? 0 : (HMAX / Ops::BOXK) * A_BOX;
+  static constexpr int LOGITS = Ops::SIMT ? 2 * BM * F32::LDC * 4 : 0;
   static constexpr int ROW_SCALES = Ops::QUANT ? BM * 4 : 0;
   static constexpr int SMEM = 1024 + RESIDENT + STAGES * (STAGE + Ops::SIDE) +
-                              ROW_SCALES + (2 * STAGES + 3) * 8;
+                              LOGITS + ROW_SCALES + (2 * STAGES + 3) * 8;
   // The partial states go over A and the ring.
   static_assert(BM * Epi::SLOTS * Epi::PART * 4 <=
                     RESIDENT + STAGES * STAGE,
@@ -681,7 +874,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* as = smem;  // resident A
   unsigned char* ring = smem + P::RESIDENT;
-  unsigned char* side = ring + STAGES * P::STAGE;
+  float* logits = reinterpret_cast<float*>(ring + STAGES * P::STAGE);
+  unsigned char* side = ring + STAGES * P::STAGE + P::LOGITS;
   float* s_rows = reinterpret_cast<float*>(side + STAGES * Ops::SIDE);
   uint64_t* full =
       reinterpret_cast<uint64_t*>(side + STAGES * Ops::SIDE + P::ROW_SCALES);
@@ -710,7 +904,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 4);  // the consuming warpgroup's 4 warps
+      // The consuming warpgroup's 4 warps; F32: both warpgroups' 8.
+      mbar_init(&empty[s], Ops::SIMT ? 8 : 4);
     }
     mbar_init(a_full, 1);
     mbar_init(&order[0], 4);
@@ -761,6 +956,18 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         }
       }
     }
+  } else if constexpr (Ops::SIMT) {
+    static_assert(Epi::ROWS == 1, "the F32 consumers fold a row a thread");
+    const int q = lane % 4;
+    const int rl = 32 * wg + 8 * (warp % 4) + lane / 4;  // the thread's row
+    typename Epi::State es;
+    Epi::init(es, a.k);
+    f32_tiles<Epi>(a, ring, side, logits, full, empty, es, my_tiles, t_begin,
+                   rot, KB, wg, warp, lane);
+    named_sync(1, 256);
+    float* part = reinterpret_cast<float*>(smem);
+    Epi::template write<0>(es, a.k, q, wg,
+                           part + rl * Epi::SLOTS * Epi::PART);
   } else {
     // Consumer warpgroup wg takes the share's tiles wg, wg + 2, ...
     const int q = lane % 4;
@@ -893,6 +1100,8 @@ cudaError_t max_clusters(int shares, int* clusters) {
 template <class Ops, class Epi, bool STREAM>
 cudaError_t launch(const CUtensorMap& a_map, const CUtensorMap& w_map,
                    const Args& a, int shares, cudaStream_t stream) {
+  // The merge reads a row's partial states a lane each.
+  if (shares * Epi::SLOTS > 32) return cudaErrorInvalidValue;
   // The first launch at each cluster size on a device checks that the
   // card holds one (and sets the kernel's shared-memory size there).
   static bool checked[sm90::kDevices][MAX_SHARES + 1] = {};
@@ -935,22 +1144,29 @@ template <class Ops, template <int> class EpiK>
 cudaError_t launch_any(const CUtensorMap& a_map, const CUtensorMap& w_map,
                        const Args& a, int shares, bool stream_a,
                        cudaStream_t stream) {
-  return stream_a ? launch_k<Ops, EpiK, true>(a_map, w_map, a, shares, stream)
-                  : launch_k<Ops, EpiK, false>(a_map, w_map, a, shares,
-                                               stream);
+  if constexpr (Ops::SIMT)  // fp32 rows always stream
+    return launch_k<Ops, EpiK, true>(a_map, w_map, a, shares, stream);
+  else
+    return stream_a
+               ? launch_k<Ops, EpiK, true>(a_map, w_map, a, shares, stream)
+               : launch_k<Ops, EpiK, false>(a_map, w_map, a, shares, stream);
 }
 
 // The clusters query of a family (its k <= 8 instance, A resident or
-// streamed): 0 when the card cannot hold one; a negative CUDA error code
-// when the query fails.
+// streamed; F32 always streamed): 0 when the card cannot hold one; a
+// negative CUDA error code when the query fails.
 template <class Ops, template <int> class EpiK>
 int clusters_of(int shares, int wide, int device) {
   if (shares < 1 || shares > MAX_SHARES) return -(int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   int clusters = 0;
-  if (err == cudaSuccess)
-    err = wide ? max_clusters<Ops, EpiK<8>, true>(shares, &clusters)
-               : max_clusters<Ops, EpiK<8>, false>(shares, &clusters);
+  if (err == cudaSuccess) {
+    if constexpr (Ops::SIMT)
+      err = max_clusters<Ops, EpiK<8>, true>(shares, &clusters);
+    else
+      err = wide ? max_clusters<Ops, EpiK<8>, true>(shares, &clusters)
+                 : max_clusters<Ops, EpiK<8>, false>(shares, &clusters);
+  }
   return err == cudaSuccess ? clusters : -(int)err;
 }
 
@@ -965,6 +1181,19 @@ inline cudaError_t bf16_maps(CUtensorMap* a_map, CUtensorMap* w_map,
   if (err != cudaSuccess) return err;
   return tensor_map_2d(w_map, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, H, V, V,
                        64, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// The fp32 maps: h [N, H] in 64 x 32 boxes, W [H, V] in 64 x 32 boxes, both
+// 128-byte swizzled.
+inline cudaError_t f32_maps(CUtensorMap* a_map, CUtensorMap* w_map,
+                            const void* h, const void* w, int N, int H,
+                            int V) {
+  cudaError_t err = tensor_map_2d(a_map, h, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                  4, N, H, H, BM, F32::BOXK,
+                                  CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  return tensor_map_2d(w_map, w, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, H, V, V,
+                       F32::KS, 32, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 inline bool bad_shape(int N, int H, int V, int k, int shares) {

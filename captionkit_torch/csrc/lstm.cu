@@ -55,7 +55,18 @@
 // fp32 (compute_dtype="float32"): ck_lstm_cell_f32 and
 // ck_copy_lstm_cell_f32 run cell_common.cuh's gated GEMM with fp32
 // operands and weights (fp32 FMA on the CUDA cores, not TF32) and its
-// EPI_LSTM / EPI_COPY_LSTM epilogues; one launch each.
+// EPI_LSTM / EPI_COPY_LSTM epilogues in registers; one launch each. Its
+// main loop was rewritten for Hopper rather than lifted from this file's
+// bf16 ring: a CTA of 128 rows x 32 hidden columns (as here; 128 CTAs at N
+// = 512, H = 1024, one wave), one producer thread keeping a 4-stage TMA
+// ring of K = 32 (fp32 activation and weight boxes, 128-byte swizzle),
+// and 256 SIMT consumers of 8 rows x 2 columns of each gate box. The bf16
+// ring's stages (K = 64, two warpgroups in wgmma's layout) would hold 72
+// KB of fp32 a stage and fit 3 in shared memory; the SIMT loop wants its
+// own thread layout (four row groups x eight column pairs a warp, so every
+// shared load is conflict-free under the swizzle), and a shallower stage
+// gives 4 in flight. The alternative was not built; the times against the
+// bound are in PERF.md.
 
 #include <cuda.h>
 #include <cuda_bf16.h>

@@ -51,7 +51,9 @@
 //
 // fp32 (compute_dtype="float32"): ck_lang_head_topk_f32, three launches:
 // cell_common.cuh's fp32 gate and Copy-LSTM tiles (fp32 FMA, not TF32),
-// then head_common.cuh's one-pass fp32 sweep over h'.
+// then head_sm90.cuh's kernel with the F32 operands and the Sweep
+// epilogue over h' (clusters that split the vocab, the merge on chip; one
+// launch, no partials in device memory).
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -63,6 +65,7 @@
 
 #include "cell_common.cuh"
 #include "head_common.cuh"
+#include "head_sm90.cuh"
 #include "sm90_cell.cuh"
 
 namespace cg = cooperative_groups;
@@ -452,8 +455,9 @@ int ck_lang_head_topk(const void* vhat_raw, const void* h_att,
 
 // compute_dtype="float32": the same operands, weights and outputs all fp32
 // (scratch vhat [N, Fp] fp32; no h_bf16, no partials). Three launches:
-// cell_common.cuh's fp32 visual gate and Copy-LSTM, then the one-pass fp32
-// sweep of the head over h'.
+// cell_common.cuh's fp32 visual gate and Copy-LSTM, then head_sm90.cuh's
+// fp32 sweep of the head over h' in clusters of `shares` CTAs
+// (kernels/head.py::sweep_plan over ck_wholestep_head_f32_max_clusters).
 int ck_lang_head_topk_f32(const void* vhat_raw, const void* h_att,
                           const void* h_lang, const void* c_lang,
                           const void* c_star, const void* gate_w,
@@ -465,9 +469,10 @@ int ck_lang_head_topk_f32(const void* vhat_raw, const void* h_att,
                           const void* head_w, const void* head_b, void* h_out,
                           void* c_out, void* vals, void* idx, void* lse,
                           void* vhat, int N, int Hp, int Fp, int V, int k,
-                          int device, void* stream) {
+                          int shares, int device, void* stream) {
   using namespace cell;
-  if (bad_shape(N, Hp, Fp, V, k)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(N, Hp, Fp, V, k) || shares < 1 || shares > hsm::MAX_SHARES)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -495,10 +500,28 @@ int ck_lang_head_topk_f32(const void* vhat_raw, const void* h_att,
   g.c_out = static_cast<float*>(c_out);
   err = launch_gemm<5, EPI_COPY_LSTM>(g, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_sweep_f32(
-      static_cast<const float*>(h_out), static_cast<const float*>(head_w),
-      f32(head_b), static_cast<float*>(vals), static_cast<int*>(idx),
-      static_cast<float*>(lse), N, Hp, V, k, s);
+
+  CUtensorMap h_map, w_map;
+  err = hsm::f32_maps(&h_map, &w_map, h_out, head_w, N, Hp, V);
+  if (err != cudaSuccess) return (int)err;
+  hsm::Args ha = {};
+  ha.bias = f32(head_b);
+  ha.vals = static_cast<float*>(vals);
+  ha.idx = static_cast<int*>(idx);
+  ha.lse = static_cast<float*>(lse);
+  ha.N = N;
+  ha.H = Hp;
+  ha.V = V;
+  ha.k = k;
+  return (int)hsm::launch_any<hsm::F32, hsm::SweepF32>(h_map, w_map, ha,
+                                                       shares, true, s);
+}
+
+// How many clusters of `shares` CTAs of the fp32 head the card holds at
+// once (`wide` is ignored: h' always streams), as the head libraries'
+// queries answer.
+int ck_wholestep_head_f32_max_clusters(int shares, int wide, int device) {
+  return hsm::clusters_of<hsm::F32, hsm::SweepF32>(shares, wide, device);
 }
 
 // The cooperative grid on `device` (CTAs per SM x SMs) of the k <= 8

@@ -1,7 +1,7 @@
 """Fused vocab head: matmul + log-sum-exp + per-row top-k
 (``captionkit.ops.head``; the kernels are ``csrc/head_topk.cu``,
 ``csrc/head_sweep.cu`` and ``csrc/head_int8.cu``, all three on the one
-kernel template of ``csrc/head_sm90.cuh`` for bf16 and int8).
+kernel template of ``csrc/head_sm90.cuh`` for bf16, fp32 and int8).
 
 Every head returns (vals [N, k] fp32 raw logits, descending, equal values
 lowest index first; idx [N, k] int32; lse [N] fp32). On a CUDA tensor a
@@ -24,13 +24,15 @@ function with its plain version, which forms the full logits.
   K-major copy that 8-bit wgmma needs. Bit-identical to
   ``reference_head_topk_int8``'s values and ids.
 
-The bf16 and int8 kernels run one launch a call: for each block of 64 rows
-a cluster of CTAs splits the vocab (``sweep_plan``, from the clusters the
-card holds, ``cluster_table``) and merges on chip. Every kernel takes any
-k up to ``KMAX`` (64): its candidate lists are template instances of 8,
-16, 32 and 64 entries and the smallest that holds k runs; above ``KMAX`` a
-CUDA call raises. Any H: the kernels keep h (or the quantized rows)
-resident up to ``SWEEP_RESIDENT_H`` and stream it beside W above.
+Every kernel runs one launch a call: for each block of 64 rows a cluster of
+CTAs splits the vocab (``sweep_plan``, from the clusters the card holds,
+``cluster_table``) and merges on chip; no partial result reaches device
+memory. Every kernel takes any k up to ``KMAX`` (64): its candidate lists
+are template instances of 8, 16, 32 and 64 entries and the smallest that
+holds k runs; above ``KMAX`` a CUDA call raises. Any H: the bf16 and int8
+kernels keep h (or the quantized rows) resident up to
+``SWEEP_RESIDENT_H`` and stream it beside W above; the fp32 kernels
+always stream h.
 
 ``prepad_head`` and ``quantize_head`` prepare the head once per decode
 batch: the vocab axis padded to a multiple of the kernels' 128-column
@@ -56,12 +58,15 @@ _EXTRACT_CODE = {"mask": 0, "thresh": 1}
 #: ``CAPTIONKIT_HEAD_SWEEP``, read once at import: when set,
 #: ``fused_head_topk`` runs the single-sweep kernel.
 SWEEP = bool(os.environ.get("CAPTIONKIT_HEAD_SWEEP", ""))
-# The bf16 and int8 kernels (csrc/head_sm90.cuh, which rejects other
-# values): 64 rows a CTA, h resident up to H = 1024 and streamed with W
-# above, the vocab split over the CTAs of a cluster, at most 4 of them.
+# The kernels of csrc/head_sm90.cuh (which rejects other values): 64 rows a
+# CTA, h resident up to H = 1024 and streamed with W above (fp32: always
+# streamed), the vocab split over the CTAs of a cluster: at most 4 of them
+# for bf16 and int8 (the sweep's k <= 8 instance merges 8 partial states a
+# warpgroup and row), at most 8 for fp32 (one warpgroup holds a row's state).
 SWEEP_ROWS = 64
 SWEEP_RESIDENT_H = 1024
 SWEEP_MAX_SHARES = 4
+F32_MAX_SHARES = 8
 
 
 def kmax_for(k: int) -> int:
@@ -186,7 +191,7 @@ def _bind_common(lib: ctypes.CDLL, width: str, kmax: str) -> None:
     for name in (width, kmax):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
-    # The scratch sizes below are computed from these two constants.
+    # The padding (prepad_head, quantize_head) and the plans use these two.
     if (getattr(lib, width)(), getattr(lib, kmax)()) != (TILE_V, KMAX):
         raise RuntimeError("csrc/head_common.cuh and kernels/head.py "
                            "disagree on the vocab tile or the largest k")
@@ -204,14 +209,14 @@ def _library(name: str) -> ctypes.CDLL:
     lib = build.load(name)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if name == "head_topk":
-        lib.ck_head_topk.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
-        lib.ck_head_topk_f32.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
-        lib.ck_head_topk_f32.restype = i32
+        for entry in ("ck_head_topk", "ck_head_topk_f32"):
+            getattr(lib, entry).argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
+            getattr(lib, entry).restype = i32
         _bind_common(lib, "ck_head_tile_width", "ck_head_kmax")
     elif name == "head_sweep":
-        lib.ck_head_sweep.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
-        lib.ck_head_sweep_f32.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
-        lib.ck_head_sweep_f32.restype = i32
+        for entry in ("ck_head_sweep", "ck_head_sweep_f32"):
+            getattr(lib, entry).argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+            getattr(lib, entry).restype = i32
         _bind_common(lib, "ck_head_sweep_tile_width", "ck_head_sweep_kmax")
         lib.ck_head_sweep_resident_h.argtypes = []
         lib.ck_head_sweep_resident_h.restype = i32
@@ -221,18 +226,22 @@ def _library(name: str) -> ctypes.CDLL:
     else:
         lib.ck_head_topk_int8.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
         _bind_common(lib, "ck_head_int8_tile_width", "ck_head_int8_kmax")
-    entry, clusters = _ENTRIES[name]
+    entry, *clusters = _ENTRIES[name]
     getattr(lib, entry).restype = i32
-    getattr(lib, clusters).argtypes = [i32, i32, i32]
-    getattr(lib, clusters).restype = i32
+    for query in clusters:
+        getattr(lib, query).argtypes = [i32, i32, i32]
+        getattr(lib, query).restype = i32
     _bound[name] = lib
     return lib
 
 
-# Each library's bf16 or int8 entry and its clusters query.
+# Each library's bf16 or int8 entry and its clusters queries (bf16 or int8,
+# then fp32).
 _ENTRIES = {
-    "head_topk": ("ck_head_topk", "ck_head_topk_max_clusters"),
-    "head_sweep": ("ck_head_sweep", "ck_head_sweep_max_clusters"),
+    "head_topk": ("ck_head_topk", "ck_head_topk_max_clusters",
+                  "ck_head_topk_f32_max_clusters"),
+    "head_sweep": ("ck_head_sweep", "ck_head_sweep_max_clusters",
+                   "ck_head_sweep_f32_max_clusters"),
     "head_int8": ("ck_head_topk_int8", "ck_head_int8_max_clusters"),
 }
 
@@ -278,15 +287,12 @@ def _check_cuda_inputs(h, w, b, k, *, h_dtype, w_dtype, h_mult, v_mult,
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _outputs(N: int, k: int, dev: torch.device, n_tiles: int = 0):
-    """vals, idx, lse, and the pass-1 partials (m, s, v, i) for n_tiles."""
+def _outputs(N: int, k: int, dev: torch.device):
+    """vals [N, k], idx [N, k], lse [N]."""
     f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    return (torch.empty((N, k), **f32), torch.empty((N, k), **i32),
-            torch.empty((N,), **f32), torch.empty((N * n_tiles,), **f32),
-            torch.empty((N * n_tiles,), **f32),
-            torch.empty((N * n_tiles * k,), **f32),
-            torch.empty((N * n_tiles * k,), **i32))
+    return (torch.empty((N, k), **f32),
+            torch.empty((N, k), dtype=torch.int32, device=dev),
+            torch.empty((N,), **f32))
 
 
 def _raise_on(lib, err: int, what: str) -> None:
@@ -301,10 +307,20 @@ def _float_dtype(h: torch.Tensor) -> torch.dtype:
     return torch.float32 if h.dtype == torch.float32 else torch.bfloat16
 
 
+def head_plan(name: str, h: torch.Tensor, V: int) -> tuple[int, int]:
+    """``sweep_plan`` of the kernel of library ``name`` ("head_topk",
+    "head_sweep") for h [N, H] (bf16 or fp32) on its device: (shares,
+    tiles per share)."""
+    N, H = h.shape
+    fp32 = h.dtype == torch.float32
+    return sweep_plan(N, V, cluster_table(
+        name, h.device, not fp32 and H > SWEEP_RESIDENT_H, fp32=fp32))
+
+
 def _launch_tiled(h, w, b, k, extract, wrapper, fault=0):
-    """The tiled head's kernel: bf16, one launch (``sweep_plan``'s clusters;
-    ``fault=1`` plants a tile skip on a max equal to the running k-th
-    value, for tests); fp32, the tile pass and the merge."""
+    """The tiled head's kernel, bf16 or fp32: one launch (``sweep_plan``'s
+    clusters; ``fault=1`` plants a tile skip on a max equal to the running
+    k-th value, for tests)."""
     dt = _float_dtype(h)
     _check_cuda_inputs(h, w, b, k, h_dtype=dt, w_dtype=dt, h_mult=8,
                        v_mult=8)
@@ -312,22 +328,13 @@ def _launch_tiled(h, w, b, k, extract, wrapper, fault=0):
     N, H = h.shape
     V = w.shape[1]
     dev = h.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if dt == torch.float32:
-        vals, idx, lse, pm, ps, pv, pi = _outputs(N, k, dev, -(-V // TILE_V))
-        err = lib.ck_head_topk_f32(
-            h.data_ptr(), w.data_ptr(), b.data_ptr(), vals.data_ptr(),
-            idx.data_ptr(), lse.data_ptr(), pm.data_ptr(), ps.data_ptr(),
-            pv.data_ptr(), pi.data_ptr(), N, H, V, k, _EXTRACT_CODE[extract],
-            dev.index or 0, stream)
-    else:
-        vals, idx, lse, *_ = _outputs(N, k, dev)
-        shares, _ = sweep_plan(
-            N, V, cluster_table("head_topk", dev, H > SWEEP_RESIDENT_H))
-        err = lib.ck_head_topk(
-            h.data_ptr(), w.data_ptr(), b.data_ptr(), vals.data_ptr(),
-            idx.data_ptr(), lse.data_ptr(), N, H, V, k,
-            _EXTRACT_CODE[extract], shares, fault, dev.index or 0, stream)
+    vals, idx, lse = _outputs(N, k, dev)
+    shares, _ = head_plan("head_topk", h, V)
+    entry = lib.ck_head_topk_f32 if dt == torch.float32 else lib.ck_head_topk
+    err = entry(h.data_ptr(), w.data_ptr(), b.data_ptr(), vals.data_ptr(),
+                idx.data_ptr(), lse.data_ptr(), N, H, V, k,
+                _EXTRACT_CODE[extract], shares, fault, dev.index or 0,
+                torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "head_topk")
     wrapper.launches += 1
     return vals, idx, lse
@@ -362,19 +369,20 @@ def fused_head_topk_thresh(h: torch.Tensor, w: torch.Tensor,
 
 
 def sweep_plan(N: int, V: int, clusters) -> tuple[int, int]:
-    """The launch plan of the bf16 and int8 kernels (the sweep, the tiled
-    heads): (shares, tiles per share). Each block of ``SWEEP_ROWS`` rows is
+    """The launch plan of the kernels of csrc/head_sm90.cuh (the sweep, the
+    tiled heads, the int8 head, the fp32 whole step's head): (shares,
+    tiles per share). Each block of ``SWEEP_ROWS`` rows is
     one cluster of ``shares`` CTAs; CTA c sweeps vocab tiles [c P, (c + 1)
     P) of ``TILE_V`` columns (the last share may be short or empty),
     starting at tile c P + (row block mod its tiles). ``clusters[s]`` is how
-    many clusters of s CTAs the card holds at once (``cluster_table``); the
-    plan takes the shares, at most ``SWEEP_MAX_SHARES`` and the number of
-    tiles, that minimise waves x tiles per share, the fewer waves on a
-    tie."""
+    many clusters of s CTAs the card holds at once (``cluster_table``, s = 1
+    .. len(clusters) - 1); the plan takes the shares, at most the table's
+    largest s and the number of tiles, that minimise waves x tiles per
+    share, the fewer waves on a tie."""
     row_blocks = -(-N // SWEEP_ROWS)
     n_tiles = -(-V // TILE_V)
     best = None
-    for shares in range(1, min(SWEEP_MAX_SHARES, n_tiles) + 1):
+    for shares in range(1, min(len(clusters) - 1, n_tiles) + 1):
         if clusters[shares] < 1:
             continue
         per = -(-n_tiles // shares)
@@ -387,38 +395,51 @@ def sweep_plan(N: int, V: int, clusters) -> tuple[int, int]:
     return best[1], best[2]
 
 
-_clusters: dict[tuple[str, int, bool], tuple[int, ...]] = {}
+_clusters: dict[tuple[str, int, bool, bool], tuple[int, ...]] = {}
 
 
-def cluster_table(name: str, device: torch.device, wide: bool = False
-                  ) -> tuple[int, ...]:
+def query_clusters(query, device: int, wide: bool, error_string, what: str,
+                   max_shares: int = SWEEP_MAX_SHARES) -> tuple[int, ...]:
+    """(0, n_1, .., n_max_shares): ``query(s, wide, device)``, a library's
+    clusters query, for each cluster size s; raises with
+    ``error_string(code)`` where a query fails."""
+    counts = [query(s, int(wide), device)
+              for s in range(1, max_shares + 1)]
+    for s, n in enumerate(counts, 1):
+        if n < 0:
+            raise RuntimeError(f"{what} cluster query ({s} CTAs) failed: "
+                               f"{error_string(-n).decode()} ({-n})")
+    return (0, *counts)
+
+
+def cluster_table(name: str, device: torch.device, wide: bool = False, *,
+                  fp32: bool = False) -> tuple[int, ...]:
     """How many clusters of s CTAs (index s = 1 .. SWEEP_MAX_SHARES) of the
     kernel of library ``name`` ("head_topk", "head_sweep", "head_int8") the
     card holds at once, from the occupancy API, for h resident or
-    (``wide``, H > SWEEP_RESIDENT_H) streamed; once per kernel, device and
-    layout."""
-    key = (name, device.index or 0, wide)
+    (``wide``, H > SWEEP_RESIDENT_H) streamed, or of its fp32 kernel
+    (``fp32``; h always streamed; s up to F32_MAX_SHARES); once per kernel,
+    device and layout."""
+    key = (name, device.index or 0, wide, fp32)
     table = _clusters.get(key)
     if table is None:
         lib = _library(name)
-        query = getattr(lib, _ENTRIES[name][1])
-        counts = [query(s, int(wide), key[1])
-                  for s in range(1, SWEEP_MAX_SHARES + 1)]
-        for s, n in enumerate(counts, 1):
-            if n < 0:
-                _raise_on(lib, -n, f"{name} cluster query ({s} CTAs)")
-        table = _clusters[key] = (0, *counts)
+        query = getattr(lib, _ENTRIES[name][2 if fp32 else 1])
+        table = _clusters[key] = query_clusters(
+            query, key[1], wide, lib.ck_error_string, name,
+            F32_MAX_SHARES if fp32 else SWEEP_MAX_SHARES)
     return table
 
 
 def head_sweep_topk(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                     k: int):
     """The single-sweep head (the reference's ``_sweep_head_topk``): one
-    launch, no partials in device memory. bf16: a cluster of CTAs sweeps
-    the vocab for each block of 64 rows (``sweep_plan``) and merges on
-    chip; h stays resident up to H = 1024 and streams beside W above. fp32
-    (``compute_dtype="float32"``): the one-pass fp32 sweep. CUDA: counted
-    in ``head_sweep_topk.launches``; CPU: ``reference_head_topk``."""
+    launch, no partials in device memory: a cluster of CTAs sweeps the
+    vocab for each block of 64 rows (``sweep_plan``) and merges on chip.
+    bf16: h stays resident up to H = 1024 and streams beside W above; fp32
+    (``compute_dtype="float32"``): fp32 FMA on the CUDA cores, h streamed.
+    CUDA: counted in ``head_sweep_topk.launches``; CPU:
+    ``reference_head_topk``."""
     if h.device.type == "cpu":
         return reference_head_topk(h, w, b, k)
     dt = _float_dtype(h)
@@ -428,20 +449,13 @@ def head_sweep_topk(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     lib = _library("head_sweep")
     V = w.shape[1]
     dev = h.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    vals, idx, lse, *_ = _outputs(N, k, dev)
-    if dt == torch.float32:
-        err = lib.ck_head_sweep_f32(
-            h.data_ptr(), w.data_ptr(), b.data_ptr(), vals.data_ptr(),
-            idx.data_ptr(), lse.data_ptr(), N, H, V, k, dev.index or 0,
-            stream)
-    else:
-        shares, _ = sweep_plan(
-            N, V, cluster_table("head_sweep", dev, H > SWEEP_RESIDENT_H))
-        err = lib.ck_head_sweep(
-            h.data_ptr(), w.data_ptr(), b.data_ptr(), vals.data_ptr(),
-            idx.data_ptr(), lse.data_ptr(), N, H, V, k, shares,
-            dev.index or 0, stream)
+    vals, idx, lse = _outputs(N, k, dev)
+    shares, _ = head_plan("head_sweep", h, V)
+    entry = (lib.ck_head_sweep_f32 if dt == torch.float32
+             else lib.ck_head_sweep)
+    err = entry(h.data_ptr(), w.data_ptr(), b.data_ptr(), vals.data_ptr(),
+                idx.data_ptr(), lse.data_ptr(), N, H, V, k, shares,
+                dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "head_sweep")
     head_sweep_topk.launches += 1
     return vals, idx, lse
@@ -467,7 +481,7 @@ def _launch_int8(h, w_q, w_scale, b, k, extract, w_qt, fault=0):
     dev = h.device
     shares, _ = sweep_plan(
         N, V, cluster_table("head_int8", dev, Hp > SWEEP_RESIDENT_H))
-    vals, idx, lse, *_ = _outputs(N, k, dev)
+    vals, idx, lse = _outputs(N, k, dev)
     qh = torch.empty((shares * _round_up(N, SWEEP_ROWS), Hp),
                      dtype=torch.int8, device=dev)
     err = lib.ck_head_topk_int8(

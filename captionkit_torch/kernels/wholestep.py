@@ -15,8 +15,9 @@ On a CUDA tensor the wrapper launches the kernel or raises (counted in
 cooperative launch on ``csrc/sm90_cell.cuh`` (the visual gate, the
 Copy-LSTM, the head tiles and the merge, phases apart by grid syncs); with
 an fp32 pack (``compute_dtype="float32"``), the fp32 route: the fp32 gate
-and Copy-LSTM tiles and the one-pass fp32 sweep of the head, three
-launches. Any k up to ``head.KMAX``. On a CPU tensor it runs
+and Copy-LSTM tiles (``csrc/cell_common.cuh``), then the fp32 single-sweep
+head of ``csrc/head_sm90.cuh`` over h_lang' (one launch, clusters that
+split the vocab by ``head.sweep_plan``), three launches. Any k up to ``head.KMAX``. On a CPU tensor it runs
 ``reference_lang_head_topk``: ``reference_lang_cell``, then
 ``reference_head_topk`` of h_lang' in the compute dtype.
 """
@@ -29,9 +30,12 @@ from typing import Optional
 import torch
 
 from captionkit_torch.kernels.head import (
+    F32_MAX_SHARES,
     TILE_V,
     kmax_for,
+    query_clusters,
     reference_head_topk,
+    sweep_plan,
 )
 from captionkit_torch.kernels.megastep import (
     CellPack,
@@ -75,10 +79,12 @@ def _library() -> ctypes.CDLL:
         lib = build.load("wholestep")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ck_lang_head_topk.argtypes = [p] * 30 + [i] * 6 + [p]
-        lib.ck_lang_head_topk_f32.argtypes = [p] * 24 + [i] * 6 + [p]
+        lib.ck_lang_head_topk_f32.argtypes = [p] * 24 + [i] * 7 + [p]
+        lib.ck_wholestep_head_f32_max_clusters.argtypes = [i] * 3
         for name in ("ck_lang_head_topk", "ck_lang_head_topk_f32",
                      "ck_wholestep_grid", "ck_wholestep_regs",
-                     "ck_wholestep_smem", "ck_wholestep_threads"):
+                     "ck_wholestep_smem", "ck_wholestep_threads",
+                     "ck_wholestep_head_f32_max_clusters"):
             getattr(lib, name).restype = i
         lib.ck_wholestep_grid.argtypes = [i]
         lib.ck_wholestep_regs.argtypes = []
@@ -99,6 +105,24 @@ def launch_info(device: int = 0) -> dict:
             "regs_per_thread": lib.ck_wholestep_regs(),
             "smem_bytes": lib.ck_wholestep_smem(),
             "threads": lib.ck_wholestep_threads()}
+
+
+_f32_clusters: dict[int, tuple[int, ...]] = {}
+
+
+def f32_head_plan(N: int, V: int, device: torch.device) -> tuple[int, int]:
+    """``head.sweep_plan`` of the fp32 route's head kernel (the clusters
+    the card holds of it, queried once per device): (shares, tiles per
+    share)."""
+    dev = device.index or 0
+    table = _f32_clusters.get(dev)
+    if table is None:
+        lib = _library()
+        table = _f32_clusters[dev] = query_clusters(
+            lib.ck_wholestep_head_f32_max_clusters, dev, True,
+            lib.ck_wholestep_error_string, "wholestep fp32 head",
+            F32_MAX_SHARES)
+    return sweep_plan(N, V, table)
 
 
 def _lang_head_kernel(pack: CellPack, vhat_raw, h_att, h_lang, c_lang,
@@ -148,8 +172,13 @@ def _lang_head_kernel(pack: CellPack, vhat_raw, h_att, h_lang, c_lang,
         pack.lang_wv, pack.lang_wha, pack.lang_wh, pack.lang_b, pack.wr_v,
         pack.wr_ha, pack.wr_hl, pack.wr_c, pack.br, head_w, head_b, h_out,
         c_out, vals, idx, lse, *scratch)]
-    fn = lib.ck_lang_head_topk_f32 if is_f32 else lib.ck_lang_head_topk
-    err = fn(*ptrs, N, Hp, Fp, V, k, dev.index or 0, _stream(dev))
+    if is_f32:
+        shares, _ = f32_head_plan(N, V, dev)
+        err = lib.ck_lang_head_topk_f32(*ptrs, N, Hp, Fp, V, k, shares,
+                                        dev.index or 0, _stream(dev))
+    else:
+        err = lib.ck_lang_head_topk(*ptrs, N, Hp, Fp, V, k, dev.index or 0,
+                                    _stream(dev))
     if err:
         raise RuntimeError(
             "ck_lang_head_topk launch failed: "
@@ -166,7 +195,7 @@ def fused_lang_head_topk(pack: CellPack, vhat_raw, h_att2, c_star, h_lang,
     Returns (h_lang', c_lang' [N, H], vals [N, k] fp32, idx [N, k] int32,
     lse [N] fp32). CUDA tensors: ``csrc/wholestep.cu::ck_lang_head_topk``
     (one cooperative launch; fp32 pack: ``ck_lang_head_topk_f32``, three
-    launches), counted in ``fused_lang_head_topk.launches``; CPU tensors:
+    launches, the last the fp32 sweep of ``csrc/head_sm90.cuh``), counted in ``fused_lang_head_topk.launches``; CPU tensors:
     ``reference_lang_head_topk``."""
     if vhat_raw.device.type == "cpu":
         return reference_lang_head_topk(pack, vhat_raw, h_att2, c_star,

@@ -112,7 +112,10 @@ prints no result line:
               then the fp32 paths at batch 512 (editnet_beam5 with pallas
               and wholestep cells, dcnet_beam5 pallas, the thresh
               extraction, the single sweep, the int8 head, the greedy
-              dispatch decodes), launches per batch of each kernel.
+              dispatch decodes), launches per batch of each kernel. The
+              fp32 heads run one CUDA launch a call (head_sm90.cuh's F32
+              operands) and report their plan (shares, tiles per share),
+              the whole step three; every instance reports device ms.
 14. beam10  — editnet_beam5 with decode.beam_size=10 (k = 10 > 8): the
               head kernel's decode and its steps check on the decode's own
               states, and the whole-step decode at k = 10 beside pallas,
@@ -394,12 +397,18 @@ def phase_build():
                   if any(key in k for key in ("query_kernel", "context_kernel",
                                               "dcnet_scores_kernel"))}
               for n, r in reports.items()}
+    # The fp32 split-operand GEMM of cell_common.cuh (every fp32 cell
+    # instance), one per epilogue.
+    gemms = {n: {k.split("(")[0].replace("void cell::", ""): v
+                 for k, v in r.items() if "cell::gemm_kernel" in k}
+             for n, r in reports.items()}
     tanh = tanh_sfu_ops()
     emit({"phase": "build", "ok": True, "sources": list(build.SOURCES),
           "seconds": time.perf_counter() - t0, "per_source": seconds,
           "sm90_cell_kernels": {n: c for n, c in cells.items() if c},
           "sm90_head_kernels": {n: c for n, c in heads.items() if c},
           "score_kernels": {n: c for n, c in scores.items() if c},
+          "f32_gemm_kernels": {n: c for n, c in gemms.items() if c},
           "tanhf_sass": tanh, "peak_sfu_ops_per_s": PEAK_SFU_OPS})
 
 
@@ -2812,7 +2821,10 @@ def phase_fp32(ed, dc, wrappers, card) -> dict:
     fp32 paths at batch 512: editnet_beam5 with cell_impl="pallas" and
     "wholestep" (beside the fp32 xla and pallas decodes), dcnet_beam5
     pallas, the thresh extraction, the single sweep, the int8 head, and
-    the greedy dispatch decodes (B5, B6); launches per batch of each."""
+    the greedy dispatch decodes (B5, B6); launches per batch of each. The
+    heads must run one CUDA launch a call, the whole step three; the heads
+    report their plan (shares, tiles per share), every instance its
+    device ms and device bound share."""
     import dataclasses
 
     import torch
@@ -2833,15 +2845,25 @@ def phase_fp32(ed, dc, wrappers, card) -> dict:
           "TF32 matmuls are on: the plain fp32 versions would not be fp32")
     kernels = {}
 
-    def case(name, run, plain, library, bound, keys, faults):
+    def case(name, run, plain, library, bound, keys, faults, launches=None,
+             plan=None):
         res = _hold(f"{name} fp32", run, plain, f32_agreement, faults)
         ms_ = time_ms(run, iters=5)
+        device_ms = _device_ms(run, keys)
         kernels[name] = {
             **res, "ms": ms_, "plain_ms": time_ms(plain, iters=3),
             "library_ms": time_ms(library, iters=5) if library else None,
             **bound, "bound_share": bound["bound_ms"] / ms_,
-            "device_ms": _device_ms(run, keys),
+            "device_ms": device_ms,
+            "device_bound_share": bound["bound_ms"] / device_ms,
             "cuda_launches_per_call": _cuda_kernels(run, keys)}
+        if plan is not None:  # the head kernel's (shares, tiles per share)
+            kernels[name]["plan"] = {"shares": plan[0],
+                                     "tiles_per_share": plan[1]}
+        if launches is not None:
+            check(kernels[name]["cuda_launches_per_call"] == launches,
+                  f"fp32 {name}: {kernels[name]['cuda_launches_per_call']} "
+                  f"CUDA launches a call, not {launches}")
 
     # The heads at paper shape.
     N, H, V, k = N_IMAGES * BEAM, 1024, 9490, BEAM
@@ -2856,15 +2878,18 @@ def phase_fp32(ed, dc, wrappers, card) -> dict:
         logits = torch.matmul(h, w) + b
         return torch.topk(logits, k).values, torch.logsumexp(logits, 1)
 
-    heads = {"fused_head_topk": thead.fused_head_topk,
-             "fused_head_topk_thresh": thead.fused_head_topk_thresh,
-             "head_sweep_topk": thead.head_sweep_topk}
-    for name, fn in heads.items():
+    heads = {"fused_head_topk": (thead.fused_head_topk, "head_topk"),
+             "fused_head_topk_thresh": (thead.fused_head_topk_thresh,
+                                        "head_topk"),
+             "head_sweep_topk": (thead.head_sweep_topk, "head_sweep")}
+    for name, (fn, lib) in heads.items():
+        # One launch of csrc/head_sm90.cuh's fp32 instance a call.
         case(name, lambda fn=fn: fn(h, w_p, b_p, k=k),
              lambda: thead.reference_head_topk(h, w_p, b_p, k), library_head,
              _head_bound(N, H, V, k, int8=False, fp32=True), ("head_",),
              [("operand_rounded_to_bf16",
-               lambda fn=fn: fn(h16, w_p, b_p, k=k))])
+               lambda fn=fn: fn(h16, w_p, b_p, k=k))], launches=1,
+             plan=thead.head_plan(lib, h, w_p.shape[1]))
 
     # The cells at paper shape, on fp32 packs from the timed batch.
     cfg, _, params, vocab = ed
@@ -2936,13 +2961,15 @@ def phase_fp32(ed, dc, wrappers, card) -> dict:
     H1 = mc.hidden_dim
     ws_args = (pack, vhat_raw, h2, c_star, h_lang[:, :H1].contiguous(),
                c_lang[:, :H1].contiguous(), w_h, b_h)
+    # The gate and Copy-LSTM GEMMs, then the head_sm90.cuh fp32 sweep.
     case("fused_lang_head_topk",
          lambda: ws.fused_lang_head_topk(*ws_args, k=k),
          lambda: ws.reference_lang_head_topk(*ws_args, k=k), None,
          _wholestep_bound(N, H1, mc.feat_dim, mc.vocab_size, k, fp32=True),
          ("gemm_kernel", "head_"),
          [("operand_rounded_to_bf16", lambda: ws.fused_lang_head_topk(
-             pack, r16(vhat_raw), *ws_args[2:], k=k))])
+             pack, r16(vhat_raw), *ws_args[2:], k=k))], launches=3,
+         plan=ws.f32_head_plan(N, w_h.shape[1], h.device))
 
     # B5 and B6 at the greedy step's shapes (512 rows), the models' weights.
     G = N_IMAGES
@@ -6133,10 +6160,12 @@ def main() -> int:
             "check": "ok",
             "max_abs_err": res["max_abs_err"],
             "ms": res["ms"],
+            "device_ms": res["device_ms"],
             "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"],
             "library_ms": res["library_ms"],
+            **({"plan": res["plan"]} if "plan" in res else {}),
         })
     # The parity gate's beam (fp32) runs the fp32 head instance.
     gate_entry = next(e for e in kernels

@@ -2,14 +2,15 @@
 """Compare two checkouts of the PyTorch port on one card, in turns.
 
     python3 examples/torch_chip_turns.py PARENT_DIR [CHANGE_DIR] --out DIR
-        [--phases decode,greedy,introspect]
+        [--phases fp32,head_variants,megastep,cell_kernels,wide_head,...]
 
 Runs ``python3 chip_smoke.py`` in PARENT_DIR and CHANGE_DIR (default: this
 checkout) in the order parent, change, change, parent, each as its own
 process, and writes each run's output to DIR/<label>_<n>.log. With
 ``--phases``, each run is instead the device and build phases, the paper
 setups, and only the named phases of that checkout's ``chip_smoke.py``
-(any of decode, greedy, introspect). Then prints
+(any of decode, greedy, introspect, fp32, head_variants, megastep,
+cell_kernels, wide_head). Then prints
 one JSON object: for every kernel of the runs' ``kernels`` lines its ms per
 run, for every measured field of the kernels' rows (each launch's device
 time and a call's device span where a row gives them; the ``cell_kernels``
@@ -50,10 +51,17 @@ ed = cs._paper_setup("editnet_beam5")
 dc = cs._paper_setup("dcnet_beam5", {"model.cell_impl": "pallas"})
 run = {"decode": lambda: cs.phase_decode(*ed, WRAPPERS, card),
        "greedy": lambda: cs.phase_greedy(ed, dc, WRAPPERS, card),
-       "introspect": lambda: cs.phase_introspect(ed, WRAPPERS, card)}
+       "introspect": lambda: cs.phase_introspect(ed, WRAPPERS, card),
+       "fp32": lambda: cs.phase_fp32(ed, dc, WRAPPERS, card),
+       "head_variants": cs.phase_head_variants,
+       "megastep": lambda: cs.phase_megastep(ed, dc),
+       "cell_kernels": lambda: cs.phase_cell_kernels(ed, dc),
+       "wide_head": lambda: cs.phase_wide_head(card)}
 for name in sys.argv[1].split(","):
     run[name]()
 """
+PHASE_NAMES = ("decode", "greedy", "introspect", "fp32", "head_variants",
+               "megastep", "cell_kernels", "wide_head")
 
 
 def run(checkout: Path, log: Path, phases: str = "") -> list[dict]:
@@ -123,6 +131,9 @@ def main() -> int:
     ap.add_argument("--phases", default="",
                     help="run only these phases (comma-separated)")
     args = ap.parse_args()
+    unknown = set(filter(None, args.phases.split(","))) - set(PHASE_NAMES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}; known: {PHASE_NAMES}")
     args.out.mkdir(parents=True, exist_ok=True)
     order = [("parent", args.parent), ("change", args.change),
              ("change", args.change), ("parent", args.parent)]

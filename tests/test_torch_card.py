@@ -770,9 +770,19 @@ def test_attention_kernel_reduction_faults_fail(card, B, N, A, V, Q, masked,
 def _profiled_runs(card, group):
     """The calls whose CUDA launches a test counts: the tiled heads
     (``"heads"``: bf16 mask and thresh, int8 given its K-major weights, at
-    paper shape) or the bf16 score kernels (``"scores"``: the dispatch
+    paper shape), the fp32 route (``"fp32"``: mask, thresh and sweep at
+    paper shape, the whole step at 512 images) or the bf16 score kernels (``"scores"``: the dispatch
     attention at the masked 512 x 22 x 1024 class, dcnet_score at 320
     rows)."""
+    if group == "fp32":
+        h, w, b = _paper_head(card)
+        w_p, b_p = thead.prepad_head(w, b, compute_dtype=torch.float32)
+        _, args = _wholestep_args(card, F32_CELLS, 512, torch.float32)
+        return {"mask": lambda: thead.fused_head_topk(h, w_p, b_p, k=5),
+                "thresh": lambda: thead.fused_head_topk_thresh(
+                    h, w_p, b_p, k=5),
+                "sweep": lambda: thead.head_sweep_topk(h, w_p, b_p, k=5),
+                "wholestep": lambda: twhole.fused_lang_head_topk(*args, k=5)}
     if group == "heads":
         h, w, b = _paper_head(card)
         w_p, b_p = thead.prepad_head(w, b, compute_dtype=torch.bfloat16)
@@ -1401,6 +1411,157 @@ def test_fp32_wholestep_kernel_matches_plain(card, over, B, k):
     for i in (0, 1, 2, 4):
         torch.testing.assert_close(got[i], want[i], atol=1e-5, rtol=0)
     assert float((got[3] == want[3]).float().mean()) >= 0.999
+
+
+# -- the fp32 route on csrc/head_sm90.cuh and cell_common.cuh's ring -----------
+
+
+def _f32_tie_case(card, lib, N, H, V=9600, P=16):
+    """fp32 h [N, H] one-hot in its last P columns (row i selects pattern
+    row i mod P) and W [H, V] whose last P rows are integer patterns with
+    ties on both sides of every cluster share boundary of the fp32 plan
+    (``head_plan``, up to 8 shares), in every tile and across whole rows;
+    W's other rows are random integers met by h's zeros. Exact in fp32.
+    Returns (h, w, b, shares)."""
+    h = torch.zeros((N, H), device=card)
+    h[torch.arange(N), H - P + torch.arange(N) % P] = 1.0
+    shares, per = thead.head_plan(lib, h, V)
+    cuts = [c * per * thead.TILE_V for c in range(1, shares)]
+    rng = np.random.default_rng(N + H)
+    pat = rng.integers(-2, 2, (P, V)).astype(np.float32)
+    pat[0] = 1.0  # the whole row ties
+    for cut in cuts:
+        pat[1, [cut - 1, cut]] = 5.0
+        pat[2, [cut - 2, cut + 1]] = 6.0
+        pat[3, [cut - 1, cut, 0, V - 1]] = 3.0
+        pat[5, cut - 4:cut + 4] = 4.0
+    for c in range(shares):
+        pat[4, min(c * per * thead.TILE_V + 5, V - 1)] = 7.0
+    for t in range(V // thead.TILE_V):
+        pat[6, t * thead.TILE_V + 3] = 9.0
+        pat[7, t * thead.TILE_V + 126:t * thead.TILE_V + 130] = 2.0
+    w = rng.integers(-3, 3, (H, V)).astype(np.float32)
+    w[H - P:] = pat
+    return h, torch.from_numpy(w).to(card), torch.zeros((V,), device=card), \
+        shares
+
+
+@pytest.mark.parametrize("k", [1, 5, 16, 64])
+@pytest.mark.parametrize("H", [1024, 2048])
+@pytest.mark.parametrize("kernel", ["mask", "thresh", "sweep"])
+def test_fp32_heads_exact_on_share_ties(card, kernel, H, k):
+    """The fp32 heads (head_sm90.cuh's F32 operands, one launch) on exact
+    ties at every share boundary of the fp32 plan, N = 2561 (a partial
+    64-row block): values and ids equal to the plain version's, lse
+    within 1e-5; thresh bit-equal to mask."""
+    lib = "head_sweep" if kernel == "sweep" else "head_topk"
+    h, w, b, shares = _f32_tie_case(card, lib, 2561, H)
+    assert shares >= 2
+    wrapper = {"mask": thead.fused_head_topk,
+               "thresh": thead.fused_head_topk_thresh,
+               "sweep": thead.head_sweep_topk}[kernel]
+    before = wrapper.launches
+    got = _float_head(kernel, h, w, b, k)
+    assert wrapper.launches == before + 1
+    assert _exact(got, thead.reference_head_topk(h, w, b, k), kernel)
+    if kernel == "thresh":
+        assert all(torch.equal(x, y)
+                   for x, y in zip(got, _float_head("mask", h, w, b, k)))
+
+
+@pytest.mark.parametrize("N", [1, 33, 130])
+@pytest.mark.parametrize("kernel", ["mask", "sweep"])
+def test_fp32_heads_ragged_rows(card, kernel, N):
+    """Row counts that leave a partial 64-row block (and, at 1 and 33,
+    clusters of up to 8 shares): exact on the tie patterns at k = 5."""
+    lib = "head_sweep" if kernel == "sweep" else "head_topk"
+    h, w, b, _ = _f32_tie_case(card, lib, N, 1024)
+    got = _float_head(kernel, h, w, b, 5)
+    assert _exact(got, thead.reference_head_topk(h, w, b, 5), kernel)
+
+
+@pytest.mark.parametrize("kernel", ["mask", "thresh", "sweep"])
+def test_fp32_heads_wide_k64(card, kernel):
+    """k = 64 at H = 2048, N = 2560, paper vocab: within 1e-5 of the plain
+    version, idx agreement >= 0.999; h rounded to bf16 (a planted fault)
+    fails the 1e-5 bar."""
+    g = torch.Generator().manual_seed(2048)
+    h = torch.randn((2560, 2048), generator=g).to(card)
+    w = (torch.randn((2048, 9490), generator=g) * 2048 ** -0.5).to(card)
+    b = (torch.randn((9490,), generator=g) * 0.01).to(card)
+    w_p, b_p = thead.prepad_head(w, b, compute_dtype=torch.float32)
+    got = _float_head(kernel, h, w_p, b_p, 64)
+    want = thead.reference_head_topk(h, w_p, b_p, 64)
+    _head_bar(got, want, kernel, atol=1e-5)
+    bad = _float_head(kernel, h.bfloat16().float(), w_p, b_p, 64)
+    assert float((bad[2] - want[2]).abs().max()) > 1e-5
+
+
+def test_fp32_heads_planted_faults_fail(card):
+    """On the fp32 plan's share ties at N = 2560: the kernel on the
+    reversed vocab (ties to the higher id once mapped back), a share left
+    out (its columns' bias at HEAD_PAD) and the tiled heads' fault switch
+    (a tile skipped on a max equal to the running k-th value) each fail
+    the exact bar."""
+    h, w, b, _ = _f32_tie_case(card, "head_topk", 2560, 1024)
+    V = w.shape[1]
+    _, per = thead.head_plan("head_topk", h, V)
+    for k in (1, 5):
+        want = thead.reference_head_topk(h, w, b, k)
+        for kernel in ("mask", "sweep"):
+            assert _exact(_float_head(kernel, h, w, b, k), want, kernel)
+            v, i, l = _float_head(kernel, h, w.flip(1).contiguous(),
+                                  b.flip(0), k)
+            assert not _exact((v, (V - 1 - i).to(torch.int32), l), want,
+                              kernel)
+            dropped = b.clone()
+            dropped[per * thead.TILE_V:2 * per * thead.TILE_V] = \
+                thead.HEAD_PAD
+            assert not _exact(_float_head(kernel, h, w, dropped, k), want,
+                              kernel)
+        skipped = thead._launch_tiled(h, w, b, k, "mask",
+                                      thead.fused_head_topk, fault=1)
+        assert not _exact(skipped, want, "mask")
+
+
+@pytest.mark.parametrize("N", [65, 512])
+def test_fp32_copy_lstm_c_star_feeds_r_alone(card, N):
+    """The fp32 Copy-LSTM (cell_common.cuh's ring; c*'s K range runs the
+    copy gate alone) within 1e-5 of its plain version at a ragged and the
+    greedy row count; c*'s copy-gate rows dropped from the pack (a planted
+    fault) fail that bar."""
+    params, x, h, c, cs = _lstm_case(card, N, 2048, 1024, copy=True)
+    want = tlstm.reference_copy_lstm_cell(params, x, h, c, cs,
+                                          compute_dtype=torch.float32)
+    got = tlstm.fused_copy_lstm_cell(params, x, h, c, cs,
+                                     compute_dtype=torch.float32)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, atol=1e-5, rtol=0)
+    pack = tlstm.copy_lstm_cell_pack(params, torch.float32)
+    H = pack.hp
+    no_copy = dataclasses.replace(pack, wr=torch.cat(
+        [pack.wr[:-H], torch.zeros_like(pack.wr[-H:])]))
+    params.cache[("kernel_pack", torch.float32)] = no_copy
+    bad = tlstm.fused_copy_lstm_cell(params, x, h, c, cs,
+                                     compute_dtype=torch.float32)
+    params.cache.clear()
+    assert max(float((g_ - w_).abs().max()) for g_, w_ in zip(bad, want)) \
+        > 1e-5
+
+
+def test_fp32_route_launches(card):
+    """The fp32 heads (mask, thresh, sweep) run one CUDA launch a call, the
+    head_sm90.cuh kernel, with no tile or merge pass; the fp32 whole step
+    runs cell_common.cuh's gate and Copy-LSTM GEMMs and one head_sm90.cuh
+    launch. Each is profiled in a process of its own."""
+    for name in ("mask", "thresh", "sweep"):
+        kernels = _kernels_a_call("fp32", name)
+        assert sum(kernels.values()) == 3, (name, kernels)
+        assert all("head_kernel" in key and "F32" in key for key in kernels)
+    kernels = _kernels_a_call("fp32", "wholestep")
+    heads = sum(n for key, n in kernels.items() if "head_kernel" in key)
+    gemms = sum(n for key, n in kernels.items() if "gemm_kernel" in key)
+    assert (heads, gemms, sum(kernels.values())) == (3, 6, 9), kernels
 
 
 @pytest.mark.parametrize("F", [48, 2080])
