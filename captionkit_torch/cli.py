@@ -151,6 +151,10 @@ def _apply_overrides(cfg: CaptionKitConfig,
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("captionkit_torch")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise FloatingPointError on a NaN in the float "
+                        "outputs of a train or SCST call, or in an "
+                        "ensemble's weights (utils/logging.py)")
     sub = p.add_subparsers(dest="cmd", required=True)
     sub.add_parser("configs", help="list named configs")
 
@@ -856,6 +860,10 @@ def cmd_parity_gate(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.debug_nans:
+        from captionkit_torch.utils.logging import enable_nan_debugging
+
+        enable_nan_debugging()
     return {"configs": cmd_configs, "serve": cmd_serve, "decode": cmd_decode,
             "decode-stacked": cmd_decode_stacked, "prepare": cmd_prepare,
             "train-xe": cmd_train_xe, "train-scst": cmd_train_scst,

@@ -47,6 +47,7 @@ import torch
 from captionkit_torch.kernels.head import _div
 from captionkit_torch.models.base import ModelDef, head_topk, prepared_head
 from captionkit_torch.params import load_params_npz, named_tensors
+from captionkit_torch.utils.logging import check_nans
 
 _MODES = ("logprob", "prob")
 
@@ -80,7 +81,9 @@ def _shapes(params) -> dict:
 def stack_params(params_list: Sequence[Any]) -> EnsembleParams:
     """The ensemble's parameters from M parameter objects of one
     configuration. Raises if they differ in structure (architecture or
-    optional parts) or in any weight's shape."""
+    optional parts) or in any weight's shape. Under ``--debug-nans`` a NaN
+    in any member's weights raises here, where the reference's eager
+    ``jnp.stack`` of the members raises (``utils.logging.check_nans``)."""
     if not params_list:
         raise ValueError("stack_params needs at least one member")
     first = params_list[0]
@@ -96,7 +99,9 @@ def stack_params(params_list: Sequence[Any]) -> EnsembleParams:
                     f"ensemble member {i} leaf shape {shape} != member 0 "
                     f"shape {ref[name]} (different model dims cannot be "
                     "ensembled)")
-    return EnsembleParams(members=tuple(params_list))
+    out = EnsembleParams(members=tuple(params_list))
+    check_nans("stack_params", out)
+    return out
 
 
 def _combine(logits_bm: torch.Tensor, mode: str) -> torch.Tensor:

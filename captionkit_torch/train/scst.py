@@ -38,6 +38,10 @@ same samples (numpy's ``SeedSequence`` pads its words with zeros: rank 0
 draws what one process draws). The rewarder raises
 when the native scorer cannot be built, where the reference steps down to
 the Python ``CiderD``.
+
+Under ``--debug-nans`` the rollout's and the update's floating-point
+outputs are checked once a call (``utils.logging.check_nans``), as the
+reference's jit checks them.
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ from captionkit_torch.params import named_tensors, params_from_tensors
 from captionkit_torch.train.state import TrainState, make_optimizer
 from captionkit_torch.parallel.mesh import all_reduce_, host_sum
 from captionkit_torch.train.xe import global_norm
+from captionkit_torch.utils.logging import check_nans
 
 
 def _host_copy(t: torch.Tensor) -> torch.Tensor:
@@ -120,6 +125,7 @@ def make_scst_rollout(model: ModelDef, *, start_id: int, end_id: int,
             out = {"sample_tokens": torch.stack([d.tokens for d in draws]),
                    "sample_mask": torch.stack([d.mask for d in draws])}
             keys = ("sample_tokens",)
+        check_nans("scst_rollout", out)
         out["host"] = {k: _host_copy(out[k]) for k in keys}
         out["ready"] = None
         if out["sample_tokens"].device.type == "cuda":
@@ -201,9 +207,10 @@ def make_scst_update(model: ModelDef, cfg: TrainConfig, *, start_id: int,
             "sample_len": den / rows,
             "grad_norm": global_norm(grads.values()),
         }
-        return TrainState(params=state.params, opt_state=state.opt_state,
-                          step=state.step + 1,
-                          rng_seed=state.rng_seed), metrics
+        state = TrainState(params=state.params, opt_state=state.opt_state,
+                           step=state.step + 1, rng_seed=state.rng_seed)
+        check_nans("scst_update", {"state": state, "metrics": metrics})
+        return state, metrics
 
     return step_fn
 

@@ -15,7 +15,10 @@ the trajectory of one rank on the same batches.
 
 A step returns its metrics as device tensors (loss, top-5 accuracy,
 tokens, the gradient's global norm): nothing here reads a value back to
-the host, so the caller decides when to synchronize.
+the host, so the caller decides when to synchronize. Under
+``--debug-nans`` each call (a step, a k-step pack, an eval loss) checks
+its outputs once (``utils.logging.check_nans``), as the reference's jit
+does: the new state, which was updated in place, and the metrics.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from captionkit_torch.nn.masking import masked_cross_entropy, top5_accuracy
 from captionkit_torch.parallel.mesh import all_reduce_
 from captionkit_torch.params import named_tensors
 from captionkit_torch.train.state import TrainState, make_optimizer
+from captionkit_torch.utils.logging import check_nans
 
 BATCH_KEYS = ("features", "existing", "existing_len", "target",
               "target_len", "valid")
@@ -135,8 +139,15 @@ def make_xe_train_step(model: ModelDef, cfg: TrainConfig, mesh=None, *,
     and the metrics are the global batch's. The state's parameter and
     optimizer tensors are updated in place (the reference donates them).
     ``learning_rate`` overrides ``cfg.learning_rate``."""
-    return _xe_step_body(model, make_optimizer(cfg, learning_rate),
+    body = _xe_step_body(model, make_optimizer(cfg, learning_rate),
                          label_smoothing, mesh)
+
+    def step_fn(state: TrainState, batch: dict):
+        state, metrics = body(state, batch)
+        check_nans("xe_train_step", {"state": state, "metrics": metrics})
+        return state, metrics
+
+    return step_fn
 
 
 def make_xe_train_multistep(model: ModelDef, cfg: TrainConfig, mesh=None,
@@ -157,8 +168,11 @@ def make_xe_train_multistep(model: ModelDef, cfg: TrainConfig, mesh=None,
             state, m = step_fn(state, {key: v[j] for key, v in
                                        batches.items()})
             out.append(m)
-        return state, {key: torch.stack([m[key] for m in out])
-                       for key in out[0]}
+        metrics = {key: torch.stack([m[key] for m in out])
+                   for key in out[0]}
+        check_nans("xe_train_multistep",
+                   {"state": state, "metrics": metrics})
+        return state, metrics
 
     return multi_fn
 
@@ -174,6 +188,7 @@ def make_eval_loss_step(model: ModelDef, mesh=None):
                              generator=None, train=False, denominator=count)
         if mesh is not None:
             _reduce_metrics(mesh, metrics)
+        check_nans("eval_loss_step", metrics)
         return metrics
 
     return step_fn

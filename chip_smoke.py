@@ -193,6 +193,16 @@ prints no result line:
               cli train-xe --num-shards 2 as two processes with
               validation, one checkpoint, one export that cli decode
               decodes.
+23. debug_nans — ``--debug-nans`` at paper width: with clean weights and
+              the flag on, the default beam, pallas, wholestep, int8, DCNet
+              and greedy-dispatch decodes (tokens bit-equal to the flag
+              off), one XE step (xe_train, batch 256) and one SCST step
+              run without a raise; one NaN in an att-LSTM weight makes the
+              XE step raise FloatingPointError; the XE step's ms and
+              greedy's captions/s with the flag off and on, in turns; each
+              kernel with one NaN in one row of its state input beside
+              its plain version: whether the NaN reaches each output as
+              it does in the plain version.
 
 Then a {"kernels": [...]} line listing all 12 wrappers, the tiled bf16
 heads' wide instances (mask and thresh at H' = 2048) and the 11 fp32
@@ -5860,6 +5870,420 @@ def phase_introspect(ed, wrappers, card) -> dict:
     return result
 
 
+# --------------------------------------------------------------------------
+# --debug-nans (utils/logging.py)
+# --------------------------------------------------------------------------
+
+NAN_ROW, NAN_COL = 3, 5
+
+
+def _xe_batch(V, start, end, pad, seed=21):
+    """A 256-row XE batch at xe_train's paper shapes on the card, from a
+    numpy seed: features [256, 36, 2048], existing captions of 0 to 22
+    words (0 and 1 among them), targets of 1 to 22 words."""
+    import numpy as np
+    import torch
+
+    r = np.random.default_rng(seed)
+    B, T = TRAIN_BATCH, MAX_LEN + 2
+    words = r.integers(1, MAX_LEN + 1, B)
+    target = np.full((B, T), pad, np.int64)
+    for i, n in enumerate(words):
+        target[i, 0], target[i, n + 1] = start, end
+        target[i, 1:n + 1] = r.integers(4, V, n)
+    existing_len = r.integers(0, MAX_LEN + 1, B)
+    existing_len[:2] = (0, 1)
+    batch = {
+        "features": r.standard_normal((B, 36, 2048)).astype(np.float32),
+        "existing": r.integers(4, V, (B, MAX_LEN)),
+        "existing_len": existing_len, "target": target,
+        "target_len": words + 2, "valid": np.ones(B, bool)}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+            for k, v in batch.items()}
+
+
+def _nan_outputs(got, want, names, row=NAN_ROW) -> dict:
+    """For each output of a kernel call with a NaN planted in one input
+    row, and of its plain version on the same inputs: whether the NaN
+    reached that output's row (float outputs) or the ids agree there (int
+    outputs), whether the kernel does what the plain version does, and
+    whether any other row holds a NaN."""
+    import torch
+
+    out = {}
+    check(len(got) == len(want) == len(names),
+          f"{len(got)} outputs, named {names}")
+    for name, g, w in zip(names, got, want):
+        if g.is_floating_point():
+            k, p = bool(torch.isnan(g[row]).any()), \
+                bool(torch.isnan(w[row]).any())
+            others = [bool(torch.isnan(torch.cat([t[:row], t[row + 1:]]))
+                           .any()) for t in (g, w)]
+            out[name] = {"kernel_nan": k, "plain_nan": p,
+                           "as_plain": k == p,
+                           "other_rows_nan": any(others)}
+        else:
+            same = bool(torch.equal(g[row], w[row]))
+            out[name] = {"ids_equal": same, "as_plain": same}
+    return out
+
+
+def _nan_record(ed, dc) -> dict:
+    """Every kernel at its paper shape with one NaN planted in one row of
+    its state input (h for the heads, the query for the attention), beside
+    its plain version on the same inputs: ``_nan_outputs`` of each output
+    (heads: vals, idx, lse; cells: their state and weight outputs in the
+    order they return them)."""
+    import dataclasses
+
+    import torch
+
+    from captionkit_torch.kernels import attention as ka
+    from captionkit_torch.kernels import head as kh
+    from captionkit_torch.kernels import lstm as kl
+    from captionkit_torch.kernels import megastep as ms
+    from captionkit_torch.kernels import wholestep as ws
+    from captionkit_torch.models import dcnet as dmod
+    from captionkit_torch.models import editnet as emod
+    from captionkit_torch.models import get_model
+
+    cfg, _, params, _ = ed
+    dcfg, dmodel, dparams, _ = dc
+    mc = dataclasses.replace(cfg.model, cell_impl="wholestep")
+    model = get_model(mc)
+    N, H = N_IMAGES * BEAM, mc.hidden_dim
+    g = torch.Generator().manual_seed(13)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).cuda()
+
+    def nan_row(t):
+        t = t.clone()
+        t[NAN_ROW, NAN_COL] = float("nan")
+        return t
+
+    with torch.inference_mode():
+        ctx_k = _encoded(model, params, mc)
+        dpack = _encoded(dmodel, dparams, dcfg.model).cell_pack
+        batch = [t.cuda() for t in _batch(mc)]
+        ctx = model.encode(params, *batch)
+    pack = ctx_k.cell_pack
+    Hp, Ep, dHp, dEp = pack.hp, pack.w_emb.shape[0], dpack.hp, \
+        dpack.w_emb.shape[0]
+    h_att, c_att, h_lang, c_lang = (randn(N, Hp, scale=0.5)
+                                    for _ in range(4))
+    emb = randn(N, Ep, scale=0.1)
+    with torch.inference_mode():
+        h2, _, vhat_raw, c_star = ms.att_phase(pack, h_att, c_att, h_lang,
+                                               emb)
+        omega = ms.reference_dcnet_score(dpack, h_att[:, :dHp])
+    dctx_row = ms._grouped(omega, dpack.enc_hs)
+    hb, w_p, b_p = _head_inputs(N, H, mc.vocab_size, 14)
+    h8, w_q, scale, b_q, w_qt = _int8_inputs(N, H, mc.vocab_size, 15)
+    pk, dpk = emod._packed(params, mc), dmod._packed(dparams, dcfg.model)
+    bf = {"compute_dtype": torch.bfloat16}
+    x, xl, h, c, cs = (randn(N_IMAGES, d) for d in (
+        mc.emb_dim + H, mc.feat_dim + H, H, H, H))
+    q = randn(N_IMAGES, H, scale=0.5)
+    att = (params.vis_attention, ctx.vis_keys, ctx.features)
+    ws_args = (pack, vhat_raw, h2, c_star, nan_row(h_lang), c_lang,
+               ctx_k.head_w, ctx_k.head_b)
+    cases = {
+        "fused_head_topk": (
+            lambda: kh.fused_head_topk(nan_row(hb), w_p, b_p, k=BEAM),
+            lambda: kh.reference_head_topk(nan_row(hb), w_p, b_p, BEAM)),
+        "fused_head_topk_thresh": (
+            lambda: kh.fused_head_topk_thresh(nan_row(hb), w_p, b_p,
+                                              k=BEAM),
+            lambda: kh.reference_head_topk(nan_row(hb), w_p, b_p, BEAM)),
+        "head_sweep_topk": (
+            lambda: kh.head_sweep_topk(nan_row(hb), w_p, b_p, k=BEAM),
+            lambda: kh.reference_head_topk(nan_row(hb), w_p, b_p, BEAM)),
+        "fused_head_topk_int8": (
+            lambda: kh.fused_head_topk_int8(nan_row(h8), w_q, scale, b_q,
+                                            k=BEAM, w_qt=w_qt),
+            lambda: kh.reference_head_topk_int8(nan_row(h8), w_q, scale,
+                                                b_q, BEAM)),
+        "att_cell": (
+            lambda: ms.att_cell(pack, emb, nan_row(h_att), c_att, h_lang),
+            lambda: ms.reference_att_cell(pack, emb, nan_row(h_att), c_att,
+                                          h_lang)),
+        "lang_cell": (
+            lambda: ms.lang_cell(pack, vhat_raw, h2, nan_row(h_lang),
+                                 c_lang, c_star),
+            lambda: ms.reference_lang_cell(pack, vhat_raw, h2,
+                                           nan_row(h_lang), c_lang, c_star)),
+        "dcnet_score": (
+            lambda: (ms.dcnet_score(dpack, nan_row(h_att[:, :dHp])),),
+            lambda: (ms.reference_dcnet_score(dpack,
+                                              nan_row(h_att[:, :dHp])),)),
+        "dcnet_cell": (
+            lambda: ms.dcnet_cell(dpack, emb[:, :dEp], dctx_row,
+                                  nan_row(h_att[:, :dHp]), c_att[:, :dHp]),
+            lambda: ms.reference_dcnet_cell(
+                dpack, emb[:, :dEp], dctx_row, nan_row(h_att[:, :dHp]),
+                c_att[:, :dHp])),
+        "fused_lstm_cell": (
+            lambda: kl.fused_lstm_cell(dparams.decoder, x, nan_row(h), c,
+                                       packed=dpk["dec_w"], **bf),
+            lambda: kl.reference_lstm_cell(dparams.decoder, x, nan_row(h),
+                                           c, packed=dpk["dec_w"], **bf)),
+        "fused_copy_lstm_cell": (
+            lambda: kl.fused_copy_lstm_cell(params.lang_lstm, xl,
+                                            nan_row(h), c, cs,
+                                            packed=pk["lang"], **bf),
+            lambda: kl.reference_copy_lstm_cell(
+                params.lang_lstm, xl, nan_row(h), c, cs, packed=pk["lang"],
+                **bf)),
+        "fused_additive_attention": (
+            lambda: ka.fused_additive_attention(
+                *att, nan_row(q), None, w_q=pk["vis_wq"], **bf),
+            lambda: ka.reference_additive_attention(
+                *att, nan_row(q), None, w_q=pk["vis_wq"], **bf)),
+        "fused_lang_head_topk": (
+            lambda: ws.fused_lang_head_topk(*ws_args, k=BEAM),
+            lambda: ws.reference_lang_head_topk(*ws_args, k=BEAM)),
+    }
+    head = ("vals", "idx", "lse")
+    names = {"att_cell": ("h", "c", "alpha", "beta"),
+             "dcnet_score": ("omega",),
+             "fused_additive_attention": ("ctx", "weights"),
+             "fused_lang_head_topk": ("h", "c", *head)}
+    record = {}
+    for name, (kernel, plain) in cases.items():
+        with torch.inference_mode():
+            got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        record[name] = _nan_outputs(got, want, names.get(
+            name, head if "head" in name else ("h", "c")))
+        check(not any(o.get("other_rows_nan") for o in
+                      record[name].values()),
+              f"{name}: a NaN in one row reached another: {record[name]}")
+    return record
+
+
+def _xe_turns(steps, batch, rounds=4, per_round=3) -> dict:
+    """ms of the XE step by CUDA events with the flag off and on, in
+    turns (off, on, on, off, ...), ``per_round`` steps a turn, each
+    variant on its own state."""
+    import torch
+
+    from captionkit_torch.utils.logging import debug_nans
+
+    ms = {"off": [], "on": []}
+    for rnd in range(rounds):
+        for name in (("off", "on") if rnd % 2 == 0 else ("on", "off")):
+            fn, state = steps[name]
+            with debug_nans(name == "on"):
+                for _ in range(per_round):
+                    s = torch.cuda.Event(enable_timing=True)
+                    e = torch.cuda.Event(enable_timing=True)
+                    s.record()
+                    state, _ = fn(state, batch)
+                    e.record()
+                    torch.cuda.synchronize()
+                    ms[name].append(s.elapsed_time(e))
+            steps[name] = (fn, state)
+    return {name: {"median_ms": statistics.median(v), "ms": v,
+                   "spread_pct": 100.0 * (max(v) - min(v))
+                   / statistics.median(v)} for name, v in ms.items()}
+
+
+def phase_debug_nans(ed, dc, wrappers, card) -> dict:
+    """``--debug-nans`` (``utils.logging.check_nans``) on the card at paper
+    width:
+
+    1. clean weights (seed 0), the flag on: the default beam decode, the
+       ``pallas``, ``wholestep``, int8 (head and feed) and DCNet decodes,
+       and editnet_greedy through the dispatch kernels, each a forced-full
+       decode of the 512-image batch, tokens bit-equal to the same decode
+       with the flag off and its kernels launched; one XE step (xe_train,
+       batch 256, weights seed 0) and one SCST step (scst_train: rollout,
+       native CIDEr-D reward against synthetic references, update) with
+       the flag on, neither raising, the rollout's tokens bit-equal to the
+       flag off;
+    2. one NaN in ``att_lstm/wx``: one XE step raises FloatingPointError
+       naming ``xe_train_step`` and a parameter, with the flag on; the same
+       step with the flag off does not raise;
+    3. the cost of the flag: the XE step's ms and editnet_greedy's
+       captions/s, flag off and on, in turns;
+    4. the NaN record: each kernel with one NaN in one row of its state
+       input beside its plain version (``_nan_record``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from captionkit_torch.config import get_named_config
+    from captionkit_torch.data.featquant import quantize_for_feed
+    from captionkit_torch.decode import make_decode_fn
+    from captionkit_torch.metrics.cider import NgramDocFreq
+    from captionkit_torch.models import editnet as emod
+    from captionkit_torch.models import get_model
+    from captionkit_torch.train.scst import (
+        ScstRewarder,
+        host_tokens,
+        make_scst_rollout,
+        make_scst_update,
+    )
+    from captionkit_torch.train.state import create_train_state, trainable
+    from captionkit_torch.train.xe import make_xe_train_step
+    from captionkit_torch.utils.logging import (
+        debug_nans,
+        nan_debugging_enabled,
+    )
+
+    check(not nan_debugging_enabled(), "--debug-nans is on before the phase")
+    t_phase = time.perf_counter()
+    cfg, _, params, vocab = ed
+    dcfg, dmodel, dparams, _ = dc
+    kw = dict(start_id=vocab.start, end_id=-1, pad_id=vocab.pad,
+              device="cuda")
+    feats, existing, existing_len = _batch(cfg.model)
+    batch = (feats, existing, existing_len)
+    gcfg = get_named_config("editnet_greedy").override(
+        {"decode.batch_size": N_IMAGES})
+    gmodel = get_model(gcfg.model)
+    dispatch = dataclasses.replace(
+        gmodel, step=lambda p, c, s, t, mc=gcfg.model: emod.step(
+            p, mc, c, s, t, use_pallas=True))
+    int8 = cfg.override({"model.head_quant": "int8",
+                         "decode.feed_dtype": "int8"})
+    paths = {
+        "beam": (cfg, None, params, batch, "fused_head_topk"),
+        "pallas": (cfg.override({"model.cell_impl": "pallas"}), None,
+                   params, batch, "att_cell"),
+        "wholestep": (cfg.override({"model.cell_impl": "wholestep"}), None,
+                      params, batch, "fused_lang_head_topk"),
+        "int8": (int8, None, params, (quantize_for_feed(
+            feats.numpy(), "int8"), existing, existing_len),
+                 "fused_head_topk_int8"),
+        "dcnet": (dcfg, None, dparams, batch, "dcnet_cell"),
+        "greedy_dispatch": (gcfg, dispatch, params, batch,
+                            "fused_copy_lstm_cell")}
+    clean = {}
+    for name, (c, m, p, b, kernel) in paths.items():
+        decode = make_decode_fn(m or get_model(c.model), c.decode, **kw)
+        off = decode(p, *b).cpu()
+        _reset(wrappers)
+        with debug_nans():
+            on = decode(p, *b).cpu()
+        launches = {w.__name__: w.launches for w in wrappers}
+        check(launches[kernel] > 0,
+              f"{name}: {kernel} not launched with the flag on")
+        check(torch.equal(on, off),
+              f"{name}: tokens with the flag on differ from the flag off")
+        clean[name] = {"tokens_equal": True, "launches": launches}
+    _reset(wrappers)
+
+    # One XE step and one SCST step, clean weights, the flag on.
+    xcfg = get_named_config("xe_train")
+    model = get_model(xcfg.model)
+    xbatch = _xe_batch(cfg.model.vocab_size, vocab.start, vocab.end,
+                       vocab.pad)
+
+    def fresh(conf):
+        return create_train_state(lambda seed: trainable(params), conf)
+
+    step = make_xe_train_step(model, xcfg.train)
+    _, m_off = step(fresh(xcfg.train), xbatch)
+    with debug_nans():
+        _, m_on = step(fresh(xcfg.train), xbatch)
+    check(bool(torch.isfinite(m_on["loss"])), f"XE loss {m_on['loss']}")
+    xe = {"loss_on": float(m_on["loss"]), "loss_off": float(m_off["loss"]),
+          "loss_bit_equal": bool(torch.equal(m_on["loss"], m_off["loss"]))}
+
+    scfg = get_named_config("scst_train")
+    r = np.random.default_rng(22)
+    refs = [[[vocab.id2word[int(t)] for t in r.integers(4, len(vocab), n)]
+             for n in r.integers(5, 12, 5)] for _ in range(TRAIN_BATCH)]
+    rewarder = ScstRewarder(vocab, NgramDocFreq.build(refs))
+    ids = rewarder.intern(refs)
+    rollout = make_scst_rollout(model, start_id=vocab.start,
+                                end_id=vocab.end, pad_id=vocab.pad,
+                                max_len=scfg.decode.max_decode_len)
+    update = make_scst_update(model, scfg.override(
+        {"train.learning_rate": scfg.train.scst_learning_rate}).train,
+        start_id=vocab.start)
+    sstate = fresh(scfg.train)
+    rolls = {}
+    for flag in (False, True):
+        with debug_nans(flag):
+            rolls[flag] = rollout(sstate.params, xbatch, torch.Generator(
+                device="cuda").manual_seed(0))
+    for key in ("sample_tokens", "greedy_tokens"):
+        check(torch.equal(rolls[True][key], rolls[False][key]),
+              f"SCST rollout {key} with the flag on differ from the flag "
+              "off")
+    roll = rolls[True]
+    adv = rewarder.advantage(host_tokens(roll, "sample_tokens"),
+                             host_tokens(roll, "greedy_tokens"), ids)
+    with debug_nans():
+        sstate, sm = update(sstate, xbatch, roll["sample_tokens"],
+                            roll["sample_mask"],
+                            torch.from_numpy(adv).cuda())
+    check(bool(torch.isfinite(sm["scst_loss"])), f"SCST loss {sm}")
+    scst = {"scst_loss": float(sm["scst_loss"]),
+            "rollout_tokens_equal": True,
+            "mean_advantage": float(sm["mean_advantage"])}
+    del sstate, rolls, roll
+
+    # 2. A planted weight.
+    planted = fresh(xcfg.train)
+    with torch.no_grad():
+        planted.params.att_lstm.wx[0, 3] = float("nan")
+    message = None
+    with debug_nans():
+        try:
+            step(planted, xbatch)
+        except FloatingPointError as e:
+            message = str(e)
+    check(message is not None and message.startswith(
+        "invalid value (nan) encountered in xe_train_step: state/params/"),
+        f"the planted NaN raised {message!r}")
+    planted = fresh(xcfg.train)
+    with torch.no_grad():
+        planted.params.att_lstm.wx[0, 3] = float("nan")
+    _, m_nan = step(planted, xbatch)  # the flag off: no raise
+    del planted
+    nan_off = bool(torch.isnan(m_nan["grad_norm"]))
+
+    # 3. The flag's cost.
+    steps = {name: (step, fresh(xcfg.train)) for name in ("off", "on")}
+    xe_turns = _xe_turns(steps, xbatch)
+    del steps
+    greedy = make_decode_fn(gmodel, gcfg.decode, **kw)
+    greedy(params, *batch).cpu()
+    runs = {"off": [], "on": []}
+    for rnd in range(3):
+        for name in (("off", "on") if rnd % 2 == 0 else ("on", "off")):
+            with debug_nans(name == "on"):
+                t0 = time.perf_counter()
+                greedy(params, *batch).cpu()
+                runs[name].append(N_IMAGES / (time.perf_counter() - t0))
+    greedy_turns = {name: {"captions_per_s": statistics.median(v),
+                           "runs": v, "spread_pct": 100.0 * (
+                               max(v) - min(v)) / statistics.median(v)}
+                    for name, v in runs.items()}
+    torch.cuda.empty_cache()
+
+    # 4. The NaN record.
+    record = _nan_record(ed, dc)
+    hidden = sorted(name for name, outs in record.items()
+                    if not all(o["as_plain"] for o in outs.values()))
+    check(not nan_debugging_enabled(), "--debug-nans left on by the phase")
+    result = {"phase": "debug_nans", "ok": True, "card": card,
+              "batch": N_IMAGES, "train_batch": TRAIN_BATCH,
+              "clean_decodes": clean, "xe_step": xe, "scst_step": scst,
+              "planted": {"message": message,
+                          "flag_off_grad_norm_nan": nan_off},
+              "xe_step_ms": xe_turns, "greedy_captions_per_s": greedy_turns,
+              "nan_record": record, "kernels_unlike_plain": hidden,
+              "seconds": time.perf_counter() - t_phase}
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not (ROOT / "captionkit_torch" / "csrc").is_dir():
         print("chip_smoke.py: no captionkit_torch package beside it",
@@ -5930,6 +6354,8 @@ def main() -> int:
         conv = phase_convert(WRAPPERS, card)
         phase = "introspect"
         phase_introspect(ed, WRAPPERS, card)
+        phase = "debug_nans"
+        phase_debug_nans(ed, dc, WRAPPERS, card)
     except Exception as e:  # every failed phase ends the run non-zero
         traceback.print_exc()
         emit({"phase": phase, "ok": False,

@@ -768,7 +768,8 @@ def test_attention_kernel_reduction_faults_fail(card, B, N, A, V, Q, masked,
 
 
 def _profiled_runs(card, group):
-    """The calls whose CUDA launches a test counts: the tiled heads
+    """The calls whose CUDA launches a test counts (``"debug_nans"``: see
+    ``_debug_nans_runs``): the tiled heads
     (``"heads"``: bf16 mask and thresh, int8 given its K-major weights, at
     paper shape), the fp32 route (``"fp32"``: mask, thresh and sweep at
     paper shape, the whole step at 512 images) or the bf16 score kernels (``"scores"``: the dispatch
@@ -794,6 +795,8 @@ def _profiled_runs(card, group):
                     hb, w_p, b_p, k=5),
                 "int8": lambda: thead.fused_head_topk_int8(
                     h, w_q, scale, b_q, k=5, w_qt=w_qt)}
+    if group == "debug_nans":
+        return _debug_nans_runs(card)
     params, keys, values, query, mask = _attention_case(
         card, 512, 22, 512, 1024, 1024)
     _, dpack, (h, _, _, _), _ = _cell_setup("dcnet", PAPER_CELLS, card, 64)
@@ -2283,3 +2286,131 @@ def test_nccl_world_of_one_reduces_bit_equal_and_steps_as_plain(card,
             assert float((runs["dp"][1][n] - t).abs().max()) <= tol, n
     finally:
         close_ranks(ranks)
+
+
+# -- --debug-nans (utils/logging.py) -----------------------------------------
+
+
+def test_guard_raises_on_a_nan_on_the_card_and_passes_minus_inf(card):
+    from captionkit_torch.utils.logging import check_nans, debug_nans
+
+    x = torch.zeros((4, 8), device=card)
+    x[1] = float("-inf")
+    ids = torch.arange(3, device=card)
+    with debug_nans():
+        check_nans("call", {"x": x, "h": x.bfloat16(), "ids": ids})
+        x[2, 3] = float("nan")
+        with pytest.raises(FloatingPointError, match=r"in call: h$"):
+            check_nans("call", {"ids": ids, "h": x.bfloat16(), "x": x})
+    check_nans("call", {"x": x})
+
+
+def _unguarded(run):
+    """``run`` with ``check_nans`` replaced by a no-op in every module that
+    calls it."""
+    from captionkit_torch.models import ensemble
+    from captionkit_torch.train import scst, xe
+
+    mods = (ensemble, scst, xe)
+    real = [m.check_nans for m in mods]
+    for m in mods:
+        m.check_nans = lambda call, outputs: None
+    try:
+        run()
+    finally:
+        for m, f in zip(mods, real):
+            m.check_nans = f
+
+
+def _debug_nans_runs(card):
+    """A small bf16 EditNet greedy decode of 16 images and an XE step
+    (``SMALL_TRAIN``, Adam) on the card: each as it is (the flag off), with
+    the guard calls removed, and (the XE step) with the flag on."""
+    from captionkit_torch.config import ModelConfig, TrainConfig
+    from captionkit_torch.train.state import create_train_state
+    from captionkit_torch.train.xe import make_xe_train_step
+    from captionkit_torch.utils.logging import debug_nans
+
+    cfg = CaptionKitConfig().override({
+        "model.vocab_size": 300, "model.emb_dim": 32, "model.hidden_dim": 64,
+        "model.att_dim": 16, "model.feat_dim": 48, "model.num_regions": 6,
+        "decode.method": "greedy", "decode.max_decode_len": 10})
+    model = get_model(cfg.model)
+    params = model.init(0, card)
+    rng = np.random.default_rng(0)
+    feats = torch.from_numpy(rng.standard_normal((16, 6, 48)).astype(
+        np.float32))
+    ex = torch.from_numpy(rng.integers(4, 300, (16, 8)))
+    ln = torch.from_numpy(rng.integers(0, 9, (16,)))
+    decode = make_decode_fn(model, cfg.decode, start_id=2, end_id=-1,
+                            device=card)
+    tmodel = get_model(ModelConfig(arch="editnet", **SMALL_TRAIN))
+    tcfg = TrainConfig(seed=3)
+    step = make_xe_train_step(tmodel, tcfg)
+    state = [create_train_state(lambda seed: tmodel.init(seed, card), tcfg)]
+    batch = _train_batch(card)
+
+    def greedy():
+        decode(params, feats, ex, ln)
+
+    def xe_step():
+        state[0], _ = step(state[0], batch)
+
+    def xe_step_on():
+        with debug_nans():
+            xe_step()
+
+    return {"greedy": greedy, "xe_step": xe_step, "xe_step_on": xe_step_on,
+            "greedy_unguarded": lambda: _unguarded(greedy),
+            "xe_step_unguarded": lambda: _unguarded(xe_step)}
+
+
+def test_flag_off_launches_what_the_unguarded_calls_launch(card):
+    """With the flag off, a greedy decode and an XE step launch the same
+    CUDA kernels, as many times, as the same calls with the guard calls
+    removed (each profiled in a process of its own); the flag on adds the
+    guard's reductions to the step."""
+    counts = {name: _kernels_a_call("debug_nans", name)
+              for name in ("greedy", "greedy_unguarded", "xe_step",
+                           "xe_step_unguarded", "xe_step_on")}
+    for name in ("greedy", "xe_step"):
+        assert sum(counts[name].values()) > 0, name
+        assert counts[name] == counts[f"{name}_unguarded"], name
+    assert sum(counts["xe_step_on"].values()) > \
+        sum(counts["xe_step"].values())
+
+
+@pytest.mark.parametrize("name", ["mask", "thresh", "sweep", "int8"])
+def test_heads_hide_a_nan_in_h_that_their_plain_version_passes(card, name):
+    """A known difference, pinned: one NaN in one row of h. The plain
+    versions (and the reference's heads) give that row NaN values and lse.
+    The kernels give it none: the bf16 heads admit no candidate from a
+    NaN row (their comparisons and ``fmaxf`` maxima drop a NaN), so its
+    values stay -inf; the int8 head's row scale drops the NaN, whose
+    element quantizes to 0, so its values are finite. Every other row is
+    the plain version's (``chip_smoke.py``'s debug_nans record)."""
+    h, w, b = _paper_head(card)
+    h[3, 5] = float("nan")
+    if name == "int8":
+        w_q, scale, b_q = thead.quantize_head(w, b)
+        got = thead.fused_head_topk_int8(h, w_q, scale, b_q, k=5,
+                                         w_qt=thead.kmajor_head(w_q))
+        want = thead.reference_head_topk_int8(h, w_q, scale, b_q, 5)
+    else:
+        w_p, b_p = thead.prepad_head(w, b, compute_dtype=torch.bfloat16)
+        run = {"mask": thead.fused_head_topk,
+               "thresh": thead.fused_head_topk_thresh,
+               "sweep": thead.head_sweep_topk}[name]
+        got = run(h.bfloat16(), w_p, b_p, k=5)
+        want = thead.reference_head_topk(h.bfloat16(), w_p, b_p, 5)
+    vals, idx, lse = got
+    assert torch.isnan(want[0][3]).all() and torch.isnan(want[2][3])
+    assert not torch.isnan(lse[3])
+    if name == "int8":
+        assert torch.isfinite(vals[3]).all()
+    else:
+        assert bool((vals[3] == float("-inf")).all())
+    rest = torch.ones(2560, dtype=torch.bool, device=card)
+    rest[3] = False
+    assert not torch.isnan(vals[rest]).any()
+    assert float((idx[rest] == want[1][rest]).float().mean()) >= 0.999
