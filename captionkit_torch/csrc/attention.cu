@@ -16,7 +16,7 @@
 // SCMA and DCNet text attentions (22 positions x 1024) need the keys and
 // values of the valid positions only, and are bound the same way.
 //
-// Design (bf16, two launches on one stream):
+// Design (bf16, two launches on one stream; fp32 below):
 // 1. query_kernel: the query product on sm90_cell.cuh's TMA ring and
 //    register-A wgmma (an fp32 query rounded to bf16 in registers), each
 //    128 x 128 tile split over K into up to 4 CTAs that write fp32
@@ -47,10 +47,25 @@
 // memory pipe: one launch would stream 75 MB through a few row tiles or
 // run the product in every row's CTA.
 //
-// fp32 (compute_dtype="float32"): the query product runs as
-// cell_common.cuh's fp32 tile (fp32 FMA, not TF32), then attention_kernel
-// (one 256-thread block a row: scores, softmax, context) reads fp32 keys
-// and values.
+// fp32 (compute_dtype="float32"; fp32 keys, values and products, the FMA
+// on the CUDA cores, not TF32), the same two launches:
+// 1. cell_common.cuh's fp32 tile, split over K into the ranges (whole
+//    stages of 32) that fill the card best (cell::plain_split: 4 at 512
+//    rows, 64 CTAs where one a tile would be 16 each running all 1024 K),
+//    each CTA storing its fp32 partial and letting context_kernel start at
+//    once;
+// 2. context_kernel<float>: the bf16 design on the same ring geometry
+//    (4 x 14 KB stages, 3 CTAs an SM: the bytes in flight an SM are what
+//    they are in bf16, and a stage holds half the positions: 7 keys of A =
+//    512, 3 value positions of a 1024-column group, 12 of its 14 KB). A
+//    lane keeps 4 + 4 + 4 + 4 key columns (4 lane + 128 t) and a thread 4
+//    + 4 value columns (4 col and 4 (col + 128)), so each 16-byte load of a
+//    warp reads 512 contiguous bytes of shared memory. The scores take the
+//    accurate tanhf, as the plain version does (tanh_ex2's 3e-7 would
+//    count against the fp32 bar of 1e-5).
+// What bounds it: the bytes, twice bf16's (151 MB of values, 37.7 MB of
+// keys and 8 MB of query, weights and context at the greedy step: 0.059
+// ms), not the product (0.54 GFLOP, 0.008 ms at 67 TFLOP/s).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -62,9 +77,6 @@
 namespace {
 
 constexpr float NEG_INF = -1e9f;  // captionkit nn/masking.py
-// Today's limit on the rows' widths and positions: the fp32 instance's
-// per-row shared memory, 4 (3 Ap + P) bytes.
-constexpr int AT_SMEM_LIMIT = 48 * 1024;
 
 // ---------------------------------------------------------------------------
 // bf16: query_kernel, the query product split over K
@@ -185,7 +197,7 @@ cudaError_t query_product(const void* q, int q_f32, const void* wq,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: context_kernel
+// context_kernel (bf16 and fp32 keys and values)
 // ---------------------------------------------------------------------------
 
 constexpr int CX_CONSUMERS = 128;              // 4 consumer warps
@@ -196,22 +208,32 @@ constexpr int CX_STAGE = 14 * 1024;            // bytes of one ring stage
 constexpr int CX_STAGES = 4;
 constexpr int CX_VCOLS = 8 * CX_CONSUMERS;     // columns of a value group
 constexpr int CX_BARRIER = 1;  // the consumers' named barrier
-constexpr int CX_AREG = 2;     // 256-column chunks of A kept in registers
+constexpr int CX_AKEEP = 512;  // key columns whose qa, b, v stay in registers
 
+// A lane's key columns for element type T: VEC (one 16-byte load) at
+// VEC lane + CHUNK t, t < AREG (bf16: 8 lane + 256 t, t < 2; fp32: 4 lane
+// + 128 t, t < 4, so each load of a warp reads 512 contiguous bytes).
+template <typename T>
+struct Lanes {
+  static constexpr int VEC = 16 / sizeof(T);
+  static constexpr int CHUNK = 32 * VEC;
+  static constexpr int AREG = CX_AKEEP / CHUNK;
+};
+
+template <typename T>
 struct CtxArgs {
-  const float* qa;                 // [split, B, A] fp32 partials
-                                   // (launch 1)
-  const float* b;                  // [A]
-  const float* v;                  // [A]
-  const __nv_bfloat16* keys;       // [B, P, A]
-  const __nv_bfloat16* values;     // [B, P, V]
-  const int* nvalid;               // [B] valid prefix length per row
-  float* ctx;                      // [B, V]
-  float* w;                        // [B, P]
+  const float* qa;   // [split, B, A] fp32 partials (launch 1)
+  const float* b;    // [A]
+  const float* v;    // [A]
+  const T* keys;     // [B, P, A]
+  const T* values;   // [B, P, V]
+  const int* nvalid; // [B] valid prefix length per row
+  float* ctx;        // [B, V]
+  float* w;          // [B, P]
   int B;
   int P;
-  int A;  // a multiple of 128, at most CX_STAGE / 2
-  int V;  // a multiple of 8
+  int A;      // a multiple of 128, at most CX_STAGE / sizeof(T)
+  int V;      // a multiple of 8
   int split;  // partials of qa
 };
 
@@ -258,7 +280,8 @@ struct RowPlan {
   int nval;
 };
 
-__device__ __forceinline__ RowPlan row_plan(const CtxArgs& a, int row) {
+template <typename T>
+__device__ __forceinline__ RowPlan row_plan(const CtxArgs<T>& a, int row) {
   int nv = a.nvalid[row];
   nv = nv < 0 ? 0 : (nv > a.P ? a.P : nv);
   return {nv, nv > 0 ? nv : a.P};
@@ -274,11 +297,11 @@ __device__ __forceinline__ unsigned char* wait_empty(const CtxSmem& s,
 }
 
 // The consumers' side: wait until the slot is full; release() frees it.
-__device__ __forceinline__ const __nv_bfloat16* wait_full(const CtxSmem& s,
-                                                          int it) {
+template <typename T>
+__device__ __forceinline__ const T* wait_full(const CtxSmem& s, int it) {
   const int slot = it % CX_STAGES;
   sm90::mbar_wait(&s.full[slot], (it / CX_STAGES) & 1);
-  return reinterpret_cast<const __nv_bfloat16*>(s.ring + slot * CX_STAGE);
+  return reinterpret_cast<const T*>(s.ring + slot * CX_STAGE);
 }
 
 __device__ __forceinline__ void release(const CtxSmem& s, int it, int lane) {
@@ -288,8 +311,9 @@ __device__ __forceinline__ void release(const CtxSmem& s, int it, int lane) {
 
 // A row's `split` partial qa rows into s.parts by the consumers' 16-byte
 // cp.async copies, waited for with cp_async_wait.
-__device__ __forceinline__ void copy_qa(const CtxArgs& a, const CtxSmem& s,
-                                        int row) {
+template <typename T>
+__device__ __forceinline__ void copy_qa(const CtxArgs<T>& a,
+                                        const CtxSmem& s, int row) {
   for (int e = 4 * threadIdx.x; e < a.split * a.A; e += 4 * CX_CONSUMERS) {
     const int c = e / a.A, col = e % a.A;
     const float* src = a.qa + ((size_t)c * a.B + row) * a.A + col;
@@ -305,20 +329,62 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
-// Eight consecutive bf16 as fp32.
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
+// One 16-byte load as fp32: eight bf16, or four fp32.
+__device__ __forceinline__ void loadv(const __nv_bfloat16* p, float (&x)[8]) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);
   const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll
   for (int j = 0; j < 8; ++j) x[j] = __bfloat162float(h[j]);
 }
 
+__device__ __forceinline__ void loadv(const float* p, float (&x)[4]) {
+  const float4 r = *reinterpret_cast<const float4*>(p);
+  x[0] = r.x, x[1] = r.y, x[2] = r.z, x[3] = r.w;
+}
+
+// Thread `col` of a value group of 8 n8 columns owns eight of them: bf16
+// 8 col .. 8 col + 7 (one 16-byte load); fp32 4 col .. 4 col + 3 and 4 (col
+// + n8) .. 4 (col + n8) + 3 (two, each a warp's 512 contiguous bytes).
+__device__ __forceinline__ void load_cols(const __nv_bfloat16* p, int col,
+                                          int, float (&x)[8]) {
+  loadv(p + 8 * col, x);
+}
+
+__device__ __forceinline__ void load_cols(const float* p, int col, int n8,
+                                          float (&x)[8]) {
+  const float4 lo = *reinterpret_cast<const float4*>(p + 4 * col);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 4 * (col + n8));
+  x[0] = lo.x, x[1] = lo.y, x[2] = lo.z, x[3] = lo.w;
+  x[4] = hi.x, x[5] = hi.y, x[6] = hi.z, x[7] = hi.w;
+}
+
+template <typename T>
+__device__ __forceinline__ void store_cols(float* out, int col, int n8,
+                                           const float (&x)[8]) {
+  float* lo = out + (sizeof(T) == 2 ? 8 * col : 4 * col);
+  float* hi = sizeof(T) == 2 ? lo + 4 : out + 4 * (col + n8);
+  *reinterpret_cast<float4*>(lo) = make_float4(x[0], x[1], x[2], x[3]);
+  *reinterpret_cast<float4*>(hi) = make_float4(x[4], x[5], x[6], x[7]);
+}
+
+// The scores' tanh: bf16 tanh_ex2 (ex2 and rcp); fp32 the accurate tanhf,
+// as the plain version takes it.
+template <typename T>
+__device__ __forceinline__ float score_tanh(float x) {
+  if constexpr (sizeof(T) == 2)
+    return sm90::tanh_ex2(x);
+  else
+    return tanhf(x);
+}
+
 // One thread streams every stage of the CTA's rows, in the order the
 // consumers take them: a row's key stages (kc positions each), then, per
 // column group, its value stages (pc positions each, one bulk copy, or one
 // a position when the group is narrower than the row).
-__device__ void produce(const CtxArgs& a, const CtxSmem& s) {
-  const int kc = CX_STAGE / (2 * a.A);
+template <typename T>
+__device__ void produce(const CtxArgs<T>& a, const CtxSmem& s) {
+  constexpr int E = sizeof(T);
+  const int kc = CX_STAGE / (E * a.A);
   int it = 0;
   for (int row = blockIdx.x; row < a.B; row += gridDim.x) {
     const RowPlan pl = row_plan(a, row);
@@ -326,64 +392,69 @@ __device__ void produce(const CtxArgs& a, const CtxSmem& s) {
       const int n = min(kc, pl.nk - p0);
       unsigned char* st = wait_empty(s, it);
       uint64_t* bar = &s.full[it % CX_STAGES];
-      const uint32_t bytes = 2u * n * a.A;
+      const uint32_t bytes = (uint32_t)E * n * a.A;
       sm90::mbar_expect_tx(bar, bytes);
       sm90::bulk_load(st, a.keys + ((size_t)row * a.P + p0) * a.A, bytes,
                       bar);
     }
     for (int c0 = 0; c0 < a.V; c0 += CX_VCOLS) {
       const int cw = min(CX_VCOLS, a.V - c0);
-      const int pc = CX_STAGE / (2 * cw);
+      const int pc = CX_STAGE / (E * cw);
       for (int p0 = 0; p0 < pl.nval; p0 += pc, ++it) {
         const int n = min(pc, pl.nval - p0);
         unsigned char* st = wait_empty(s, it);
         uint64_t* bar = &s.full[it % CX_STAGES];
-        sm90::mbar_expect_tx(bar, 2u * n * cw);
-        const __nv_bfloat16* src =
-            a.values + ((size_t)row * a.P + p0) * a.V + c0;
+        sm90::mbar_expect_tx(bar, (uint32_t)E * n * cw);
+        const T* src = a.values + ((size_t)row * a.P + p0) * a.V + c0;
         if (cw == a.V) {
-          sm90::bulk_load(st, src, 2u * n * cw, bar);
+          sm90::bulk_load(st, src, (uint32_t)E * n * cw, bar);
         } else {
           for (int j = 0; j < n; ++j)
-            sm90::bulk_load(st + 2 * j * cw, src + (size_t)j * a.V, 2u * cw,
-                            bar);
+            sm90::bulk_load(st + E * j * cw, src + (size_t)j * a.V,
+                            (uint32_t)E * cw, bar);
         }
       }
     }
   }
 }
 
-// The scores of key positions p0, p1 of a stage (lane's columns 8 lane +
-// 256 t + {0..7} with qa, b and v in registers), two chains at once.
+// The scores of key positions p0, p1 of a stage (the lane's columns with
+// qa, b and v in registers), two chains at once.
+template <typename T>
 __device__ __forceinline__ void score_pair(
-    const __nv_bfloat16* k0, const __nv_bfloat16* k1, int A, int lane,
-    const float (&qr)[CX_AREG][8], const float (&br)[CX_AREG][8],
-    const float (&vr)[CX_AREG][8], float& acc0, float& acc1) {
+    const T* k0, const T* k1, int A, int lane,
+    const float (&qr)[Lanes<T>::AREG][Lanes<T>::VEC],
+    const float (&br)[Lanes<T>::AREG][Lanes<T>::VEC],
+    const float (&vr)[Lanes<T>::AREG][Lanes<T>::VEC], float& acc0,
+    float& acc1) {
+  using L = Lanes<T>;
 #pragma unroll
-  for (int t = 0; t < CX_AREG; ++t) {
-    const int col = lane * 8 + 256 * t;
+  for (int t = 0; t < L::AREG; ++t) {
+    const int col = lane * L::VEC + L::CHUNK * t;
     if (col >= A) break;
-    float x0[8], x1[8];
-    load8(k0 + col, x0);
-    load8(k1 + col, x1);
+    float x0[L::VEC], x1[L::VEC];
+    loadv(k0 + col, x0);
+    loadv(k1 + col, x1);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      acc0 += sm90::tanh_ex2(x0[j] + qr[t][j] + br[t][j]) * vr[t][j];
-      acc1 += sm90::tanh_ex2(x1[j] + qr[t][j] + br[t][j]) * vr[t][j];
+    for (int j = 0; j < L::VEC; ++j) {
+      acc0 += score_tanh<T>(x0[j] + qr[t][j] + br[t][j]) * vr[t][j];
+      acc1 += score_tanh<T>(x1[j] + qr[t][j] + br[t][j]) * vr[t][j];
     }
   }
 }
 
-__device__ void consume(const CtxArgs& a, const CtxSmem& s) {
+template <typename T>
+__device__ void consume(const CtxArgs<T>& a, const CtxSmem& s) {
+  using L = Lanes<T>;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int A = a.A, P = a.P, V = a.V;
-  const int kc = CX_STAGE / (2 * A);
-  // A <= 256 CX_AREG: each lane keeps qa, b and v of its key columns
-  // (lane * 8 + 256 t + {0..7}) in registers for the row.
-  const bool in_regs = A <= 256 * CX_AREG;
-  float qr[CX_AREG][8], br[CX_AREG][8], vr[CX_AREG][8];
+  const int kc = CX_STAGE / ((int)sizeof(T) * A);
+  // A <= CX_AKEEP: each lane keeps qa, b and v of its key columns in
+  // registers for the row.
+  const bool in_regs = A <= CX_AKEEP;
+  float qr[L::AREG][L::VEC], br[L::AREG][L::VEC], vr[L::AREG][L::VEC];
   for (int e = tid; e < A; e += CX_CONSUMERS) {
     s.bs[e] = a.b[e];
     s.vs[e] = a.v[e];
@@ -406,10 +477,10 @@ __device__ void consume(const CtxArgs& a, const CtxSmem& s) {
     if (row + gridDim.x < a.B) copy_qa(a, s, row + gridDim.x);
     if (in_regs) {
 #pragma unroll
-      for (int t = 0; t < CX_AREG; ++t)
+      for (int t = 0; t < L::AREG; ++t)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int col = min(lane * 8 + 256 * t + j, A - 1);
+        for (int j = 0; j < L::VEC; ++j) {
+          const int col = min(lane * L::VEC + L::CHUNK * t + j, A - 1);
           qr[t][j] = qs[col];
           br[t][j] = s.bs[col];
           vr[t][j] = s.vs[col];
@@ -420,23 +491,23 @@ __device__ void consume(const CtxArgs& a, const CtxSmem& s) {
     // the stage's positions w, w + 4, ..., two at a time.
     for (int p0 = 0; p0 < pl.nk; p0 += kc, ++it) {
       const int n = min(kc, pl.nk - p0);
-      const __nv_bfloat16* st = wait_full(s, it);
+      const T* st = wait_full<T>(s, it);
       for (int p = warp; p < n; p += 2 * CX_WARPS) {
         const int q = p + CX_WARPS < n ? p + CX_WARPS : p;  // p again
         float acc0 = 0.0f, acc1 = 0.0f;
         if (in_regs) {
-          score_pair(st + (size_t)p * A, st + (size_t)q * A, A, lane, qr, br,
-                     vr, acc0, acc1);
+          score_pair<T>(st + (size_t)p * A, st + (size_t)q * A, A, lane, qr,
+                        br, vr, acc0, acc1);
         } else {
-          for (int a0 = lane * 8; a0 < A; a0 += 32 * 8) {
-            float x0[8], x1[8];
-            load8(st + (size_t)p * A + a0, x0);
-            load8(st + (size_t)q * A + a0, x1);
+          for (int a0 = lane * L::VEC; a0 < A; a0 += L::CHUNK) {
+            float x0[L::VEC], x1[L::VEC];
+            loadv(st + (size_t)p * A + a0, x0);
+            loadv(st + (size_t)q * A + a0, x1);
 #pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              acc0 += sm90::tanh_ex2(x0[j] + qs[a0 + j] + s.bs[a0 + j]) *
+            for (int j = 0; j < L::VEC; ++j) {
+              acc0 += score_tanh<T>(x0[j] + qs[a0 + j] + s.bs[a0 + j]) *
                       s.vs[a0 + j];
-              acc1 += sm90::tanh_ex2(x1[j] + qs[a0 + j] + s.bs[a0 + j]) *
+              acc1 += score_tanh<T>(x1[j] + qs[a0 + j] + s.bs[a0 + j]) *
                       s.vs[a0 + j];
             }
           }
@@ -469,11 +540,11 @@ __device__ void consume(const CtxArgs& a, const CtxSmem& s) {
     sm90::named_sync(CX_BARRIER, CX_CONSUMERS);
 
     // The context, a column group at a time: thread (grp, col) sums the
-    // positions grp, grp + G, ... of each value stage for columns
-    // 8 col .. 8 col + 7 of the group.
+    // positions grp, grp + G, ... of each value stage for its 8 columns
+    // of the group (load_cols).
     for (int c0 = 0; c0 < V; c0 += CX_VCOLS) {
       const int cw = min(CX_VCOLS, V - c0);
-      const int pc = CX_STAGE / (2 * cw);
+      const int pc = CX_STAGE / ((int)sizeof(T) * cw);
       const int n8 = cw / 8;
       const int G = CX_CONSUMERS / n8;
       const int col = tid % n8, grp = tid / n8;
@@ -482,26 +553,21 @@ __device__ void consume(const CtxArgs& a, const CtxSmem& s) {
       for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
       for (int p0 = 0; p0 < pl.nval; p0 += pc, ++it) {
         const int n = min(pc, pl.nval - p0);
-        const __nv_bfloat16* st = wait_full(s, it);
+        const T* st = wait_full<T>(s, it);
         if (grp < G) {
           for (int j = grp; j < n; j += G) {
             const float wt = s.ss[p0 + j];
             float val[8];
-            load8(st + (size_t)j * cw + 8 * col, val);
+            load_cols(st + (size_t)j * cw, col, n8, val);
 #pragma unroll
             for (int k = 0; k < 8; ++k) acc[k] += wt * val[k];
           }
         }
         release(s, it, lane);
       }
-      float* out = a.ctx + (size_t)row * V + c0 + 8 * col;
+      float* out = a.ctx + (size_t)row * V + c0;
       if (G == 1) {  // one position group: its threads write their sums
-        if (grp == 0) {
-          *reinterpret_cast<float4*>(out) =
-              make_float4(acc[0], acc[1], acc[2], acc[3]);
-          *reinterpret_cast<float4*>(out + 4) =
-              make_float4(acc[4], acc[5], acc[6], acc[7]);
-        }
+        if (grp == 0) store_cols<T>(out, col, n8, acc);
         continue;
       }
       if (grp < G) {
@@ -521,10 +587,7 @@ __device__ void consume(const CtxArgs& a, const CtxSmem& s) {
 #pragma unroll
           for (int k = 0; k < 8; ++k) sum[k] += r[k];
         }
-        *reinterpret_cast<float4*>(out) =
-            make_float4(sum[0], sum[1], sum[2], sum[3]);
-        *reinterpret_cast<float4*>(out + 4) =
-            make_float4(sum[4], sum[5], sum[6], sum[7]);
+        store_cols<T>(out, tid, n8, sum);
       }
       sm90::named_sync(CX_BARRIER, CX_CONSUMERS);
     }
@@ -533,8 +596,9 @@ __device__ void consume(const CtxArgs& a, const CtxSmem& s) {
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(CX_THREADS, CX_CTAS)
-    context_kernel(const __grid_constant__ CtxArgs a) {
+    context_kernel(const __grid_constant__ CtxArgs<T> a) {
   extern __shared__ __align__(128) unsigned char ctx_smem_raw[];
   const CtxSmem s = ctx_smem(ctx_smem_raw, a.A);
   if (threadIdx.x == 0) {
@@ -552,15 +616,10 @@ __global__ void __launch_bounds__(CX_THREADS, CX_CTAS)
   consume(a, s);
 }
 
-// The two bf16 launches: the query product's `a.split` partials (a
-// programmatic primary), then context_kernel on as many CTAs as the SMs
-// hold (CX_CTAS an SM at the paths' widths), as a programmatic dependent.
-cudaError_t attention_bf16(const void* q, int q_f32, const void* wq,
-                           CtxArgs a, void* qa, int Qp, int device,
-                           cudaStream_t s) {
-  if (a.A > CX_STAGE / 2) return cudaErrorInvalidValue;
-  CK_TRY(query_product(q, q_f32, wq, qa, a.B, Qp, a.A, a.split, s));
-
+// context_kernel on as many CTAs as the SMs hold (CX_CTAS an SM at the
+// paths' widths), as a programmatic dependent of the query product.
+template <typename T>
+cudaError_t launch_context(const CtxArgs<T>& a, int device, cudaStream_t s) {
   // On each device: the kernel's shared-memory limit, set for the largest
   // size seen, and the resident CTAs at the last size counted.
   const size_t smem = ctx_smem_bytes(a.A, a.P);
@@ -573,7 +632,7 @@ cudaError_t attention_bf16(const void* q, int q_f32, const void* wq,
   size_t& counted = dev < 0 ? spare_count : counts[dev];
   int& resident = dev < 0 ? spare_resident : residents[dev];
   if (smem > sized) {
-    CK_TRY(cudaFuncSetAttribute(context_kernel,
+    CK_TRY(cudaFuncSetAttribute(context_kernel<T>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)smem));
     sized = smem;
@@ -583,7 +642,7 @@ cudaError_t attention_bf16(const void* q, int q_f32, const void* wq,
     CK_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                   device));
     CK_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, context_kernel, CX_THREADS, smem));
+        &per_sm, context_kernel<T>, CX_THREADS, smem));
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     resident = per_sm * sms;
     counted = smem;
@@ -600,127 +659,52 @@ cudaError_t attention_bf16(const void* q, int q_f32, const void* wq,
   attr.val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  CK_TRY(cudaLaunchKernelEx(&cfg, context_kernel, a));
+  CK_TRY(cudaLaunchKernelEx(&cfg, context_kernel<T>, a));
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// fp32: attention_kernel
-// ---------------------------------------------------------------------------
-
-constexpr int AT_THREADS = 256;  // 8 warps
-constexpr int AT_WARPS = AT_THREADS / 32;
-
-struct AttArgs {
-  const float* qa;      // [B, A] fp32 (the query product)
-  const float* b;       // [A]
-  const float* v;       // [A]
-  const float* keys;    // [B, P, A]
-  const float* values;  // [B, P, V]
-  const int* nvalid;    // [B] valid prefix length per row
-  float* ctx;           // [B, V]
-  float* w;             // [B, P]
-  int P;
-  int A;  // a multiple of 8
-  int V;  // a multiple of 8
-};
-
-__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
-  const float4 lo = *reinterpret_cast<const float4*>(p);
-  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
-  x[0] = lo.x, x[1] = lo.y, x[2] = lo.z, x[3] = lo.w;
-  x[4] = hi.x, x[5] = hi.y, x[6] = hi.z, x[7] = hi.w;
+// bf16: the query product's `a.split` partials on query_kernel (a
+// programmatic primary), then context_kernel.
+cudaError_t attention_bf16(const void* q, int q_f32, const void* wq,
+                           const CtxArgs<__nv_bfloat16>& a, void* qa, int Qp,
+                           int device, cudaStream_t s) {
+  CK_TRY(query_product(q, q_f32, wq, qa, a.B, Qp, a.A, a.split, s));
+  return launch_context(a, device, s);
 }
 
-// One block per row: each warp takes key positions and reduces
-// tanh(k + qa + b) . v over A with shuffles; one warp takes the softmax;
-// then every thread owns 8 value columns and sums w_n values_n.
-__global__ void __launch_bounds__(AT_THREADS)
-    attention_kernel(const __grid_constant__ AttArgs a) {
-  extern __shared__ float sm[];
-  const int A = a.A, P = a.P, V = a.V;
-  const int row = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  float* qs = sm;      // [A]
-  float* bs = qs + A;  // [A]
-  float* vs = bs + A;  // [A]
-  float* ss = vs + A;  // [P] scores, then weights
-
-  for (int e = tid; e < A; e += AT_THREADS) {
-    qs[e] = a.qa[(size_t)row * A + e];
-    bs[e] = a.b[e];
-    vs[e] = a.v[e];
-  }
-  __syncthreads();
-
-  const int nv = a.nvalid[row];
-  for (int p = warp; p < P; p += AT_WARPS) {
-    if (p >= nv) {
-      if (lane == 0) ss[p] = NEG_INF;
-      continue;
-    }
-    const float* kr = a.keys + ((size_t)row * P + p) * A;
-    float acc = 0.0f;
-    for (int a0 = lane * 8; a0 < A; a0 += 32 * 8) {
-      float kv[8];
-      load8(kr + a0, kv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        acc += tanhf(kv[j] + qs[a0 + j] + bs[a0 + j]) * vs[a0 + j];
-    }
-    acc = cell::warp_sum(acc);
-    if (lane == 0) ss[p] = acc;
-  }
-  __syncthreads();
-
-  if (warp == 0) {
-    float m = -INFINITY;
-    for (int p = lane; p < P; p += 32) m = fmaxf(m, ss[p]);
-    m = cell::warp_max(m);
-    float sum = 0.0f;
-    for (int p = lane; p < P; p += 32) sum += expf(ss[p] - m);
-    sum = cell::warp_sum(sum);
-    for (int p = lane; p < P; p += 32) {
-      const float w = expf(ss[p] - m) / sum;
-      ss[p] = w;
-      a.w[(size_t)row * P + p] = w;
-    }
-  }
-  __syncthreads();
-
-  const float* vr = a.values + (size_t)row * P * V;
-  for (int c0 = tid * 8; c0 < V; c0 += AT_THREADS * 8) {
-    float acc[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
-    for (int p = 0; p < P; ++p) {
-      const float w = ss[p];
-      float val[8];
-      load8(vr + (size_t)p * V + c0, val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] += w * val[j];
-    }
-    float* out = a.ctx + (size_t)row * V + c0;
-    *reinterpret_cast<float4*>(out) =
-        make_float4(acc[0], acc[1], acc[2], acc[3]);
-    *reinterpret_cast<float4*>(out + 4) =
-        make_float4(acc[4], acc[5], acc[6], acc[7]);
-  }
-}
-
-cudaError_t attention_f32(const void* q, const void* wq, const AttArgs& a,
-                          void* qa, int B, int Qp, cudaStream_t s) {
-  cell::GemmArgs gq = cell::gemm_args(B, a.A);
-  gq.op[0] = cell::operand(q, Qp, wq);
-  gq.n_ops = 1;
+// fp32: the query product's `a.split` partials on cell_common.cuh's fp32
+// tile (K ranges of whole stages; a programmatic primary), then
+// context_kernel.
+cudaError_t attention_f32(const void* q, const void* wq,
+                          const CtxArgs<float>& a, void* qa, int Qp,
+                          int device, cudaStream_t s) {
+  cell::GemmArgs gq = cell::gemm_args(a.B, a.A);
+  cell::split_operands(gq, q, Qp, wq, a.split);
   gq.out = qa;
-  const cudaError_t err = cell::launch_gemm<4, cell::EPI_STORE>(gq, s);
-  if (err != cudaSuccess) return err;
-  const size_t smem = sizeof(float) * (3 * (size_t)a.A + a.P);
-  attention_kernel<<<B, AT_THREADS, smem, s>>>(a);
-  return cudaGetLastError();
+  CK_TRY((cell::launch_gemm<4, cell::EPI_STORE>(gq, s)));
+  return launch_context(a, device, s);
+}
+
+template <typename T>
+CtxArgs<T> ctx_args(const void* b, const void* v, const void* keys,
+                    const void* values, const void* nvalid, void* ctx,
+                    void* w, const void* qa, int B, int Ap, int P, int V,
+                    int split) {
+  CtxArgs<T> a;
+  a.qa = static_cast<const float*>(qa);
+  a.b = cell::f32(b);
+  a.v = cell::f32(v);
+  a.keys = static_cast<const T*>(keys);
+  a.values = static_cast<const T*>(values);
+  a.nvalid = static_cast<const int*>(nvalid);
+  a.ctx = static_cast<float*>(ctx);
+  a.w = static_cast<float*>(w);
+  a.B = B;
+  a.P = P;
+  a.A = Ap;
+  a.V = V;
+  a.split = split;
+  return a;
 }
 
 }  // namespace
@@ -730,56 +714,38 @@ extern "C" {
 // q [B, Qp] (fp32 if q_f32 else bf16); wq [Qp, Ap]; fp32 b, v [Ap]; keys
 // [B, P, Ap], values [B, P, V]; int32 nvalid [B]. wq, keys and values are
 // bf16, or fp32 when f32 (then q is fp32 too). Outputs ctx [B, V] fp32, w
-// [B, P] fp32. Scratch: qa [split, B, Ap] fp32 (the bf16 query
-// product's K-range partials, split 1, 2 or ck_attention_query_split();
-// fp32 takes split 1). Qp a multiple of 32, Ap of 128, V of 8; 4 (3 Ap +
-// P) bytes at most AT_SMEM_LIMIT. Two launches.
+// [B, P] fp32. Scratch: qa [split, B, Ap] fp32, the query product's
+// K-range partials: bf16 split 1, 2 or ck_attention_query_split(); fp32
+// any split up to that many and Qp / 32 (the wrappers take
+// megastep.cu's ck_f32_split). Qp a multiple of 32, Ap of 128 and at most
+// a ring stage's elements (CX_STAGE / 2 bf16, / 4 fp32), V of 8; Ap and P
+// as far as context_kernel's shared memory fits on an SM. Two launches.
 int ck_additive_attention(const void* q, const void* wq, const void* b,
                           const void* v, const void* keys, const void* values,
                           const void* nvalid, void* ctx, void* w, void* qa,
                           int B, int Qp, int Ap, int P, int V, int q_f32,
                           int f32, int split, int device, void* stream) {
   if (f32 && !q_f32) return (int)cudaErrorInvalidValue;
-  if (split < 1 || split > (f32 ? 1 : QK_SPLIT) || (split & (split - 1)))
-    return (int)cudaErrorInvalidValue;
   if (B < 1 || P < 1 || V < 8 || V % 8 || Ap < 128 || Ap % 128 || Qp < 32 ||
-      Qp % 32)
+      Qp % 32 || Ap > CX_STAGE / (f32 ? 4 : 2))
     return (int)cudaErrorInvalidValue;
-  if (sizeof(float) * (3 * (size_t)Ap + P) > AT_SMEM_LIMIT)
+  if (split < 1 || split > QK_SPLIT ||
+      (f32 ? split > Qp / cell::BK : (split & (split - 1)) != 0))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (f32) {
-    AttArgs a;
-    a.qa = static_cast<const float*>(qa);
-    a.b = cell::f32(b);
-    a.v = cell::f32(v);
-    a.keys = static_cast<const float*>(keys);
-    a.values = static_cast<const float*>(values);
-    a.nvalid = static_cast<const int*>(nvalid);
-    a.ctx = static_cast<float*>(ctx);
-    a.w = static_cast<float*>(w);
-    a.P = P;
-    a.A = Ap;
-    a.V = V;
-    return (int)attention_f32(q, wq, a, qa, B, Qp, s);
-  }
-  CtxArgs a;
-  a.qa = static_cast<const float*>(qa);
-  a.b = cell::f32(b);
-  a.v = cell::f32(v);
-  a.keys = static_cast<const __nv_bfloat16*>(keys);
-  a.values = static_cast<const __nv_bfloat16*>(values);
-  a.nvalid = static_cast<const int*>(nvalid);
-  a.ctx = static_cast<float*>(ctx);
-  a.w = static_cast<float*>(w);
-  a.B = B;
-  a.P = P;
-  a.A = Ap;
-  a.V = V;
-  a.split = split;
-  return (int)attention_bf16(q, q_f32, wq, a, qa, Qp, device, s);
+  if (f32)
+    return (int)attention_f32(
+        q, wq,
+        ctx_args<float>(b, v, keys, values, nvalid, ctx, w, qa, B, Ap, P, V,
+                        split),
+        qa, Qp, device, s);
+  return (int)attention_bf16(
+      q, q_f32, wq,
+      ctx_args<__nv_bfloat16>(b, v, keys, values, nvalid, ctx, w, qa, B, Ap,
+                              P, V, split),
+      qa, Qp, device, s);
 }
 
 const char* ck_attention_error_string(int code) {
@@ -789,8 +755,7 @@ const char* ck_attention_error_string(int code) {
 // The width the Python side pads A (the query product's columns) to.
 int ck_attention_width() { return 4 * cell::BN; }
 
-// The most K ranges of the bf16 query product (partials of the scratch
-// qa).
+// The most K ranges of the query product (partials of the scratch qa).
 int ck_attention_query_split() { return QK_SPLIT; }
 
 }  // extern "C"

@@ -11,7 +11,11 @@
 // columns. The operands are successive K ranges of one accumulation, so a
 // split operand ([x | h | c*], [v_hat | h_att | h_lang | c*]) never exists
 // concatenated in device memory; c* feeds only r, and its K range runs the
-// r products alone.
+// r products alone. A plain product can instead be split over K: then its
+// operands are K ranges of one product, CTA z of grid (column blocks,
+// ceil(N / 128), split) runs range z alone and stores its fp32 partial as
+// plane z of out [split, N, cols], which the next kernel adds in rank order
+// (plain_split picks the count that fills the card best).
 //
 // What bounds it on the H100: fp32 FMA on the CUDA cores (not TF32), 67
 // TFLOP/s; at DCNet's greedy LSTM (N = 512, K = 3072, 4H = 4096) 12.9
@@ -33,6 +37,11 @@
 // - The epilogues run in registers: a thread holds the four gates (and r)
 //   of its two hidden columns for its 8 rows; the arithmetic is the plain
 //   versions' (expf sigmoid, tanhf) in the same order.
+// - Every CTA lets a programmatic dependent launch start at once
+//   (sm90::launch_dependents); where the next launch is not one, that is a
+//   no-op. The dependents (attention.cu's context_kernel, megastep.cu's
+//   fp32 dcnet_scores_kernel) wait for the product with
+//   griddepcontrol.wait before they read it.
 //
 // Everything lives in namespace `cell`, so a source can include this and
 // head_common.cuh side by side.
@@ -69,8 +78,9 @@ enum Epilogue : int {
 };
 
 struct Operand {
-  const void* a;  // [N, k] row-major fp32
+  const void* a;  // [N, k] fp32, row stride ld
   int k;          // a multiple of BK
+  int ld;         // the row stride of a, in elements (>= k)
   // Gated epilogues: [k, 4 cols] gate-major (i|f|g|o), or null when this
   // operand does not feed those gates. Plain epilogues: [k, cols]. fp32.
   const void* w_gates;
@@ -90,7 +100,10 @@ struct GemmArgs {
   const float* x;           // EPI_GATE_MUL: [N, cols]
   float* h_out;             // gated: [N, cols]
   float* c_out;             // gated: [N, cols]
-  void* out;                // EPI_GATE_MUL, EPI_STORE: fp32 [N, cols]
+  void* out;                // EPI_GATE_MUL, EPI_STORE: fp32 [N, cols];
+                            // split EPI_STORE: [split, N, cols]
+  int split;                // EPI_STORE: the K ranges (operands) run by
+                            // CTAs of their own (0 or 1: none)
 };
 
 __device__ __forceinline__ float sigmoidf(float x) {
@@ -183,9 +196,9 @@ __device__ __forceinline__ void stage_products(float (&acc)[8][NBOX][2],
 template <int NBOX>
 __device__ __forceinline__ void produce(const TileArgs& t, unsigned char* smem,
                                         uint64_t* full, uint64_t* empty,
-                                        int row0, int nb) {
+                                        int row0, int nb, int s0, int s1) {
   int it = 0;
-  for (int s = 0; s < t.g.n_ops; ++s) {
+  for (int s = s0; s < s1; ++s) {
     const Operand& op = t.g.op[s];
     const bool base = op.w_gates != nullptr;
     const bool r = NBOX == 5 && op.w_copy != nullptr;
@@ -255,7 +268,7 @@ __device__ __forceinline__ void epi_plain(const GemmArgs& a,
                                           const float (&acc)[8][4][2],
                                           int row0, int rg, int p, int nb) {
   const int cols = a.cols;
-  float* out = static_cast<float*>(a.out);
+  float* out = static_cast<float*>(a.out) + (size_t)blockIdx.z * a.N * cols;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int gr = row0 + rg + 16 * i;
@@ -275,12 +288,13 @@ __device__ __forceinline__ void epi_plain(const GemmArgs& a,
   }
 }
 
-// One tile per CTA: grid (column blocks, ceil(N / 128)). Warps 0-7
-// consume (warp w: row groups 4 (w % 4) + lane / 8, column pairs 8 (w / 4)
-// + lane % 8); warp 8's first thread produces.
+// One tile per CTA: grid (column blocks, ceil(N / 128), the K ranges of a
+// split product). Warps 0-7 consume (warp w: row groups 4 (w % 4) + lane /
+// 8, column pairs 8 (w / 4) + lane % 8); warp 8's first thread produces.
 template <int EPI, int NBOX>
 __global__ void __launch_bounds__(GEMM_THREADS, 1)
     gemm_kernel(const __grid_constant__ TileArgs t) {
+  sm90::launch_dependents();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
@@ -291,6 +305,9 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
   const int lane = threadIdx.x % 32;
   const int nb = blockIdx.x;
   const int row0 = blockIdx.y * TILE_ROWS;
+  // The operands this CTA runs: all, or K range z of a split product.
+  const int s0 = gridDim.z > 1 ? blockIdx.z : 0;
+  const int s1 = gridDim.z > 1 ? s0 + 1 : t.g.n_ops;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < RING; ++s) {
@@ -302,7 +319,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
   __syncthreads();
 
   if (warp == CONSUMERS / 32) {
-    if (lane == 0) produce<NBOX>(t, smem, full, empty, row0, nb);
+    if (lane == 0) produce<NBOX>(t, smem, full, empty, row0, nb, s0, s1);
     return;
   }
   const int rg = 4 * (warp % 4) + lane / 8;  // row group 0..15
@@ -313,7 +330,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
 #pragma unroll
     for (int g = 0; g < NBOX; ++g) acc[i][g][0] = acc[i][g][1] = 0.0f;
   int it = 0;
-  for (int s = 0; s < t.g.n_ops; ++s) {
+  for (int s = s0; s < s1; ++s) {
     const Operand& op = t.g.op[s];
     const bool r_only = NBOX == 5 && op.w_gates == nullptr;
     for (int k0 = 0; k0 < op.k; k0 += STAGE_K, ++it) {
@@ -348,9 +365,11 @@ template <int G, int EPI>
 cudaError_t check_gemm(const GemmArgs& a) {
   static_assert(G == (EPI == EPI_COPY_LSTM ? 5 : 4), "boxes of the epilogue");
   if (a.n_ops < 1 || a.n_ops > MAX_OPS) return cudaErrorInvalidValue;
+  if (a.split > 1 && (EPI != EPI_STORE || a.split != a.n_ops))
+    return cudaErrorInvalidValue;
   for (int i = 0; i < a.n_ops; ++i) {
     const Operand& op = a.op[i];
-    if (op.k < BK || op.k % BK) return cudaErrorInvalidValue;
+    if (op.k < BK || op.k % BK || op.ld < op.k) return cudaErrorInvalidValue;
     if (EPI == EPI_COPY_LSTM ? op.w_copy == nullptr
                              : op.w_gates == nullptr || op.w_copy != nullptr)
       return cudaErrorInvalidValue;
@@ -361,12 +380,12 @@ cudaError_t check_gemm(const GemmArgs& a) {
   return cudaSuccess;
 }
 
-// The map of an fp32 row-major [rows, cols] matrix in box_rows x 32 boxes,
-// 128-byte swizzled.
+// The map of an fp32 row-major [rows, cols] matrix (row stride ld, cols
+// when 0) in box_rows x 32 boxes, 128-byte swizzled.
 inline cudaError_t f32_map(CUtensorMap* map, const void* p, int rows,
-                           int cols, int box_rows) {
+                           int cols, int box_rows, int ld = 0) {
   return sm90::tensor_map_2d(map, p, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, rows,
-                             cols, cols, box_rows, 32,
+                             cols, ld ? ld : cols, box_rows, 32,
                              CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
@@ -381,7 +400,7 @@ cudaError_t launch_gemm(const GemmArgs& a, cudaStream_t s) {
   t.tile_cols = column_width<EPI>();
   for (int i = 0; i < a.n_ops; ++i) {
     const Operand& op = a.op[i];
-    err = f32_map(&t.a[i], op.a, a.N, op.k, TILE_ROWS);
+    err = f32_map(&t.a[i], op.a, a.N, op.k, TILE_ROWS, op.ld);
     if (err == cudaSuccess && op.w_gates)
       err = f32_map(&t.w[i], op.w_gates, op.k, gated ? 4 * a.cols : a.cols,
                     STAGE_K);
@@ -400,7 +419,8 @@ cudaError_t launch_gemm(const GemmArgs& a, cudaStream_t s) {
     if (dev >= 0) sized[dev] = true;
   }
   const dim3 grid(a.cols / column_width<EPI>(),
-                  (a.N + TILE_ROWS - 1) / TILE_ROWS);
+                  (a.N + TILE_ROWS - 1) / TILE_ROWS,
+                  a.split > 1 ? a.split : 1);
   kernel<<<grid, GEMM_THREADS, smem, s>>>(t);
   return cudaGetLastError();
 }
@@ -410,9 +430,44 @@ inline Operand operand(const void* a, int k, const void* w_gates,
   Operand o;
   o.a = a;
   o.k = k;
+  o.ld = k;
   o.w_gates = w_gates;
   o.w_copy = w_copy;
   return o;
+}
+
+// The K ranges of a plain fp32 product over `steps` stages of BK whose
+// `tiles` 128 x 128 output tiles would fill too few of the card's `sms`
+// SMs (one CTA an SM): the count s <= MAX_OPS (and <= steps) that
+// minimizes the waves of s tiles' CTAs times the stages of the longest
+// range, the smallest on a tie (megastep.cu exports it as ck_f32_split
+// for the wrappers, which size the partials' scratch by it).
+inline int plain_split(int tiles, int steps, int sms) {
+  int best = 1;
+  long long best_cost = (long long)((tiles + sms - 1) / sms) * steps;
+  for (int s = 2; s <= MAX_OPS && s <= steps; ++s) {
+    const long long cost =
+        (long long)((tiles * s + sms - 1) / sms) * ((steps + s - 1) / s);
+    if (cost < best_cost) best = s, best_cost = cost;
+  }
+  return best;
+}
+
+// The operands of a product of a [N, k] (row stride k) and w [k, cols],
+// split over K into `split` ranges of whole BK stages: range c holds
+// stages [c S / split, (c + 1) S / split) of S = k / BK.
+inline void split_operands(GemmArgs& g, const void* a, int k, const void* w,
+                           int split) {
+  const int steps = k / BK;
+  for (int c = 0; c < split; ++c) {
+    const int k0 = steps * c / split * BK;
+    const int k1 = steps * (c + 1) / split * BK;
+    g.op[c] = operand(static_cast<const float*>(a) + k0, k1 - k0,
+                      static_cast<const float*>(w) + (size_t)k0 * g.cols);
+    g.op[c].ld = k;
+  }
+  g.n_ops = split;
+  g.split = split;
 }
 
 inline GemmArgs gemm_args(int N, int cols) {

@@ -56,16 +56,17 @@
 //     2. the decoder LSTM over [emb | part | h] (emb and h fp32 rounded in
 //        registers, part bf16), K = 3072, bias b: 64.4 GFLOP.
 //
-//   scores_kernel (att_cell; every fp32 score), grid = (images, attention
+//   scores_kernel (att_cell, bf16 and fp32), grid = (images, attention
 //     heads): one block per image. Each warp takes a key position, holds
 //     that key row in registers and reuses it for the image's K query rows
 //     (the keys are read once per image, never repeated K-fold in device
 //     memory); tanh(key + q + b) . v is reduced over A with warp shuffles;
 //     then one warp per query row takes the masked softmax.
-//   dcnet_scores_kernel (bf16 dcnet_score): one warp per query row, its
-//     q, b and v in registers, walking its image's attendable keys two at
-//     a time (read from L1 after the image's first row); then the row's
-//     softmax.
+//   dcnet_scores_kernel (dcnet_score, bf16 and fp32): one warp per query
+//     row (fp32: two), its q, b and v in registers, walking its image's
+//     attendable keys two at a time (bf16: read from L1 after the image's
+//     first row; fp32: from shared memory, copied in once a block of the
+//     image's rows); then the row's softmax.
 //
 // What bounds them on the H100 (paper shape, N = 512 images x 5 beams):
 // the cell GEMMs are bound by operations (the att-LSTM's 64.4 GFLOP is 65
@@ -83,7 +84,16 @@
 //
 // fp32 (compute_dtype="float32"): every entry point runs cell_common.cuh's
 // fp32 tile (fp32 FMA on the CUDA cores, not TF32) with the same
-// epilogues, and scores_kernel reads fp32 keys and writes fp32 weights.
+// epilogues; att_cell's scores_kernel reads fp32 keys and writes fp32
+// weights. dcnet_score's product of 2560 x 1024 x 512 is 80 tiles of 128 x
+// 128, 0.61 of a wave on 132 SMs, so it runs split over K (cell::
+// plain_split: 3 ranges, 240 CTAs in two waves of a third of the K each),
+// then dcnet_scores_kernel's fp32 instance, a programmatic dependent: a
+// block an image, which copies the image's attendable keys into shared
+// memory while the product ends, two warps a row, each row's q the sum
+// of the partials, keys read as 4 columns of a lane a chunk (16-byte
+// loads, 512 contiguous bytes a warp), the accurate tanhf as the plain
+// version takes it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -330,23 +340,31 @@ cudaError_t dcnet_cell_sm90(const void* emb, const void* ctx, const void* h,
 }
 
 // ---------------------------------------------------------------------------
-// ck_dcnet_score, bf16: the query product on sm90_cell.cuh, then
-// dcnet_scores_kernel.
+// ck_dcnet_score: the query product, then dcnet_scores_kernel (bf16 on
+// sm90_cell.cuh's wgmma; fp32 on cell_common.cuh's fp32 tile, split over K)
 // ---------------------------------------------------------------------------
 
-constexpr int DS_ROWS = 4;  // query rows of a dcnet_scores_kernel block
+constexpr int DS_ROWS = 4;  // bf16: query rows of a dcnet_scores_kernel block
+// fp32: a block holds the rows of one image (at most DS_F32_ROWS of them;
+// more take more blocks), two warps a row, and stages the image's
+// attendable keys in shared memory, DS_F32_WINDOW positions at a time.
+constexpr int DS_F32_ROWS = 8;
+constexpr int DS_F32_WARPS = 2;
+constexpr int DS_F32_WINDOW = 32;
 
+template <typename KT>
 struct DcnetScoreArgs {
-  const float* q;              // [N, A] fp32 (the query product)
-  const float* b;              // [A] bias inside tanh
-  const float* v;              // [A] score vector
-  const __nv_bfloat16* keys;   // [B, T, A]
-  const float* mask;           // [B, T] (> 0 = attendable)
-  __nv_bfloat16* omega;        // [N, T] softmax weights
+  const float* q;     // [split, N, A] fp32 (the query product's partials)
+  const float* b;     // [A] bias inside tanh
+  const float* v;     // [A] score vector
+  const KT* keys;     // [B, T, A]
+  const float* mask;  // [B, T] (> 0 = attendable)
+  KT* omega;          // [N, T] softmax weights
   int N;
   int K;  // query rows per image
   int T;
-  int A;  // a multiple of 128, at most 256 NC
+  int A;  // a multiple of 128, at most CHUNK NC
+  int split;
 };
 
 __device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
@@ -364,98 +382,298 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p,
   for (int j = 0; j < 8; ++j) x[j] = __bfloat162float(h[j]);
 }
 
-// One warp a query row n of image n / K, DS_ROWS rows a block: lane l
-// keeps q, b and v of columns 8 l + 256 c + {0..7} (c < NC) in registers
-// for the row and walks the image's attendable positions (a ballot of the
-// mask, 32 positions at a time), two at a time as two independent chains,
-// each key read as 16-byte loads (an image's K rows run in neighbouring
-// warps, so its keys come from L1 after the first); tanh(key + q + b) . v
-// is reduced over A with shuffles into shared memory, then the warp takes
-// its row's softmax and writes omega in bf16.
-template <int NC>
-__global__ void __launch_bounds__(32 * DS_ROWS)
-    dcnet_scores_kernel(const __grid_constant__ DcnetScoreArgs a) {
-  extern __shared__ float ds_scores[];  // [DS_ROWS, T]
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * DS_ROWS + warp;
-  if (row >= a.N) return;
-  const int A = a.A, T = a.T;
-  const int img = row / a.K;
-  float qr[NC][8], br[NC][8], vr[NC][8];
+__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
+  const float4 r = *reinterpret_cast<const float4*>(p);
+  x[0] = r.x, x[1] = r.y, x[2] = r.z, x[3] = r.w;
+}
+
+// A lane's columns of A for keys of type KT: VEC (one 16-byte load) at VEC
+// lane + CHUNK c, c < NC (bf16: 8 lane + 256 c; fp32: 4 lane + 128 c, so
+// each load of a warp reads 512 contiguous bytes).
+template <typename KT>
+struct ScoreLanes {
+  static constexpr int VEC = 16 / sizeof(KT);
+  static constexpr int CHUNK = 32 * VEC;
+};
+
+__device__ __forceinline__ void loadv(const __nv_bfloat16* p,
+                                      float (&x)[8]) {
+  load8(p, x);
+}
+__device__ __forceinline__ void loadv(const float* p, float (&x)[8]) {
+  load8(p, x);
+}
+__device__ __forceinline__ void loadv(const float* p, float (&x)[4]) {
+  load4(p, x);
+}
+
+// Row `row`'s q (the sum of the product's `split` partials in rank order,
+// their loads issued together), b and v at the lane's columns.
+template <int NC, typename KT>
+__device__ __forceinline__ void load_query(
+    const DcnetScoreArgs<KT>& a, int row, int lane,
+    float (&qr)[NC][ScoreLanes<KT>::VEC], float (&br)[NC][ScoreLanes<KT>::VEC],
+    float (&vr)[NC][ScoreLanes<KT>::VEC]) {
+  constexpr int VEC = ScoreLanes<KT>::VEC, CHUNK = ScoreLanes<KT>::CHUNK;
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
-    const int col = min(8 * lane + 256 * c, A - 8);
-    load8(a.q + (size_t)row * A + col, qr[c]);
-    load8(a.b + col, br[c]);
-    load8(a.v + col, vr[c]);
+    const int col = min(VEC * lane + CHUNK * c, a.A - VEC);
+    loadv(a.q + (size_t)row * a.A + col, qr[c]);
+    if constexpr (sizeof(KT) == 4) {
+      float x[MAX_OPS - 1][VEC];
+#pragma unroll
+      for (int r = 1; r < MAX_OPS; ++r)
+        if (r < a.split)
+          loadv(a.q + ((size_t)r * a.N + row) * a.A + col, x[r - 1]);
+#pragma unroll
+      for (int r = 1; r < MAX_OPS; ++r)
+        if (r < a.split)
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) qr[c][j] += x[r - 1][j];
+    }
+    loadv(a.b + col, br[c]);
+    loadv(a.v + col, vr[c]);
   }
-  float* ss = ds_scores + warp * T;
-  const __nv_bfloat16* kimg = a.keys + (size_t)img * T * A;
-  for (int t0 = 0; t0 < T; t0 += 32) {
-    const int pl = t0 + lane;
-    const bool attend = pl < T && a.mask[(size_t)img * T + pl] > 0.0f;
-    if (pl < T && !attend) ss[pl] = NEG_INF;
-    unsigned bits = __ballot_sync(0xffffffffu, attend);
-    while (bits) {
-      const int p0 = t0 + __ffs(bits) - 1;
-      bits &= bits - 1;
-      int p1 = p0;  // p0 again when it is the last one
-      if (bits) {
-        p1 = t0 + __ffs(bits) - 1;
-        bits &= bits - 1;
-      }
-      float acc0 = 0.0f, acc1 = 0.0f;
+}
+
+// The scores of positions whose keys are k0 and k1 (rows of A), two
+// chains at once; bf16 tanh as tanh_ex2, fp32 the accurate tanhf (as the
+// plain version). Reduced over the warp with shuffles.
+template <int NC, typename KT, typename Src>
+__device__ __forceinline__ void score_pair(
+    const Src* k0, const Src* k1, int A, int lane,
+    const float (&qr)[NC][ScoreLanes<KT>::VEC],
+    const float (&br)[NC][ScoreLanes<KT>::VEC],
+    const float (&vr)[NC][ScoreLanes<KT>::VEC], float& acc0, float& acc1) {
+  constexpr int VEC = ScoreLanes<KT>::VEC, CHUNK = ScoreLanes<KT>::CHUNK;
+  acc0 = 0.0f;
+  acc1 = 0.0f;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = 8 * lane + 256 * c;
-        if (col < A) {
-          float k0[8], k1[8];
-          load8(kimg + (size_t)p0 * A + col, k0);
-          load8(kimg + (size_t)p1 * A + col, k1);
+  for (int c = 0; c < NC; ++c) {
+    const int col = VEC * lane + CHUNK * c;
+    if (col < A) {
+      float x0[VEC], x1[VEC];
+      loadv(k0 + col, x0);
+      loadv(k1 + col, x1);
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            acc0 += sm90::tanh_ex2(k0[j] + qr[c][j] + br[c][j]) * vr[c][j];
-            acc1 += sm90::tanh_ex2(k1[j] + qr[c][j] + br[c][j]) * vr[c][j];
-          }
+      for (int j = 0; j < VEC; ++j) {
+        if constexpr (sizeof(KT) == 4) {
+          acc0 += tanhf(x0[j] + qr[c][j] + br[c][j]) * vr[c][j];
+          acc1 += tanhf(x1[j] + qr[c][j] + br[c][j]) * vr[c][j];
+        } else {
+          acc0 += sm90::tanh_ex2(x0[j] + qr[c][j] + br[c][j]) * vr[c][j];
+          acc1 += sm90::tanh_ex2(x1[j] + qr[c][j] + br[c][j]) * vr[c][j];
         }
-      }
-      acc0 = warp_sum(acc0);
-      acc1 = warp_sum(acc1);
-      if (lane == 0) {
-        ss[p0] = acc0;
-        ss[p1] = acc1;
       }
     }
   }
-  __syncwarp();
+  acc0 = warp_sum(acc0);
+  acc1 = warp_sum(acc1);
+}
+
+// The next two attendable positions of `bits` (p1 = p0 when one is left).
+__device__ __forceinline__ void next_pair(unsigned& bits, int t0, int& p0,
+                                          int& p1) {
+  p0 = t0 + __ffs(bits) - 1;
+  bits &= bits - 1;
+  p1 = p0;
+  if (bits) {
+    p1 = t0 + __ffs(bits) - 1;
+    bits &= bits - 1;
+  }
+}
+
+// A warp's softmax of its row's scores ss [T], written as omega in KT.
+template <typename KT>
+__device__ __forceinline__ void row_softmax(const float* ss, int T, int lane,
+                                            KT* o) {
   float m = -INFINITY;
   for (int p = lane; p < T; p += 32) m = fmaxf(m, ss[p]);
   m = warp_max(m);
   float sum = 0.0f;
   for (int p = lane; p < T; p += 32) sum += expf(ss[p] - m);
   sum = warp_sum(sum);
-  __nv_bfloat16* o = a.omega + (size_t)row * T;
-  for (int p = lane; p < T; p += 32)
-    o[p] = __float2bfloat16_rn(expf(ss[p] - m) / sum);
+  for (int p = lane; p < T; p += 32) store_t(o + p, expf(ss[p] - m) / sum);
 }
 
-template <int NC>
-cudaError_t launch_dcnet_scores(const DcnetScoreArgs& a, cudaStream_t s) {
-  const size_t smem = sizeof(float) * DS_ROWS * (size_t)a.T;
+// bf16: one warp a query row n of image n / K, DS_ROWS rows a block: lane
+// l keeps q, b and v of its columns (ScoreLanes, c < NC) in registers for
+// the row and walks the image's attendable positions (a ballot of the
+// mask, 32 positions at a time) two at a time as two independent chains,
+// each key read as 16-byte loads (an image's K rows run in neighbouring
+// warps, so its keys come from L1 after the first); tanh(key + q + b) . v
+// is reduced over A with shuffles into shared memory, then the warp takes
+// its row's softmax and writes omega in bf16.
+// fp32 (the same scoring, fp32 keys and omega, the accurate tanhf): a
+// programmatic dependent of the split fp32 product. A block holds one
+// image's rows [r0, r0 + rows) (blockIdx.y = r0 / DS_F32_ROWS), two warps
+// a row. Before it waits for the product, it copies the image's
+// attendable keys of a window of DS_F32_WINDOW positions into shared
+// memory (cp.async, every thread), so each key crosses from L2 once an
+// image, not once a row (reading them through L1 a row at a time made the
+// stage twice as slow: PERF.md). Then each row's warps take its position
+// pairs in turn from shared memory, meet on a named barrier, and the
+// first takes the softmax.
+template <int NC, typename KT>
+__global__ void __launch_bounds__(sizeof(KT) == 4
+                                      ? 32 * DS_F32_WARPS * DS_F32_ROWS
+                                      : 32 * DS_ROWS)
+    dcnet_scores_kernel(const __grid_constant__ DcnetScoreArgs<KT> a) {
+  constexpr int VEC = ScoreLanes<KT>::VEC;
+  extern __shared__ float ds_smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int A = a.A, T = a.T;
+  float qr[NC][VEC], br[NC][VEC], vr[NC][VEC];
+  float acc0, acc1;
+  int p0, p1;
+  if constexpr (sizeof(KT) == 2) {
+    float* ss = ds_smem + warp * T;  // [DS_ROWS, T]
+    const int row = blockIdx.x * DS_ROWS + warp;
+    if (row >= a.N) return;
+    const int img = row / a.K;
+    load_query<NC>(a, row, lane, qr, br, vr);
+    const KT* kimg = a.keys + (size_t)img * T * A;
+    for (int t0 = 0; t0 < T; t0 += 32) {
+      const int pl = t0 + lane;
+      const bool attend = pl < T && a.mask[(size_t)img * T + pl] > 0.0f;
+      if (pl < T && !attend) ss[pl] = NEG_INF;
+      unsigned bits = __ballot_sync(0xffffffffu, attend);
+      while (bits) {
+        next_pair(bits, t0, p0, p1);
+        score_pair<NC, KT>(kimg + (size_t)p0 * A, kimg + (size_t)p1 * A, A,
+                           lane, qr, br, vr, acc0, acc1);
+        if (lane == 0) {
+          ss[p0] = acc0;
+          ss[p1] = acc1;
+        }
+      }
+    }
+    __syncwarp();
+    row_softmax(ss, T, lane, a.omega + (size_t)row * T);
+  } else {
+    // Shared memory: a window's keys [min(T, DS_F32_WINDOW), A], then the
+    // rows' scores [DS_F32_ROWS, T].
+    float* sk = ds_smem;
+    const int win = min(T, DS_F32_WINDOW);
+    const int img = blockIdx.x;
+    const int r0 = blockIdx.y * DS_F32_ROWS;
+    const int rows = min(DS_F32_ROWS, a.K - r0);
+    const int lr = warp / DS_F32_WARPS, turn = warp % DS_F32_WARPS;
+    const bool active = lr < rows;
+    const int row = img * a.K + r0 + lr;
+    float* ss = sk + (size_t)win * A + lr * T;
+    const KT* kimg = a.keys + (size_t)img * T * A;
+    const float* mimg = a.mask + (size_t)img * T;
+    for (int t0 = 0; t0 < T; t0 += DS_F32_WINDOW) {
+      const int n = min(DS_F32_WINDOW, T - t0);
+      if (t0 > 0) __syncthreads();  // the last window's keys are read
+      for (int p = 0; p < n; ++p) {
+        if (!(mimg[t0 + p] > 0.0f)) continue;
+        for (int e = 4 * threadIdx.x; e < A; e += 4 * blockDim.x)
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                           sm90::smem_u32(sk + (size_t)p * A + e)),
+                       "l"(kimg + (size_t)(t0 + p) * A + e)
+                       : "memory");
+      }
+      asm volatile("cp.async.commit_group;" ::: "memory");
+      if (t0 == 0) {
+        sm90::grid_dependency_wait();  // q is the product's output
+        if (active) load_query<NC>(a, row, lane, qr, br, vr);
+      }
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+      __syncthreads();
+      if (!active) continue;
+      const int pl = t0 + lane;
+      const bool attend = pl < t0 + n && mimg[pl] > 0.0f;
+      if (pl < t0 + n && !attend && turn == 0) ss[pl] = NEG_INF;
+      unsigned bits = __ballot_sync(0xffffffffu, attend);
+      for (int k = 0; bits; ++k) {
+        next_pair(bits, t0, p0, p1);
+        if (k % DS_F32_WARPS != turn) continue;
+        score_pair<NC, KT>(sk + (size_t)(p0 - t0) * A,
+                           sk + (size_t)(p1 - t0) * A, A, lane, qr, br, vr,
+                           acc0, acc1);
+        if (lane == 0) {
+          ss[p0] = acc0;
+          ss[p1] = acc1;
+        }
+      }
+    }
+    if (!active) return;
+    // The row's warps meet; the first takes the softmax.
+    sm90::named_sync(1 + lr, 32 * DS_F32_WARPS);
+    if (turn == 0) row_softmax(ss, T, lane, a.omega + (size_t)row * T);
+  }
+}
+
+template <typename KT>
+size_t dcnet_scores_smem(int A, int T) {
+  if constexpr (sizeof(KT) == 2) {
+    return sizeof(float) * DS_ROWS * (size_t)T;
+  } else {
+    const int win = T < DS_F32_WINDOW ? T : DS_F32_WINDOW;
+    return sizeof(float) * ((size_t)win * A + (size_t)DS_F32_ROWS * T);
+  }
+}
+
+// bf16: a plain launch after the query product, DS_ROWS rows a block.
+// fp32: grid (images, ceil(K / DS_F32_ROWS)), a programmatic dependent of
+// the fp32 tile (its blocks copy their keys, then wait in
+// griddepcontrol.wait).
+template <int NC, typename KT>
+cudaError_t launch_dcnet_scores(const DcnetScoreArgs<KT>& a, cudaStream_t s) {
+  const size_t smem = dcnet_scores_smem<KT>(a.A, a.T);
   // The largest shared-memory size set on each device (48 KB needs none).
   static size_t sized[sm90::kDevices] = {};
   const int dev = sm90::device_slot();
   if (smem > 48 * 1024 && (dev < 0 || smem > sized[dev])) {
     const cudaError_t err = cudaFuncSetAttribute(
-        dcnet_scores_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        dcnet_scores_kernel<NC, KT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     if (dev >= 0) sized[dev] = smem;
   }
-  dcnet_scores_kernel<NC>
-      <<<(a.N + DS_ROWS - 1) / DS_ROWS, 32 * DS_ROWS, smem, s>>>(a);
+  if constexpr (sizeof(KT) == 2) {
+    const int blocks = (a.N + DS_ROWS - 1) / DS_ROWS;
+    dcnet_scores_kernel<NC, KT><<<blocks, 32 * DS_ROWS, smem, s>>>(a);
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(a.N / a.K, (a.K + DS_F32_ROWS - 1) / DS_F32_ROWS);
+    cfg.blockDim =
+        dim3(32 * DS_F32_WARPS * (a.K < DS_F32_ROWS ? a.K : DS_F32_ROWS));
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr.val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err =
+        cudaLaunchKernelEx(&cfg, dcnet_scores_kernel<NC, KT>, a);
+    if (err != cudaSuccess) return err;
+  }
   return cudaGetLastError();
+}
+
+template <typename KT>
+DcnetScoreArgs<KT> dcnet_score_args(const void* b, const void* v,
+                                   const void* keys, const void* mask,
+                                   void* omega, const void* q, int N, int B,
+                                   int Ap, int T_, int split) {
+  DcnetScoreArgs<KT> a;
+  a.q = static_cast<const float*>(q);
+  a.b = cell::f32(b);
+  a.v = cell::f32(v);
+  a.keys = static_cast<const KT*>(keys);
+  a.mask = cell::f32(mask);
+  a.omega = static_cast<KT*>(omega);
+  a.N = N;
+  a.K = N / B;
+  a.T = T_;
+  a.A = Ap;
+  a.split = split;
+  return a;
 }
 
 // ck_dcnet_score's bf16 launches: the query product on sm90_cell.cuh (fp32
@@ -474,20 +692,48 @@ cudaError_t dcnet_score_sm90(const void* h, const void* wq, const void* b,
   gq.out = q;
   CK_TRY((launch_cell<kStore, 1, 1u, 1u, 0u>(gq, Ap / 128, s)));
 
-  DcnetScoreArgs a;
-  a.q = static_cast<const float*>(q);
-  a.b = cell::f32(b);
-  a.v = cell::f32(v);
-  a.keys = static_cast<const __nv_bfloat16*>(keys);
-  a.mask = cell::f32(mask);
-  a.omega = static_cast<__nv_bfloat16*>(omega);
-  a.N = N;
-  a.K = N / B;
-  a.T = T;
-  a.A = Ap;
+  const auto a = dcnet_score_args<__nv_bfloat16>(b, v, keys, mask, omega, q,
+                                                 N, B, Ap, T, 1);
   if (Ap <= 256) return launch_dcnet_scores<1>(a, s);
   if (Ap <= 512) return launch_dcnet_scores<2>(a, s);
   return launch_dcnet_scores<4>(a, s);
+}
+
+// The K ranges of the fp32 query product of N rows, K = Hp, Ap columns on
+// `device`'s SMs (cell::plain_split), or a negative CUDA error.
+int f32_split(int N, int Hp, int Ap, int device) {
+  int sms = 0;
+  const cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return -(int)err;
+  const int tiles = (Ap / (4 * BN)) * ((N + TILE_ROWS - 1) / TILE_ROWS);
+  return plain_split(tiles, Hp / BK, sms);
+}
+
+// ck_dcnet_score's fp32 launches: the query product on cell_common.cuh's
+// fp32 tile, split over K (q [split, N, Ap] fp32 partials), then
+// dcnet_scores_kernel<NC, float> (NC = A / 128 chunks of 4 columns) as its
+// programmatic dependent.
+cudaError_t dcnet_score_f32(const void* h, const void* wq, const void* b,
+                            const void* v, const void* keys,
+                            const void* mask, void* omega, void* q, int N,
+                            int B, int Hp, int Ap, int T, int device,
+                            cudaStream_t s) {
+  if (N < 1 || Hp < BK || Hp % BK || Ap < 128 || Ap % 128 || Ap > 1024)
+    return cudaErrorInvalidValue;
+  const int split = f32_split(N, Hp, Ap, device);
+  if (split < 1) return static_cast<cudaError_t>(-split);
+  GemmArgs gq = gemm_args(N, Ap);
+  split_operands(gq, h, Hp, wq, split);
+  gq.out = q;
+  CK_TRY((launch_gemm<4, EPI_STORE>(gq, s)));
+
+  const auto a = dcnet_score_args<float>(b, v, keys, mask, omega, q, N, B,
+                                         Ap, T, split);
+  if (Ap <= 128) return launch_dcnet_scores<1>(a, s);
+  if (Ap <= 256) return launch_dcnet_scores<2>(a, s);
+  if (Ap <= 512) return launch_dcnet_scores<4>(a, s);
+  return launch_dcnet_scores<8>(a, s);
 }
 
 }  // namespace
@@ -605,9 +851,11 @@ int ck_lang_cell(const void* vhat_raw, const void* h_att, const void* h_lang,
 
 // DCNet score kernel. fp32 h [N, Hp]; att_wq [Hp, Ap]; fp32 att_b, att_v
 // [Ap]; keys [B, T, Ap]; fp32 mask [B, T]. Output: omega [N, T]. Scratch:
-// q [N, Ap] fp32. att_wq, keys and omega are bf16 (sm90_cell.cuh, then
+// q [split, N, Ap] fp32, split = ck_f32_split(N, Hp, Ap, device) when f32,
+// else 1. att_wq, keys and omega are bf16 (sm90_cell.cuh, then
 // dcnet_scores_kernel; Ap at most 1024), or fp32 when f32
-// (cell_common.cuh's fp32 tile, then scores_kernel).
+// (cell_common.cuh's fp32 tile split over K, then dcnet_scores_kernel's
+// fp32 instance; Ap at most 1024).
 int ck_dcnet_score(const void* h, const void* att_wq, const void* att_b,
                    const void* att_v, const void* keys, const void* mask,
                    void* omega, void* q, int N, int B, int Hp, int Ap, int T,
@@ -619,20 +867,15 @@ int ck_dcnet_score(const void* h, const void* att_wq, const void* att_b,
   if (!f32)
     return (int)dcnet_score_sm90(h, att_wq, att_b, att_v, keys, mask, omega,
                                  q, N, B, Hp, Ap, T, s);
+  return (int)dcnet_score_f32(h, att_wq, att_b, att_v, keys, mask, omega, q,
+                              N, B, Hp, Ap, T, device, s);
+}
 
-  GemmArgs gq = gemm_args(N, Ap);
-  gq.op[0] = operand(h, Hp, att_wq);
-  gq.n_ops = 1;
-  gq.out = q;
-  err = launch_gemm<4, EPI_STORE>(gq, s);
-  if (err != cudaSuccess) return (int)err;
-
-  ScoreArgs sc = {};
-  sc.K = N / B;
-  sc.A = Ap;
-  sc.head[0] = {static_cast<const float*>(q), Ap, cell::f32(att_b),
-                cell::f32(att_v), keys, cell::f32(mask), T, omega};
-  return (int)launch_scores(sc, B, 1, 1, s);
+// The partials of ck_dcnet_score's fp32 query product at N rows, K = Hp
+// and Ap columns on `device` (the planes of its scratch q), or a negative
+// CUDA error.
+int ck_f32_split(int N, int Hp, int Ap, int device) {
+  return f32_split(N, Hp, Ap, device);
 }
 
 // DCNet LSTM kernel. fp32 emb [N, Ep], ctx (the omega-weighted encoder

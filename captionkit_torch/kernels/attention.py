@@ -19,9 +19,10 @@ product on wgmma, then ``context_kernel``, which streams each row's keys
 and values through a shared-memory ring and computes the scores, softmax
 and context, started early as a programmatic dependent so that its loads
 overlap the product; in fp32 (``compute_dtype=float32``, products on the
-CUDA cores, not TF32) an fp32 product tile, then one block a row. It
-takes keys in the compute dtype and one query row per key row (no grouped
-beam layout, as the TPU kernel). On a CPU tensor it runs
+CUDA cores, not TF32) the same two launches, the product on the fp32
+tile split over K (``megastep.f32_split``) and ``context_kernel``'s fp32
+instance. It takes keys in the compute dtype and one query row per key
+row (no grouped beam layout, as the TPU kernel). On a CPU tensor it runs
 ``reference_additive_attention``, the same arithmetic in PyTorch.
 """
 
@@ -41,6 +42,7 @@ from captionkit_torch.kernels.megastep import (
     _round_up,
     _stream,
     _vec,
+    f32_split,
 )
 from captionkit_torch.nn.attention import AdditiveAttentionParams
 from captionkit_torch.nn.cells import mm
@@ -198,9 +200,10 @@ def fused_additive_attention(
     lib = _library()
     ctx = torch.empty((B, Vp), dtype=f32, device=dev)
     w = torch.empty((B, N), dtype=f32, device=dev)
-    # The query product's K-range partials (fp32: one).
+    # The query product's K-range partials.
     index = dev.index or 0
-    split = 1 if dt == f32 else query_split(B, Ap, _sms(index))
+    split = (f32_split(B, Qp, Ap, index) if dt == f32
+             else query_split(B, Ap, _sms(index)))
     qa = torch.empty((split, B, Ap), dtype=f32, device=dev)
     err = lib.ck_additive_attention(
         *(t.data_ptr() for t in (q, wq, b, v, keys_k, values_k, nvalid, ctx,

@@ -41,6 +41,7 @@ one tensor; the per-image context and ``zvb`` once per batch.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -386,9 +387,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ck_lang_cell.argtypes = [p] * 20 + [i] * 5 + [p]
     lib.ck_dcnet_score.argtypes = [p] * 8 + [i] * 7 + [p]
     lib.ck_dcnet_cell.argtypes = [p] * 13 + [i] * 5 + [p]
+    lib.ck_f32_split.argtypes = [i] * 4
     for name in ("ck_att_cell", "ck_lang_cell", "ck_dcnet_score",
                  "ck_dcnet_cell", "ck_megastep_gate_width",
-                 "ck_megastep_plain_width"):
+                 "ck_megastep_plain_width", "ck_f32_split"):
         getattr(lib, name).restype = i
     lib.ck_megastep_gate_width.argtypes = []
     lib.ck_megastep_plain_width.argtypes = []
@@ -439,6 +441,21 @@ def _run(lib, fn_name: str, args) -> None:
         raise RuntimeError(f"{fn_name} launch failed: "
                            f"{lib.ck_megastep_error_string(err).decode()} "
                            f"({err})")
+
+
+@functools.lru_cache(maxsize=None)
+def f32_split(rows: int, k: int, cols: int, index: int) -> int:
+    """The K ranges (partials) of an fp32 query product of ``rows`` x
+    ``k`` x ``cols`` on card ``index``: ``csrc/megastep.cu::ck_f32_split``
+    (``cell_common.cuh::plain_split`` at the card's SM count), which the
+    kernels take too; the planes of the product's scratch."""
+    lib = _library()
+    split = lib.ck_f32_split(rows, k, cols, index)
+    if split < 1:
+        raise RuntimeError(
+            "ck_f32_split failed: "
+            f"{lib.ck_megastep_error_string(-split).decode()} ({-split})")
+    return split
 
 
 def _stream(dev: torch.device) -> int:
@@ -555,7 +572,8 @@ def dcnet_score(pack: DCNetCellPack, h):
     """DCNet's score kernel: ω [N, T]. CUDA tensors:
     ``csrc/megastep.cu::ck_dcnet_score`` (2 launches: bf16, the query
     product on ``csrc/sm90_cell.cuh`` and ``dcnet_scores_kernel``; fp32,
-    ``cell_common.cuh``'s fp32 tile and ``scores_kernel``), counted in
+    ``cell_common.cuh``'s fp32 tile split over K into ``f32_split``
+    partials and ``dcnet_scores_kernel``'s fp32 instance), counted in
     ``dcnet_score.launches``; CPU tensors: ``reference_dcnet_score``."""
     if h.device.type == "cpu":
         return reference_dcnet_score(pack, h)
@@ -570,7 +588,9 @@ def dcnet_score(pack: DCNetCellPack, h):
            mask=(pack.mask, f32, (B, T)))
     lib = _library()
     omega = torch.empty((N, T), dtype=dt, device=dev)
-    q = torch.empty((N, Ap), dtype=f32, device=dev)
+    # The query product's K-range partials (bf16: one).
+    split = f32_split(N, Hp, Ap, dev.index or 0) if is_f32 else 1
+    q = torch.empty((split, N, Ap), dtype=f32, device=dev)
     ptrs = [t.data_ptr() for t in (h, pack.att_wq, pack.att_b, pack.att_v,
                                    pack.att_keys, pack.mask, omega, q)]
     _run(lib, "ck_dcnet_score", ptrs + [N, B, Hp, Ap, T, is_f32,

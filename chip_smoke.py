@@ -10,9 +10,9 @@ prints no result line:
 2. build    — every kernel of ``captionkit_torch/csrc`` built by nvcc;
               the registers, shared memory and spills of the kernels on
               sm90_cell.cuh, of the head kernels on head_sm90.cuh and of
-              the bf16 B6 and dcnet_score kernels (query_kernel,
-              context_kernel, dcnet_scores_kernel; the full -Xptxas -v
-              report in
+              the B6 and dcnet_score kernels (query_kernel; the bf16 and
+              fp32 context_kernel and dcnet_scores_kernel; the full
+              -Xptxas -v report in
               build/captionkit_torch/smoke/ptxas.log); the MUFU operations
               a tanhf compiles to (cuobjdump -sass of a probe; the bounds
               charge a tanh the one MUFU.TANH it needs at least).
@@ -115,7 +115,11 @@ prints no result line:
               dispatch decodes), launches per batch of each kernel. The
               fp32 heads run one CUDA launch a call (head_sm90.cuh's F32
               operands) and report their plan (shares, tiles per share),
-              the whole step three; every instance reports device ms.
+              the whole step three; B6 and dcnet_score two (the fp32 tile
+              split over K, then context_kernel<float> or the fp32
+              dcnet_scores_kernel), each with a lane's partial score left
+              out failing too, and each launch's device ms beside the
+              call's device span; every instance reports device ms.
 14. beam10  — editnet_beam5 with decode.beam_size=10 (k = 10 > 8): the
               head kernel's decode and its steps check on the decode's own
               states, and the whole-step decode at k = 10 beside pallas,
@@ -400,8 +404,8 @@ def phase_build():
     heads = {n: {k.split("(")[0].replace("void hsm::", ""): v
                  for k, v in r.items() if "hsm::head_kernel" in k}
              for n, r in reports.items()}
-    # The bf16 kernels of B6 (its K-split query product and context
-    # kernel) and dcnet_score's score kernel.
+    # The kernels of B6 (its bf16 K-split query product, its bf16 and fp32
+    # context kernel) and dcnet_score's score kernel (bf16 and fp32).
     scores = {n: {k.split("(")[0].replace("void ", ""): v
                   for k, v in r.items()
                   if any(key in k for key in ("query_kernel", "context_kernel",
@@ -2856,7 +2860,11 @@ def phase_fp32(ed, dc, wrappers, card) -> dict:
     kernels = {}
 
     def case(name, run, plain, library, bound, keys, faults, launches=None,
-             plan=None):
+             plan=None, by_launch=None):
+        """``by_launch``: {label: a name key of each of the call's two
+        launches}, timed apart, and the call's device span from the first
+        to the second (the second, a programmatic dependent, starts while
+        the first runs)."""
         res = _hold(f"{name} fp32", run, plain, f32_agreement, faults)
         ms_ = time_ms(run, iters=5)
         device_ms = _device_ms(run, keys)
@@ -2874,6 +2882,16 @@ def phase_fp32(ed, dc, wrappers, card) -> dict:
             check(kernels[name]["cuda_launches_per_call"] == launches,
                   f"fp32 {name}: {kernels[name]['cuda_launches_per_call']} "
                   f"CUDA launches a call, not {launches}")
+        if by_launch is not None:
+            by = _profile_kernels(run, keys)
+            times = {label: sum(ms_ for k, (_, ms_) in by.items() if key in k)
+                     for label, key in by_launch.items()}
+            check(all(times.values()), f"fp32 {name}: a launch missing from "
+                                       f"the profile: {list(by)}")
+            span = _device_span_ms(run, *by_launch.values())
+            kernels[name].update(
+                device_ms_by_launch=times, device_span_ms=span,
+                device_span_bound_share=bound["bound_ms"] / span)
 
     # The heads at paper shape.
     N, H, V, k = N_IMAGES * BEAM, 1024, 9490, BEAM
@@ -2954,7 +2972,22 @@ def phase_fp32(ed, dc, wrappers, card) -> dict:
          _cell_bound("dcnet_score", **dims, fp32=True,
                      t_valid=int((dpack.mask > 0).sum())), keys,
          [("mask_dropped",
-           lambda: (ms.dcnet_score(no_mask, h_att[:, :dHp]),))])
+           lambda: (ms.dcnet_score(no_mask, h_att[:, :dHp]),))],
+         launches=2, by_launch={"query": "gemm_kernel",
+                                "scores": "dcnet_scores_kernel"})
+    # On random keys: the kernel within the bar, and a lane's partial score
+    # left out of the warp's reduction over A past it.
+    rkeys = dataclasses.replace(dpack, att_keys=(torch.randn(
+        dpack.att_keys.shape, generator=torch.Generator().manual_seed(13))
+        * 0.5).cuda())
+    kernels["dcnet_score"]["random_keys"] = _hold(
+        "dcnet_score fp32 random keys",
+        lambda: (ms.dcnet_score(rkeys, h_att[:, :dHp]),),
+        lambda: (ms.reference_dcnet_score(rkeys, h_att[:, :dHp]),),
+        f32_agreement,
+        [("lane_share_left_out", lambda: (ms.dcnet_score(dataclasses.replace(
+            rkeys, att_v=_lane_share_dropped(rkeys.att_v)),
+            h_att[:, :dHp]),))])
     with torch.inference_mode():
         omega = ms.reference_dcnet_score(dpack, h_att[:, :dHp])
         dctx = ms._grouped(omega, dpack.enc_hs)
@@ -3017,9 +3050,14 @@ def phase_fp32(ed, dc, wrappers, card) -> dict:
          lambda: ka.reference_additive_attention(va, keys_a, values, q, None,
                                                  **kw),
          None, _attention_bound(G, P, A, Vf, H, G * P, fp32=True),
-         ("gemm_kernel", "attention_kernel"),
+         ("gemm_kernel", "context_kernel"),
          [("operand_rounded_to_bf16", lambda: ka.fused_additive_attention(
-             va, keys_a, r16(values), q, None, **kw))])
+             va, keys_a, r16(values), q, None, **kw)),
+          ("lane_share_left_out", lambda: ka.fused_additive_attention(
+              dataclasses.replace(va, v=_lane_share_dropped(va.v), cache={}),
+              keys_a, values, q, None, **kw))],
+         launches=2, by_launch={"query": "gemm_kernel",
+                                "context": "context_kernel<float>"})
 
     # The fp32 paths at batch 512: launches of each kernel a batch.
     paths = {}

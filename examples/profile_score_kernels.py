@@ -6,19 +6,21 @@ score kernel on one card.
 
 For each checkout (default: this one), in a process of its own that
 imports that checkout's ``captionkit_torch`` and builds its kernels, runs
-``fused_additive_attention`` at the shapes of its paths, paper widths,
-bf16: the greedy step's 512 rows (EditNet's visual attention, 36 regions
-x 2048, no mask; the masked 22 x 1024 class of the SCMA and DCNet's text
+``fused_additive_attention`` at the shapes of its paths, paper widths:
+the greedy step's 512 rows (EditNet's visual attention, 36 regions x
+2048, no mask; the masked 22 x 1024 class of the SCMA and DCNet's text
 attention, caption lengths 8 to 22 as ``chip_smoke.py``'s batch has
 them) and 2560 rows of the visual class; and ``dcnet_score`` at 2560 rows
-(512 images x 5 beams, 22 caption positions). Inputs are random from seed
-0. Each case is measured with this repo's ``chip_smoke.py`` helpers:
-CUDA-event ms a call (``time_ms``), each launch's device ms a call by
-kernel name (``_profile_kernels``), their sum with and without the
-wrapper's own PyTorch launches, and a call's device span from the port's
-first kernel to its last (``_device_span_ms``), which counts once the
-time two launches overlap. Prints one JSON line per checkout with the
-card's name and power limit. Needs the card; imports nothing of JAX.
+(512 images x 5 beams, 22 caption positions); each in bf16 and again in
+fp32 (``compute_dtype=float32``: fp32 keys, values and weights, the
+cases' names ending in ``_f32``). Inputs are random from seed 0. Each
+case is measured with this repo's ``chip_smoke.py`` helpers: CUDA-event
+ms a call (``time_ms``), each launch's device ms a call by kernel name
+(``_profile_kernels``), their sum with and without the wrapper's own
+PyTorch launches, and a call's device span from the port's first kernel
+to its last (``_device_span_ms``), which counts once the time two
+launches overlap. Prints one JSON line per checkout with the card's name
+and power limit. Needs the card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -63,32 +65,37 @@ def cases():
     att = AdditiveAttentionParams(
         w_enc=randn(8, A), w_q=randn(H, A, scale=H ** -0.5),
         v=randn(A, scale=A ** -0.5), b=randn(A, scale=0.1))
-    wq = att.w_q.to(bf)
     lengths = torch.randint(8, 23, (512,), generator=g).cuda()
     mask = torch.arange(22, device="cuda")[None, :] < lengths[:, None]
-    out = {}
-    for name, (B, P, V, m) in {"visual_512": (512, 36, 2048, None),
-                               "masked_512": (512, 22, 1024, mask),
-                               "visual_2560": (2560, 36, 2048, None)}.items():
-        keys = randn(B, P, A, scale=0.5).to(bf)
-        values = randn(B, P, V).to(bf)
-        q = randn(B, H, scale=0.5)
-        out[f"fused_additive_attention/{name}"] = (
-            lambda keys=keys, values=values, q=q, m=m:
-            ka.fused_additive_attention(att, keys, values, q, m, w_q=wq,
-                                        compute_dtype=bf))
+    shapes = {"visual_512": (512, 36, 2048, None),
+              "masked_512": (512, 22, 1024, mask),
+              "visual_2560": (2560, 36, 2048, None)}
     N, B, T = 2560, 512, 22
     dmask = (torch.arange(T, device="cuda")[None, :]
              < lengths[:, None]).float()
-    small = torch.zeros((128, 128), dtype=bf, device="cuda")
-    pack = ms.DCNetCellPack(
-        att_wq=randn(H, A, scale=H ** -0.5).to(bf),
-        att_v=randn(A, scale=A ** -0.5), att_b=randn(A, scale=0.1),
-        gate_w=small, gate_b=small[0].float(), dec_w=small,
-        b=small[0].float(), att_keys=randn(B, T, A, scale=0.5).to(bf),
-        enc_hs=small[None], mask=dmask)
+    dcnet_wq = randn(H, A, scale=H ** -0.5)
+    dcnet_v, dcnet_b = randn(A, scale=A ** -0.5), randn(A, scale=0.1)
+    dcnet_keys = randn(B, T, A, scale=0.5)
     h = randn(N, H, scale=0.5)
-    out["dcnet_score/2560"] = lambda: ms.dcnet_score(pack, h)
+    out = {}
+    for suffix, dt in (("", bf), ("_f32", torch.float32)):
+        wq = att.w_q.to(dt)
+        for name, (B_, P, V, m) in shapes.items():
+            keys = randn(B_, P, A, scale=0.5).to(dt)
+            values = randn(B_, P, V).to(dt)
+            q = randn(B_, H, scale=0.5)
+            out[f"fused_additive_attention/{name}{suffix}"] = (
+                lambda keys=keys, values=values, q=q, m=m, wq=wq, dt=dt:
+                ka.fused_additive_attention(att, keys, values, q, m,
+                                            w_q=wq, compute_dtype=dt))
+        small = torch.zeros((128, 128), dtype=dt, device="cuda")
+        pack = ms.DCNetCellPack(
+            att_wq=dcnet_wq.to(dt), att_v=dcnet_v, att_b=dcnet_b,
+            gate_w=small, gate_b=small[0].float(), dec_w=small,
+            b=small[0].float(), att_keys=dcnet_keys.to(dt),
+            enc_hs=small[None], mask=dmask)
+        out[f"dcnet_score/2560{suffix}"] = (
+            lambda pack=pack: ms.dcnet_score(pack, h))
     return out
 
 

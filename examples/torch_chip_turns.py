@@ -35,7 +35,8 @@ FIELDS = ("ms", "device_ms", "library_ms", "library_device_ms", "plain_ms",
           "bound_ms", "bound_share", "device_bound_share",
           "cuda_launches_per_call", "two_programs_ms",
           "two_programs_device_ms", "lang_cell_then_sweep_ms",
-          "lang_cell_then_sweep_device_ms", "device_span_ms")
+          "lang_cell_then_sweep_device_ms", "device_span_ms",
+          "device_span_bound_share")
 
 
 # The named phases of a checkout's chip_smoke.py, after its device and

@@ -1,9 +1,10 @@
-"""The bf16 score kernels on the CPU: a torch model of how the kernels of
+"""The score kernels on the CPU: a torch model of how the kernels of
 ``csrc/attention.cu`` (the dispatch attention, B6) and of
-``csrc/megastep.cu``'s ``ck_dcnet_score`` split one call (the kernels
-themselves run on a card: test_torch_card.py), held against
-``captionkit.ops.attention.fused_additive_attention`` and the score kernel
-of ``captionkit.ops.megastep.dcnet_fused_step_hidden`` in interpret mode.
+``csrc/megastep.cu``'s ``ck_dcnet_score`` split one call, in bf16 and in
+fp32 (the kernels themselves run on a card: test_torch_card.py), held
+against ``captionkit.ops.attention.fused_additive_attention`` and the
+score kernel of ``captionkit.ops.megastep.dcnet_fused_step_hidden`` in
+interpret mode.
 
 The model follows the kernels step by step, in fp32:
 - the query product of each 128-row x 128-column output tile (the
@@ -25,11 +26,22 @@ The model follows the kernels step by step, in fp32:
   ``NEG_INF`` where the mask is not > 0, the row's softmax rounded to bf16
   once.
 
+The fp32 instances run the same kernels with fp32 keys and values: the
+query product on ``cell_common.cuh``'s fp32 tile, split over K into the
+ranges of whole 32-deep stages that ``plain_split`` picks for an H100
+(partials added in rank order); a lane's score columns 4 l + 128 c +
+{0..3}; the accurate tanh; B6's stages holding half the positions (14 KB
+of 4-byte elements) and a thread's 8 context columns 4 col + {0..3} and
+4 (col + n8) + {0..3} of its group; ω in fp32. (Which warp takes a
+position, and whether its key comes from shared memory or L1, changes no
+sum, so the model leaves it out.)
+
 Bars (the port's dispatch and megastep tests): B6's weights within 1e-4
 and its context within 1e-3 of the JAX kernel, and within max(1 bf16 ulp,
-1e-4) and 1e-3 of the plain version; DCNet's ω within one bf16 ulp. Each
-planted fault (a lane's partial score left out of the reduction, a
-thread's 8 context columns written to the next slice) must fail them.
+1e-4) and 1e-3 of the plain version; DCNet's ω within one bf16 ulp; fp32:
+everything within 1e-5 (the card's fp32 bar). Each planted fault (a lane's
+partial score left out of the reduction, a thread's 8 context columns
+written to the next slice) must fail them.
 """
 
 import jax
@@ -49,6 +61,8 @@ from captionkit_torch.nn.attention import AdditiveAttentionParams
 from captionkit_torch.nn.masking import NEG_INF
 
 ROWS, COLS, K_STAGE = 128, 128, 64  # sm90_cell.cuh's tile and stage
+F32_K_STAGE, F32_SPLIT_MAX = 32, 4  # cell_common.cuh's stage, MAX_OPS
+F32_ATOL = 1e-5
 H100_SMS = 132
 STAGE_BYTES, VCOLS, CONSUMERS = 14 * 1024, 1024, 128  # context_kernel
 FAULTS = ("lane_share_left_out", "slice_in_wrong_columns")
@@ -83,21 +97,54 @@ def _query(q, wq, split=1):
     return out
 
 
+def _plain_split(tiles, steps, sms=H100_SMS):
+    """``cell_common.cuh::plain_split``: the K ranges s <= 4 (and <= the
+    stages) minimizing the waves of s tiles' CTAs times the stages of the
+    longest range, the smallest on a tie."""
+    best, cost = 1, -(-tiles // sms) * steps
+    for s in range(2, min(F32_SPLIT_MAX, steps) + 1):
+        c = -(-(tiles * s) // sms) * -(-steps // s)
+        if c < cost:
+            best, cost = s, c
+    return best
+
+
+def _query_f32(q, wq, split=None):
+    """q [N, Qp] fp32 times wq [Qp, Ap] fp32 on the fp32 tile: ``split``
+    K ranges of whole 32-deep stages (range c: stages [c S / split, (c + 1)
+    S / split)), fp32 partials added in rank order; ``split`` None takes
+    the H100's ``plain_split``."""
+    N, Qp = q.shape
+    S = Qp // F32_K_STAGE
+    if split is None:
+        split = _plain_split((wq.shape[1] // COLS) * -(-N // ROWS), S)
+    out = None
+    for c in range(split):
+        k0 = S * c // split * F32_K_STAGE
+        k1 = S * (c + 1) // split * F32_K_STAGE
+        part = q[:, k0:k1] @ wq[k0:k1]
+        out = part if out is None else out + part
+    return out
+
+
 def _tanh_ex2(x):
     """The kernels' tanh, 1 - 2 / (2^(2 x log2 e) + 1), in fp32."""
     return 1.0 - 2.0 / (torch.exp2(x * 2.88539008) + 1.0)
 
 
-def _warp_score(terms, fault=None):
+def _warp_score(terms, fault=None, vec=8):
     """The warp's sum of terms [..., A]: lane l's partial over columns
-    8 l + 256 c + j (c, then j), then the xor butterfly; lane 0's total.
-    ``lane_share_left_out``: lane 3's partial dropped."""
+    vec l + 32 vec c + j (c, then j; vec 8 in bf16, 4 in fp32), then the
+    xor butterfly; lane 0's total. ``lane_share_left_out``: lane 3's
+    partial dropped."""
     A = terms.shape[-1]
-    nc = -(-A // 256)
-    t = F.pad(terms, (0, 256 * nc - A)).reshape(*terms.shape[:-1], nc, 32, 8)
+    chunk = 32 * vec
+    nc = -(-A // chunk)
+    t = F.pad(terms, (0, chunk * nc - A)).reshape(*terms.shape[:-1], nc, 32,
+                                                  vec)
     part = torch.zeros(terms.shape[:-1] + (32,))
     for c in range(nc):
-        for j in range(8):
+        for j in range(vec):
             part = part + t[..., c, :, j]
     if fault == "lane_share_left_out":
         part[..., 3] = 0.0
@@ -108,17 +155,23 @@ def _warp_score(terms, fault=None):
 
 
 def _b6_model(q, wq, b, v, keys, values, nvalid, fault=None, split=None):
-    """(ctx [B, V], w [B, P]) as the bf16 kernels compute them; q fp32
-    [B, Qp], wq bf16 [Qp, Ap], b, v fp32 [Ap], keys bf16 [B, P, Ap],
-    values bf16 [B, P, V], nvalid [B]; the query product in ``split`` K
-    ranges (the wrapper's choice on an H100 when None). Also the number of
-    value positions each row reads."""
-    if split is None:
-        split = tattn.query_split(q.shape[0], wq.shape[1], H100_SMS)
-    qa = _query(q, wq, split)
+    """(ctx [B, V], w [B, P]) as the kernels compute them; q fp32 [B, Qp],
+    wq [Qp, Ap], b, v fp32 [Ap], keys [B, P, Ap], values [B, P, V], nvalid
+    [B]; wq, keys and values bf16, or fp32 (the fp32 instance); the query
+    product in ``split`` K ranges (the wrapper's choice on an H100 when
+    None). Also the number of value positions each row reads."""
+    f32 = keys.dtype == torch.float32
+    elem, vec = (4, 4) if f32 else (2, 8)
+    if f32:
+        qa = _query_f32(q, wq, split)
+    else:
+        if split is None:
+            split = tattn.query_split(q.shape[0], wq.shape[1], H100_SMS)
+        qa = _query(q, wq, split)
+    tanh = torch.tanh if f32 else _tanh_ex2
     B, P, A = keys.shape
     V = values.shape[2]
-    kc = STAGE_BYTES // (2 * A)
+    kc = STAGE_BYTES // (elem * A)
     ctx, w = torch.zeros((B, V)), torch.zeros((B, P))
     read = []
     for row in range(B):
@@ -128,12 +181,13 @@ def _b6_model(q, wq, b, v, keys, values, nvalid, fault=None, split=None):
         for p0 in range(0, nk, kc):
             k = keys[row, p0:min(nk, p0 + kc)].float()
             s[p0:p0 + k.shape[0]] = _warp_score(
-                _tanh_ex2(k + qa[row] + b) * v, fault)
+                tanh(k + qa[row] + b) * v, fault, vec)
         w[row] = torch.softmax(s, dim=0)
         for c0 in range(0, V, VCOLS):
             cw = min(VCOLS, V - c0)
-            pc = STAGE_BYTES // (2 * cw)
-            G = CONSUMERS // (cw // 8)
+            pc = STAGE_BYTES // (elem * cw)
+            n8 = cw // 8
+            G = CONSUMERS // n8
             part = torch.zeros((G, cw))
             for p0 in range(0, nval, pc):
                 for j in range(min(pc, nval - p0)):
@@ -141,23 +195,32 @@ def _b6_model(q, wq, b, v, keys, values, nvalid, fault=None, split=None):
                         values[row, p0 + j, c0:c0 + cw].float()
             out = part.sum(dim=0)
             if fault == "slice_in_wrong_columns" and cw >= 16:
-                out[8:16] = out[0:8].clone()
+                if f32:  # thread 0's columns 0..3, 4 n8 .. 4 n8 + 3
+                    out[4:8] = out[0:4].clone()
+                    out[4 * n8 + 4:4 * n8 + 8] = out[4 * n8:4 * n8 + 4].clone()
+                else:
+                    out[8:16] = out[0:8].clone()
             ctx[row, c0:c0 + cw] = out
         read.append(nval)
     return ctx, w, read
 
 
 def _dcnet_model(h, wq, b, v, keys, mask, fault=None):
-    """ω [N, T] bf16 as the bf16 kernels compute it: q = bf16(h) wq, then
-    one warp a row against its image's keys."""
-    q = _query(h, wq)
+    """ω [N, T] as the kernels compute it: bf16, q = bf16(h) wq on the
+    wgmma tile; fp32 (wq and keys fp32), q the fp32 tile's K-range
+    partials added in rank order; then one warp a row against its image's
+    keys (fp32: 4-column lane chunks, the accurate tanh), ω in the keys'
+    dtype."""
+    f32 = keys.dtype == torch.float32
+    q = _query_f32(h, wq) if f32 else _query(h, wq)
     B, T, A = keys.shape
     N = h.shape[0]
     img = torch.arange(N) // (N // B)
-    e = _tanh_ex2(keys.float()[img] + q[:, None, :] + b) * v
-    s = _warp_score(e, fault)
+    tanh = torch.tanh if f32 else _tanh_ex2
+    e = tanh(keys.float()[img] + q[:, None, :] + b) * v
+    s = _warp_score(e, fault, 4 if f32 else 8)
     s = torch.where(mask[img] > 0, s, NEG_INF)
-    return torch.softmax(s, dim=-1).to(bf)
+    return torch.softmax(s, dim=-1).to(keys.dtype)
 
 
 def _ulp_close(got, want):
@@ -199,27 +262,29 @@ def _b6_case(B, P, A, V, Q, pattern, seed=7):
 
 
 def _b6_both(arrays, keys, values, query, mask, lengths, fault=None,
-             split=None):
-    """(JAX kernel (ctx, w), model (ctx, w, read), plain (ctx, w))."""
+             split=None, dt=bf):
+    """(JAX kernel (ctx, w), model (ctx, w, read), plain (ctx, w)) in the
+    compute dtype ``dt`` (bf16 or fp32)."""
+    jdt = jnp.bfloat16 if dt == bf else jnp.float32
     jp = JaxAttParams(**{k: jnp.asarray(v) for k, v in arrays.items()})
-    jk = jnp.asarray(keys).astype(jnp.bfloat16)
-    jv = jnp.asarray(values).astype(jnp.bfloat16)
+    jk = jnp.asarray(keys).astype(jdt)
+    jv = jnp.asarray(values).astype(jdt)
     j = jax_attn(jp, jk, jv, jnp.asarray(query), jnp.asarray(mask),
-                 compute_dtype=jnp.bfloat16, interpret=True)
+                 compute_dtype=jdt, interpret=True)
     tp = AdditiveAttentionParams(
         **{k: torch.from_numpy(v) for k, v in arrays.items()})
     B, P, A = keys.shape
     Q = query.shape[1]
     Qp, Ap = _round_up(Q, tattn.K_TILE), _round_up(A, 128)
-    wq = F.pad(tp.w_q, (0, Ap - A, 0, Qp - Q)).to(bf)
-    tk = F.pad(torch.from_numpy(keys), (0, Ap - A)).to(bf)
-    tv = torch.from_numpy(values).to(bf)
+    wq = F.pad(tp.w_q, (0, Ap - A, 0, Qp - Q)).to(dt)
+    tk = F.pad(torch.from_numpy(keys), (0, Ap - A)).to(dt)
+    tv = torch.from_numpy(values).to(dt)
     q = F.pad(torch.from_numpy(query), (0, Qp - Q))
     m = _b6_model(q, wq, F.pad(tp.b, (0, Ap - A)), F.pad(tp.v, (0, Ap - A)),
                   tk, tv, torch.from_numpy(lengths), fault, split)
     plain = tattn.reference_additive_attention(
         tp, tk[..., :A], tv, torch.from_numpy(query),
-        torch.from_numpy(mask), compute_dtype=bf)
+        torch.from_numpy(mask), compute_dtype=dt)
     return j, m, plain
 
 
@@ -236,6 +301,19 @@ def _b6_ok(j, m, plain, lengths):
             and np.abs(ctx - j_ctx)[some].max() <= 1e-3
             and _w_close(w, plain[1].numpy())
             and np.abs(ctx - plain[0].numpy()).max() <= 1e-3)
+
+
+def _b6_ok_f32(j, m, plain, lengths):
+    """fp32: (ctx, w) within F32_ATOL of the JAX kernel on rows with a
+    valid position (it spreads a row with none over its padded positions,
+    as ``_b6_ok`` says) and of the plain version on every row."""
+    ctx, w = m[0].numpy(), m[1].numpy()
+    some = np.asarray(lengths) > 0
+    return all(
+        np.abs(got - np.asarray(want, np.float32))[rows].max() <= F32_ATOL
+        for got, want, rows in ((w, j[1], some), (ctx, j[0], some),
+                                (w, plain[1].numpy(), slice(None)),
+                                (ctx, plain[0].numpy(), slice(None))))
 
 
 @pytest.mark.parametrize("B,P,A,V,Q,pattern", [
@@ -305,6 +383,40 @@ def test_b6_partition_planted_faults_fail(fault):
     assert not _b6_ok(j, m, plain, case[5])
 
 
+@pytest.mark.parametrize("B,P,A,V,Q,split", [
+    (8, 36, 512, 2048, 1024, None),  # visual: 4 ranges of 8 stages, 2 groups
+    (6, 22, 64, 96, 160, None),      # unaligned: 3 ranges of 1, 2, 2 stages
+    (6, 22, 64, 96, 160, 4),         # 4 ranges of 1, 1, 1, 2
+    (3, 5, 128, 2056, 32, None),     # one range; three column groups
+    (4, 7, 1024, 1600, 64, 2),       # A past the registers: 3 keys a stage;
+])                                   # a 576-column group
+def test_b6_f32_partition_matches_jax_fused(B, P, A, V, Q, split):
+    """The model of B6's fp32 instance (the fp32 tile's K ranges, the
+    lanes' 4-column chunks, the accurate tanh, stages of half the
+    positions, a thread's two 4-column slices) gives the JAX kernel's
+    fp32 (ctx, w) and the plain version's within 1e-5, at prefix lengths
+    0, 1 and P; a row with none valid reads all P values, uniformly
+    weighted, any other its prefix."""
+    case = _b6_case(B, P, A, V, Q, "zero_one_full")
+    j, m, plain = _b6_both(*case, split=split, dt=torch.float32)
+    lengths = case[5]
+    assert _b6_ok_f32(j, m, plain, lengths)
+    assert m[2] == [int(n) if n > 0 else P for n in lengths]
+    none_valid = torch.from_numpy(lengths == 0)
+    torch.testing.assert_close(m[1][none_valid],
+                               torch.full_like(m[1][none_valid], 1.0 / P))
+
+
+@pytest.mark.parametrize("fault", FAULTS)
+def test_b6_f32_partition_planted_faults_fail(fault):
+    """fp32: a lane's partial score left out, or a thread's two 4-column
+    slices written over the next thread's, fails the 1e-5 bar at the
+    visual class's shape."""
+    case = _b6_case(8, 36, 512, 2048, 1024, "full")
+    j, m, plain = _b6_both(*case, fault=fault, dt=torch.float32)
+    assert not _b6_ok_f32(j, m, plain, case[5])
+
+
 def _dcnet_case(B, K, T, H, A, seed=3):
     rng = np.random.default_rng(seed)
     Hp, Ap = _round_up(H, 128), _round_up(A, 128)
@@ -323,9 +435,9 @@ def _dcnet_case(B, K, T, H, A, seed=3):
     return h, wq, v, b, keys, mask
 
 
-def _dcnet_both(case, K, fault=None):
+def _dcnet_both(case, K, fault=None, dt=bf):
     h, wq, v, b, keys, mask = case
-    jb = jnp.bfloat16
+    jb = jnp.bfloat16 if dt == bf else jnp.float32
     j = jax_megastep._make_dcnet_score_kernel(K, jb)
     from jax.experimental import pallas as pl
 
@@ -335,9 +447,18 @@ def _dcnet_both(case, K, fault=None):
                         jnp.asarray(v), jnp.asarray(b),
                         jnp.asarray(keys).astype(jb), jnp.asarray(mask))
     t = [torch.from_numpy(x) for x in case]
-    m = _dcnet_model(t[0], t[1].to(bf), t[3][0], t[2][0], t[4].to(bf), t[5],
+    m = _dcnet_model(t[0], t[1].to(dt), t[3][0], t[2][0], t[4].to(dt), t[5],
                      fault)
     return np.asarray(omega, np.float32), m.float().numpy()
+
+
+def _dcnet_pack(case, dt):
+    h, wq, v, b, keys, mask = (torch.from_numpy(x) for x in case)
+    small = torch.zeros((128, 128), dtype=dt)
+    return h, megastep.DCNetCellPack(
+        att_wq=wq.to(dt), att_v=v[0], att_b=b[0], gate_w=small,
+        gate_b=small[0].float(), dec_w=small, b=small[0].float(),
+        att_keys=keys.to(dt), enc_hs=small[None], mask=mask)
 
 
 @pytest.mark.parametrize("B,K,T,H,A", [
@@ -354,14 +475,9 @@ def test_dcnet_score_partition_matches_jax_kernel(B, K, T, H, A):
     case = _dcnet_case(B, K, T, H, A)
     j, m = _dcnet_both(case, K)
     assert _ulp_close(m, j)
-    h, wq, v, b, keys, mask = (torch.from_numpy(x) for x in case)
-    small = torch.zeros((128, 128), dtype=bf)
-    pack = megastep.DCNetCellPack(
-        att_wq=wq.to(bf), att_v=v[0], att_b=b[0], gate_w=small,
-        gate_b=small[0].float(), dec_w=small, b=small[0].float(),
-        att_keys=keys.to(bf), enc_hs=small[None], mask=mask)
+    h, pack = _dcnet_pack(case, bf)
     assert _ulp_close(m, megastep.reference_dcnet_score(pack, h).float())
-    rows = mask.repeat_interleave(K, dim=0)
+    rows = pack.mask.repeat_interleave(K, dim=0)
     valid_rows = rows.sum(dim=1) > 0
     assert bool((torch.from_numpy(m)[valid_rows][rows[valid_rows] == 0]
                  == 0).all())
@@ -374,3 +490,37 @@ def test_dcnet_score_partition_planted_fault_fails():
     case = _dcnet_case(26, 5, 22, 48, 512)
     j, m = _dcnet_both(case, 5, fault="lane_share_left_out")
     assert not _ulp_close(m, j)
+
+
+@pytest.mark.parametrize("B,K,T,H,A", [
+    (7, 5, 6, 16, 8),        # one 4-column chunk a lane, 4 K ranges
+    (26, 5, 22, 48, 512),    # A = 512: four chunks a lane, 130 rows
+    (3, 5, 22, 1024, 1024),  # A = 1024: eight chunks, 4 ranges of 8
+])
+def test_dcnet_score_f32_partition_matches_jax_kernel(B, K, T, H, A):
+    """The model of dcnet_score's fp32 instance (the fp32 tile's K-range
+    partials added into q, two warps a row taking its position pairs in
+    turn from the image's keys in shared memory, the lanes' 4-column
+    chunks, the accurate tanh) gives the reference's fp32 score kernel's ω
+    (interpret) and the plain version's within 1e-5, at attendable
+    lengths 0, 1 and T among others; masked positions weigh exactly 0, a
+    row with none attendable weighs all T equally."""
+    case = _dcnet_case(B, K, T, H, A)
+    j, m = _dcnet_both(case, K, dt=torch.float32)
+    assert np.abs(m - j).max() <= F32_ATOL
+    h, pack = _dcnet_pack(case, torch.float32)
+    plain = megastep.reference_dcnet_score(pack, h).numpy()
+    assert np.abs(m - plain).max() <= F32_ATOL
+    rows = pack.mask.repeat_interleave(K, dim=0).numpy() > 0
+    some = rows.any(axis=1)
+    assert (m[some][~rows[some]] == 0).all()
+    np.testing.assert_allclose(m[~some], 1.0 / T, rtol=1e-6)
+
+
+def test_dcnet_score_f32_partition_planted_fault_fails():
+    """fp32: a lane's partial score left out of the warp's reduction
+    moves ω past 1e-5 at A = 512."""
+    case = _dcnet_case(26, 5, 22, 48, 512)
+    j, m = _dcnet_both(case, 5, fault="lane_share_left_out",
+                       dt=torch.float32)
+    assert np.abs(m - j).max() > F32_ATOL

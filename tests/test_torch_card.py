@@ -784,6 +784,20 @@ def _profiled_runs(card, group):
                     h, w_p, b_p, k=5),
                 "sweep": lambda: thead.head_sweep_topk(h, w_p, b_p, k=5),
                 "wholestep": lambda: twhole.fused_lang_head_topk(*args, k=5)}
+    if group == "fp32_scores":
+        params, keys, values, query, mask = _attention_case(
+            card, 512, 36, 512, 2048, 1024, masked=False)
+        keys, values = keys.float(), values.float()
+        _, dpack, (h, _, _, _), _ = _cell_setup("dcnet", F32_CELLS, card,
+                                                512)
+        mc, pack, (h_att, c_att, h_lang, _), emb = _cell_setup(
+            "editnet", F32_CELLS, card, 64)
+        return {"attention": lambda: tattn.fused_additive_attention(
+                    params, keys, values, query, None,
+                    compute_dtype=torch.float32),
+                "dcnet_score": lambda: megastep.dcnet_score(dpack, h),
+                "att_cell": lambda: megastep.att_cell(pack, emb, h_att,
+                                                      c_att, h_lang)}
     if group == "heads":
         h, w, b = _paper_head(card)
         w_p, b_p = thead.prepad_head(w, b, compute_dtype=torch.bfloat16)
@@ -1369,19 +1383,103 @@ def test_fp32_lstm_kernels_match_plain(card, N, D, H, copy):
 
 @pytest.mark.parametrize("B,N,A,V,Q,masked", [
     (8, 36, 512, 2048, 1024, True), (6, 22, 64, 96, 96, True),
-    (512, 36, 512, 2048, 1024, False)])
+    (512, 36, 512, 2048, 1024, False),
+    (512, 36, 512, 2048, 1024, "0_1_P"),  # prefix lengths 0, 1 and P
+    (512, 22, 512, 1024, 1024, "0_1_P"),  # the SCMA / DCNet text class
+    (6, 22, 64, 96, 96, "0_1_P"),
+    (2560, 36, 512, 2048, 1024, False),   # the bench rows: 3 K ranges
+    (3, 5, 128, 2056, 32, "0_1_P"),       # three value column groups
+    (4, 7, 128, 1600, 32, "0_1_P"),       # a 576-column group
+    (16, 10, 1024, 256, 64, True),        # A past the lanes' registers
+    (2, 3000, 128, 8, 32, "0_1_P"),       # many key and value stages
+])
 def test_fp32_attention_kernel_matches_plain(card, B, N, A, V, Q, masked):
-    """B6's fp32 instance (fp32 keys and values, fp32 query product):
-    ctx and weights within 1e-5 of its plain version."""
+    """B6's fp32 instance (fp32 keys and values, the fp32 query product
+    split over K, context_kernel's fp32 instance): ctx and weights within
+    1e-5 of its plain version; a masked position weighs exactly 0, a row
+    with none valid 1 / N."""
     params, keys, values, query, mask = _attention_case(card, B, N, A, V, Q,
                                                         masked=masked)
     keys, values = keys.float(), values.float()
+    before = tattn.fused_additive_attention.launches
     ctx, w = tattn.fused_additive_attention(
         params, keys, values, query, mask, compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert tattn.fused_additive_attention.launches == before + 1
     ctx_r, w_r = tattn.reference_additive_attention(
         params, keys, values, query, mask, compute_dtype=torch.float32)
     torch.testing.assert_close(w, w_r, atol=1e-5, rtol=0)
     torch.testing.assert_close(ctx, ctx_r, atol=1e-5, rtol=0)
+    if masked:
+        some = mask.any(dim=1)
+        assert bool((w[some][~mask[some]] == 0).all())
+        torch.testing.assert_close(w[~some], torch.full_like(w[~some], 1 / N),
+                                   atol=1e-7, rtol=0)
+
+
+@pytest.mark.parametrize("fault", ["lane_share_left_out",
+                                   "slice_in_wrong_columns"])
+@pytest.mark.parametrize("B,N,A,V,Q,masked", [
+    (512, 36, 512, 2048, 1024, False), (6, 22, 64, 96, 96, "0_1_P")])
+def test_fp32_attention_kernel_reduction_faults_fail(card, B, N, A, V, Q,
+                                                     masked, fault):
+    """fp32: a lane's partial score left out of the sum over A, or a
+    thread's context columns written over the next ones, moves ctx or the
+    weights past 1e-5."""
+    params, keys, values, query, mask = _attention_case(card, B, N, A, V, Q,
+                                                        masked=masked)
+    keys, values = keys.float(), values.float()
+    kw = dict(compute_dtype=torch.float32)
+    ctx_r, w_r = tattn.reference_additive_attention(
+        params, keys, values, query, mask, **kw)
+    if fault == "lane_share_left_out":
+        params = dataclasses.replace(params, v=_lane_share_dropped(params.v),
+                                     cache={})
+    else:
+        values = values.clone()
+        values[..., 8:16] = values[..., 0:8]
+    ctx, w = tattn.fused_additive_attention(params, keys, values, query,
+                                            mask, **kw)
+    assert max(float((ctx - ctx_r).abs().max()),
+               float((w - w_r).abs().max())) > 1e-5
+
+
+@pytest.mark.parametrize("K", [1, 5])
+def test_fp32_dcnet_score_prefix_lengths_and_faults(card, K):
+    """dcnet_score's fp32 instance (the fp32 tile split over K, then
+    dcnet_scores_kernel's fp32 instance) at attendable lengths 0, 1 and
+    T in turn, paper widths: ω within 1e-5 of its plain version, masked
+    positions 0, a row with none attendable 1 / T; a lane's partial
+    score left out of the sum over A, and the mask dropped, move ω past
+    1e-5. Random keys (scale 0.5), as in the bf16 test."""
+    _, pack, (h, _, _, _), _ = _cell_setup("dcnet", F32_CELLS, card, 64,
+                                           K=K)
+    assert pack.dtype == torch.float32
+    B, T = pack.mask.shape
+    lengths = torch.tensor([0, 1, T], device=card).repeat(B)[:B]
+    g = torch.Generator().manual_seed(5)
+    pack = dataclasses.replace(
+        pack, att_keys=(torch.randn(pack.att_keys.shape, generator=g)
+                        * 0.5).to(card),
+        mask=(torch.arange(T, device=card)[None, :]
+              < lengths[:, None]).float())
+    before = megastep.dcnet_score.launches
+    got = megastep.dcnet_score(pack, h)
+    torch.cuda.synchronize()
+    assert megastep.dcnet_score.launches == before + 1
+    want = megastep.reference_dcnet_score(pack, h)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    rows = pack.mask.repeat_interleave(K, dim=0) > 0
+    some = rows.any(dim=1)
+    assert bool((got[some][~rows[some]] == 0).all())
+    torch.testing.assert_close(got[~some], torch.full_like(got[~some], 1 / T),
+                               atol=1e-7, rtol=0)
+    for bad in (dataclasses.replace(pack, att_v=_lane_share_dropped(
+            pack.att_v)), dataclasses.replace(
+                pack, mask=torch.ones_like(pack.mask))):
+        assert float((megastep.dcnet_score(bad, h) - want).abs().max()) \
+            > 1e-5
 
 
 def _wholestep_args(card, over, B, dt=torch.bfloat16, seed=3, K=5):
@@ -1550,6 +1648,65 @@ def test_fp32_copy_lstm_c_star_feeds_r_alone(card, N):
     params.cache.clear()
     assert max(float((g_ - w_).abs().max()) for g_, w_ in zip(bad, want)) \
         > 1e-5
+
+
+@pytest.mark.parametrize("K,T,A", [(10, 40, 512), (3, 70, 1024),
+                                   (9, 22, 128)])
+def test_fp32_dcnet_score_windows_and_row_blocks(card, K, T, A):
+    """dcnet_score's fp32 instance past one block's rows (K > 8: a second
+    block of the image's rows, some of its warps idle) and past one
+    window of keys (T > 32: the keys staged again), on random weights and
+    keys, with attendable lengths 0, 1 and T and a mask with holes: ω
+    within 1e-5 of its plain version."""
+    B, H = 6, 1024
+    g = torch.Generator().manual_seed(8)
+    small = torch.zeros((128, 128), device=card)
+    mask = (torch.rand((B, T), generator=g) > 0.3).float()
+    mask[0], mask[1], mask[2] = 0.0, 0.0, 1.0
+    mask[1, 0] = 1.0
+    pack = megastep.DCNetCellPack(
+        att_wq=_u(g, (H, A), H ** -0.5, card),
+        att_v=_u(g, (A,), A ** -0.5, card), att_b=_u(g, (A,), 0.1, card),
+        gate_w=small, gate_b=small[0], dec_w=small, b=small[0],
+        att_keys=(torch.randn((B, T, A), generator=g) * 0.5).to(card),
+        enc_hs=small[None], mask=mask.to(card))
+    h = (torch.randn((B * K, H), generator=g) * 0.5).to(card)
+    got = megastep.dcnet_score(pack, h)
+    want = megastep.reference_dcnet_score(pack, h)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    torch.testing.assert_close(got[:K], torch.full_like(got[:K], 1 / T),
+                               atol=1e-7, rtol=0)
+
+
+def test_fp32_score_kernels_launch_names(card):
+    """The fp32 instances of B6 and dcnet_score run two CUDA launches a
+    call: cell_common.cuh's gemm_kernel (the query product split over K),
+    then context_kernel<float> and dcnet_scores_kernel's fp32 instance;
+    attention_kernel and scores_kernel are gone from them. The fp32
+    att_cell, another user of the fp32 tile, still runs its two gemm_kernel
+    launches and scores_kernel. Each is profiled in a process of its
+    own."""
+    runs = {"attention": ("context_kernel<float>",),
+            "dcnet_score": ("dcnet_scores_kernel<", ", float>")}
+    for name, second in runs.items():
+        kernels = {k: n for k, n in _kernels_a_call("fp32_scores",
+                                                    name).items()
+                   if "at::native" not in k}
+        gemms = sum(n for k, n in kernels.items() if "gemm_kernel" in k)
+        seconds = sum(n for k, n in kernels.items()
+                      if all(key in k for key in second))
+        assert (gemms, seconds, sum(kernels.values())) == (3, 3, 6), \
+            (name, kernels)
+        assert not any("attention_kernel" in k or
+                       ("scores_kernel" in k and "dcnet" not in k)
+                       for k in kernels), (name, kernels)
+    kernels = {k: n for k, n in _kernels_a_call("fp32_scores",
+                                                "att_cell").items()
+               if "at::native" not in k}
+    gemms = sum(n for k, n in kernels.items() if "gemm_kernel" in k)
+    scores = sum(n for k, n in kernels.items()
+                 if "scores_kernel" in k and "dcnet" not in k)
+    assert (gemms, scores, sum(kernels.values())) == (6, 3, 9), kernels
 
 
 def test_fp32_route_launches(card):
@@ -2383,12 +2540,18 @@ def test_flag_off_launches_what_the_unguarded_calls_launch(card):
 @pytest.mark.parametrize("name", ["mask", "thresh", "sweep", "int8"])
 def test_heads_hide_a_nan_in_h_that_their_plain_version_passes(card, name):
     """A known difference, pinned: one NaN in one row of h. The plain
-    versions (and the reference's heads) give that row NaN values and lse.
-    The kernels give it none: the bf16 heads admit no candidate from a
-    NaN row (their comparisons and ``fmaxf`` maxima drop a NaN), so its
-    values stay -inf; the int8 head's row scale drops the NaN, whose
-    element quantizes to 0, so its values are finite. Every other row is
-    the plain version's (``chip_smoke.py``'s debug_nans record)."""
+    versions give that row NaN values and lse. The kernels give it none:
+    the bf16 heads admit no candidate from a NaN row (their comparisons
+    and ``fmaxf`` maxima drop a NaN), so its values stay -inf; the int8
+    head's row scale drops the NaN, whose element quantizes to 0, so its
+    values are finite. Every other row is the plain version's
+    (``chip_smoke.py``'s debug_nans record). The reference has no single
+    answer here: on the CPU (N 16, H 128, V 1000, k 5, the NaN at h[3,
+    5]) its Pallas ``fused_head_topk`` in interpret mode gives the row
+    values [nan, -1e30, -1e30, -1e30, -1e30], sentinel ids outside the
+    vocabulary (mask: 1000000000, thresh: 2147483647, then 0s) and lse
+    nan, while its ``xla_head_topk`` gives [nan] * 5, ids 0..4 and lse
+    nan, as the port's plain version does."""
     h, w, b = _paper_head(card)
     h[3, 5] = float("nan")
     if name == "int8":
