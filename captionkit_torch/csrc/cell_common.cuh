@@ -40,8 +40,8 @@
 // - Every CTA lets a programmatic dependent launch start at once
 //   (sm90::launch_dependents); where the next launch is not one, that is a
 //   no-op. The dependents (attention.cu's context_kernel, megastep.cu's
-//   fp32 dcnet_scores_kernel) wait for the product with
-//   griddepcontrol.wait before they read it.
+//   fp32 score_kernel) wait for the product with griddepcontrol.wait
+//   before they read it.
 //
 // Everything lives in namespace `cell`, so a source can include this and
 // head_common.cuh side by side.

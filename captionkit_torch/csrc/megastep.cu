@@ -38,7 +38,7 @@
 //        writing h' and c' in fp32 and h' rounded to bf16: 64.4 GFLOP;
 //     2. the two query products as one plain GEMM of that bf16 h' against
 //        [Wq_vis | Wq_scma] -> q fp32 [N, 2A] (kStore): 5.4 GFLOP;
-//     3. scores_kernel for both heads.
+//     3. score_kernel for both heads (a programmatic dependent of 2).
 //   ck_lang_cell (2 launches):
 //     1. the visual gate, v_hat = sigmoid(h_att Wg + bg) * round_bf16(
 //        vhat_raw) -> bf16 [N, Fp] (kGateMul): 10.7 GFLOP; its idle threads
@@ -48,7 +48,7 @@
 //        only r), 112.7 GFLOP.
 //   ck_dcnet_score (2 launches): the query product from fp32 h (rounded
 //     to bf16 in registers) -> q fp32 [N, A] (kStore): 2.7 GFLOP; then
-//     dcnet_scores_kernel.
+//     score_kernel for its one head (a programmatic dependent).
 //   ck_dcnet_cell (2 launches):
 //     1. the context gate, part = bf16(sigmoid(h Wg + bg) * ctx) with the
 //        fp32 ctx unrounded (kGateMulX32, as the reference multiplies the
@@ -56,25 +56,34 @@
 //     2. the decoder LSTM over [emb | part | h] (emb and h fp32 rounded in
 //        registers, part bf16), K = 3072, bias b: 64.4 GFLOP.
 //
-//   scores_kernel (att_cell, bf16 and fp32), grid = (images, attention
-//     heads): one block per image. Each warp takes a key position, holds
-//     that key row in registers and reuses it for the image's K query rows
-//     (the keys are read once per image, never repeated K-fold in device
-//     memory); tanh(key + q + b) . v is reduced over A with warp shuffles;
-//     then one warp per query row takes the masked softmax.
-//   dcnet_scores_kernel (dcnet_score, bf16 and fp32): one warp per query
-//     row (fp32: two), its q, b and v in registers, walking its image's
-//     attendable keys two at a time (bf16: read from L1 after the image's
-//     first row; fp32: from shared memory, copied in once a block of the
-//     image's rows); then the row's softmax.
+//   score_kernel (both dtypes; att_cell's two heads in one launch,
+//     dcnet_score's one), grid = (images, row blocks, heads): a block an
+//     image and a head (the visual head's 36 x 512 with no mask, the SCMA
+//     head's 22 x 512 masked; the heavier visual blocks first, the SCMA
+//     ones filling the tail). Its threads copy the image's attendable keys
+//     of the head into shared memory while the query product ends (the
+//     kStore tile, like every cell_common.cuh tile, lets its dependent
+//     start once all its CTAs run), then wait for q. One warp a row, with
+//     the row's q, b and v in registers, takes the row's positions two at
+//     a time from shared memory as two independent chains, 16-byte loads
+//     of 8 bf16 or 4 fp32 columns a lane; tanh(key + q + b) . v is
+//     reduced over A with shuffles; then the warp takes the row's softmax.
+//     Each key crosses from L2 once an image and head: keys read through
+//     L1 by every row made the stage 1.3-2.1x slower, two or four warps a
+//     row 1.2-2.6x (PERF.md). The kernel it replaced in att_cell (a
+//     warp a key position over the K rows, q, b and v from shared memory,
+//     three loads and an accurate tanhf a term, a plain launch) ran at 18%
+//     of its bound in bf16 (PERF.md).
 //
 // What bounds them on the H100 (paper shape, N = 512 images x 5 beams):
 // the cell GEMMs are bound by operations (the att-LSTM's 64.4 GFLOP is 65
-// us at 989 TFLOP/s) and the score kernels by the tanh: one per attendable
-// (row, position, A) term, two special-function operations each (MUFU.EX2,
-// MUFU.RCP; dcnet_scores_kernel's tanh_ex2 issues just those and three
-// other instructions, the accurate tanhf of scores_kernel some 15), against
-// 8 MB of keys.
+// us at 989 TFLOP/s) and score_kernel by its special-function operations:
+// one tanh per attendable (row, position, A) term, against 8 MB
+// (dcnet_score) or 30 MB (att_cell) of keys. The bf16 instances take it as
+// one MUFU.TANH (tanh.approx.f32); tanh_ex2's two (MUFU.EX2, MUFU.RCP)
+// made the stage twice as slow, so the special-function unit is its
+// limit. The fp32 instances take the accurate tanhf (two MUFU operations
+// among some 15 instructions), as the plain version does.
 // What stands between the sm90 GEMMs and the tensor-core rate is the L2 ->
 // SM traffic: each 128-row block reads its weight columns (the att-LSTM's
 // 25.2 MB: 20 x 25.2 = 0.50 GB), each 32-column block its rows'
@@ -84,16 +93,13 @@
 //
 // fp32 (compute_dtype="float32"): every entry point runs cell_common.cuh's
 // fp32 tile (fp32 FMA on the CUDA cores, not TF32) with the same
-// epilogues; att_cell's scores_kernel reads fp32 keys and writes fp32
-// weights. dcnet_score's product of 2560 x 1024 x 512 is 80 tiles of 128 x
-// 128, 0.61 of a wave on 132 SMs, so it runs split over K (cell::
-// plain_split: 3 ranges, 240 CTAs in two waves of a third of the K each),
-// then dcnet_scores_kernel's fp32 instance, a programmatic dependent: a
-// block an image, which copies the image's attendable keys into shared
-// memory while the product ends, two warps a row, each row's q the sum
-// of the partials, keys read as 4 columns of a lane a chunk (16-byte
-// loads, 512 contiguous bytes a warp), the accurate tanhf as the plain
-// version takes it.
+// epilogues, then score_kernel's fp32 instance (fp32 keys and weights, the
+// accurate tanhf as the plain version takes it, keys read as 4 columns of
+// a lane a chunk: 512 contiguous bytes a warp). dcnet_score's product of
+// 2560 x 1024 x 512 is 80 tiles of 128 x 128, 0.61 of a wave on 132 SMs,
+// so it runs split over K (cell::plain_split: 3 ranges, 240 CTAs in two
+// waves of a third of the K each), each row's q the sum of the partials;
+// att_cell's 2560 x 1024 x 1024 (160 tiles) runs whole.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,120 +116,10 @@ using namespace cell;
 
 constexpr float NEG_INF = -1e9f;  // captionkit nn/masking.py
 
-constexpr int SC_THREADS = 256;  // scores_kernel: 8 warps
-constexpr int SC_MAXV = 32;      // A <= 32 * 32 = 1024
-constexpr int SMEM_LIMIT = 48 * 1024;
-
-struct ScoreHead {
-  const float* q;  // row n's query at q + n * ldq, [A] fp32
-  int ldq;
-  const float* b;                 // [A] bias inside tanh
-  const float* v;                 // [A] score vector
-  const void* keys;               // [B, P, A] in T
-  const float* mask;              // [B, P] (> 0 = attendable), or null:
-                                  // every position valid
-  int P;
-  void* out;                      // [N, P] softmax weights in T
-};
-
-struct ScoreArgs {
-  ScoreHead head[2];
-  int K;  // query rows per image
-  int A;
-};
-
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ void store_t(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 __device__ __forceinline__ void store_t(float* p, float x) { *p = x; }
-
-template <typename T>
-__global__ void __launch_bounds__(SC_THREADS)
-scores_kernel(const ScoreArgs args) {
-  extern __shared__ float sm[];
-  const ScoreHead hd = args.head[blockIdx.y];
-  const int K = args.K;
-  const int A = args.A;
-  const int P = hd.P;
-  const int img = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  constexpr int WARPS = SC_THREADS / 32;
-  float* qs = sm;          // [K, A]
-  float* bs = qs + K * A;  // [A]
-  float* vs = bs + A;      // [A]
-  float* ss = vs + A;      // [K, P] scores
-
-  for (int e = tid; e < K * A; e += SC_THREADS)
-    qs[e] = hd.q[(size_t)(img * K + e / A) * hd.ldq + e % A];
-  for (int a = tid; a < A; a += SC_THREADS) {
-    bs[a] = hd.b[a];
-    vs[a] = hd.v[a];
-  }
-  __syncthreads();
-
-  const int nv = A / 32;
-  for (int p = warp; p < P; p += WARPS) {
-    const bool valid = !hd.mask || hd.mask[(size_t)img * P + p] > 0.0f;
-    if (!valid) {
-      if (lane == 0)
-        for (int r = 0; r < K; ++r) ss[r * P + p] = NEG_INF;
-      continue;
-    }
-    const T* kr = static_cast<const T*>(hd.keys) + ((size_t)img * P + p) * A;
-    float key[SC_MAXV];
-#pragma unroll
-    for (int i = 0; i < SC_MAXV; ++i)
-      if (i < nv) key[i] = to_f32(kr[lane + 32 * i]);
-    for (int r = 0; r < K; ++r) {
-      const float* qr = qs + r * A;
-      float acc = 0.0f;
-#pragma unroll
-      for (int i = 0; i < SC_MAXV; ++i) {
-        if (i < nv) {
-          const int a = lane + 32 * i;
-          acc += tanhf(key[i] + qr[a] + bs[a]) * vs[a];
-        }
-      }
-      acc = warp_sum(acc);
-      if (lane == 0) ss[r * P + p] = acc;
-    }
-  }
-  __syncthreads();
-
-  for (int r = warp; r < K; r += WARPS) {
-    const float* s = ss + r * P;
-    float m = -INFINITY;
-    for (int p = lane; p < P; p += 32) m = fmaxf(m, s[p]);
-    m = warp_max(m);
-    float sum = 0.0f;
-    for (int p = lane; p < P; p += 32) sum += expf(s[p] - m);
-    sum = warp_sum(sum);
-    T* o = static_cast<T*>(hd.out) + (size_t)(img * K + r) * P;
-    for (int p = lane; p < P; p += 32) store_t(o + p, expf(s[p] - m) / sum);
-  }
-}
-
-cudaError_t launch_scores(const ScoreArgs& a, int B, int n_heads, int f32,
-                          cudaStream_t s) {
-  int max_p = a.head[0].P;
-  if (n_heads > 1 && a.head[1].P > max_p) max_p = a.head[1].P;
-  if (a.A % 32 || a.A > 32 * SC_MAXV || a.K < 1 || B < 1)
-    return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)a.K * a.A + 2 * a.A +
-                                       (size_t)a.K * max_p);
-  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
-  if (f32)
-    scores_kernel<float><<<dim3(B, n_heads), SC_THREADS, smem, s>>>(a);
-  else
-    scores_kernel<__nv_bfloat16><<<dim3(B, n_heads), SC_THREADS, smem, s>>>(a);
-  return cudaGetLastError();
-}
 
 // ck_lang_cell's bf16 launches on sm90_cell.cuh: the visual gate (one
 // fp32 operand, h_att; its idle threads write act16), then the Copy-LSTM
@@ -340,31 +236,38 @@ cudaError_t dcnet_cell_sm90(const void* emb, const void* ctx, const void* h,
 }
 
 // ---------------------------------------------------------------------------
-// ck_dcnet_score: the query product, then dcnet_scores_kernel (bf16 on
-// sm90_cell.cuh's wgmma; fp32 on cell_common.cuh's fp32 tile, split over K)
+// score_kernel: the additive scores and softmaxes of ck_att_cell (two heads)
+// and ck_dcnet_score (one), after their query products
 // ---------------------------------------------------------------------------
 
-constexpr int DS_ROWS = 4;  // bf16: query rows of a dcnet_scores_kernel block
-// fp32: a block holds the rows of one image (at most DS_F32_ROWS of them;
-// more take more blocks), two warps a row, and stages the image's
-// attendable keys in shared memory, DS_F32_WINDOW positions at a time.
-constexpr int DS_F32_ROWS = 8;
-constexpr int DS_F32_WARPS = 2;
-constexpr int DS_F32_WINDOW = 32;
+// A block holds the rows of one image in one head (at most SK_ROWS of them;
+// more take more blocks), SK_WARPS warps a row, and stages the image's
+// attendable keys of that head in shared memory, SK_WINDOW positions at a
+// time (all 36 regions or 22 caption positions at once). One warp a row
+// beat two and four, in both dtypes and both calls (PERF.md).
+constexpr int SK_ROWS = 8;
+constexpr int SK_WARPS = 1;
+constexpr int SK_WINDOW = 40;
+constexpr int SK_HEADS = 2;
 
-template <typename KT>
-struct DcnetScoreArgs {
-  const float* q;     // [split, N, A] fp32 (the query product's partials)
+struct ScoreHead {
+  const float* q;     // row n's query at q + n * ldq (partial r: + r plane)
+  int ldq;
   const float* b;     // [A] bias inside tanh
   const float* v;     // [A] score vector
-  const KT* keys;     // [B, T, A]
-  const float* mask;  // [B, T] (> 0 = attendable)
-  KT* omega;          // [N, T] softmax weights
-  int N;
-  int K;  // query rows per image
-  int T;
-  int A;  // a multiple of 128, at most CHUNK NC
-  int split;
+  const void* keys;   // [B, P, A] in the keys' type
+  const float* mask;  // [B, P] (> 0 = attendable), or null: every position
+                      // is (att_cell's visual head)
+  void* out;          // [N, P] softmax weights in the keys' type
+  int P;
+};
+
+struct ScoreKernelArgs {
+  ScoreHead head[SK_HEADS];  // blockIdx.z's
+  size_t plane;              // floats between two partials of the product
+  int split;                 // the query product's partials (bf16: 1)
+  int K;                     // query rows per image
+  int A;                     // a multiple of 128, at most CHUNK NC
 };
 
 __device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
@@ -407,41 +310,44 @@ __device__ __forceinline__ void loadv(const float* p, float (&x)[4]) {
   load4(p, x);
 }
 
-// Row `row`'s q (the sum of the product's `split` partials in rank order,
-// their loads issued together), b and v at the lane's columns.
+// Row `row`'s q in head `hd` (fp32: the sum of the product's `split`
+// partials in rank order, their loads issued together), b and v at the
+// lane's columns.
 template <int NC, typename KT>
 __device__ __forceinline__ void load_query(
-    const DcnetScoreArgs<KT>& a, int row, int lane,
+    const ScoreHead& hd, const ScoreKernelArgs& a, int row, int lane,
     float (&qr)[NC][ScoreLanes<KT>::VEC], float (&br)[NC][ScoreLanes<KT>::VEC],
     float (&vr)[NC][ScoreLanes<KT>::VEC]) {
   constexpr int VEC = ScoreLanes<KT>::VEC, CHUNK = ScoreLanes<KT>::CHUNK;
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     const int col = min(VEC * lane + CHUNK * c, a.A - VEC);
-    loadv(a.q + (size_t)row * a.A + col, qr[c]);
+    const float* q = hd.q + (size_t)row * hd.ldq + col;
+    loadv(q, qr[c]);
     if constexpr (sizeof(KT) == 4) {
       float x[MAX_OPS - 1][VEC];
 #pragma unroll
       for (int r = 1; r < MAX_OPS; ++r)
-        if (r < a.split)
-          loadv(a.q + ((size_t)r * a.N + row) * a.A + col, x[r - 1]);
+        if (r < a.split) loadv(q + r * a.plane, x[r - 1]);
 #pragma unroll
       for (int r = 1; r < MAX_OPS; ++r)
         if (r < a.split)
 #pragma unroll
           for (int j = 0; j < VEC; ++j) qr[c][j] += x[r - 1][j];
     }
-    loadv(a.b + col, br[c]);
-    loadv(a.v + col, vr[c]);
+    loadv(hd.b + col, br[c]);
+    loadv(hd.v + col, vr[c]);
   }
 }
 
 // The scores of positions whose keys are k0 and k1 (rows of A), two
-// chains at once; bf16 tanh as tanh_ex2, fp32 the accurate tanhf (as the
-// plain version). Reduced over the warp with shuffles.
-template <int NC, typename KT, typename Src>
+// chains at once: (key + q) + b, as the plain version adds them; bf16 tanh
+// as tanh_approx (one MUFU.TANH; tanh_ex2's two MUFU operations made the
+// stage twice as slow: PERF.md), fp32 the accurate tanhf (as the plain
+// version). Reduced over the warp with shuffles.
+template <int NC, typename KT>
 __device__ __forceinline__ void score_pair(
-    const Src* k0, const Src* k1, int A, int lane,
+    const KT* k0, const KT* k1, int A, int lane,
     const float (&qr)[NC][ScoreLanes<KT>::VEC],
     const float (&br)[NC][ScoreLanes<KT>::VEC],
     const float (&vr)[NC][ScoreLanes<KT>::VEC], float& acc0, float& acc1) {
@@ -461,8 +367,8 @@ __device__ __forceinline__ void score_pair(
           acc0 += tanhf(x0[j] + qr[c][j] + br[c][j]) * vr[c][j];
           acc1 += tanhf(x1[j] + qr[c][j] + br[c][j]) * vr[c][j];
         } else {
-          acc0 += sm90::tanh_ex2(x0[j] + qr[c][j] + br[c][j]) * vr[c][j];
-          acc1 += sm90::tanh_ex2(x1[j] + qr[c][j] + br[c][j]) * vr[c][j];
+          acc0 += sm90::tanh_approx(x0[j] + qr[c][j] + br[c][j]) * vr[c][j];
+          acc1 += sm90::tanh_approx(x1[j] + qr[c][j] + br[c][j]) * vr[c][j];
         }
       }
     }
@@ -483,114 +389,91 @@ __device__ __forceinline__ void next_pair(unsigned& bits, int t0, int& p0,
   }
 }
 
-// A warp's softmax of its row's scores ss [T], written as omega in KT.
+// A warp's softmax of its row's scores ss [P], written in KT.
 template <typename KT>
-__device__ __forceinline__ void row_softmax(const float* ss, int T, int lane,
+__device__ __forceinline__ void row_softmax(const float* ss, int P, int lane,
                                             KT* o) {
   float m = -INFINITY;
-  for (int p = lane; p < T; p += 32) m = fmaxf(m, ss[p]);
+  for (int p = lane; p < P; p += 32) m = fmaxf(m, ss[p]);
   m = warp_max(m);
   float sum = 0.0f;
-  for (int p = lane; p < T; p += 32) sum += expf(ss[p] - m);
+  for (int p = lane; p < P; p += 32) sum += expf(ss[p] - m);
   sum = warp_sum(sum);
-  for (int p = lane; p < T; p += 32) store_t(o + p, expf(ss[p] - m) / sum);
+  for (int p = lane; p < P; p += 32) store_t(o + p, expf(ss[p] - m) / sum);
 }
 
-// bf16: one warp a query row n of image n / K, DS_ROWS rows a block: lane
-// l keeps q, b and v of its columns (ScoreLanes, c < NC) in registers for
-// the row and walks the image's attendable positions (a ballot of the
-// mask, 32 positions at a time) two at a time as two independent chains,
-// each key read as 16-byte loads (an image's K rows run in neighbouring
-// warps, so its keys come from L1 after the first); tanh(key + q + b) . v
-// is reduced over A with shuffles into shared memory, then the warp takes
-// its row's softmax and writes omega in bf16.
-// fp32 (the same scoring, fp32 keys and omega, the accurate tanhf): a
-// programmatic dependent of the split fp32 product. A block holds one
-// image's rows [r0, r0 + rows) (blockIdx.y = r0 / DS_F32_ROWS), two warps
-// a row. Before it waits for the product, it copies the image's
-// attendable keys of a window of DS_F32_WINDOW positions into shared
-// memory (cp.async, every thread), so each key crosses from L2 once an
-// image, not once a row (reading them through L1 a row at a time made the
-// stage twice as slow: PERF.md). Then each row's warps take its position
-// pairs in turn from shared memory, meet on a named barrier, and the
-// first takes the softmax.
+// grid (images, ceil(K / SK_ROWS), heads): a block holds rows [r0, r0 +
+// rows) of image blockIdx.x in head blockIdx.z, SK_WARPS warps a row. A
+// programmatic dependent of the query product: before it waits for the
+// product, every thread copies the image's attendable keys of a window of
+// SK_WINDOW positions into shared memory (cp.async, 16 bytes a copy), so
+// each key crosses from L2 once a block while the product ends, and never
+// once a row (keys read through L1 by every row made the stage 1.3-2.1x
+// slower: PERF.md). Then each warp of a row keeps the row's
+// q, b and v of its lane's columns (ScoreLanes, c < NC) in registers and
+// takes every SK_WARPS-th pair of the window's attendable positions (a
+// ballot of the mask, 32 positions at a time; a null mask attends to
+// every position) from shared memory as two independent chains; tanh(key
+// + q + b) . v is reduced over A with shuffles into the row's scores in
+// shared memory. The row's warps meet (a named barrier; one warp, a warp
+// barrier), and the first takes the row's softmax.
 template <int NC, typename KT>
-__global__ void __launch_bounds__(sizeof(KT) == 4
-                                      ? 32 * DS_F32_WARPS * DS_F32_ROWS
-                                      : 32 * DS_ROWS)
-    dcnet_scores_kernel(const __grid_constant__ DcnetScoreArgs<KT> a) {
+__global__ void __launch_bounds__(32 * SK_WARPS * SK_ROWS)
+    score_kernel(const __grid_constant__ ScoreKernelArgs a) {
   constexpr int VEC = ScoreLanes<KT>::VEC;
-  extern __shared__ float ds_smem[];
+  extern __shared__ __align__(16) unsigned char sk_smem[];
+  // Read from the parameters where used (a copy selected in registers
+  // made the fp32 stage 20% slower: PERF.md).
+  const ScoreHead& hd = a.head[blockIdx.z];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int A = a.A, T = a.T;
+  const int A = a.A, P = hd.P;
+  const int win = min(P, SK_WINDOW);
+  const int img = blockIdx.x;
+  const int r0 = blockIdx.y * SK_ROWS;
+  const int rows = min(SK_ROWS, a.K - r0);
+  const int lr = warp / SK_WARPS, turn = warp % SK_WARPS;
+  const bool active = lr < rows;
+  const int row = img * a.K + r0 + lr;
+  // Shared memory: a window's keys [win, A], then the rows' scores [rows,
+  // P].
+  KT* sk = reinterpret_cast<KT*>(sk_smem);
+  float* ss = reinterpret_cast<float*>(sk + (size_t)win * A) + lr * P;
+  const KT* kimg = static_cast<const KT*>(hd.keys) + (size_t)img * P * A;
+  const float* mimg = hd.mask ? hd.mask + (size_t)img * P : nullptr;
+  const int chunks = A / VEC;  // 16-byte copies a key
   float qr[NC][VEC], br[NC][VEC], vr[NC][VEC];
   float acc0, acc1;
-  int p0, p1;
-  if constexpr (sizeof(KT) == 2) {
-    float* ss = ds_smem + warp * T;  // [DS_ROWS, T]
-    const int row = blockIdx.x * DS_ROWS + warp;
-    if (row >= a.N) return;
-    const int img = row / a.K;
-    load_query<NC>(a, row, lane, qr, br, vr);
-    const KT* kimg = a.keys + (size_t)img * T * A;
-    for (int t0 = 0; t0 < T; t0 += 32) {
-      const int pl = t0 + lane;
-      const bool attend = pl < T && a.mask[(size_t)img * T + pl] > 0.0f;
-      if (pl < T && !attend) ss[pl] = NEG_INF;
-      unsigned bits = __ballot_sync(0xffffffffu, attend);
-      while (bits) {
-        next_pair(bits, t0, p0, p1);
-        score_pair<NC, KT>(kimg + (size_t)p0 * A, kimg + (size_t)p1 * A, A,
-                           lane, qr, br, vr, acc0, acc1);
-        if (lane == 0) {
-          ss[p0] = acc0;
-          ss[p1] = acc1;
-        }
-      }
+  int p0, p1, k = 0;
+  for (int t0 = 0; t0 < P; t0 += win) {
+    const int n = min(win, P - t0);
+    if (t0 > 0) __syncthreads();  // the last window's keys are read
+    for (int i = threadIdx.x; i < n * chunks; i += blockDim.x) {
+      const int p = i / chunks;
+      if (mimg && !(mimg[t0 + p] > 0.0f)) continue;
+      const size_t e = (size_t)p * A + (size_t)(i - p * chunks) * VEC;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                       sm90::smem_u32(sk + e)),
+                   "l"(kimg + (size_t)t0 * A + e)
+                   : "memory");
     }
-    __syncwarp();
-    row_softmax(ss, T, lane, a.omega + (size_t)row * T);
-  } else {
-    // Shared memory: a window's keys [min(T, DS_F32_WINDOW), A], then the
-    // rows' scores [DS_F32_ROWS, T].
-    float* sk = ds_smem;
-    const int win = min(T, DS_F32_WINDOW);
-    const int img = blockIdx.x;
-    const int r0 = blockIdx.y * DS_F32_ROWS;
-    const int rows = min(DS_F32_ROWS, a.K - r0);
-    const int lr = warp / DS_F32_WARPS, turn = warp % DS_F32_WARPS;
-    const bool active = lr < rows;
-    const int row = img * a.K + r0 + lr;
-    float* ss = sk + (size_t)win * A + lr * T;
-    const KT* kimg = a.keys + (size_t)img * T * A;
-    const float* mimg = a.mask + (size_t)img * T;
-    for (int t0 = 0; t0 < T; t0 += DS_F32_WINDOW) {
-      const int n = min(DS_F32_WINDOW, T - t0);
-      if (t0 > 0) __syncthreads();  // the last window's keys are read
-      for (int p = 0; p < n; ++p) {
-        if (!(mimg[t0 + p] > 0.0f)) continue;
-        for (int e = 4 * threadIdx.x; e < A; e += 4 * blockDim.x)
-          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
-                           sm90::smem_u32(sk + (size_t)p * A + e)),
-                       "l"(kimg + (size_t)(t0 + p) * A + e)
-                       : "memory");
-      }
-      asm volatile("cp.async.commit_group;" ::: "memory");
-      if (t0 == 0) {
-        sm90::grid_dependency_wait();  // q is the product's output
-        if (active) load_query<NC>(a, row, lane, qr, br, vr);
-      }
-      asm volatile("cp.async.wait_group 0;" ::: "memory");
-      __syncthreads();
-      if (!active) continue;
-      const int pl = t0 + lane;
-      const bool attend = pl < t0 + n && mimg[pl] > 0.0f;
-      if (pl < t0 + n && !attend && turn == 0) ss[pl] = NEG_INF;
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    if (t0 == 0) {
+      sm90::grid_dependency_wait();  // q is the query product's output
+      if (active) load_query<NC, KT>(hd, a, row, lane, qr, br, vr);
+    }
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+    if (!active) continue;
+    for (int g0 = t0; g0 < t0 + n; g0 += 32) {
+      const int pl = g0 + lane;
+      const bool in = pl < t0 + n;
+      const bool attend = in && (!mimg || mimg[pl] > 0.0f);
+      if (in && !attend && turn == 0) ss[pl] = NEG_INF;
       unsigned bits = __ballot_sync(0xffffffffu, attend);
-      for (int k = 0; bits; ++k) {
-        next_pair(bits, t0, p0, p1);
-        if (k % DS_F32_WARPS != turn) continue;
+      for (; bits; ++k) {
+        next_pair(bits, g0, p0, p1);
+        if (k % SK_WARPS != turn) continue;
         score_pair<NC, KT>(sk + (size_t)(p0 - t0) * A,
                            sk + (size_t)(p1 - t0) * A, A, lane, qr, br, vr,
                            acc0, acc1);
@@ -600,86 +483,92 @@ __global__ void __launch_bounds__(sizeof(KT) == 4
         }
       }
     }
-    if (!active) return;
-    // The row's warps meet; the first takes the softmax.
-    sm90::named_sync(1 + lr, 32 * DS_F32_WARPS);
-    if (turn == 0) row_softmax(ss, T, lane, a.omega + (size_t)row * T);
   }
+  if (!active) return;
+  // The row's warps meet; the first takes the softmax.
+  if constexpr (SK_WARPS > 1)
+    sm90::named_sync(1 + lr, 32 * SK_WARPS);
+  else
+    __syncwarp();
+  if (turn == 0)
+    row_softmax(ss, P, lane, static_cast<KT*>(hd.out) + (size_t)row * P);
 }
 
-template <typename KT>
-size_t dcnet_scores_smem(int A, int T) {
-  if constexpr (sizeof(KT) == 2) {
-    return sizeof(float) * DS_ROWS * (size_t)T;
-  } else {
-    const int win = T < DS_F32_WINDOW ? T : DS_F32_WINDOW;
-    return sizeof(float) * ((size_t)win * A + (size_t)DS_F32_ROWS * T);
-  }
-}
-
-// bf16: a plain launch after the query product, DS_ROWS rows a block.
-// fp32: grid (images, ceil(K / DS_F32_ROWS)), a programmatic dependent of
-// the fp32 tile (its blocks copy their keys, then wait in
-// griddepcontrol.wait).
+// One launch of score_kernel<NC, KT> over `heads` heads of B images, a
+// programmatic dependent of the query product before it on the stream
+// (whose CTAs trigger it as they start).
 template <int NC, typename KT>
-cudaError_t launch_dcnet_scores(const DcnetScoreArgs<KT>& a, cudaStream_t s) {
-  const size_t smem = dcnet_scores_smem<KT>(a.A, a.T);
+cudaError_t launch_score_kernel(const ScoreKernelArgs& a, int B, int heads,
+                                cudaStream_t s) {
+  const int rows = a.K < SK_ROWS ? a.K : SK_ROWS;
+  size_t smem = 0;
+  for (int h = 0; h < heads; ++h) {
+    const int P = a.head[h].P, win = P < SK_WINDOW ? P : SK_WINDOW;
+    const size_t need =
+        sizeof(KT) * (size_t)win * a.A + sizeof(float) * (size_t)rows * P;
+    if (need > smem) smem = need;
+  }
   // The largest shared-memory size set on each device (48 KB needs none).
   static size_t sized[sm90::kDevices] = {};
   const int dev = sm90::device_slot();
   if (smem > 48 * 1024 && (dev < 0 || smem > sized[dev])) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        dcnet_scores_kernel<NC, KT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+    CK_TRY(cudaFuncSetAttribute(score_kernel<NC, KT>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem));
     if (dev >= 0) sized[dev] = smem;
   }
-  if constexpr (sizeof(KT) == 2) {
-    const int blocks = (a.N + DS_ROWS - 1) / DS_ROWS;
-    dcnet_scores_kernel<NC, KT><<<blocks, 32 * DS_ROWS, smem, s>>>(a);
-  } else {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(a.N / a.K, (a.K + DS_F32_ROWS - 1) / DS_F32_ROWS);
-    cfg.blockDim =
-        dim3(32 * DS_F32_WARPS * (a.K < DS_F32_ROWS ? a.K : DS_F32_ROWS));
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = s;
-    cudaLaunchAttribute attr;
-    attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attr.val.programmaticStreamSerializationAllowed = 1;
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
-    const cudaError_t err =
-        cudaLaunchKernelEx(&cfg, dcnet_scores_kernel<NC, KT>, a);
-    if (err != cudaSuccess) return err;
-  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B, (a.K + SK_ROWS - 1) / SK_ROWS, heads);
+  cfg.blockDim = dim3(32 * SK_WARPS * rows);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  CK_TRY(cudaLaunchKernelEx(&cfg, score_kernel<NC, KT>, a));
   return cudaGetLastError();
 }
 
+// score_kernel's instance for A: the lanes' columns in NC register chunks
+// (bf16: NC = A / 256 rounded up to 1, 2 or 4; fp32: A / 128, 1, 2, 4 or
+// 8).
 template <typename KT>
-DcnetScoreArgs<KT> dcnet_score_args(const void* b, const void* v,
-                                   const void* keys, const void* mask,
-                                   void* omega, const void* q, int N, int B,
-                                   int Ap, int T_, int split) {
-  DcnetScoreArgs<KT> a;
-  a.q = static_cast<const float*>(q);
-  a.b = cell::f32(b);
-  a.v = cell::f32(v);
-  a.keys = static_cast<const KT*>(keys);
-  a.mask = cell::f32(mask);
-  a.omega = static_cast<KT*>(omega);
-  a.N = N;
-  a.K = N / B;
-  a.T = T_;
-  a.A = Ap;
+cudaError_t launch_scores(const ScoreKernelArgs& a, int B, int heads,
+                          cudaStream_t s) {
+  constexpr int CHUNK = ScoreLanes<KT>::CHUNK;
+  if (a.A < 128 || a.A % 128 || a.A > 1024 || a.K < 1 || B < 1)
+    return cudaErrorInvalidValue;
+  if (a.A <= CHUNK) return launch_score_kernel<1, KT>(a, B, heads, s);
+  if (a.A <= 2 * CHUNK) return launch_score_kernel<2, KT>(a, B, heads, s);
+  if (a.A <= 4 * CHUNK) return launch_score_kernel<4, KT>(a, B, heads, s);
+  if constexpr (CHUNK == 128) return launch_score_kernel<8, KT>(a, B, heads, s);
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// ck_dcnet_score: the query product (bf16 on sm90_cell.cuh's wgmma; fp32 on
+// cell_common.cuh's fp32 tile, split over K), then score_kernel
+// ---------------------------------------------------------------------------
+
+// score_kernel's one head for ck_dcnet_score: q [split, N, Ap] partials.
+ScoreKernelArgs dcnet_score_args(const void* b, const void* v,
+                                 const void* keys, const void* mask,
+                                 void* omega, const void* q, int N, int B,
+                                 int Ap, int T, int split) {
+  ScoreKernelArgs a = {};
+  a.head[0] = {static_cast<const float*>(q), Ap, cell::f32(b), cell::f32(v),
+               keys, cell::f32(mask), omega, T};
+  a.plane = (size_t)N * Ap;
   a.split = split;
+  a.K = N / B;
+  a.A = Ap;
   return a;
 }
 
 // ck_dcnet_score's bf16 launches: the query product on sm90_cell.cuh (fp32
-// h rounded to bf16 in registers, q fp32: kStore), then
-// dcnet_scores_kernel with the lanes' columns in NC = A / 256 (1, 2 or 4)
-// register chunks.
+// h rounded to bf16 in registers, q fp32: kStore), then score_kernel.
 cudaError_t dcnet_score_sm90(const void* h, const void* wq, const void* b,
                              const void* v, const void* keys,
                              const void* mask, void* omega, void* q, int N,
@@ -692,11 +581,8 @@ cudaError_t dcnet_score_sm90(const void* h, const void* wq, const void* b,
   gq.out = q;
   CK_TRY((launch_cell<kStore, 1, 1u, 1u, 0u>(gq, Ap / 128, s)));
 
-  const auto a = dcnet_score_args<__nv_bfloat16>(b, v, keys, mask, omega, q,
-                                                 N, B, Ap, T, 1);
-  if (Ap <= 256) return launch_dcnet_scores<1>(a, s);
-  if (Ap <= 512) return launch_dcnet_scores<2>(a, s);
-  return launch_dcnet_scores<4>(a, s);
+  return launch_scores<__nv_bfloat16>(
+      dcnet_score_args(b, v, keys, mask, omega, q, N, B, Ap, T, 1), B, 1, s);
 }
 
 // The K ranges of the fp32 query product of N rows, K = Hp, Ap columns on
@@ -712,8 +598,7 @@ int f32_split(int N, int Hp, int Ap, int device) {
 
 // ck_dcnet_score's fp32 launches: the query product on cell_common.cuh's
 // fp32 tile, split over K (q [split, N, Ap] fp32 partials), then
-// dcnet_scores_kernel<NC, float> (NC = A / 128 chunks of 4 columns) as its
-// programmatic dependent.
+// score_kernel's fp32 instance.
 cudaError_t dcnet_score_f32(const void* h, const void* wq, const void* b,
                             const void* v, const void* keys,
                             const void* mask, void* omega, void* q, int N,
@@ -728,12 +613,9 @@ cudaError_t dcnet_score_f32(const void* h, const void* wq, const void* b,
   gq.out = q;
   CK_TRY((launch_gemm<4, EPI_STORE>(gq, s)));
 
-  const auto a = dcnet_score_args<float>(b, v, keys, mask, omega, q, N, B,
-                                         Ap, T, split);
-  if (Ap <= 128) return launch_dcnet_scores<1>(a, s);
-  if (Ap <= 256) return launch_dcnet_scores<2>(a, s);
-  if (Ap <= 512) return launch_dcnet_scores<4>(a, s);
-  return launch_dcnet_scores<8>(a, s);
+  return launch_scores<float>(
+      dcnet_score_args(b, v, keys, mask, omega, q, N, B, Ap, T, split), B, 1,
+      s);
 }
 
 }  // namespace
@@ -788,15 +670,18 @@ int ck_att_cell(const void* emb, const void* h_att, const void* c_att,
   }
   if (err != cudaSuccess) return (int)err;
 
-  ScoreArgs sc = {};
-  sc.K = N / B;
-  sc.A = Ap;
+  // score_kernel over both heads: the visual one (no mask), then SCMA.
+  ScoreKernelArgs sc = {};
   const float* qf = static_cast<const float*>(q);
   sc.head[0] = {qf, 2 * Ap, cell::f32(vis_b), cell::f32(vis_v), vis_keys,
-                nullptr, R, alpha};
+                nullptr, alpha, R};
   sc.head[1] = {qf + Ap, 2 * Ap, cell::f32(scma_b), cell::f32(scma_v),
-                scma_keys, cell::f32(mask), T, beta};
-  return (int)launch_scores(sc, B, 2, f32, s);
+                scma_keys, cell::f32(mask), beta, T};
+  sc.split = 1;
+  sc.K = N / B;
+  sc.A = Ap;
+  return (int)(f32 ? launch_scores<float>(sc, B, 2, s)
+                   : launch_scores<__nv_bfloat16>(sc, B, 2, s));
 }
 
 // EditNet, second half (the lang kernel). fp32 inputs: vhat_raw [N, Fp]
@@ -853,9 +738,8 @@ int ck_lang_cell(const void* vhat_raw, const void* h_att, const void* h_lang,
 // [Ap]; keys [B, T, Ap]; fp32 mask [B, T]. Output: omega [N, T]. Scratch:
 // q [split, N, Ap] fp32, split = ck_f32_split(N, Hp, Ap, device) when f32,
 // else 1. att_wq, keys and omega are bf16 (sm90_cell.cuh, then
-// dcnet_scores_kernel; Ap at most 1024), or fp32 when f32
-// (cell_common.cuh's fp32 tile split over K, then dcnet_scores_kernel's
-// fp32 instance; Ap at most 1024).
+// score_kernel; Ap at most 1024), or fp32 when f32 (cell_common.cuh's fp32
+// tile split over K, then score_kernel's fp32 instance; Ap at most 1024).
 int ck_dcnet_score(const void* h, const void* att_wq, const void* att_b,
                    const void* att_v, const void* keys, const void* mask,
                    void* omega, void* q, int N, int B, int Hp, int Ap, int T,

@@ -511,6 +511,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int wg = warp / 4;
   const int nb = blockIdx.x;
   const int row0 = blockIdx.y * BM;
+  // A plain product's next launch (megastep.cu's score_kernel) may start
+  // and stage its keys once every CTA of this one runs; it waits for q.
+  if constexpr (EPI == kStore) launch_dependents();
 
   if (threadIdx.x == 0) init_ring(full, empty);
   __syncthreads();

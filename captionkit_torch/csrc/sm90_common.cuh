@@ -149,6 +149,17 @@ __device__ __forceinline__ float tanh_ex2(float x) {
   return fmaf(-2.0f, r, 1.0f);
 }
 
+// tanh(x) as one MUFU.TANH (tanh.approx.f32): within 2^-11 relative of
+// tanh (PTX ISA), at half tanh_ex2's special-function operations. For
+// kernels whose rate is the special-function unit's and whose results are
+// rounded to bf16 (2^-8 relative): megastep.cu's bf16 score_kernel, whose
+// weights it holds within one bf16 ulp of the plain version (PERF.md).
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------

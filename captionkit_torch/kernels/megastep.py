@@ -479,9 +479,10 @@ def _pack_dtype(pack) -> tuple[torch.dtype, int]:
 
 def att_cell(pack: CellPack, emb, h_att, c_att, h_lang):
     """Kernel A (``att_phase``'s pallas_call): (h_att', c_att', α, β).
-    CUDA tensors: ``csrc/megastep.cu::ck_att_cell`` (3 launches: bf16 on
-    ``csrc/sm90_cell.cuh``, fp32 on ``cell_common.cuh``'s fp32 tile),
-    counted in ``att_cell.launches``; CPU tensors:
+    CUDA tensors: ``csrc/megastep.cu::ck_att_cell`` (3 launches: the
+    att-LSTM and the query product, bf16 on ``csrc/sm90_cell.cuh``, fp32 on
+    ``cell_common.cuh``'s fp32 tile, then ``score_kernel`` over both
+    heads), counted in ``att_cell.launches``; CPU tensors:
     ``reference_att_cell``."""
     if emb.device.type == "cpu":
         return reference_att_cell(pack, emb, h_att, c_att, h_lang)
@@ -571,9 +572,9 @@ def lang_cell(pack: CellPack, vhat_raw, h_att, h_lang, c_lang, c_star):
 def dcnet_score(pack: DCNetCellPack, h):
     """DCNet's score kernel: ω [N, T]. CUDA tensors:
     ``csrc/megastep.cu::ck_dcnet_score`` (2 launches: bf16, the query
-    product on ``csrc/sm90_cell.cuh`` and ``dcnet_scores_kernel``; fp32,
+    product on ``csrc/sm90_cell.cuh`` and ``score_kernel``; fp32,
     ``cell_common.cuh``'s fp32 tile split over K into ``f32_split``
-    partials and ``dcnet_scores_kernel``'s fp32 instance), counted in
+    partials and ``score_kernel``'s fp32 instance), counted in
     ``dcnet_score.launches``; CPU tensors: ``reference_dcnet_score``."""
     if h.device.type == "cpu":
         return reference_dcnet_score(pack, h)

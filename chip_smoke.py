@@ -10,9 +10,9 @@ prints no result line:
 2. build    — every kernel of ``captionkit_torch/csrc`` built by nvcc;
               the registers, shared memory and spills of the kernels on
               sm90_cell.cuh, of the head kernels on head_sm90.cuh and of
-              the B6 and dcnet_score kernels (query_kernel; the bf16 and
-              fp32 context_kernel and dcnet_scores_kernel; the full
-              -Xptxas -v report in
+              the B6 kernels and of the score kernel of att_cell and
+              dcnet_score (query_kernel; the bf16 and fp32 context_kernel
+              and score_kernel; the full -Xptxas -v report in
               build/captionkit_torch/smoke/ptxas.log); the MUFU operations
               a tanhf compiles to (cuobjdump -sass of a probe; the bounds
               charge a tanh the one MUFU.TANH it needs at least).
@@ -53,13 +53,21 @@ prints no result line:
               neighbours, and a ctx rounded first must differ; kernel,
               plain and bound times, CUDA launches per call, the device
               time of each launch of att_cell, lang_cell, dcnet_score and
-              dcnet_cell (no cell_common.cuh gemm_kernel among them).
+              dcnet_cell (no cell_common.cuh gemm_kernel among them);
+              att_cell on random keys in both heads (a lane's partial
+              score left out of either head must fail); att_cell's and
+              dcnet_score's score stages (score_kernel after the query
+              product): the kernel's device ms, what it adds to the call
+              after the product, and their share of the stage's own
+              bound.
 7. decode_cells — editnet_beam5 with cell_impl="pallas": a forced-full
               decode of the 512-image batch, 22 launches per batch of
               each cell kernel and of the head, captions/s (median of 3)
               beside the cell_impl="xla" decode's in the same call, token
               agreement, the fused step against the plain step on the
-              decode's own states, and a profile.
+              decode's own states (and att_cell's α, β against their
+              plain version on each step's states, one bf16 ulp), and a
+              profile.
 8. dcnet    — dcnet_beam5 with cell_impl="pallas" (random weights from
               seed 0 through the DCNet .npz bridge) behind
               CaptionServer(batch=512), a forced-full decode (median of
@@ -87,7 +95,9 @@ prints no result line:
               plain, bound and (LSTM: torch.lstm_cell) library times,
               device times from the profiler beside them, and for the
               attention each launch's device time, the call's device span
-              and no gemm_kernel launch.
+              and no gemm_kernel launch; att_cell at the greedy step's 512
+              rows (one beam an image) against its plain version, its
+              score stage's device ms and bound share.
 11. greedy  — editnet_greedy and dcnet_greedy at paper width behind
               CaptionServer(batch=512); a forced-full 22-step greedy decode
               (median of 3) beside the same decode with the dispatch sites
@@ -117,9 +127,12 @@ prints no result line:
               operands) and report their plan (shares, tiles per share),
               the whole step three; B6 and dcnet_score two (the fp32 tile
               split over K, then context_kernel<float> or the fp32
-              dcnet_scores_kernel), each with a lane's partial score left
-              out failing too, and each launch's device ms beside the
-              call's device span; every instance reports device ms.
+              score_kernel), each with a lane's partial score left out
+              failing too, and each launch's device ms beside the call's
+              device span; att_cell three; att_cell's and dcnet_score's
+              score stages (score_kernel after the query product) their
+              device ms and share of their own bound; every instance
+              reports device ms.
 14. beam10  — editnet_beam5 with decode.beam_size=10 (k = 10 > 8): the
               head kernel's decode and its steps check on the decode's own
               states, and the whole-step decode at k = 10 beside pallas,
@@ -405,11 +418,12 @@ def phase_build():
                  for k, v in r.items() if "hsm::head_kernel" in k}
              for n, r in reports.items()}
     # The kernels of B6 (its bf16 K-split query product, its bf16 and fp32
-    # context kernel) and dcnet_score's score kernel (bf16 and fp32).
+    # context kernel) and the score kernel of att_cell and dcnet_score
+    # (bf16 and fp32, one instance a width class).
     scores = {n: {k.split("(")[0].replace("void ", ""): v
                   for k, v in r.items()
                   if any(key in k for key in ("query_kernel", "context_kernel",
-                                              "dcnet_scores_kernel"))}
+                                              "score_kernel"))}
               for n, r in reports.items()}
     # The fp32 split-operand GEMM of cell_common.cuh (every fp32 cell
     # instance), one per epilogue.
@@ -1275,7 +1289,9 @@ def _profile(run, top: int = 12) -> dict:
          for ev in prof.key_averages()
          if ev.device_type == DeviceType.CUDA
          and ev.self_device_time_total > 0
-         and "Buffer Request" not in ev.key),  # a tracer event, not work
+         # not work: a tracer event, and this annotation's device range
+         and "Buffer Request" not in ev.key
+         and ev.key != "chip_smoke.profile"),
         reverse=True)
     device_ms = sum(r[0] for r in rows) / 1e3
     return {"wall_ms": wall_ms, "device_ms": device_ms,
@@ -1400,6 +1416,102 @@ def _device_span_ms(fn, first: str, last: str, calls: int = 10) -> float:
     return statistics.mean(spans) / 1e3
 
 
+def _launch_windows(fn, keys: dict, calls: int = 10) -> dict:
+    """{label: (start, end)} in ms of each launch of one call of ``fn``,
+    relative to the start of the call's first launch: ``keys`` maps each
+    label, in the call's launch order, to a name key of that launch. The
+    means over the calls the profiler recorded whole (it now and then
+    misses a record). Where a programmatic dependent starts before its
+    primary ends, two windows overlap."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    labels = list(keys)
+    fn()
+    torch.cuda.synchronize()
+    whole = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        cur = None
+        for t0, t1, name in sorted(
+                (ev.time_range.start, ev.time_range.end, ev.name)
+                for ev in prof.events() if ev.device_type == DeviceType.CUDA):
+            if keys[labels[0]] in name:
+                cur = {labels[0]: (t0, t1)}
+            elif cur is not None and keys[labels[len(cur)]] in name:
+                cur[labels[len(cur)]] = (t0, t1)
+                if len(cur) == len(labels):
+                    whole.append(cur)
+                    cur = None
+        if len(whole) >= calls // 2:
+            break
+    check(len(whole) >= calls // 2,
+          f"{len(whole)} whole calls of {keys} in {calls}")
+    return {label: tuple(statistics.mean(c[label][i] - c[labels[0]][0]
+                                         for c in whole) / 1e3
+                         for i in (0, 1))
+            for label in labels}
+
+
+def _stage_times(windows: dict, stage: str) -> dict:
+    """The device times of one launch ``stage`` of ``_launch_windows``'s
+    call: its own duration, and what it adds to the call (its end less
+    the end of the launch before it, the whole stage when the two do not
+    overlap), beside the call's span."""
+    labels = list(windows)
+    before = labels[labels.index(stage) - 1]
+    return {f"{stage}_kernel_device_ms": windows[stage][1] - windows[stage][0],
+            f"{stage}_stage_device_ms": windows[stage][1] - windows[before][1],
+            "call_span_device_ms": windows[labels[-1]][1]}
+
+
+# The launches of a score call in order (``_launch_windows``' keys): bf16
+# on sm90_cell.cuh (epilogue 4 the att-LSTM, 3 the query store), fp32 on
+# cell_common.cuh (0 the LSTM, 3 the store), then score_kernel.
+SCORE_STAGES = {
+    ("att_cell", False): {"lstm": "cell_kernel<4,", "query": "cell_kernel<3,",
+                          "scores": "score_kernel"},
+    ("att_cell", True): {"lstm": "gemm_kernel<0,", "query": "gemm_kernel<3,",
+                         "scores": "score_kernel"},
+    ("dcnet_score", False): {"query": "cell_kernel<3,",
+                             "scores": "score_kernel"},
+    ("dcnet_score", True): {"query": "gemm_kernel<3,",
+                            "scores": "score_kernel"}}
+
+
+def _score_stage_bound(N, B, A, heads, fp32=False, split=1) -> dict:
+    """The least time of a call's score stage alone (score_kernel after the
+    query product): over ``heads``, each (P positions, the attendable
+    (image, position) pairs, masked or not), one tanh and 3 fp32
+    operations per attended (row, position, A) term (as ``_cell_bound``
+    counts them); bytes: each head's q ([split, N, A] fp32 partials), b
+    and v read, its attended keys and (masked heads) its mask read, its
+    weights [N, P] written once."""
+    kb = 4 if fp32 else 2
+    K = N // B
+    tanh = sum(K * valid * A for _, valid, _ in heads)
+    n_bytes = sum(split * N * A * 4 + 2 * A * 4 + valid * A * kb
+                  + (B * P * 4 if masked else 0) + N * P * kb
+                  for P, valid, masked in heads)
+    return _ops_bound(0, 3 * tanh, n_bytes, fp32, tanh)
+
+
+def _score_stage(fn, keys, bound) -> dict:
+    """A call's score stage on the card: each launch's window, the score
+    kernel's own device ms and what it adds to the call after the query
+    product (``_stage_times``), beside the stage's bound
+    (``_score_stage_bound``) and its share of that bound."""
+    windows = _launch_windows(fn, keys)
+    times = _stage_times(windows, "scores")
+    return {**times, "windows": windows, **bound,
+            "stage_bound_share": bound["bound_ms"]
+            / times["scores_stage_device_ms"]}
+
+
 def _profile_calls(fn, keys, calls: int = 10) -> tuple[float, float]:
     """(CUDA launches, device ms) of one call of ``fn``: the sums of
     ``_profile_kernels``."""
@@ -1407,7 +1519,7 @@ def _profile_calls(fn, keys, calls: int = 10) -> tuple[float, float]:
     return sum(n for n, _ in kernels), sum(ms for _, ms in kernels)
 
 
-def _cuda_kernels(fn, keys=("gemm_kernel", "scores_kernel",
+def _cuda_kernels(fn, keys=("gemm_kernel", "score_kernel",
                             "cell_kernel")) -> int:
     """The CUDA kernels whose names hold one of ``keys`` (by default those
     of csrc/megastep.cu) that one call of ``fn`` launches."""
@@ -1590,7 +1702,7 @@ def phase_megastep(ed, dc) -> dict:
                                  f"the bar: {bad}")
         # One profile for the call's device time, its launches and, by
         # name, each launch's share.
-        kernels = _profile_kernels(kernel, ("gemm_kernel", "scores_kernel",
+        kernels = _profile_kernels(kernel, ("gemm_kernel", "score_kernel",
                                             "cell_kernel"))
         results[name] = {
             **agree, "planted_faults_caught": caught,
@@ -1637,10 +1749,27 @@ def phase_megastep(ed, dc) -> dict:
          ("scma_mask_dropped",
           lambda: ms.att_cell(no_mask, *att_args))],
         {"lstm": "cell_kernel<4,", "query": "cell_kernel<3,",
-         "scores": "scores_kernel"})
+         "scores": "score_kernel"})
     by = results["att_cell"]["device_ms_by_launch"]
     results["att_cell"]["scores_share_of_device_ms"] = \
         by["scores"] / sum(by.values())
+    # On random keys in both heads: the kernel within the bar, and a lane's
+    # partial score left out of either head's sum over A past it.
+    gk = torch.Generator().manual_seed(14)
+    rkeys = dataclasses.replace(pack, **{name: (torch.randn(
+        getattr(pack, name).shape, generator=gk) * 0.5).to(pack.dtype).cuda()
+        for name in ("vis_keys", "scma_keys")})
+    want_r = ms.reference_att_cell(rkeys, *att_args)
+    kinds = ("state", "state", "weights", "weights")
+    agree = cell_agreement(ms.att_cell(rkeys, *att_args), want_r, kinds)
+    caught = {f"{head}_lane_share_left_out": not cell_agreement(
+        ms.att_cell(dataclasses.replace(rkeys, **{
+            f"{head}_v": _lane_share_dropped(getattr(rkeys, f"{head}_v"))}),
+            *att_args), want_r, kinds)["ok"] for head in ("vis", "scma")}
+    check(agree["ok"] and all(caught.values()),
+          f"att_cell on random keys: {agree}; faults caught: {caught}")
+    results["att_cell"]["random_keys"] = {**agree,
+                                          "planted_faults_caught": caught}
 
     vhat_raw = ms._grouped(att[2], pack.features)
     c_star = ms._grouped(att[3], pack.enc_cs)
@@ -1667,7 +1796,7 @@ def phase_megastep(ed, dc) -> dict:
         lambda: (ms.reference_dcnet_score(dpack, h_att),),
         ("weights",),
         [("mask_dropped", lambda: (ms.dcnet_score(no_mask, h_att),))],
-        {"query": "cell_kernel<3,", "scores": "dcnet_scores_kernel"})[0]
+        {"query": "cell_kernel<3,", "scores": "score_kernel"})[0]
     check(results["dcnet_score"]["cuda_launches_per_call"] == 2,
           f"dcnet_score: {results['dcnet_score']['cuda_launches_per_call']} "
           "CUDA launches a call, expected 2")
@@ -1714,6 +1843,18 @@ def phase_megastep(ed, dc) -> dict:
         res["achieved_tflops"] = res["bf16_gflop"] / res["ms"]
         res["bound_share"] = res["bound_ms"] / res["ms"]
         res["device_bound_share"] = res["bound_ms"] / res["device_ms"]
+    # The score stages apart: score_kernel after each query product.
+    A = mc.att_dim
+    results["att_cell"]["score_stage"] = _score_stage(
+        lambda: ms.att_cell(pack, *att_args),
+        SCORE_STAGES["att_cell", False],
+        _score_stage_bound(N, B, A, [(R, B * R, False),
+                                     (T, t_valid["att_cell"], True)]))
+    results["dcnet_score"]["score_stage"] = _score_stage(
+        lambda: ms.dcnet_score(dpack, h_att),
+        SCORE_STAGES["dcnet_score", False],
+        _score_stage_bound(N, B, A, [(dpack.mask.shape[1],
+                                      t_valid["dcnet_score"], True)]))
     result = {"phase": "megastep", "ok": True, "shape": dims,
               "atol_state": CELL_ATOL, "weights_bar": "1 bf16 ulp",
               "kernels": results}
@@ -1721,13 +1862,16 @@ def phase_megastep(ed, dc) -> dict:
     return result
 
 
-def _check_cell_steps(mod, mc, params, ctx_k, hyps, fields, start_id):
+def _check_cell_steps(mod, mc, params, ctx_k, hyps, fields, start_id,
+                      weights=None):
     """The fused step against the plain step (``mod._step_hidden`` with
     and without the pack) on the states the decode visits: the batch's K
     hypotheses per image are fed back, and at each of the 22 steps every
     state field is held within STEP_ATOL. Planted faults (c of every 97th
     row + 2 STEP_ATOL; the state rolled by one image) must fail it.
-    Launches made here are not counted as the main path's."""
+    ``weights(state, tokens)``: (a kernel's attention weights, its plain
+    version's) on each step's state, held within one bf16 ulp. Launches
+    made here are not counted as the main path's."""
     import torch
 
     plain_ctx = ctx_k.replace(cell_pack=None)
@@ -1735,6 +1879,7 @@ def _check_cell_steps(mod, mc, params, ctx_k, hyps, fields, start_id):
     N = hyps.shape[0]
     tok = torch.full((N,), start_id, dtype=torch.int32, device="cuda")
     worst = {f: 0.0 for f in fields}
+    worst_ulps = 0.0
     caught = {}
 
     def errors(got, want):
@@ -1743,6 +1888,12 @@ def _check_cell_steps(mod, mc, params, ctx_k, hyps, fields, start_id):
 
     with torch.inference_mode():
         for t in range(MAX_LEN):
+            if weights is not None:
+                got, want = weights(state, tok)
+                agree = cell_agreement(got, want, ("weights",) * len(got))
+                check(agree["ok"], f"step {t}: the kernel's attention "
+                                   f"weights vs plain {agree}")
+                worst_ulps = max(worst_ulps, agree["max_ulps"])
             fused, _ = mod._step_hidden(params, mc, ctx_k, state, tok)
             plain, _ = mod._step_hidden(params, mc, plain_ctx, state, tok)
             err = errors(fused, plain)
@@ -1767,8 +1918,11 @@ def _check_cell_steps(mod, mc, params, ctx_k, hyps, fields, start_id):
             tok = hyps[:, t].contiguous()
     for name, ok in caught.items():
         check(ok, f"planted fault {name} passes the steps bar")
-    return {"steps": MAX_LEN, "atol": STEP_ATOL, "max_abs_err": worst,
-            "planted_faults_caught": caught}
+    out = {"steps": MAX_LEN, "atol": STEP_ATOL, "max_abs_err": worst,
+           "planted_faults_caught": caught}
+    if weights is not None:
+        out["weights_max_ulps"] = worst_ulps
+    return out
 
 
 def _timed_decodes(decodes, batch_of, params, runs=3) -> dict:
@@ -1851,14 +2005,24 @@ def _decode_pair(cfg, model, params, vocab, wrappers, path_names,
 
 
 def phase_decode_cells(cfg, model, params, vocab, wrappers, card):
+    from captionkit_torch.kernels import megastep as ms
     from captionkit_torch.models import editnet
 
     out, decode, batch, ctx_k, hyps = _decode_pair(
         cfg, model, params, vocab, wrappers,
         ("att_cell", "lang_cell", "fused_head_topk"))
+    pack = ctx_k.cell_pack
+
+    def att_weights(state, tok):  # att_cell's α, β on the decode's states
+        args = (ms._pad_to(params.embedding[tok], 1, pack.w_emb.shape[0]),
+                *(ms._pad_to(x, 1, pack.hp).contiguous()
+                  for x in (state.h_att, state.c_att, state.h_lang)))
+        return (ms.att_cell(pack, *args)[2:],
+                ms.reference_att_cell(pack, *args)[2:])
+
     steps = _check_cell_steps(editnet, cfg.model, params, ctx_k, hyps,
                               ("h_att", "c_att", "h_lang", "c_lang"),
-                              vocab.start)
+                              vocab.start, weights=att_weights)
     profile = _profile(lambda: decode(params, *batch).cpu())
     profile["busy_share_of_timed_wall"] = \
         profile["device_ms"] / (1e3 * N_IMAGES / out["captions_per_s"])
@@ -2170,12 +2334,16 @@ def phase_cell_kernels(ed, dc) -> dict:
     3072; R = 36, F = 2048, A = 512) and on unaligned shapes, with planted
     faults; kernel, plain, library and bound times at the greedy
     shapes."""
+    import dataclasses
+
     import torch
 
     from captionkit_torch.kernels import attention as ka
     from captionkit_torch.kernels import lstm as kl
+    from captionkit_torch.kernels import megastep
     from captionkit_torch.models import dcnet as dmod
     from captionkit_torch.models import editnet as emod
+    from captionkit_torch.models import get_model
     from captionkit_torch.nn.attention import AdditiveAttentionParams
     from captionkit_torch.nn.cells import CopyLSTMParams, LSTMParams
 
@@ -2410,6 +2578,28 @@ def phase_cell_kernels(ed, dc) -> dict:
                 device_span_ms=_device_span_ms(run, "query_kernel",
                                                "context_kernel"),
                 gemm_kernel_launches=tile)
+
+    # att_cell at the greedy step's 512 rows (one beam an image, as a
+    # beam_size=1 decode with cell_impl="pallas" runs it): score_kernel's
+    # blocks hold one row each. Against its plain version; its score
+    # stage's device ms and bound share.
+    pmc = dataclasses.replace(mc, cell_impl="pallas")
+    with torch.inference_mode():
+        gpack = _encoded(get_model(pmc), params, pmc, k=1).cell_pack
+    gargs = (randn(N, gpack.w_emb.shape[0], scale=0.1),
+             *(randn(N, gpack.hp, scale=0.5) for _ in range(3)))
+    out["att_cell_one_beam"] = _hold(
+        "att_cell one beam", lambda: megastep.att_cell(gpack, *gargs),
+        lambda: megastep.reference_att_cell(gpack, *gargs),
+        lambda got, want: cell_agreement(
+            got, want, ("state", "state", "weights", "weights")))
+    R_, T_ = gpack.vis_keys.shape[1], gpack.scma_keys.shape[1]
+    times["att_cell_one_beam"] = _score_stage(
+        lambda: megastep.att_cell(gpack, *gargs),
+        SCORE_STAGES["att_cell", False],
+        _score_stage_bound(N, N, A, [(R_, N * R_, False),
+                                     (T_, int((gpack.scma_mask > 0).sum()),
+                                      True)]))
     result = {"phase": "cell_kernels", "ok": True, "rows": N,
               "atol_state": CELL_ATOL,
               "weights_bar": "max(1 bf16 ulp, 1e-4)",
@@ -2945,14 +3135,23 @@ def phase_fp32(ed, dc, wrappers, card) -> dict:
     r16 = lambda x: x.bfloat16().float()  # noqa: E731
     dims = dict(N=N, B=B, E=mc.emb_dim, H=mc.hidden_dim, A=mc.att_dim,
                 F=mc.feat_dim, R=R, T=T)
-    keys = ("gemm_kernel", "scores_kernel")
+    keys = ("gemm_kernel", "score_kernel")
     att_args = (emb, h_att, c_att, h_lang)
+    t_att = int((pack.scma_mask > 0).sum())
     case("att_cell", lambda: ms.att_cell(pack, *att_args),
          lambda: ms.reference_att_cell(pack, *att_args), None,
-         _cell_bound("att_cell", **dims, fp32=True,
-                     t_valid=int((pack.scma_mask > 0).sum())), keys,
+         _cell_bound("att_cell", **dims, fp32=True, t_valid=t_att), keys,
          [("operand_rounded_to_bf16", lambda: ms.att_cell(
-             pack, emb, r16(h_att), c_att, h_lang))])
+             pack, emb, r16(h_att), c_att, h_lang))], launches=3)
+    # The score stage apart (score_kernel's fp32 instance after the query
+    # product), and its share of the call.
+    stage = _score_stage(
+        lambda: ms.att_cell(pack, *att_args), SCORE_STAGES["att_cell", True],
+        _score_stage_bound(N, B, mc.att_dim, [(R, B * R, False),
+                                              (T, t_att, True)], fp32=True))
+    stage["stage_share_of_call"] = (stage["scores_stage_device_ms"]
+                                    / stage["call_span_device_ms"])
+    kernels["att_cell"]["score_stage"] = stage
     with torch.inference_mode():
         h2, _, alpha, beta = ms.reference_att_cell(pack, *att_args)
         vhat_raw = ms._grouped(alpha, pack.features)
@@ -2974,7 +3173,14 @@ def phase_fp32(ed, dc, wrappers, card) -> dict:
          [("mask_dropped",
            lambda: (ms.dcnet_score(no_mask, h_att[:, :dHp]),))],
          launches=2, by_launch={"query": "gemm_kernel",
-                                "scores": "dcnet_scores_kernel"})
+                                "scores": "score_kernel"})
+    t_dc = int((dpack.mask > 0).sum())
+    kernels["dcnet_score"]["score_stage"] = _score_stage(
+        lambda: ms.dcnet_score(dpack, h_att[:, :dHp]),
+        SCORE_STAGES["dcnet_score", True],
+        _score_stage_bound(N, B, mc.att_dim, [(T, t_dc, True)], fp32=True,
+                           split=ms.f32_split(N, dHp, dpack.att_v.shape[0],
+                                              0)))
     # On random keys: the kernel within the bar, and a lane's partial score
     # left out of the warp's reduction over A past it.
     rkeys = dataclasses.replace(dpack, att_keys=(torch.randn(
@@ -6452,6 +6658,12 @@ def main() -> int:
             "bound_by": res["bound_by"],
             "library_ms": None,
         })
+        if "score_stage" in res:  # score_kernel after the query product
+            stage = res["score_stage"]
+            kernels[-1].update(
+                score_stage_device_ms=stage["scores_stage_device_ms"],
+                score_stage_bound_ms=stage["bound_ms"],
+                score_stage_bound_share=stage["stage_bound_share"])
     # The rest of the head family: thresh from the float thresh decode,
     # the sweep from the sweep decode, int8 from the int8 server.
     family = {

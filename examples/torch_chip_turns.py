@@ -9,14 +9,15 @@ checkout) in the order parent, change, change, parent, each as its own
 process, and writes each run's output to DIR/<label>_<n>.log. With
 ``--phases``, each run is instead the device and build phases, the paper
 setups, and only the named phases of that checkout's ``chip_smoke.py``
-(any of decode, greedy, introspect, fp32, head_variants, megastep,
-cell_kernels, wide_head). Then prints
+(any of decode, decode_cells, greedy, introspect, fp32, head_variants,
+megastep, cell_kernels, wholestep, wide_head). Then prints
 one JSON object: for every kernel of the runs' ``kernels`` lines its ms per
 run, for every measured field of the kernels' rows (each launch's device
-time and a call's device span where a row gives them; the ``cell_kernels``
-times, the ``head_variants``, ``megastep``, ``fp32``, ``beam10`` and
-``wide_head`` kernels, the ``wholestep`` kernel and the two programs it is set
-against) their values per run, and every captions/s figure of the decode
+time and a call's device span where a row gives them, and a score stage's
+device times and bound share; the ``cell_kernels`` times, the
+``head_variants``, ``megastep``, ``fp32``, ``beam10`` and ``wide_head``
+kernels, the ``wholestep`` kernel and the two programs it is set against)
+their values per run, and every captions/s figure of the decode
 phases per run, each with the change's mean over the parent's. Fails if
 any run fails. Imports nothing of JAX; needs the card.
 """
@@ -37,6 +38,9 @@ FIELDS = ("ms", "device_ms", "library_ms", "library_device_ms", "plain_ms",
           "two_programs_device_ms", "lang_cell_then_sweep_ms",
           "lang_cell_then_sweep_device_ms", "device_span_ms",
           "device_span_bound_share")
+# A score stage's fields (chip_smoke.py's ``_score_stage``).
+STAGE_FIELDS = ("scores_kernel_device_ms", "scores_stage_device_ms",
+                "call_span_device_ms", "stage_bound_share", "bound_ms")
 
 
 # The named phases of a checkout's chip_smoke.py, after its device and
@@ -48,9 +52,14 @@ import chip_smoke as cs
 card = cs.phase_device()["nvidia_smi"]
 cs.phase_build()
 from captionkit_torch.kernels import WRAPPERS
+from captionkit_torch.models import get_model
 ed = cs._paper_setup("editnet_beam5")
 dc = cs._paper_setup("dcnet_beam5", {"model.cell_impl": "pallas"})
+pallas = ed[0].override({"model.cell_impl": "pallas"})
 run = {"decode": lambda: cs.phase_decode(*ed, WRAPPERS, card),
+       "decode_cells": lambda: cs.phase_decode_cells(
+           pallas, get_model(pallas.model), ed[2], ed[3], WRAPPERS, card),
+       "wholestep": lambda: cs.phase_wholestep(ed, WRAPPERS, card),
        "greedy": lambda: cs.phase_greedy(ed, dc, WRAPPERS, card),
        "introspect": lambda: cs.phase_introspect(ed, WRAPPERS, card),
        "fp32": lambda: cs.phase_fp32(ed, dc, WRAPPERS, card),
@@ -61,8 +70,9 @@ run = {"decode": lambda: cs.phase_decode(*ed, WRAPPERS, card),
 for name in sys.argv[1].split(","):
     run[name]()
 """
-PHASE_NAMES = ("decode", "greedy", "introspect", "fp32", "head_variants",
-               "megastep", "cell_kernels", "wide_head")
+PHASE_NAMES = ("decode", "decode_cells", "greedy", "introspect", "fp32",
+               "head_variants", "megastep", "cell_kernels", "wholestep",
+               "wide_head")
 
 
 def run(checkout: Path, log: Path, phases: str = "") -> list[dict]:
@@ -91,6 +101,13 @@ def captions(obj, path=()):
                 yield from captions(value, path + (key,))
 
 
+def stage(out: dict, prefix: str, t: dict) -> None:
+    """A score stage's fields of ``t`` under ``prefix``."""
+    for f in STAGE_FIELDS:
+        if t.get(f) is not None:
+            out[f"{prefix}/{f}"] = t[f]
+
+
 def summary(lines: list[dict]) -> dict:
     out = {}
     for line in lines:
@@ -105,6 +122,8 @@ def summary(lines: list[dict]) -> dict:
                         out[f"cell_kernels/{name}/{f}"] = t[f]
                 for label, v in t.get("device_ms_by_launch", {}).items():
                     out[f"cell_kernels/{name}/device_ms/{label}"] = v
+                if "scores_stage_device_ms" in t:
+                    stage(out, f"cell_kernels/{name}/score_stage", t)
         if phase in ("head_variants", "megastep", "fp32", "beam10",
                      "wide_head"):
             for name, t in line["kernels"].items():
@@ -113,6 +132,9 @@ def summary(lines: list[dict]) -> dict:
                         out[f"{phase}/{name}/{f}"] = t[f]
                 for label, v in t.get("device_ms_by_launch", {}).items():
                     out[f"{phase}/{name}/device_ms/{label}"] = v
+                if "score_stage" in t:
+                    stage(out, f"{phase}/{name}/score_stage",
+                          t["score_stage"])
         if phase == "wholestep":
             for f in FIELDS:
                 if line["kernel"].get(f) is not None:

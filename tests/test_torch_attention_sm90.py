@@ -1,10 +1,11 @@
 """The score kernels on the CPU: a torch model of how the kernels of
 ``csrc/attention.cu`` (the dispatch attention, B6) and of
-``csrc/megastep.cu``'s ``ck_dcnet_score`` split one call, in bf16 and in
-fp32 (the kernels themselves run on a card: test_torch_card.py), held
-against ``captionkit.ops.attention.fused_additive_attention`` and the
-score kernel of ``captionkit.ops.megastep.dcnet_fused_step_hidden`` in
-interpret mode.
+``csrc/megastep.cu``'s ``ck_dcnet_score`` and ``ck_att_cell`` split one
+call, in bf16 and in fp32 (the kernels themselves run on a card:
+test_torch_card.py), held against
+``captionkit.ops.attention.fused_additive_attention``, the score kernel
+of ``captionkit.ops.megastep.dcnet_fused_step_hidden`` and the att
+kernel of ``captionkit.ops.megastep.att_phase`` in interpret mode.
 
 The model follows the kernels step by step, in fp32:
 - the query product of each 128-row x 128-column output tile (the
@@ -15,16 +16,18 @@ The model follows the kernels step by step, in fp32:
 - each score as one warp takes it: lane l sums tanh(k + q + b) v over its
   columns 8 l + 256 c + {0..7} in that order, and the 32 partial scores
   meet in the xor butterfly of ``warp_sum``; tanh as the kernels take it,
-  1 - 2 / (2^(2 x log2 e) + 1);
+  1 - 2 / (2^(2 x log2 e) + 1) (B6), or tanh (``score_kernel``: the
+  card's tanh.approx.f32 in bf16, not modelled);
 - B6's ``context_kernel``: per row, the key stages of 14 KB (the valid
   prefix only; ``NEG_INF`` after it), the softmax over all P positions,
   then per 1024-column group the value stages (the valid prefix, or all P
   when it is empty), thread group g of G = 128 / (columns / 8) summing the
   positions g, g + G, ... of each stage, and the groups' partial sums
   added;
-- ``dcnet_scores_kernel``: one warp a query row against its image's keys,
-  ``NEG_INF`` where the mask is not > 0, the row's softmax rounded to bf16
-  once.
+- ``score_kernel`` (``dcnet_score``'s one head; ``att_cell``'s visual
+  head with no mask and SCMA head, after the query product of both): a
+  query row against its image's keys, ``NEG_INF`` where the head's mask
+  is not > 0, the row's softmax rounded to bf16 once.
 
 The fp32 instances run the same kernels with fp32 keys and values: the
 query product on ``cell_common.cuh``'s fp32 tile, split over K into the
@@ -34,14 +37,16 @@ ranges of whole 32-deep stages that ``plain_split`` picks for an H100
 of 4-byte elements) and a thread's 8 context columns 4 col + {0..3} and
 4 (col + n8) + {0..3} of its group; ω in fp32. (Which warp takes a
 position, and whether its key comes from shared memory or L1, changes no
-sum, so the model leaves it out.)
+sum, so the model leaves it out; nor does the block of an image and a
+head, whose warps each take one row.)
 
 Bars (the port's dispatch and megastep tests): B6's weights within 1e-4
 and its context within 1e-3 of the JAX kernel, and within max(1 bf16 ulp,
-1e-4) and 1e-3 of the plain version; DCNet's ω within one bf16 ulp; fp32:
-everything within 1e-5 (the card's fp32 bar). Each planted fault (a lane's
-partial score left out of the reduction, a thread's 8 context columns
-written to the next slice) must fail them.
+1e-4) and 1e-3 of the plain version; DCNet's ω and att_cell's α and β
+within one bf16 ulp; fp32: everything within 1e-5 (the card's fp32 bar).
+Each planted fault (a lane's partial score left out of the reduction, a
+thread's 8 context columns written to the next slice, att_cell's visual
+head given the SCMA mask) must fail them.
 """
 
 import jax
@@ -205,22 +210,34 @@ def _b6_model(q, wq, b, v, keys, values, nvalid, fault=None, split=None):
     return ctx, w, read
 
 
+def _head_model(q, b, v, keys, mask, fault=None):
+    """One head of ``score_kernel``: the weights [N, P] of rows q [N, Ap]
+    fp32 against their images' keys [B, P, Ap] (bf16 or fp32), (key + q)
+    + b as the kernel adds them, a row's scores as its warps take them
+    (lane chunks of 8 bf16 or 4 fp32 columns, the butterfly), ``NEG_INF``
+    where ``mask`` [B, P] is not > 0 (None: every position attends), the
+    row's softmax rounded to the keys' dtype once. The tanh is the
+    accurate one: the fp32 instances take tanhf; the bf16 ones take the
+    card's tanh.approx.f32 (within 2^-11 relative), whose error the card
+    tests hold against the bar and this model leaves out."""
+    B = keys.shape[0]
+    N = q.shape[0]
+    img = torch.arange(N) // (N // B)
+    e = torch.tanh(keys.float()[img] + q[:, None, :] + b) * v
+    s = _warp_score(e, fault, 4 if keys.dtype == torch.float32 else 8)
+    if mask is not None:
+        s = torch.where(mask[img] > 0, s, NEG_INF)
+    return torch.softmax(s, dim=-1).to(keys.dtype)
+
+
 def _dcnet_model(h, wq, b, v, keys, mask, fault=None):
     """ω [N, T] as the kernels compute it: bf16, q = bf16(h) wq on the
     wgmma tile; fp32 (wq and keys fp32), q the fp32 tile's K-range
-    partials added in rank order; then one warp a row against its image's
-    keys (fp32: 4-column lane chunks, the accurate tanh), ω in the keys'
-    dtype."""
+    partials added in rank order; then ``score_kernel``'s one head, ω in
+    the keys' dtype."""
     f32 = keys.dtype == torch.float32
     q = _query_f32(h, wq) if f32 else _query(h, wq)
-    B, T, A = keys.shape
-    N = h.shape[0]
-    img = torch.arange(N) // (N // B)
-    tanh = torch.tanh if f32 else _tanh_ex2
-    e = tanh(keys.float()[img] + q[:, None, :] + b) * v
-    s = _warp_score(e, fault, 4 if f32 else 8)
-    s = torch.where(mask[img] > 0, s, NEG_INF)
-    return torch.softmax(s, dim=-1).to(keys.dtype)
+    return _head_model(q, b, v, keys, mask, fault)
 
 
 def _ulp_close(got, want):
@@ -499,8 +516,8 @@ def test_dcnet_score_partition_planted_fault_fails():
 ])
 def test_dcnet_score_f32_partition_matches_jax_kernel(B, K, T, H, A):
     """The model of dcnet_score's fp32 instance (the fp32 tile's K-range
-    partials added into q, two warps a row taking its position pairs in
-    turn from the image's keys in shared memory, the lanes' 4-column
+    partials added into q, one warp a row taking its positions two at a
+    time from the image's keys in shared memory, the lanes' 4-column
     chunks, the accurate tanh) gives the reference's fp32 score kernel's ω
     (interpret) and the plain version's within 1e-5, at attendable
     lengths 0, 1 and T among others; masked positions weigh exactly 0, a
@@ -524,3 +541,169 @@ def test_dcnet_score_f32_partition_planted_fault_fails():
     j, m = _dcnet_both(case, 5, fault="lane_share_left_out",
                        dt=torch.float32)
     assert np.abs(m - j).max() > F32_ATOL
+
+
+# -- att_cell's score stage ---------------------------------------------------
+
+ATT_FAULTS = ("lane_share_left_out", "visual_given_scma_mask")
+
+
+def _att_model(h, wq, vis, scma, mask, fault=None):
+    """(α [N, R], β [N, T]) as ``att_cell``'s score stage computes them
+    from h' [N, Hp] fp32: q = bf16(h') [Wq_vis | Wq_scma] on the wgmma tile
+    (fp32: the fp32 tile over the whole K), then ``score_kernel``'s two
+    heads, each (b, v, keys): the visual one with no mask, the SCMA one
+    masked. ``visual_given_scma_mask``: the visual head reads the SCMA
+    mask (its positions past T attendable)."""
+    f32 = vis[2].dtype == torch.float32
+    q = _query_f32(h, wq, split=1) if f32 else _query(h, wq)
+    Ap = vis[2].shape[2]
+    R, T = vis[2].shape[1], scma[2].shape[1]
+    vis_mask = None
+    if fault == "visual_given_scma_mask":
+        vis_mask = F.pad(mask, (0, max(0, R - T)), value=1.0)[:, :R]
+    lane = fault if fault == "lane_share_left_out" else None
+    return (_head_model(q[:, :Ap], *vis, vis_mask, lane),
+            _head_model(q[:, Ap:], *scma, mask, lane))
+
+
+def _att_case(B, K, R, T, E, H, A, seed=5):
+    """att_cell's inputs at widths that need no padding (multiples of
+    128): a dict of fp32 numpy arrays; caption masks of attendable
+    lengths 0, 1 and T, then random."""
+    rng = np.random.default_rng(seed)
+    N = B * K
+    u = lambda *shape, s: rng.uniform(-1, 1, shape).astype(  # noqa: E731
+        np.float32) * s
+    n = lambda *shape, s: (rng.standard_normal(shape) * s).astype(  # noqa
+        np.float32)
+    lengths = np.array([(0, 1, T)[i % 3] if i < 3 else rng.integers(1, T + 1)
+                        for i in range(B)])
+    return dict(
+        emb=n(N, E, s=0.1), h_att=n(N, H, s=0.5), c_att=n(N, H, s=0.5),
+        h_lang=n(N, H, s=0.5), zvb=n(N, 4 * H, s=0.1),
+        w_emb=u(E, 4 * H, s=E ** -0.5), w_hl=u(H, 4 * H, s=H ** -0.5),
+        w_ha=u(H, 4 * H, s=H ** -0.5), vis_wq=u(H, A, s=H ** -0.5),
+        vis_v=u(A, s=A ** -0.5), vis_b=u(A, s=0.1),
+        vis_keys=n(B, R, A, s=0.5), scma_wq=u(H, A, s=H ** -0.5),
+        scma_v=u(A, s=A ** -0.5), scma_b=u(A, s=0.1),
+        scma_keys=n(B, T, A, s=0.5),
+        mask=(np.arange(T)[None, :] < lengths[:, None]).astype(np.float32))
+
+
+_ATT_JAX = {}
+
+
+def _att_jax(case, K, dt):
+    """The reference's att kernel (``_make_att_kernel``, interpret) on the
+    case: (h', c', α, β) as numpy, fp32; one run per case and dtype."""
+    key = (id(case), dt)
+    if key not in _ATT_JAX:
+        from jax.experimental import pallas as pl
+
+        jdt = jnp.bfloat16 if dt == bf else jnp.float32
+        N, H = case["h_att"].shape
+        B, R, _ = case["vis_keys"].shape
+        T = case["scma_keys"].shape[1]
+        f32 = jnp.float32
+        a = {k: jnp.asarray(x) for k, x in case.items()}
+        out = pl.pallas_call(
+            jax_megastep._make_att_kernel(K, R, jdt),
+            out_shape=[jax.ShapeDtypeStruct((N, H), f32),
+                       jax.ShapeDtypeStruct((N, H), f32),
+                       jax.ShapeDtypeStruct((N, R), jdt),
+                       jax.ShapeDtypeStruct((N, T), jdt)],
+            interpret=True)(
+            a["emb"].astype(jdt), a["h_att"], a["c_att"], a["h_lang"],
+            a["zvb"], *(a[k].astype(jdt) for k in ("w_emb", "w_hl", "w_ha",
+                                                    "vis_wq")),
+            a["vis_v"][None], a["vis_b"][None], a["vis_keys"].astype(jdt),
+            a["scma_wq"].astype(jdt), a["scma_v"][None], a["scma_b"][None],
+            a["scma_keys"].astype(jdt), a["mask"])
+        _ATT_JAX[key] = [np.array(x, np.float32) for x in out]
+    return _ATT_JAX[key]
+
+
+def _att_pack(case, dt):
+    """The port's CellPack of the case's att_cell weights and context."""
+    t = {k: torch.from_numpy(x) for k, x in case.items()}
+    H = t["h_att"].shape[1]
+    small = torch.zeros((128, 128), dtype=dt)
+    return megastep.CellPack(
+        w_att=torch.cat([t["w_emb"], t["w_hl"], t["w_ha"]]).to(dt),
+        wq=torch.cat([t["vis_wq"], t["scma_wq"]], dim=1).to(dt),
+        vis_v=t["vis_v"], vis_b=t["vis_b"], scma_v=t["scma_v"],
+        scma_b=t["scma_b"], gate_w=small, gate_b=small[0].float(),
+        lang_w=small, lang_b=small[0].float(),
+        wr=torch.zeros((1, H), dtype=dt), br=small[0].float(),
+        vis_keys=t["vis_keys"].to(dt), features=small[None],
+        scma_keys=t["scma_keys"].to(dt), enc_cs=small[None],
+        scma_mask=t["mask"], zvb=t["zvb"])
+
+
+def _att_all(case, K, dt, fault=None):
+    """(the JAX kernel's (α, β), the model's, the plain version's), each as
+    fp32 numpy. The model's query product takes the JAX kernel's h'."""
+    j = _att_jax(case, K, dt)
+    pack = _att_pack(case, dt)
+    m = _att_model(torch.from_numpy(j[0]), pack.wq,
+                   (pack.vis_b, pack.vis_v, pack.vis_keys),
+                   (pack.scma_b, pack.scma_v, pack.scma_keys),
+                   pack.scma_mask, fault)
+    plain = megastep.reference_att_cell(
+        pack, *(torch.from_numpy(case[k])
+                for k in ("emb", "h_att", "c_att", "h_lang")))
+    return (j[2], j[3]), tuple(x.float().numpy() for x in m), \
+        tuple(x.float().numpy() for x in plain[2:])
+
+
+def _att_ok(j, m, plain, dt):
+    """α and β of the model within one bf16 ulp (fp32: 1e-5) of the JAX
+    kernel's and of the plain version's."""
+    if dt == bf:
+        return all(_ulp_close(m[i], want[i]) for want in (j, plain)
+                   for i in (0, 1))
+    return all(np.abs(m[i] - want[i]).max() <= F32_ATOL
+               for want in (j, plain) for i in (0, 1))
+
+
+ATT_CASES = {  # B, K, R, T, E, H, A
+    "paper_heads": (4, 5, 36, 22, 128, 128, 512),
+    "one_beam": (5, 1, 6, 7, 128, 256, 128),
+    "wide_a": (3, 3, 10, 9, 128, 128, 1024),
+}
+_ATT_CASE_DATA = {name: _att_case(*dims) for name, dims in ATT_CASES.items()}
+
+
+@pytest.mark.parametrize("dt", [bf, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("name", list(ATT_CASES))
+def test_att_cell_score_partition_matches_jax_kernel(name, dt):
+    """The model of att_cell's score stage (the query product of both
+    heads, then score_kernel: the visual head unmasked, the SCMA head
+    masked, a row's scores as its warps take them) gives the reference's
+    att kernel's α and β (interpret) and the plain version's within one
+    bf16 ulp (fp32: 1e-5): every region weighs, β's masked positions
+    weigh exactly 0, a row with no attendable position weighs all T
+    equally."""
+    B, K, R, T = ATT_CASES[name][:4]
+    case = _ATT_CASE_DATA[name]
+    j, m, plain = _att_all(case, K, dt)
+    assert _att_ok(j, m, plain, dt)
+    alpha, beta = m
+    assert alpha.shape == (B * K, R) and (alpha > 0).all()
+    rows = np.repeat(case["mask"], K, axis=0) > 0
+    some = rows.any(axis=1)
+    assert some.any() and not some.all()
+    assert (beta[some][~rows[some]] == 0).all()
+    np.testing.assert_allclose(beta[~some], 1.0 / T,
+                               rtol=4e-3 if dt == bf else 1e-6)
+
+
+@pytest.mark.parametrize("dt", [bf, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("fault", ATT_FAULTS)
+def test_att_cell_score_partition_planted_faults_fail(fault, dt):
+    """A lane's partial score left out of the warps' sums over A, or the
+    visual head given the SCMA head's mask, moves α or β past the bar at
+    the paper's heads (36 regions, 22 caption positions, A = 512)."""
+    j, m, plain = _att_all(_ATT_CASE_DATA["paper_heads"], 5, dt, fault)
+    assert not _att_ok(j, m, plain, dt)

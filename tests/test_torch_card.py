@@ -773,8 +773,8 @@ def _profiled_runs(card, group):
     (``"heads"``: bf16 mask and thresh, int8 given its K-major weights, at
     paper shape), the fp32 route (``"fp32"``: mask, thresh and sweep at
     paper shape, the whole step at 512 images) or the bf16 score kernels (``"scores"``: the dispatch
-    attention at the masked 512 x 22 x 1024 class, dcnet_score at 320
-    rows)."""
+    attention at the masked 512 x 22 x 1024 class, dcnet_score and
+    att_cell at 320 rows; ``"fp32_scores"``: their fp32 instances)."""
     if group == "fp32":
         h, w, b = _paper_head(card)
         w_p, b_p = thead.prepad_head(w, b, compute_dtype=torch.float32)
@@ -814,10 +814,14 @@ def _profiled_runs(card, group):
     params, keys, values, query, mask = _attention_case(
         card, 512, 22, 512, 1024, 1024)
     _, dpack, (h, _, _, _), _ = _cell_setup("dcnet", PAPER_CELLS, card, 64)
+    _, pack, (h_att, c_att, h_lang, _), emb = _cell_setup(
+        "editnet", PAPER_CELLS, card, 64)
     return {"attention": lambda: tattn.fused_additive_attention(
                 params, keys, values, query, mask,
                 compute_dtype=torch.bfloat16),
-            "dcnet_score": lambda: megastep.dcnet_score(dpack, h)}
+            "dcnet_score": lambda: megastep.dcnet_score(dpack, h),
+            "att_cell": lambda: megastep.att_cell(pack, emb, h_att, c_att,
+                                                  h_lang)}
 
 
 def _profile_launches(run, calls):
@@ -858,11 +862,10 @@ def _kernels_a_call(group, name, calls=3):
 def test_score_kernels_two_launches_no_gemm_tile(card):
     """A bf16 call of fused_additive_attention is the K-split wgmma query
     product (query_kernel) and context_kernel; one of dcnet_score the
-    wgmma query product (cell_kernel) and dcnet_scores_kernel: two CUDA
-    launches each, and no cell_common.cuh gemm_kernel (the wmma tile is
-    gone)."""
+    wgmma query product (cell_kernel) and score_kernel: two CUDA launches
+    each, and no cell_common.cuh gemm_kernel (the wmma tile is gone)."""
     runs = {"attention": ("query_kernel", "context_kernel"),
-            "dcnet_score": ("cell_kernel", "dcnet_scores_kernel")}
+            "dcnet_score": ("cell_kernel", "score_kernel")}
     for name, (first, second) in runs.items():
         kernels = {k: n for k, n in _kernels_a_call("scores", name).items()
                    if "at::native" not in k}
@@ -1447,7 +1450,7 @@ def test_fp32_attention_kernel_reduction_faults_fail(card, B, N, A, V, Q,
 @pytest.mark.parametrize("K", [1, 5])
 def test_fp32_dcnet_score_prefix_lengths_and_faults(card, K):
     """dcnet_score's fp32 instance (the fp32 tile split over K, then
-    dcnet_scores_kernel's fp32 instance) at attendable lengths 0, 1 and
+    score_kernel's fp32 instance) at attendable lengths 0, 1 and
     T in turn, paper widths: ω within 1e-5 of its plain version, masked
     positions 0, a row with none attendable 1 / T; a lane's partial
     score left out of the sum over A, and the mask dropped, move ω past
@@ -1655,9 +1658,9 @@ def test_fp32_copy_lstm_c_star_feeds_r_alone(card, N):
 def test_fp32_dcnet_score_windows_and_row_blocks(card, K, T, A):
     """dcnet_score's fp32 instance past one block's rows (K > 8: a second
     block of the image's rows, some of its warps idle) and past one
-    window of keys (T > 32: the keys staged again), on random weights and
-    keys, with attendable lengths 0, 1 and T and a mask with holes: ω
-    within 1e-5 of its plain version."""
+    window of keys (T = 70 > 40: the keys staged again), on random
+    weights and keys, with attendable lengths 0, 1 and T and a mask with
+    holes: ω within 1e-5 of its plain version."""
     B, H = 6, 1024
     g = torch.Generator().manual_seed(8)
     small = torch.zeros((128, 128), device=card)
@@ -1681,13 +1684,13 @@ def test_fp32_dcnet_score_windows_and_row_blocks(card, K, T, A):
 def test_fp32_score_kernels_launch_names(card):
     """The fp32 instances of B6 and dcnet_score run two CUDA launches a
     call: cell_common.cuh's gemm_kernel (the query product split over K),
-    then context_kernel<float> and dcnet_scores_kernel's fp32 instance;
+    then context_kernel<float> and score_kernel's fp32 instance;
     attention_kernel and scores_kernel are gone from them. The fp32
-    att_cell, another user of the fp32 tile, still runs its two gemm_kernel
-    launches and scores_kernel. Each is profiled in a process of its
-    own."""
+    att_cell, another user of the fp32 tile, runs its two gemm_kernel
+    launches and score_kernel's fp32 instance. Each is profiled in a
+    process of its own."""
     runs = {"attention": ("context_kernel<float>",),
-            "dcnet_score": ("dcnet_scores_kernel<", ", float>")}
+            "dcnet_score": ("score_kernel<", ", float>")}
     for name, second in runs.items():
         kernels = {k: n for k, n in _kernels_a_call("fp32_scores",
                                                     name).items()
@@ -1697,15 +1700,14 @@ def test_fp32_score_kernels_launch_names(card):
                       if all(key in k for key in second))
         assert (gemms, seconds, sum(kernels.values())) == (3, 3, 6), \
             (name, kernels)
-        assert not any("attention_kernel" in k or
-                       ("scores_kernel" in k and "dcnet" not in k)
+        assert not any("attention_kernel" in k or "scores_kernel" in k
                        for k in kernels), (name, kernels)
     kernels = {k: n for k, n in _kernels_a_call("fp32_scores",
                                                 "att_cell").items()
                if "at::native" not in k}
     gemms = sum(n for k, n in kernels.items() if "gemm_kernel" in k)
     scores = sum(n for k, n in kernels.items()
-                 if "scores_kernel" in k and "dcnet" not in k)
+                 if "score_kernel<" in k and ", float>" in k)
     assert (gemms, scores, sum(kernels.values())) == (6, 3, 9), kernels
 
 
@@ -1847,6 +1849,105 @@ def test_sm90_att_and_dcnet_cells_planted_faults_fail(card):
             err = max(float((g_ - w_).abs().max())
                       for g_, w_ in zip(got[:2], want[:2]))
             assert err > 1e-3
+
+
+def _att_scores_case(card, over, B, K, seed=6):
+    """(pack, arguments) of att_cell on an encoded batch of B images x K
+    beams, with random keys (scale 0.5) in both heads, as the dcnet_score
+    tests take them (the model's encoded keys barely vary across
+    positions), and caption masks with holes, of attendable lengths 0, 1
+    and T in turn."""
+    _, pack, (h, c, h2, _), emb = _cell_setup("editnet", over, card, B, K=K)
+    T = pack.scma_mask.shape[1]
+    g = torch.Generator().manual_seed(seed)
+
+    def keys(x):
+        return (torch.randn(x.shape, generator=g) * 0.5).to(card, x.dtype)
+
+    mask = (torch.rand((B, T), generator=g) > 0.3).float()
+    mask[1::4] = 0.0
+    mask[2::4] = 0.0
+    mask[2::4, 0] = 1.0
+    mask[3::4] = 1.0
+    pack = dataclasses.replace(
+        pack, vis_keys=keys(pack.vis_keys), scma_keys=keys(pack.scma_keys),
+        scma_mask=mask.to(card))
+    return pack, (emb, h, c, h2)
+
+
+@pytest.mark.parametrize("B,K", [(512, 5), (13, 5), (1, 1), (6, 10),
+                                 (2561, 1)])
+@pytest.mark.parametrize("dt", ["bfloat16", "float32"])
+def test_att_cell_scores_match_plain(card, dt, B, K):
+    """att_cell's score stage (score_kernel over both heads) at paper
+    widths against the plain version: 512 images x 5 beams, row counts
+    that leave partial 128-row tiles of the products (65, 1, 2561) and 10
+    beams (an image's rows in two blocks). α over every region and β
+    within one bf16 ulp (fp32: 1e-5), h and c within 1e-3 (fp32: 1e-5);
+    every region weighs; β's masked positions weigh 0, a row with no
+    attendable position 1 / T. A lane's partial score left out of either
+    head's sum over A, and the mask dropped, fail the bar."""
+    bf16 = dt == "bfloat16"
+    pack, args = _att_scores_case(card, PAPER_CELLS if bf16 else F32_CELLS,
+                                  B, K)
+    before = megastep.att_cell.launches
+    got = megastep.att_cell(pack, *args)
+    torch.cuda.synchronize()
+    assert megastep.att_cell.launches == before + 1
+    want = megastep.reference_att_cell(pack, *args)
+
+    def close(g_, w_):
+        if bf16:
+            _weights_close(g_, w_)
+        else:
+            torch.testing.assert_close(g_, w_, atol=1e-5, rtol=0)
+
+    for g_, w_ in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g_, w_, atol=1e-3 if bf16 else 1e-5,
+                                   rtol=0)
+    for g_, w_ in zip(got[2:], want[2:]):
+        assert g_.dtype == pack.dtype
+        close(g_, w_)
+    alpha, beta = got[2:]
+    assert bool((alpha > 0).all())
+    rows = pack.scma_mask.repeat_interleave(K, dim=0) > 0
+    some = rows.any(dim=1)
+    assert bool(some.any())
+    assert bool((beta[some][~rows[some]] == 0).all())
+    T = rows.shape[1]
+    uniform = torch.tensor(1 / T).to(pack.dtype)
+    torch.testing.assert_close(beta[~some].float(),
+                               torch.full_like(beta[~some].float(),
+                                               float(uniform)),
+                               atol=1e-7, rtol=0)
+    for bad in (dataclasses.replace(pack, vis_v=_lane_share_dropped(
+                    pack.vis_v)),
+                dataclasses.replace(pack, scma_v=_lane_share_dropped(
+                    pack.scma_v)),
+                dataclasses.replace(pack, scma_mask=torch.ones_like(
+                    pack.scma_mask))):
+        bad_out = megastep.att_cell(bad, *args)
+        with pytest.raises(AssertionError):
+            for g_, w_ in zip(bad_out[2:], want[2:]):
+                close(g_, w_)
+
+
+def test_att_cell_launches_score_kernel(card):
+    """att_cell runs three CUDA launches a call in bf16 and in fp32: the
+    att-LSTM and the query product (sm90_cell.cuh's cell_kernel; fp32:
+    cell_common.cuh's gemm_kernel), then score_kernel over both heads; no
+    scores_kernel, the kernel score_kernel replaced. Each is profiled in a
+    process of its own."""
+    for group, product, instance in (
+            ("scores", "cell_kernel<", "score_kernel<2, __nv_bfloat16>"),
+            ("fp32_scores", "gemm_kernel<", "score_kernel<4, float>")):
+        kernels = {k: n for k, n in _kernels_a_call(group, "att_cell").items()
+                   if "at::native" not in k}
+        products = sum(n for k, n in kernels.items() if product in k)
+        scores = sum(n for k, n in kernels.items() if instance in k)
+        assert (products, scores, sum(kernels.values())) == (6, 3, 9), \
+            (group, kernels)
+        assert not any("scores_kernel" in k for k in kernels), kernels
 
 
 @pytest.mark.parametrize("width", ["narrow", "paper"])
