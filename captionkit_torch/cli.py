@@ -114,6 +114,11 @@ the report as JSON and exits 1 when a check failed.
 
 ``--device`` defaults to ``cuda`` and raises when there is no card;
 ``--device cpu`` runs the plain versions of the kernels on the CPU.
+
+``--trace-dir DIR``, before the subcommand, runs it under
+``torch.profiler`` and writes a Chrome/Perfetto trace into ``DIR``
+(``utils/profiling.py::trace``): the port's spans (``split.gather``,
+``split.dispatch``, ``beam.step``, ...) beside the device's kernels.
 """
 
 from __future__ import annotations
@@ -129,6 +134,7 @@ from captionkit_torch.config import (
     get_named_config,
     list_named_configs,
 )
+from captionkit_torch.utils.profiling import trace
 
 
 def _parse_value(raw: str) -> Any:
@@ -155,6 +161,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="raise FloatingPointError on a NaN in the float "
                         "outputs of a train or SCST call, or in an "
                         "ensemble's weights (utils/logging.py)")
+    p.add_argument("--trace-dir", dest="trace_dir", default="",
+                   help="profile the subcommand into a Chrome trace in "
+                        "this directory, with the port's spans "
+                        "(utils/profiling.py)")
     sub = p.add_subparsers(dest="cmd", required=True)
     sub.add_parser("configs", help="list named configs")
 
@@ -864,11 +874,13 @@ def main(argv=None) -> int:
         from captionkit_torch.utils.logging import enable_nan_debugging
 
         enable_nan_debugging()
-    return {"configs": cmd_configs, "serve": cmd_serve, "decode": cmd_decode,
-            "decode-stacked": cmd_decode_stacked, "prepare": cmd_prepare,
-            "train-xe": cmd_train_xe, "train-scst": cmd_train_scst,
-            "convert": cmd_convert,
-            "parity-gate": cmd_parity_gate}[args.cmd](args)
+    cmd = {"configs": cmd_configs, "serve": cmd_serve, "decode": cmd_decode,
+           "decode-stacked": cmd_decode_stacked, "prepare": cmd_prepare,
+           "train-xe": cmd_train_xe, "train-scst": cmd_train_scst,
+           "convert": cmd_convert,
+           "parity-gate": cmd_parity_gate}[args.cmd]
+    with trace(args.trace_dir):
+        return cmd(args)
 
 
 if __name__ == "__main__":

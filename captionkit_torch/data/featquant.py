@@ -21,6 +21,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from captionkit_torch.utils import profiling
+
 #: feed_dtype values the decode and serving paths accept.
 FEED_DTYPES = ("float32", "bfloat16", "int8")
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -70,9 +72,15 @@ def quantize_for_feed(feats: Optional[np.ndarray], feed_dtype: str
 
 
 def feed_to_device(staged: Staged, device: "str | torch.device") -> Staged:
-    """Move a staged feed (tensor or (q, scale) pair) to ``device``."""
+    """Move a staged feed (tensor or (q, scale) pair) to ``device``.
+    Inside a profiler session the bytes of each tensor are counted as
+    ``feed_bytes_pinned`` or ``feed_bytes_pageable`` (``utils/profiling``)."""
     if staged is None:
         return None
+    if profiling.enabled():
+        for t in staged if isinstance(staged, tuple) else (staged,):
+            profiling.count("feed_bytes_pinned" if t.is_pinned()
+                            else "feed_bytes_pageable", t.nbytes)
     if isinstance(staged, tuple):
         return tuple(t.to(device) for t in staged)
     return staged.to(device)

@@ -13,7 +13,9 @@
   where nothing finished.
 * The loop is a Python loop; it stops after ``max_len`` steps or once
   every beam of every image is finished (one device-to-host read of the
-  done flags per step).
+  done flags per step). Inside a profiler session each read is a
+  ``beam.done_read`` span and the rest of the step a ``beam.step`` span
+  (``utils/profiling.py``).
 
 Two sequence-history layouts (``impl=``) with identical results:
 
@@ -41,6 +43,7 @@ import torch
 from captionkit_torch.models.base import ModelDef
 from captionkit_torch.nn.masking import NEG_INF
 from captionkit_torch.nn.topk import topk_lowest_index
+from captionkit_torch.utils.profiling import annotate
 
 
 class BeamResult(NamedTuple):
@@ -207,36 +210,43 @@ def beam_search(
         fin_seq = torch.full((B, K, max_len), pad_id, **i32)
 
     t = 0
-    while t < max_len and not bool(done.all()):
-        new_state, top_scores, parent, new_tok = select_candidates(
-            model_state, tok, scores, done)
-        if backptr:
-            tok_hist[t] = new_tok
-            par_hist[t] = parent
-        else:
-            seq = _gather_bk(seq, parent)
-            seq[:, :, t] = new_tok
-        was_done = _gather_bk(done, parent)
-        lengths = _gather_bk(lengths, parent) + (~was_done).to(torch.int32)
-        done = was_done | (new_tok == end_id)
-        model_state = _reorder_rows(new_state,
-                                    (row_base + parent).reshape(B * K))
-        # Register the hypotheses that finished this step; the running
-        # register comes first, so equal scores keep the earlier entry.
-        newly = done & ~was_done
-        cand_rank = torch.where(newly, rank(top_scores, lengths), NEG_INF)
-        fin_scores, sel = topk_lowest_index(
-            torch.cat([fin_scores, cand_rank], dim=1), K)
-        if backptr:  # scalars only: the sequence is (finish step, slot)
-            fin_t = _pick(fin_t, torch.full((B, K), t, **i32), sel)
-            fin_slot = _pick(fin_slot, slot_ids, sel)
-        else:
-            fin_seq = torch.take_along_dim(
-                torch.cat([fin_seq, seq], dim=1), sel[:, :, None], dim=1)
-        fin_len = _pick(fin_len, lengths, sel)
-        scores = top_scores
-        tok = new_tok.reshape(B * K)
-        t += 1
+    while t < max_len:
+        with annotate("beam.done_read"):  # waits for the step before
+            if bool(done.all()):
+                break
+        with annotate("beam.step"):
+            new_state, top_scores, parent, new_tok = select_candidates(
+                model_state, tok, scores, done)
+            if backptr:
+                tok_hist[t] = new_tok
+                par_hist[t] = parent
+            else:
+                seq = _gather_bk(seq, parent)
+                seq[:, :, t] = new_tok
+            was_done = _gather_bk(done, parent)
+            lengths = (_gather_bk(lengths, parent)
+                       + (~was_done).to(torch.int32))
+            done = was_done | (new_tok == end_id)
+            model_state = _reorder_rows(new_state,
+                                        (row_base + parent).reshape(B * K))
+            # Register the hypotheses that finished this step; the
+            # running register comes first, so equal scores keep the
+            # earlier entry.
+            newly = done & ~was_done
+            cand_rank = torch.where(newly, rank(top_scores, lengths),
+                                    NEG_INF)
+            fin_scores, sel = topk_lowest_index(
+                torch.cat([fin_scores, cand_rank], dim=1), K)
+            if backptr:  # scalars only: the sequence is (step, slot)
+                fin_t = _pick(fin_t, torch.full((B, K), t, **i32), sel)
+                fin_slot = _pick(fin_slot, slot_ids, sel)
+            else:
+                fin_seq = torch.take_along_dim(
+                    torch.cat([fin_seq, seq], dim=1), sel[:, :, None], dim=1)
+            fin_len = _pick(fin_len, lengths, sel)
+            scores = top_scores
+            tok = new_tok.reshape(B * K)
+            t += 1
 
     # Images with a finished hypothesis answer from the register; the rest
     # from their live beams.

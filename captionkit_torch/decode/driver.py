@@ -15,6 +15,12 @@ batches in the same order, gathers and decodes only its rows of each
 their image ids and valid flags, are gathered to every rank through the
 host, where they go for detokenization anyway: every rank returns the
 whole split's hypotheses.
+
+Inside a profiler session (``utils/profiling.py``) the driver records
+spans: ``split.gather`` (the split's row gather), ``split.dispatch`` (the
+decode call), ``split.consume`` with ``split.readback`` and
+``split.detokenize``, and, inside the decode function,
+``decode.feed_copy``, ``decode.encode`` and ``decode.search``.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from captionkit_torch.device import resolve_device
 from captionkit_torch.metrics.eval import CaptionEvaluator
 from captionkit_torch.models.base import ModelDef
 from captionkit_torch.parallel.mesh import gather_rows
+from captionkit_torch.utils.profiling import annotate
 
 
 def make_decode_fn(
@@ -72,25 +79,29 @@ def make_decode_fn(
 
     @torch.inference_mode()
     def fn(params, features, existing, existing_len, batch_idx=0):
-        features = dequantize_for_feed(feed_to_device(features, dev),
-                                       decode_cfg.feed_dtype)
-        ctx = model.encode(params, features, existing.to(dev),
-                           existing_len.to(dev))
-        if decode_cfg.method == "beam" and decode_cfg.beam_size > 1:
-            return beam_search(
-                model, params, ctx,
-                beam_size=decode_cfg.beam_size,
-                length_penalty=decode_cfg.length_penalty,
-                impl=decode_cfg.beam_impl, **ids,
-            ).tokens
-        if decode_cfg.method == "sample":
-            gen = torch.Generator(device=dev).manual_seed(
-                sample_seed(decode_cfg.seed, batch_idx, *rank))
-            return sample_decode(
-                model, params, ctx, gen,
-                temperature=decode_cfg.temperature, top_k=decode_cfg.top_k,
-                top_p=decode_cfg.top_p, **ids).tokens
-        return greedy_decode(model, params, ctx, **ids).tokens
+        with annotate("decode.feed_copy"):
+            features = dequantize_for_feed(feed_to_device(features, dev),
+                                           decode_cfg.feed_dtype)
+        with annotate("decode.encode"):
+            ctx = model.encode(params, features, existing.to(dev),
+                               existing_len.to(dev))
+        with annotate("decode.search"):
+            if decode_cfg.method == "beam" and decode_cfg.beam_size > 1:
+                return beam_search(
+                    model, params, ctx,
+                    beam_size=decode_cfg.beam_size,
+                    length_penalty=decode_cfg.length_penalty,
+                    impl=decode_cfg.beam_impl, **ids,
+                ).tokens
+            if decode_cfg.method == "sample":
+                gen = torch.Generator(device=dev).manual_seed(
+                    sample_seed(decode_cfg.seed, batch_idx, *rank))
+                return sample_decode(
+                    model, params, ctx, gen,
+                    temperature=decode_cfg.temperature,
+                    top_k=decode_cfg.top_k, top_p=decode_cfg.top_p,
+                    **ids).tokens
+            return greedy_decode(model, params, ctx, **ids).tokens
 
     return fn
 
@@ -138,39 +149,54 @@ def decode_split(
     def _consume() -> None:
         nonlocal n_decoded, n_timed, t_start
         tokens_dev, batch = pending.popleft()
-        tokens = tokens_dev.cpu().numpy()
-        valid_rows, image_ids = batch.valid, batch.image_id
-        if mesh is not None:
-            rows = gather_rows(mesh, np.concatenate(
-                [tokens.astype(np.int64), image_ids[:, None],
-                 valid_rows[:, None]], axis=1))
-            tokens = rows[:, :-2].astype(tokens.dtype)
-            image_ids, valid_rows = rows[:, -2], rows[:, -1].astype(bool)
-        n_valid = int(valid_rows.sum())
-        if t_start is None:
-            t_start = time.perf_counter()
-        else:
-            n_timed += n_valid
-        for row, valid, img in zip(tokens, valid_rows, image_ids):
-            if not valid:
-                continue
-            hypotheses[int(img)] = vocab.decode_to_string(row)
-            n_decoded += 1
+        with annotate("split.consume"):
+            with annotate("split.readback"):
+                tokens = tokens_dev.cpu().numpy()
+                valid_rows, image_ids = batch.valid, batch.image_id
+                if mesh is not None:
+                    rows = gather_rows(mesh, np.concatenate(
+                        [tokens.astype(np.int64), image_ids[:, None],
+                         valid_rows[:, None]], axis=1))
+                    tokens = rows[:, :-2].astype(tokens.dtype)
+                    image_ids = rows[:, -2]
+                    valid_rows = rows[:, -1].astype(bool)
+            n_valid = int(valid_rows.sum())
+            if t_start is None:
+                t_start = time.perf_counter()
+            else:
+                n_timed += n_valid
+            with annotate("split.detokenize"):
+                for row, valid, img in zip(tokens, valid_rows, image_ids):
+                    if not valid:
+                        continue
+                    hypotheses[int(img)] = vocab.decode_to_string(row)
+                    n_decoded += 1
 
     t_total = time.perf_counter()
-    for batch_idx, batch in enumerate(dataset.batches(
-            decode_cfg.batch_size,
-            share=None if mesh is None else mesh.share)):
-        tokens_dev = decode_fn(
-            params,
-            quantize_for_feed(batch.features, decode_cfg.feed_dtype),
-            torch.from_numpy(np.asarray(batch.existing, np.int64)),
-            torch.from_numpy(np.asarray(batch.existing_len, np.int64)),
-            batch_idx,
-        )
+    # An explicit iterator, so that the gather each next() does is a span
+    # of its own (and no span covers the generator's final return).
+    batches = dataset.batches(decode_cfg.batch_size,
+                              share=None if mesh is None else mesh.share)
+    n_batches = -(-dataset.size // decode_cfg.batch_size)
+    for batch_idx in range(n_batches):
+        with annotate("split.gather"):
+            batch = next(batches, None)
+        if batch is None:
+            raise RuntimeError(f"the split gave {batch_idx} batches, not "
+                               f"{n_batches}")
+        with annotate("split.dispatch"):
+            tokens_dev = decode_fn(
+                params,
+                quantize_for_feed(batch.features, decode_cfg.feed_dtype),
+                torch.from_numpy(np.asarray(batch.existing, np.int64)),
+                torch.from_numpy(np.asarray(batch.existing_len, np.int64)),
+                batch_idx,
+            )
         pending.append((tokens_dev, batch))
         if len(pending) > 2:
             _consume()
+    if next(batches, None) is not None:
+        raise RuntimeError(f"the split gave more than {n_batches} batches")
     while pending:
         _consume()
     elapsed = time.perf_counter() - (t_start or time.perf_counter())

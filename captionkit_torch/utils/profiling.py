@@ -1,24 +1,118 @@
-"""Tracing and throughput counters (``captionkit.utils.profiling``).
+"""The port's spans and counters (``captionkit.utils.profiling``).
 
 * ``trace(dir)`` — context manager around any region: ``torch.profiler``
   with the CPU and (when there is a card) CUDA activities, written as a
   Chrome/Perfetto trace (``*.pt.trace.json``) into ``dir`` (open it in
   ui.perfetto.dev or chrome://tracing). A no-op for None.
-* ``annotate(name)`` — a named host range, ``torch.profiler.
-  record_function`` plus an NVTX range on the card, so host phases line
-  up with the device's kernels in the trace.
-* ``ThroughputCounter`` — captions/s or tokens/s after a warm-up window.
+* ``annotate(name)`` — a named host span. Outside a profiler session it
+  does nothing but ask whether one runs. Inside one it is a
+  ``torch.profiler.record_function`` (an event of the session's trace, on
+  the device timeline's clock) and, when it ends, an entry in this
+  module's store: one more span of its name, its duration
+  (``time.perf_counter_ns``) and the time its child spans cover (a
+  per-thread stack).
+* ``count(name, n=1)`` — adds ``n`` to a counter, under the same gate.
+* ``summary()`` — per span name its count, total and self time in ns
+  (self: the duration less its child spans), and every counter's total;
+  ``reset()`` empties the store.
+
+Whether a span is recorded is decided when it is entered: a span entered
+inside a session is stored when it ends, even after the session closed.
+Names starting with ``ckbench.`` belong to the benchmark and are refused.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
-from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
+
+#: True while a ``torch.profiler`` (or autograd profiler) session runs.
+enabled = torch._C._autograd._profiler_enabled
+
+_OFF = contextlib.nullcontext()
+_RESERVED = "ckbench."
+
+_spans: dict = {}  # name -> [count, total_ns, self_ns]
+_counters: dict = {}
+_lock = threading.Lock()
+_local = threading.local()
+
+
+def _check(name: str) -> None:
+    if name.startswith(_RESERVED):
+        raise ValueError(f"span and counter names may not start with "
+                         f"{_RESERVED!r}: {name!r}")
+
+
+def _add(name: str, dur_ns: int, child_ns: int = 0) -> None:
+    """Store one ended span of ``name``."""
+    with _lock:
+        agg = _spans.setdefault(name, [0, 0, 0])
+        agg[0] += 1
+        agg[1] += dur_ns
+        agg[2] += dur_ns - child_ns
+
+
+class _Span:
+    __slots__ = ("name", "rf", "start", "child_ns", "parent")
+
+    def __init__(self, name: str):
+        _check(name)
+        self.name, self.child_ns = name, 0
+
+    def __enter__(self):
+        stack = _local.__dict__.setdefault("stack", [])
+        self.parent = stack[-1] if stack else None
+        stack.append(self)
+        self.rf = torch.profiler.record_function(self.name)
+        self.rf.__enter__()
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        dur = time.perf_counter_ns() - self.start
+        self.rf.__exit__(*exc)
+        _local.stack.pop()
+        if self.parent is not None:
+            self.parent.child_ns += dur
+        _add(self.name, dur, self.child_ns)
+        return False
+
+
+def annotate(name: str):
+    """A named host span, recorded only inside a profiler session."""
+    if not enabled():
+        return _OFF
+    return _Span(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name``, only inside a profiler session."""
+    if not enabled():
+        return
+    _check(name)
+    with _lock:
+        _counters[name] = _counters.get(name, 0) + int(n)
+
+
+def summary() -> dict:
+    """{"spans": {name: {"count", "total_ns", "self_ns"}},
+    "counters": {name: total}} of what the store holds."""
+    with _lock:
+        return {"spans": {name: {"count": c, "total_ns": t, "self_ns": s}
+                          for name, (c, t, s) in _spans.items()},
+                "counters": dict(_counters)}
+
+
+def reset() -> None:
+    with _lock:
+        _spans.clear()
+        _counters.clear()
 
 
 @contextlib.contextmanager
@@ -36,45 +130,3 @@ def trace(log_dir: Optional[str]):
         yield prof
     prof.export_chrome_trace(os.path.join(
         log_dir, f"captionkit.{os.getpid()}.{time.time_ns()}.pt.trace.json"))
-
-
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named host range visible in the trace (and to NVTX on the card)."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
-
-
-@dataclass
-class ThroughputCounter:
-    """Steady-state items/sec with a warm-up exclusion window."""
-
-    warmup: int = 1  # number of initial update() calls excluded
-    _items: int = 0
-    _calls: int = 0
-    _t0: float = field(default_factory=time.perf_counter)
-
-    def update(self, n_items: int) -> None:
-        self._calls += 1
-        if self._calls <= self.warmup:
-            self._t0 = time.perf_counter()
-            return
-        self._items += n_items
-
-    @property
-    def items_per_sec(self) -> float:
-        if self._items == 0:
-            return 0.0
-        dt = time.perf_counter() - self._t0
-        return self._items / dt if dt > 0 else 0.0
-
-    @property
-    def items(self) -> int:
-        return self._items

@@ -1,13 +1,12 @@
 """The port's prefetch (``captionkit_torch.data.prefetch``) against
 ``captionkit.data.prefetch`` on the same numpy batches, the training
-loops' prefetched packs against the synchronous copy, and the profiling
-helpers (``captionkit_torch.utils.profiling``) beside
-``captionkit.utils.profiling``.
+loops' prefetched packs against the synchronous copy, and the trace
+helpers (``captionkit_torch.utils.profiling``); the decode path's spans
+and counters are in ``test_torch_tracing.py``.
 """
 
 import json
 import os
-import time
 
 import jax
 import numpy as np
@@ -16,7 +15,6 @@ import torch
 
 from captionkit.data.prefetch import prefetch_to_device as j_prefetch
 from captionkit.parallel import make_mesh as j_make_mesh
-from captionkit.utils.profiling import ThroughputCounter as JaxCounter
 
 from captionkit_torch.data import SyntheticCaptionSource
 from captionkit_torch.data.prefetch import prefetch_to_device
@@ -24,11 +22,7 @@ from captionkit_torch.parallel.mesh import Ranks, make_mesh
 from captionkit_torch.train.loop import _host_dict, _pack_host_batches
 from captionkit_torch.train.loop import _prefetch_packs
 from captionkit_torch.train.xe import batch_to_device_dict
-from captionkit_torch.utils.profiling import (
-    ThroughputCounter,
-    annotate,
-    trace,
-)
+from captionkit_torch.utils.profiling import annotate, trace
 
 
 def _batches(n, seed=0):
@@ -109,17 +103,6 @@ def test_loop_packs_equal_the_synchronous_copy():
         for k in want:
             assert got[k].dtype == want[k].dtype, k
             assert torch.equal(got[k], want[k]), k
-
-
-def test_throughput_counter_warmup():
-    for counter in (ThroughputCounter(warmup=1), JaxCounter(warmup=1)):
-        counter.update(100)  # excluded
-        assert counter.items == 0
-        counter.update(50)
-        counter.update(50)
-        assert counter.items == 100
-        time.sleep(0.01)
-        assert counter.items_per_sec > 0
 
 
 def test_trace_none_is_a_noop(tmp_path):
