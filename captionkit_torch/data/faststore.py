@@ -24,6 +24,7 @@ from typing import Optional
 
 import numpy as np
 
+from captionkit_torch.data.pipeline import take_rows
 from captionkit_torch.utils import nativebuild
 
 _NATIVE_DTYPES = ("<f4", "<f2", "<i4", "<i8", "|u1")
@@ -98,21 +99,35 @@ class FeatureStore:
     def is_native(self) -> bool:
         return self._native is not None
 
-    def gather(self, indices) -> np.ndarray:
+    def gather(self, indices, out: Optional[np.ndarray] = None
+               ) -> np.ndarray:
+        """The rows ``indices``, into ``out`` when given (an array of
+        ``[len(indices), *row_shape]``; another dtype than the file's
+        takes a cast)."""
         idx = np.ascontiguousarray(indices, dtype=np.int64)
+        shape = (idx.shape[0], *self.shape[1:])
+        if out is not None and out.shape != shape:
+            raise ValueError(f"out has shape {out.shape}, not {shape}")
         if self._np is not None:
-            return np.asarray(self._np[idx])
+            if out is None:
+                return np.asarray(self._np[idx])
+            return take_rows(self._np, idx, out)
         if self._native is None:
             raise ValueError(f"{self.path}: the feature store is closed")
         lib, handle = self._native
-        out = np.empty((idx.shape[0], *self.shape[1:]), self.dtype)
+        direct = (out is not None and out.dtype == self.dtype
+                  and out.flags.c_contiguous and out.flags.writeable)
+        dst = out if direct else np.empty(shape, self.dtype)
         rc = lib.featstore_gather(handle, idx, idx.shape[0],
-                                  out.ctypes.data_as(ctypes.c_void_p),
+                                  dst.ctypes.data_as(ctypes.c_void_p),
                                   self._threads)
         if rc != 0:
             raise IndexError(
                 f"feature index out of range [0, {self.shape[0]})")
-        return out
+        if out is not None and not direct:
+            out[...] = dst
+            return out
+        return dst
 
     def __len__(self) -> int:
         return int(self.shape[0])

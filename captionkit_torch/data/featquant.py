@@ -12,6 +12,16 @@ there (``dequantize_for_feed``): one fp32 multiply and one cast to the
 bfloat16 grid the bfloat16 feed lands on, so the model sees the same kind
 of input. Element-wise error: |x - deq(q)| <= scale / 2 plus the bf16
 rounding, under 0.8% of the region's largest magnitude.
+
+A tensor in pinned host memory goes to a CUDA device without blocking:
+``feed_to_device`` enqueues its copy on the current stream and returns,
+so the kernels that read it follow the copy in stream order. A pageable
+tensor keeps the blocking copy. ``pinned_feed_ring`` keeps, once per
+process for a device and a shape, a ring of pinned float32 slots that
+``decode_split`` gathers each batch's features into; each slot has a CUDA
+event, recorded by ``feed_to_device`` right after the copy out of the
+slot, and ``PinnedFeedRing.acquire`` waits on it before the slot is
+written again.
 """
 
 from __future__ import annotations
@@ -71,19 +81,76 @@ def quantize_for_feed(feats: Optional[np.ndarray], feed_dtype: str
     return torch.from_numpy(np.ascontiguousarray(feats, np.float32)).to(dt)
 
 
+class PinnedFeedRing:
+    """Two pinned float32 host slots of one shape, handed out in turn,
+    each with the CUDA event of its last copy to the card."""
+
+    def __init__(self, shape: tuple[int, ...]):
+        self.slots = [torch.empty(shape, dtype=torch.float32,
+                                  pin_memory=True) for _ in range(2)]
+        self.events = [torch.cuda.Event() for _ in self.slots]
+        for slot, event in zip(self.slots, self.events):
+            _SLOT_EVENTS[slot.data_ptr()] = event
+        self._next = 0
+
+    def acquire(self) -> np.ndarray:
+        """The next slot, as a writable numpy view, once the copy last
+        made out of it (``feed_to_device``) has landed."""
+        k = self._next
+        self._next = (k + 1) % len(self.slots)
+        self.events[k].synchronize()
+        return self.slots[k].numpy()
+
+
+# Each slot's event, by the address of its memory; and the rings, by
+# (device, shape). Both live as long as the process: a ring's pinned
+# allocation costs more than a copy, so it is made once.
+_SLOT_EVENTS: dict[int, torch.cuda.Event] = {}
+_RINGS: dict[tuple, PinnedFeedRing] = {}
+
+
+def pinned_feed_ring(device: "str | torch.device",
+                     shape: tuple[int, ...]) -> PinnedFeedRing:
+    """The process's ring of pinned float32 slots of ``shape`` for the
+    CUDA ``device``: made at the first call, the same ring after. Two
+    slots serve ``decode_split``'s two batches in flight: the slot of
+    batch k + 2 is that of batch k, whose copy has long landed."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    key = (dev, tuple(shape))
+    if key not in _RINGS:
+        _RINGS[key] = PinnedFeedRing(tuple(shape))
+    return _RINGS[key]
+
+
+def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    if device.type != "cuda" or not t.is_pinned():
+        return t.to(device)
+    out = t.to(device, non_blocking=True)
+    event = _SLOT_EVENTS.get(t.data_ptr())
+    if event is not None:
+        event.record(torch.cuda.current_stream(device))
+    return out
+
+
 def feed_to_device(staged: Staged, device: "str | torch.device") -> Staged:
-    """Move a staged feed (tensor or (q, scale) pair) to ``device``.
-    Inside a profiler session the bytes of each tensor are counted as
-    ``feed_bytes_pinned`` or ``feed_bytes_pageable`` (``utils/profiling``)."""
+    """Move a staged feed (tensor or (q, scale) pair) to ``device``. To a
+    CUDA device a tensor in pinned memory is copied without blocking, and
+    the event of its ring slot, if it is one, is recorded right after the
+    copy; a pageable one is copied as before, blocking. Inside a profiler
+    session the bytes of each tensor are counted as ``feed_bytes_pinned``
+    or ``feed_bytes_pageable`` (``utils/profiling``)."""
     if staged is None:
         return None
+    device = torch.device(device)
+    tensors = staged if isinstance(staged, tuple) else (staged,)
     if profiling.enabled():
-        for t in staged if isinstance(staged, tuple) else (staged,):
+        for t in tensors:
             profiling.count("feed_bytes_pinned" if t.is_pinned()
                             else "feed_bytes_pageable", t.nbytes)
-    if isinstance(staged, tuple):
-        return tuple(t.to(device) for t in staged)
-    return staged.to(device)
+    moved = tuple(_to_device(t, device) for t in tensors)
+    return moved if isinstance(staged, tuple) else moved[0]
 
 
 def dequantize_for_feed(features: Staged, feed_dtype: str

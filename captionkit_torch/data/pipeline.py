@@ -8,7 +8,9 @@ validity mask.
 
 from __future__ import annotations
 
+import os
 from collections.abc import Callable, Iterator, Sequence
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Optional
 
@@ -64,9 +66,46 @@ def encode_captions(
     return ids, lens
 
 
+# Threads of ``take_rows``: numpy's take releases the interpreter lock, and
+# on the 8-core host of an H100 a 302 MB batch gathered in 67 ms on one
+# thread and in 14 ms over 8.
+_TAKE_THREADS = min(8, os.cpu_count() or 1)
+
+
+def take_rows(src: np.ndarray, rows, out: np.ndarray) -> np.ndarray:
+    """``out[...] = src[rows]`` with no temporary: ``np.take`` along axis 0
+    straight into ``out``, its rows split over a few threads. The mode is
+    "clip", since the default "raise" buffers ``out`` through a temporary;
+    the bounds are checked here first, so an out-of-range row still
+    raises, and a negative row counts from the end, as ``src[rows]`` has
+    it. Another dtype than ``src``'s is filled by a cast of ``src[rows]``."""
+    rows = np.asarray(rows, np.intp)
+    n = src.shape[0]
+    if rows.size and (rows.min() < -n or rows.max() >= n):
+        raise IndexError(f"row index out of range [-{n}, {n})")
+    if out.dtype != src.dtype:
+        out[...] = src[rows]
+        return out
+    rows = np.where(rows < 0, rows + n, rows)
+    bounds = np.linspace(0, len(rows), min(_TAKE_THREADS, len(rows)) + 1,
+                         dtype=np.intp)
+
+    def part(lo: int, hi: int) -> None:
+        np.take(src, rows[lo:hi], axis=0, out=out[lo:hi], mode="clip")
+
+    if len(bounds) <= 2:
+        part(0, len(rows))
+        return out
+    with ThreadPoolExecutor(len(bounds) - 1) as pool:
+        for done in [pool.submit(part, lo, hi)
+                     for lo, hi in zip(bounds[:-1], bounds[1:])]:
+            done.result()
+    return out
+
+
 def make_batches(
     *,
-    features,  # [N, R, F] array, callable(indices)->rows, or None
+    features,  # [N, R, F] array, callable(indices[, out])->rows, or None
     existing: np.ndarray,
     existing_len: np.ndarray,
     target: Optional[np.ndarray] = None,
@@ -78,13 +117,19 @@ def make_batches(
     drop_remainder: bool = False,
     feat_shape: tuple[int, int] = (36, 2048),
     share: Optional[tuple[int, int]] = None,
+    feature_out: Optional[Callable[[], np.ndarray]] = None,
 ) -> Iterator[Batch]:
     """Yield fixed-shape Batches over a split. The last partial batch is
     padded (rows repeated from index 0) with valid=False.
 
     ``share=(r, W)``: the r-th contiguous 1/W of every batch's rows, the
     batches and their order those of the whole split (data parallelism:
-    each rank gathers only its own rows' features)."""
+    each rank gathers only its own rows' features).
+
+    ``feature_out``, with a callable ``features``: called once a batch,
+    just before its gather, for the float32 [rows, R, F] array to gather
+    the batch's features into (``features(idx, out=...)``); the batch's
+    ``features`` is then that array."""
     r, w = share or (0, 1)
     if batch_size % w:
         raise ValueError(f"a batch of {batch_size} rows does not split "
@@ -109,7 +154,9 @@ def make_batches(
         valid = np.zeros((batch_size,), dtype=bool)
         valid[:b] = True
         idx, valid = idx[rows], valid[rows]
-        if callable(features):
+        if callable(features) and feature_out is not None:
+            feats = features(idx, out=feature_out())
+        elif callable(features):
             feats = np.asarray(features(idx), dtype=np.float32)
         elif features is not None:
             feats = features[idx].astype(np.float32, copy=False)

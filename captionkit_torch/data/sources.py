@@ -16,11 +16,16 @@ from __future__ import annotations
 
 import json
 from dataclasses import dataclass
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 
-from captionkit_torch.data.pipeline import Batch, encode_captions, make_batches
+from captionkit_torch.data.pipeline import (
+    Batch,
+    encode_captions,
+    make_batches,
+    take_rows,
+)
 from captionkit_torch.data.vocab import Vocab
 
 
@@ -170,26 +175,33 @@ class CaptionDataset:
         drop_remainder: bool = False,
         feat_shape: tuple[int, int] = (36, 2048),
         share: Optional[tuple[int, int]] = None,
+        feature_out: Optional[Callable[[], np.ndarray]] = None,
     ) -> Iterator[Batch]:
         """``make_batches`` over the split; ``share=(r, W)`` yields the
-        r-th 1/W of every batch's rows and gathers only their features."""
+        r-th 1/W of every batch's rows and gathers only their features.
+        ``feature_out``: each batch's features are gathered straight into
+        the array it returns (``make_batches``), with no fresh array in
+        between."""
         features = None
         if self.features is not None:
             source = self.features
             image_index = self.image_index
 
-            def features(idx, _src=source, _map=image_index):
+            def features(idx, out=None, _src=source, _map=image_index):
                 rows = _map[idx]
                 if hasattr(_src, "gather"):
-                    return _src.gather(rows)
+                    return _src.gather(rows, out=out)
                 if isinstance(_src, np.ndarray):
-                    return _src[rows]
+                    return _src[rows] if out is None else take_rows(
+                        _src, rows, out)
                 # An h5py dataset takes sorted unique indices: read those
                 # rows once and scatter them back in the batch's order.
                 order = np.argsort(rows, kind="stable")
                 uniq, inverse = np.unique(rows[order], return_inverse=True)
                 block = _src[uniq]
-                out = np.empty((len(rows), *block.shape[1:]), block.dtype)
+                if out is None:
+                    out = np.empty((len(rows), *block.shape[1:]),
+                                   block.dtype)
                 out[order] = block[inverse]
                 return out
 
@@ -206,6 +218,7 @@ class CaptionDataset:
             drop_remainder=drop_remainder,
             feat_shape=feat_shape,
             share=share,
+            feature_out=feature_out,
         )
 
 

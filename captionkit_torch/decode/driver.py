@@ -16,6 +16,16 @@ their image ids and valid flags, are gathered to every rank through the
 host, where they go for detokenization anyway: every rank returns the
 whole split's hypotheses.
 
+On a CUDA device with the float32 feed, each batch's features are
+gathered straight into a slot of a ring of two pinned host buffers of the
+batch's shape ([B, R, F], or [B/W, R, F] a rank with a mesh), made once
+a process (``featquant.pinned_feed_ring``), and the decode function
+copies them to the card without blocking. A slot is rewritten only after
+the CUDA event that ``feed_to_device`` records right after the copy out
+of it: the gather of batch k + 2 waits for the copy of batch k, not for
+batch k's search. Other devices and feeds gather each batch into a fresh
+array.
+
 Inside a profiler session (``utils/profiling.py``) the driver records
 spans: ``split.gather`` (the split's row gather), ``split.dispatch`` (the
 decode call), ``split.consume`` with ``split.readback`` and
@@ -38,6 +48,7 @@ from captionkit_torch.data.featquant import (
     dequantize_for_feed,
     feed_to_device,
     feed_torch_dtype,
+    pinned_feed_ring,
     quantize_for_feed,
 )
 from captionkit_torch.data.sources import CaptionDataset
@@ -175,8 +186,15 @@ def decode_split(
     t_total = time.perf_counter()
     # An explicit iterator, so that the gather each next() does is a span
     # of its own (and no span covers the generator's final return).
-    batches = dataset.batches(decode_cfg.batch_size,
-                              share=None if mesh is None else mesh.share)
+    share = None if mesh is None else mesh.share
+    ring = None
+    if (dev.type == "cuda" and decode_cfg.feed_dtype == "float32"
+            and dataset.features is not None):
+        rows = decode_cfg.batch_size // (1 if share is None else share[1])
+        ring = pinned_feed_ring(dev, (rows, *dataset.features.shape[1:]))
+    batches = dataset.batches(
+        decode_cfg.batch_size, share=share,
+        feature_out=None if ring is None else ring.acquire)
     n_batches = -(-dataset.size // decode_cfg.batch_size)
     for batch_idx in range(n_batches):
         with annotate("split.gather"):

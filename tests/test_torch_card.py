@@ -2678,3 +2678,116 @@ def test_heads_hide_a_nan_in_h_that_their_plain_version_passes(card, name):
     rest[3] = False
     assert not torch.isnan(vals[rest]).any()
     assert float((idx[rest] == want[1][rest]).float().mean()) >= 0.999
+
+
+# -- the split's pinned feed (data/featquant.py, decode/driver.py) -----------
+
+
+def _feed_setup(batch_size):
+    """A small EditNet (bf16, beam 5) and a synthetic split of 10 images:
+    at ``batch_size`` 4, three batches, the last padded."""
+    from captionkit_torch.data import SyntheticCaptionSource
+
+    src = SyntheticCaptionSource(num_images=10, captions_per_image=1,
+                                 num_regions=6, feat_dim=48, seed=5)
+    cfg = CaptionKitConfig().override({
+        "model.vocab_size": len(src.vocab), "model.emb_dim": 32,
+        "model.hidden_dim": 64, "model.att_dim": 16, "model.feat_dim": 48,
+        "model.num_regions": 6, "decode.beam_size": 5,
+        "decode.max_decode_len": 10, "decode.batch_size": batch_size})
+    return src.eval_view(), cfg, get_model(cfg.model)
+
+
+def test_pinned_feed_tokens_bit_equal_to_pageable(card):
+    """``decode_split`` on the card feeds each batch from a pinned ring
+    slot, copied without blocking; its tokens are those of the same
+    decode fed each batch's fresh pageable array, bit for bit, over three
+    batches (the last padded)."""
+    from captionkit_torch.data.featquant import quantize_for_feed
+    from captionkit_torch.decode import decode_split
+
+    ds, cfg, model = _feed_setup(4)
+    params = model.init(0, card)
+    fn = make_decode_fn(model, cfg.decode, start_id=ds.vocab.start,
+                        end_id=ds.vocab.end, pad_id=ds.vocab.pad,
+                        device=card)
+    pinned = []
+
+    def record(params, feats, ex, ln, batch_idx=0):
+        out = fn(params, feats, ex, ln, batch_idx)
+        assert feats.is_pinned()
+        pinned.append(out.clone())
+        return out
+
+    decode_split(model, params, ds, cfg.decode, decode_fn=record,
+                 device=card)
+    pageable = []
+    for k, b in enumerate(ds.batches(4)):
+        feats = quantize_for_feed(b.features, "float32")
+        assert not feats.is_pinned()
+        pageable.append(fn(params, feats,
+                           torch.from_numpy(b.existing.astype(np.int64)),
+                           torch.from_numpy(b.existing_len.astype(np.int64)),
+                           k))
+    assert len(pinned) == len(pageable) == 3
+    for a, b in zip(pinned, pageable):
+        assert torch.equal(a, b)
+
+
+def _slot_reuse_reads(card, skip_wait, monkeypatch):
+    """Batch 1's copy out of slot 0 is queued behind a long sleep; the
+    gather of batch 3 then takes slot 0 again. The value batch 1's copy
+    put on the card."""
+    from captionkit_torch.data import featquant
+
+    ring = featquant.PinnedFeedRing((256, 1024))
+    if skip_wait:  # the planted fault: no wait on the slot's event
+        monkeypatch.setattr(torch.cuda.Event, "synchronize",
+                            lambda self: None)
+    first = ring.acquire()
+    first[...] = 1.0
+    torch.cuda._sleep(500_000_000)
+    on_card = featquant.feed_to_device(torch.from_numpy(first), card)
+    ring.acquire()[...] = 2.0
+    ring.acquire()[...] = 3.0  # slot 0 again
+    torch.cuda.synchronize()
+    return set(on_card.unique().tolist())
+
+
+def test_pinned_slot_rewritten_only_after_its_copy(card, monkeypatch):
+    """The ring waits on a slot's copy event before handing it out again:
+    the card holds batch 1's data; without the wait it holds batch 3's."""
+    assert _slot_reuse_reads(card, False, monkeypatch) == {1.0}
+    assert _slot_reuse_reads(card, True, monkeypatch) != {1.0}
+
+
+def test_pinned_slots_allocated_once(card, monkeypatch):
+    """Two ``decode_split`` calls of one shape make one ring of two
+    pinned slots, and gather into the same two slots."""
+    from captionkit_torch.data import featquant
+    from captionkit_torch.decode import decode_split
+
+    made = []
+
+    class Counted(featquant.PinnedFeedRing):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(featquant, "PinnedFeedRing", Counted)
+    ds, cfg, model = _feed_setup(3)  # a shape no other test uses
+    params = model.init(0, card)
+    seen = set()
+
+    def record(params, feats, ex, ln, batch_idx=0):
+        seen.add(feats.data_ptr())
+        return fn(params, feats, ex, ln, batch_idx)
+
+    fn = make_decode_fn(model, cfg.decode, start_id=ds.vocab.start,
+                        end_id=ds.vocab.end, device=card)
+    for _ in range(2):
+        decode_split(model, params, ds, cfg.decode, decode_fn=record,
+                     device=card)
+    assert len(made) == 1
+    assert seen == {s.data_ptr() for s in made[0].slots}
+    assert all(s.is_pinned() for s in made[0].slots)

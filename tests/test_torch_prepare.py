@@ -271,3 +271,65 @@ def test_feature_store_rejects_what_the_native_gather_does_not_take(
         np.testing.assert_array_equal(store.gather([3, 0]), a[[3, 0]])
         np.testing.assert_array_equal(
             FeatureStore(path, native=False).gather([3, 0]), a[[3, 0]])
+
+
+class _SortedOnly:
+    """An h5py-like source: rows read only at sorted unique indices."""
+
+    def __init__(self, arr):
+        self._arr, self.shape, self.dtype = arr, arr.shape, arr.dtype
+
+    def __getitem__(self, idx):
+        idx = np.asarray(idx)
+        if np.any(np.diff(idx) <= 0):
+            raise TypeError("indices must be sorted and unique")
+        if idx.size and (idx[0] < 0 or idx[-1] >= len(self._arr)):
+            raise IndexError("index out of range")
+        return self._arr[idx]
+
+
+@pytest.mark.parametrize("share", [None, (1, 2)])
+@pytest.mark.parametrize("source", ["numpy", "store", "store_numpy",
+                                    "sorted_only"])
+def test_gather_into_slot_byte_equal(tmp_path, source, share):
+    """The split's gather into a caller's slot (``feature_out``) gives the
+    bytes of a gather into a fresh array, for a full batch and the padded
+    last one (7 images, batch 4), whole and a rank's half; the batch's
+    features are the slot; an out-of-range row still raises."""
+    arr = np.random.default_rng(3).standard_normal((7, 2, 8)).astype(
+        np.float32)
+    np.save(str(tmp_path / "f.npy"), arr)
+    src = {"numpy": lambda: arr,
+           "store": lambda: FeatureStore(str(tmp_path / "f.npy")),
+           "store_numpy": lambda: FeatureStore(str(tmp_path / "f.npy"),
+                                               native=False),
+           "sorted_only": lambda: _SortedOnly(arr)}[source]()
+    assert getattr(src, "is_native", source == "store") == (
+        source == "store")
+    rows = 4 if share is None else 2
+    slots = [np.full((rows, 2, 8), np.nan, np.float32) for _ in range(2)]
+    handed = []
+
+    def feature_out():
+        handed.append(slots[len(handed) % 2])
+        return handed[-1]
+
+    common = dict(existing=np.zeros((7, 3), np.int32),
+                  existing_len=np.ones(7, np.int32), target=None,
+                  target_len=None, vocab=None,
+                  image_index=np.asarray([6, 1, 4, 1, 0, 3, 6], np.int32))
+    ds = CaptionDataset(features=src, **common)
+    fresh = list(ds.batches(4, share=share))
+    n = 0
+    for n, (got, want) in enumerate(zip(
+            ds.batches(4, share=share, feature_out=feature_out), fresh), 1):
+        assert got.features is handed[-1]
+        assert got.features.tobytes() == want.features.tobytes()
+        np.testing.assert_array_equal(got.valid, want.valid)
+    assert n == len(fresh) == len(handed) == 2
+    bad = CaptionDataset(features=src, **{
+        **common, "image_index": np.asarray([0, 7, 1, 2, 3, 4, 5],
+                                            np.int32)})
+    with pytest.raises(IndexError):
+        next(bad.batches(4, feature_out=lambda: np.empty((4, 2, 8),
+                                                         np.float32)))
