@@ -1,13 +1,16 @@
-"""Inputs made from ``--seed``: weights, the word map, the split and the
-existing captions. Both the program and the plain reference get these.
+"""Inputs made from ``--seed``: the word map, the split and the existing
+captions, and the shared draw of an architecture's weights
+(``archs/<arch>.py::make_weights``). Both the program and the plain
+reference get these.
 
-Weights are flat float32 arrays under the reference checkpoint's names,
-drawn on the device in one call (uniform in [-1, 1), then scaled per
-array), with the reference's initial distributions: uniform with
-torch-style scales (H^-1/2 for recurrent and output kernels, the input
-width^-1/2 for attention key and query kernels, A^-1/2 for the score
-vector, 0.1 for the embedding), zero attention, gate, init and head
-biases. Each array starts on a 256-byte boundary of the buffer.
+``uniform_weights`` draws flat float32 arrays from a table of (name,
+shape, scale) on the device in one call (uniform in [-1, 1), then scaled
+per array; scale 0 gives zeros), each array on a 256-byte boundary of the
+buffer. ``lstm_arrays`` and ``attention_arrays`` are the table's rows of
+an LSTM and of additive attention with the reference's initial
+distributions: uniform with torch-style scales (H^-1/2 for recurrent and
+output kernels, the input width^-1/2 for attention key and query kernels,
+A^-1/2 for the score vector), zero attention bias.
 """
 
 from __future__ import annotations
@@ -30,48 +33,25 @@ def torch_seed(seed: int, tag: int) -> int:
                % 2 ** 63)
 
 
-def _lstm(prefix, d_in, H):
+def lstm_arrays(prefix, d_in, H):
+    """(name, shape, scale) of an LSTM's input and recurrent kernels and
+    its bias, gates i|f|g|o."""
     s = H ** -0.5
     return [(f"{prefix}/wx", (d_in, 4 * H), s),
             (f"{prefix}/wh", (H, 4 * H), s), (f"{prefix}/b", (4 * H,), s)]
 
 
-def _attention(prefix, d_enc, d_q, A):
+def attention_arrays(prefix, d_enc, d_q, A):
+    """(name, shape, scale) of additive attention's key and query kernels,
+    score vector and bias."""
     return [(f"{prefix}/w_enc", (d_enc, A), d_enc ** -0.5),
             (f"{prefix}/w_q", (d_q, A), d_q ** -0.5),
             (f"{prefix}/v", (A,), A ** -0.5), (f"{prefix}/b", (A,), 0.0)]
 
 
-def weight_table(arch: str, m: dict) -> list[tuple[str, tuple, float]]:
-    """(checkpoint name, shape, uniform scale; 0 = zeros) of every array."""
-    E, H, A, V, F = (m["emb_dim"], m["hidden_dim"], m["att_dim"],
-                     m["vocab_size"], m["feat_dim"])
-    s = H ** -0.5
-    if arch == "editnet":
-        return ([("embedding", (V, E), 0.1)] + _lstm("encoder", E, H)
-                + _lstm("att_lstm", E + F + H, H)
-                + _attention("vis_attention", F, H, A)
-                + [("vis_gate_w", (H, F), s), ("vis_gate_b", (F,), 0.0)]
-                + _attention("scma", H, H, A)
-                + _lstm("lang_lstm/base", F + H, H)
-                + [("lang_lstm/wrx", (F + H, H), s),
-                   ("lang_lstm/wrh", (H, H), s),
-                   ("lang_lstm/wrc", (H, H), s), ("lang_lstm/br", (H,), s),
-                   ("fc_w", (H, V), s), ("fc_b", (V,), 0.0)])
-    if m.get("dcnet_use_visual"):
-        raise ValueError("the visual DCNet has no weight table here")
-    return ([("embedding", (V, E), 0.1)] + _lstm("encoder", E, H)
-            + _attention("attention", H, H, A)
-            + [("gate_w", (H, H), s), ("gate_b", (H,), 0.0)]
-            + _lstm("decoder", E + H, H)
-            + [("fc_w", (H, V), s), ("fc_b", (V,), 0.0),
-               ("init_h_w", (H, H), s), ("init_h_b", (H,), 0.0),
-               ("init_c_w", (H, H), s), ("init_c_b", (H,), 0.0)])
-
-
-def make_weights(arch: str, m: dict, seed: int, device) -> dict:
-    """{checkpoint name: float32 tensor on ``device``} from ``seed``."""
-    table = weight_table(arch, m)
+def uniform_weights(table, seed: int, device) -> dict:
+    """{name: float32 tensor on ``device``} of every (name, shape, scale)
+    of ``table``, from ``seed``."""
     offsets, total = [], 0
     for _, shape, _ in table:
         offsets.append(total)

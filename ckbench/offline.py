@@ -107,14 +107,15 @@ def run(h) -> None:
         passes[int(p)].get(int(i))
         != inputs.detokenize(id2word, row, vocab.end)
         for p, i, row in zip(pick_pass, pick_img, tokens))
-    inputs_of = (None if h.arch == "dcnet" else feats[pick_img],
-                 existing[pick_img], existing_len[pick_img])
+    inputs_of = (feats[pick_img] if h.arch.reads_features(h.model_fields)
+                 else None, existing[pick_img], existing_len[pick_img])
     rows.clear()
     h.free_program()
     tokens, scores, end_id = h.served(inputs_of, tokens, scores, end_id)
     readings = verify.compare(
-        h.weights, h.arch, inputs_of, tokens, scores, start_id=vocab.start,
-        end_id=end_id, beam=cfg.decode.beam_size, device=h.device)
+        h.weights, h.arch.reference, inputs_of, tokens, scores,
+        start_id=vocab.start, end_id=end_id, beam=cfg.decode.beam_size,
+        device=h.device)
     readings["mismatches"] = float(mismatches)
     h.finish(attempted=rec.captions, failed=failed, readings=readings)
 

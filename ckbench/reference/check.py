@@ -21,18 +21,19 @@ from __future__ import annotations
 
 import torch
 
-from ckbench.reference.model import MODELS, Weights, expand
+from ckbench.reference.model import Weights, expand
 
 
 @torch.no_grad()
-def served_path(weights, arch, features, existing, lengths, tokens, steps,
-                start_id, k):
-    """Teacher-force the served ``tokens`` [B, L] from ``start_id``; row b
+def served_path(weights, reference, features, existing, lengths, tokens,
+                steps, start_id, k):
+    """Teacher-force the served ``tokens`` [B, L] through ``reference``
+    (an architecture's (encode, state0, step)) from ``start_id``; row b
     counts its first ``steps[b]`` positions. Returns (gap [B]: the widest
     K-th-best-logit minus served-logit, floored at 0; logp [B]: the served
     path's summed log-probs over the counted positions)."""
     weights = weights if isinstance(weights, Weights) else Weights(weights)
-    encode, state0, step = MODELS[arch]
+    encode, state0, step = reference
     ctx = encode(weights, features, existing, lengths)
     state = state0(weights, ctx)
     B, L = tokens.shape
@@ -54,12 +55,13 @@ def served_path(weights, arch, features, existing, lengths, tokens, steps,
 
 
 @torch.no_grad()
-def beam_search(weights, arch, features, existing, lengths, start_id, k,
-                steps):
-    """A width-``k`` beam search of ``steps`` steps (no end token): the
-    best path of each image, (summed log-prob [B], tokens [B, steps])."""
+def beam_search(weights, reference, features, existing, lengths, start_id,
+                k, steps):
+    """A width-``k`` beam search of ``steps`` steps (no end token) through
+    ``reference`` (an architecture's (encode, state0, step)): the best
+    path of each image, (summed log-prob [B], tokens [B, steps])."""
     weights = weights if isinstance(weights, Weights) else Weights(weights)
-    encode, state0, step = MODELS[arch]
+    encode, state0, step = reference
     ctx = expand(encode(weights, features, existing, lengths), k)
     B = existing.shape[0]
     state = state0(weights, ctx)
@@ -85,13 +87,15 @@ def beam_search(weights, arch, features, existing, lengths, start_id, k,
 
 
 @torch.no_grad()
-def head_err(weights, h, vals, idx, lse, k):
-    """The program's vocab head against the plain float32 head on the same
-    hidden rows h [n, H] (as the program gave them to its head): the
+def head_err(head, h, vals, idx, lse, k):
+    """The program's vocab head against the plain float32 ``head`` (w [H, V],
+    b [V]: an architecture's ``head(weights)``) on the same hidden rows
+    h [n, H] (as the program gave them to its head): the
     widest error of its top-k logits and of its log-sum-exp, and the
     widest amount by which one of its top-k falls short of the
     reference's k-th best."""
-    logits = h.float() @ weights["fc_w"] + weights["fc_b"]
+    w, b = head
+    logits = h.float() @ w + b
     ref_vals = logits.gather(1, idx.long())
     kth = logits.topk(k, dim=-1).values[:, -1]
     return max(float((vals.float() - ref_vals).abs().max()),

@@ -4,11 +4,12 @@
         --trace <0|1> [--control] [--traffic-set key=value ...]
 
 Runs one cell of ``BENCHMARK.json`` on this machine's first card: builds
-the program from the cell's configuration file, makes its inputs and
-weights from ``--seed``, warms up, measures for ``--seconds`` (``--trace
-0``: the end-to-end metrics) or profiles part of that window (``--trace
-1``: the per-layer metrics), then holds what the window served against
-the plain float32 reference (``verify``). The last line of standard
+the program from the cell's configuration file through its architecture's
+module (``archs/<arch>.py``), makes its inputs and weights from
+``--seed``, warms up, measures for ``--seconds`` (``--trace 0``: the
+end-to-end metrics) or profiles part of that window (``--trace 1``: the
+per-layer metrics), then holds what the window served against the plain
+float32 reference (``verify``). The last line of standard
 output is one JSON object: ``correct``, ``attempted``, ``failed``,
 ``metrics``, ``device``, ``breakdown`` (traced runs) and ``checks`` (each
 number compared, with its limit), which also end standard error.
@@ -74,7 +75,7 @@ class Harness:
     def __init__(self, args, cell, *, device="cuda", config_set=None):
         import torch
 
-        from ckbench import inputs
+        from ckbench import archs, inputs
         from ckbench.record import Record
 
         self.args = args
@@ -97,32 +98,26 @@ class Harness:
                                         if k.startswith("decode.")},
                   "batch_size": int(self.traffic["batch_size"])}
         data = dict(config.get("data", {}))
-        self.arch = model["arch"]
+        self.arch = archs.get(model["arch"])
         self.model_fields = model
         self.record = Record(workload=cell["workload"]["name"],
-                             arch=self.arch, model=model, decode=decode,
+                             arch=model["arch"], model=model, decode=decode,
                              traffic=self.traffic)
         self.tracer = self.marks = None
         self._peak = 0
         # The program.
         from captionkit_torch.config import (
-            CaptionKitConfig, DataConfig, DecodeConfig, ModelConfig)
+            CaptionKitConfig, DataConfig, DecodeConfig)
         from captionkit_torch.data.vocab import Vocab
-        from captionkit_torch.models import get_model
-        from captionkit_torch.params import (
-            dcnet_params_from_tensors, editnet_params_from_tensors)
 
-        self.cfg = CaptionKitConfig(
-            name=config["name"], model=ModelConfig(**model),
-            data=DataConfig(**data), decode=DecodeConfig(**decode))
         self.word2id = inputs.word_map(model["vocab_size"])
         self.vocab = Vocab(self.word2id)
-        self.weights = inputs.make_weights(self.arch, model, self.seed,
-                                           self.device)
-        to_params = (editnet_params_from_tensors if self.arch == "editnet"
-                     else dcnet_params_from_tensors)
-        self.params = to_params(self.weights)
-        self.model = get_model(self.cfg.model)
+        self.weights = self.arch.make_weights(model, self.seed, self.device)
+        model_cfg, self.model, self.params = self.arch.program(
+            model, self.weights, self.device)
+        self.cfg = CaptionKitConfig(
+            name=config["name"], model=model_cfg, data=DataConfig(**data),
+            decode=DecodeConfig(**decode))
         from ckbench.instrument import BeamScores, HeadTap
 
         self.beams = BeamScores()
@@ -185,8 +180,8 @@ class Harness:
 
         self.head_tap.taken.clear()
         tokens, scores = verify.fp8_served(
-            self.weights, self.arch, inputs, start_id=self.vocab.start,
-            beam=self.cfg.decode.beam_size,
+            self.weights, self.arch.reference, inputs,
+            start_id=self.vocab.start, beam=self.cfg.decode.beam_size,
             steps=self.cfg.decode.max_decode_len, device=self.device)
         return tokens, scores, -1
 
@@ -197,8 +192,8 @@ class Harness:
               f"{self.record.setup_s:.3f} s, check "
               f"{time.perf_counter() - self._closed:.3f} s", file=sys.stderr)
         readings.update(verify.head_readings(
-            self.weights, self.head_tap.taken, self.cfg.decode.beam_size,
-            self.device))
+            self.arch.head(self.weights), self.head_tap.taken,
+            self.cfg.decode.beam_size, self.device))
         self.head_tap.taken.clear()
         # the float8 reference in the program's place calls no program head
         absent = ("head_err",) if self.args.control == "fp8" else ()

@@ -1,6 +1,7 @@
 """Finds a cell's files by the names in ``BENCHMARK.json``.
 
-A configuration is the file its entry names; a traffic mix is
+A configuration is the file its entry names, and its ``model.arch`` the
+module ``archs/<arch>.py`` (``archs.get``); a traffic mix is
 ``traffic/<name>.json``; a metric is ``metrics/<name>.py`` with a
 ``read(record)`` function that returns a number or None (nothing to read
 in this run). Adding any of them adds a file and an entry, and edits no

@@ -6,15 +6,11 @@ A gate's bias dropped from the port's copy of the weights must fail."""
 import pytest
 import torch
 
-from captionkit_torch.config import ModelConfig
 from captionkit_torch.decode.beam import beam_search as port_beam
-from captionkit_torch.models import get_model
-from captionkit_torch.params import (
-    dcnet_params_from_tensors, editnet_params_from_tensors)
 
-from ckbench import inputs
+from ckbench import archs
 from ckbench.reference.check import beam_search as ref_beam
-from ckbench.reference.model import MODELS, Weights
+from ckbench.reference.model import Weights
 
 TINY = dict(vocab_size=60, emb_dim=16, hidden_dim=24, att_dim=8,
             feat_dim=32, num_regions=5)
@@ -25,24 +21,25 @@ BIAS = {"editnet": "att_lstm/b", "dcnet": "decoder/b"}
 
 def _setup(arch, cell_impl, seed=11):
     m = dict(TINY, arch=arch, compute_dtype="float32", cell_impl=cell_impl)
-    cfg = ModelConfig(**m)
-    w = inputs.make_weights(arch, m, seed, "cpu")
+    w = archs.get(arch).make_weights(m, seed, "cpu")
     g = torch.Generator().manual_seed(seed)
     feats = torch.randn(B, m["num_regions"], m["feat_dim"], generator=g)
     existing = torch.randint(4, m["vocab_size"] - 2, (B, T), generator=g)
     lengths = torch.tensor([T, 3, 5, 1, 8, 6])
-    return cfg, w, feats, existing, lengths
+    return m, w, feats, existing, lengths
 
 
-def _port(arch, cfg, w):
-    to = editnet_params_from_tensors if arch == "editnet" \
-        else dcnet_params_from_tensors
-    return get_model(cfg), to({n: t.clone() for n, t in w.items()})
+def _port(arch, m, w):
+    """The port's model and params through the architecture's module, on
+    a copy of the weights."""
+    _, model, params = archs.get(arch).program(
+        m, {n: t.clone() for n, t in w.items()}, "cpu")
+    return model, params
 
 
 def _logits_gap(arch, cell_impl, drop=None):
-    cfg, w, feats, existing, lengths = _setup(arch, cell_impl)
-    model, params = _port(arch, cfg, w)
+    m, w, feats, existing, lengths = _setup(arch, cell_impl)
+    model, params = _port(arch, m, w)
     if drop:
         getattr_path = drop.split("/")
         obj = params
@@ -53,7 +50,7 @@ def _logits_gap(arch, cell_impl, drop=None):
     tokens = torch.randint(1, TINY["vocab_size"], (B, L), generator=g)
     ctx = model.encode(params, feats, existing, lengths)
     state = model.init_state(params, ctx)
-    encode, state0, step = MODELS[arch]
+    encode, state0, step = archs.get(arch).reference
     rw = Weights(w)
     rctx = encode(rw, feats, existing, lengths)
     rstate = state0(rw, rctx)
@@ -80,12 +77,13 @@ def test_a_dropped_gate_bias_fails(arch):
 def test_beam_scores_and_tokens_match_the_port(arch, cell_impl):
     """The port's batched beam search (its fused-cell path runs the cell
     kernels' plain versions on the CPU) against the reference's."""
-    cfg, w, feats, existing, lengths = _setup(arch, cell_impl)
-    model, params = _port(arch, cfg, w)
+    m, w, feats, existing, lengths = _setup(arch, cell_impl)
+    model, params = _port(arch, m, w)
     ctx = model.encode(params, feats, existing, lengths)
     start = TINY["vocab_size"] - 2
     got = port_beam(model, params, ctx, beam_size=K, start_id=start,
                     end_id=-1, max_len=L)
-    best, seq = ref_beam(w, arch, feats, existing, lengths, start, K, L)
+    best, seq = ref_beam(w, archs.get(arch).reference, feats, existing,
+                         lengths, start, K, L)
     assert torch.allclose(got.scores, best, atol=1e-4, rtol=0)
     assert torch.equal(got.tokens.long(), seq)

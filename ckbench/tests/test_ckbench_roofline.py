@@ -5,7 +5,7 @@ caption follow from the widths."""
 
 import pytest
 
-from ckbench import flops, roofline
+from ckbench import archs, roofline
 
 PAPER = dict(E=1024, H=1024, A=512, F=2048, R=36, T=22)
 N, B = 2560, 512
@@ -54,10 +54,11 @@ def test_caption_flops_match_the_kernel_bounds():
     DCNet's step is about half."""
     m = dict(emb_dim=1024, hidden_dim=1024, att_dim=512, feat_dim=2048,
              num_regions=36, vocab_size=9490)
-    ed = flops.caption_flops("editnet", m, beam=5, steps=22, t=22)
-    dc = flops.caption_flops("dcnet", m, beam=5, steps=22, t=22)
+    editnet, dcnet = archs.get("editnet"), archs.get("dcnet")
+    ed = editnet.caption_flops(m, beam=5, steps=22, t=22)
+    dc = dcnet.caption_flops(m, beam=5, steps=22, t=22)
     assert 10.45e9 < ed < 11.2e9
     assert 5.2e9 < dc < 5.8e9
-    step = flops.step_flops("editnet", m, 22)
+    step = editnet.step_flops(m, 22)
     assert step * 22 * N == pytest.approx(22 * (69.8 + 123.5 + 49.8) * 1e9,
                                           rel=0.02)

@@ -49,10 +49,11 @@ def served_steps(tokens: np.ndarray, end_id: int) -> np.ndarray:
     return np.where(hit.any(1), hit.argmax(1) + 1, L)
 
 
-def compare(weights, arch, inputs, tokens, scores, *, start_id, end_id,
-            beam, device) -> dict:
-    """Readings over the sample: ``inputs`` (features [S, R, F] float32
-    or None, existing [S, T], lengths [S]), the served ``tokens`` [S, L]
+def compare(weights, reference, inputs, tokens, scores, *, start_id,
+            end_id, beam, device) -> dict:
+    """Readings over the sample through ``reference`` (an architecture's
+    (encode, state0, step)): ``inputs`` (features [S, R, F] float32 or
+    None, existing [S, T], lengths [S]), the served ``tokens`` [S, L]
     and the program's ``scores`` [S] of them, in blocks of ``BLOCK``
     rows."""
     feats, existing, lengths = inputs
@@ -66,8 +67,8 @@ def compare(weights, arch, inputs, tokens, scores, *, start_id, end_id,
         ln = torch.from_numpy(np.asarray(lengths[sl], np.int64)).to(device)
         tk = torch.from_numpy(np.asarray(tokens[sl], np.int64)).to(device)
         st = torch.from_numpy(steps[sl]).to(device)
-        gap, logp = served_path(weights, arch, f, ex, ln, tk, st, start_id,
-                                beam)
+        gap, logp = served_path(weights, reference, f, ex, ln, tk, st,
+                                start_id, beam)
         gaps.append(gap.cpu().numpy())
         errs.append(np.abs(scores[sl] - logp.double().cpu().numpy())
                     / steps[sl])
@@ -75,10 +76,11 @@ def compare(weights, arch, inputs, tokens, scores, *, start_id, end_id,
             "score_err": float(np.concatenate(errs).max())}
 
 
-def fp8_served(weights, arch, inputs, *, start_id, beam, steps, device):
-    """The control in the program's place: the reference's beam search
-    with every product in float8 over the sample's inputs, (tokens [S, L],
-    scores [S]), in blocks of ``BLOCK`` rows."""
+def fp8_served(weights, reference, inputs, *, start_id, beam, steps,
+               device):
+    """The control in the program's place: the beam search of
+    ``reference`` with every product in float8 over the sample's inputs,
+    (tokens [S, L], scores [S]), in blocks of ``BLOCK`` rows."""
     feats, existing, lengths = inputs
     low = Weights(weights, mm=fp8_mm)
     tokens, scores = [], []
@@ -88,18 +90,20 @@ def fp8_served(weights, arch, inputs, *, start_id, beam, steps, device):
             np.ascontiguousarray(feats[sl])).to(device)
         ex = torch.from_numpy(np.asarray(existing[sl], np.int64)).to(device)
         ln = torch.from_numpy(np.asarray(lengths[sl], np.int64)).to(device)
-        best, seq = beam_search(low, arch, f, ex, ln, start_id, beam, steps)
+        best, seq = beam_search(low, reference, f, ex, ln, start_id, beam,
+                                steps)
         tokens.append(seq.cpu().numpy())
         scores.append(best.double().cpu().numpy())
     return np.concatenate(tokens), np.concatenate(scores)
 
 
-def head_readings(weights, taken, k, device) -> dict:
-    """``head_err`` over the head calls that ``instrument.HeadTap`` kept."""
+def head_readings(head, taken, k, device) -> dict:
+    """``head_err`` over the head calls that ``instrument.HeadTap`` kept,
+    against ``head`` (an architecture's ``head(weights)``)."""
     if not taken:
         return {}
-    return {"head_err": max(head_err(weights, *(t.to(device) for t in call),
-                                     k) for call in taken)}
+    return {"head_err": max(head_err(head, *(t.to(device) for t in call), k)
+                            for call in taken)}
 
 
 def verdict(readings: dict, limits: dict, failed: int, absent=()
