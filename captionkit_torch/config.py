@@ -18,9 +18,12 @@ from typing import Any
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyperparameters shared by DCNet and EditNet."""
+    """Architecture hyperparameters of DCNet, EditNet and Kimi-VL's
+    language model (``arch="kimi_vl"``; the fields below ``head_extract``
+    are its own, with its published values as defaults, and EditNet and
+    DCNet read none of them)."""
 
-    arch: str = "editnet"  # "dcnet" | "editnet"
+    arch: str = "editnet"  # "dcnet" | "editnet" | "kimi_vl"
     vocab_size: int = 9490
     emb_dim: int = 1024
     hidden_dim: int = 1024
@@ -48,10 +51,30 @@ class ModelConfig:
     # The head kernels' per-tile top-k extraction, "mask" or "thresh"
     # (read-only thresholds); the results are identical.
     head_extract: str = "mask"
+    # Kimi-VL-A3B's language model (DeepSeek-V3 layout; models/kimi_vl.py).
+    # hidden_dim is its hidden size, vocab_size its vocabulary, feat_dim and
+    # num_regions the region features its projector reads.
+    num_layers: int = 27
+    num_heads: int = 16
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    intermediate_size: int = 11264  # the dense layers' SwiGLU
+    moe_intermediate_size: int = 1408  # one routed expert's SwiGLU
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    first_k_dense_replace: int = 1  # leading dense layers
+    routed_scaling_factor: float = 2.446
+    norm_topk_prob: bool = True
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 800000.0
+    projector_dim: int = 4608  # the MLP projector's hidden width
 
     def __post_init__(self) -> None:
         choices = {
-            "arch": ("dcnet", "editnet"),
+            "arch": ("dcnet", "editnet", "kimi_vl"),
             "scma_select": ("soft", "hard"),
             "head_impl": ("pallas", "xla"),
             "cell_impl": ("pallas", "xla", "wholestep"),

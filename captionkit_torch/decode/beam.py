@@ -14,7 +14,8 @@
 * The loop is a Python loop; it stops after ``max_len`` steps or once
   every beam of every image is finished (one device-to-host read of the
   done flags per step). Inside a profiler session each read is a
-  ``beam.done_read`` span and the rest of the step a ``beam.step`` span
+  ``beam.done_read`` span and the rest of the step a ``beam.step`` span,
+  in which the state's reorder is a ``beam.reorder`` span
   (``utils/profiling.py``).
 
 Two sequence-history layouts (``impl=``) with identical results:
@@ -146,10 +147,11 @@ def beam_search(
     ctx_k = model.beam_expand(ctx, K)
     if model.prepare_topk is not None and model.step_topk is not None:
         ctx_k = model.prepare_topk(params, ctx_k, K)  # once per batch
-    model_state = model.init_state(params, ctx_k)  # fields [B*K, ...]
-    BK = dataclasses.astuple(model_state)[0].shape[0]
+    model_state = model.init_state(params, ctx_k, max_len=max_len)
+    # (not dataclasses.astuple, which deep-copies every field)
+    first = getattr(model_state, dataclasses.fields(model_state)[0].name)
+    BK, dev = first.shape[0], first.device
     B = BK // K
-    dev = dataclasses.astuple(model_state)[0].device
     i32 = dict(dtype=torch.int32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
 
@@ -227,8 +229,9 @@ def beam_search(
             lengths = (_gather_bk(lengths, parent)
                        + (~was_done).to(torch.int32))
             done = was_done | (new_tok == end_id)
-            model_state = _reorder_rows(new_state,
-                                        (row_base + parent).reshape(B * K))
+            with annotate("beam.reorder"):
+                model_state = _reorder_rows(
+                    new_state, (row_base + parent).reshape(B * K))
             # Register the hypotheses that finished this step; the
             # running register comes first, so equal scores keep the
             # earlier entry.

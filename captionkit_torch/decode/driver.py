@@ -30,7 +30,9 @@ Inside a profiler session (``utils/profiling.py``) the driver records
 spans: ``split.gather`` (the split's row gather), ``split.dispatch`` (the
 decode call), ``split.consume`` with ``split.readback`` and
 ``split.detokenize``, and, inside the decode function,
-``decode.feed_copy``, ``decode.encode`` and ``decode.search``.
+``decode.feed_copy``, ``decode.encode`` and ``decode.search``; the
+read-back also reads the device counters the steps kept
+(``profiling.flush_device``).
 """
 
 from __future__ import annotations
@@ -58,7 +60,7 @@ from captionkit_torch.device import resolve_device
 from captionkit_torch.metrics.eval import CaptionEvaluator
 from captionkit_torch.models.base import ModelDef
 from captionkit_torch.parallel.mesh import gather_rows
-from captionkit_torch.utils.profiling import annotate
+from captionkit_torch.utils.profiling import annotate, flush_device
 
 
 def make_decode_fn(
@@ -163,6 +165,7 @@ def decode_split(
         with annotate("split.consume"):
             with annotate("split.readback"):
                 tokens = tokens_dev.cpu().numpy()
+                flush_device()  # the step counters, with the tokens' read
                 valid_rows, image_ids = batch.valid, batch.image_id
                 if mesh is not None:
                     rows = gather_rows(mesh, np.concatenate(

@@ -98,7 +98,7 @@ def _rollout(model: ModelDef, params: Any, ctx: Any, *, start_id: int,
              end_id: int, pad_id: int, max_len: int,
              generator: Optional[torch.Generator], temperature: float,
              top_k: int = 0, top_p: float = 1.0) -> Rollout:
-    state = model.init_state(params, ctx)
+    state = model.init_state(params, ctx, max_len=max_len)
     first = dataclasses.astuple(state)[0]
     batch, dev = first.shape[0], first.device
     tok = torch.full((batch,), start_id, dtype=torch.int32, device=dev)

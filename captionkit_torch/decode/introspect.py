@@ -82,7 +82,7 @@ def greedy_decode_with_attention(
     log-probs and masks are ``greedy_decode``'s (the same argmax, done and
     pad rules over ``step``'s logits)."""
     _require_step_attn(model)
-    state = model.init_state(params, ctx)
+    state = model.init_state(params, ctx, max_len=max_len)
     first = _first_field(state)
     batch, dev = first.shape[0], first.device
     tok = torch.full((batch,), start_id, dtype=torch.int32, device=dev)
@@ -151,7 +151,7 @@ def beam_decode_with_attention(
         raise ValueError(f"model {model.name!r} has no beam_expand")
     K = beam_size
     ctx_k = model.beam_expand(ctx, K)
-    model_state = model.init_state(params, ctx_k)  # fields [B*K, ...]
+    model_state = model.init_state(params, ctx_k, max_len=max_len)
     first = _first_field(model_state)
     B, dev = first.shape[0] // K, first.device
     i32 = dict(dtype=torch.int32, device=dev)

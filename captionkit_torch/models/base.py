@@ -123,7 +123,10 @@ class ModelDef:
     name: str
     init: Callable[..., Any]  # (seed, device) -> params
     encode: Callable[..., Any]  # (params, features, existing, existing_len)
-    init_state: Callable[..., Any]  # (params, ctx) -> state
+    # (params, ctx, max_len=None) -> state; max_len is the decode's step
+    # count, for a state that holds every generated step (Kimi-VL's latent
+    # cache); the others ignore it.
+    init_state: Callable[..., Any]
     step: Callable[..., tuple[Any, torch.Tensor]]
     # (ctx, k) -> ctx with only the per-beam leaves repeated.
     beam_expand: Optional[Callable[[Any, int], Any]] = None

@@ -213,7 +213,8 @@ def encode(params: DCNetParams, cfg: ModelConfig,
         features=feats, vis_keys=vis_keys)
 
 
-def init_state(params: DCNetParams, ctx: DCNetContext) -> DCNetState:
+def init_state(params: DCNetParams, ctx: DCNetContext,
+               max_len: Optional[int] = None) -> DCNetState:
     return DCNetState(h=ctx.h0, c=ctx.c0)
 
 

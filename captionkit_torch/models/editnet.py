@@ -240,7 +240,8 @@ def encode(params: EditNetParams, cfg: ModelConfig,
     )
 
 
-def init_state(params: EditNetParams, ctx: EditNetContext) -> EditNetState:
+def init_state(params: EditNetParams, ctx: EditNetContext,
+               max_len: Optional[int] = None) -> EditNetState:
     # Sized from v_mean: after beam_expand it is the per-beam leaf.
     B = ctx.v_mean.shape[0]
     H = params.fc_w.shape[0]

@@ -169,9 +169,9 @@ def ensemble_model(member: ModelDef, num_members: int, *,
             member.encode(p, features, existing, existing_len)
             for p in _check(params)))
 
-    def init_state(params, ctx):
-        return _stack_states([member.init_state(p, c) for p, c in
-                              zip(_check(params), ctx.members)])
+    def init_state(params, ctx, max_len=None):
+        return _stack_states([member.init_state(p, c, max_len=max_len)
+                              for p, c in zip(_check(params), ctx.members)])
 
     def step(params, ctx, state, token, generator=None, train=False):
         states, logits = [], []

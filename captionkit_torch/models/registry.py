@@ -3,12 +3,13 @@
 from __future__ import annotations
 
 from captionkit_torch.config import ModelConfig
-from captionkit_torch.models import dcnet, editnet
+from captionkit_torch.models import dcnet, editnet, kimi_vl
 from captionkit_torch.models.base import ModelDef
 
 _REGISTRY = {
     "dcnet": dcnet.make_model,
     "editnet": editnet.make_model,
+    "kimi_vl": kimi_vl.make_model,
 }
 
 

@@ -9,6 +9,8 @@ and writes exactly those names and layouts ([in, out] weights, gates
 i|f|g|o, ``att_lstm/wx`` rows packed [E | F | H], ``decoder/wx`` rows
 packed [E | H (| F)]), so one file serves both packages. A file's arch is
 told by its names: ``att_lstm/wx`` is EditNet's, ``decoder/wx`` DCNet's.
+Kimi-VL's language model (``kimi_vl_params_from_tensors``) has no such
+file: its parameters are built over flat tensors, without a copy.
 """
 
 from __future__ import annotations
@@ -18,10 +20,14 @@ from typing import Mapping, Optional, Union
 import numpy as np
 import torch
 
+from captionkit_torch.config import ModelConfig
 from captionkit_torch.models.dcnet import DCNetParams
 from captionkit_torch.models.editnet import EditNetParams
+from captionkit_torch.models.kimi_vl import KimiLayer, KimiVLParams
 from captionkit_torch.nn.attention import AdditiveAttentionParams
 from captionkit_torch.nn.cells import CopyLSTMParams, LSTMParams
+from captionkit_torch.nn.mla import MLAParams
+from captionkit_torch.nn.moe import MoEParams
 
 _LSTM = ("wx", "wh", "b")
 _ATTENTION = ("w_enc", "w_q", "v", "b")
@@ -110,6 +116,37 @@ def dcnet_params_from_tensors(t: Mapping[str, torch.Tensor]) -> DCNetParams:
         init_c_b=t["init_c_b"],
         vis_attention=_attention(t, "vis_attention") if visual else None,
     )
+
+
+def kimi_vl_params_from_tensors(t: Mapping[str, torch.Tensor],
+                                cfg: ModelConfig) -> KimiVLParams:
+    """KimiVLParams holding the named tensors themselves (no copy): the
+    names of ``models.kimi_vl.weight_table`` in the published checkpoint's
+    layouts ([out, in]; experts stacked [E, ...]; ``lm_head`` [H, V], the
+    head kernel's), and a zero head bias."""
+    layers = []
+    for i in range(cfg.num_layers):
+        p = f"layers/{i}/"
+        attn = MLAParams(*(t[p + "attn/" + n] for n in (
+            "q_proj", "kv_a", "kv_a_norm", "kv_b", "o_proj")))
+        if p + "mlp/gate_up" in t:
+            layer = KimiLayer(t[p + "input_norm"], attn, t[p + "post_norm"],
+                              gate_up=t[p + "mlp/gate_up"],
+                              down=t[p + "mlp/down"])
+        else:
+            layer = KimiLayer(t[p + "input_norm"], attn, t[p + "post_norm"],
+                              moe=MoEParams(*(t[p + "moe/" + n] for n in (
+                                  "router", "router_bias", "experts_gate_up",
+                                  "experts_down", "shared_gate_up",
+                                  "shared_down"))))
+        layers.append(layer)
+    head = t["lm_head"]
+    return KimiVLParams(
+        *(t["projector/" + n] for n in ("norm_w", "norm_b", "fc1_w", "fc1_b",
+                                        "fc2_w", "fc2_b")),
+        embed=t["embed_tokens"], layers=layers, norm=t["norm"], fc_w=head,
+        fc_b=torch.zeros(head.shape[1], dtype=torch.float32,
+                         device=head.device))
 
 
 def editnet_params_from_numpy(arrays: Mapping[str, np.ndarray],

@@ -12,6 +12,10 @@
   (``time.perf_counter_ns``) and the time its child spans cover (a
   per-thread stack).
 * ``count(name, n=1)`` — adds ``n`` to a counter, under the same gate.
+* ``count_device(name, t)`` — adds a device scalar ``t`` to a counter,
+  under the same gate, without reading it: the sums stay on the device
+  until ``flush_device()`` reads them all at once (the split decode does
+  at its read-back of a batch's tokens) and adds them to the store.
 * ``summary()`` — per span name its count, total and self time in ns
   (self: the duration less its child spans), and every counter's total;
   ``reset()`` empties the store.
@@ -39,6 +43,7 @@ _RESERVED = "ckbench."
 
 _spans: dict = {}  # name -> [count, total_ns, self_ns]
 _counters: dict = {}
+_device_counts: dict = {}  # name -> running device sum, not yet read
 _lock = threading.Lock()
 _local = threading.local()
 
@@ -100,6 +105,29 @@ def count(name: str, n: int = 1) -> None:
         _counters[name] = _counters.get(name, 0) + int(n)
 
 
+def count_device(name: str, t: torch.Tensor) -> None:
+    """Add the device scalar ``t`` to counter ``name``, only inside a
+    profiler session; read by ``flush_device``."""
+    if not enabled():
+        return
+    _check(name)
+    t = t.detach().to(torch.int64)
+    with _lock:
+        prev = _device_counts.get(name)
+        _device_counts[name] = t if prev is None else prev + t
+
+
+def flush_device() -> None:
+    """Read the device counters' sums (one read) into the store."""
+    with _lock:
+        if not _device_counts:
+            return
+        names = list(_device_counts)
+        sums = torch.stack([_device_counts.pop(n) for n in names]).tolist()
+        for name, n in zip(names, sums):
+            _counters[name] = _counters.get(name, 0) + int(n)
+
+
 def summary() -> dict:
     """{"spans": {name: {"count", "total_ns", "self_ns"}},
     "counters": {name: total}} of what the store holds."""
@@ -113,6 +141,7 @@ def reset() -> None:
     with _lock:
         _spans.clear()
         _counters.clear()
+        _device_counts.clear()
 
 
 @contextlib.contextmanager

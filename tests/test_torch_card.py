@@ -2791,3 +2791,91 @@ def test_pinned_slots_allocated_once(card, monkeypatch):
     assert len(made) == 1
     assert seen == {s.data_ptr() for s in made[0].slots}
     assert all(s.is_pinned() for s in made[0].slots)
+
+
+# -- Kimi-VL's language model (models/kimi_vl.py) -----------------------
+
+def test_grouped_experts_at_the_cells_shape(card):
+    """5,120 rows x 6 slots routed over 64 experts (H 2048, I 1408,
+    bf16), some experts empty: the two grouped products against the plain
+    per-expert products on the same bf16 operands. Both sum in float32
+    and round gate, up and the output to bf16; a gate or up value that
+    falls on a rounding boundary may round the other way in the other
+    order of sums (one bf16 ulp, 2^-8 relative), and the down product
+    carries that into its output: within 2^-6 of the output's scale."""
+    from captionkit_torch.nn import moe
+
+    g = torch.Generator(device=card).manual_seed(11)
+    E, H, I, S = 64, 2048, 1408, 5120 * 6
+    expert = torch.randint(0, E - 3, (S,), generator=g, device=card)
+    counts = torch.bincount(expert, minlength=E)
+    ends = counts.cumsum(0).to(torch.int32)
+    xs = torch.randn(S, H, generator=g, device=card).bfloat16()
+    gu = (torch.rand(E, 2 * I, H, generator=g, device=card) - 0.5) \
+        .mul_(2 * H ** -0.5).bfloat16()
+    dn = (torch.rand(E, H, I, generator=g, device=card) - 0.5) \
+        .mul_(2 * I ** -0.5).bfloat16()
+    got = moe.grouped_experts(xs, ends, gu, dn)
+    want = moe.grouped_experts_plain(xs, ends.tolist(), gu, dn)
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=scale * 2 ** -6, rtol=0)
+
+
+def test_a_full_width_kimi_step_on_a_few_rows(card):
+    """Kimi-VL-A3B's language model at its published widths (27 layers,
+    64 experts, 163,840 ids; bf16 weights drawn on the card): the prefill
+    and two cached beam steps of 2 images x 2 rows through the fused head,
+    with no host read inside a step (CUDA's sync check set to raise),
+    against the float32 full forward of ``kimi_vl_reference`` on the same
+    weights. The port rounds every product's operands to bf16 (2^-9
+    relative) through 27 layers and the reference does not, and a routing
+    choice near a tie can flip (5% of a prompt's token-layers, 0.7% of
+    a step's): the top-5 logits and the log-sum-exp, of unit scale, differ
+    by up to 0.05 (read: 0.0054), and each id of the port's top 5 is
+    within 0.1 of the reference's 5th-best logit (the cell's programs read
+    up to 0.079). The ids themselves may differ: with random weights the
+    top logits of 163,840 lie a few hundredths apart."""
+    import kimi_vl_reference as ref
+
+    from captionkit_torch.config import ModelConfig
+    from captionkit_torch.models.kimi_vl import init_tensors
+    from captionkit_torch.params import kimi_vl_params_from_tensors
+
+    cfg = ModelConfig(arch="kimi_vl", vocab_size=163840, hidden_dim=2048,
+                      feat_dim=2048, num_regions=36)
+    w = init_tensors(5, cfg, card, torch.bfloat16)
+    params = kimi_vl_params_from_tensors(w, cfg)
+    model = get_model(cfg)
+    g = torch.Generator(device=card).manual_seed(6)
+    feats = torch.randn(2, 36, 2048, generator=g, device=card)
+    existing = torch.randint(4, 163838, (2, 22), generator=g, device=card)
+    lengths = torch.tensor([9, 22], device=card)
+    K, start = 2, 163838
+    ctx = model.prepare_topk(params, model.beam_expand(
+        model.encode(params, feats, existing, lengths), K), 5)
+    state = model.init_state(params, ctx, max_len=2)
+    tok = torch.full((4,), start, device=card)
+    hist = [[start]] * 4
+    errs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, vals, idx, lse = model.step_topk(params, ctx, state, tok,
+                                                    5)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        for r in range(4):
+            b = r // K
+            want = ref.forward(w, dataclasses.asdict(cfg), feats[b],
+                               existing[b, :lengths[b]],
+                               torch.tensor(hist[r], device=card))[-1]
+            errs.append(float((vals[r] - want[idx[r].long()]).abs().max()))
+            errs.append(float((lse[r] - torch.logsumexp(want, -1)).abs()))
+            kth = float(want.topk(5).values[-1])
+            assert float(want[idx[r].long()].min()) >= kth - 0.1
+        tok = idx[:, 0].long()  # each row's best, as two distinct paths
+        hist = [h + [int(t)] for h, t in zip(hist, tok)]
+    print("kimi full-width logit errors", max(errs))
+    assert max(errs) <= 0.05

@@ -117,7 +117,8 @@ def test_greedy_argmax_takes_the_first_maximal_index():
         h: torch.Tensor
 
     model = ModelDef(name="flat", init=None, encode=None,
-                     init_state=lambda p, c: S(torch.zeros((3, 1))),
+                     init_state=lambda p, c, max_len=None: S(
+                         torch.zeros((3, 1))),
                      step=step)
     out = greedy_decode(model, None, None, start_id=2, end_id=-1, max_len=4)
     assert out.tokens.tolist() == [[0] * 4] * 3
@@ -166,7 +167,8 @@ def test_sample_draws_follow_the_softmax():
         return state, probs_logits.expand(tok.shape[0], -1)
 
     model = ModelDef(name="fixed", init=None, encode=None,
-                     init_state=lambda p, c: S(torch.zeros((rows, 1))),
+                     init_state=lambda p, c, max_len=None: S(
+                         torch.zeros((rows, 1))),
                      step=step)
     out = sample_decode(model, None, None, torch.Generator().manual_seed(0),
                         start_id=2, end_id=-1, max_len=1)

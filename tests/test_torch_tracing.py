@@ -120,7 +120,8 @@ def test_spans_on_count_every_batch_step_and_read(split, tmp_path):
     s = profiling.summary()
     counts = {n: v["count"] for n, v in s["spans"].items()}
     assert counts == {**{n: 3 for n in PER_BATCH},
-                      "beam.done_read": STEPS * 3, "beam.step": STEPS * 3}
+                      "beam.done_read": STEPS * 3, "beam.step": STEPS * 3,
+                      "beam.reorder": STEPS * 3}
     assert s["counters"] == {"feed_bytes_pageable": 3 * 4 * R * F * 4}
     # The nesting: each parent's self time is its total less its children's.
     tot = {n: v["total_ns"] for n, v in s["spans"].items()}
@@ -128,10 +129,11 @@ def test_spans_on_count_every_batch_step_and_read(split, tmp_path):
             ("split.dispatch", ("decode.feed_copy", "decode.encode",
                                 "decode.search")),
             ("decode.search", ("beam.done_read", "beam.step")),
+            ("beam.step", ("beam.reorder",)),
             ("split.consume", ("split.readback", "split.detokenize"))]:
         assert s["spans"][parent]["self_ns"] == \
             tot[parent] - sum(tot[c] for c in children), parent
-    for leaf in ("split.gather", "beam.step", "split.detokenize"):
+    for leaf in ("split.gather", "beam.reorder", "split.detokenize"):
         assert s["spans"][leaf]["self_ns"] == tot[leaf] > 0
     path = str(tmp_path / "t.json")
     prof.export_chrome_trace(path)
@@ -176,7 +178,8 @@ def test_the_benchmarks_window_reads_per_batch():
                      device="cpu")
     counts = {n: v["count"] for n, v in profiling.summary()["spans"].items()}
     assert counts == {**{n: 6 for n in PER_BATCH},
-                      "beam.done_read": STEPS * 6, "beam.step": STEPS * 6}
+                      "beam.done_read": STEPS * 6, "beam.step": STEPS * 6,
+                      "beam.reorder": STEPS * 6}
     r = types.SimpleNamespace(trace=object())
     assert spec.reader("search.host_reads")(r) == STEPS + 1
     assert spec.reader("feed.pinned_share")(r) == 0.0
@@ -371,3 +374,22 @@ def test_a_split_of_another_length_raises(split, change):
     with pytest.raises(RuntimeError, match="the split gave"):
         decode_split(model, params, Split(), cfg.decode, decode_fn=fn,
                      device="cpu")
+
+
+def test_device_counters_stay_on_the_device_until_one_read():
+    """``count_device`` adds nothing outside a session; inside one it sums
+    on the tensor's device, and ``flush_device`` reads every sum once into
+    the store (a second flush adds nothing)."""
+    profiling.count_device("x.slots", torch.tensor(5))
+    profiling.flush_device()
+    assert profiling.summary()["counters"] == {}
+    with _cpu_profile():
+        for n in (3, 4):
+            profiling.count_device("x.slots", torch.tensor(n))
+        profiling.count_device("x.busiest", torch.tensor(7))
+        with pytest.raises(ValueError):
+            profiling.count_device("ckbench.x", torch.tensor(1))
+    assert profiling.summary()["counters"] == {}  # not read yet
+    profiling.flush_device()
+    profiling.flush_device()
+    assert profiling.summary()["counters"] == {"x.slots": 7, "x.busiest": 7}
